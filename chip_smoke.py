@@ -6,25 +6,38 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 Phases, one result line each (any failure exits non-zero):
-  1. device   - requires CUDA; prints the card's name and power limit;
-  2. build    - compiles csrc/flash_attention.cu with nvcc for sm_90a;
-  3. kernels  - each flash kernel against its plain PyTorch version at the
-                SD1.5 512^2 main-path shapes and a ragged Sk, bf16;
-  4. main     - a persistent SD1.5 session (full width, seeded random
-                weights, bf16) answers 3 txt2img requests at 512^2, 20 Euler
-                steps, CFG 7; checks the images and the kernel launch counts;
-  5. reference - one full-width UNet evaluation and one VAE decode with the
-                 kernels against the same with the plain attention;
-  6. small    - a tiny random model at 192^2 through the session on the
-                card (bf16, kernels) against the same on the CPU (f32, the
-                path the CPU tests hold against the JAX package).
+  1. device    - requires CUDA; prints the card's name and power limit;
+  2. build     - compiles csrc/flash_attention.cu and csrc/quant_matmul.cu
+                 for sm_90a, one nvcc each, started together;
+  3. kernels   - each kernel against its plain PyTorch version, bf16: the
+                 flash kernels at the SD1.5 512^2 main-path shapes and a
+                 ragged Sk, the quantized matmuls (q8 and q4, tiled and
+                 weight-stationary) at the main path's products and ragged
+                 M and N; each with its time, its plain version's, one
+                 PyTorch call's for the same function and the card's bound;
+  4. main      - three paths on one seeded random full-width SD1.5
+                 checkpoint, one session at a time (512^2, 20 Euler steps,
+                 CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
+                 and q4_0 weights, 2 requests each.  Checks the images and
+                 the exact kernel launch counts of every request;
+  5. reference - per path, one full-width UNet evaluation with the kernels
+                 against the same with the plain versions (bf16: the
+                 attention, plus one VAE decode; q8_0 / q4_0: the quantized
+                 matmuls);
+  6. shapes    - the quantized products of one q8_0 request, each timed for
+                 its q8 and q4 kernel beside its bound;
+  7. small     - a tiny random model at 192^2 through the session on the
+                 card (bf16, kernels) against the same on the CPU (f32, the
+                 path the CPU tests hold against the JAX package);
+  8. imports   - nothing of jax or of the JAX package was loaded.
 Then one JSON line on the kernels and, last, the device JSON line.
 """
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -33,20 +46,49 @@ import time
 import numpy as np
 import torch
 
-import mlimgsynth_torch
 from mlimgsynth_torch import api, testing
+from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import unet as unet_mod
-from mlimgsynth_torch.ops import _build
+from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
+from mlimgsynth_torch.ops import quant_matmul as qmm
 
-KERNEL_SRC = "mlimgsynth_torch/csrc/flash_attention.cu"
+SOURCES = {"flash_attention": "mlimgsynth_torch/csrc/flash_attention.cu",
+           "quant_matmul": "mlimgsynth_torch/csrc/quant_matmul.cu"}
+REPLACES = {
+    "flash_attn_fwd": "mlimgsynth_tpu/ops/flash_attention.py:452",
+    "flash_attn_fwd_wide": "mlimgsynth_tpu/ops/flash_attention.py:48",
+    "q8_matmul_tile": "mlimgsynth_tpu/ops/q8_matmul.py:40",
+    "q8_matmul_ws": "mlimgsynth_tpu/ops/q8_matmul.py:267",
+    "q4_matmul_tile": "mlimgsynth_tpu/ops/q4_matmul.py:75",
+    "q4_matmul_ws": "mlimgsynth_tpu/ops/q4_matmul.py:156",
+}
 REQUESTS = [(42, "a photograph of an astronaut riding a horse"),
             (43, "a watercolor painting of a lighthouse at dawn"),
             (44, "a (red:1.2) fox in the snow, highly detailed")]
+# launches per request: flash kernels on every path; per quantized path
+# 45 weight-stationary products per UNet evaluation x 20, and 103 tiled ones
+# x 20 plus CLIP's 72 (derivation in PERF.md)
+FLASH_PER_REQUEST = {"flash_attn_fwd": 200, "flash_attn_fwd_wide": 1}
+QUANT_PER_REQUEST = {"ws": 900, "tile": 2132}
+PATHS = [("bf16", None, 3), ("q8_0", 8, 2), ("q4_0", 4, 2)]
+
+# The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores
+# and device memory.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+ms = testing.median_ms   # a call's device time
 
 
 def phase(name: str, **kv) -> None:
     print(json.dumps({"phase": name, **kv}), flush=True)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    t_ops, t_mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
 
 
 def main() -> int:
@@ -54,6 +96,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -64,21 +107,35 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.time()
-    _build.load("flash_attention")
-    info = _build.BUILD_INFO["flash_attention"]
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln]
-    phase("build", seconds=round(time.time() - t0, 3),
-          nvcc_seconds=round(info["seconds"], 3), cached=info["cached"],
-          ptxas=regs)
+    _build.load_all(SOURCES)
+    phase("build", seconds=time.time() - t0, libs={
+        n: {"nvcc_seconds": i["seconds"], "cached": i["cached"],
+            "ptxas": [ln.strip() for ln in i["log"].splitlines()
+                      if "registers" in ln]}
+        for n, i in _build.BUILD_INFO.items()})
 
-    kernels = check_kernels()
-    counts, session = main_path()
+    kernels = check_flash() + check_quant()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sd15-random-f16.safetensors")
+        t0 = time.time()
+        testing.write_random_checkpoint(ckpt, api._model_types()["sd1"],
+                                        seed=0)
+        phase("main", step="checkpoint", write_s=time.time() - t0)
+        launches = {}
+        for wt, bits, n_req in PATHS:
+            s = api.MLImgSynth(device="cuda")
+            launches.update(main_path(s, ckpt, wt, bits, n_req))
+            reference_check(s, wt, bits)
+            if bits == 8:
+                time_shapes(s)
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-    reference_check(session)
+        k["launches"] = launches[k["name"]]
     small_check()
     check_imports()
+    phase("done", seconds=time.time() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -86,24 +143,16 @@ def main() -> int:
     return 0
 
 
-def _median_ms(fn, n: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+def _entry(name: str, source: str, **kv) -> dict:
+    return {"name": name, "route": "cuda", "source": SOURCES[source],
+            "replaces": REPLACES[name], "launches": 0, **kv}
 
 
-def check_kernels():
-    """Each kernel against its plain version at the main-path shapes, held
-    to the limits in ``testing`` (relative L2 and elementwise)."""
+def check_flash():
+    """Each flash kernel against its plain version at the main-path shapes,
+    held to the limits in ``testing`` (relative L2 and elementwise); the
+    library call is PyTorch's scaled_dot_product_attention."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     summary = {}
     for name, shape, sk, where in testing.ATTN_CASES:
         fn = getattr(fa, name)
@@ -112,109 +161,238 @@ def check_kernels():
         ref = fa.attention_plain(q, k, v)
         torch.cuda.synchronize()
         res = testing.attention_error(out, ref)
-        ms = _median_ms(lambda: fn(q, k, v))
-        plain_ms = _median_ms(lambda: fa.attention_plain(q, k, v))
+        b, h, sq, d = shape
+        t = {"ms": ms(lambda: fn(q, k, v)),
+             "plain_ms": ms(lambda: fa.attention_plain(q, k, v)),
+             "library_ms": ms(lambda: sdpa(q, k, v)),
+             **bound(4.0 * b * h * sq * sk * d,
+                     2.0 * b * h * d * (2 * sq + 2 * sk))}
         phase("kernels", kernel=name, where=where, q=list(shape), sk=sk,
-              **res, ms=ms, plain_ms=plain_ms,
+              **res, **t,
               limits={"rel_l2": testing.ATTN_REL_L2,
                       "atol": testing.ATTN_ATOL, "rtol": testing.ATTN_RTOL})
         if not res["ok"]:
             raise AssertionError(f"{name} {where}: kernel disagrees with "
                                  "its plain version")
         if sk == shape[2] and name not in summary:  # the main-path shape
-            summary[name] = {"max_abs_err": res["max_abs_err"], "ms": ms,
-                             "plain_ms": plain_ms}
-    replaces = {"flash_attn_fwd":
-                "mlimgsynth_tpu/ops/flash_attention.py:452",
-                "flash_attn_fwd_wide":
-                "mlimgsynth_tpu/ops/flash_attention.py:48"}
-    return [{"name": n, "route": "cuda", "source": KERNEL_SRC,
-             "replaces": replaces[n], "launches": 0, **summary[n]}
+            summary[name] = {"shape": [list(shape), sk],
+                             "max_abs_err": res["max_abs_err"], **t}
+    return [_entry(n, "flash_attention", **summary[n])
             for n in ("flash_attn_fwd", "flash_attn_fwd_wide")]
 
 
-def main_path():
-    """Three txt2img requests through one full-width SD1.5 session."""
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "sd15-random-f16.safetensors")
+def _quant_bound(m: int, k: int, n: int, bits: int) -> dict:
+    """x read, the packed weight and scales read, y written once."""
+    return bound(2.0 * m * n * k,
+                 2.0 * m * k + n * k * bits / 8 + 4.0 * n * k / 128
+                 + 2.0 * m * n)
+
+
+def _time_quant(name: str, x, q, s, bits: int) -> dict:
+    """The kernel, its plain version, and the library call: one torch.matmul
+    on the weight dequantized beforehand (the same product without the
+    dequantization)."""
+    plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+    w = (quant.unpack_q4(q) if bits == 4 else q).float()
+    w = (w.view(w.shape[0], -1, quant.KBLOCK) * s[:, :, None]
+         ).view(w.shape[0], -1).bfloat16()
+    fn = getattr(qmm, name)
+    return {"ms": ms(lambda: fn(x, q, s)),
+            "plain_ms": ms(lambda: plain(x, q, s)),
+            "library_ms": ms(lambda: torch.matmul(x, w.t()))}
+
+
+# the main-path product whose numbers stand in the kernels line
+QUANT_SUMMARY_SHAPE = {"ws": (2048, 640, 5120), "tile": (512, 1280, 1280)}
+
+
+def check_quant():
+    """Each quantized-matmul kernel against its plain version at the
+    main-path products and ragged ones, held to the limits in ``testing``."""
+    summary = {}
+    for bits in (8, 4):
+        for kind_, m, k, n, where in testing.QUANT_CASES:
+            name = f"q{bits}_matmul_{kind_}"
+            x, q, s = testing.quant_inputs(m, k, n, bits)
+            plain = quant.q4_matmul_plain if bits == 4 \
+                else quant.q8_matmul_plain
+            out = getattr(qmm, name)(x, q, s)
+            ref = plain(x, q, s)
+            torch.cuda.synchronize()
+            res = testing.quant_error(out, ref)
+            t = {**_time_quant(name, x, q, s, bits),
+                 **_quant_bound(m, k, n, bits)}
+            phase("kernels", kernel=name, where=where, mkn=[m, k, n], **res,
+                  **t, limits={"rel_l2": testing.QUANT_REL_L2,
+                               "atol": testing.QUANT_ATOL,
+                               "rtol": testing.QUANT_RTOL})
+            if not res["ok"]:
+                raise AssertionError(f"{name} {where}: kernel disagrees "
+                                     "with its plain version")
+            if (m, k, n) == QUANT_SUMMARY_SHAPE[kind_]:
+                summary[name] = {"shape": [m, k, n],
+                                 "max_abs_err": res["max_abs_err"], **t}
+    return [_entry(n, "quant_matmul", **summary[n])
+            for n in ("q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
+                      "q4_matmul_ws")]
+
+
+def _counts():
+    return {**fa.LAUNCHES, **qmm.LAUNCHES}
+
+
+def main_path(s, ckpt, wt, bits, n_req):
+    """``n_req`` txt2img requests through one full-width SD1.5 session of
+    weight type ``wt``; returns the launches of its kernels over the run."""
+    for k, v in [("model", ckpt), ("model-type", "sd1"), ("weight-type", wt),
+                 ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
+                 ("method", "euler"), ("scheduler", "uniform")]:
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    n_q = sum(isinstance(m, blocks_mod.QLinear)
+              for mod in s._models.values() for m in mod.modules())
+    phase("main", path=wt, step="setup", load_s=time.time() - t0,
+          quantized_linears=n_q)
+    want = dict.fromkeys(_counts(), 0)
+    want.update(FLASH_PER_REQUEST)
+    if bits:
+        for kind_, n in QUANT_PER_REQUEST.items():
+            want[f"q{bits}_matmul_{kind_}"] = n
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    qmm.reset_counts()
+    for i, (seed, prompt) in enumerate(REQUESTS[:n_req]):
+        before = _counts()
+        s.option_set("seed", seed)
+        s.option_set("prompt", prompt)
+        s.option_set("nprompt", "blurry, low quality")
         t0 = time.time()
-        testing.write_random_checkpoint(ckpt, api._model_types()["sd1"],
-                                        seed=0)
-        t_write = time.time() - t0
-        s = api.MLImgSynth(device="cuda")   # bf16
-        for k, v in [("model", ckpt), ("model-type", "sd1"),
-                     ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
-                     ("method", "euler"), ("scheduler", "uniform")]:
-            s.option_set(k, v)
-        t0 = time.time()
-        s.setup()
-        phase("main", step="setup", write_s=round(t_write, 3),
-              load_s=round(time.time() - t0, 3))
-        torch.cuda.reset_peak_memory_stats()
-        fa.reset_counts()
-        totals = dict.fromkeys(fa.LAUNCHES, 0)
-        for i, (seed, prompt) in enumerate(REQUESTS):
-            before = dict(fa.LAUNCHES)
-            s.option_set("seed", seed)
-            s.option_set("prompt", prompt)
-            s.option_set("nprompt", "blurry, low quality")
-            t0 = time.time()
-            img = s.generate()
-            secs = time.time() - t0
-            got = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
-            for k in totals:
-                totals[k] += got[k]
-            phase("main", request=i, seed=seed, cold=(i == 0),
-                  seconds=secs, launches=got,
-                  plain_cuda_calls=fa.PLAIN_CUDA_CALLS,
-                  image_mean=float(img.mean()), image_std=float(img.std()))
-            if (img.shape != (1, 3, 512, 512) or not np.isfinite(img).all()
-                    or float(img.std()) == 0.0):
-                raise AssertionError(f"request {i}: bad image {img.shape}")
-            if got != {"flash_attn_fwd": 200, "flash_attn_fwd_wide": 1}:
-                raise AssertionError(f"request {i}: launches {got}, want "
-                                     "200 small-d and 1 wide")
-            if fa.PLAIN_CUDA_CALLS:
-                raise AssertionError("the plain attention ran on CUDA "
-                                     "tensors on the main path")
-        phase("main", max_memory_allocated=torch.cuda.max_memory_allocated())
-    return totals, s
+        img = s.generate()
+        secs = time.time() - t0
+        got = {k: v - before[k] for k, v in _counts().items()}
+        plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
+        phase("main", path=wt, request=i, seed=seed, cold=(i == 0),
+              seconds=secs, launches=got, plain_cuda_calls=plain_calls,
+              image_mean=float(img.mean()), image_std=float(img.std()))
+        if (img.shape != (1, 3, 512, 512) or not np.isfinite(img).all()
+                or float(img.std()) == 0.0):
+            raise AssertionError(f"{wt} request {i}: bad image {img.shape}")
+        if got != want:
+            raise AssertionError(f"{wt} request {i}: launches {got}, want "
+                                 f"{want}")
+        if plain_calls:
+            raise AssertionError(f"{wt}: a plain version ran on CUDA "
+                                 "tensors on the main path")
+    launches = _counts()
+    phase("main", path=wt,
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not bits:
+        return {k: launches[k] for k in fa.LAUNCHES}
+    return {k: v for k, v in launches.items() if k.startswith(f"q{bits}")}
 
 
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
-# and only the attention differs between the two runs; on the H100 the
-# seeded inputs give 1.6e-2 (UNet) and 6.2e-3 (VAE), and these limits leave
-# about twice that.
-REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2}
+# and only the kernels differ between the two runs.  bf16 path: the
+# attention; on the H100 the seeded inputs give 1.6e-2 (UNet) and 6.2e-3
+# (VAE), and these limits leave about twice that.  Quantized paths: the
+# matmuls alone (the flash kernels run in both).  On the H100 the kernels
+# give the twin's cuBLAS product bit for bit at every product of the path
+# (both sum K in order on the tensor cores in f32), so the UNet output reads
+# 0; another cuBLAS may sum in another order, and a per-product difference
+# at the kernel limit (4e-3, ``testing.QUANT_REL_L2``) would compound
+# through the UNet about as the attention's 3e-3 did (1.6e-2): 1e-2 holds
+# the first and fails a fault that shows in every product.
+REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
+              "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2}
 
 
-def reference_check(s):
-    """One UNet evaluation (CFG batch, first sigma) and one VAE decode of
-    the last request's latent: kernels against the plain attention."""
-    unet, vae = s._models["unet."], s._models["vae."]
+def _unet_input(s):
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen) * 14.6
     cond = torch.from_numpy(s.tensors["cond"]).cuda().repeat(2, 1, 1)
+    return x, cond
+
+
+def reference_check(s, wt, bits):
+    """One UNet evaluation (CFG batch, first sigma) and, on the bf16 path,
+    one VAE decode of the last request's latent: kernels against the plain
+    versions (the attention on the bf16 path, the quantized matmuls on the
+    others)."""
+    unet, vae = s._models["unet."], s._models["vae."]
+    x, cond = _unet_input(s)
     lat = torch.from_numpy(s.tensors["latent"]).cuda()
 
     def run():
         with torch.no_grad():
-            return (unet_mod.denoise(unet, x, 14.6, 999.0, cond),
-                    vae(lat).float())
+            eps = unet_mod.denoise(unet, x, 14.6, 999.0, cond)
+            return [("unet_eps" + (f"_{wt}" if bits else ""), eps)] + (
+                [] if bits else [("vae_image", vae(lat).float())])
 
     kern = run()
-    routed = fa.flash_attention
-    fa.flash_attention = fa.attention_plain
+    routes = {(fa, "flash_attention"): fa.attention_plain} if not bits else {
+        (qmm, "q8_dot"): quant.q8_matmul_plain,
+        (qmm, "q4_dot"): quant.q4_matmul_plain}
+    saved = {key: getattr(*key) for key in routes}
+    for (mod, attr), fn in routes.items():
+        setattr(mod, attr, fn)
+    fa.reset_counts()
+    qmm.reset_counts()
     try:
         plain = run()
     finally:
-        fa.flash_attention = routed
-    for name, a, b in (("unet_eps", kern[0], plain[0]),
-                       ("vae_image", kern[1], plain[1])):
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+    # the plain run went through the plain versions and no kernel of them
+    plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
+    routed = qmm.LAUNCHES if bits else fa.LAUNCHES
+    if not plain_calls or any(routed.values()):
+        raise AssertionError(f"{wt}: the plain run launched {routed}")
+    for (name, a), (_, b) in zip(kern, plain):
         rel = ((a - b).norm() / b.norm()).item()
-        phase("reference", output=name, rel_l2=rel, limit=REF_LIMITS[name])
+        phase("reference", path=wt, output=name, rel_l2=rel,
+              limit=REF_LIMITS[name], plain_calls=plain_calls,
+              kernel_launches_in_plain_run=_counts())
         if not rel < REF_LIMITS[name]:
             raise AssertionError(f"{name}: kernels vs plain rel L2 {rel}")
+
+
+def time_shapes(s):
+    """The quantized products of one q8_0 request (the same for q4_0), each
+    timed for both bit widths: per product the calls per request, the
+    kernel the dispatch picks, its time, its bound and the library call's
+    time."""
+    calls = collections.Counter()
+
+    def hook(mod, inp, out):
+        x = inp[0]
+        k = x.shape[-1]
+        calls[(x.numel() // k, k, out.shape[-1])] += 1
+
+    hooks = [m.register_forward_hook(hook) for mod in s._models.values()
+             for m in mod.modules() if isinstance(m, blocks_mod.QLinear)]
+    try:
+        s.option_set("seed", 45)
+        s.option_set("prompt", "a lighthouse")
+        s.generate()
+    finally:
+        for h in hooks:
+            h.remove()
+    totals = collections.defaultdict(float)
+    for (m, k, n), c in sorted(calls.items()):
+        kind_ = "ws" if qmm.use_ws(m, k) else "tile"
+        row = {"mkn": [m, k, n], "calls_per_request": c, "kernel": kind_}
+        for bits in (8, 4):
+            name = f"q{bits}_matmul_{kind_}"
+            x, q, sc = testing.quant_inputs(m, k, n, bits)
+            t = {**_time_quant(name, x, q, sc, bits),
+                 **_quant_bound(m, k, n, bits)}
+            row[f"q{bits}"] = t
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                totals[f"q{bits}_{key}"] += c * t[key]
+        phase("shapes", **row)
+    phase("shapes", per_request_ms=dict(totals),
+          calls=sum(calls.values()))
 
 
 def small_check():
@@ -252,14 +430,12 @@ def small_check():
 
 
 def check_imports():
-    """The port ran without jax: of the JAX package only the jax-free host
-    modules it shares were loaded."""
-    tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
-    extra = sorted(tpu - mlimgsynth_torch.SHARED_MODULES)
-    phase("imports", jax="jax" in sys.modules, shared=sorted(tpu),
-          unexpected=extra)
-    if "jax" in sys.modules or extra:
-        raise AssertionError(f"jax or JAX-package modules loaded: {extra}")
+    """The port ran without jax and without any module of the JAX
+    package."""
+    tpu = sorted(m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu")
+    phase("imports", jax="jax" in sys.modules, jax_package=tpu)
+    if "jax" in sys.modules or tpu:
+        raise AssertionError(f"jax or JAX-package modules loaded: {tpu}")
 
 
 if __name__ == "__main__":

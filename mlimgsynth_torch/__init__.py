@@ -1,20 +1,14 @@
 """mlimgsynth_torch: the PyTorch/CUDA port of mlimgsynth_tpu.
 
 Same module names as the JAX package; inside, PyTorch idiom: nn.Modules,
-NCHW activations, an explicit device.  The attention hot path runs
-hand-written CUDA kernels (csrc/) on an NVIDIA Hopper GPU.  The host-side
-modules that need no JAX (rng, tokenizer, prompt, nameconv, io, schedule,
-utils) are shared with mlimgsynth_tpu, not copied.
+NCHW activations, an explicit device.  The attention and quantized-linear
+hot paths run hand-written CUDA kernels (csrc/) on an NVIDIA Hopper GPU.
+The package imports nothing of mlimgsynth_tpu: it keeps its own copies of
+the host modules it needs (rng, tokenizer, prompt, nameconv, io, the sigma
+schedule, the logger).
 """
 
 __version__ = "0.1.0"
-
-# The modules of mlimgsynth_tpu this package imports: none imports jax.
-SHARED_MODULES = frozenset(
-    "mlimgsynth_tpu" + m for m in (
-        "", ".rng", ".tokenizer", ".prompt", ".nameconv", ".io",
-        ".io.tensorstore", ".io.gquant", ".sampling", ".sampling.schedule",
-        ".utils", ".utils.log"))
 
 
 def __getattr__(name):

@@ -19,18 +19,17 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mlimgsynth_tpu import prompt as prompt_mod
-from mlimgsynth_tpu import tokenizer as tok_mod
-from mlimgsynth_tpu.io.tensorstore import TensorStore
-from mlimgsynth_tpu.rng import RngPhilox
-from mlimgsynth_tpu.utils.log import g_logger as log
-
+from . import prompt as prompt_mod
+from . import tokenizer as tok_mod
 from . import weights as weights_mod
+from .io.tensorstore import TensorStore
 from .models import clip as clip_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
+from .rng import RngPhilox
 from .sampling.sampler import SamplerConfig, make_plan, run_sampler
 from .sampling.solvers import SOLVERS
+from .utils.log import g_logger as log
 
 
 class MlisError(Exception):
@@ -72,8 +71,14 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "image_dim", "steps", "seed", "cfg_scale", "method", "scheduler",
             "batch_size", "no_prompt_parse")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
-_WEIGHT_TYPES = {"f32": torch.float32, "f16": torch.bfloat16,
-                 "bf16": torch.bfloat16}
+# weight type -> (compute dtype, quantized bits); None: the device's
+# default (bf16 on a card, f32 on the CPU).  As the JAX package
+# (``mlimgsynth_tpu/api.py:820-837``): q4* run 4-bit weights, the other q
+# types 8-bit.
+_WEIGHT_TYPES = {"f32": (torch.float32, 0), "f16": (torch.bfloat16, 0),
+                 "bf16": (torch.bfloat16, 0),
+                 "q8_0": (None, 8), "q5_k": (None, 8), "q6_k": (None, 8),
+                 "q4_0": (None, 4), "q4_1": (None, 4), "q4_k": (None, 4)}
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
 
@@ -87,16 +92,22 @@ def _bool(v) -> bool:
 
 
 class MLImgSynth:
-    """The session.  ``device`` defaults to the first CUDA card if there is
-    one, else the CPU.  The compute type is bf16 on a card and f32 on the
-    CPU; the ``weight-type`` option overrides it."""
+    """The session.  ``device`` defaults to the first CUDA card; without
+    one the session refuses to start unless the caller asks for the CPU
+    (``device="cpu"``).  The compute type is bf16 on a card and f32 on the
+    CPU; the ``weight-type`` option overrides it, and a quantized weight
+    type stores the linears in 8 or 4 bits (``qbits``)."""
 
     def __init__(self, device=None):
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise MlisError(MlisError.E_UNKNOWN,
+                                "no CUDA device found; pass device=\"cpu\" "
+                                "to run on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
-        self.dtype = (torch.bfloat16 if self.device.type == "cuda"
-                      else torch.float32)
+        self.dtype = self._default_dtype()
+        self.qbits = 0
         self.c = {"model": "", "model_type": "", "prompt_raw": "",
                   "nprompt_raw": "", "width": 0, "height": 0, "steps": 0,
                   "cfg_scale": 7.0, "method": "euler",
@@ -112,6 +123,10 @@ class MLImgSynth:
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
         self._loaded = ""
+
+    def _default_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.device.type == "cuda"
+                else torch.float32)
 
     # -- options ------------------------------------------------------------
 
@@ -148,11 +163,15 @@ class MLImgSynth:
             c["clip_skip"] = c["clip_skip"] or self._mt.default_clip_skip
         elif opt == "weight_type":
             wt = str(v).lower()
+            if wt in ("", "none", "-1"):
+                self.dtype, self.qbits = self._default_dtype(), 0
+                return
             if wt not in _WEIGHT_TYPES:
                 raise MlisError(MlisError.E_OPT_VALUE,
-                                f"weight type '{v}' is not supported by the "
-                                "PyTorch port (have: f32, f16, bf16)")
-            self.dtype = _WEIGHT_TYPES[wt]
+                                f"unknown weight type '{v}' (have: "
+                                f"{', '.join(_WEIGHT_TYPES)})")
+            dtype, self.qbits = _WEIGHT_TYPES[wt]
+            self.dtype = dtype or self._default_dtype()
         elif opt in ("prompt", "nprompt"):
             self._prompt_set(opt, str(v))
         elif opt == "no_prompt_parse":
@@ -207,7 +226,8 @@ class MLImgSynth:
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
-        if self._loaded == f"{path}|{self.dtype}|{self.device}":
+        key = f"{path}|{self.dtype}|{self.qbits}|{self.device}"
+        if self._loaded == key:
             return
         if not os.path.exists(path):
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
@@ -230,17 +250,24 @@ class MLImgSynth:
                           "unet.": unet_mod.UNet(P.unet_p),
                           "vae.": vae_mod.VaeDecoder(P.vae_p)}
             self._models = {}
+            n_q = 0
             for prefix, m in models.items():
+                # read to the host, quantize there, then move to the device
                 params = weights_mod.load_params(
                     store, name_map, weights_mod.module_shapes(m, prefix),
-                    self.device, self.dtype)
+                    "cpu", self.dtype)
+                if self.qbits:
+                    n_q += weights_mod.quantize_linear_weights(
+                        m, prefix, params, self.qbits)
+                params = {k: v.to(self.device) for k, v in params.items()}
                 self._models[prefix] = weights_mod.load_module(
                     m, prefix, params).eval()
         finally:
             store.close()
-        self._loaded = f"{path}|{self.dtype}|{self.device}"
+        self._loaded = key
+        quant = f", {n_q} linears in int{self.qbits}" if self.qbits else ""
         log.info(f"Model loaded: {self.c['model_type']} on {self.device} "
-                 f"({self.dtype}) {{{time.time() - t0:.3f}s}}")
+                 f"({self.dtype}{quant}) {{{time.time() - t0:.3f}s}}")
 
     # -- generation ---------------------------------------------------------
 

@@ -3,7 +3,7 @@
 The JAX package requests parameters by hierarchical name from a ``Ctx``;
 here every block is an ``nn.Module`` whose ``state_dict`` names are exactly
 the JAX package's internal names below the model prefix, so a checkpoint
-maps onto the modules through the shared ``nameconv`` rules.
+maps onto the modules through the ``nameconv`` rules.
 
 Conventions: NCHW activations, torch weight layouts (linear [out, in],
 conv OIHW), compute in the parameters' dtype; norms take their statistics
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant_matmul as qmm
 from ..ops.attention import attention
 
 
@@ -48,6 +49,37 @@ def gelu_quick(x):
 def linear(n_in: int, n_out: int, bias: bool = True) -> nn.Linear:
     """ref: mlb_nn_linear.  Weight [out, in]."""
     return nn.Linear(n_in, n_out, bias=bias)
+
+
+class QLinear(nn.Module):
+    """Weight-only quantized linear (ref: the ``.weight_q8`` / ``.weight_q4``
+    branch of ``linear``, ``mlimgsynth_tpu/models/blocks.py:110-131``).
+
+    Buffers ``weight_q8`` (int8 [out, in]) or ``weight_q4`` (packed int8
+    [out, in/2]) and ``weight_scale`` (f32 [out, in/128]); the bias stays in
+    the compute dtype and is added after the product.  The product goes to
+    ``ops/quant_matmul``: a CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+
+    def __init__(self, n_in: int, n_out: int, bits: int, bias: bool = True):
+        super().__init__()
+        if bits not in (4, 8) or n_in % 128:
+            raise ValueError(f"QLinear: {bits}-bit, input width {n_in}")
+        self.bits = bits
+        self.register_buffer(
+            "weight_q4" if bits == 4 else "weight_q8",
+            torch.empty(n_out, n_in // 2 if bits == 4 else n_in,
+                        dtype=torch.int8))
+        self.register_buffer("weight_scale",
+                             torch.empty(n_out, n_in // 128))
+        self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
+
+    def forward(self, x):
+        if self.bits == 4:
+            y = qmm.q4_dot(x, self.weight_q4, self.weight_scale)
+        else:
+            y = qmm.q8_dot(x, self.weight_q8, self.weight_scale)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def conv2d(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from mlimgsynth_tpu.tokenizer import CLIP_VIT_L_14, ClipParams
-
+from ..tokenizer import CLIP_VIT_L_14, ClipParams
 from . import blocks as B
 
 __all__ = ["ClipParams", "CLIP_VIT_L_14", "ClipText", "clip_skip_layers"]

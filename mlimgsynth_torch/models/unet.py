@@ -119,14 +119,14 @@ class UNet(nn.Module):
 
     def embed(self, t):
         """ref: mlb_unet__embed.  t: [N] continuous train step."""
-        dtype = self.time_embed["0"].weight.dtype
+        dtype = self._modules["in"]["conv"].weight.dtype
         emb = B.timestep_embedding(t, self.P.n_ch).to(dtype)
         return self.time_embed["2"](B.silu(self.time_embed["0"](emb)))
 
     def forward(self, x, t, cond):
         """x: [N, 4, H, W], t: [N], cond: [N, S_ctx, n_ctx] -> [N, 4, H, W]
         in the parameters' dtype."""
-        dtype = self.time_embed["0"].weight.dtype
+        dtype = self._modules["in"]["conv"].weight.dtype
         x, cond = x.to(dtype), cond.to(dtype)
         emb = self.embed(t)
         blocks_in = self._modules["in"]

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
@@ -43,27 +43,45 @@ def _nvcc() -> str:
                        "build on a machine with the CUDA toolkit")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded kernel library ``name``, building it if needed."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
-    info = {"seconds": 0.0, "log": "", "cached": out.exists()}
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.time()
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                             capture_output=True, text=True)
-        info["seconds"] = time.time() - t0
-        info["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{info['log']}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    BUILD_INFO[name] = info
-    _LIBS[name] = lib
-    return lib
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Load the kernel libraries ``names``, building the missing ones with
+    one ``nvcc`` each, all started together."""
+    names = [n for n in dict.fromkeys(names) if n not in _LIBS]
+    jobs = {}
+    for name in names:
+        out = _lib_path(name)
+        BUILD_INFO[name] = {"seconds": 0.0, "log": "", "cached": out.exists()}
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, out, time.time())
+    failed = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        BUILD_INFO[name].update(seconds=time.time() - t0, log=log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return {n: _LIBS[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Return the loaded kernel library ``name``, building it if needed."""
+    if name not in _LIBS:
+        load_all([name])
+    return _LIBS[name]

@@ -1,0 +1,169 @@
+"""Weight-only quantized matmul wrappers around the CUDA kernels in
+``csrc/quant_matmul.cu``, and their dispatch.
+
+Four kernels compute y = x . deq(W)^T (bf16 x and y, f32 accumulate; see the
+source note in the .cu file):
+
+* :func:`q8_matmul_tile` replaces the JAX package's ``q8_matmul``
+  (``mlimgsynth_tpu/ops/q8_matmul.py:76``, Pallas kernel ``_q8_kernel``);
+* :func:`q8_matmul_ws` replaces ``q8_matmul_ws`` (``:286``,
+  ``_q8_ws_kernel``);
+* :func:`q4_matmul_tile` replaces ``q4_matmul``
+  (``mlimgsynth_tpu/ops/q4_matmul.py:105``, ``_q4_kernel``);
+* :func:`q4_matmul_ws` replaces ``q4_matmul_ws`` (``:186``,
+  ``_q4_ws_kernel``).
+
+:func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule: the
+weight-stationary kernel when the product has at least ``WS_MIN_M`` rows
+(the JAX package's ``_WS_MIN_M``) and the full-K bf16 stripe fits in shared
+memory (:func:`ws_stripe`), else the tiled kernel.
+
+A wrapper given a CPU tensor runs the plain version (``ops/quant.py``);
+given CUDA tensors it launches its kernel or raises.  Each launch adds one
+to ``LAUNCHES[<kernel>]``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from . import quant
+
+LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
+            "q4_matmul_tile": 0, "q4_matmul_ws": 0}
+
+WS_MIN_M = 2048
+# shared memory one block may use on the H100 (227 KB), and the ws kernel's
+# staged x group beside the stripe: 64 rows x (128 + 8) bf16
+SMEM_MAX = 232448
+_X_STAGE_BYTES = 64 * 136 * 2
+
+_TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def reset_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    quant.PLAIN_CUDA_CALLS = 0
+
+
+def ws_stripe(k: int) -> Optional[int]:
+    """Stripe width of the ws kernel at depth ``k`` (64 columns up to
+    K = 1280, 32 above), or None where the full-K bf16 stripe and the x
+    group do not fit in one block's shared memory."""
+    bn = 64 if k <= 1280 else 32
+    return bn if bn * (k + 8) * 2 + _X_STAGE_BYTES <= SMEM_MAX else None
+
+
+def use_ws(m: int, k: int) -> bool:
+    """The dispatch rule: weight-stationary for M >= WS_MIN_M where the
+    stripe fits."""
+    return m >= WS_MIN_M and ws_stripe(k) is not None
+
+
+def _lib():
+    lib = _build.load("quant_matmul")
+    for name in LAUNCHES:
+        fn = getattr(lib, name)
+        fn.argtypes = _WS_ARGTYPES if name.endswith("_ws") else _TILE_ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, x, w, s, bits: int):
+    if not (x.is_cuda and w.is_cuda and s.is_cuda):
+        raise ValueError(f"{name}: x, weight and scales must all be CUDA "
+                         "tensors")
+    if not (x.device == w.device == s.device):
+        raise ValueError(f"{name}: x, weight and scales on different devices")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.int8 \
+            or s.dtype != torch.float32:
+        raise TypeError(f"{name}: takes bf16 x, int8 weight, f32 scales; got "
+                        f"{x.dtype}/{w.dtype}/{s.dtype}")
+    k = x.shape[-1]
+    n = w.shape[0]
+    k_w = k // 2 if bits == 4 else k
+    if (k % quant.KBLOCK or w.dim() != 2 or tuple(w.shape) != (n, k_w)
+            or tuple(s.shape) != (n, k // quant.KBLOCK)):
+        raise ValueError(f"{name}: expected x [..., K] with K a multiple of "
+                         f"128, weight [N, {'K/2' if bits == 4 else 'K'}] and "
+                         f"scales [N, K/128]; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(s.shape)}")
+    x2 = x.reshape(-1, k).contiguous()
+    m = x2.shape[0]
+    if m == 0 or n == 0:
+        raise ValueError(f"{name}: empty product {tuple(x.shape)} x "
+                         f"{tuple(w.shape)}")
+    if not (w.is_contiguous() and s.is_contiguous()):
+        raise ValueError(f"{name}: weight and scales must be contiguous")
+    # the kernels load x and the weight as 16-byte vectors
+    if x2.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: x and weight base pointers must be "
+                         "16-byte aligned")
+    extra = []
+    if name.endswith("_ws"):
+        bn = ws_stripe(k)
+        if bn is None:
+            raise ValueError(f"{name}: a full-K stripe at K={k} does not fit "
+                             "in shared memory")
+        extra = [bn]
+    y = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_lib(), name)(x2.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                   y.data_ptr(), m, n, k, *extra, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return y.reshape(x.shape[:-1] + (n,))
+
+
+def q8_matmul_tile(x, w_q8, w_scale):
+    """x [..., K] . deq(w_q8 [N, K] int8, w_scale [N, K/128] f32)^T ->
+    [..., N] (bf16 on CUDA), tiled kernel."""
+    if not x.is_cuda:
+        return quant.q8_matmul_plain(x, w_q8, w_scale)
+    return _launch("q8_matmul_tile", x, w_q8, w_scale, 8)
+
+
+def q8_matmul_ws(x, w_q8, w_scale):
+    """As :func:`q8_matmul_tile`, weight-stationary kernel."""
+    if not x.is_cuda:
+        return quant.q8_matmul_plain(x, w_q8, w_scale)
+    return _launch("q8_matmul_ws", x, w_q8, w_scale, 8)
+
+
+def q4_matmul_tile(x, w_q4, w_scale):
+    """As :func:`q8_matmul_tile` with packed q4 weights [N, K/2]."""
+    if not x.is_cuda:
+        return quant.q4_matmul_plain(x, w_q4, w_scale)
+    return _launch("q4_matmul_tile", x, w_q4, w_scale, 4)
+
+
+def q4_matmul_ws(x, w_q4, w_scale):
+    """As :func:`q4_matmul_tile`, weight-stationary kernel."""
+    if not x.is_cuda:
+        return quant.q4_matmul_plain(x, w_q4, w_scale)
+    return _launch("q4_matmul_ws", x, w_q4, w_scale, 4)
+
+
+def _rows(x) -> int:
+    return x.numel() // x.shape[-1]
+
+
+def q8_dot(x, w_q8, w_scale):
+    """Dispatch a q8 product (ref: ``q8_dot``)."""
+    if use_ws(_rows(x), x.shape[-1]):
+        return q8_matmul_ws(x, w_q8, w_scale)
+    return q8_matmul_tile(x, w_q8, w_scale)
+
+
+def q4_dot(x, w_q4, w_scale):
+    """Dispatch a q4 product (ref: ``q4_dot``)."""
+    if use_ws(_rows(x), x.shape[-1]):
+        return q4_matmul_ws(x, w_q4, w_scale)
+    return q4_matmul_tile(x, w_q4, w_scale)

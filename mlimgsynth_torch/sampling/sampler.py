@@ -14,10 +14,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mlimgsynth_tpu.rng import RngPhilox
-from mlimgsynth_tpu.sampling import schedule as sch
-
 from ..models import unet as unet_mod
+from ..rng import RngPhilox
+from . import schedule as sch
 from .solvers import get_solver
 
 

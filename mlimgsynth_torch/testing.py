@@ -1,29 +1,29 @@
 """Test support for the PyTorch port: tiny geometries, seeded random
 checkpoints, a numpy safetensors writer (the machine with the GPU has no
-``safetensors`` package), and the check of a flash kernel against its
-plain twin.
+``safetensors`` package), and the checks of a flash or quantized-matmul
+kernel against its plain twin.
 
 The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
 (``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``) in the port's own parameter
-classes.
+classes; ``TINY_Q_MODEL_TYPE`` widens them so that the linears quantize.
 """
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import struct
 from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
 
-from mlimgsynth_tpu import nameconv
-from mlimgsynth_tpu.tokenizer import ClipParams
-
+from . import nameconv
 from .api import ModelTypeDef
 from .models import clip as clip_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
+from .tokenizer import ClipParams
 from .weights import module_shapes
 
 TINY_CLIP = ClipParams(n_vocab=49408, n_token=77, d_embed=32, n_interm=64,
@@ -33,6 +33,17 @@ TINY_UNET = unet_mod.UnetParams(
     n_head=4, n_te=64, n_ctx=32)
 TINY_VAE = vae_mod.VaeParams(ch=32, ch_mult=(1, 1, 2, 2))
 TINY_MODEL_TYPE = ModelTypeDef("sd1", TINY_CLIP, TINY_UNET, TINY_VAE, 64, 1)
+
+# Input widths that are multiples of 128, so that a quantized weight type
+# stores nearly every linear quantized (the 32/64 widths above quantize
+# none).
+TINY_Q_CLIP = ClipParams(n_vocab=49408, n_token=77, d_embed=128,
+                         n_interm=256, n_head=4, n_layer=2)
+TINY_Q_UNET = unet_mod.UnetParams(
+    n_ch=128, ch_mult=(1, 2), transf_depth=(1, 1), attn_res=(1, 2),
+    n_head=4, n_te=256, n_ctx=128)
+TINY_Q_MODEL_TYPE = ModelTypeDef("sd1", TINY_Q_CLIP, TINY_Q_UNET, TINY_VAE,
+                                 64, 1)
 
 
 def model_shapes(mt: ModelTypeDef) -> Dict[str, Tuple[int, ...]]:
@@ -143,13 +154,90 @@ def attention_inputs(shape, sk: int, seed: int = 0):
             .bfloat16() for s in (sq, sk, sk)]
 
 
-def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+def _kernel_error(out, ref, rel_l2: float, atol: float, rtol: float) -> dict:
     """A kernel's output against its plain twin's: the largest elementwise
     error, the relative L2 error, and whether both are within the limits
     (and every output finite)."""
     o, r = out.float(), ref.float()
     err = (o - r).abs()
     rel = ((o - r).norm() / r.norm()).item()
-    ok = bool(torch.isfinite(o).all() and rel <= ATTN_REL_L2
-              and (err <= ATTN_ATOL + ATTN_RTOL * r.abs()).all())
+    ok = bool(torch.isfinite(o).all() and rel <= rel_l2
+              and (err <= atol + rtol * r.abs()).all())
     return {"max_abs_err": err.max().item(), "rel_l2": rel, "ok": ok}
+
+
+def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """A flash kernel against its twin, held to the ``ATTN_*`` limits."""
+    return _kernel_error(out, ref, ATTN_REL_L2, ATTN_ATOL, ATTN_RTOL)
+
+
+# Each quantized-matmul kernel against its plain twin on the card, at the
+# products of the SD1.5 512^2 main path (CFG batch 2) and two ragged ones.
+# (kernel kind, M, K, N, where the main path runs it); every case runs for
+# q8 and q4.
+QUANT_CASES = [
+    ("ws", 8192, 1280, 320, "ff.net.2, 64x64 level"),
+    ("ws", 2048, 640, 5120, "ff.net.0.proj, 32x32 level"),
+    ("ws", 2048, 2560, 640, "ff.net.2, 32x32 level"),
+    ("ws", 2048, 640, 640, "attention q/k/v/out, 32x32 level"),
+    ("ws", 4097, 1280, 200, "ragged M and N"),
+    ("tile", 512, 1280, 1280, "attention q/k/v/out, 16x16 level"),
+    ("tile", 154, 768, 1280, "cross-attention k/v, 16x16 level"),
+    ("tile", 154, 3072, 768, "CLIP mlp.fc2"),
+    ("tile", 2, 1280, 320, "resnet emb_proj, 64x64 level"),
+    ("tile", 77, 768, 200, "ragged M and N"),
+]
+
+# Limits of a kernel's output against its twin's, on x ~ N(0, 1) and a
+# weight ~ N(0, 1/K) (each output then has a std of about 1).  Both
+# dequantize to the same bf16 weight and accumulate in f32, so their f32
+# sums differ only in summation order (about 1e-6 relative); each rounds its
+# sum to bf16, and two such roundings differ by at most one bf16 step,
+# 2^-7 of the value.  The twin's cuBLAS product may reduce in lower
+# precision, which the absolute term 2^-8 covers.  A wrong kernel differs by
+# far more: a scale group shifted, the q4 nibble order swapped or one
+# 128-deep group dropped reads 0.3 or more in relative L2.
+QUANT_REL_L2 = 4e-3
+QUANT_ATOL, QUANT_RTOL = 2.0 ** -8, 2.0 ** -7
+
+
+def quant_inputs(m: int, k: int, n: int, bits: int, seed: int = 0):
+    """x [m, k] bf16 on the card, and a weight [n, k] ~ N(0, 1/k) quantized
+    by ``ops.quant`` to ``bits`` (weight and scales on the card)."""
+    from .ops import quant
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, k), dtype=np.float32) / np.float32(
+        math.sqrt(k))
+    q, s = (quant.quantize_weight_q4 if bits == 4
+            else quant.quantize_weight)(w)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    return (x.to("cuda", torch.bfloat16), torch.from_numpy(q).cuda(),
+            torch.from_numpy(s).cuda())
+
+
+def quant_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """A quantized-matmul kernel against its twin, held to the ``QUANT_*``
+    limits."""
+    return _kernel_error(out, ref, QUANT_REL_L2, QUANT_ATOL, QUANT_RTOL)
+
+
+def median_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` on the card: the median over ``n``
+    samples of ``reps`` calls timed by CUDA events.  Each sample is queued
+    behind a spin of a few milliseconds on the card, so the calls run back
+    to back and the host's launch time (tens of microseconds per call, more
+    than a small kernel takes) stays out of the number."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)   # cycles: ~2.5 ms at 1.98 GHz
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)

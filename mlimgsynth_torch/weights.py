@@ -1,7 +1,7 @@
 """Checkpoint -> model parameters (port of ``mlimgsynth_tpu/weights.py``).
 
-Raw checkpoint names map to the internal names through the shared
-``nameconv`` rules (OpenCLIP fused qkv split into thirds, HF Linear-stored
+Raw checkpoint names map to the internal names through the ``nameconv``
+rules (OpenCLIP fused qkv split into thirds, HF Linear-stored
 text projection transposed).  Checkpoints already hold torch layouts, so a
 tensor only changes shape where the checkpoint stores a 1x1 conv as a linear
 or the reverse.  ``params_from_jax`` converts the JAX package's parameter
@@ -16,8 +16,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from mlimgsynth_tpu.io.tensorstore import TensorStore
-from mlimgsynth_tpu.nameconv import QKV, TProj, normalize_name
+from .io.tensorstore import TensorStore
+from .models.blocks import QLinear
+from .nameconv import QKV, TProj, normalize_name
+from .ops import quant
 
 
 @dataclass
@@ -107,6 +109,34 @@ def load_module(module: nn.Module, prefix: str,
     return module
 
 
+def quantize_linear_weights(module: nn.Module, prefix: str,
+                            params: Dict[str, torch.Tensor],
+                            bits: int) -> int:
+    """Weight-only quantization at load (ref: ``quantize_linear_weights``,
+    ``mlimgsynth_tpu/weights.py:299-359``, without its per-column branch,
+    which only DiT families take).  Every ``nn.Linear`` of ``module`` whose
+    input width is a multiple of 128 becomes a ``QLinear`` of ``bits`` (on
+    the meta device, to be loaded), and its ``.weight`` in ``params`` (CPU
+    tensors in the compute dtype) becomes ``.weight_q8`` or ``.weight_q4``
+    and ``.weight_scale``, made from the weight as loaded in that dtype.
+    Returns the number quantized."""
+    fn = quant.quantize_weight_q4 if bits == 4 else quant.quantize_weight
+    names = [name for name, m in module.named_modules()
+             if isinstance(m, nn.Linear) and m.in_features % quant.KBLOCK == 0]
+    for name in names:
+        lin = module.get_submodule(name)
+        parent, _, attr = name.rpartition(".")
+        with torch.device("meta"):
+            ql = QLinear(lin.in_features, lin.out_features, bits,
+                         bias=lin.bias is not None)
+        setattr(module.get_submodule(parent), attr, ql)
+        key = f"{prefix}{name}.weight"
+        q, scale = fn(params.pop(key).float().numpy())
+        params[f"{key}_q{bits}"] = torch.from_numpy(q)
+        params[f"{key}_scale"] = torch.from_numpy(scale)
+    return len(names)
+
+
 # JAX 2-D params kept as-is (embedding tables, position embeddings, text
 # projection); every other 2-D param is a [in, out] linear weight
 _AS_IS_2D = (".embed.token.weight", ".embed.position.weight", ".text_proj")
@@ -116,10 +146,14 @@ def params_from_jax(np_params: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """JAX-layout params (linear [in, out], conv HWIO; see
     ``mlimgsynth_tpu/models/blocks.py:28-32``) -> torch layout ([out, in],
-    OIHW), f32 tensors on the CPU."""
+    OIHW), f32 tensors on the CPU.  Quantized weights keep their type and
+    turn over like linears: ``_q8`` [K, N] and ``_q4`` [K/2, N] int8 become
+    [N, K] and [N, K/2], ``_scale`` [K/128, N] becomes [N, K/128]."""
     out = {}
     for name, a in np_params.items():
-        a = np.array(a, np.float32)   # a copy: the source may be read-only
+        # a copy: the source may be read-only
+        a = np.array(a, np.int8 if name.endswith(("_q8", "_q4"))
+                     else np.float32)
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         elif a.ndim == 2 and not name.endswith(_AS_IS_2D):

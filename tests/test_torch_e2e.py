@@ -1,5 +1,6 @@
 """Port ``generate()`` against the JAX package's ``generate()`` on one tiny
-checkpoint: per-step latents and the final image.
+checkpoint: per-step latents and the final image, with float weights and
+with the quantized weight types q8_0 and q4_0.
 
 Both sessions run in f32 on the CPU from the same checkpoint file, prompts
 and seed.  Tolerances: per-step latents atol/rtol 1e-4 (summation order
@@ -16,11 +17,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from safetensors.numpy import save_file
 
-from helpers import patch_tiny_model_types, write_tiny_checkpoint
+from helpers import (TINY_VAE, patch_tiny_model_types,
+                     spec_to_checkpoint_arrays, write_tiny_checkpoint)
+from mlimgsynth_tpu import api as jax_api
 from mlimgsynth_tpu.api import MLImgSynth as JaxSession
+from mlimgsynth_tpu.models import blocks as JB
+from mlimgsynth_tpu.models import clip as jclip
+from mlimgsynth_tpu.models import unet as junet
+from mlimgsynth_tpu.models import vae as jvae
 from mlimgsynth_torch import api as torch_api
-from mlimgsynth_torch.testing import TINY_MODEL_TYPE
+from mlimgsynth_torch.testing import (TINY_MODEL_TYPE, TINY_Q_CLIP,
+                                      TINY_Q_MODEL_TYPE, TINY_Q_UNET)
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"
@@ -56,12 +65,14 @@ def tiny_ckpt(tmp_path, monkeypatch):
     return str(path)
 
 
-def _run(session, ckpt, method, sched, batch):
+def _run(session, ckpt, method, sched, batch, weight_type="f32"):
     traj = []
     session.option_set("model", ckpt)
     for k, v in OPTS + [("method", method), ("scheduler", sched),
-                        ("batch-size", batch)]:
+                        ("batch-size", batch), ("weight-type", weight_type)]:
         session.option_set(k, v)
+    if isinstance(session, JaxSession):
+        session._dtype = jnp.float32   # a quantized type sets bf16
     session.step_observer = lambda i, lat: traj.append(
         np.asarray(lat, np.float32).copy())
     img = session.generate()
@@ -72,9 +83,7 @@ def _run(session, ckpt, method, sched, batch):
                                                 ("dpmpp2m", "karras", 1),
                                                 ("euler", "karras", 2)])
 def test_generate_matches_jax(tiny_ckpt, method, sched, batch):
-    js = JaxSession()
-    js._dtype = jnp.float32
-    traj_j, img_j = _run(js, tiny_ckpt, method, sched, batch)
+    traj_j, img_j = _run(JaxSession(), tiny_ckpt, method, sched, batch)
     traj_t, img_t = _run(torch_api.MLImgSynth(device="cpu"), tiny_ckpt,
                          method, sched, batch)
     assert len(traj_j) == len(traj_t) == 5
@@ -82,6 +91,68 @@ def test_generate_matches_jax(tiny_ckpt, method, sched, batch):
         np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
                                    err_msg=f"step {i} latent mismatch")
     assert img_t.shape == img_j.shape == (batch, 3, 64, 64)
+    psnr = _psnr_u8(np.round(img_j * 255), np.round(img_t * 255))
+    assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
+
+
+# The quantizing geometry (input widths 128 and 256) in the JAX package's
+# parameter classes
+J_TINY_Q = jax_api.ModelTypeDef(
+    "sd1", jclip.ClipParams(**vars(TINY_Q_CLIP)), None,
+    junet.UnetParams(**vars(TINY_Q_UNET)), TINY_VAE, 64, 1)
+
+
+@pytest.fixture
+def tiny_q_ckpt(tmp_path, monkeypatch):
+    """A checkpoint of the quantizing geometry, written from the JAX
+    package's parameter specs (its session also loads the VAE encoder)."""
+    P = J_TINY_Q
+    spec = JB.trace_spec(
+        lambda ctx, toks: jclip.clip_text_apply(ctx, toks, P.clip_p),
+        jnp.zeros((1, 77), jnp.int32))
+    spec.update(JB.trace_spec(
+        lambda ctx, x, t, c: junet.unet_apply(ctx, x, t, c, None, P.unet_p),
+        jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)), jnp.zeros((1, 77, 128))))
+    spec.update(JB.trace_spec(
+        lambda ctx, x: jvae.vae_encode_apply(ctx, x, TINY_VAE),
+        jnp.zeros((1, 64, 64, 3))))
+    spec.update(JB.trace_spec(
+        lambda ctx, x: jvae.vae_decode_apply(ctx, x, TINY_VAE),
+        jnp.zeros((1, 8, 8, 4))))
+    path = tmp_path / "tiny-q.safetensors"
+    save_file(spec_to_checkpoint_arrays(spec, seed=7), str(path))
+    patch_tiny_model_types(monkeypatch, {"sd1": J_TINY_Q})
+    monkeypatch.setattr(torch_api, "_model_types",
+                        lambda: {"sd1": TINY_Q_MODEL_TYPE})
+    return str(path)
+
+
+def _quantized_names(js, ts):
+    """(JAX, port) sets of the weights stored quantized, port names."""
+    jax_names = {k for sub in js._params.values() for k in sub
+                 if k.endswith(("_q8", "_q4"))}
+    port_names = {prefix + k for prefix, m in ts._models.items()
+                  for k in m.state_dict() if k.endswith(("_q8", "_q4"))}
+    return jax_names, port_names
+
+
+@pytest.mark.parametrize("weight_type", ["q8_0", "q4_0"])
+def test_quantized_generate_matches_jax(tiny_q_ckpt, weight_type):
+    """Same tolerances as the float legs: both sessions quantize the same
+    f32 weights bit for bit and run the dequantized products in f32."""
+    js = JaxSession()
+    traj_j, img_j = _run(js, tiny_q_ckpt, "euler", "uniform", 1,
+                         weight_type)
+    ts = torch_api.MLImgSynth(device="cpu")
+    traj_t, img_t = _run(ts, tiny_q_ckpt, "euler", "uniform", 1,
+                         weight_type)
+    assert ts.qbits == (4 if weight_type == "q4_0" else 8)
+    jax_names, port_names = _quantized_names(js, ts)
+    assert port_names == jax_names and len(port_names) > 50
+    assert len(traj_j) == len(traj_t) == 5
+    for i, (a, b) in enumerate(zip(traj_j, traj_t)):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {i} latent mismatch")
     psnr = _psnr_u8(np.round(img_j * 255), np.round(img_t * 255))
     assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
 
@@ -102,7 +173,7 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sdxl"), ("weight-type", "q8_0"), ("method", "heun"),
+    ("model-type", "sdxl"), ("weight-type", "q2_k"), ("method", "heun"),
     ("lora", "x.safetensors"), ("hires-fix", 2.0), ("prompt", "<lora:x:1>"),
 ])
 def test_unsupported_option_raises(name, value):
@@ -125,9 +196,8 @@ for k, v in [("model", path), ("model-type", "sd1"), ("image-dim", 64),
     s.option_set(k, v)
 img = s.generate()
 assert img.shape == (1, 3, 64, 64) and np.isfinite(img).all()
-import mlimgsynth_torch
 tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
-assert tpu <= mlimgsynth_torch.SHARED_MODULES, tpu
+assert not tpu, tpu
 print("jax" in sys.modules)
 """
 

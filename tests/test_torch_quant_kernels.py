@@ -1,0 +1,128 @@
+"""The port's quantized-matmul wrappers and CUDA kernels
+(mlimgsynth_torch.ops.quant_matmul).
+
+This file imports no jax, so that its ``cuda``-marked tests run on a
+machine with an NVIDIA GPU and no JAX:
+
+    MLIS_NO_TEST_CACHE=1 python -m pytest tests/test_torch_quant_kernels.py -q
+
+Without a GPU those tests skip; the CPU tests check that CPU tensors take
+the plain twin and never reach a kernel.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mlimgsynth_torch import testing
+from mlimgsynth_torch.ops import _build, quant
+from mlimgsynth_torch.ops import quant_matmul as qmm
+
+KERNELS = ["q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
+           "q4_matmul_ws"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Several pytest workers share a few cores (and the tensors are
+    small)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(k, n, bits, seed=0):
+    w = np.random.default_rng(seed).standard_normal((n, k)).astype(
+        np.float32)
+    q, s = (quant.quantize_weight_q4 if bits == 4
+            else quant.quantize_weight)(w)
+    return torch.from_numpy(q), torch.from_numpy(s)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cpu_tensors_take_the_plain_twin(monkeypatch, name):
+    def no_build(lib):
+        raise AssertionError(f"built {lib} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    qmm.reset_counts()
+    bits = 4 if name.startswith("q4") else 8
+    q, s = _pair(256, 48, bits)
+    x = torch.randn(2, 5, 256, generator=torch.Generator().manual_seed(0))
+    plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+    out = getattr(qmm, name)(x, q, s)
+    assert out.shape == (2, 5, 48)
+    torch.testing.assert_close(out, plain(x, q, s), rtol=0, atol=0)
+    assert set(qmm.LAUNCHES.values()) == {0}
+    assert quant.PLAIN_CUDA_CALLS == 0
+
+
+def test_unpack_q4_nibble_order():
+    """Byte j of a 128-wide group holds group rows j (low nibble) and
+    j + 64 (high nibble)."""
+    w = np.zeros((1, 128), np.float32)
+    w[0, 3], w[0, 67], w[0, 64] = 7.0, -7.0, 1.0
+    q, _ = quant.quantize_weight_q4(w)
+    assert q.shape == (1, 64) and q[0, 3] == np.int8(-112 | 7)
+    got = quant.unpack_q4(torch.from_numpy(q))[0]
+    want = torch.zeros(128, dtype=torch.int32)
+    want[3], want[67], want[64] = 7, -7, 1
+    assert torch.equal(got, want)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels build with nvcc for "
+                    "sm_90a)")
+
+
+# bf16 in and out, held to the limits of testing.quant_error (relative L2
+# 4e-3 and elementwise 2^-8 + 2^-7 |ref|; the reasons are stated there)
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kind,m,k,n,where", testing.QUANT_CASES)
+def test_kernel_matches_plain_on_cuda(cuda, bits, kind, m, k, n, where):
+    name = f"q{bits}_matmul_{kind}"
+    x, q, s = testing.quant_inputs(m, k, n, bits)
+    before = dict(qmm.LAUNCHES)
+    out = getattr(qmm, name)(x, q, s)
+    plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+    ref = plain(x, q, s)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before[name] + 1
+    res = testing.quant_error(out, ref)
+    assert res["ok"], (where, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dispatch_launches_the_rule_on_cuda(cuda, bits):
+    dot = qmm.q4_dot if bits == 4 else qmm.q8_dot
+    for m, k, kind in ((2048, 640, "ws"), (2047, 640, "tile"),
+                       (4096, 3456, "tile")):
+        x, q, s = testing.quant_inputs(m, k, 64, bits)
+        before = dict(qmm.LAUNCHES)
+        dot(x.view(1, m, k), q, s)
+        name = f"q{bits}_matmul_{kind}"
+        assert qmm.LAUNCHES[name] == before[name] + 1, (m, k)
+
+
+@pytest.mark.cuda
+def test_launch_checks_inputs_on_cuda(cuda):
+    x, q, s = testing.quant_inputs(64, 256, 64, 8)
+    before = dict(qmm.LAUNCHES)
+    with pytest.raises(TypeError):
+        qmm.q8_matmul_tile(x.float(), q, s)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qmm.q8_matmul_tile(x[:, :192], q[:, :192], s)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qmm.q4_matmul_tile(x, q, s)   # a q8 weight is not [N, K/2]
+    with pytest.raises(ValueError, match="16-byte"):
+        off = torch.zeros(64 * 256 + 4, device="cuda",
+                          dtype=torch.bfloat16)[4:].view(64, 256)
+        qmm.q8_matmul_tile(off, q, s)
+    with pytest.raises(ValueError, match="does not fit"):
+        xw, qw, sw = testing.quant_inputs(8, 3456, 32, 8)
+        qmm.q8_matmul_ws(xw, qw, sw)
+    assert qmm.LAUNCHES == before

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Show that the flash-kernel check catches wrong kernels (needs an H100).
+"""Show that the kernel checks catch wrong kernels (needs an H100).
 
-Builds ``mlimgsynth_torch/csrc/flash_attention.cu`` as written and with one
-planted fault at a time, runs every case of ``testing.ATTN_CASES`` against
-the plain twin, and holds each result to ``testing.attention_error``:
+Builds each kernel source (``mlimgsynth_torch/csrc/flash_attention.cu``,
+``quant_matmul.cu``) as written and with one planted fault at a time, runs
+every case of that source (``testing.ATTN_CASES``, or ``testing.QUANT_CASES``
+for q8 and q4) against the plain twin, and holds each result to
+``testing.attention_error`` / ``testing.quant_error``:
 
     python3 tools/torch_kernel_mutants.py
 
 Prints one JSON line per (variant, case), then a summary line.  Exits 0 only
-if the source as written passes every case and each planted fault fails at
+if each source as written passes every case and each planted fault fails at
 least one.  The faulty sources and their builds live in a temporary
 directory; the repository's own source and build directory are not
 touched.
@@ -25,28 +27,44 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mlimgsynth_torch import testing  # noqa: E402
-from mlimgsynth_torch.ops import _build  # noqa: E402
+from mlimgsynth_torch.ops import _build, quant  # noqa: E402
 from mlimgsynth_torch.ops import flash_attention as fa  # noqa: E402
+from mlimgsynth_torch.ops import quant_matmul as qmm  # noqa: E402
 
-# name -> (text in the source, its faulty replacement)
+# name -> (source, text in the source, its faulty replacement: every
+# occurrence is replaced)
 MUTANTS = {
     # the softmax scale of a 40-wide head taken from its padded depth 48
     "scale_from_padded_depth": (
-        "s[j][e] * a.scale_log2 : -INFINITY",
+        "flash_attention", "s[j][e] * a.scale_log2 : -INFINITY",
         "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY"),
     # the last kv tile of 64 rows skipped
     "last_kv_tile_dropped": (
-        "for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
+        "flash_attention", "for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
         "for (int n0 = 0; n0 + kBlockN < a.sk; n0 += kBlockN)"),
     # the last 16 columns of the QK^T depth left out
     "qk_depth_short_by_16": (
-        "for (int kk = 0; kk < DQK / 16; ++kk)",
+        "flash_attention", "for (int kk = 0; kk < DQK / 16; ++kk)",
         "for (int kk = 0; kk < DQK / 16 - 1; ++kk)"),
+    # each weight group scaled by its neighbour's scale
+    "scale_group_shifted": (
+        "quant_matmul", "a.s[(long long)n * n_groups + kg]",
+        "a.s[(long long)n * n_groups + (kg + 1) % n_groups]"),
+    # q4: the high nibble taken as group row j and the low as row j + 64
+    "nibble_order_swapped": (
+        "quant_matmul",
+        ("deq_store16(d + c, lo, f.sc[j]);\n"
+         "      deq_store16(d + 64 + c, hi, f.sc[j]);"),
+        ("deq_store16(d + c, hi, f.sc[j]);\n"
+         "      deq_store16(d + 64 + c, lo, f.sc[j]);")),
+    # the last 128-deep K group left out of the products
+    "last_k_group_dropped": (
+        "quant_matmul", "mma_group(acc, sx, sw",
+        "if (kg + 1 < n_groups) mma_group(acc, sx, sw"),
 }
 
 
-def run_cases(variant: str) -> bool:
-    """Every case for the library now loaded; True if all pass."""
+def flash_cases(variant: str) -> bool:
     all_ok = True
     for name, shape, sk, where in testing.ATTN_CASES:
         q, k, v = testing.attention_inputs(shape, sk)
@@ -58,26 +76,47 @@ def run_cases(variant: str) -> bool:
     return all_ok
 
 
+def quant_cases(variant: str) -> bool:
+    all_ok = True
+    for bits in (8, 4):
+        plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+        for kind, m, k, n, where in testing.QUANT_CASES:
+            name = f"q{bits}_matmul_{kind}"
+            x, q, s = testing.quant_inputs(m, k, n, bits)
+            res = testing.quant_error(getattr(qmm, name)(x, q, s),
+                                      plain(x, q, s))
+            print(json.dumps({"variant": variant, "kernel": name,
+                              "where": where, "mkn": [m, k, n], **res}),
+                  flush=True)
+            all_ok &= res["ok"]
+    return all_ok
+
+
+CASES = {"flash_attention": flash_cases, "quant_matmul": quant_cases}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_mutants: needs a CUDA device", file=sys.stderr)
         return 1
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    summary = {"as_written": run_cases("as_written")}
+    csrc0 = _build.CSRC
+    summary = {f"as_written:{src}": run(src) for src, run in CASES.items()}
     with tempfile.TemporaryDirectory() as tmp:
-        for variant, (old, new) in MUTANTS.items():
-            if src.count(old) != 1:
-                raise RuntimeError(f"{variant}: '{old}' is not once in the "
-                                   "source")
+        for variant, (src_name, old, new) in MUTANTS.items():
+            src = (csrc0 / f"{src_name}.cu").read_text()
+            if old not in src:
+                raise RuntimeError(f"{variant}: '{old}' is not in the source")
             csrc = Path(tmp) / variant
             csrc.mkdir()
-            (csrc / "flash_attention.cu").write_text(src.replace(old, new))
+            (csrc / f"{src_name}.cu").write_text(src.replace(old, new))
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
-            summary[variant] = run_cases(variant)
-    caught = all(not ok for v, ok in summary.items() if v != "as_written")
+            summary[variant] = CASES[src_name](variant)
+    written = all(ok for v, ok in summary.items() if v.startswith("as_"))
+    caught = all(not ok for v, ok in summary.items()
+                 if not v.startswith("as_"))
     print(json.dumps({"passes": summary, "all_faults_caught": caught}))
-    return 0 if summary["as_written"] and caught else 1
+    return 0 if written and caught else 1
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 """Where the time of one SD1.5 512^2 request goes on the card (needs a GPU).
 
 Opens a full-width SD1.5 session of the PyTorch port on seeded random
-weights (bf16; 20 Euler steps, CFG 7, batch 1) and measures, all in this one
+weights (bf16 activations; 20 Euler steps, CFG 7, batch 1) for each weight
+type named on the command line (default bf16; q8_0 and q4_0 store the
+linears quantized), one session at a time, and measures, all in this one
 process:
 
   * ``requests``: the wall seconds of a cold and of three warm requests;
@@ -18,9 +20,9 @@ process:
     above: two different requests of this run, for an idle share without
     the profiler's cost on the host.
 
-    python3 tools/torch_profile.py
+    python3 tools/torch_profile.py [bf16] [q8_0] [q4_0]
 
-Prints one JSON line per measurement.
+Prints one JSON line per measurement, each naming its weight type.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
 
 # kernel kind: the first of these words found in the kernel's name
 KINDS = [("attn_fwd_kernel", "flash kernels"),
+         ("qmm_", "quantized matmul kernels"),
          ("nchwToNhwc", "cuDNN layout conversion"),
          ("nhwcToNchw", "cuDNN layout conversion"),
          ("fprop", "convolution"), ("conv", "convolution"),
@@ -168,24 +171,32 @@ def main() -> int:
         ckpt = os.path.join(tmp, "sd15-random-f16.safetensors")
         testing.write_random_checkpoint(ckpt, api._model_types()["sd1"],
                                         seed=0)
-        s = api.MLImgSynth(device="cuda")
-        for k, v in [("model", ckpt), ("model-type", "sd1"),
-                     ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
-                     ("method", "euler"), ("scheduler", "uniform")]:
-            s.option_set(k, v)
-        s.setup()
-        cold = request(s, 0)
-        warm = [request(s, 1 + i) for i in range(WARM)]
-        out("requests", cold_s=cold, warm_s=warm)
-        out("stages", **stage_times(s, 1))
-        out("unet_step", batch=2, evals=EVALS, ms=unet_step_ms(s, EVALS))
-        trace = traced_request(s, 2, tmp, TOP)
-        out("trace", **trace)
-        med = statistics.median(warm)
-        out("derived", median_warm_s=med,
-            device_busy_s=trace["device_busy_s"],
-            idle_share=1.0 - trace["device_busy_s"] / med)
+        for wt in sys.argv[1:] or ["bf16"]:
+            profile_path(ckpt, wt, tmp)
     return 0
+
+
+def profile_path(ckpt: str, wt: str, tmp: str) -> None:
+    s = api.MLImgSynth(device="cuda")
+    for k, v in [("model", ckpt), ("model-type", "sd1"), ("weight-type", wt),
+                 ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
+                 ("method", "euler"), ("scheduler", "uniform")]:
+        s.option_set(k, v)
+    s.setup()
+    cold = request(s, 0)
+    warm = [request(s, 1 + i) for i in range(WARM)]
+    out("requests", path=wt, cold_s=cold, warm_s=warm)
+    out("stages", path=wt, **stage_times(s, 1))
+    out("unet_step", path=wt, batch=2, evals=EVALS,
+        ms=unet_step_ms(s, EVALS))
+    trace = traced_request(s, 2, tmp, TOP)
+    out("trace", path=wt, **trace)
+    med = statistics.median(warm)
+    out("derived", path=wt, median_warm_s=med,
+        device_busy_s=trace["device_busy_s"],
+        idle_share=1.0 - trace["device_busy_s"] / med)
+    del s
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

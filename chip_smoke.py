@@ -10,25 +10,31 @@ Phases, one result line each (any failure exits non-zero):
   2. build     - compiles csrc/flash_attention.cu and csrc/quant_matmul.cu
                  for sm_90a, one nvcc each, started together;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
-                 flash kernels at the SD1.5 512^2 main-path shapes and a
-                 ragged Sk, the quantized matmuls (q8 and q4, tiled and
-                 weight-stationary) at the main path's products and ragged
-                 M and N; each with its time, its plain version's, one
-                 PyTorch call's for the same function and the card's bound;
+                 flash kernels at the SD1.5 512^2 and SD3-medium 1024^2
+                 main-path shapes and ragged ones, the quantized matmuls (q8
+                 and q4, tiled and weight-stationary) at the SD1.5 products
+                 and ragged M and N, the W8A8 kernel at the SD3 x-stream
+                 products and ragged ones; each with its time, its plain
+                 version's, one PyTorch call's for the same function and the
+                 card's bound;
   4. main      - three paths on one seeded random full-width SD1.5
                  checkpoint, one session at a time (512^2, 20 Euler steps,
                  CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
-                 and q4_0 weights, 2 requests each.  Checks the images and
-                 the exact kernel launch counts of every request;
-  5. reference - per path, one full-width UNet evaluation with the kernels
-                 against the same with the plain versions (bf16: the
+                 and q4_0 weights, 2 requests each.  Then two paths on one
+                 seeded random full-width SD3-medium checkpoint (f16 on
+                 disk; 1024^2, 20 Euler steps, CFG 7): bf16, 2 requests;
+                 q8_0, 1 request.  Checks the images and the exact kernel
+                 launch counts of every request;
+  5. reference - per path, one full-width UNet or MMDiT evaluation with the
+                 kernels against the same with the plain versions (bf16: the
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
                  matmuls);
-  6. shapes    - the quantized products of one q8_0 request, each timed for
-                 its q8 and q4 kernel beside its bound;
-  7. small     - a tiny random model at 192^2 through the session on the
-                 card (bf16, kernels) against the same on the CPU (f32, the
-                 path the CPU tests hold against the JAX package);
+  6. shapes    - the quantized products of one SD1.5 q8_0 request, each
+                 timed for its q8 and q4 kernel beside its bound;
+  7. small     - tiny random SD1 (192^2) and SD3 (512^2) models through the
+                 session on the card (bf16, kernels) against the same on
+                 the CPU (f32, the path the CPU tests hold against the JAX
+                 package);
   8. imports   - nothing of jax or of the JAX package was loaded.
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -48,20 +54,24 @@ import torch
 
 from mlimgsynth_torch import api, testing
 from mlimgsynth_torch.models import blocks as blocks_mod
+from mlimgsynth_torch.models import mmdit as mmdit_mod
 from mlimgsynth_torch.models import unet as unet_mod
 from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
 from mlimgsynth_torch.ops import quant_matmul as qmm
+from mlimgsynth_torch.ops.quant_plan import pick_large_m_plan
 
 SOURCES = {"flash_attention": "mlimgsynth_torch/csrc/flash_attention.cu",
            "quant_matmul": "mlimgsynth_torch/csrc/quant_matmul.cu"}
 REPLACES = {
     "flash_attn_fwd": "mlimgsynth_tpu/ops/flash_attention.py:452",
     "flash_attn_fwd_wide": "mlimgsynth_tpu/ops/flash_attention.py:48",
+    "flash_attn_joint": "mlimgsynth_tpu/ops/stock_flash.py:177",
     "q8_matmul_tile": "mlimgsynth_tpu/ops/q8_matmul.py:40",
     "q8_matmul_ws": "mlimgsynth_tpu/ops/q8_matmul.py:267",
     "q4_matmul_tile": "mlimgsynth_tpu/ops/q4_matmul.py:75",
     "q4_matmul_ws": "mlimgsynth_tpu/ops/q4_matmul.py:156",
+    "q8_matmul_ws_int8": "mlimgsynth_tpu/ops/q8_matmul.py:432",
 }
 REQUESTS = [(42, "a photograph of an astronaut riding a horse"),
             (43, "a watercolor painting of a lighthouse at dawn"),
@@ -72,10 +82,19 @@ REQUESTS = [(42, "a photograph of an astronaut riding a horse"),
 FLASH_PER_REQUEST = {"flash_attn_fwd": 200, "flash_attn_fwd_wide": 1}
 QUANT_PER_REQUEST = {"ws": 900, "tile": 2132}
 PATHS = [("bf16", None, 3), ("q8_0", 8, 2), ("q4_0", 4, 2)]
+# SD3-medium at 1024^2: one joint attention per block and evaluation (24 x
+# 20) and the VAE mid-block's; on q8_0 the four x-stream products of every
+# block and evaluation run the W8A8 kernel (4 x 24 x 20), the other
+# quantized products are counted from the module tree (sd3_want)
+SD3_DIM, SD3_STEPS = 1024, 20
+SD3_FLASH_PER_REQUEST = {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 1,
+                         "flash_attn_joint": 480}
+SD3_INT8_PER_REQUEST = 1920
+SD3_PATHS = [("bf16", None, 2), ("q8_0", 8, 1)]
 
-# The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor cores
-# and device memory.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
+# tensor cores, and device memory.
+PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 ms = testing.median_ms   # a call's device time
@@ -85,8 +104,8 @@ def phase(name: str, **kv) -> None:
     print(json.dumps({"phase": name, **kv}), flush=True)
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_mem = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> dict:
+    t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
 
@@ -114,23 +133,26 @@ def main() -> int:
                       if "registers" in ln]}
         for n, i in _build.BUILD_INFO.items()})
 
-    kernels = check_flash() + check_quant()
+    kernels = check_flash() + check_quant() + check_int8()
+    launches = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "sd15-random-f16.safetensors")
-        t0 = time.time()
-        testing.write_random_checkpoint(ckpt, api._model_types()["sd1"],
-                                        seed=0)
-        phase("main", step="checkpoint", write_s=time.time() - t0)
-        launches = {}
+        ckpt = _checkpoint(tmp, "sd1")
         for wt, bits, n_req in PATHS:
             s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, wt, bits, n_req))
+            launches.update(main_path(s, ckpt, "sd1", 512, wt, n_req,
+                                      lambda s, bits=bits: sd1_want(bits)))
             reference_check(s, wt, bits)
             if bits == 8:
                 time_shapes(s)
-            del s
-            gc.collect()
-            torch.cuda.empty_cache()
+            _drop(s)
+        os.remove(ckpt)
+        ckpt = _checkpoint(tmp, "sd3")
+        for wt, bits, n_req in SD3_PATHS:
+            s = api.MLImgSynth(device="cuda")
+            launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt, n_req,
+                                      sd3_want))
+            sd3_reference_check(s, wt, bits)
+            _drop(s)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     small_check()
@@ -144,8 +166,10 @@ def main() -> int:
 
 
 def _entry(name: str, source: str, **kv) -> dict:
+    extra = ({"also_replaces": "mlimgsynth_tpu/ops/splash_flash.py:114"}
+             if name == "flash_attn_joint" else {})
     return {"name": name, "route": "cuda", "source": SOURCES[source],
-            "replaces": REPLACES[name], "launches": 0, **kv}
+            "replaces": REPLACES[name], **extra, "launches": 0, **kv}
 
 
 def check_flash():
@@ -177,8 +201,12 @@ def check_flash():
         if sk == shape[2] and name not in summary:  # the main-path shape
             summary[name] = {"shape": [list(shape), sk],
                              "max_abs_err": res["max_abs_err"], **t}
+    summary["flash_attn_joint"]["per_request_ms"] = (
+        SD3_FLASH_PER_REQUEST["flash_attn_joint"]
+        * summary["flash_attn_joint"]["ms"])
     return [_entry(n, "flash_attention", **summary[n])
-            for n in ("flash_attn_fwd", "flash_attn_fwd_wide")]
+            for n in ("flash_attn_fwd", "flash_attn_fwd_wide",
+                      "flash_attn_joint")]
 
 
 def _quant_bound(m: int, k: int, n: int, bits: int) -> dict:
@@ -237,28 +265,130 @@ def check_quant():
                       "q4_matmul_ws")]
 
 
+def check_int8():
+    """The W8A8 kernel against its plain version at the SD3 x-stream
+    products and ragged ones, held to the limits in ``testing``; the
+    library call is one torch.matmul on the weight dequantized to bf16
+    beforehand (the product without the activation quantization)."""
+    summary = {}
+    per_request = 0.0
+    for m, k, n, where in testing.INT8_CASES:
+        x, q, s = testing.int8_inputs(m, k, n)
+        out = qmm.q8_matmul_ws_int8(x, q, s)
+        ref = quant.q8_ws_int8_plain(x, q, s)
+        torch.cuda.synchronize()
+        res = testing.int8_error(out, ref)
+        w = (q.float() * s[:, None]).bfloat16()
+        t = {"ms": ms(lambda: qmm.q8_matmul_ws_int8(x, q, s)),
+             "plain_ms": ms(lambda: quant.q8_ws_int8_plain(x, q, s)),
+             "library_ms": ms(lambda: torch.matmul(x, w.t())),
+             **bound(2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n
+                     + 2.0 * m * n, PEAK_INT8_OPS)}
+        phase("kernels", kernel="q8_matmul_ws_int8", where=where,
+              mkn=[m, k, n], slab=quant._ws_slab(k), **res, **t,
+              limits={"rel_l2": testing.INT8_REL_L2,
+                      "atol": testing.INT8_ATOL, "rtol": testing.INT8_RTOL})
+        if not res["ok"]:
+            raise AssertionError(f"q8_matmul_ws_int8 {where}: kernel "
+                                 "disagrees with its plain version")
+        if m == 8192:     # an x-stream product: 24 blocks x 20 evaluations
+            per_request += 24 * SD3_STEPS * t["ms"]
+        if (m, k, n) == (8192, 1536, 6144):
+            summary = {"shape": [m, k, n],
+                       "max_abs_err": res["max_abs_err"], **t}
+    return [_entry("q8_matmul_ws_int8", "quant_matmul",
+                   per_request_ms=per_request, **summary)]
+
+
 def _counts():
     return {**fa.LAUNCHES, **qmm.LAUNCHES}
 
 
-def main_path(s, ckpt, wt, bits, n_req):
-    """``n_req`` txt2img requests through one full-width SD1.5 session of
-    weight type ``wt``; returns the launches of its kernels over the run."""
-    for k, v in [("model", ckpt), ("model-type", "sd1"), ("weight-type", wt),
-                 ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
-                 ("method", "euler"), ("scheduler", "uniform")]:
+def _checkpoint(tmp: str, model_type: str) -> str:
+    """A seeded random full-width f16 checkpoint of ``model_type``."""
+    path = os.path.join(tmp, f"{model_type}-random-f16.safetensors")
+    t0 = time.time()
+    testing.write_random_checkpoint(path, api._model_types()[model_type],
+                                    seed=0)
+    phase("main", model=model_type, step="checkpoint",
+          write_s=time.time() - t0, bytes=os.path.getsize(path))
+    return path
+
+
+def _drop(s) -> None:
+    del s._models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sd1_want(bits) -> dict:
+    """The launches of one SD1.5 512^2 request."""
+    want = dict(FLASH_PER_REQUEST)
+    if bits:
+        for kind_, n in QUANT_PER_REQUEST.items():
+            want[f"q{bits}_matmul_{kind_}"] = n
+    return want
+
+
+def sd3_want(s) -> dict:
+    """The launches of one SD3-medium request, the quantized ones counted
+    from the module tree: each quantized linear with the rows it gets (the
+    two text towers once per request on the 2 x 77 tokens of prompt and
+    negative prompt; per MMDiT evaluation, the CFG batch's 2 x 4096 image
+    tokens in the x stream and the final layer, its 2 x 154 context tokens
+    in the context stream and the context embedder, 2 rows in the adaLN
+    and embedders) and the kernel the dispatch gives that product."""
+    want = dict(SD3_FLASH_PER_REQUEST)
+    if not s.qbits:
+        return want
+    img = 2 * (SD3_DIM // 16) ** 2
+    ctx = 2 * 2 * s._mt.clip_p.n_token
+    for prefix, mod in s._models.items():
+        for name, m in mod.named_modules():
+            if not isinstance(m, blocks_mod.QLinear):
+                continue
+            n, k = m.weight_q8.shape
+            if prefix != "mmdit.":
+                rows, times = 2 * s._mt.clip_p.n_token, 1
+            elif "adaLN" in name or name.startswith(("t_", "y_")):
+                rows, times = 2, SD3_STEPS
+            elif ".x_block." in name or name == "final_layer.linear":
+                rows, times = img, SD3_STEPS
+            else:
+                rows, times = ctx, SD3_STEPS
+            plan = (pick_large_m_plan(rows, k, n, 2, percol=True)
+                    if m.weight_scale.dim() == 1 else None)
+            kind_ = ("ws_int8" if plan and plan[0] == "int8ws"
+                     else "ws" if qmm.use_ws(rows, k) else "tile")
+            key = f"q8_matmul_{kind_}"
+            want[key] = want.get(key, 0) + times
+    if want.get("q8_matmul_ws_int8") != SD3_INT8_PER_REQUEST:
+        raise AssertionError(f"the module tree gives {want}")
+    return want
+
+
+def main_path(s, ckpt, model_type, dim, wt, n_req, want_fn):
+    """``n_req`` txt2img requests through one full-width session of
+    ``model_type`` at ``dim``^2 and weight type ``wt``; each request must
+    launch exactly ``want_fn(s)`` (and no other kernel).  Returns the
+    launches of the run."""
+    for k, v in [("model", ckpt), ("model-type", model_type),
+                 ("weight-type", wt), ("image-dim", dim), ("steps", 20),
+                 ("cfg-scale", 7.0), ("method", "euler"),
+                 ("scheduler", "uniform")]:
         s.option_set(k, v)
     t0 = time.time()
     s.setup()
     n_q = sum(isinstance(m, blocks_mod.QLinear)
               for mod in s._models.values() for m in mod.modules())
-    phase("main", path=wt, step="setup", load_s=time.time() - t0,
-          quantized_linears=n_q)
+    n_percol = sum(isinstance(m, blocks_mod.QLinear)
+                   and m.weight_scale.dim() == 1
+                   for mod in s._models.values() for m in mod.modules())
+    phase("main", model=model_type, path=wt, step="setup",
+          load_s=time.time() - t0, quantized_linears=n_q,
+          per_column=n_percol)
     want = dict.fromkeys(_counts(), 0)
-    want.update(FLASH_PER_REQUEST)
-    if bits:
-        for kind_, n in QUANT_PER_REQUEST.items():
-            want[f"q{bits}_matmul_{kind_}"] = n
+    want.update(want_fn(s))
     torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
     qmm.reset_counts()
@@ -272,24 +402,23 @@ def main_path(s, ckpt, wt, bits, n_req):
         secs = time.time() - t0
         got = {k: v - before[k] for k, v in _counts().items()}
         plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
-        phase("main", path=wt, request=i, seed=seed, cold=(i == 0),
-              seconds=secs, launches=got, plain_cuda_calls=plain_calls,
-              image_mean=float(img.mean()), image_std=float(img.std()))
-        if (img.shape != (1, 3, 512, 512) or not np.isfinite(img).all()
+        phase("main", model=model_type, path=wt, request=i, seed=seed,
+              cold=(i == 0), seconds=secs, launches=got,
+              plain_cuda_calls=plain_calls, image_mean=float(img.mean()),
+              image_std=float(img.std()))
+        if (img.shape != (1, 3, dim, dim) or not np.isfinite(img).all()
                 or float(img.std()) == 0.0):
-            raise AssertionError(f"{wt} request {i}: bad image {img.shape}")
+            raise AssertionError(f"{model_type} {wt} request {i}: bad image "
+                                 f"{img.shape}")
         if got != want:
-            raise AssertionError(f"{wt} request {i}: launches {got}, want "
-                                 f"{want}")
+            raise AssertionError(f"{model_type} {wt} request {i}: launches "
+                                 f"{got}, want {want}")
         if plain_calls:
-            raise AssertionError(f"{wt}: a plain version ran on CUDA "
-                                 "tensors on the main path")
-    launches = _counts()
-    phase("main", path=wt,
+            raise AssertionError(f"{model_type} {wt}: a plain version ran on "
+                                 "CUDA tensors on the main path")
+    phase("main", model=model_type, path=wt,
           max_memory_allocated=torch.cuda.max_memory_allocated())
-    if not bits:
-        return {k: launches[k] for k in fa.LAUNCHES}
-    return {k: v for k, v in launches.items() if k.startswith(f"q{bits}")}
+    return _counts()
 
 
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
@@ -302,37 +431,34 @@ def main_path(s, ckpt, wt, bits, n_req):
 # 0; another cuBLAS may sum in another order, and a per-product difference
 # at the kernel limit (4e-3, ``testing.QUANT_REL_L2``) would compound
 # through the UNet about as the attention's 3e-3 did (1.6e-2): 1e-2 holds
-# the first and fails a fault that shows in every product.
+# the first and fails a fault that shows in every product.  SD3: one
+# full-width MMDiT evaluation held to 3e-2 on both paths, the SD3 VAE
+# decode at 1024^2 to the SD1 VAE's limit.
 REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
-              "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2}
+              "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2,
+              "mmdit_v": 3e-2, "mmdit_v_q8_0": 3e-2, "sd3_vae_image": 1.5e-2}
+
+# the kernel wrappers and their plain versions: the plain run of the
+# reference phase swaps them, so both runs take the same dispatch
+PLAIN_ROUTES = {
+    None: {(fa, "flash_attention"): fa.attention_plain,
+           (fa, "flash_attn_fwd_wide"): fa.attention_plain,
+           (fa, "flash_attn_joint"): fa.attention_plain},
+    8: {(qmm, "q8_matmul_tile"): quant.q8_matmul_plain,
+        (qmm, "q8_matmul_ws"): quant.q8_matmul_plain,
+        (qmm, "q8_matmul_ws_int8"): quant.q8_ws_int8_plain},
+    4: {(qmm, "q4_matmul_tile"): quant.q4_matmul_plain,
+        (qmm, "q4_matmul_ws"): quant.q4_matmul_plain},
+}
 
 
-def _unet_input(s):
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen) * 14.6
-    cond = torch.from_numpy(s.tensors["cond"]).cuda().repeat(2, 1, 1)
-    return x, cond
-
-
-def reference_check(s, wt, bits):
-    """One UNet evaluation (CFG batch, first sigma) and, on the bf16 path,
-    one VAE decode of the last request's latent: kernels against the plain
+def _kernels_vs_plain(wt, bits, run) -> None:
+    """``run()`` -> [(output name, tensor)] with the kernels, then again
+    with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for their plain
     versions (the attention on the bf16 path, the quantized matmuls on the
-    others)."""
-    unet, vae = s._models["unet."], s._models["vae."]
-    x, cond = _unet_input(s)
-    lat = torch.from_numpy(s.tensors["latent"]).cuda()
-
-    def run():
-        with torch.no_grad():
-            eps = unet_mod.denoise(unet, x, 14.6, 999.0, cond)
-            return [("unet_eps" + (f"_{wt}" if bits else ""), eps)] + (
-                [] if bits else [("vae_image", vae(lat).float())])
-
+    others); each output held to its ``REF_LIMITS``."""
     kern = run()
-    routes = {(fa, "flash_attention"): fa.attention_plain} if not bits else {
-        (qmm, "q8_dot"): quant.q8_matmul_plain,
-        (qmm, "q4_dot"): quant.q4_matmul_plain}
+    routes = PLAIN_ROUTES[bits]
     saved = {key: getattr(*key) for key in routes}
     for (mod, attr), fn in routes.items():
         setattr(mod, attr, fn)
@@ -355,6 +481,45 @@ def reference_check(s, wt, bits):
               kernel_launches_in_plain_run=_counts())
         if not rel < REF_LIMITS[name]:
             raise AssertionError(f"{name}: kernels vs plain rel L2 {rel}")
+
+
+def reference_check(s, wt, bits):
+    """One UNet evaluation (CFG batch, first sigma) and, on the bf16 path,
+    one VAE decode of the last request's latent."""
+    unet, vae = s._models["unet."], s._models["vae."]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen) * 14.6
+    cond = torch.from_numpy(s.tensors["cond"]).cuda().repeat(2, 1, 1)
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+
+    def run():
+        with torch.no_grad():
+            eps = unet_mod.denoise(unet, x, 14.6, 999.0, cond)
+            return [("unet_eps" + (f"_{wt}" if bits else ""), eps)] + (
+                [] if bits else [("vae_image", vae(lat).float())])
+
+    _kernels_vs_plain(wt, bits, run)
+
+
+def sd3_reference_check(s, wt, bits):
+    """One MMDiT evaluation at the first sigma (1.0) on the CFG batch of
+    the last request's conditioning and, on the bf16 path, one VAE decode
+    of its latent."""
+    mm, vae = s._models["mmdit."], s._models["vae."]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hw = SD3_DIM // 8
+    x = torch.randn(2, 16, hw, hw, device="cuda", generator=gen)
+    cond, label = (torch.from_numpy(np.concatenate(
+        [s.tensors[k], s.tensors["n" + k]])).cuda() for k in ("cond", "label"))
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+
+    def run():
+        with torch.no_grad():
+            v = mmdit_mod.denoise(mm, x, 1.0, 1000.0, cond, label)
+            return [("mmdit_v" + (f"_{wt}" if bits else ""), v)] + (
+                [] if bits else [("sd3_vae_image", vae(lat).float())])
+
+    _kernels_vs_plain(wt, bits, run)
 
 
 def time_shapes(s):
@@ -395,38 +560,49 @@ def time_shapes(s):
           calls=sum(calls.values()))
 
 
+# (model type, tiny geometry, image side, seed): the SD3 one at 512^2 (its
+# largest, a 32 x 32 patch grid) runs the joint kernel in the VAE's
+# mid-block (64 x 64 latent tokens)
+SMALL_CASES = [("sd1", testing.TINY_MODEL_TYPE, 192, 1),
+               ("sd3", testing.TINY_Q_MODEL_TYPE_SD3, 512, 2)]
+
+
 def small_check():
     """Limits: final image PSNR > 30 dB and final latent relative L2 <
     0.1.  The card computes in bf16 (2^-8 relative rounding per op) over
     10 steps; on the CPU the same comparison, bf16 against f32, gives
-    about 39 dB and 0.035."""
+    about 39 dB and 0.035 for SD1."""
     types = api._model_types
-    api._model_types = lambda: {"sd1": testing.TINY_MODEL_TYPE}
-    out, launches = {}, 0
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            ckpt = os.path.join(tmp, "tiny-random-f16.safetensors")
-            testing.write_random_checkpoint(ckpt, testing.TINY_MODEL_TYPE,
-                                            seed=1)
-            for dev in ("cuda", "cpu"):   # bf16 on the card, f32 on the CPU
-                s = api.MLImgSynth(device=dev)
-                for k, v in [("model", ckpt), ("image-dim", 192),
-                             ("steps", 10), ("seed", 5), ("cfg-scale", 7.0),
-                             ("prompt", "a red fox"), ("nprompt", "blurry")]:
-                    s.option_set(k, v)
-                before = sum(fa.LAUNCHES.values())
-                out[dev] = (s.generate(), s.tensors["latent"])
-                launches += sum(fa.LAUNCHES.values()) - before
+        for name, mt, dim, seed in SMALL_CASES:
+            api._model_types = lambda name=name, mt=mt: {name: mt}
+            out, launches = {}, 0
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, "tiny-random-f16.safetensors")
+                testing.write_random_checkpoint(ckpt, mt, seed=seed)
+                for dev in ("cuda", "cpu"):   # bf16 card, f32 CPU
+                    s = api.MLImgSynth(device=dev)
+                    for k, v in [("model", ckpt), ("image-dim", dim),
+                                 ("steps", 10), ("seed", 5),
+                                 ("cfg-scale", 7.0), ("prompt", "a red fox"),
+                                 ("nprompt", "blurry")]:
+                        s.option_set(k, v)
+                    before = sum(fa.LAUNCHES.values())
+                    out[dev] = (s.generate(), s.tensors["latent"])
+                    launches += sum(fa.LAUNCHES.values()) - before
+            (img_g, lat_g), (img_c, lat_c) = out["cuda"], out["cpu"]
+            mse = float(np.mean((np.round(img_g * 255)
+                                 - np.round(img_c * 255)) ** 2))
+            psnr = 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+            rel = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
+            phase("small", model=name, image_dim=dim, psnr_db=psnr,
+                  latent_rel_l2=rel, kernel_launches=launches,
+                  limits={"psnr_db": 30.0, "latent_rel_l2": 0.1})
+            if not (psnr > 30.0 and rel < 0.1 and launches > 0):
+                raise AssertionError(f"tiny {name} model: card and CPU "
+                                     "disagree")
     finally:
         api._model_types = types
-    (img_g, lat_g), (img_c, lat_c) = out["cuda"], out["cpu"]
-    mse = float(np.mean((np.round(img_g * 255) - np.round(img_c * 255)) ** 2))
-    psnr = 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-    rel = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
-    phase("small", psnr_db=psnr, latent_rel_l2=rel, kernel_launches=launches,
-          limits={"psnr_db": 30.0, "latent_rel_l2": 0.1})
-    if not (psnr > 30.0 and rel < 0.1 and launches > 0):
-        raise AssertionError("tiny model: card and CPU disagree")
 
 
 def check_imports():

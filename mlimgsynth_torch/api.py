@@ -1,4 +1,5 @@
-"""Session API (port of ``mlimgsynth_tpu/api.py``), SD1 txt2img slice.
+"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5 and SD3-medium
+txt2img.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -24,8 +25,10 @@ from . import tokenizer as tok_mod
 from . import weights as weights_mod
 from .io.tensorstore import TensorStore
 from .models import clip as clip_mod
+from .models import mmdit as mmdit_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
+from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import SamplerConfig, make_plan, run_sampler
 from .sampling.solvers import SOLVERS
@@ -48,18 +51,41 @@ class MlisError(Exception):
 
 @dataclass
 class ModelTypeDef:
+    """``unet_p`` is the denoiser's parameters: ``UnetParams`` or, for the
+    SD3 family, ``MmditParams`` (``flow``).  ``clip2_p`` is the second text
+    tower (bigG), None for single-tower types."""
     name: str
     clip_p: tok_mod.ClipParams
-    unet_p: unet_mod.UnetParams
+    unet_p: object
     vae_p: vae_mod.VaeParams
     default_dim: int
     default_clip_skip: int
+    clip2_p: Optional[tok_mod.ClipParams] = None
 
 
 def _model_types() -> Dict[str, ModelTypeDef]:
-    """Model types this port runs (tests monkeypatch this table)."""
+    """Model types this port runs (tests monkeypatch this table).  sd3 is
+    SD3-medium (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at
+    clip skip 2 with zero T5 rows, the MMDiT, the 16-channel VAE."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
-                                unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1)}
+                                unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
+            "sd3": ModelTypeDef("sd3", clip_mod.CLIP_VIT_L_14,
+                                mmdit_mod.MMDIT_SD3_MEDIUM, vae_mod.VAE_SD3,
+                                1024, 2, clip_mod.CLIP_VIT_BIGG_14)}
+
+
+def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
+    """The modules the session loads for ``mt``, by parameter-name prefix,
+    on the meta device."""
+    with torch.device("meta"):
+        if not getattr(mt.unet_p, "flow", False):
+            return {"clip.text.": clip_mod.ClipText(mt.clip_p),
+                    "unet.": unet_mod.UNet(mt.unet_p),
+                    "vae.": vae_mod.VaeDecoder(mt.vae_p)}
+        return {"clip.text.": clip_mod.ClipText(mt.clip_p, proj=True),
+                "clip2.text.": clip_mod.ClipText(mt.clip2_p, proj=True),
+                "mmdit.": mmdit_mod.MMDiT(mt.unet_p),
+                "vae.": vae_mod.VaeDecoder(mt.vae_p)}
 
 
 def _id_norm(s: str) -> str:
@@ -119,7 +145,8 @@ class MLImgSynth:
         # per-step latent observer (i_step, latent_nchw)
         self.step_observer: Optional[Callable] = None
         self.tensors: Dict[str, Optional[np.ndarray]] = {
-            k: None for k in ("image", "latent", "cond", "ncond")}
+            k: None for k in ("image", "latent", "cond", "ncond", "label",
+                              "nlabel")}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
         self._loaded = ""
@@ -244,11 +271,12 @@ class MLImgSynth:
                                 "could not detect the model type")
             if self._mt is None:
                 self._option_set("model_type", mt)
-            P = self._mt
-            with torch.device("meta"):
-                models = {"clip.text.": clip_mod.ClipText(P.clip_p),
-                          "unet.": unet_mod.UNet(P.unet_p),
-                          "vae.": vae_mod.VaeDecoder(P.vae_p)}
+            models = build_models(self._mt)
+            # the DiT families store some 8-bit weights per column, decided
+            # for the session's image size (``api.py:1229-1247``)
+            m_hint = (dit_m_hint(self.c["height"] or 1024,
+                                 self.c["width"] or 1024)
+                      if self._flow() else None)
             self._models = {}
             n_q = 0
             for prefix, m in models.items():
@@ -258,7 +286,8 @@ class MLImgSynth:
                     "cpu", self.dtype)
                 if self.qbits:
                     n_q += weights_mod.quantize_linear_weights(
-                        m, prefix, params, self.qbits)
+                        m, prefix, params, self.qbits,
+                        m_hint if prefix == "mmdit." else None)
                 params = {k: v.to(self.device) for k, v in params.items()}
                 self._models[prefix] = weights_mod.load_module(
                     m, prefix, params).eval()
@@ -268,6 +297,9 @@ class MLImgSynth:
         quant = f", {n_q} linears in int{self.qbits}" if self.qbits else ""
         log.info(f"Model loaded: {self.c['model_type']} on {self.device} "
                  f"({self.dtype}{quant}) {{{time.time() - t0:.3f}s}}")
+
+    def _flow(self) -> bool:
+        return bool(getattr(self._mt.unet_p, "flow", False))
 
     # -- generation ---------------------------------------------------------
 
@@ -282,24 +314,52 @@ class MLImgSynth:
             wts.extend([w] * len(t))
         return toks, wts
 
-    @torch.no_grad()
-    def _text_cond(self, pts: List[prompt_mod.PromptText]) -> torch.Tensor:
-        """Conditioning rows for several prompts in one batched encode,
-        emphasis weights applied (ref: mlis_clip_tokens_encode)."""
-        P = self._mt.clip_p
-        raw = [self._prompt_tokens(pt) for pt in pts]
+    def _encode_tower(self, prefix: str, P: tok_mod.ClipParams, raw,
+                      want_feat: bool):
+        """One batched encode of token streams ``raw`` by the tower at
+        ``prefix``, emphasis weights applied (ref: ``_clip_encode_rows``,
+        mlis_clip_tokens_encode).  Flow models condition on one window
+        (``_window_count``).  Returns (hidden f32, pooled feature or
+        None)."""
         n_win = max(len(tok_mod.split_windows(P, t, w)[0]) for t, w in raw)
-        toks, wmat = [], []
+        if self._flow():
+            n_win = 1
+        toks, wmat, fidx = [], [], []
         for t, w in raw:
-            wins, wrows, _ = tok_mod.split_windows(P, t, w, n_window=n_win)
+            wins, wrows, f0 = tok_mod.split_windows(P, t, w, n_window=n_win)
             toks.append(wins[:n_win])
             wmat.append(np.concatenate(wrows[:n_win]))
+            fidx.append(f0)
         tokens = torch.as_tensor(np.asarray(toks, np.int64),
                                  device=self.device)
-        emb = self._models["clip.text."].encode_windows(
-            tokens, self.c["clip_skip"], self._mt.unet_p.clip_norm)
+        emb, feat = self._models[prefix].encode_windows(
+            tokens, self.c["clip_skip"], self._mt.unet_p.clip_norm,
+            torch.as_tensor(fidx, device=self.device) if want_feat else None)
         w = torch.as_tensor(np.asarray(wmat, np.float32), device=self.device)
-        return emb.float() * w[:, :, None]
+        return emb.float() * w[:, :, None], feat
+
+    @torch.no_grad()
+    def _text_cond(self, pts: List[prompt_mod.PromptText]
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(cond, label) rows for several prompts in batched encodes.  SD3
+        (``api.py:1705-1721``): both towers' skip hiddens concatenated on
+        features, zero-padded to the T5 width, then the T5 context's rows,
+        zeros here (the JAX package's mode without ``--t5``); the label is
+        the two pooled features concatenated."""
+        raw = [self._prompt_tokens(pt) for pt in pts]
+        mt = self._mt
+        if not self._flow():
+            return self._encode_tower("clip.text.", mt.clip_p, raw, False)[0], None
+        emb1, feat1 = self._encode_tower("clip.text.", mt.clip_p, raw, True)
+        emb2, feat2 = self._encode_tower("clip2.text.", mt.clip2_p, raw, True)
+        d_ctx = mt.unet_p.d_ctx_in
+        clip_part = torch.cat([emb1, emb2], dim=-1)
+        clip_part = torch.nn.functional.pad(
+            clip_part, (0, d_ctx - clip_part.shape[-1]))
+        t5_part = torch.zeros(len(pts), mt.clip_p.n_token, d_ctx,
+                              device=self.device)
+        return (torch.cat([clip_part, t5_part], dim=1),
+                torch.cat([feat1, feat2], dim=-1))
 
     def generate(self) -> np.ndarray:
         """Run txt2img with the current options; returns the image."""
@@ -311,23 +371,36 @@ class MLImgSynth:
         latent = np.zeros((n, self._mt.vae_p.ch_z, c["height"] // f,
                            c["width"] // f), np.float32)
         use_cfg = c["cfg_scale"] > 1
-        cond = self._text_cond([self.prompt, self.nprompt] if use_cfg
-                               else [self.prompt])
-        cond_all = torch.repeat_interleave(cond, n, dim=0)  # [cond xn; uncond xn]
+        cond, label = self._text_cond([self.prompt, self.nprompt] if use_cfg
+                                      else [self.prompt])
+        # [cond xn; uncond xn]
+        cond_all = torch.repeat_interleave(cond, n, dim=0)
+        label_all = (None if label is None
+                     else torch.repeat_interleave(label, n, dim=0))
+        flow = self._flow()
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
-                             n_step=c["steps"], cfg_scale=c["cfg_scale"])
+                             n_step=c["steps"], cfg_scale=c["cfg_scale"],
+                             flow_shift=self._mt.unet_p.flow_shift if flow
+                             else 0.0)
         plan = make_plan(scfg, latent.shape, self.rng, 2 if use_cfg else 1)
         with torch.no_grad():
-            x = run_sampler(self._models["unet."], latent, plan, cond_all,
-                            scfg, step_observer=self.step_observer)
+            x = run_sampler(self._models["mmdit." if flow else "unet."],
+                            latent, plan, cond_all, scfg,
+                            step_observer=self.step_observer,
+                            label_all=label_all)
             if not torch.isfinite(x).all():
-                raise MlisError(MlisError.E_NAN, "NaN found in UNet output")
+                raise MlisError(MlisError.E_NAN, "NaN found in the "
+                                + ("MMDiT" if flow else "UNet") + " output")
             img = self._models["vae."](x).float()
             # C-cast truncation to u8, as the reference's tensor_to_image
             u8 = ((img + 1.0) * (255.0 / 2.0)).clamp(0.0, 255.0).to(torch.uint8)
         self.tensors["latent"] = x.cpu().numpy()
         self.tensors["cond"] = cond[:1].cpu().numpy()
         self.tensors["ncond"] = cond[1:].cpu().numpy() if use_cfg else None
+        if label is not None:
+            self.tensors["label"] = label[:1].cpu().numpy()
+            self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
+                                      else None)
         self.tensors["image"] = u8.cpu().numpy().astype(np.float32) / 255.0
         self._prompt_clear()
         log.info(f"Generation done {{{time.time() - t_start:.3f}s}}")

@@ -1,6 +1,6 @@
-// Weight-only quantized matmul kernels for Hopper (sm_90a).
+// Quantized matmul kernels for Hopper (sm_90a).
 //
-// All four entry points compute y[M, N] = x[M, K] . deq(W)^T with bf16 x and
+// The four weight-only entry points compute y[M, N] = x[M, K] . deq(W)^T with bf16 x and
 // y, an f32 accumulator, and deq(W)[n, k] = bf16_rn(q[n, k] * s[n, k / 128]):
 // the weight is dequantized in f32 and rounded to bf16 before the product,
 // exactly where the plain version (ops/quant.py) and the JAX package round
@@ -47,8 +47,39 @@
 //     these shapes); each weight is dequantized once per M range instead of
 //     once per M tile.  The x loads of the next (tile, group) step overlap
 //     the products of the current one, as in _tile.
-// No TMA/wgmma pipeline, no double-buffered shared memory and no
-// warp specialisation yet.
+//
+//   q8_matmul_ws_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py
+//                      q8_matmul_ws_int8 / _q8_ws_int8_kernel (K7): W8A8
+//                      with per-column weight scales.  x bf16 [M, K], W
+//                      int8 [N, K] quantized per output column, s_col f32
+//                      [N]; for each row and each K slab of _ws_slab(K)
+//                      (1024, 512 or 256 where K divides, else K), amax over
+//                      the slab in f32, inv = 127 / amax (0 where amax is
+//                      0), xq = rint(x * inv) (half to even); the int8 x
+//                      int8 product of the slab sums exactly in int32; the
+//                      slabs fold into an f32 sum in slab order as
+//                      acc + float(dot) * (amax * (1/127)), with no fused
+//                      multiply-add, exactly as the reference's kernel and
+//                      its XLA twin round; y = bf16_rn(acc * s_col[n]).
+//   What bounds it: at the SD3-medium x-stream products (M = 8192, K = 1536
+//   or 6144) 2*M*N*K integer operations against x (2 bytes), W (1 byte) and
+//   y (2 bytes) once: far above the ridge, so the int8 tensor-core rate
+//   (1,979 TOP/s) is the floor.  What the design has to avoid is quantizing
+//   the same activations many times over (an f32 multiply, a convert and a
+//   byte pack per value, on the CUDA cores): a first version that quantized
+//   x inside every 64 x 64 output tile ran at 4% of the int8 rate.  So two
+//   kernels run per call:
+//   * quant_rows: one warp per (row, slab) takes the slab's amax and writes
+//     the int8 row slab and its amax to scratch the wrapper allocates (x is
+//     read twice and xq written once: memory-bound, a few microseconds);
+//   * qmm_i8: one block per 128 x 128 output tile, 8 warps of 64 x 32 on
+//     mma.sync.m16n8k32 (s8 in, s32 accumulate); K walks in 64-byte chunks
+//     staged by cp.async into two shared-memory buffers, the next chunk's
+//     copy in flight during the products of the current one; at each slab's
+//     end the int32 sums fold into the f32 accumulator with the rows' amax.
+//
+// No TMA/wgmma pipeline and no warp specialisation yet; only qmm_i8 double
+// buffers its shared memory.
 // The TPU artifacts (sublane-padded [g, 8, bn] scales, the VMEM/HBM cost
 // model choosing a geometry, grid-carried accumulators) are not carried over.
 
@@ -410,6 +441,211 @@ int launch_ws(const Args& a, int bn, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// K7: W8A8 product with per-column weight scales
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_s32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the two bf16 of a 32-bit word as f32
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Pass 1.  xq[m, k] = rint(x[m, k] * (127 / amax)) and amax[m, k / slab],
+// one warp per (row, slab), lanes striding the slab in 8-value vectors.
+constexpr int kQuantWarps = 8;
+
+__global__ void __launch_bounds__(32 * kQuantWarps)
+quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
+                  float* __restrict__ amax, int m, int k, int slab) {
+  const int n_slab = k / slab;
+  const long long job = (long long)blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
+  if (job >= (long long)m * n_slab) return;   // whole warps
+  const int lane = threadIdx.x & 31;
+  const long long off = (job / n_slab) * k + (job % n_slab) * slab;
+  const bf16* xr = x + off;
+  float mx = 0.f;
+  for (int c = lane * 8; c < slab; c += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx = fmaxf(mx, fmaxf(fabsf(bf_lo(words[e])), fabsf(bf_hi(words[e]))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  const float inv = mx > 0.f ? __fdiv_rn(127.f, mx) : 0.f;
+  for (int c = lane * 8; c < slab; c += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t wd = words[e >> 1];
+      const float f = (e & 1) ? bf_hi(wd) : bf_lo(wd);
+      const int q = __float2int_rn(__fmul_rn(f, inv));
+      packed[e >> 2] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (e & 3));
+    }
+    *reinterpret_cast<uint2*>(xq + off + c) = make_uint2(packed[0], packed[1]);
+  }
+  if (lane == 0) amax[job] = mx;
+}
+
+// Pass 2: the int8 product with the slab fold and the column scales.
+constexpr int kI8BM = 128, kI8BN = 128;  // output tile
+constexpr int kI8BK = 64;                // K bytes per staged chunk
+constexpr int kI8LD = kI8BK + 16;        // shared row stride: conflict-free 32-bit fragments
+constexpr int kI8Threads = 256;          // 8 warps, 2 x 4 of 64 x 32
+
+struct I8Args {
+  const int8_t* xq;    // [M, K]
+  const float* amax;   // [M, K / slab]
+  const int8_t* w;     // [N, K]
+  const float* s;      // [N]
+  bf16* y;             // [M, N]
+  int m, n, k, slab;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Start the copies of K bytes [kc, kc + 64) of the block's x and weight
+// rows; rows past M or N are zero-filled (from a valid address).
+__device__ __forceinline__ void i8_stage(int8_t* sx, int8_t* sw, const I8Args& a, int m0,
+                                         int n0, int kc) {
+#pragma unroll
+  for (int j = 0; j < kI8BM * kI8BK / 16 / kI8Threads; ++j) {
+    const int i = threadIdx.x + j * kI8Threads;
+    const int r = i >> 2, c = (i & 3) * 16;
+    const int m = m0 + r, n = n0 + r;
+    cp_async16(sx + r * kI8LD + c, a.xq + (long long)(m < a.m ? m : 0) * a.k + kc + c, m < a.m);
+    cp_async16(sw + r * kI8LD + c, a.w + (long long)(n < a.n ? n : 0) * a.k + kc + c, n < a.n);
+  }
+}
+
+__global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
+  __shared__ __align__(16) int8_t sx[2][kI8BM * kI8LD];
+  __shared__ __align__(16) int8_t sw[2][kI8BN * kI8LD];
+  const int m0 = blockIdx.x * kI8BM, n0 = blockIdx.y * kI8BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm0 = (warp >> 2) * 64, wn0 = (warp & 3) * 32;
+  const int n_chunks = a.k / kI8BK, per_slab = a.slab / kI8BK, n_slab = a.k / a.slab;
+  float acc[4][4][4];
+  int iacc[4][4][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) iacc[mi][ni][0] = iacc[mi][ni][1] = iacc[mi][ni][2] = iacc[mi][ni][3] = 0;
+  i8_stage(sx[0], sw[0], a, m0, n0, 0);
+  cp_async_commit();
+  if (n_chunks > 1) i8_stage(sx[1], sw[1], a, m0, n0, kI8BK);
+  cp_async_commit();
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait_1();   // chunk c has landed (one later group may be in flight)
+    __syncthreads();
+    const int8_t* bx = sx[c & 1];
+    const int8_t* bw = sw[c & 1];
+#pragma unroll
+    for (int kk = 0; kk < kI8BK; kk += 32) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        const int8_t* pa = bx + (wm0 + mi * 16 + g) * kI8LD + kk + 4 * t;
+        af[mi][0] = ld_s32(pa);
+        af[mi][1] = ld_s32(pa + 8 * kI8LD);
+        af[mi][2] = ld_s32(pa + 16);
+        af[mi][3] = ld_s32(pa + 8 * kI8LD + 16);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int8_t* pb = bw + (wn0 + ni * 8 + g) * kI8LD + kk + 4 * t;
+        const uint32_t b0 = ld_s32(pb), b1 = ld_s32(pb + 16);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+          mma_s8(iacc[mi][ni], af[mi][0], af[mi][1], af[mi][2], af[mi][3], b0, b1);
+      }
+    }
+    if ((c + 1) % per_slab == 0) {
+      // fold the slab, in slab order: acc + float(dot) * (amax * (1/127))
+      const int sb = c / per_slab;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + wm0 + mi * 16 + g + 8 * r;
+          const float sc =
+              row < a.m ? __fmul_rn(a.amax[(long long)row * n_slab + sb], 1.f / 127.f) : 0.f;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int& d = iacc[mi][ni][2 * r + e];
+              acc[mi][ni][2 * r + e] =
+                  __fadd_rn(acc[mi][ni][2 * r + e], __fmul_rn(__int2float_rn(d), sc));
+              d = 0;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with buffer c & 1
+    if (c + 2 < n_chunks) i8_stage(sx[c & 1], sw[c & 1], a, m0, n0, (c + 2) * kI8BK);
+    cp_async_commit();   // possibly empty: keeps one group per chunk
+  }
+  // y = bf16_rn(acc * s_col)
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = n0 + wn0 + ni * 8 + 2 * t + e;
+      const float sc = col < a.n ? a.s[col] : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        acc[mi][ni][e] = __fmul_rn(acc[mi][ni][e], sc);
+        acc[mi][ni][2 + e] = __fmul_rn(acc[mi][ni][2 + e], sc);
+      }
+    }
+  }
+  const Args ya = {nullptr, nullptr, nullptr, a.y, a.m, a.n, a.k};
+  store_tile(acc, ya, m0 + wm0, n0 + wn0);
+}
+
+int launch_ws_int8(const bf16* x, const I8Args& a, int8_t* xq, float* amax,
+                   cudaStream_t stream) {
+  if (bad_shape(a.m, a.n, a.k) || a.slab <= 0 || a.slab % kGroup != 0 || a.k % a.slab != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long jobs = (long long)a.m * (a.k / a.slab);
+  const long long q_blocks = (jobs + kQuantWarps - 1) / kQuantWarps;
+  const dim3 grid((a.m + kI8BM - 1) / kI8BM, (a.n + kI8BN - 1) / kI8BN);
+  if (q_blocks > 0x7fffffffLL || grid.y > 65535) return (int)cudaErrorInvalidValue;
+  quant_rows_kernel<<<(unsigned)q_blocks, 32 * kQuantWarps, 0, stream>>>(x, xq, amax, a.m, a.k,
+                                                                       a.slab);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  qmm_i8_kernel<<<grid, kI8Threads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [M, K] bf16, w int8 ([N, K] q8 / [N, K / 2] q4), s [N, K / 128] f32,
@@ -435,4 +671,25 @@ extern "C" int q8_matmul_ws(const void* x, const void* w, const void* s, void* y
 extern "C" int q4_matmul_ws(const void* x, const void* w, const void* s, void* y, int m,
                             int n, int k, int bn, void* stream) {
   return launch_ws<4>(make_args(x, w, s, y, m, n, k), bn, static_cast<cudaStream_t>(stream));
+}
+
+// x [M, K] bf16, w int8 [N, K] (per-column quantized), s f32 [N], y [M, N]
+// bf16, all contiguous with 16-byte aligned bases; scratch the caller
+// allocates: xq int8 [M, K] and amax f32 [M, K / slab]; slab = _ws_slab(K),
+// a multiple of 128 that divides K.  Returns the cudaError_t of the
+// launches.
+extern "C" int q8_matmul_ws_int8(const void* x, const void* w, const void* s, void* y, void* xq,
+                                 void* amax, int m, int n, int k, int slab, void* stream) {
+  I8Args a;
+  a.xq = static_cast<const int8_t*>(xq);
+  a.amax = static_cast<const float*>(amax);
+  a.w = static_cast<const int8_t*>(w);
+  a.s = static_cast<const float*>(s);
+  a.y = static_cast<bf16*>(y);
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.slab = slab;
+  return launch_ws_int8(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
+                        static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
 }

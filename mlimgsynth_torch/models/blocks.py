@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import quant_matmul as qmm
-from ..ops.attention import attention
+from ..ops.attention import attention_t
 
 
 # ---------------------------------------------------------------------------
@@ -56,22 +56,25 @@ class QLinear(nn.Module):
     branch of ``linear``, ``mlimgsynth_tpu/models/blocks.py:110-131``).
 
     Buffers ``weight_q8`` (int8 [out, in]) or ``weight_q4`` (packed int8
-    [out, in/2]) and ``weight_scale`` (f32 [out, in/128]); the bias stays in
-    the compute dtype and is added after the product.  The product goes to
-    ``ops/quant_matmul``: a CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors."""
+    [out, in/2]) and ``weight_scale``: f32 [out, in/128], or f32 [out] for
+    an 8-bit weight stored per column (``percol``, the DiT families' W8A8
+    candidates).  The bias stays in the compute dtype and is added after
+    the product.  The product goes to ``ops/quant_matmul``: a CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors."""
 
-    def __init__(self, n_in: int, n_out: int, bits: int, bias: bool = True):
+    def __init__(self, n_in: int, n_out: int, bits: int, bias: bool = True,
+                 percol: bool = False):
         super().__init__()
-        if bits not in (4, 8) or n_in % 128:
-            raise ValueError(f"QLinear: {bits}-bit, input width {n_in}")
+        if bits not in (4, 8) or n_in % 128 or (percol and bits != 8):
+            raise ValueError(f"QLinear: {bits}-bit, input width {n_in}, "
+                             f"per column {percol}")
         self.bits = bits
         self.register_buffer(
             "weight_q4" if bits == 4 else "weight_q8",
             torch.empty(n_out, n_in // 2 if bits == 4 else n_in,
                         dtype=torch.int8))
-        self.register_buffer("weight_scale",
-                             torch.empty(n_out, n_in // 128))
+        self.register_buffer("weight_scale", torch.empty(
+            (n_out,) if percol else (n_out, n_in // 128)))
         self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
 
     def forward(self, x):
@@ -84,23 +87,38 @@ class QLinear(nn.Module):
 
 def conv2d(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
            pad: int = 1, bias: bool = True) -> nn.Conv2d:
-    """ref: mlb_nn_conv2d.  Weight OIHW, symmetric zero padding."""
+    """ref: mlb_nn_conv2d.  Weight OIHW, symmetric zero padding;
+    ``kernel=stride=p, pad=0`` is the DiT's patchify."""
     return nn.Conv2d(ch_in, ch_out, kernel, stride=stride, padding=pad,
                      bias=bias)
 
 
 class LayerNorm(nn.Module):
-    """ref: mlb_nn_layer_norm.  Normalizes the last dim; f32 statistics."""
+    """ref: mlb_nn_layer_norm.  Normalizes the last dim; f32 statistics.
+    ``affine=False`` has no parameters (the MMDiT's norms, eps 1e-6)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(dim))
+            self.bias = nn.Parameter(torch.zeros(dim))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x):
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        w = None if self.weight is None else self.weight.float()
+        b = None if self.bias is None else self.bias.float()
+        return F.layer_norm(x.float(), x.shape[-1:], w, b,
+                            self.eps).to(x.dtype)
+
+
+def modulate(x, shift, scale):
+    """adaLN modulation (``mlimgsynth_tpu/models/mmdit.py:87-90``): shift
+    and scale are f32 [N, d], x is [N, S, d] in the compute dtype."""
+    dt = x.dtype
+    return (x * (1.0 + scale[:, None, :]).to(dt)
+            + shift[:, None, :].to(dt))
 
 
 class GroupNorm(nn.Module):
@@ -192,7 +210,9 @@ class FeedForward(nn.Module):
 
 class AttnMHead(nn.Module):
     """ref: mlb_attn_mhead.  q: [N, Sq, d_q], kv: [N, Sk, d_kv] ->
-    [N, Sq, d_out]; ``mask`` makes it causal."""
+    [N, Sq, d_out]; ``mask`` makes it causal.  The attention takes the
+    route of the JAX package's ``attention_t`` (the flash gate, never the
+    large-S K3 gate), as ``attn_mhead`` sends the UNet's self-attention."""
 
     def __init__(self, d_q: int, d_kv: int, d_out: int, d_embed: int,
                  n_head: int, bias: bool = False, bias_out: bool = True):
@@ -211,8 +231,8 @@ class AttnMHead(nn.Module):
         def heads(t, s):    # [N, S, H*D] -> [N, H, S, D] view
             return t.view(n, s, h, -1).transpose(1, 2)
 
-        o = attention(heads(self.q_proj(x), sq), heads(self.k_proj(kv), sk),
-                      heads(self.v_proj(kv), sk), causal=mask)
+        o = attention_t(heads(self.q_proj(x), sq), heads(self.k_proj(kv), sk),
+                        heads(self.v_proj(kv), sk), causal=mask)
         return self.out_proj(o.transpose(1, 2).reshape(n, sq, -1))
 
 

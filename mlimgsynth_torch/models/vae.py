@@ -9,6 +9,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -28,9 +29,17 @@ class VaeParams:
     d_embed: int = 4
     f_down: int = 8
     scale_factor: float = 0.18215
+    # latent shift (z_model = (z - shift) * scale; SD3's VAE uses 0.0609)
+    shift_factor: float = 0.0
+    # SD1's VAE wraps the latent in a 1x1 post-quant conv; SD3's drops it
+    quant_conv: bool = True
 
 
 VAE_SD1 = VaeParams(scale_factor=0.18215)
+# SD3 family: 16-channel latent, shift factor, no quant convs
+# (``mlimgsynth_tpu/models/vae.py:42-43``)
+VAE_SD3 = VaeParams(ch_z=16, d_embed=16, scale_factor=1.5305,
+                    shift_factor=0.0609, quant_conv=False)
 
 
 class Attn2dSelf(nn.Module):
@@ -100,16 +109,24 @@ class KlDecoder(nn.Module):
 
 
 class VaeDecoder(nn.Module):
-    """latent [N, 4, h, w] (scaled) -> image [N, 3, 8h, 8w] in [-1, 1]
-    (ref: mlb_sdvae_decoder).  Names below the ``vae.`` prefix."""
+    """latent [N, ch_z, h, w] (scaled) -> image [N, 3, 8h, 8w] in [-1, 1]
+    (ref: mlb_sdvae_decoder, ``vae_decode_apply``,
+    ``mlimgsynth_tpu/models/vae.py:115-125``).  Names below the ``vae.``
+    prefix."""
 
     def __init__(self, P: VaeParams):
         super().__init__()
         self.P = P
-        self.post_quant_conv = B.conv2d(P.ch_z, P.d_embed, 1, 1, 0)
+        if P.quant_conv:
+            self.post_quant_conv = B.conv2d(P.ch_z, P.d_embed, 1, 1, 0)
         self.decoder = KlDecoder(P)
 
     def forward(self, latent):
-        x = latent.to(self.post_quant_conv.weight.dtype) * (
-            1.0 / self.P.scale_factor)
-        return self.decoder(self.post_quant_conv(x))
+        P = self.P
+        dtype = self.decoder.conv_in.weight.dtype
+        x = latent.to(dtype) * (1.0 / P.scale_factor)
+        if P.shift_factor:
+            x = x + torch.tensor(P.shift_factor, dtype=torch.float32).to(dtype)
+        if P.quant_conv:
+            x = self.post_quant_conv(x)
+        return self.decoder(x)

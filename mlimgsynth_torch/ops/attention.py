@@ -1,10 +1,11 @@
 """Attention: the plain softmax path and the flash-kernel dispatch.
 
 Port of ``mlimgsynth_tpu/ops/attention.py`` (``attention_xla``,
-``attention``).  Large non-causal self-attention goes to the hand-written
-CUDA flash kernels (``ops/flash_attention.py``); everything else (the 77-token
-cross-attention, CLIP's causal attention, the UNet's 256- and 64-token
-levels) runs the plain softmax, as the JAX package runs ``attention_xla``.
+``attention``, ``attention_t``).  Large non-causal attention goes to the
+hand-written CUDA flash kernels (``ops/flash_attention.py``); everything else
+(the 77-token cross-attention, CLIP's causal attention, the UNet's 256- and
+64-token levels) runs the plain softmax, as the JAX package runs
+``attention_xla``.
 """
 from __future__ import annotations
 
@@ -40,8 +41,51 @@ def flash_attention_compatible(q, k, v, causal: bool = False) -> bool:
             and q.shape[-2] >= 512 and k.shape[-2] >= 512)
 
 
+# the large-S floor of the K3 gate (``stock_flash.eligible``'s ``sk >= 2048``)
+STOCK_MIN_S = 2048
+
+
+def stock_eligible(q, k, v, causal: bool = False) -> bool:
+    """The K3 gate in its auto mode (``stock_flash.eligible``,
+    ``mlimgsynth_tpu/ops/stock_flash.py:136-165``): non-causal self or joint
+    attention (Sq == Sk, v shaped like k), bf16, d <= 128 or a multiple of
+    128, S >= 2048.  Its VMEM-promotion and q-padding rules (``_padded_sq``,
+    ``_MAX_QPAD``) and its small-S UNet regime are TPU artifacts: the padded
+    q rows are sliced off and the padded kv columns masked, so they change
+    no number."""
+    if causal or q.dim() != 4:
+        return False
+    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
+    if sq != sk or v.shape[-2] != sk or v.shape[-1] != d:
+        return False
+    if q.dtype != torch.bfloat16 or (d > 128 and d % 128):
+        return False
+    return sk >= STOCK_MIN_S
+
+
 def attention(q, k, v, scale=None, causal: bool = False):
-    """Route to a flash kernel where the gate allows, else the plain path."""
+    """Route to a flash kernel where a gate allows, else the plain path.
+
+    In the JAX package's order (``attention.py:172-199``): the K3 gate
+    first, then the flash gate.  Past the K3 gate, head dims up to 128 run
+    :func:`flash_attn_joint`; wider ones (the VAE mid-block's single
+    512-wide head) run :func:`flash_attn_fwd_wide`, which computes the same
+    function."""
+    if stock_eligible(q, k, v, causal):
+        if q.shape[-1] <= 128:
+            return fa.flash_attn_joint(q, k, v, scale)
+        return fa.flash_attn_fwd_wide(q, k, v, scale)
+    if flash_attention_compatible(q, k, v, causal):
+        return fa.flash_attention(q, k, v, scale)
+    return attention_xla(q, k, v, scale=scale, causal=causal)
+
+
+def attention_t(q, k, v, scale=None, causal: bool = False):
+    """The route of the JAX package's ``attention_t``
+    (``attention.py:237-262``), which ``attn_mhead`` takes for the UNet's
+    large self-attention: the flash gate only, never the K3 gate.  The port
+    keeps v in its natural layout (the transposed-v layout is a TPU
+    artifact)."""
     if flash_attention_compatible(q, k, v, causal):
         return fa.flash_attention(q, k, v, scale)
     return attention_xla(q, k, v, scale=scale, causal=causal)

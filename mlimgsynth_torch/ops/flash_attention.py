@@ -1,7 +1,7 @@
 """Flash-attention wrappers around the CUDA kernels in
 ``csrc/flash_attention.cu``.
 
-Two kernels, both online-softmax forward passes over the natural
+Three kernels, all online-softmax forward passes over the natural
 [B, H, S, D] layout in bf16 (see the source note in the .cu file):
 
 * :func:`flash_attn_fwd` (D <= 128) replaces the JAX package's
@@ -10,6 +10,10 @@ Two kernels, both online-softmax forward passes over the natural
 * :func:`flash_attn_fwd_wide` (128 < D <= 512) replaces
   ``flash_attention`` (``:353``, kernel ``_flash_kernel``): the VAE
   mid-block's single 512-wide head.
+* :func:`flash_attn_joint` (D <= 128, 128-row q tiles) replaces
+  ``stock_flash`` (``mlimgsynth_tpu/ops/stock_flash.py:177``, JAX's TPU
+  flash kernel, K3) and ``splash_flash`` (``ops/splash_flash.py:114``, K4):
+  the MMDiT joint attention over text and image tokens.
 
 A wrapper given CPU tensors runs :func:`attention_plain`, the kernels' plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.  Each
@@ -25,7 +29,8 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 0}
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 0,
+            "flash_attn_joint": 0}
 PLAIN_CUDA_CALLS = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -51,7 +56,8 @@ def attention_plain(q, k, v, scale=None):
 
 def _lib():
     lib = _build.load("flash_attention")
-    for fn in (lib.flash_attn_fwd, lib.flash_attn_fwd_wide):
+    for fn in (lib.flash_attn_fwd, lib.flash_attn_fwd_wide,
+               lib.flash_attn_joint):
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return lib
@@ -118,6 +124,15 @@ def flash_attn_fwd_wide(q, k, v, scale=None):
     if not q.is_cuda:
         return attention_plain(q, k, v, scale)
     return _launch("flash_attn_fwd_wide", q, k, v, scale, 128, 512)
+
+
+def flash_attn_joint(q, k, v, scale=None):
+    """As :func:`flash_attn_fwd` (head dim <= 128) with 128-row q tiles:
+    the large-S self- and joint-attention route (``attention``'s K3
+    gate)."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, scale)
+    return _launch("flash_attn_joint", q, k, v, scale, 0, 128)
 
 
 def flash_attention(q, k, v, scale=None):

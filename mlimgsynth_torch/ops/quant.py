@@ -15,9 +15,14 @@ j + 64 in its high nibble.
 ``q8_matmul_plain`` / ``q4_matmul_plain`` are the plain versions of the CUDA
 kernels in ``ops/quant_matmul.py``: the function of the JAX package's
 ``q8_matmul_xla`` / ``q4_matmul_xla`` (dequantize in f32, round the weight to
-``x.dtype``, one product in ``x.dtype``).  ``PLAIN_CUDA_CALLS`` counts their
-calls on CUDA tensors (a comparison with a kernel makes them; the main path
-never does).
+``x.dtype``, one product in ``x.dtype``).  ``q8_ws_int8_plain`` is the plain
+version of the W8A8 kernel on per-column weights (``q8_ws_int8_xla``).
+``PLAIN_CUDA_CALLS`` counts their calls on CUDA tensors (a comparison with a
+kernel makes them; the main path never does).
+
+Per-column storage (the DiT families' int8 weight-stationary route):
+``percol_from_blocks`` turns a stored per-block pair into int8 [N, K] with
+f32 scales [N], as ``mlimgsynth_tpu/ops/q8_matmul.py:347-374`` does.
 """
 from __future__ import annotations
 
@@ -85,3 +90,77 @@ def q8_matmul_plain(x, w_q8, w_scale):
 def q4_matmul_plain(x, w_q4, w_scale):
     """As :func:`q8_matmul_plain` with packed q4 weights [N, K/2]."""
     return _dequant_matmul(x, unpack_q4(w_q4), w_scale)
+
+
+def percol_from_blocks(q: np.ndarray, s_block: np.ndarray):
+    """A per-block q8 pair (int8 [N, K], f32 [N, K/128]) -> (int8 [N, K],
+    f32 scales [N], scale_ratio), bit for bit the JAX package's
+    ``percol_from_blocks`` (``q8_matmul.py:347-374``) on the transposes.
+    ``scale_ratio`` is the worst column's ``s_col / median block scale``:
+    how many per-block steps one per-column step swallows for the column's
+    typical block (``PERCOL_MAX_SCALE_RATIO`` bounds it)."""
+    n, k = q.shape
+    w = (q.astype(np.float32).reshape(n, k // KBLOCK, KBLOCK)
+         * s_block[:, :, None]).reshape(n, k)
+    amax = np.abs(w).max(axis=1)
+    s_col = (amax / 127.0).astype(np.float32)
+    q2 = np.clip(np.round(w / np.maximum(s_col, 1e-30)[:, None]), -127, 127)
+    med = np.maximum(np.median(s_block, axis=1), 1e-30)
+    ratio = float(np.max(s_col / med))
+    return q2.astype(np.int8), s_col, ratio
+
+
+# worst-column s_col / median block scale allowed before a weight stays
+# per-block (the bits lost on the column's typical block: 8 -> 3)
+PERCOL_MAX_SCALE_RATIO = 8.0
+
+
+def _ws_slab(k: int):
+    """The K slab of the W8A8 kernel's per-token activation scales
+    (``q8_matmul.py:427-430``): 1024, 512 or 256 where it divides K, else K
+    up to 4096, else None."""
+    cands = [c for c in (1024, 512, 256) if k % c == 0]
+    return cands[0] if cands else (k if k <= 4096 else None)
+
+
+def quantize_slabs(x, slab: int):
+    """x [..., K] -> (xq [M, K/slab, slab], amax [M, K/slab, 1]): the
+    per-(row, slab) int8 activations, as integer-valued f32, and their
+    amax; ``inv = 127 / amax`` (0 where amax is 0), ``round`` half to
+    even."""
+    x2 = x.reshape(-1, x.shape[-1] // slab, slab).float()
+    amax = x2.abs().amax(dim=2, keepdim=True)
+    # a true division: ``127.0 / amax`` would take the reciprocal and then
+    # multiply, which rounds twice
+    inv = torch.where(amax > 0, amax.new_tensor(127.0) / amax,
+                      torch.zeros_like(amax))
+    return torch.round(x2 * inv), amax
+
+
+def q8_ws_int8_plain(x, w_q8, s_col, slab=None):
+    """x [..., K] . (w_q8 [N, K] int8 per column, s_col [N] f32) -> [..., N]
+    in x.dtype, the function of ``q8_ws_int8_xla`` (``q8_matmul.py:
+    487-501``): per (row, slab) amax in f32, ``inv = 127 / amax`` (0 where
+    amax is 0), ``round(x * inv)`` half to even; the integer product of each
+    slab; ``* amax / 127``; the slabs added in slab order; ``* s_col``.
+
+    The integer product runs as a float matmul of the int8-valued operands:
+    exact in f32 while 127^2 * slab < 2^24 (slab <= 1040), else in f64
+    (there is no int32 matmul on CUDA)."""
+    global PLAIN_CUDA_CALLS
+    if x.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    n, k = w_q8.shape
+    slab = slab or _ws_slab(k)
+    nb = k // slab
+    ct = torch.float32 if 127 * 127 * slab < 2 ** 24 else torch.float64
+    xq, amax = quantize_slabs(x, slab)
+    xq = xq.to(ct)
+    wq = w_q8.reshape(n, nb, slab).to(ct)
+    sx = amax[:, :, 0] * (1.0 / 127.0)
+    acc = None
+    for b in range(nb):
+        part = torch.matmul(xq[:, b], wq[:, b].t()).float() * sx[:, b, None]
+        acc = part if acc is None else acc + part
+    out = acc * s_col.float()[None, :]
+    return out.to(x.dtype).reshape(x.shape[:-1] + (n,))

@@ -1,8 +1,8 @@
-"""Weight-only quantized matmul wrappers around the CUDA kernels in
+"""Quantized matmul wrappers around the CUDA kernels in
 ``csrc/quant_matmul.cu``, and their dispatch.
 
-Four kernels compute y = x . deq(W)^T (bf16 x and y, f32 accumulate; see the
-source note in the .cu file):
+Four weight-only kernels compute y = x . deq(W)^T (bf16 x and y, f32
+accumulate; see the source note in the .cu file):
 
 * :func:`q8_matmul_tile` replaces the JAX package's ``q8_matmul``
   (``mlimgsynth_tpu/ops/q8_matmul.py:76``, Pallas kernel ``_q8_kernel``);
@@ -13,10 +13,20 @@ source note in the .cu file):
 * :func:`q4_matmul_ws` replaces ``q4_matmul_ws`` (``:186``,
   ``_q4_ws_kernel``).
 
+A fifth, :func:`q8_matmul_ws_int8`, replaces ``q8_matmul_ws_int8``
+(``mlimgsynth_tpu/ops/q8_matmul.py:452``, ``_q8_ws_int8_kernel``): W8A8 on
+a weight stored per column (int8 [N, K], scales [N]), the activations
+quantized per (row, K slab) by a first pass into scratch that the wrapper
+allocates (one launch counted per call).
+
 :func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule: the
 weight-stationary kernel when the product has at least ``WS_MIN_M`` rows
 (the JAX package's ``_WS_MIN_M``) and the full-K bf16 stripe fits in shared
-memory (:func:`ws_stripe`), else the tiled kernel.
+memory (:func:`ws_stripe`), else the tiled kernel.  A per-column weight
+first asks the JAX package's plan (``ops/quant_plan.pick_large_m_plan``):
+where it picks ``"int8ws"`` the product runs the W8A8 kernel, otherwise the
+rule above on the scales broadcast to [N, K/128] (``q8_matmul.py:
+675-688``).
 
 A wrapper given a CPU tensor runs the plain version (``ops/quant.py``);
 given CUDA tensors it launches its kernel or raises.  Each launch adds one
@@ -31,9 +41,10 @@ import torch
 
 from . import _build
 from . import quant
+from .quant_plan import pick_large_m_plan
 
 LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
-            "q4_matmul_tile": 0, "q4_matmul_ws": 0}
+            "q4_matmul_tile": 0, "q4_matmul_ws": 0, "q8_matmul_ws_int8": 0}
 
 WS_MIN_M = 2048
 # shared memory one block may use on the H100 (227 KB), and the ws kernel's
@@ -43,6 +54,8 @@ _X_STAGE_BYTES = 64 * 136 * 2
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the W8A8 entry also takes its scratch: int8 x and the (row, slab) amax
+_I8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -69,12 +82,16 @@ def _lib():
     lib = _build.load("quant_matmul")
     for name in LAUNCHES:
         fn = getattr(lib, name)
-        fn.argtypes = _WS_ARGTYPES if name.endswith("_ws") else _TILE_ARGTYPES
+        fn.argtypes = (_TILE_ARGTYPES if name.endswith("_tile")
+                       else _I8_ARGTYPES if name.endswith("_int8")
+                       else _WS_ARGTYPES)
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(name: str, x, w, s, bits: int):
+    """Check the operands and launch kernel ``name``; ``bits`` 4 or 8, and
+    the W8A8 kernel takes per-column scales [N]."""
     if not (x.is_cuda and w.is_cuda and s.is_cuda):
         raise ValueError(f"{name}: x, weight and scales must all be CUDA "
                          "tensors")
@@ -87,12 +104,15 @@ def _launch(name: str, x, w, s, bits: int):
     k = x.shape[-1]
     n = w.shape[0]
     k_w = k // 2 if bits == 4 else k
+    percol = name == "q8_matmul_ws_int8"
+    s_shape = (n,) if percol else (n, k // quant.KBLOCK)
     if (k % quant.KBLOCK or w.dim() != 2 or tuple(w.shape) != (n, k_w)
-            or tuple(s.shape) != (n, k // quant.KBLOCK)):
+            or tuple(s.shape) != s_shape):
         raise ValueError(f"{name}: expected x [..., K] with K a multiple of "
                          f"128, weight [N, {'K/2' if bits == 4 else 'K'}] and "
-                         f"scales [N, K/128]; got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(s.shape)}")
+                         f"scales [{'N' if percol else 'N, K/128'}]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(s.shape)}")
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
     if m == 0 or n == 0:
@@ -104,8 +124,15 @@ def _launch(name: str, x, w, s, bits: int):
     if x2.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"{name}: x and weight base pointers must be "
                          "16-byte aligned")
-    extra = []
-    if name.endswith("_ws"):
+    scratch, extra = [], []
+    if percol:
+        slab = quant._ws_slab(k)
+        if slab is None:
+            raise ValueError(f"{name}: no activation slab for K={k}")
+        scratch = [torch.empty(m, k, dtype=torch.int8, device=x.device),
+                   torch.empty(m, k // slab, device=x.device)]
+        extra = [slab]
+    elif name.endswith("_ws"):
         bn = ws_stripe(k)
         if bn is None:
             raise ValueError(f"{name}: a full-K stripe at K={k} does not fit "
@@ -115,7 +142,9 @@ def _launch(name: str, x, w, s, bits: int):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_lib(), name)(x2.data_ptr(), w.data_ptr(), s.data_ptr(),
-                                   y.data_ptr(), m, n, k, *extra, stream)
+                                   y.data_ptr(),
+                                   *[t.data_ptr() for t in scratch],
+                                   m, n, k, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -151,12 +180,29 @@ def q4_matmul_ws(x, w_q4, w_scale):
     return _launch("q4_matmul_ws", x, w_q4, w_scale, 4)
 
 
+def q8_matmul_ws_int8(x, w_q8, s_col):
+    """x [..., K] . (w_q8 [N, K] int8, per-column scales s_col [N] f32)^T
+    with the activations quantized per (row, K slab) -> [..., N] (bf16 on
+    CUDA), W8A8 kernel."""
+    if not x.is_cuda:
+        return quant.q8_ws_int8_plain(x, w_q8, s_col)
+    return _launch("q8_matmul_ws_int8", x, w_q8, s_col, 8)
+
+
 def _rows(x) -> int:
     return x.numel() // x.shape[-1]
 
 
 def q8_dot(x, w_q8, w_scale):
-    """Dispatch a q8 product (ref: ``q8_dot``)."""
+    """Dispatch a q8 product (ref: ``q8_dot``).  ``w_scale`` [N] marks a
+    weight stored per column."""
+    if w_scale.dim() == 1:
+        n, k = w_q8.shape
+        sel = pick_large_m_plan(_rows(x), k, n, x.element_size(),
+                                percol=True)
+        if sel is not None and sel[0] == "int8ws":
+            return q8_matmul_ws_int8(x, w_q8, w_scale)
+        w_scale = w_scale[:, None].expand(n, k // quant.KBLOCK).contiguous()
     if use_ws(_rows(x), x.shape[-1]):
         return q8_matmul_ws(x, w_q8, w_scale)
     return q8_matmul_tile(x, w_q8, w_scale)

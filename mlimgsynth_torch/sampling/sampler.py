@@ -2,9 +2,16 @@
 
 The schedule and all noise are computed on the host exactly as the JAX
 package does (``make_plan``, the reference's Philox draw order); a Python
-loop replaces ``lax.scan`` and runs CFG as one batched UNet call per step
+loop replaces ``lax.scan`` and runs CFG as one batched model call per step
 (cond rows then uncond rows).  Latents at this module's boundary are NCHW
 numpy float32, as in the JAX package.
+
+Rectified-flow models (the MMDiT, ``flow_shift`` set) take the JAX
+package's flow branch: the schedule on ``log_sigmas_flow(shift)``, the model
+timestep ``sigma * n_step_train``, the velocity output used as dx/dsigma,
+and the initial latent scaled by ``1 - sigma_0`` before the noise is added
+(``mlimgsynth_tpu/sampling/sampler.py:118``, ``:162-166``, ``:318-335``,
+``:622-625``).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
 from ..rng import RngPhilox
 from . import schedule as sch
@@ -31,6 +39,8 @@ class SamplerConfig:
     s_noise: float = 0.0
     f_t_ini: float = 1.0
     f_t_end: float = 0.0
+    # rectified-flow resolution shift (0: the SD beta-linear schedule)
+    flow_shift: float = 0.0
 
 
 @dataclass
@@ -54,11 +64,12 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
     """Sigma schedule and all noise, drawn in the reference's order
     (initial, then per step: churn draw, post-step ancestral draw).
     ``latent_shape`` is NCHW; batch sample i draws from its own stream
-    seeded ``seed + i`` (or ``seeds[i]``).  The JAX package's lcm, flow,
+    seeded ``seed + i`` (or ``seeds[i]``).  The JAX package's lcm,
     keep-tail and subseed branches are not ported."""
     solver = get_solver(cfg.method)
+    ls = sch.log_sigmas_flow(cfg.flow_shift) if cfg.flow_shift else None
     s = sch.make_schedule(cfg.n_step, cfg.sched, solver.n_fe, nfe_per_dxdt,
-                          cfg.f_t_ini, cfg.f_t_end)
+                          cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
     plan = sch.plan_step_noise(s.sigmas, cfg.s_ancestral, cfg.s_noise, 0.0,
                                lcm=False)
     n_step = s.n_step
@@ -107,16 +118,20 @@ def _cfg_mix(d, n: int, cfg_scale: float):
     return d[:n] * cfg_scale + d[n:] * (1 - cfg_scale)
 
 
-def run_sampler(unet: unet_mod.UNet, x_init: np.ndarray, plan: SamplingPlan,
+def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 cond_all: torch.Tensor, cfg: SamplerConfig,
-                step_observer: Optional[Callable] = None) -> torch.Tensor:
-    """Run the loop from ``x_init`` (NCHW f32 numpy).  ``cond_all`` holds
-    the cond rows, then (with CFG) the uncond rows, on the UNet's device.
+                step_observer: Optional[Callable] = None,
+                label_all: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
+    UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
+    MMDiT, ``label_all``, its pooled vectors) hold the cond rows, then
+    (with CFG) the uncond rows, on the model's device.
     ``step_observer(i_step, latent_nchw_numpy)`` sees every step.  Returns
     the final latent, f32 on the device."""
     dev = cond_all.device
     use_cfg = cfg.cfg_scale > 1
     solver = get_solver(cfg.method)
+    flow = bool(getattr(model.P, "flow", False))
     log_sigmas = np.asarray(sch.get_log_sigmas(), np.float32)
 
     def to_dev(a):
@@ -124,13 +139,21 @@ def run_sampler(unet: unet_mod.UNet, x_init: np.ndarray, plan: SamplingPlan,
 
     def dxdt(x, sigma):
         n = x.shape[0]
-        t = sigma_to_t(log_sigmas, sigma)
         xb = torch.cat([x, x]) if use_cfg else x
-        d = unet_mod.denoise(unet, xb, np.float32(sigma), t, cond_all)
+        if flow:
+            t = np.float32(sigma) * np.float32(model.P.n_step_train)
+            d = mmdit_mod.denoise(model, xb, np.float32(sigma), t, cond_all,
+                                  label_all)
+        else:
+            t = sigma_to_t(log_sigmas, sigma)
+            d = unet_mod.denoise(model, xb, np.float32(sigma), t, cond_all)
         return _cfg_mix(d, n, cfg.cfg_scale) if use_cfg else d
 
     f32 = np.float32
-    x = to_dev(x_init).float() + to_dev(plan.noise0) * f32(plan.sigmas[0])
+    x = to_dev(x_init).float()
+    if flow:    # x_t = (1 - sigma) x0 + sigma noise
+        x = x * f32(1.0 - float(plan.sigmas[0]))
+    x = x + to_dev(plan.noise0) * f32(plan.sigmas[0])
     t = f32(plan.sigmas[0])
     state = solver.init_state(x)
     for i in range(plan.n_step):

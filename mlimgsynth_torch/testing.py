@@ -4,8 +4,10 @@ checkpoints, a numpy safetensors writer (the machine with the GPU has no
 kernel against its plain twin.
 
 The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
-(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``) in the port's own parameter
-classes; ``TINY_Q_MODEL_TYPE`` widens them so that the linears quantize.
+(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, and the SD3 set
+``TINY_MODEL_TYPE_SD3``, ``:387-409``) in the port's own parameter classes;
+``TINY_Q_MODEL_TYPE`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that the
+linears quantize.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import numpy as np
 import torch
 
 from . import nameconv
-from .api import ModelTypeDef
-from .models import clip as clip_mod
+from .api import ModelTypeDef, build_models
+from .models import mmdit as mmdit_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .tokenizer import ClipParams
@@ -46,13 +48,41 @@ TINY_Q_MODEL_TYPE = ModelTypeDef("sd1", TINY_Q_CLIP, TINY_Q_UNET, TINY_VAE,
                                  64, 1)
 
 
+# SD3: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:387-409``),
+# a 4-channel flow VAE with the SD3 scale and shift
+TINY_CLIP2 = ClipParams(n_vocab=49408, n_token=77, d_embed=32, n_interm=64,
+                        n_head=4, n_layer=2, tok_pad=0)
+TINY_MMDIT = mmdit_mod.MmditParams(
+    depth=2, d_model=32, n_head=2, patch=2, n_ch_in=4, n_ch_out=4,
+    d_ctx_in=80, d_pooled=64, pos_embed_max=8, d_t_embed=16,
+    n_ctx=80)
+TINY_VAE_SD3 = vae_mod.VaeParams(ch=32, ch_mult=(1, 1, 2, 2),
+                                 scale_factor=1.5305, shift_factor=0.0609,
+                                 quant_conv=False)
+TINY_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_CLIP, TINY_MMDIT,
+                                   TINY_VAE_SD3, 64, 2, TINY_CLIP2)
+
+# The SD3 set at widths that quantize: 128 wide with 2 heads of 64, every
+# MMDiT linear's input a multiple of 128.  At 512^2 the CFG batch holds
+# 2 x 1024 image tokens, so the x-stream products reach the 2048 rows of
+# the W8A8 route.
+TINY_Q_CLIP2 = ClipParams(n_vocab=49408, n_token=77, d_embed=128,
+                          n_interm=256, n_head=4, n_layer=2, tok_pad=0)
+TINY_Q_MMDIT = mmdit_mod.MmditParams(
+    depth=2, d_model=128, n_head=2, patch=2, n_ch_in=4, n_ch_out=4,
+    d_ctx_in=256, d_pooled=256, pos_embed_max=32, d_t_embed=128,
+    n_ctx=256)
+TINY_Q_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_Q_CLIP, TINY_Q_MMDIT,
+                                     TINY_VAE_SD3, 512, 2, TINY_Q_CLIP2)
+
+
 def model_shapes(mt: ModelTypeDef) -> Dict[str, Tuple[int, ...]]:
     """Internal name -> shape of every parameter the port loads for
-    ``mt`` (CLIP text tower, UNet, VAE decoder), built on the meta device."""
-    with torch.device("meta"):
-        shapes = module_shapes(clip_mod.ClipText(mt.clip_p), "clip.text.")
-        shapes.update(module_shapes(unet_mod.UNet(mt.unet_p), "unet."))
-        shapes.update(module_shapes(vae_mod.VaeDecoder(mt.vae_p), "vae."))
+    ``mt`` (text towers, UNet or MMDiT, VAE decoder), built on the meta
+    device."""
+    shapes = {}
+    for prefix, m in build_models(mt).items():
+        shapes.update(module_shapes(m, prefix))
     return shapes
 
 
@@ -62,28 +92,67 @@ def _init_std(name: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
     activations stay O(1) through a full-depth random model."""
     if len(shape) == 1:
         return (1.0 if name.endswith(".weight") else 0.0), 0.0
-    if name.endswith((".embed.token.weight", ".embed.position.weight")):
+    if name.endswith((".embed.token.weight", ".embed.position.weight",
+                      ".pos_embed")):
         return 0.0, 0.02
     return 0.0, 1.0 / math.sqrt(int(np.prod(shape[1:])))
+
+
+def _sd3_ckpt_name(internal: str):
+    """Internal name -> sd3 single-file checkpoint name (the port's copy of
+    ``mlimgsynth_tpu/testing.py:412-432``).  ``text_proj`` gives a marker
+    ``("tproj", name)``: the file holds that Linear weight transposed."""
+    if internal.startswith("mmdit."):
+        return "model.diffusion_model." + internal[len("mmdit."):]
+    if internal.startswith(("clip.text.", "clip2.text.")):
+        tower = "clip_l" if internal.startswith("clip.") else "clip_g"
+        t = "text_model." + internal.split(".text.", 1)[1]
+        t = t.replace("embed.position.", "embeddings.position_embedding.")
+        t = t.replace("embed.token.", "embeddings.token_embedding.")
+        t = t.replace(".norm1.", ".layer_norm1.")
+        t = t.replace(".norm2.", ".layer_norm2.")
+        t = t.replace(".attn.", ".self_attn.")
+        t = t.replace("text_model.ln_final.", "text_model.final_layer_norm.")
+        pre = f"text_encoders.{tower}.transformer."
+        if t == "text_model.text_proj":
+            return ("tproj", pre + "text_model.text_projection.weight")
+        return pre + t
+    return nameconv.internal_to_compvis(internal)   # vae.*
+
+
+def _checkpoint_name(mt: ModelTypeDef, name: str) -> Tuple[str, bool]:
+    """(checkpoint name, stored transposed) of internal ``name``, checked
+    to map back onto ``name``: the CompVis layout for SD1, the sd3
+    single-file layout for the flow types."""
+    if getattr(mt.unet_p, "flow", False):
+        ck = _sd3_ckpt_name(name)
+    else:
+        ck = nameconv.internal_to_compvis(name)
+    if isinstance(ck, tuple):
+        back = nameconv.normalize_name(ck[1])
+        if not isinstance(back, nameconv.TProj) or back.name != name:
+            raise ValueError(f"no checkpoint round trip for {name}")
+        return ck[1], True
+    if ck is None or nameconv.normalize_name(ck) != name:
+        raise ValueError(f"no checkpoint round trip for {name}")
+    return ck, False
 
 
 def random_checkpoint_tensors(mt: ModelTypeDef, seed: int = 0,
                               dtype=np.float16
                               ) -> Iterator[Tuple[str, np.ndarray]]:
-    """(CompVis checkpoint name, array) for every parameter of
-    ``mt``, drawn in order from one seeded stream, one at a time."""
+    """(checkpoint name, array) for every parameter of ``mt``, drawn in
+    order from one seeded stream, one at a time."""
     rng = np.random.default_rng(seed)
     for name, shape in model_shapes(mt).items():
-        cv = nameconv.internal_to_compvis(name)
-        if cv is None or nameconv.normalize_name(cv) != name:
-            raise ValueError(f"no CompVis round trip for {name}")
+        ck, transposed = _checkpoint_name(mt, name)
         mean, std = _init_std(name, shape)
         if std == 0.0:
             arr = np.full(shape, mean, dtype)
         else:
             arr = rng.standard_normal(shape, dtype=np.float32)
             arr = (arr * np.float32(std)).astype(dtype)
-        yield cv, arr
+        yield ck, (np.ascontiguousarray(arr.T) if transposed else arr)
 
 
 _ST_DTYPES = {np.dtype(np.float16): "F16", np.dtype(np.float32): "F32"}
@@ -115,15 +184,18 @@ def write_safetensors(path, shapes: Dict[str, Tuple[int, ...]], dtype,
 
 def write_random_checkpoint(path, mt: ModelTypeDef, seed: int = 0,
                             dtype=np.float16) -> None:
-    """Seeded random checkpoint of ``mt`` (CompVis names) at ``path``."""
-    shapes = {nameconv.internal_to_compvis(k): v
-              for k, v in model_shapes(mt).items()}
+    """Seeded random checkpoint of ``mt`` at ``path``: CompVis names for
+    SD1, the sd3 single-file layout for SD3."""
+    shapes = {}
+    for name, shape in model_shapes(mt).items():
+        ck, transposed = _checkpoint_name(mt, name)
+        shapes[ck] = tuple(reversed(shape)) if transposed else shape
     write_safetensors(path, shapes, dtype,
                       random_checkpoint_tensors(mt, seed, dtype))
 
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
-# 512^2 main path gives the kernels, and a ragged Sk.
+# 512^2 and SD3-medium 1024^2 main paths give the kernels, and ragged ones.
 # (kernel, q shape [B, H, Sq, D], Sk, where the main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
@@ -131,6 +203,11 @@ ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
+    ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
+     "SD3 VAE mid-block"),
+    ("flash_attn_joint", (2, 24, 4250, 64), 4250,
+     "MMDiT joint attention, SD3-medium"),
+    ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
 ]
 
 # Limits of a kernel's output against its twin's, on q, k, v drawn from
@@ -219,6 +296,51 @@ def quant_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
     """A quantized-matmul kernel against its twin, held to the ``QUANT_*``
     limits."""
     return _kernel_error(out, ref, QUANT_REL_L2, QUANT_ATOL, QUANT_RTOL)
+
+
+# The W8A8 kernel on per-column weights against its plain twin: the four
+# x-stream products of SD3-medium at 1024^2 (CFG batch 2 x 4096 image
+# tokens; slab 512 at K 1536, 1024 at K 6144), a ragged M, and ragged N with
+# slabs 256 and 640 (K itself).  (M, K, N, where the main path runs it)
+INT8_CASES = [
+    (8192, 1536, 4608, "x_block attn.qkv"),
+    (8192, 1536, 1536, "x_block attn.proj"),
+    (8192, 1536, 6144, "x_block mlp.fc1"),
+    (8192, 6144, 1536, "x_block mlp.fc2"),
+    (4097, 1536, 1536, "ragged M"),
+    (300, 768, 200, "ragged M and N, slab 256"),
+    (77, 640, 72, "ragged M and N, slab 640"),
+]
+
+# Limits of the W8A8 kernel against its twin, on x ~ N(0, 1) in bf16 and a
+# weight ~ N(0, 1/K) stored per column.  Both quantize x with the same f32
+# operations (amax, 127 / amax, round half to even), both products are exact
+# integer sums (the twin's f32 matmul of int8-valued operands is exact below
+# 2^24 per slab), and both fold the slabs in order without a fused
+# multiply-add, so the two agree bit for bit.  The limits are those of the
+# other quantized kernels: one activation moved across a rounding boundary
+# stays within them, while a slab dropped, a scale taken from the wrong row
+# or column, or an unrounded activation does not.
+INT8_REL_L2, INT8_ATOL, INT8_RTOL = QUANT_REL_L2, QUANT_ATOL, QUANT_RTOL
+
+
+def int8_inputs(m: int, k: int, n: int, seed: int = 0):
+    """x [m, k] bf16, and a weight [n, k] ~ N(0, 1/k) quantized per block
+    and then stored per column by ``ops.quant`` (int8 [n, k], f32 [n]), all
+    on the card."""
+    from .ops import quant
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, k), dtype=np.float32) / np.float32(
+        math.sqrt(k))
+    q, s, _ = quant.percol_from_blocks(*quant.quantize_weight(w))
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    return (x.to("cuda", torch.bfloat16), torch.from_numpy(q).cuda(),
+            torch.from_numpy(s).cuda())
+
+
+def int8_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The W8A8 kernel against its twin, held to the ``INT8_*`` limits."""
+    return _kernel_error(out, ref, INT8_REL_L2, INT8_ATOL, INT8_RTOL)
 
 
 def median_ms(fn, n: int = 20, reps: int = 10) -> float:

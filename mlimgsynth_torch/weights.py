@@ -19,7 +19,7 @@ from torch import nn
 from .io.tensorstore import TensorStore
 from .models.blocks import QLinear
 from .nameconv import QKV, TProj, normalize_name
-from .ops import quant
+from .ops import quant, quant_plan
 
 
 @dataclass
@@ -52,11 +52,19 @@ def build_name_map(store: TensorStore) -> Dict[str, NameRef]:
 def identify_model(store: TensorStore, name_map: Dict[str, NameRef],
                    width_table: Mapping[int, str]) -> Optional[str]:
     """Model type from the UNet cross-attention K width (ref:
-    mlis_model_identify); None when nothing matches."""
+    mlis_model_identify), or the SD3 family from its MMDiT joint blocks
+    (``mlimgsynth_tpu/weights.py:99-108``); None when nothing matches."""
     ref = name_map.get("unet.in.1.1.transf.0.attn2.k_proj.weight")
+    if ref is not None:
+        return width_table.get(int(store.tensors[ref.raw].shape[-1]))
+    ref = name_map.get("mmdit.joint_blocks.0.x_block.attn.qkv.weight")
     if ref is None:
         return None
-    return width_table.get(int(store.tensors[ref.raw].shape[-1]))
+    if int(store.tensors[ref.raw].shape[-1]) == 2432:
+        return "sd35_large"
+    if "mmdit.joint_blocks.0.x_block.attn2.qkv.weight" in name_map:
+        return "sd35_medium"
+    return "sd3"
 
 
 def read_entry(store: TensorStore, ref: NameRef) -> np.ndarray:
@@ -111,29 +119,53 @@ def load_module(module: nn.Module, prefix: str,
 
 def quantize_linear_weights(module: nn.Module, prefix: str,
                             params: Dict[str, torch.Tensor],
-                            bits: int) -> int:
+                            bits: int,
+                            percol_m_hint: Optional[int] = None) -> int:
     """Weight-only quantization at load (ref: ``quantize_linear_weights``,
-    ``mlimgsynth_tpu/weights.py:299-359``, without its per-column branch,
-    which only DiT families take).  Every ``nn.Linear`` of ``module`` whose
-    input width is a multiple of 128 becomes a ``QLinear`` of ``bits`` (on
-    the meta device, to be loaded), and its ``.weight`` in ``params`` (CPU
-    tensors in the compute dtype) becomes ``.weight_q8`` or ``.weight_q4``
-    and ``.weight_scale``, made from the weight as loaded in that dtype.
-    Returns the number quantized."""
+    ``mlimgsynth_tpu/weights.py:299-359``).  Every ``nn.Linear`` of
+    ``module`` whose input width is a multiple of 128 becomes a ``QLinear``
+    of ``bits`` (on the meta device, to be loaded), and its ``.weight`` in
+    ``params`` (CPU tensors in the compute dtype) becomes ``.weight_q8`` or
+    ``.weight_q4`` and ``.weight_scale``, made from the weight as loaded in
+    that dtype.
+
+    ``percol_m_hint`` (the DiT families' token count, ``quant_plan.
+    dit_m_hint``): 8-bit weights whose shape ``percol_eligible`` picks are
+    stored per column (int8 [N, K], scales [N]), all or none per (K, N):
+    one weight whose worst column exceeds ``PERCOL_MAX_SCALE_RATIO`` keeps
+    its whole shape group per block.  ``percol_from_blocks`` runs once per
+    candidate weight.  Returns the number quantized."""
     fn = quant.quantize_weight_q4 if bits == 4 else quant.quantize_weight
     names = [name for name, m in module.named_modules()
              if isinstance(m, nn.Linear) and m.in_features % quant.KBLOCK == 0]
+    groups: Dict[Tuple[int, int], list] = {}
+    for name in names:
+        lin = module.get_submodule(name)
+        key = f"{prefix}{name}.weight"
+        q, scale = fn(params.pop(key).float().numpy())
+        params[f"{key}_q{bits}"] = torch.from_numpy(q)
+        params[f"{key}_scale"] = torch.from_numpy(scale)
+        k, n = lin.in_features, lin.out_features
+        if (bits == 8 and percol_m_hint is not None
+                and quant_plan.percol_eligible(k, n, percol_m_hint)):
+            groups.setdefault((k, n), []).append(
+                (name, quant.percol_from_blocks(q, scale)))
+    percol = set()
+    for members in groups.values():
+        if max(r for _, (_, _, r) in members) > quant.PERCOL_MAX_SCALE_RATIO:
+            continue
+        for name, (qc, sc, _) in members:
+            key = f"{prefix}{name}.weight"
+            params[f"{key}_q8"] = torch.from_numpy(qc)
+            params[f"{key}_scale"] = torch.from_numpy(sc)
+            percol.add(name)
     for name in names:
         lin = module.get_submodule(name)
         parent, _, attr = name.rpartition(".")
         with torch.device("meta"):
             ql = QLinear(lin.in_features, lin.out_features, bits,
-                         bias=lin.bias is not None)
+                         bias=lin.bias is not None, percol=name in percol)
         setattr(module.get_submodule(parent), attr, ql)
-        key = f"{prefix}{name}.weight"
-        q, scale = fn(params.pop(key).float().numpy())
-        params[f"{key}_q{bits}"] = torch.from_numpy(q)
-        params[f"{key}_scale"] = torch.from_numpy(scale)
     return len(names)
 
 
@@ -148,7 +180,9 @@ def params_from_jax(np_params: Mapping[str, np.ndarray]
     ``mlimgsynth_tpu/models/blocks.py:28-32``) -> torch layout ([out, in],
     OIHW), f32 tensors on the CPU.  Quantized weights keep their type and
     turn over like linears: ``_q8`` [K, N] and ``_q4`` [K/2, N] int8 become
-    [N, K] and [N, K/2], ``_scale`` [K/128, N] becomes [N, K/128]."""
+    [N, K] and [N, K/2], ``_scale`` [K/128, N] becomes [N, K/128]; a
+    per-column ``_scale`` [N] and the MMDiT's ``pos_embed`` [1, g*g, d]
+    stay as they are."""
     out = {}
     for name, a in np_params.items():
         # a copy: the source may be read-only

@@ -39,7 +39,13 @@ def test_cpu_tensors_never_launch(monkeypatch):
         for fn in (tfa.flash_attention, tattn.attention,
                    tfa.flash_attn_fwd if d <= 128 else tfa.flash_attn_fwd_wide):
             torch.testing.assert_close(fn(q, k, v), want, rtol=0, atol=0)
-    assert tfa.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 0}
+    q, k, v = (t.bfloat16() for t in _qkv(1, 2, 2048, 2048, 64, seed=3))
+    torch.testing.assert_close(tattn.attention(q, k, v),
+                               tfa.flash_attn_joint(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(tfa.flash_attn_joint(q, k, v),
+                               tattn.attention_xla(q, k, v), rtol=0, atol=0)
+    assert tfa.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 0,
+                            "flash_attn_joint": 0}
     assert tfa.PLAIN_CUDA_CALLS == 0
 
 
@@ -80,6 +86,26 @@ def test_kernel_matches_plain_on_cuda(cuda, b, h, sq, sk, d):
     assert res["ok"], res
 
 
+# the joint kernel at the SD3-medium 1024^2 shape (CFG batch, 77 + 77 text
+# rows and 4096 image tokens), a ragged S, and head dims 128 and 40
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,d", [
+    (2, 24, 4250, 64),
+    (1, 4, 2049, 64),
+    (1, 2, 2100, 128),
+    (1, 2, 2048, 40),
+])
+def test_joint_kernel_matches_plain_on_cuda(cuda, b, h, s, d):
+    q, k, v = testing.attention_inputs((b, h, s, d), s)
+    before = dict(tfa.LAUNCHES)
+    out = tattn.attention(q, k, v)
+    ref = tfa.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attn_joint"] == before["flash_attn_joint"] + 1
+    res = testing.attention_error(out, ref)
+    assert res["ok"], res
+
+
 @pytest.mark.cuda
 def test_launch_checks_inputs_on_cuda(cuda):
     before = dict(tfa.LAUNCHES)
@@ -90,6 +116,9 @@ def test_launch_checks_inputs_on_cuda(cuda):
         tfa.flash_attn_fwd(q, q[..., :32], q[..., :32])
     with pytest.raises(ValueError):
         tfa.flash_attn_fwd_wide(q, q, q)
+    with pytest.raises(ValueError):
+        q160 = torch.zeros(1, 1, 512, 160, device="cuda", dtype=torch.bfloat16)
+        tfa.flash_attn_joint(q160, q160, q160)
     with pytest.raises(ValueError):
         kt = torch.zeros(1, 1, 40, 512, device="cuda", dtype=torch.bfloat16)
         tfa.flash_attn_fwd(q, kt.transpose(-1, -2), kt.transpose(-1, -2))

@@ -18,7 +18,7 @@ from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import quant_matmul as qmm
 
 KERNELS = ["q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
-           "q4_matmul_ws"]
+           "q4_matmul_ws", "q8_matmul_ws_int8"]
 
 
 @pytest.fixture(autouse=True)
@@ -31,12 +31,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _pair(k, n, bits, seed=0):
+def _pair(k, n, bits, seed=0, percol=False):
     w = np.random.default_rng(seed).standard_normal((n, k)).astype(
         np.float32)
     q, s = (quant.quantize_weight_q4 if bits == 4
             else quant.quantize_weight)(w)
+    if percol:
+        q, s, _ = quant.percol_from_blocks(q, s)
     return torch.from_numpy(q), torch.from_numpy(s)
+
+
+def _plain(name):
+    if name == "q8_matmul_ws_int8":
+        return quant.q8_ws_int8_plain
+    return quant.q4_matmul_plain if name.startswith("q4") \
+        else quant.q8_matmul_plain
 
 
 @pytest.mark.parametrize("name", KERNELS)
@@ -47,12 +56,11 @@ def test_cpu_tensors_take_the_plain_twin(monkeypatch, name):
     monkeypatch.setattr(_build, "load", no_build)
     qmm.reset_counts()
     bits = 4 if name.startswith("q4") else 8
-    q, s = _pair(256, 48, bits)
+    q, s = _pair(256, 48, bits, percol=name.endswith("int8"))
     x = torch.randn(2, 5, 256, generator=torch.Generator().manual_seed(0))
-    plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
     out = getattr(qmm, name)(x, q, s)
     assert out.shape == (2, 5, 48)
-    torch.testing.assert_close(out, plain(x, q, s), rtol=0, atol=0)
+    torch.testing.assert_close(out, _plain(name)(x, q, s), rtol=0, atol=0)
     assert set(qmm.LAUNCHES.values()) == {0}
     assert quant.PLAIN_CUDA_CALLS == 0
 
@@ -95,6 +103,34 @@ def test_kernel_matches_plain_on_cuda(cuda, bits, kind, m, k, n, where):
     assert res["ok"], (where, res)
 
 
+# bf16 in and out, held to the limits of testing.int8_error (the reasons
+# are stated there)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,where", testing.INT8_CASES)
+def test_int8_kernel_matches_plain_on_cuda(cuda, m, k, n, where):
+    x, q, s = testing.int8_inputs(m, k, n)
+    before = dict(qmm.LAUNCHES)
+    out = qmm.q8_matmul_ws_int8(x, q, s)
+    ref = quant.q8_ws_int8_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["q8_matmul_ws_int8"] == before["q8_matmul_ws_int8"] + 1
+    res = testing.int8_error(out, ref)
+    assert res["ok"], (where, res)
+
+
+@pytest.mark.cuda
+def test_percol_dispatch_on_cuda(cuda):
+    """A per-column weight runs the W8A8 kernel where the plan picks it
+    (the SD3 x stream's 8192 rows), the tiled kernel on broadcast scales at
+    the context stream's 308 rows."""
+    for m, kind in ((8192, "ws_int8"), (308, "tile")):
+        x, q, s = testing.int8_inputs(m, 1536, 1536)
+        before = dict(qmm.LAUNCHES)
+        qmm.q8_dot(x.view(1, m, 1536), q, s)
+        name = f"q8_matmul_{kind}"
+        assert qmm.LAUNCHES[name] == before[name] + 1, m
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 def test_dispatch_launches_the_rule_on_cuda(cuda, bits):
@@ -125,4 +161,9 @@ def test_launch_checks_inputs_on_cuda(cuda):
     with pytest.raises(ValueError, match="does not fit"):
         xw, qw, sw = testing.quant_inputs(8, 3456, 32, 8)
         qmm.q8_matmul_ws(xw, qw, sw)
+    with pytest.raises(ValueError, match="scales"):
+        qmm.q8_matmul_ws_int8(x, q, s)       # per-block scales
+    with pytest.raises(ValueError, match="slab"):
+        xi, qi, si = testing.int8_inputs(8, 4224, 32)
+        qmm.q8_matmul_ws_int8(xi, qi, si)
     assert qmm.LAUNCHES == before

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Time the kernels of another version of a kernel source against the
+tree's, in one process on one card (needs an H100):
+
+    python3 tools/torch_kernel_ab.py OTHER/flash_attention.cu
+    python3 tools/torch_kernel_ab.py OTHER/quant_matmul.cu
+
+The file name says which source of ``mlimgsynth_torch/csrc/`` it stands
+for; the other version must keep that source's C interface.  Builds both,
+then for every case of that source (``testing.ATTN_CASES``, or
+``testing.QUANT_CASES`` for q8 and q4 and ``testing.INT8_CASES``) times the
+tree's kernel, the other's, the other's again and the tree's again
+(``testing.median_ms``: device time), checking each output against the
+plain twin first.  Prints one JSON line per case and a summary line with
+the per-source sums.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from mlimgsynth_torch import testing  # noqa: E402
+from mlimgsynth_torch.ops import _build, quant  # noqa: E402
+from mlimgsynth_torch.ops import flash_attention as fa  # noqa: E402
+from mlimgsynth_torch.ops import quant_matmul as qmm  # noqa: E402
+
+
+def flash_cases():
+    """(label, kernel call, plain call, error check) per case."""
+    for name, shape, sk, where in testing.ATTN_CASES:
+        q, k, v = testing.attention_inputs(shape, sk)
+        yield ({"kernel": name, "q": list(shape), "sk": sk, "where": where},
+               lambda f=getattr(fa, name), a=(q, k, v): f(*a),
+               lambda a=(q, k, v): fa.attention_plain(*a),
+               testing.attention_error)
+
+
+def quant_cases():
+    for bits in (8, 4):
+        plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+        for kind, m, k, n, where in testing.QUANT_CASES:
+            name = f"q{bits}_matmul_{kind}"
+            a = testing.quant_inputs(m, k, n, bits)
+            yield ({"kernel": name, "mkn": [m, k, n], "where": where},
+                   lambda f=getattr(qmm, name), a=a: f(*a),
+                   lambda p=plain, a=a: p(*a), testing.quant_error)
+    for m, k, n, where in testing.INT8_CASES:
+        a = testing.int8_inputs(m, k, n)
+        yield ({"kernel": "q8_matmul_ws_int8", "mkn": [m, k, n],
+                "where": where},
+               lambda a=a: qmm.q8_matmul_ws_int8(*a),
+               lambda a=a: quant.q8_ws_int8_plain(*a), testing.int8_error)
+
+
+CASES = {"flash_attention": flash_cases, "quant_matmul": quant_cases}
+
+
+def main() -> int:
+    other = Path(sys.argv[1]) if len(sys.argv) == 2 else None
+    if other is None or other.stem not in CASES \
+            or not torch.cuda.is_available():
+        print("usage: torch_kernel_ab.py OTHER/{flash_attention,quant_matmul}"
+              ".cu (needs a CUDA device)", file=sys.stderr)
+        return 1
+    src = other.stem
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    libs = {"tree": _build.load(src)}
+    csrc0, build0 = _build.CSRC, _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(other, Path(tmp) / f"{src}.cu")
+        _build.CSRC, _build.BUILD_DIR = Path(tmp), Path(tmp) / "build"
+        _build._LIBS.clear()
+        libs["other"] = _build.load(src)
+        _build.CSRC, _build.BUILD_DIR = csrc0, build0
+        sums = defaultdict(float)
+        for row, fn, plain, check in CASES[src]():
+            for i, which in enumerate(("tree", "other", "other", "tree")):
+                _build._LIBS[src] = libs[which]
+                if i < 2:
+                    row[f"{which}_ok"] = check(fn(), plain())["ok"]
+                t = testing.median_ms(fn)
+                row.setdefault(f"{which}_ms", []).append(t)
+                sums[which] += t / 2
+            print(json.dumps(row), flush=True)
+        _build._LIBS[src] = libs["tree"]
+    print(json.dumps({"device": smi, "source": src, "sum_ms": dict(sums)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

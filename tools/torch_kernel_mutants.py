@@ -4,8 +4,9 @@
 Builds each kernel source (``mlimgsynth_torch/csrc/flash_attention.cu``,
 ``quant_matmul.cu``) as written and with one planted fault at a time, runs
 every case of that source (``testing.ATTN_CASES``, or ``testing.QUANT_CASES``
-for q8 and q4) against the plain twin, and holds each result to
-``testing.attention_error`` / ``testing.quant_error``:
+for q8 and q4 and ``testing.INT8_CASES`` for the W8A8 kernel) against the
+plain twin, and holds each result to ``testing.attention_error`` /
+``testing.quant_error`` / ``testing.int8_error``:
 
     python3 tools/torch_kernel_mutants.py
 
@@ -61,6 +62,14 @@ MUTANTS = {
     "last_k_group_dropped": (
         "quant_matmul", "mma_group(acc, sx, sw",
         "if (kg + 1 < n_groups) mma_group(acc, sx, sw"),
+    # W8A8: each slab folded with the next slab's activation scale
+    "slab_scale_shifted": (
+        "quant_matmul", "a.amax[(long long)row * n_slab + sb]",
+        "a.amax[(long long)row * n_slab + (sb + 1) % n_slab]"),
+    # W8A8: activations truncated toward zero instead of rounded
+    "activations_truncated": (
+        "quant_matmul", "__float2int_rn(__fmul_rn(f, inv))",
+        "__float2int_rz(__fmul_rn(f, inv))"),
 }
 
 
@@ -89,6 +98,14 @@ def quant_cases(variant: str) -> bool:
                               "where": where, "mkn": [m, k, n], **res}),
                   flush=True)
             all_ok &= res["ok"]
+    for m, k, n, where in testing.INT8_CASES:
+        x, q, s = testing.int8_inputs(m, k, n)
+        res = testing.int8_error(qmm.q8_matmul_ws_int8(x, q, s),
+                                 quant.q8_ws_int8_plain(x, q, s))
+        print(json.dumps({"variant": variant, "kernel": "q8_matmul_ws_int8",
+                          "where": where, "mkn": [m, k, n], **res}),
+              flush=True)
+        all_ok &= res["ok"]
     return all_ok
 
 

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one SD1.5 512^2 request goes on the card (needs a GPU).
+"""Where the time of one request goes on the card (needs a GPU).
 
-Opens a full-width SD1.5 session of the PyTorch port on seeded random
-weights (bf16 activations; 20 Euler steps, CFG 7, batch 1) for each weight
-type named on the command line (default bf16; q8_0 and q4_0 store the
-linears quantized), one session at a time, and measures, all in this one
-process:
+Opens a full-width session of the PyTorch port on seeded random weights
+(bf16 activations; 20 Euler steps, CFG 7, batch 1): SD1.5 at 512^2, or
+with ``--model sd3`` SD3-medium at 1024^2, for each weight type named on
+the command line (default bf16; q8_0 and q4_0 store the linears
+quantized), one session at a time, and measures, all in this one process:
 
   * ``requests``: the wall seconds of a cold and of three warm requests;
   * ``stages``: one request split into text encode, sampler loop and VAE
     decode, with a device sync at the end of each;
-  * ``unet_step``: 20 UNet evaluations (the CFG batch of 2) back to back,
-    by CUDA events;
+  * ``denoiser_step``: 20 UNet or MMDiT evaluations (the CFG batch of 2)
+    back to back, by CUDA events;
   * ``trace``: one request traced with ``torch.profiler`` (device activity
     only): device busy time (the union of kernel, copy and fill intervals),
     kernel count, the idle share of that traced request's wall time, and
@@ -20,9 +20,10 @@ process:
     above: two different requests of this run, for an idle share without
     the profiler's cost on the host.
 
-    python3 tools/torch_profile.py [bf16] [q8_0] [q4_0]
+    python3 tools/torch_profile.py [--model sd1|sd3] [bf16] [q8_0] [q4_0]
 
-Prints one JSON line per measurement, each naming its weight type.
+Prints one JSON line per measurement, each naming its model and weight
+type.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mlimgsynth_torch import api, testing  # noqa: E402
+from mlimgsynth_torch.models import mmdit as mmdit_mod  # noqa: E402
 from mlimgsynth_torch.models import unet as unet_mod  # noqa: E402
 
 WARM, EVALS, TOP = 3, 20, 20
@@ -51,6 +53,7 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
 # kernel kind: the first of these words found in the kernel's name
 KINDS = [("attn_fwd_kernel", "flash kernels"),
          ("qmm_", "quantized matmul kernels"),
+         ("quant_rows", "quantized matmul kernels"),
          ("nchwToNhwc", "cuDNN layout conversion"),
          ("nhwcToNchw", "cuDNN layout conversion"),
          ("fprop", "convolution"), ("conv", "convolution"),
@@ -104,18 +107,30 @@ def stage_times(s, i: int) -> dict:
     return stages
 
 
-def unet_step_ms(s, n: int) -> float:
-    unet = s._models["unet."]
+def denoiser_step_ms(s, n: int) -> float:
+    """One denoiser evaluation on the CFG batch at the first sigma."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen) * 14.6
     cond = torch.from_numpy(s.tensors["cond"]).cuda().repeat(2, 1, 1)
+    lat = s.tensors["latent"].shape
+    if "mmdit." in s._models:
+        label = torch.from_numpy(s.tensors["label"]).cuda().repeat(2, 1)
+        x = torch.randn(2, *lat[1:], device="cuda", generator=gen)
+
+        def step():
+            mmdit_mod.denoise(s._models["mmdit."], x, 1.0, 1000.0, cond,
+                              label)
+    else:
+        x = torch.randn(2, *lat[1:], device="cuda", generator=gen) * 14.6
+
+        def step():
+            unet_mod.denoise(s._models["unet."], x, 14.6, 999.0, cond)
     with torch.no_grad():
-        unet_mod.denoise(unet, x, 14.6, 999.0, cond)
+        step()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(n):
-            unet_mod.denoise(unet, x, 14.6, 999.0, cond)
+            step()
         e1.record()
         torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
@@ -166,33 +181,46 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    out("device", nvidia_smi=smi, torch=torch.__version__)
+    args = sys.argv[1:]
+    model = "sd1"
+    if args[:1] == ["--model"]:
+        model, args = args[1], args[2:]
+    dim = {"sd1": 512, "sd3": 1024}[model]
+    out("device", nvidia_smi=smi, torch=torch.__version__, model=model)
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "sd15-random-f16.safetensors")
-        testing.write_random_checkpoint(ckpt, api._model_types()["sd1"],
+        ckpt = os.path.join(tmp, f"{model}-random-f16.safetensors")
+        t0 = time.perf_counter()
+        testing.write_random_checkpoint(ckpt, api._model_types()[model],
                                         seed=0)
-        for wt in sys.argv[1:] or ["bf16"]:
-            profile_path(ckpt, wt, tmp)
+        out("checkpoint", model=model, write_s=time.perf_counter() - t0,
+            bytes=os.path.getsize(ckpt))
+        for wt in args or ["bf16"]:
+            profile_path(ckpt, model, dim, wt, tmp)
     return 0
 
 
-def profile_path(ckpt: str, wt: str, tmp: str) -> None:
+def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str) -> None:
     s = api.MLImgSynth(device="cuda")
-    for k, v in [("model", ckpt), ("model-type", "sd1"), ("weight-type", wt),
-                 ("image-dim", 512), ("steps", 20), ("cfg-scale", 7.0),
+    for k, v in [("model", ckpt), ("model-type", model), ("weight-type", wt),
+                 ("image-dim", dim), ("steps", 20), ("cfg-scale", 7.0),
                  ("method", "euler"), ("scheduler", "uniform")]:
         s.option_set(k, v)
+    t0 = time.perf_counter()
     s.setup()
+    tag = {"model": model, "path": wt}
+    out("setup", **tag, setup_s=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
     cold = request(s, 0)
     warm = [request(s, 1 + i) for i in range(WARM)]
-    out("requests", path=wt, cold_s=cold, warm_s=warm)
-    out("stages", path=wt, **stage_times(s, 1))
-    out("unet_step", path=wt, batch=2, evals=EVALS,
-        ms=unet_step_ms(s, EVALS))
+    out("requests", **tag, cold_s=cold, warm_s=warm,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    out("stages", **tag, **stage_times(s, 1))
+    out("denoiser_step", **tag, batch=2, evals=EVALS,
+        ms=denoiser_step_ms(s, EVALS))
     trace = traced_request(s, 2, tmp, TOP)
-    out("trace", path=wt, **trace)
+    out("trace", **tag, **trace)
     med = statistics.median(warm)
-    out("derived", path=wt, median_warm_s=med,
+    out("derived", **tag, median_warm_s=med,
         device_busy_s=trace["device_busy_s"],
         idle_share=1.0 - trace["device_busy_s"] / med)
     del s

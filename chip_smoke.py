@@ -10,31 +10,41 @@ Phases, one result line each (any failure exits non-zero):
   2. build     - compiles csrc/flash_attention.cu and csrc/quant_matmul.cu
                  for sm_90a, one nvcc each, started together;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
-                 flash kernels at the SD1.5 512^2 and SD3-medium 1024^2
-                 main-path shapes and ragged ones, the quantized matmuls (q8
-                 and q4, tiled and weight-stationary) at the SD1.5 products
-                 and ragged M and N, the W8A8 kernel at the SD3 x-stream
+                 flash kernels at the SD1.5 512^2, SDXL 1024^2 and
+                 SD3-medium 1024^2 main-path shapes and ragged ones, the
+                 quantized matmuls (q8 and q4, tiled and weight-stationary)
+                 at the SD1.5 products and ragged M and N, the per-column
+                 W8A8 kernel at the SD3 x-stream products and ragged ones,
+                 the per-block W8A8 kernel (MLIS_Q8_MODE=int8) at the SDXL
                  products and ragged ones; each with its time, its plain
                  version's, one PyTorch call's for the same function and the
                  card's bound;
   4. main      - three paths on one seeded random full-width SD1.5
                  checkpoint, one session at a time (512^2, 20 Euler steps,
                  CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
-                 and q4_0 weights, 2 requests each.  Then two paths on one
+                 and q4_0 weights, 2 requests each, and one more q8_0
+                 request under MLIS_Q8_MODE=int8.  Then two paths on one
                  seeded random full-width SD3-medium checkpoint (f16 on
                  disk; 1024^2, 20 Euler steps, CFG 7): bf16, 2 requests;
-                 q8_0, 1 request.  Checks the images and the exact kernel
+                 q8_0, 1 request and 1 under MLIS_Q8_MODE=int8.  Then two
+                 paths on one seeded random full-width SDXL-base checkpoint
+                 (f16 on disk; 1024^2, 20 Euler steps, CFG 7): bf16, 2
+                 requests; q8_0, 1 request and 1 under MLIS_Q8_MODE=int8 in
+                 the same session.  Checks the images and the exact kernel
                  launch counts of every request;
   5. reference - per path, one full-width UNet or MMDiT evaluation with the
                  kernels against the same with the plain versions (bf16: the
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
-                 matmuls);
+                 matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
+                 W8A8 kernel);
   6. shapes    - the quantized products of one SD1.5 q8_0 request, each
-                 timed for its q8 and q4 kernel beside its bound;
-  7. small     - tiny random SD1 (192^2) and SD3 (512^2) models through the
-                 session on the card (bf16, kernels) against the same on
-                 the CPU (f32, the path the CPU tests hold against the JAX
-                 package);
+                 timed for its q8 and q4 kernel beside its bound, and those
+                 of one SDXL q8_0 request under MLIS_Q8_MODE=int8, each
+                 timed for the per-block W8A8 kernel;
+  7. small     - tiny random SD1 (192^2), SDXL (192^2) and SD3 (512^2)
+                 models through the session on the card (bf16, kernels)
+                 against the same on the CPU (f32, the path the CPU tests
+                 hold against the JAX package);
   8. imports   - nothing of jax or of the JAX package was loaded.
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -54,6 +64,7 @@ import torch
 
 from mlimgsynth_torch import api, testing
 from mlimgsynth_torch.models import blocks as blocks_mod
+from mlimgsynth_torch.models import clip as clip_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
 from mlimgsynth_torch.models import unet as unet_mod
 from mlimgsynth_torch.ops import _build, quant
@@ -72,6 +83,7 @@ REPLACES = {
     "q4_matmul_tile": "mlimgsynth_tpu/ops/q4_matmul.py:75",
     "q4_matmul_ws": "mlimgsynth_tpu/ops/q4_matmul.py:156",
     "q8_matmul_ws_int8": "mlimgsynth_tpu/ops/q8_matmul.py:432",
+    "q8_matmul_int8": "mlimgsynth_tpu/ops/q8_matmul.py:528",
 }
 REQUESTS = [(42, "a photograph of an astronaut riding a horse"),
             (43, "a watercolor painting of a lighthouse at dawn"),
@@ -82,6 +94,9 @@ REQUESTS = [(42, "a photograph of an astronaut riding a horse"),
 FLASH_PER_REQUEST = {"flash_attn_fwd": 200, "flash_attn_fwd_wide": 1}
 QUANT_PER_REQUEST = {"ws": 900, "tile": 2132}
 PATHS = [("bf16", None, 3), ("q8_0", 8, 2), ("q4_0", 4, 2)]
+# under MLIS_Q8_MODE=int8 every quantized product runs the per-block W8A8
+# kernel (K8) instead
+SD1_INT8_PER_REQUEST = QUANT_PER_REQUEST["ws"] + QUANT_PER_REQUEST["tile"]
 # SD3-medium at 1024^2: one joint attention per block and evaluation (24 x
 # 20) and the VAE mid-block's; on q8_0 the four x-stream products of every
 # block and evaluation run the W8A8 kernel (4 x 24 x 20), the other
@@ -91,6 +106,14 @@ SD3_FLASH_PER_REQUEST = {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 1,
                          "flash_attn_joint": 480}
 SD3_INT8_PER_REQUEST = 1920
 SD3_PATHS = [("bf16", None, 2), ("q8_0", 8, 1)]
+# SDXL-base at 1024^2: per UNet evaluation 10 self-attentions at the 64 x 64
+# level ([2, 10, 4096, 64]) and 60 at 32 x 32 ([2, 20, 1024, 64]), x 20; the
+# VAE mid-block's at [1, 1, 16384, 512]; the quantized products counted
+# from the module tree (sdxl_want)
+SDXL_DIM, SDXL_STEPS = 1024, 20
+SDXL_FLASH_PER_REQUEST = {"flash_attn_fwd": 1400, "flash_attn_fwd_wide": 1,
+                          "flash_attn_joint": 0}
+SDXL_PATHS = [("bf16", None, 2), ("q8_0", 8, 1)]
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
@@ -133,14 +156,20 @@ def main() -> int:
                       if "registers" in ln]}
         for n, i in _build.BUILD_INFO.items()})
 
-    kernels = check_flash() + check_quant() + check_int8()
+    kernels = (check_flash() + check_quant() + check_int8()
+               + check_q8_int8())
     launches = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = _checkpoint(tmp, "sd1")
         for wt, bits, n_req in PATHS:
             s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, "sd1", 512, wt, n_req,
+            launches.update(main_path(s, ckpt, "sd1", 512, wt,
+                                      REQUESTS[:n_req],
                                       lambda s, bits=bits: sd1_want(bits)))
+            if bits == 8:
+                launches.update(main_path(
+                    s, ckpt, "sd1", 512, wt, REQUESTS[n_req:n_req + 1],
+                    lambda s: sd1_want(8, int8=True), mode="int8"))
             reference_check(s, wt, bits)
             if bits == 8:
                 time_shapes(s)
@@ -149,9 +178,27 @@ def main() -> int:
         ckpt = _checkpoint(tmp, "sd3")
         for wt, bits, n_req in SD3_PATHS:
             s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt, n_req,
-                                      sd3_want))
+            launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt,
+                                      REQUESTS[:n_req], sd3_want))
+            if bits == 8:
+                launches.update(main_path(
+                    s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
+                    lambda s: sd3_want(s, int8=True), mode="int8"))
             sd3_reference_check(s, wt, bits)
+            _drop(s)
+        os.remove(ckpt)
+        ckpt = _checkpoint(tmp, "sdxl")
+        for wt, bits, n_req in SDXL_PATHS:
+            s = api.MLImgSynth(device="cuda")
+            launches.update(main_path(s, ckpt, "sdxl", SDXL_DIM, wt,
+                                      REQUESTS[:n_req], sdxl_want))
+            if bits == 8:
+                launches.update(main_path(
+                    s, ckpt, "sdxl", SDXL_DIM, wt, REQUESTS[n_req:n_req + 1],
+                    lambda s: sdxl_want(s, int8=True), mode="int8"))
+            sdxl_reference_check(s, wt, bits)
+            if bits == 8:
+                time_sdxl_int8_shapes(s)
             _drop(s)
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -300,6 +347,50 @@ def check_int8():
                    per_request_ms=per_request, **summary)]
 
 
+def _time_q8_int8(x, q, s) -> dict:
+    """K8, its plain version, and the library call: one torch.matmul on the
+    weight dequantized to bf16 beforehand (the product without the
+    activation quantization)."""
+    w = (q.float().view(q.shape[0], -1, quant.KBLOCK) * s[:, :, None]
+         ).view(q.shape[0], -1).bfloat16()
+    return {"ms": ms(lambda: qmm.q8_matmul_int8(x, q, s)),
+            "plain_ms": ms(lambda: quant.q8_matmul_int8_plain(x, q, s)),
+            "library_ms": ms(lambda: torch.matmul(x, w.t()))}
+
+
+def _q8_int8_bound(m: int, k: int, n: int) -> dict:
+    """x read, the int8 weight and its block scales read, y written once;
+    2*M*N*K operations at the int8 rate."""
+    return bound(2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n * k / 128
+                 + 2.0 * m * n, PEAK_INT8_OPS)
+
+
+def check_q8_int8():
+    """The per-block W8A8 kernel (K8, MLIS_Q8_MODE=int8) against its plain
+    version at the SDXL products and ragged ones, held to the limits in
+    ``testing``."""
+    summary = {}
+    for m, k, n, where in testing.Q8_INT8_CASES:
+        x, q, s = testing.quant_inputs(m, k, n, 8)
+        out = qmm.q8_matmul_int8(x, q, s)
+        ref = quant.q8_matmul_int8_plain(x, q, s)
+        torch.cuda.synchronize()
+        res = testing.q8_int8_error(out, ref)
+        t = {**_time_q8_int8(x, q, s), **_q8_int8_bound(m, k, n)}
+        phase("kernels", kernel="q8_matmul_int8", where=where,
+              mkn=[m, k, n], **res, **t,
+              limits={"rel_l2": testing.Q8_INT8_REL_L2,
+                      "atol": testing.Q8_INT8_ATOL,
+                      "rtol": testing.Q8_INT8_RTOL})
+        if not res["ok"]:
+            raise AssertionError(f"q8_matmul_int8 {where}: kernel "
+                                 "disagrees with its plain version")
+        if (m, k, n) == (8192, 640, 5120):
+            summary = {"shape": [m, k, n],
+                       "max_abs_err": res["max_abs_err"], **t}
+    return [_entry("q8_matmul_int8", "quant_matmul", **summary)]
+
+
 def _counts():
     return {**fa.LAUNCHES, **qmm.LAUNCHES}
 
@@ -321,23 +412,38 @@ def _drop(s) -> None:
     torch.cuda.empty_cache()
 
 
-def sd1_want(bits) -> dict:
-    """The launches of one SD1.5 512^2 request."""
+def sd1_want(bits, int8: bool = False) -> dict:
+    """The launches of one SD1.5 512^2 request (``int8``: under
+    MLIS_Q8_MODE=int8)."""
     want = dict(FLASH_PER_REQUEST)
-    if bits:
+    if int8:
+        want["q8_matmul_int8"] = SD1_INT8_PER_REQUEST
+    elif bits:
         for kind_, n in QUANT_PER_REQUEST.items():
             want[f"q{bits}_matmul_{kind_}"] = n
     return want
 
 
-def sd3_want(s) -> dict:
+def _q8_kernel(rows: int, k: int, n: int, percol: bool, int8: bool) -> str:
+    """The kernel ``qmm.q8_dot`` gives a product, in the reference's order:
+    a per-column weight whose plan is int8ws runs the per-column W8A8
+    kernel; then MLIS_Q8_MODE=int8 runs the per-block one; else the ws /
+    tile rule."""
+    plan = pick_large_m_plan(rows, k, n, 2, percol=True) if percol else None
+    kind_ = ("ws_int8" if plan and plan[0] == "int8ws" else "int8" if int8
+             else "ws" if qmm.use_ws(rows, k) else "tile")
+    return f"q8_matmul_{kind_}"
+
+
+def sd3_want(s, int8: bool = False) -> dict:
     """The launches of one SD3-medium request, the quantized ones counted
     from the module tree: each quantized linear with the rows it gets (the
     two text towers once per request on the 2 x 77 tokens of prompt and
     negative prompt; per MMDiT evaluation, the CFG batch's 2 x 4096 image
     tokens in the x stream and the final layer, its 2 x 154 context tokens
     in the context stream and the context embedder, 2 rows in the adaLN
-    and embedders) and the kernel the dispatch gives that product."""
+    and embedders) and the kernel the dispatch gives that product
+    (``int8``: under MLIS_Q8_MODE=int8)."""
     want = dict(SD3_FLASH_PER_REQUEST)
     if not s.qbits:
         return want
@@ -356,22 +462,68 @@ def sd3_want(s) -> dict:
                 rows, times = img, SD3_STEPS
             else:
                 rows, times = ctx, SD3_STEPS
-            plan = (pick_large_m_plan(rows, k, n, 2, percol=True)
-                    if m.weight_scale.dim() == 1 else None)
-            kind_ = ("ws_int8" if plan and plan[0] == "int8ws"
-                     else "ws" if qmm.use_ws(rows, k) else "tile")
-            key = f"q8_matmul_{kind_}"
+            key = _q8_kernel(rows, k, n, m.weight_scale.dim() == 1, int8)
             want[key] = want.get(key, 0) + times
     if want.get("q8_matmul_ws_int8") != SD3_INT8_PER_REQUEST:
         raise AssertionError(f"the module tree gives {want}")
     return want
 
 
-def main_path(s, ckpt, model_type, dim, wt, n_req, want_fn):
-    """``n_req`` txt2img requests through one full-width session of
-    ``model_type`` at ``dim``^2 and weight type ``wt``; each request must
-    launch exactly ``want_fn(s)`` (and no other kernel).  Returns the
-    launches of the run."""
+def sdxl_products(s) -> collections.Counter:
+    """(rows, K, N) -> calls of one SDXL 1024^2 request's quantized
+    products, from the module tree: the text towers once on the 2 x 77
+    tokens of prompt and negative prompt (CLIP-L runs its first 11 layers at
+    clip skip 2, bigG all 32 for its pooled feature); per UNet evaluation x
+    20, the time, label and resnet embeddings at 2 rows, the
+    cross-attention k/v at 2 x 77 rows and every other transformer linear
+    at the CFG batch's tokens of its level (2 x 64^2 at 640 channels, 2 x
+    32^2 at 1280)."""
+    P = s._mt.unet_p
+    ctx = 2 * s._mt.clip_p.n_token
+    calls = collections.Counter()
+    for prefix, mod in s._models.items():
+        n_run = (clip_mod.clip_skip_layers(s._mt.clip_p, s.c["clip_skip"])
+                 if prefix == "clip.text." else None)
+        for name, m in mod.named_modules():
+            if not isinstance(m, blocks_mod.QLinear):
+                continue
+            n, k = m.weight_q8.shape
+            if prefix != "unet.":
+                layer = int(name.split(".")[2])
+                if n_run is None or layer < n_run:
+                    calls[(ctx, k, n)] += 1
+                continue
+            if "embed" in name or "emb_proj" in name:
+                rows = 2
+            elif ".attn2.k_proj" in name or ".attn2.v_proj" in name:
+                rows = ctx
+            else:
+                st = mod.get_submodule(name.split(".transf.")[0])
+                level = P.ch_mult.index(st.proj_in.in_channels // P.n_ch)
+                rows = 2 * (SDXL_DIM // 8 >> level) ** 2
+            calls[(rows, k, n)] += SDXL_STEPS
+    return calls
+
+
+def sdxl_want(s, int8: bool = False) -> dict:
+    """The launches of one SDXL-base 1024^2 request (``int8``: under
+    MLIS_Q8_MODE=int8); the UNet stores nothing per column."""
+    want = dict(SDXL_FLASH_PER_REQUEST)
+    if not s.qbits:
+        return want
+    for (rows, k, n), c in sdxl_products(s).items():
+        key = _q8_kernel(rows, k, n, False, int8)
+        want[key] = want.get(key, 0) + c
+    return want
+
+
+def main_path(s, ckpt, model_type, dim, wt, requests, want_fn,
+              mode: str = "dq"):
+    """The txt2img ``requests`` (seed, prompt) through one full-width
+    session of ``model_type`` at ``dim``^2 and weight type ``wt``, with
+    ``MLIS_Q8_MODE`` set to ``mode`` for them; each request must launch
+    exactly ``want_fn(s)`` (and no other kernel).  Returns the launches of
+    the run."""
     for k, v in [("model", ckpt), ("model-type", model_type),
                  ("weight-type", wt), ("image-dim", dim), ("steps", 20),
                  ("cfg-scale", 7.0), ("method", "euler"),
@@ -392,31 +544,35 @@ def main_path(s, ckpt, model_type, dim, wt, n_req, want_fn):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_counts()
     qmm.reset_counts()
-    for i, (seed, prompt) in enumerate(REQUESTS[:n_req]):
-        before = _counts()
-        s.option_set("seed", seed)
-        s.option_set("prompt", prompt)
-        s.option_set("nprompt", "blurry, low quality")
-        t0 = time.time()
-        img = s.generate()
-        secs = time.time() - t0
-        got = {k: v - before[k] for k, v in _counts().items()}
-        plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
-        phase("main", model=model_type, path=wt, request=i, seed=seed,
-              cold=(i == 0), seconds=secs, launches=got,
-              plain_cuda_calls=plain_calls, image_mean=float(img.mean()),
-              image_std=float(img.std()))
-        if (img.shape != (1, 3, dim, dim) or not np.isfinite(img).all()
-                or float(img.std()) == 0.0):
-            raise AssertionError(f"{model_type} {wt} request {i}: bad image "
-                                 f"{img.shape}")
-        if got != want:
-            raise AssertionError(f"{model_type} {wt} request {i}: launches "
-                                 f"{got}, want {want}")
-        if plain_calls:
-            raise AssertionError(f"{model_type} {wt}: a plain version ran on "
-                                 "CUDA tensors on the main path")
-    phase("main", model=model_type, path=wt,
+    os.environ["MLIS_Q8_MODE"] = mode
+    try:
+        for i, (seed, prompt) in enumerate(requests):
+            before = _counts()
+            s.option_set("seed", seed)
+            s.option_set("prompt", prompt)
+            s.option_set("nprompt", "blurry, low quality")
+            t0 = time.time()
+            img = s.generate()
+            secs = time.time() - t0
+            got = {k: v - before[k] for k, v in _counts().items()}
+            plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
+            phase("main", model=model_type, path=wt, mode=mode, request=i,
+                  seed=seed, cold=(i == 0 and mode == "dq"), seconds=secs,
+                  launches=got, plain_cuda_calls=plain_calls,
+                  image_mean=float(img.mean()), image_std=float(img.std()))
+            if (img.shape != (1, 3, dim, dim) or not np.isfinite(img).all()
+                    or float(img.std()) == 0.0):
+                raise AssertionError(f"{model_type} {wt} request {i}: bad "
+                                     f"image {img.shape}")
+            if got != want:
+                raise AssertionError(f"{model_type} {wt} {mode} request {i}:"
+                                     f" launches {got}, want {want}")
+            if plain_calls:
+                raise AssertionError(f"{model_type} {wt}: a plain version ran"
+                                     " on CUDA tensors on the main path")
+    finally:
+        del os.environ["MLIS_Q8_MODE"]
+    phase("main", model=model_type, path=wt, mode=mode,
           max_memory_allocated=torch.cuda.max_memory_allocated())
     return _counts()
 
@@ -433,10 +589,17 @@ def main_path(s, ckpt, model_type, dim, wt, n_req, want_fn):
 # through the UNet about as the attention's 3e-3 did (1.6e-2): 1e-2 holds
 # the first and fails a fault that shows in every product.  SD3: one
 # full-width MMDiT evaluation held to 3e-2 on both paths, the SD3 VAE
-# decode at 1024^2 to the SD1 VAE's limit.
+# decode at 1024^2 to the SD1 VAE's limit.  SDXL: one full-width UNet
+# evaluation, bf16 (the attention, 70 flash calls against SD1.5's 16) reads
+# 2.3e-2 on the H100, held to the SD1 UNet's limit; q8_0 under
+# MLIS_Q8_MODE=int8 (the per-block W8A8 kernel, bit for bit its twin at
+# every case of the kernels phase) reads 0, held to the quantized paths'
+# 1e-2; its VAE decode (5.1e-3) to the SD1 VAE's limit.
 REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2,
-              "mmdit_v": 3e-2, "mmdit_v_q8_0": 3e-2, "sd3_vae_image": 1.5e-2}
+              "mmdit_v": 3e-2, "mmdit_v_q8_0": 3e-2, "sd3_vae_image": 1.5e-2,
+              "sdxl_unet_eps": 3e-2, "sdxl_unet_eps_q8_0_int8": 1e-2,
+              "sdxl_vae_image": 1.5e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch
@@ -446,7 +609,8 @@ PLAIN_ROUTES = {
            (fa, "flash_attn_joint"): fa.attention_plain},
     8: {(qmm, "q8_matmul_tile"): quant.q8_matmul_plain,
         (qmm, "q8_matmul_ws"): quant.q8_matmul_plain,
-        (qmm, "q8_matmul_ws_int8"): quant.q8_ws_int8_plain},
+        (qmm, "q8_matmul_ws_int8"): quant.q8_ws_int8_plain,
+        (qmm, "q8_matmul_int8"): quant.q8_matmul_int8_plain},
     4: {(qmm, "q4_matmul_tile"): quant.q4_matmul_plain,
         (qmm, "q4_matmul_ws"): quant.q4_matmul_plain},
 }
@@ -522,6 +686,53 @@ def sd3_reference_check(s, wt, bits):
     _kernels_vs_plain(wt, bits, run)
 
 
+def sdxl_reference_check(s, wt, bits):
+    """One SDXL UNet evaluation (CFG batch of the last request's
+    conditioning and labels, first sigma) and, on the bf16 path, one VAE
+    decode of its latent; the q8_0 path under MLIS_Q8_MODE=int8."""
+    unet, vae = s._models["unet."], s._models["vae."]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hw = SDXL_DIM // 8
+    x = torch.randn(2, 4, hw, hw, device="cuda", generator=gen) * 14.6
+    cond, label = (torch.from_numpy(np.concatenate(
+        [s.tensors[k], s.tensors["n" + k]])).cuda() for k in ("cond", "label"))
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+
+    def run():
+        with torch.no_grad():
+            eps = unet_mod.denoise(unet, x, 14.6, 999.0, cond, label)
+            return [("sdxl_unet_eps" + ("_q8_0_int8" if bits else ""), eps)
+                    ] + ([] if bits else
+                         [("sdxl_vae_image", vae(lat).float())])
+
+    os.environ["MLIS_Q8_MODE"] = "int8" if bits else "dq"
+    try:
+        _kernels_vs_plain(wt, bits, run)
+    finally:
+        del os.environ["MLIS_Q8_MODE"]
+
+
+def time_sdxl_int8_shapes(s):
+    """The quantized products of one SDXL q8_0 request under
+    MLIS_Q8_MODE=int8 (``sdxl_products``), each timed for the per-block
+    W8A8 kernel beside its bound and the library call."""
+    totals = collections.defaultdict(float)
+    calls = sdxl_products(s)
+    for (m, k, n), c in sorted(calls.items()):
+        x, q, sc = testing.quant_inputs(m, k, n, 8)
+        w = (q.float().view(n, -1, quant.KBLOCK) * sc[:, :, None]
+             ).view(n, -1).bfloat16()
+        t = {"ms": ms(lambda: qmm.q8_matmul_int8(x, q, sc)),
+             "library_ms": ms(lambda: torch.matmul(x, w.t())),
+             **_q8_int8_bound(m, k, n)}
+        for key in ("ms", "library_ms", "bound_ms"):
+            totals[key] += c * t[key]
+        phase("shapes", model="sdxl", kernel="q8_matmul_int8",
+              mkn=[m, k, n], calls_per_request=c, **t)
+    phase("shapes", model="sdxl", kernel="q8_matmul_int8",
+          per_request_ms=dict(totals), calls=sum(calls.values()))
+
+
 def time_shapes(s):
     """The quantized products of one q8_0 request (the same for q4_0), each
     timed for both bit widths: per product the calls per request, the
@@ -564,6 +775,7 @@ def time_shapes(s):
 # largest, a 32 x 32 patch grid) runs the joint kernel in the VAE's
 # mid-block (64 x 64 latent tokens)
 SMALL_CASES = [("sd1", testing.TINY_MODEL_TYPE, 192, 1),
+               ("sdxl", testing.TINY_MODEL_TYPE_XL, 192, 3),
                ("sd3", testing.TINY_Q_MODEL_TYPE_SD3, 512, 2)]
 
 

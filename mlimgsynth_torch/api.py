@@ -1,5 +1,5 @@
-"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5 and SD3-medium
-txt2img.
+"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SDXL and
+SD3-medium txt2img.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -24,6 +24,7 @@ from . import prompt as prompt_mod
 from . import tokenizer as tok_mod
 from . import weights as weights_mod
 from .io.tensorstore import TensorStore
+from .models import blocks as blocks_mod
 from .models import clip as clip_mod
 from .models import mmdit as mmdit_mod
 from .models import unet as unet_mod
@@ -53,7 +54,7 @@ class MlisError(Exception):
 class ModelTypeDef:
     """``unet_p`` is the denoiser's parameters: ``UnetParams`` or, for the
     SD3 family, ``MmditParams`` (``flow``).  ``clip2_p`` is the second text
-    tower (bigG), None for single-tower types."""
+    tower (bigG, SDXL and SD3), None for single-tower types."""
     name: str
     clip_p: tok_mod.ClipParams
     unet_p: object
@@ -64,11 +65,16 @@ class ModelTypeDef:
 
 
 def _model_types() -> Dict[str, ModelTypeDef]:
-    """Model types this port runs (tests monkeypatch this table).  sd3 is
-    SD3-medium (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at
-    clip skip 2 with zero T5 rows, the MMDiT, the 16-channel VAE."""
+    """Model types this port runs (tests monkeypatch this table).  sdxl is
+    SDXL-base: CLIP-L and bigG at clip skip 2, the labeled UNet, the SD1 VAE
+    at SDXL's scale (``mlimgsynth_tpu/api.py:124-126``).  sd3 is SD3-medium
+    (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at clip skip 2
+    with zero T5 rows, the MMDiT, the 16-channel VAE."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
                                 unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
+            "sdxl": ModelTypeDef("sdxl", clip_mod.CLIP_VIT_L_14,
+                                 unet_mod.UNET_SDXL, vae_mod.VAE_SDXL, 1024,
+                                 2, clip_mod.CLIP_VIT_BIGG_14),
             "sd3": ModelTypeDef("sd3", clip_mod.CLIP_VIT_L_14,
                                 mmdit_mod.MMDIT_SD3_MEDIUM, vae_mod.VAE_SD3,
                                 1024, 2, clip_mod.CLIP_VIT_BIGG_14)}
@@ -79,8 +85,11 @@ def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
     on the meta device."""
     with torch.device("meta"):
         if not getattr(mt.unet_p, "flow", False):
-            return {"clip.text.": clip_mod.ClipText(mt.clip_p),
-                    "unet.": unet_mod.UNet(mt.unet_p),
+            towers = {"clip.text.": clip_mod.ClipText(mt.clip_p)}
+            if mt.clip2_p is not None:      # SDXL: bigG with its projection
+                towers["clip2.text."] = clip_mod.ClipText(mt.clip2_p,
+                                                          proj=True)
+            return {**towers, "unet.": unet_mod.UNet(mt.unet_p),
                     "vae.": vae_mod.VaeDecoder(mt.vae_p)}
         return {"clip.text.": clip_mod.ClipText(mt.clip_p, proj=True),
                 "clip2.text.": clip_mod.ClipText(mt.clip2_p, proj=True),
@@ -345,11 +354,25 @@ class MLImgSynth:
         (``api.py:1705-1721``): both towers' skip hiddens concatenated on
         features, zero-padded to the T5 width, then the T5 context's rows,
         zeros here (the JAX package's mode without ``--t5``); the label is
-        the two pooled features concatenated."""
+        the two pooled features concatenated.  SDXL (``api.py:1722-1736``):
+        the two skip hiddens concatenated on features; the label is bigG's
+        pooled projected feature (from the same pass as its skip hidden)
+        and the size embeddings of ``[h, w, 0, 0, h, w]``, 256 each."""
         raw = [self._prompt_tokens(pt) for pt in pts]
         mt = self._mt
         if not self._flow():
-            return self._encode_tower("clip.text.", mt.clip_p, raw, False)[0], None
+            emb1 = self._encode_tower("clip.text.", mt.clip_p, raw, False)[0]
+            if not mt.unet_p.cond_label:
+                return emb1, None
+            emb2, feat = self._encode_tower("clip2.text.", mt.clip2_p, raw,
+                                            True)
+            h, w = self.c["height"], self.c["width"]
+            sizes = torch.tensor([h, w, 0, 0, h, w], dtype=torch.float32,
+                                 device=self.device)
+            se = blocks_mod.timestep_embedding(sizes, 256).reshape(1, -1)
+            return (torch.cat([emb1, emb2], dim=-1),
+                    torch.cat([feat.float(), se.expand(len(pts), -1)],
+                              dim=-1))
         emb1, feat1 = self._encode_tower("clip.text.", mt.clip_p, raw, True)
         emb2, feat2 = self._encode_tower("clip2.text.", mt.clip2_p, raw, True)
         d_ctx = mt.unet_p.d_ctx_in
@@ -373,6 +396,13 @@ class MLImgSynth:
         use_cfg = c["cfg_scale"] > 1
         cond, label = self._text_cond([self.prompt, self.nprompt] if use_cfg
                                       else [self.prompt])
+        if (use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False)
+                and not c["nprompt_raw"]):
+            # SDXL: an empty negative prompt conditions on zero context rows
+            # and keeps its label, as the JAX session's default (fused)
+            # encode zeroes the uncond emphasis weights (``api.py:2220-2224``,
+            # ref src/mlimgsynth.c:1702)
+            cond[1:] = 0.0
         # [cond xn; uncond xn]
         cond_all = torch.repeat_interleave(cond, n, dim=0)
         label_all = (None if label is None

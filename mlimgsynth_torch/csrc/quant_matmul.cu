@@ -78,6 +78,28 @@
 //     copy in flight during the products of the current one; at each slab's
 //     end the int32 sums fold into the f32 accumulator with the rows' amax.
 //
+//   q8_matmul_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py q8_matmul_int8 /
+//                   _q8q8_kernel (K8), the MLIS_Q8_MODE=int8 route: W8A8 on
+//                   the per-block weights of the other q8 kernels (int8 [N, K],
+//                   scales f32 [N, K / 128]).  x is quantized per (row,
+//                   128-deep K block) exactly as for K7 (the same quant_rows
+//                   pass at slab 128), and each block folds into the f32 sum
+//                   in block order as acc + (float(dot) * (amax * (1/127))) *
+//                   s[n, block], with no fused multiply-add: the association
+//                   and order of the XLA twin (q8_matmul_int8_xla, which the
+//                   reference's tests hold its Pallas kernel to; the Pallas
+//                   kernel itself folds dot * ((amax / 127) * s)); y =
+//                   bf16_rn(acc).  It runs qmm_i8's GEMM with the per-block
+//                   fold (every two 64-byte chunks), so each fold reads the
+//                   rows' amax and the columns' block scale.
+//   What bounds it: on an SDXL q8_0 UNet at 1024^2 the products range from
+//   M = 2 (the embeddings: weight bytes, 1 byte per weight, bound the time)
+//   to M = 8192 (the 64 x 64 level: 2*M*N*K int8 operations, far above the
+//   ridge).  The block fold (an int to float convert, two multiplies and an
+//   add per output and 128 of K) runs on the CUDA cores, about a sixteenth
+//   of the tensor-core work per element and K; like the rest of qmm_i8 it is
+//   simple first and fast later.
+//
 // No TMA/wgmma pipeline and no warp specialisation yet; only qmm_i8 double
 // buffers its shared memory.
 // The TPU artifacts (sublane-padded [g, 8, bn] scales, the VMEM/HBM cost
@@ -512,7 +534,7 @@ struct I8Args {
   const int8_t* xq;    // [M, K]
   const float* amax;   // [M, K / slab]
   const int8_t* w;     // [N, K]
-  const float* s;      // [N]
+  const float* s;      // [N] (per column, K7) or [N, K / slab] (per block, K8)
   bf16* y;             // [M, N]
   int m, n, k, slab;
 };
@@ -541,6 +563,9 @@ __device__ __forceinline__ void i8_stage(int8_t* sx, int8_t* sw, const I8Args& a
   }
 }
 
+// BLOCK_SCALES false (K7): per-column scales, applied once in the epilogue;
+// true (K8): per-block scales s[n, slab], applied in every slab's fold.
+template <bool BLOCK_SCALES>
 __global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
   __shared__ __align__(16) int8_t sx[2][kI8BM * kI8LD];
   __shared__ __align__(16) int8_t sw[2][kI8BN * kI8LD];
@@ -586,8 +611,17 @@ __global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
       }
     }
     if ((c + 1) % per_slab == 0) {
-      // fold the slab, in slab order: acc + float(dot) * (amax * (1/127))
+      // fold the slab, in slab order: acc + float(dot) * (amax * (1/127)),
+      // and for K8 times the column's scale of this block
       const int sb = c / per_slab;
+      float ws[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + wn0 + ni * 8 + 2 * t + e;
+          ws[ni][e] = BLOCK_SCALES && col < a.n ? a.s[(long long)col * n_slab + sb] : 0.f;
+        }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
@@ -600,8 +634,9 @@ __global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               int& d = iacc[mi][ni][2 * r + e];
-              acc[mi][ni][2 * r + e] =
-                  __fadd_rn(acc[mi][ni][2 * r + e], __fmul_rn(__int2float_rn(d), sc));
+              float part = __fmul_rn(__int2float_rn(d), sc);
+              if (BLOCK_SCALES) part = __fmul_rn(part, ws[ni][e]);
+              acc[mi][ni][2 * r + e] = __fadd_rn(acc[mi][ni][2 * r + e], part);
               d = 0;
             }
           }
@@ -612,9 +647,9 @@ __global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
     if (c + 2 < n_chunks) i8_stage(sx[c & 1], sw[c & 1], a, m0, n0, (c + 2) * kI8BK);
     cp_async_commit();   // possibly empty: keeps one group per chunk
   }
-  // y = bf16_rn(acc * s_col)
+  // y = bf16_rn(acc * s_col) (K7), bf16_rn(acc) (K8)
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
+  for (int ni = 0; ni < 4 && !BLOCK_SCALES; ++ni) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = n0 + wn0 + ni * 8 + 2 * t + e;
@@ -630,8 +665,8 @@ __global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
   store_tile(acc, ya, m0 + wm0, n0 + wn0);
 }
 
-int launch_ws_int8(const bf16* x, const I8Args& a, int8_t* xq, float* amax,
-                   cudaStream_t stream) {
+template <bool BLOCK_SCALES>
+int launch_i8(const bf16* x, const I8Args& a, int8_t* xq, float* amax, cudaStream_t stream) {
   if (bad_shape(a.m, a.n, a.k) || a.slab <= 0 || a.slab % kGroup != 0 || a.k % a.slab != 0)
     return (int)cudaErrorInvalidValue;
   const long long jobs = (long long)a.m * (a.k / a.slab);
@@ -642,7 +677,7 @@ int launch_ws_int8(const bf16* x, const I8Args& a, int8_t* xq, float* amax,
                                                                        a.slab);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  qmm_i8_kernel<<<grid, kI8Threads, 0, stream>>>(a);
+  qmm_i8_kernel<BLOCK_SCALES><<<grid, kI8Threads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -690,6 +725,26 @@ extern "C" int q8_matmul_ws_int8(const void* x, const void* w, const void* s, vo
   a.n = n;
   a.k = k;
   a.slab = slab;
-  return launch_ws_int8(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
-                        static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
+  return launch_i8<false>(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
+                          static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
+}
+
+// x [M, K] bf16, w int8 [N, K], s f32 [N, K / 128] (per block, as the other
+// q8 entry points), y [M, N] bf16, all contiguous with 16-byte aligned bases;
+// scratch the caller allocates: xq int8 [M, K] and amax f32 [M, K / 128].
+// Returns the cudaError_t of the launches.
+extern "C" int q8_matmul_int8(const void* x, const void* w, const void* s, void* y, void* xq,
+                              void* amax, int m, int n, int k, void* stream) {
+  I8Args a;
+  a.xq = static_cast<const int8_t*>(xq);
+  a.amax = static_cast<const float*>(amax);
+  a.w = static_cast<const int8_t*>(w);
+  a.s = static_cast<const float*>(s);
+  a.y = static_cast<bf16*>(y);
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.slab = kGroup;
+  return launch_i8<true>(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
+                         static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
 }

@@ -2,9 +2,10 @@
 
 Parameter names below the ``unet.`` prefix match the JAX package's internal
 scheme (``in.1.1.transf.0.attn2.k_proj.weight`` ...).  NCHW activations;
-CFG runs as one batched forward (cond and uncond rows stacked).  Not ported
-in this slice: the SDXL label embedding, FreeU, ControlNet, DeepCache and
-PAG.
+CFG runs as one batched forward (cond and uncond rows stacked).  SDXL's
+label (the pooled text feature and the size embeddings) enters through
+``label_embed``, added to the time embedding.  Not ported: FreeU,
+ControlNet, DeepCache and PAG.
 """
 from __future__ import annotations
 
@@ -31,11 +32,21 @@ class UnetParams:
     d_head: int = 0
     n_ctx: int = 768
     n_ch: int = 320
+    # width of the label vector (0: no label embedding)
+    ch_adm_in: int = 0
     clip_norm: bool = True
+    # conditioned on a label built from the text encoders (SDXL)
+    cond_label: bool = False
+    # CFG with an empty negative prompt conditions on zero context rows
+    uncond_empty_zero: bool = False
     vparam: bool = False
 
 
 UNET_SD1 = UnetParams(n_head=8, n_ctx=768)
+UNET_SDXL = UnetParams(
+    attn_res=(4, 2), ch_mult=(1, 2, 4), transf_depth=(1, 2, 10),
+    d_head=64, n_ctx=2048, ch_adm_in=2816, clip_norm=False,
+    cond_label=True, uncond_empty_zero=True)
 
 
 def _n_head(P: UnetParams, d_embed: int) -> int:
@@ -73,6 +84,10 @@ class UNet(nn.Module):
         self.P = P
         self.time_embed = nn.ModuleDict({"0": B.linear(P.n_ch, P.n_te),
                                          "2": B.linear(P.n_te, P.n_te)})
+        if P.ch_adm_in:
+            self.label_embed = nn.ModuleDict(
+                {"0": B.linear(P.ch_adm_in, P.n_te),
+                 "2": B.linear(P.n_te, P.n_te)})
         n_levels = len(P.ch_mult)
         blocks_in = {"conv": B.conv2d(P.n_ch_in, P.n_ch)}
         skip_ch = [P.n_ch]
@@ -117,18 +132,23 @@ class UNet(nn.Module):
         blocks_out["conv"] = B.conv2d(ch, P.n_ch_out)
         self.out = nn.ModuleDict(blocks_out)
 
-    def embed(self, t):
-        """ref: mlb_unet__embed.  t: [N] continuous train step."""
+    def embed(self, t, label=None):
+        """ref: mlb_unet__embed (``unet_embed``).  t: [N] continuous train
+        step; label: [N, ch_adm_in] or None."""
         dtype = self._modules["in"]["conv"].weight.dtype
         emb = B.timestep_embedding(t, self.P.n_ch).to(dtype)
-        return self.time_embed["2"](B.silu(self.time_embed["0"](emb)))
+        emb = self.time_embed["2"](B.silu(self.time_embed["0"](emb)))
+        if self.P.ch_adm_in and label is not None:
+            le = self.label_embed["0"](label.to(dtype))
+            emb = emb + self.label_embed["2"](B.silu(le))
+        return emb
 
-    def forward(self, x, t, cond):
-        """x: [N, 4, H, W], t: [N], cond: [N, S_ctx, n_ctx] -> [N, 4, H, W]
-        in the parameters' dtype."""
+    def forward(self, x, t, cond, label=None):
+        """x: [N, 4, H, W], t: [N], cond: [N, S_ctx, n_ctx], label: [N,
+        ch_adm_in] or None -> [N, 4, H, W] in the parameters' dtype."""
         dtype = self._modules["in"]["conv"].weight.dtype
         x, cond = x.to(dtype), cond.to(dtype)
-        emb = self.embed(t)
+        emb = self.embed(t, label)
         blocks_in = self._modules["in"]
         x = blocks_in["conv"](x)
         stack = [x]
@@ -161,16 +181,16 @@ def _bcast(s, x):
     return s.reshape(s.shape + (1,) * (x.dim() - s.dim()))
 
 
-def denoise(unet: UNet, x, sigma, t, cond):
+def denoise(unet: UNet, x, sigma, t, cond, label=None):
     """k-diffusion wrapper: input scaling ``c_in = 1/sqrt(sigma^2 + 1)`` and,
     for v-param models, ``c_skip``/``c_out`` (ref: unet_denoise_run).
     Returns the f32 derivative ``dx/dsigma`` the solvers use.  ``sigma`` and
-    ``t`` are scalars or [N]."""
+    ``t`` are scalars or [N]; ``label`` [N, ch_adm_in] for SDXL."""
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
     c_in = 1.0 / torch.sqrt(sigma * sigma + 1.0)
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=x.device).expand(x.shape[0])
-    out = unet(x * _bcast(c_in, x), t, cond).float()
+    out = unet(x * _bcast(c_in, x), t, cond, label).float()
     if unet.P.vparam:
         c_skip = sigma / (sigma * sigma + 1.0)
         c_out = 1.0 / torch.sqrt(sigma * sigma + 1.0)

@@ -36,6 +36,7 @@ class VaeParams:
 
 
 VAE_SD1 = VaeParams(scale_factor=0.18215)
+VAE_SDXL = VaeParams(scale_factor=0.13025)
 # SD3 family: 16-channel latent, shift factor, no quant convs
 # (``mlimgsynth_tpu/models/vae.py:42-43``)
 VAE_SD3 = VaeParams(ch_z=16, d_embed=16, scale_factor=1.5305,

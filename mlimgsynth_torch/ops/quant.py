@@ -17,6 +17,8 @@ kernels in ``ops/quant_matmul.py``: the function of the JAX package's
 ``q8_matmul_xla`` / ``q4_matmul_xla`` (dequantize in f32, round the weight to
 ``x.dtype``, one product in ``x.dtype``).  ``q8_ws_int8_plain`` is the plain
 version of the W8A8 kernel on per-column weights (``q8_ws_int8_xla``).
+``q8_matmul_int8_plain`` is the plain version of the W8A8 kernel on per-block
+weights (``q8_matmul_int8_xla``, the ``MLIS_Q8_MODE=int8`` route).
 ``PLAIN_CUDA_CALLS`` counts their calls on CUDA tensors (a comparison with a
 kernel makes them; the main path never does).
 
@@ -164,3 +166,29 @@ def q8_ws_int8_plain(x, w_q8, s_col, slab=None):
         acc = part if acc is None else acc + part
     out = acc * s_col.float()[None, :]
     return out.to(x.dtype).reshape(x.shape[:-1] + (n,))
+
+
+def q8_matmul_int8_plain(x, w_q8, w_scale):
+    """x [..., K] . (w_q8 [N, K] int8, w_scale [N, K/128] f32)^T with the
+    activations quantized per (row, 128-deep K block) -> [..., N] in
+    x.dtype, the function of ``q8_matmul_int8_xla`` (``q8_matmul.py:
+    590-602``): :func:`quantize_slabs` at slab 128; the integer product of
+    each block; ``(part * (amax * (1/127))) * w_scale`` in that
+    association; the blocks added in block order.
+
+    The integer products run as one batched f32 matmul of the int8-valued
+    operands, exact since 127^2 * 128 < 2^24."""
+    global PLAIN_CUDA_CALLS
+    if x.is_cuda:
+        PLAIN_CUDA_CALLS += 1
+    n, k = w_q8.shape
+    nb = k // KBLOCK
+    xq, amax = quantize_slabs(x, KBLOCK)               # [M, nb, 128]
+    wq = w_q8.reshape(n, nb, KBLOCK).float()
+    parts = torch.bmm(xq.transpose(0, 1), wq.permute(1, 2, 0))  # [nb, M, N]
+    parts = (parts * (amax * (1.0 / 127.0)).transpose(0, 1)
+             * w_scale.float().t()[:, None, :])
+    acc = parts[0]
+    for b in range(1, nb):
+        acc = acc + parts[b]
+    return acc.to(x.dtype).reshape(x.shape[:-1] + (n,))

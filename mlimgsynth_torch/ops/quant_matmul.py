@@ -17,16 +17,23 @@ A fifth, :func:`q8_matmul_ws_int8`, replaces ``q8_matmul_ws_int8``
 (``mlimgsynth_tpu/ops/q8_matmul.py:452``, ``_q8_ws_int8_kernel``): W8A8 on
 a weight stored per column (int8 [N, K], scales [N]), the activations
 quantized per (row, K slab) by a first pass into scratch that the wrapper
-allocates (one launch counted per call).
+allocates (one launch counted per call).  A sixth, :func:`q8_matmul_int8`,
+replaces ``q8_matmul_int8`` (``:552``, ``_q8q8_kernel``): W8A8 on the
+per-block weights (scales [N, K/128]), the activations quantized per (row,
+128-deep K block) by the same first pass.
 
 :func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule: the
 weight-stationary kernel when the product has at least ``WS_MIN_M`` rows
 (the JAX package's ``_WS_MIN_M``) and the full-K bf16 stripe fits in shared
-memory (:func:`ws_stripe`), else the tiled kernel.  A per-column weight
-first asks the JAX package's plan (``ops/quant_plan.pick_large_m_plan``):
-where it picks ``"int8ws"`` the product runs the W8A8 kernel, otherwise the
-rule above on the scales broadcast to [N, K/128] (``q8_matmul.py:
-675-688``).
+memory (:func:`ws_stripe`), else the tiled kernel.  ``q8_dot`` follows the
+reference's order (``q8_matmul.py:662-700``): a per-column weight first asks
+the JAX package's plan (``ops/quant_plan.pick_large_m_plan``), and where it
+picks ``"int8ws"`` the product runs the W8A8 kernel on per-column scales;
+any other per-column weight goes on with its scales broadcast to [N, K/128];
+then ``MLIS_Q8_MODE=int8`` (read on every call; default ``dq``) sends the
+product to :func:`q8_matmul_int8`, and otherwise the rule above applies.
+The mode changes the numbers (the activations are quantized), so the port
+keeps the reference's switch.
 
 A wrapper given a CPU tensor runs the plain version (``ops/quant.py``);
 given CUDA tensors it launches its kernel or raises.  Each launch adds one
@@ -35,6 +42,7 @@ to ``LAUNCHES[<kernel>]``.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -44,7 +52,8 @@ from . import quant
 from .quant_plan import pick_large_m_plan
 
 LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
-            "q4_matmul_tile": 0, "q4_matmul_ws": 0, "q8_matmul_ws_int8": 0}
+            "q4_matmul_tile": 0, "q4_matmul_ws": 0, "q8_matmul_ws_int8": 0,
+            "q8_matmul_int8": 0}
 
 WS_MIN_M = 2048
 # shared memory one block may use on the H100 (227 KB), and the ws kernel's
@@ -54,8 +63,10 @@ _X_STAGE_BYTES = 64 * 136 * 2
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# the W8A8 entry also takes its scratch: int8 x and the (row, slab) amax
-_I8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the W8A8 entries also take their scratch: int8 x and the (row, slab)
+# amax; the per-column one its slab
+_I8_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_I8WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def reset_counts() -> None:
@@ -83,7 +94,8 @@ def _lib():
     for name in LAUNCHES:
         fn = getattr(lib, name)
         fn.argtypes = (_TILE_ARGTYPES if name.endswith("_tile")
-                       else _I8_ARGTYPES if name.endswith("_int8")
+                       else _I8WS_ARGTYPES if name == "q8_matmul_ws_int8"
+                       else _I8_ARGTYPES if name == "q8_matmul_int8"
                        else _WS_ARGTYPES)
         fn.restype = ctypes.c_int
     return lib
@@ -91,7 +103,7 @@ def _lib():
 
 def _launch(name: str, x, w, s, bits: int):
     """Check the operands and launch kernel ``name``; ``bits`` 4 or 8, and
-    the W8A8 kernel takes per-column scales [N]."""
+    the per-column W8A8 kernel takes scales [N]."""
     if not (x.is_cuda and w.is_cuda and s.is_cuda):
         raise ValueError(f"{name}: x, weight and scales must all be CUDA "
                          "tensors")
@@ -125,13 +137,13 @@ def _launch(name: str, x, w, s, bits: int):
         raise ValueError(f"{name}: x and weight base pointers must be "
                          "16-byte aligned")
     scratch, extra = [], []
-    if percol:
-        slab = quant._ws_slab(k)
+    if name.endswith("_int8"):
+        slab = quant._ws_slab(k) if percol else quant.KBLOCK
         if slab is None:
             raise ValueError(f"{name}: no activation slab for K={k}")
         scratch = [torch.empty(m, k, dtype=torch.int8, device=x.device),
                    torch.empty(m, k // slab, device=x.device)]
-        extra = [slab]
+        extra = [slab] if percol else []
     elif name.endswith("_ws"):
         bn = ws_stripe(k)
         if bn is None:
@@ -189,13 +201,22 @@ def q8_matmul_ws_int8(x, w_q8, s_col):
     return _launch("q8_matmul_ws_int8", x, w_q8, s_col, 8)
 
 
+def q8_matmul_int8(x, w_q8, w_scale):
+    """x [..., K] . (w_q8 [N, K] int8, w_scale [N, K/128] f32)^T with the
+    activations quantized per (row, 128-deep K block) -> [..., N] (bf16 on
+    CUDA), W8A8 kernel."""
+    if not x.is_cuda:
+        return quant.q8_matmul_int8_plain(x, w_q8, w_scale)
+    return _launch("q8_matmul_int8", x, w_q8, w_scale, 8)
+
+
 def _rows(x) -> int:
     return x.numel() // x.shape[-1]
 
 
 def q8_dot(x, w_q8, w_scale):
     """Dispatch a q8 product (ref: ``q8_dot``).  ``w_scale`` [N] marks a
-    weight stored per column."""
+    weight stored per column; ``MLIS_Q8_MODE`` is read on every call."""
     if w_scale.dim() == 1:
         n, k = w_q8.shape
         sel = pick_large_m_plan(_rows(x), k, n, x.element_size(),
@@ -203,6 +224,8 @@ def q8_dot(x, w_q8, w_scale):
         if sel is not None and sel[0] == "int8ws":
             return q8_matmul_ws_int8(x, w_q8, w_scale)
         w_scale = w_scale[:, None].expand(n, k // quant.KBLOCK).contiguous()
+    if os.environ.get("MLIS_Q8_MODE", "dq") == "int8":
+        return q8_matmul_int8(x, w_q8, w_scale)
     if use_ws(_rows(x), x.shape[-1]):
         return q8_matmul_ws(x, w_q8, w_scale)
     return q8_matmul_tile(x, w_q8, w_scale)

@@ -124,8 +124,9 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 label_all: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
-    MMDiT, ``label_all``, its pooled vectors) hold the cond rows, then
-    (with CFG) the uncond rows, on the model's device.
+    MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
+    hold the cond rows, then (with CFG) the uncond rows, on the model's
+    device.
     ``step_observer(i_step, latent_nchw_numpy)`` sees every step.  Returns
     the final latent, f32 on the device."""
     dev = cond_all.device
@@ -146,7 +147,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                                   label_all)
         else:
             t = sigma_to_t(log_sigmas, sigma)
-            d = unet_mod.denoise(model, xb, np.float32(sigma), t, cond_all)
+            d = unet_mod.denoise(model, xb, np.float32(sigma), t, cond_all,
+                                 label_all)
         return _cfg_mix(d, n, cfg.cfg_scale) if use_cfg else d
 
     f32 = np.float32

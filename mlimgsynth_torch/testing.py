@@ -4,15 +4,17 @@ checkpoints, a numpy safetensors writer (the machine with the GPU has no
 kernel against its plain twin.
 
 The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
-(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, and the SD3 set
-``TINY_MODEL_TYPE_SD3``, ``:387-409``) in the port's own parameter classes;
-``TINY_Q_MODEL_TYPE`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that the
-linears quantize.
+(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, the SDXL set
+``TINY_MODEL_TYPE_XL``, ``:94-101``, and the SD3 set ``TINY_MODEL_TYPE_SD3``,
+``:387-409``) in the port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
+``TINY_Q_MODEL_TYPE_XL`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that
+the linears quantize.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import struct
 from typing import Dict, Iterable, Iterator, Tuple
@@ -48,10 +50,31 @@ TINY_Q_MODEL_TYPE = ModelTypeDef("sd1", TINY_Q_CLIP, TINY_Q_UNET, TINY_VAE,
                                  64, 1)
 
 
-# SD3: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:387-409``),
-# a 4-channel flow VAE with the SD3 scale and shift
+# SDXL: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:94-101``):
+# context 32 + 32 wide, label = the 32-wide pooled feature + 6 x 256
 TINY_CLIP2 = ClipParams(n_vocab=49408, n_token=77, d_embed=32, n_interm=64,
                         n_head=4, n_layer=2, tok_pad=0)
+TINY_UNET_XL = unet_mod.UnetParams(
+    n_ch=32, ch_mult=(1, 2), transf_depth=(1, 1), attn_res=(1, 2),
+    n_head=4, n_te=64, n_ctx=64, ch_adm_in=32 + 1536, clip_norm=False,
+    cond_label=True, uncond_empty_zero=True)
+TINY_MODEL_TYPE_XL = ModelTypeDef("sdxl", TINY_CLIP, TINY_UNET_XL, TINY_VAE,
+                                  64, 2, TINY_CLIP2)
+
+# The SDXL set at widths that quantize: both towers 128 wide, the UNet as
+# TINY_Q_UNET with a 256-wide context and a 128 + 1536 = 13 x 128 label.
+TINY_Q_CLIP2 = ClipParams(n_vocab=49408, n_token=77, d_embed=128,
+                          n_interm=256, n_head=4, n_layer=2, tok_pad=0)
+TINY_Q_UNET_XL = unet_mod.UnetParams(
+    n_ch=128, ch_mult=(1, 2), transf_depth=(1, 1), attn_res=(1, 2),
+    n_head=4, n_te=256, n_ctx=256, ch_adm_in=128 + 1536, clip_norm=False,
+    cond_label=True, uncond_empty_zero=True)
+TINY_Q_MODEL_TYPE_XL = ModelTypeDef("sdxl", TINY_Q_CLIP, TINY_Q_UNET_XL,
+                                    TINY_VAE, 64, 2, TINY_Q_CLIP2)
+
+
+# SD3: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:387-409``),
+# a 4-channel flow VAE with the SD3 scale and shift
 TINY_MMDIT = mmdit_mod.MmditParams(
     depth=2, d_model=32, n_head=2, patch=2, n_ch_in=4, n_ch_out=4,
     d_ctx_in=80, d_pooled=64, pos_embed_max=8, d_t_embed=16,
@@ -66,8 +89,6 @@ TINY_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_CLIP, TINY_MMDIT,
 # MMDiT linear's input a multiple of 128.  At 512^2 the CFG batch holds
 # 2 x 1024 image tokens, so the x-stream products reach the 2048 rows of
 # the W8A8 route.
-TINY_Q_CLIP2 = ClipParams(n_vocab=49408, n_token=77, d_embed=128,
-                          n_interm=256, n_head=4, n_layer=2, tok_pad=0)
 TINY_Q_MMDIT = mmdit_mod.MmditParams(
     depth=2, d_model=128, n_head=2, patch=2, n_ch_in=4, n_ch_out=4,
     d_ctx_in=256, d_pooled=256, pos_embed_max=32, d_t_embed=128,
@@ -120,39 +141,108 @@ def _sd3_ckpt_name(internal: str):
     return nameconv.internal_to_compvis(internal)   # vae.*
 
 
-def _checkpoint_name(mt: ModelTypeDef, name: str) -> Tuple[str, bool]:
-    """(checkpoint name, stored transposed) of internal ``name``, checked
-    to map back onto ``name``: the CompVis layout for SD1, the sd3
-    single-file layout for the flow types."""
-    if getattr(mt.unet_p, "flow", False):
-        ck = _sd3_ckpt_name(name)
-    else:
-        ck = nameconv.internal_to_compvis(name)
-    if isinstance(ck, tuple):
-        back = nameconv.normalize_name(ck[1])
-        if not isinstance(back, nameconv.TProj) or back.name != name:
+# OpenCLIP names of a bigG layer's tails (``transformer.resblocks.N.``)
+_OPENCLIP_TAILS = (("norm1.", "ln_1."), ("norm2.", "ln_2."),
+                   ("mlp.fc1.", "mlp.c_fc."), ("mlp.fc2.", "mlp.c_proj."))
+
+
+def _sdxl_ckpt_name(internal: str):
+    """Internal name -> sd_xl_base single-file checkpoint name (CLIP-L under
+    ``conditioner.embedders.0.transformer.``, bigG in the OpenCLIP layout
+    under ``conditioner.embedders.1.model.``, the UNet and VAE as CompVis),
+    the layout of ``mlimgsynth_tpu/testing.py:write_checkpoint_sdxl``.  A
+    bigG q/k/v tensor gives ``("qkv", i, fused name)``: the file holds q, k
+    and v stacked in one ``in_proj`` tensor."""
+    if internal.startswith("clip2.text."):
+        pre = "conditioner.embedders.1.model."
+        t = internal[len("clip2.text."):]
+        if t == "embed.token.weight":
+            return pre + "token_embedding.weight"
+        if t == "embed.position.weight":
+            return pre + "positional_embedding"
+        if t == "text_proj":
+            return pre + "text_projection"
+        if t.startswith("ln_final."):
+            return pre + t
+        m = re.match(r"encoder\.layers\.(\d+)\.(.*)", t)
+        if m is None:
+            return None
+        stem, tail = f"{pre}transformer.resblocks.{m.group(1)}.", m.group(2)
+        qkv = re.match(r"attn\.(q|k|v)_proj\.(weight|bias)$", tail)
+        if qkv:
+            return ("qkv", "qkv".index(qkv.group(1)),
+                    f"{stem}attn.in_proj_{qkv.group(2)}")
+        for a, b in _OPENCLIP_TAILS:
+            tail = tail.replace(a, b)
+        return stem + tail
+    ck = nameconv.internal_to_compvis(internal)
+    if ck is not None and internal.startswith("clip.text."):
+        ck = ck.replace("cond_stage_model.", "conditioner.embedders.0.", 1)
+    return ck
+
+
+def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
+    """Checkpoint name -> (shape in the file, how it is stored, [(internal
+    name, shape)]) for every parameter of ``mt``, in parameter order, each
+    checked to map back onto its internal names: the CompVis layout for
+    SD1, the sd_xl_base layout for SDXL, the sd3 single-file layout for the
+    flow types.  How: ``"as_is"``; ``"T"``, a Linear-stored text projection
+    (transposed); ``"qkv"``, OpenCLIP's fused q/k/v (stacked on rows);
+    ``"linear"``, SDXL's 1x1 ``proj_in`` / ``proj_out`` stored as linears."""
+    flow = getattr(mt.unet_p, "flow", False)
+    sdxl = mt.clip2_p is not None and not flow
+    out: Dict[str, tuple] = {}
+    for name, shape in model_shapes(mt).items():
+        ck = (_sd3_ckpt_name(name) if flow else _sdxl_ckpt_name(name) if sdxl
+              else nameconv.internal_to_compvis(name))
+        how, file_shape = "as_is", shape
+        if isinstance(ck, tuple) and ck[0] == "tproj":
+            how, ck, file_shape = "T", ck[1], tuple(reversed(shape))
+            back = nameconv.normalize_name(ck)
+            ok = isinstance(back, nameconv.TProj) and back.name == name
+        elif isinstance(ck, tuple):
+            _, i, ck = ck
+            how = "qkv"
+            back = nameconv.normalize_name(ck)
+            which = ("q_proj", "k_proj", "v_proj")[i]
+            ok = (isinstance(back, nameconv.QKV) and name == back.name
+                  .replace("in_proj_weight", which + ".weight")
+                  .replace("in_proj_bias", which + ".bias"))
+            if ck in out:
+                prev = out[ck][0]
+                file_shape = (prev[0] + shape[0],) + tuple(shape[1:])
+        else:
+            if sdxl and re.search(r"\.proj_(in|out)\.weight$", name):
+                how, file_shape = "linear", shape[:2]
+            ok = ck is not None and nameconv.normalize_name(ck) == name
+        if not ok:
             raise ValueError(f"no checkpoint round trip for {name}")
-        return ck[1], True
-    if ck is None or nameconv.normalize_name(ck) != name:
-        raise ValueError(f"no checkpoint round trip for {name}")
-    return ck, False
+        members = out[ck][2] if ck in out else []
+        out[ck] = (file_shape, how, members + [(name, shape)])
+    return out
 
 
 def random_checkpoint_tensors(mt: ModelTypeDef, seed: int = 0,
                               dtype=np.float16
                               ) -> Iterator[Tuple[str, np.ndarray]]:
-    """(checkpoint name, array) for every parameter of ``mt``, drawn in
-    order from one seeded stream, one at a time."""
+    """(checkpoint name, array) for every tensor of ``mt``'s checkpoint,
+    drawn in order from one seeded stream, one at a time (a fused q/k/v
+    tensor draws its three parts together)."""
     rng = np.random.default_rng(seed)
-    for name, shape in model_shapes(mt).items():
-        ck, transposed = _checkpoint_name(mt, name)
-        mean, std = _init_std(name, shape)
-        if std == 0.0:
-            arr = np.full(shape, mean, dtype)
-        else:
-            arr = rng.standard_normal(shape, dtype=np.float32)
-            arr = (arr * np.float32(std)).astype(dtype)
-        yield ck, (np.ascontiguousarray(arr.T) if transposed else arr)
+    for ck, (file_shape, how, members) in _checkpoint_layout(mt).items():
+        parts = []
+        for name, shape in members:
+            mean, std = _init_std(name, shape)
+            if std == 0.0:
+                arr = np.full(shape, mean, dtype)
+            else:
+                arr = rng.standard_normal(shape, dtype=np.float32)
+                arr = (arr * np.float32(std)).astype(dtype)
+            parts.append(arr)
+        arr = np.concatenate(parts) if how == "qkv" else parts[0]
+        if how == "T":
+            arr = np.ascontiguousarray(arr.T)
+        yield ck, arr.reshape(file_shape)
 
 
 _ST_DTYPES = {np.dtype(np.float16): "F16", np.dtype(np.float32): "F32"}
@@ -185,26 +275,27 @@ def write_safetensors(path, shapes: Dict[str, Tuple[int, ...]], dtype,
 def write_random_checkpoint(path, mt: ModelTypeDef, seed: int = 0,
                             dtype=np.float16) -> None:
     """Seeded random checkpoint of ``mt`` at ``path``: CompVis names for
-    SD1, the sd3 single-file layout for SD3."""
-    shapes = {}
-    for name, shape in model_shapes(mt).items():
-        ck, transposed = _checkpoint_name(mt, name)
-        shapes[ck] = tuple(reversed(shape)) if transposed else shape
+    SD1, the sd_xl_base layout for SDXL, the sd3 single-file layout for
+    SD3."""
+    shapes = {ck: v[0] for ck, v in _checkpoint_layout(mt).items()}
     write_safetensors(path, shapes, dtype,
                       random_checkpoint_tensors(mt, seed, dtype))
 
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
-# 512^2 and SD3-medium 1024^2 main paths give the kernels, and ragged ones.
-# (kernel, q shape [B, H, Sq, D], Sk, where the main path runs it)
+# 512^2, SDXL 1024^2 and SD3-medium 1024^2 main paths give the kernels, and
+# ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the main path runs
+# it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
     ("flash_attn_fwd", (2, 8, 1024, 80), 1024, "UNet level 1"),
+    ("flash_attn_fwd", (2, 10, 4096, 64), 4096, "SDXL UNet level 1"),
+    ("flash_attn_fwd", (2, 20, 1024, 64), 1024, "SDXL UNet level 2"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
-     "SD3 VAE mid-block"),
+     "SD3 and SDXL VAE mid-block"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
      "MMDiT joint attention, SD3-medium"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
@@ -341,6 +432,38 @@ def int8_inputs(m: int, k: int, n: int, seed: int = 0):
 def int8_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
     """The W8A8 kernel against its twin, held to the ``INT8_*`` limits."""
     return _kernel_error(out, ref, INT8_REL_L2, INT8_ATOL, INT8_RTOL)
+
+
+# The W8A8 kernel on per-block weights (K8, the ``MLIS_Q8_MODE=int8`` route)
+# against its plain twin: products of an SDXL q8_0 UNet at 1024^2 (CFG
+# batch 2: 8,192 tokens at the 64 x 64 level, 2,048 at 32 x 32, 2 x 77
+# context rows, 2 label rows) and ragged M and N.  (M, K, N, where the main
+# path runs it); the inputs are ``quant_inputs(m, k, n, 8)``.
+Q8_INT8_CASES = [
+    (8192, 640, 5120, "ff.net.0.proj, 64x64 level"),
+    (8192, 2560, 640, "ff.net.2, 64x64 level"),
+    (8192, 640, 640, "attention q/k/v/out, 64x64 level"),
+    (2048, 1280, 10240, "ff.net.0.proj, 32x32 level"),
+    (2048, 5120, 1280, "ff.net.2, 32x32 level"),
+    (154, 2048, 1280, "cross-attention k/v, 32x32 level"),
+    (2, 2816, 1280, "label_embed.0"),
+    (4097, 640, 200, "ragged M and N"),
+    (77, 1280, 72, "ragged M and N"),
+]
+
+# Its limits are those of the per-column kernel, for the same reasons: both
+# quantize x with the same f32 operations, both block products are exact
+# integer sums, and both fold the blocks in order as (dot * (amax * (1/127)))
+# * scale without a fused multiply-add, so the two agree bit for bit; a block
+# folded with its neighbour's weight scale or an unrounded activation reads
+# far beyond them.
+Q8_INT8_REL_L2, Q8_INT8_ATOL, Q8_INT8_RTOL = INT8_REL_L2, INT8_ATOL, INT8_RTOL
+
+
+def q8_int8_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K8 against its twin, held to the ``Q8_INT8_*`` limits."""
+    return _kernel_error(out, ref, Q8_INT8_REL_L2, Q8_INT8_ATOL,
+                         Q8_INT8_RTOL)
 
 
 def median_ms(fn, n: int = 20, reps: int = 10) -> float:

@@ -4,8 +4,10 @@ Raw checkpoint names map to the internal names through the ``nameconv``
 rules (OpenCLIP fused qkv split into thirds, HF Linear-stored
 text projection transposed).  Checkpoints already hold torch layouts, so a
 tensor only changes shape where the checkpoint stores a 1x1 conv as a linear
-or the reverse.  ``params_from_jax`` converts the JAX package's parameter
-layouts (linear [in, out], conv HWIO) for the parity tests.
+or the reverse (SDXL's ``proj_in`` / ``proj_out`` are linears [C, C], the
+UNet's 1x1 convs [C, C, 1, 1]: the same values, reshaped).
+``params_from_jax`` converts the JAX package's parameter layouts (linear
+[in, out], conv HWIO) for the parity tests.
 """
 from __future__ import annotations
 
@@ -52,11 +54,15 @@ def build_name_map(store: TensorStore) -> Dict[str, NameRef]:
 def identify_model(store: TensorStore, name_map: Dict[str, NameRef],
                    width_table: Mapping[int, str]) -> Optional[str]:
     """Model type from the UNet cross-attention K width (ref:
-    mlis_model_identify), or the SD3 family from its MMDiT joint blocks
-    (``mlimgsynth_tpu/weights.py:99-108``); None when nothing matches."""
-    ref = name_map.get("unet.in.1.1.transf.0.attn2.k_proj.weight")
-    if ref is not None:
-        return width_table.get(int(store.tensors[ref.raw].shape[-1]))
+    mlis_model_identify), probed in the first block that has one (SDXL's
+    first level has no attention), or the SD3 family from its MMDiT joint
+    blocks (``mlimgsynth_tpu/weights.py:70-108``); None when nothing
+    matches."""
+    for probe in ("unet.in.1.1.transf.0.attn2.k_proj.weight",
+                  "unet.in.4.1.transf.0.attn2.k_proj.weight"):
+        ref = name_map.get(probe)
+        if ref is not None:
+            return width_table.get(int(store.tensors[ref.raw].shape[-1]))
     ref = name_map.get("mmdit.joint_blocks.0.x_block.attn.qkv.weight")
     if ref is None:
         return None

@@ -173,7 +173,7 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sdxl"), ("weight-type", "q2_k"), ("method", "heun"),
+    ("model-type", "sd2"), ("weight-type", "q2_k"), ("method", "heun"),
     ("lora", "x.safetensors"), ("hires-fix", 2.0), ("prompt", "<lora:x:1>"),
 ])
 def test_unsupported_option_raises(name, value):

@@ -69,6 +69,8 @@ def cuda():
     (2, 8, 4096, 4096, 40),
     (2, 8, 1024, 1024, 80),
     (2, 8, 4096, 4095, 40),
+    (2, 10, 4096, 4096, 64),   # SDXL UNet, 64 x 64 level
+    (2, 20, 1024, 1024, 64),   # SDXL UNet, 32 x 32 level
     (2, 4, 1000, 700, 64),
     (1, 1, 4096, 4096, 512),
     (1, 1, 4096, 4095, 512),

@@ -18,7 +18,7 @@ from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import quant_matmul as qmm
 
 KERNELS = ["q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
-           "q4_matmul_ws", "q8_matmul_ws_int8"]
+           "q4_matmul_ws", "q8_matmul_ws_int8", "q8_matmul_int8"]
 
 
 @pytest.fixture(autouse=True)
@@ -44,6 +44,8 @@ def _pair(k, n, bits, seed=0, percol=False):
 def _plain(name):
     if name == "q8_matmul_ws_int8":
         return quant.q8_ws_int8_plain
+    if name == "q8_matmul_int8":
+        return quant.q8_matmul_int8_plain
     return quant.q4_matmul_plain if name.startswith("q4") \
         else quant.q8_matmul_plain
 
@@ -56,7 +58,7 @@ def test_cpu_tensors_take_the_plain_twin(monkeypatch, name):
     monkeypatch.setattr(_build, "load", no_build)
     qmm.reset_counts()
     bits = 4 if name.startswith("q4") else 8
-    q, s = _pair(256, 48, bits, percol=name.endswith("int8"))
+    q, s = _pair(256, 48, bits, percol=name == "q8_matmul_ws_int8")
     x = torch.randn(2, 5, 256, generator=torch.Generator().manual_seed(0))
     out = getattr(qmm, name)(x, q, s)
     assert out.shape == (2, 5, 48)
@@ -118,6 +120,40 @@ def test_int8_kernel_matches_plain_on_cuda(cuda, m, k, n, where):
     assert res["ok"], (where, res)
 
 
+# bf16 in and out, held to the limits of testing.q8_int8_error (the reasons
+# are stated there)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,where", testing.Q8_INT8_CASES)
+def test_q8_int8_kernel_matches_plain_on_cuda(cuda, m, k, n, where):
+    x, q, s = testing.quant_inputs(m, k, n, 8)
+    before = dict(qmm.LAUNCHES)
+    out = qmm.q8_matmul_int8(x, q, s)
+    ref = quant.q8_matmul_int8_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["q8_matmul_int8"] == before["q8_matmul_int8"] + 1
+    res = testing.q8_int8_error(out, ref)
+    assert res["ok"], (where, res)
+
+
+@pytest.mark.cuda
+def test_int8_mode_dispatch_on_cuda(cuda, monkeypatch):
+    """Under MLIS_Q8_MODE=int8 a per-block weight runs K8 at every M; a
+    per-column weight keeps the W8A8 kernel on per-column scales where the
+    plan picks it and runs K8 on broadcast scales elsewhere."""
+    monkeypatch.setenv("MLIS_Q8_MODE", "int8")
+    for m in (2, 2048):
+        x, q, s = testing.quant_inputs(m, 640, 64, 8)
+        before = dict(qmm.LAUNCHES)
+        qmm.q8_dot(x.view(1, m, 640), q, s)
+        assert qmm.LAUNCHES["q8_matmul_int8"] == before["q8_matmul_int8"] + 1
+    for m, kind in ((8192, "ws_int8"), (308, "int8")):
+        x, q, s = testing.int8_inputs(m, 1536, 1536)
+        before = dict(qmm.LAUNCHES)
+        qmm.q8_dot(x.view(1, m, 1536), q, s)
+        name = f"q8_matmul_{kind}"
+        assert qmm.LAUNCHES[name] == before[name] + 1, m
+
+
 @pytest.mark.cuda
 def test_percol_dispatch_on_cuda(cuda):
     """A per-column weight runs the W8A8 kernel where the plan picks it
@@ -166,4 +202,7 @@ def test_launch_checks_inputs_on_cuda(cuda):
     with pytest.raises(ValueError, match="slab"):
         xi, qi, si = testing.int8_inputs(8, 4224, 32)
         qmm.q8_matmul_ws_int8(xi, qi, si)
+    with pytest.raises(ValueError, match="scales"):
+        xi, qi, si = testing.int8_inputs(8, 256, 32)
+        qmm.q8_matmul_int8(xi, qi, si)       # per-column scales
     assert qmm.LAUNCHES == before

@@ -10,6 +10,7 @@ CPU from the same file, prompts and seed.  Tolerances as the SD1 legs
 (tests/test_torch_e2e.py): per-step latents atol/rtol 1e-4, final u8 image
 PSNR > 40 dB.
 """
+import json
 import os
 import subprocess
 import sys
@@ -103,9 +104,13 @@ def test_unported_sd3_options_raise(name, value):
 
 
 _NO_JAX = """
+import json
+import os
 import sys
 import numpy as np
 from mlimgsynth_torch import api, testing
+from mlimgsynth_torch.ops import quant
+out = {}
 mt = testing.TINY_Q_MODEL_TYPE_SD3
 api._model_types = lambda: {"sd3": mt}
 path = sys.argv[1]
@@ -115,24 +120,57 @@ for k, v in [("model", path), ("weight-type", "q8_0"), ("steps", 2),
              ("seed", 1), ("prompt", "a cat"), ("nprompt", "")]:
     s.option_set(k, v)
 img = s.generate()
-assert s.c["model_type"] == "sd3" and s.c["width"] == 512
-assert img.shape == (1, 3, 512, 512) and np.isfinite(img).all()
-from mlimgsynth_torch.ops import quant
-assert quant.PLAIN_CUDA_CALLS == 0
-tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
-assert not tpu, tpu
-print("jax" in sys.modules)
+out["sd3"] = [s.c["model_type"], s.c["width"], list(img.shape),
+              bool(np.isfinite(img).all())]
+# SDXL q8_0 in the sd_xl_base layout, under MLIS_Q8_MODE=int8
+mt = testing.TINY_Q_MODEL_TYPE_XL
+api._model_types = lambda: {"sdxl": mt}
+testing.write_random_checkpoint(path, mt, seed=4, dtype=np.float32)
+k8 = []
+plain = quant.q8_matmul_int8_plain
+quant.q8_matmul_int8_plain = lambda *a: (k8.append(1), plain(*a))[1]
+os.environ["MLIS_Q8_MODE"] = "int8"
+s = api.MLImgSynth(device="cpu")
+for k, v in [("model", path), ("weight-type", "q8_0"), ("steps", 2),
+             ("seed", 1), ("prompt", "a cat"), ("nprompt", "")]:
+    s.option_set(k, v)
+img = s.generate()
+out["sdxl"] = [s.c["model_type"], s.c["width"], list(img.shape),
+               bool(np.isfinite(img).all()), len(k8)]
+out["plain_cuda_calls"] = quant.PLAIN_CUDA_CALLS
+out["tpu"] = sorted(m for m in sys.modules
+                    if m.split(".")[0] == "mlimgsynth_tpu")
+out["jax"] = "jax" in sys.modules
+print(json.dumps(out))
 """
 
 
-def test_port_sd3_q8_generate_never_imports_jax(tmp_path):
-    """The port's own random sd3 writer and the quantizing tiny SD3 at its
-    512^2 default, q8_0 (its x-stream products run the W8A8 twin), in a
-    process that never imports jax."""
+@pytest.fixture(scope="module")
+def no_jax_run(tmp_path_factory):
+    """One interpreter that never imports jax runs the port's own random
+    writer and two quantizing tiny models through the session: SD3 at its
+    512^2 default, q8_0 (its x-stream products run the W8A8 twin), then
+    SDXL at 64^2, q8_0 under ``MLIS_Q8_MODE=int8`` (every product runs the
+    K8 twin)."""
+    tmp = tmp_path_factory.mktemp("nojax")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    env.pop("MLIS_Q8_MODE", None)
     out = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, str(tmp_path / "t.safetensors")],
-        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        [sys.executable, "-c", _NO_JAX, str(tmp / "t.safetensors")],
+        capture_output=True, text=True, env=env, cwd=str(tmp),
         timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "False"
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not res["jax"] and not res["tpu"], res
+    assert res["plain_cuda_calls"] == 0
+    return res
+
+
+def test_port_sd3_q8_generate_never_imports_jax(no_jax_run):
+    assert no_jax_run["sd3"] == ["sd3", 512, [1, 3, 512, 512], True]
+
+
+def test_port_sdxl_q8_int8_generate_never_imports_jax(no_jax_run):
+    model, width, shape, finite, k8_calls = no_jax_run["sdxl"]
+    assert (model, width, shape, finite) == ("sdxl", 64, [1, 3, 64, 64], True)
+    assert k8_calls > 0

@@ -14,31 +14,68 @@ import torch
 from helpers import write_checkpoint_sd2, write_tiny_checkpoint
 from mlimgsynth_tpu import weights as jw
 from mlimgsynth_tpu.io.tensorstore import TensorStore
-from mlimgsynth_tpu.testing import tiny_specs
+from mlimgsynth_tpu.models import blocks as JB
+from mlimgsynth_tpu.models import clip as jclip
+from mlimgsynth_tpu.models import unet as junet
+from mlimgsynth_tpu.models import vae as jvae
+from mlimgsynth_tpu.testing import (TINY_CLIP, TINY_CLIP2, TINY_UNET_XL,
+                                    TINY_VAE, tiny_specs,
+                                    write_checkpoint_sdxl)
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tw
 
 
+def _sdxl_specs():
+    """The JAX parameter spec of the tiny SDXL model (both towers, the
+    labeled UNet, the VAE decoder), as ``write_checkpoint_sdxl`` traces
+    it."""
+    spec = JB.trace_spec(
+        lambda ctx, toks: jclip.clip_text_apply(ctx, toks, TINY_CLIP),
+        jnp.zeros((1, 77), jnp.int32))
+    spec.update(JB.trace_spec(
+        lambda ctx, toks: jclip.clip_text_apply(
+            ctx, toks, TINY_CLIP2, feat_tok_idx=jnp.zeros((1,), jnp.int32),
+            pre="clip2"), jnp.zeros((1, 77), jnp.int32)))
+    spec.update(JB.trace_spec(
+        lambda ctx, x, t, c, l: junet.unet_apply(ctx, x, t, c, l,
+                                                 TINY_UNET_XL),
+        jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)), jnp.zeros((1, 77, 64)),
+        jnp.zeros((1, TINY_UNET_XL.ch_adm_in))))
+    spec.update(JB.trace_spec(
+        lambda ctx, x: jvae.vae_decode_apply(ctx, x, TINY_VAE),
+        jnp.zeros((1, 8, 8, 4))))
+    return spec
+
+
 @pytest.mark.parametrize("writer", [write_tiny_checkpoint,
-                                    write_checkpoint_sd2])
+                                    write_checkpoint_sd2,
+                                    write_checkpoint_sdxl])
 def test_loader_matches_jax_loader(tmp_path, writer):
-    """SD1 CompVis names, and (sd2 writer) the OpenCLIP text tower whose
-    q/k/v are one fused tensor."""
+    """SD1 CompVis names; (sd2 writer) the OpenCLIP text tower whose q/k/v
+    are one fused tensor; (sdxl writer) CLIP-L under ``conditioner.
+    embedders.0``, bigG in the OpenCLIP layout with its text projection,
+    and the labeled UNet."""
     path = str(tmp_path / "ckpt.safetensors")
     writer(path)
+    sdxl = writer is write_checkpoint_sdxl
     spec = {k: dataclasses.replace(ps, dtype=jnp.float32)
-            for k, ps in tiny_specs().items()}
+            for k, ps in (_sdxl_specs() if sdxl else tiny_specs()).items()}
     store = TensorStore.open(path)
     try:
         want = tw.params_from_jax(
             jw.load_params(store, spec, jw.build_name_map(store)))
-        shapes = T.model_shapes(T.TINY_MODEL_TYPE)
+        shapes = T.model_shapes(T.TINY_MODEL_TYPE_XL if sdxl
+                                else T.TINY_MODEL_TYPE)
         got = tw.load_params(store, tw.build_name_map(store), shapes,
                              "cpu", torch.float32)
     finally:
         store.close()
     assert set(got) <= set(want)
     assert any(k.startswith("clip.text.") for k in got)
+    if sdxl:
+        assert set(got) == set(want)
+        assert "clip2.text.text_proj" in got
+        assert "unet.label_embed.0.weight" in got
     for name, t in got.items():
         assert torch.equal(t, want[name]), name
 
@@ -91,3 +128,31 @@ def test_random_checkpoint_round_trip(tmp_path, dtype):
             np.testing.assert_array_equal(store.read(name), arr)
     finally:
         store.close()
+
+
+def test_random_sdxl_checkpoint_loads_like_jax(tmp_path):
+    """The port's writer in the sd_xl_base layout (bigG's q/k/v fused in
+    OpenCLIP ``in_proj`` tensors, ``proj_in`` / ``proj_out`` stored as
+    linears): the JAX loader reads it into the same tensors as the port's
+    loader."""
+    path = str(tmp_path / "xl.safetensors")
+    T.write_random_checkpoint(path, T.TINY_MODEL_TYPE_XL, seed=2,
+                              dtype=np.float32)
+    store = TensorStore.open(path)
+    try:
+        assert any(n.endswith("attn.in_proj_weight") for n in store.tensors)
+        assert store.tensors[
+            "model.diffusion_model.input_blocks.1.1.proj_in.weight"
+        ].shape == (32, 32)
+        spec = {k: dataclasses.replace(ps, dtype=jnp.float32)
+                for k, ps in _sdxl_specs().items()}
+        want = tw.params_from_jax(
+            jw.load_params(store, spec, jw.build_name_map(store)))
+        got = tw.load_params(store, tw.build_name_map(store),
+                             T.model_shapes(T.TINY_MODEL_TYPE_XL), "cpu",
+                             torch.float32)
+    finally:
+        store.close()
+    assert set(got) == set(want)
+    for name, t in got.items():
+        assert torch.equal(t, want[name]), name

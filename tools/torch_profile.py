@@ -3,9 +3,11 @@
 
 Opens a full-width session of the PyTorch port on seeded random weights
 (bf16 activations; 20 Euler steps, CFG 7, batch 1): SD1.5 at 512^2, or
-with ``--model sd3`` SD3-medium at 1024^2, for each weight type named on
-the command line (default bf16; q8_0 and q4_0 store the linears
-quantized), one session at a time, and measures, all in this one process:
+with ``--model sdxl`` SDXL-base or ``--model sd3`` SD3-medium at 1024^2,
+for each weight type named on the command line (default bf16; q8_0 and
+q4_0 store the linears quantized; ``q8_0:int8`` measures q8_0 under
+``MLIS_Q8_MODE=int8``, in the same session as a ``q8_0`` named just
+before it), one session at a time, and measures, all in this one process:
 
   * ``requests``: the wall seconds of a cold and of three warm requests;
   * ``stages``: one request split into text encode, sampler loop and VAE
@@ -20,7 +22,8 @@ quantized), one session at a time, and measures, all in this one process:
     above: two different requests of this run, for an idle share without
     the profiler's cost on the host.
 
-    python3 tools/torch_profile.py [--model sd1|sd3] [bf16] [q8_0] [q4_0]
+    python3 tools/torch_profile.py [--model sd1|sdxl|sd3] [bf16] [q8_0]
+        [q8_0:int8] [q4_0]
 
 Prints one JSON line per measurement, each naming its model and weight
 type.
@@ -121,9 +124,12 @@ def denoiser_step_ms(s, n: int) -> float:
                               label)
     else:
         x = torch.randn(2, *lat[1:], device="cuda", generator=gen) * 14.6
+        label = (None if s.tensors["label"] is None else
+                 torch.from_numpy(s.tensors["label"]).cuda().repeat(2, 1))
 
         def step():
-            unet_mod.denoise(s._models["unet."], x, 14.6, 999.0, cond)
+            unet_mod.denoise(s._models["unet."], x, 14.6, 999.0, cond,
+                             label)
     with torch.no_grad():
         step()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -185,7 +191,7 @@ def main() -> int:
     model = "sd1"
     if args[:1] == ["--model"]:
         model, args = args[1], args[2:]
-    dim = {"sd1": 512, "sd3": 1024}[model]
+    dim = {"sd1": 512, "sdxl": 1024, "sd3": 1024}[model]
     out("device", nvidia_smi=smi, torch=torch.__version__, model=model)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, f"{model}-random-f16.safetensors")
@@ -194,21 +200,36 @@ def main() -> int:
                                         seed=0)
         out("checkpoint", model=model, write_s=time.perf_counter() - t0,
             bytes=os.path.getsize(ckpt))
-        for wt in args or ["bf16"]:
-            profile_path(ckpt, model, dim, wt, tmp)
+        prev = None          # (weight type, session) to reuse
+        for arg in args or ["bf16"]:
+            wt, _, mode = arg.partition(":")
+            s = prev[1] if prev and prev[0] == wt else None
+            prev = None
+            torch.cuda.empty_cache()
+            os.environ["MLIS_Q8_MODE"] = mode or "dq"
+            try:
+                prev = (wt, profile_path(ckpt, model, dim, wt, tmp, s,
+                                         mode or "dq"))
+            finally:
+                del os.environ["MLIS_Q8_MODE"]
     return 0
 
 
-def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str) -> None:
-    s = api.MLImgSynth(device="cuda")
-    for k, v in [("model", ckpt), ("model-type", model), ("weight-type", wt),
-                 ("image-dim", dim), ("steps", 20), ("cfg-scale", 7.0),
-                 ("method", "euler"), ("scheduler", "uniform")]:
-        s.option_set(k, v)
-    t0 = time.perf_counter()
-    s.setup()
-    tag = {"model": model, "path": wt}
-    out("setup", **tag, setup_s=time.perf_counter() - t0)
+def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str,
+                 s=None, mode: str = "dq"):
+    """Every measurement of one weight type (under ``mode``), in session
+    ``s`` or a new one; returns the session."""
+    tag = {"model": model, "path": wt, "mode": mode}
+    if s is None:
+        s = api.MLImgSynth(device="cuda")
+        for k, v in [("model", ckpt), ("model-type", model),
+                     ("weight-type", wt), ("image-dim", dim), ("steps", 20),
+                     ("cfg-scale", 7.0), ("method", "euler"),
+                     ("scheduler", "uniform")]:
+            s.option_set(k, v)
+        t0 = time.perf_counter()
+        s.setup()
+        out("setup", **tag, setup_s=time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     cold = request(s, 0)
     warm = [request(s, 1 + i) for i in range(WARM)]
@@ -223,8 +244,7 @@ def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str) -> None:
     out("derived", **tag, median_warm_s=med,
         device_busy_s=trace["device_busy_s"],
         idle_share=1.0 - trace["device_busy_s"] / med)
-    del s
-    torch.cuda.empty_cache()
+    return s
 
 
 if __name__ == "__main__":

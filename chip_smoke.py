@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 Phases, one result line each (any failure exits non-zero):
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles csrc/flash_attention.cu and csrc/quant_matmul.cu
-                 for sm_90a, one nvcc each, started together;
+                 for sm_90a, one nvcc each, started together; per kernel its
+                 registers and spills (ptxas -v) and its wgmma instructions
+                 (HGMMA in cuobjdump's SASS, where the toolkit has it): the
+                 weight-stationary kernels must hold HGMMA and spill nothing;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
                  flash kernels at the SD1.5 512^2, SDXL 1024^2 and
                  SD3-medium 1024^2 main-path shapes and ragged ones, the
@@ -16,7 +19,8 @@ Phases, one result line each (any failure exits non-zero):
                  at the SD1.5 products and ragged M and N, the per-column
                  W8A8 kernel at the SD3 x-stream products and ragged ones,
                  the per-block W8A8 kernel (MLIS_Q8_MODE=int8) at the SDXL
-                 products and ragged ones; each with its time, its plain
+                 products and ragged ones (the q8 and q4 weight-stationary
+                 kernels also at the SDXL products); each with its time, its plain
                  version's, one PyTorch call's for the same function and the
                  card's bound;
   4. main      - three paths on one seeded random full-width SD1.5
@@ -37,10 +41,12 @@ Phases, one result line each (any failure exits non-zero):
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
                  matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
                  W8A8 kernel);
-  6. shapes    - the quantized products of one SD1.5 q8_0 request, each
-                 timed for its q8 and q4 kernel beside its bound, and those
-                 of one SDXL q8_0 request under MLIS_Q8_MODE=int8, each
-                 timed for the per-block W8A8 kernel;
+  6. shapes    - the quantized products of one SD1.5 q8_0 request and of
+                 one SDXL q8_0 request, each timed for the q8 and q4 kernel
+                 the dispatch picks in the default mode beside its bound and
+                 cuBLAS, and those of the SDXL request under
+                 MLIS_Q8_MODE=int8, each timed for the per-block W8A8 kernel;
+                 each with a per-request sum;
   7. small     - tiny random SD1 (192^2), SDXL (192^2) and SD3 (512^2)
                  models through the session on the card (bf16, kernels)
                  against the same on the CPU (f32, the path the CPU tests
@@ -54,6 +60,7 @@ import collections
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -150,11 +157,15 @@ def main() -> int:
 
     t0 = time.time()
     _build.load_all(SOURCES)
-    phase("build", seconds=time.time() - t0, libs={
-        n: {"nvcc_seconds": i["seconds"], "cached": i["cached"],
-            "ptxas": [ln.strip() for ln in i["log"].splitlines()
-                      if "registers" in ln]}
-        for n, i in _build.BUILD_INFO.items()})
+    libs = {n: {"nvcc_seconds": i["seconds"], "cached": i["cached"],
+                "kernels": kernel_report(n)}
+            for n, i in _build.BUILD_INFO.items()}
+    phase("build", seconds=time.time() - t0, libs=libs)
+    ws = {k: v for k, v in libs["quant_matmul"]["kernels"].items()
+          if k.startswith("qmm_ws_kernel")}
+    if not ws or any(v.get("spill_bytes", 0) or v.get("hgmma") == 0
+                     for v in ws.values()):
+        raise AssertionError(f"weight-stationary kernels: {ws}")
 
     kernels = (check_flash() + check_quant() + check_int8()
                + check_q8_int8())
@@ -198,10 +209,13 @@ def main() -> int:
                     lambda s: sdxl_want(s, int8=True), mode="int8"))
             sdxl_reference_check(s, wt, bits)
             if bits == 8:
+                sdxl_ws = time_products(sdxl_products(s), "sdxl")["q8_ws_ms"]
                 time_sdxl_int8_shapes(s)
             _drop(s)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "q8_matmul_ws":
+            k["sdxl_per_request_ms"] = sdxl_ws
     small_check()
     check_imports()
     phase("done", seconds=time.time() - t_start)
@@ -210,6 +224,52 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = (re.findall(r"L[ib](\d+)E", mangled[i:].split("EEv")[0])
+            if mangled[i:i + 1] == "I" else [])
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def kernel_report(lib: str) -> dict:
+    """Per kernel of a built library: registers and spilled bytes from the
+    ptxas -v log, and HGMMA (wgmma) instructions in its SASS where the
+    toolkit has cuobjdump."""
+    out, cur = {}, None
+    for ln in _build.BUILD_INFO[lib]["log"].splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                              capture_output=True, text=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\w+)", ln)
+            if m:
+                fn = out.setdefault(_kernel_name(m.group(1)), {})
+                fn["hgmma"] = 0
+            elif fn is not None and "HGMMA" in ln:
+                fn["hgmma"] += 1
+    return out
 
 
 def _entry(name: str, source: str, **kv) -> dict:
@@ -733,11 +793,37 @@ def time_sdxl_int8_shapes(s):
           per_request_ms=dict(totals), calls=sum(calls.values()))
 
 
+def time_products(calls, model: str) -> dict:
+    """Each product (rows, K, N) -> calls of one request timed for the q8
+    and q4 kernel the dispatch picks in the default mode: per product the
+    calls per request, the kernel, the ws tile width, its time, its plain
+    version's, its bound and the library call's time; then the per-request
+    sums, by kernel too (``q8_ws_ms``: K6's device time a request)."""
+    totals = collections.defaultdict(float)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (m, k, n), c in sorted(calls.items()):
+        kind_ = "ws" if qmm.use_ws(m, k) else "tile"
+        row = {"mkn": [m, k, n], "calls_per_request": c, "kernel": kind_}
+        if kind_ == "ws":
+            row["tile_n"] = qmm.ws_tile_n(m, n, sms)
+        for bits in (8, 4):
+            name = f"q{bits}_matmul_{kind_}"
+            x, q, sc = testing.quant_inputs(m, k, n, bits)
+            t = {**_time_quant(name, x, q, sc, bits),
+                 **_quant_bound(m, k, n, bits)}
+            row[f"q{bits}"] = t
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                totals[f"q{bits}_{key}"] += c * t[key]
+            totals[f"q{bits}_{kind_}_ms"] += c * t["ms"]
+        phase("shapes", model=model, **row)
+    phase("shapes", model=model, per_request_ms=dict(totals),
+          calls=sum(calls.values()))
+    return totals
+
+
 def time_shapes(s):
-    """The quantized products of one q8_0 request (the same for q4_0), each
-    timed for both bit widths: per product the calls per request, the
-    kernel the dispatch picks, its time, its bound and the library call's
-    time."""
+    """The quantized products of one SD1.5 q8_0 request (the same for
+    q4_0), counted by hooks on a request, through :func:`time_products`."""
     calls = collections.Counter()
 
     def hook(mod, inp, out):
@@ -754,21 +840,7 @@ def time_shapes(s):
     finally:
         for h in hooks:
             h.remove()
-    totals = collections.defaultdict(float)
-    for (m, k, n), c in sorted(calls.items()):
-        kind_ = "ws" if qmm.use_ws(m, k) else "tile"
-        row = {"mkn": [m, k, n], "calls_per_request": c, "kernel": kind_}
-        for bits in (8, 4):
-            name = f"q{bits}_matmul_{kind_}"
-            x, q, sc = testing.quant_inputs(m, k, n, bits)
-            t = {**_time_quant(name, x, q, sc, bits),
-                 **_quant_bound(m, k, n, bits)}
-            row[f"q{bits}"] = t
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                totals[f"q{bits}_{key}"] += c * t[key]
-        phase("shapes", **row)
-    phase("shapes", per_request_ms=dict(totals),
-          calls=sum(calls.values()))
+    time_products(calls, "sd1")
 
 
 # (model type, tiny geometry, image side, seed): the SD3 one at 512^2 (its

@@ -39,14 +39,39 @@
 //     block dequantizes its 64 weight rows once per M tile: cheap where M
 //     is small (CLIP, the 16 x 16 level, cross-attention k/v, the time
 //     embedding), which is where it runs.
-//   * _ws (weight-stationary): one block owns a stripe of BN output columns,
-//     dequantizes its full-K stripe once into dynamic shared memory as bf16
-//     (BN = 64 up to K = 1280, 32 above), then sweeps a range of 64-row
-//     M tiles through it, staging only x.  The grid is stripes x M ranges,
-//     sized to fill the card once (the stripe count alone is 5 to 80 at
-//     these shapes); each weight is dequantized once per M range instead of
-//     once per M tile.  The x loads of the next (tile, group) step overlap
-//     the products of the current one, as in _tile.
+//   * _ws (weight-stationary; K6, K10), for M >= 2048: 2*M*N*K flops far
+//     above the ridge (at (2048, 640, 5120) 13.4 GFLOP over 9.9 MB: 13.6 us
+//     of tensor-core time against 3 us of bytes), so the bf16 tensor-core
+//     rate is the bound, and only wgmma reaches it.  A first design kept a
+//     full-K bf16 stripe of 64 or 32 columns in shared memory (100-182 KB:
+//     one or two 4-warp blocks an SM), staged x through registers with two
+//     block barriers per group, sized its grid as stripes x M ranges (1.2 to
+//     2 waves) and ran mma.sync on 32 x 32 warp tiles: 10% of the bf16 peak.
+//     This one (qmm_ws_kernel) keeps no stripe.  Each block is persistent
+//     (one per SM) and walks 128 x BN output tiles, M fastest within an N
+//     column so that a weight tile is read from L2 by the blocks beside it;
+//     BN (80 or 160, the wgmma N) is picked per shape by the caller
+//     (ops/quant_matmul.py ws_tile_n) so that the tiles fill whole waves of
+//     the 132 SMs.  Four roles run side by side in their own warps, linked
+//     by mbarriers: a producer warp keeps a ring of stages full (x [128, 64]
+//     bf16 by TMA with the 128-byte swizzle; the raw weight tile [BN, 64]
+//     bytes by TMA, where for q4 a stage spans one 128-group and its 64
+//     packed bytes a row are loaded once for two product steps; the group's
+//     BN scales by cp.async); a dequantizing warpgroup turns each step's raw
+//     tile into a bf16 B tile in a ring of three, written in the swizzled
+//     layout the wgmma descriptor names; two consumer warpgroups (64 rows
+//     each) issue each step's four asynchronous wgmma m64nBNk16 (A and B
+//     from shared memory, f32 accumulators in registers) with one step in
+//     flight behind, and stage each finished tile as bf16 in shared memory
+//     for a TMA store that runs on under the next tile's products.  So each
+//     weight is dequantized once per 128-row tile (1/128 of its
+//     multiply-adds) on CUDA cores that work beside the tensor cores, and
+//     loads, dequantization, products and stores overlap.  What bounds it
+//     now (PERF.md): the bytes from L2 into shared memory (x is read once per
+//     BN columns, the weight once per 128 rows) and shared memory's own
+//     bandwidth, which the TMA writes, the B tiles and the wgmma reads
+//     share.  Later work: a 2-block cluster multicasting x, and K above 3328
+//     (K5's K = 5120 products).
 //
 //   q8_matmul_ws_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py
 //                      q8_matmul_ws_int8 / _q8_ws_int8_kernel (K7): W8A8
@@ -100,11 +125,12 @@
 //   of the tensor-core work per element and K; like the rest of qmm_i8 it is
 //   simple first and fast later.
 //
-// No TMA/wgmma pipeline and no warp specialisation yet; only qmm_i8 double
-// buffers its shared memory.
+// Only the ws kernels use TMA, wgmma and warp specialisation; qmm_i8 double
+// buffers its shared memory with cp.async, _tile stages through registers.
 // The TPU artifacts (sublane-padded [g, 8, bn] scales, the VMEM/HBM cost
 // model choosing a geometry, grid-carried accumulators) are not carried over.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -353,54 +379,430 @@ __global__ void __launch_bounds__(kThreads) qmm_tile_kernel(const Args a) {
   store_tile(acc, a, m0 + wm0, n0 + wn0);
 }
 
-// Weight-stationary: the block's full-K stripe of BN columns dequantized once
-// into shared memory ([BN][K + 8] bf16, then the [64][136] x group), then
-// M tiles [t0, t0 + tiles) swept through it, one (tile, K group) step at a
-// time with the next step's x loads in flight.  Warps: BN = 64, 2 x 2 of
-// 32 x 32; BN = 32, 4 x 1 of 16 x 32.
+// ---------------------------------------------------------------------------
+// K6 / K10: weight-stationary products on Hopper (TMA ring, wgmma, persistent grid)
+// ---------------------------------------------------------------------------
+
+constexpr int kWsBM = 128;                     // output rows per tile: two consumer warpgroups of 64
+constexpr int kWsBK = 64;                      // K per product step: one 128-byte swizzle row of bf16
+constexpr int kWsConsumers = 256;              // two warpgroups of products
+constexpr int kWsDequant = 128;                // a warpgroup that dequantizes
+constexpr int kWsThreads = kWsConsumers + kWsDequant + 32;   // and a producer warp
+constexpr int kWsSmemMax = 232448;             // dynamic shared memory one block may use
+constexpr int kXBox = kWsBM * kWsBK * 2;       // one TMA box of x: 128 rows x 128 bytes
+
+// Shared memory of one block: a ring of three dequantized B tiles; the
+// output staging, 64 x BN bf16 for each consumer warpgroup; a ring of
+// stages, each an x tile (q4: two, a whole 128-group), the raw weight tile
+// [BN][64] bytes and the BN scales of its 128-group; the barriers.  The
+// products keep one step in flight behind the one they issue.
 template <int BITS, int BN>
-__global__ void __launch_bounds__(kThreads) qmm_ws_kernel(const Args a, int tiles) {
-  constexpr int WN = BN / 32;
-  constexpr int WM = 4 / WN;
-  constexpr int MI = kBM / WM / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldw = a.k + kPad;
-  bf16* sw = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sx = sw + BN * ldw;
-  const int n0 = blockIdx.x * BN;
-  const int n_groups = a.k / kGroup;
-  {
-    WFetch<BITS, BN> wf;
-    fetch_w(wf, a, n0, 0);
-    for (int kg = 0; kg < n_groups; ++kg) {
-      const WFetch<BITS, BN> cur = wf;
-      if (kg + 1 < n_groups) fetch_w(wf, a, n0, kg + 1);
-      store_w(sw, ldw, cur, kg * kGroup);
+struct WsCfg {
+  static constexpr int kSteps = BITS == 8 ? 1 : 2;   // product steps per stage
+  static constexpr int kX = kSteps * kXBox;
+  static constexpr int kW = BN * 64;
+  static constexpr int kS = BN * 4;
+  static constexpr int kStage = kX + kW + kS;
+  static constexpr int kB = BN * kWsBK * 2;           // a B tile; also one warpgroup's staging
+  static constexpr int kBufs = 3;
+  static constexpr int kFixed = (kBufs + 2) * kB + 1024 + 512;   // + base alignment, barriers
+  static constexpr int kFit = (kWsSmemMax - kFixed) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kStages * kSteps >= 4, "a ring of at least four product steps");
+};
+
+struct WsArgs {
+  Args a;
+  int tma_store;   // y stored by TMA from shared memory (N a multiple of 8)
+  int m_tiles;   // 128-row tiles of M; tile t is (t % m_tiles, t / m_tiles): M fastest
+  int tiles;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A wait of more than
+// about ten seconds (2^34 cycles) traps: the launch then fails with an
+// error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// box (c0, c1) of a 2-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared memory to box (c0, c1) of a 2-D tensor map (the part inside it)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's TMA stores have read their shared memory (READ) or are done
+template <bool READ>
+__device__ __forceinline__ void tma_store_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup wg
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// 4 bytes, zero-filled where !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// bar receives one arrival once this thread's earlier cp.async copies landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wgmma operand descriptor of a K-major tile with 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart, the tile 1024-byte aligned
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups of products are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the
+// asynchronous products
+template <int NB>
+__device__ __forceinline__ void pin(float (&d)[1][NB][4]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[0][j][e])::"memory");
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[N x 16]^T, both K-major in shared memory.
+// d[0][j][e] holds row 16 * warp + lane / 4 + 8 * (e / 2), column 8 * j +
+// 2 * (lane % 4) + e % 2: store_tile's layout with MI = 1.
+template <int N>
+__device__ __forceinline__ void wgmma_tile(float (&d)[1][N / 8][4], uint64_t a, uint64_t b,
+                                           int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tile<80>(float (&d)[1][10][4], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0][0]), "+f"(d[0][0][1]), "+f"(d[0][0][2]), "+f"(d[0][0][3]),
+        "+f"(d[0][1][0]), "+f"(d[0][1][1]), "+f"(d[0][1][2]), "+f"(d[0][1][3]),
+        "+f"(d[0][2][0]), "+f"(d[0][2][1]), "+f"(d[0][2][2]), "+f"(d[0][2][3]),
+        "+f"(d[0][3][0]), "+f"(d[0][3][1]), "+f"(d[0][3][2]), "+f"(d[0][3][3]),
+        "+f"(d[0][4][0]), "+f"(d[0][4][1]), "+f"(d[0][4][2]), "+f"(d[0][4][3]),
+        "+f"(d[0][5][0]), "+f"(d[0][5][1]), "+f"(d[0][5][2]), "+f"(d[0][5][3]),
+        "+f"(d[0][6][0]), "+f"(d[0][6][1]), "+f"(d[0][6][2]), "+f"(d[0][6][3]),
+        "+f"(d[0][7][0]), "+f"(d[0][7][1]), "+f"(d[0][7][2]), "+f"(d[0][7][3]),
+        "+f"(d[0][8][0]), "+f"(d[0][8][1]), "+f"(d[0][8][2]), "+f"(d[0][8][3]),
+        "+f"(d[0][9][0]), "+f"(d[0][9][1]), "+f"(d[0][9][2]), "+f"(d[0][9][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tile<160>(float (&d)[1][20][4], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0][0]), "+f"(d[0][0][1]), "+f"(d[0][0][2]), "+f"(d[0][0][3]),
+        "+f"(d[0][1][0]), "+f"(d[0][1][1]), "+f"(d[0][1][2]), "+f"(d[0][1][3]),
+        "+f"(d[0][2][0]), "+f"(d[0][2][1]), "+f"(d[0][2][2]), "+f"(d[0][2][3]),
+        "+f"(d[0][3][0]), "+f"(d[0][3][1]), "+f"(d[0][3][2]), "+f"(d[0][3][3]),
+        "+f"(d[0][4][0]), "+f"(d[0][4][1]), "+f"(d[0][4][2]), "+f"(d[0][4][3]),
+        "+f"(d[0][5][0]), "+f"(d[0][5][1]), "+f"(d[0][5][2]), "+f"(d[0][5][3]),
+        "+f"(d[0][6][0]), "+f"(d[0][6][1]), "+f"(d[0][6][2]), "+f"(d[0][6][3]),
+        "+f"(d[0][7][0]), "+f"(d[0][7][1]), "+f"(d[0][7][2]), "+f"(d[0][7][3]),
+        "+f"(d[0][8][0]), "+f"(d[0][8][1]), "+f"(d[0][8][2]), "+f"(d[0][8][3]),
+        "+f"(d[0][9][0]), "+f"(d[0][9][1]), "+f"(d[0][9][2]), "+f"(d[0][9][3]),
+        "+f"(d[0][10][0]), "+f"(d[0][10][1]), "+f"(d[0][10][2]), "+f"(d[0][10][3]),
+        "+f"(d[0][11][0]), "+f"(d[0][11][1]), "+f"(d[0][11][2]), "+f"(d[0][11][3]),
+        "+f"(d[0][12][0]), "+f"(d[0][12][1]), "+f"(d[0][12][2]), "+f"(d[0][12][3]),
+        "+f"(d[0][13][0]), "+f"(d[0][13][1]), "+f"(d[0][13][2]), "+f"(d[0][13][3]),
+        "+f"(d[0][14][0]), "+f"(d[0][14][1]), "+f"(d[0][14][2]), "+f"(d[0][14][3]),
+        "+f"(d[0][15][0]), "+f"(d[0][15][1]), "+f"(d[0][15][2]), "+f"(d[0][15][3]),
+        "+f"(d[0][16][0]), "+f"(d[0][16][1]), "+f"(d[0][16][2]), "+f"(d[0][16][3]),
+        "+f"(d[0][17][0]), "+f"(d[0][17][1]), "+f"(d[0][17][2]), "+f"(d[0][17][3]),
+        "+f"(d[0][18][0]), "+f"(d[0][18][1]), "+f"(d[0][18][2]), "+f"(d[0][18][3]),
+        "+f"(d[0][19][0]), "+f"(d[0][19][1]), "+f"(d[0][19][2]), "+f"(d[0][19][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
+// A consumer warp's 16 rows of the tile (d as wgmma_tile leaves it) as bf16
+// into its warpgroup's staging, [64][BN] row-major, from row r0.
+template <int NB>
+__device__ __forceinline__ void stage_ws(const float (&d)[1][NB][4], uint8_t* staging, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    uint32_t* row = reinterpret_cast<uint32_t*>(staging + (r0 + g + 8 * r) * NB * 16);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) row[4 * j + t] = pack_f32(d[0][j][2 * r], d[0][j][2 * r + 1]);
+  }
+}
+
+// One product step's B tile.  raw: [BN][64] bytes (q8: the step's 64 k; q4:
+// the 128-group's packed bytes, whose low nibbles are its first 64 k and
+// high nibbles its last 64, half picks which); sc: the BN scales of the
+// group.  Writes bf16_rn(q * s) to b, [BN][64] bf16 in the 128-byte swizzled
+// K-major layout of the wgmma descriptor: row r's 16-byte chunk j at
+// r * 128 + (j ^ (r % 8)) * 16.  A byte becomes the float 2^23 + (q + bias)
+// by a byte permute into 0x4B000000, minus 2^23 + bias: exact, as is
+// float(q); then the f32 product and the bf16 rounding of the plain version.
+template <int BITS, int BN>
+__device__ __forceinline__ void deq_tile(uint8_t* __restrict__ b, const uint8_t* __restrict__ raw,
+                                         const float* __restrict__ sc, int half,
+                                         int tid) {   // tid: 0 .. kWsDequant - 1
+  constexpr float kBias = BITS == 8 ? 8388736.f : 8388616.f;   // 2^23 + 128, 2^23 + 8
+  constexpr int kUnits = (BN * 4 + kWsDequant - 1) / kWsDequant;   // 16-k chunks a thread
+  // all the thread's loads first, so that their latencies overlap
+  uint4 v[kUnits];
+  float s[kUnits];
+#pragma unroll
+  for (int i = 0; i < kUnits; ++i) {
+    const int u = tid + i * kWsDequant;   // row u / 4, 16-k chunk u % 4
+    if (u < BN * 4) {
+      v[i] = *reinterpret_cast<const uint4*>(raw + (u >> 2) * 64 + (u & 3) * 16);
+      s[i] = sc[u >> 2];
     }
+  }
+#pragma unroll
+  for (int i = 0; i < kUnits; ++i) {
+    const int u = tid + i * kWsDequant, r = u >> 2, c = u & 3;
+    if (u >= BN * 4) break;
+    const uint32_t words[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+    uint32_t p[8];
+#pragma unroll
+    for (int w4 = 0; w4 < 4; ++w4) {
+      const uint32_t w = BITS == 8 ? words[w4] ^ 0x80808080u
+                                   : ((half ? words[w4] >> 4 : words[w4]) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f[e] = __fmul_rn(__fadd_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | e)), -kBias),
+                         s[i]);
+      p[2 * w4] = pack_f32(f[0], f[1]);
+      p[2 * w4 + 1] = pack_f32(f[2], f[3]);
+    }
+    uint8_t* row = b + r * 128;
+    *reinterpret_cast<uint4*>(row + (((2 * c) ^ (r & 7)) << 4)) = make_uint4(p[0], p[1], p[2], p[3]);
+    *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (r & 7)) << 4)) = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
+// Persistent: block b takes tiles b, b + grid, ...  Four roles, each in its
+// own warps and each a loop over the block's 64-deep product steps (q4:
+// stages of two):
+//   * warp 12, the producer, keeps the ring of stages full: x and the raw
+//     weight by TMA, the scales by cp.async; a stage's full barrier counts
+//     the TMA bytes and the 32 lanes' copies, its empty barrier the 12 warps
+//     that read it;
+//   * warps 8-11 dequantize each step's raw weight into the B ring (full
+//     and empty barriers per B tile: 4 and 8 warps);
+//   * warpgroups 0 and 1, rows 0-63 and 64-127 of the tile, issue each
+//     step's four asynchronous m64nBNk16 products, keep kBufs - 2 steps in
+//     flight, free the B tiles and stages whose products are done, and
+//     after a tile's last step stage it as bf16 in shared memory and store
+//     it by TMA (rows and columns past M and N are not written), which runs
+//     on while the next tile's products do; where N is not a multiple of 8
+//     (no tensor map of y: its rows are not 16-byte aligned), store_tile
+//     stores from registers.
+template <int BITS, int BN>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    qmm_ws_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap y_map, const WsArgs p) {
+  using C = WsCfg<BITS, BN>;
+  constexpr int S = C::kSteps, R = C::kStages, NB = C::kBufs;
+  const Args& a = p.a;
+  extern __shared__ unsigned char ws_smem[];
+  uint8_t* sb = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(ws_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sy = sb + NB * C::kB;   // output staging
+  uint8_t* sx = sy + 2 * C::kB;
+  uint8_t* sw = sx + R * C::kX;
+  float* ss = reinterpret_cast<float*>(sw + R * C::kW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + R * BN);
+  uint64_t* empty = full + R;
+  uint64_t* bfull = empty + R;
+  uint64_t* bempty = bfull + NB;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(smem_u32(full + i), 1 + 32);
+      mbar_init(smem_u32(empty + i), (kWsConsumers + kWsDequant) / 32);
+    }
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(smem_u32(bfull + i), kWsDequant / 32);
+      mbar_init(smem_u32(bempty + i), kWsConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ksteps = a.k / kWsBK;   // product steps per tile
+  const int n_groups = a.k / kGroup;
+  const int my_tiles = (p.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int total = my_tiles * ksteps;
+
+  if (tid >= kWsConsumers + kWsDequant) {   // the producer
+    const int per_tile = ksteps / S;
+    for (int st = 0; st < my_tiles * per_tile; ++st) {
+      const int slot = st % R;
+      const int tile = blockIdx.x + (st / per_tile) * gridDim.x;
+      const int m0 = (tile % p.m_tiles) * kWsBM, n0 = (tile / p.m_tiles) * BN;
+      const int k0 = (st % per_tile) * S * kWsBK, kg = k0 / kGroup;
+      const uint32_t bar = smem_u32(full + slot);
+      mbar_wait(smem_u32(empty + slot), ((st / R) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar, C::kX + C::kW);
+        for (int h = 0; h < S; ++h)
+          tma_load_2d(smem_u32(sx + slot * C::kX + h * kXBox), &x_map, bar, k0 + h * kWsBK, m0);
+        tma_load_2d(smem_u32(sw + slot * C::kW), &w_map, bar, k0 * BITS / 8, n0);
+      }
+      for (int r = lane; r < BN; r += 32) {
+        const int n = min(n0 + r, a.n - 1);
+        cp_async4(smem_u32(ss + slot * BN + r), &a.s[(long long)n * n_groups + kg], n0 + r < a.n);
+      }
+      cp_async_arrive(bar);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  const int warp = threadIdx.x >> 5;
-  const int wm0 = (warp / WN) * (kBM / WM), wn0 = (warp % WN) * 32;
-  const int n_tiles = (a.m + kBM - 1) / kBM;
-  const int t0 = blockIdx.y * tiles;
-  const int steps = (min(n_tiles, t0 + tiles) - t0) * n_groups;
-  float acc[MI][4][4];
+  if (tid >= kWsConsumers) {   // dequantize
+    for (int j = 0; j < total; ++j) {
+      const int st = j / S, slot = st % R, b = j % NB;
+      if (j % S == 0) mbar_wait(smem_u32(full + slot), (st / R) & 1);
+      mbar_wait(smem_u32(bempty + b), ((j / NB) & 1) ^ 1);
+      __syncwarp();
+      deq_tile<BITS, BN>(sb + b * C::kB, sw + slot * C::kW, ss + slot * BN, j % S,
+                         tid - kWsConsumers);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(smem_u32(bfull + b));
+        if (j % S == S - 1) mbar_arrive(smem_u32(empty + slot));   // raw weight and scales read
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  float acc[1][BN / 8][4];
   zero_acc(acc);
-  XFetch xf;
-  fetch_x(xf, a, t0 * kBM, 0);
-  for (int st = 0; st < steps; ++st) {
-    const int mt = t0 + st / n_groups, kg = st % n_groups;
-    __syncthreads();   // stripe written (first step) / previous x group consumed
-    store_x(sx, xf);
-    __syncthreads();
-    if (st + 1 < steps)
-      fetch_x(xf, a, (t0 + (st + 1) / n_groups) * kBM, (st + 1) % n_groups);
-    mma_group(acc, sx, sw + kg * kGroup, ldw, wm0, wn0);
-    if (kg == n_groups - 1) {
-      store_tile(acc, a, mt * kBM + wm0, n0 + wn0);
-      zero_acc(acc);
+  int j = 0, done = -1;   // the next step; the last step whose products completed
+  // frees the B tiles and stages read by the products of steps done + 1 .. now
+  auto release = [&](int now) {
+    if (lane == 0)
+      for (int i = done + 1; i <= now; ++i) {
+        mbar_arrive(smem_u32(bempty + i % NB));
+        if (i % S == S - 1) mbar_arrive(smem_u32(empty + (i / S) % R));
+      }
+    done = max(done, now);
+    __syncwarp();
+  };
+  for (int t = 0; t < my_tiles; ++t) {
+    for (int kk = 0; kk < ksteps; ++kk, ++j) {
+      const int st = j / S;
+      if (j % S == 0) mbar_wait(smem_u32(full + st % R), (st / R) & 1);   // x
+      mbar_wait(smem_u32(bfull + j % NB), (j / NB) & 1);
+      __syncwarp();
+      const uint32_t xa = smem_u32(sx + (st % R) * C::kX + (j % S) * kXBox + wg * (kXBox / 2));
+      const uint32_t ba = smem_u32(sb + (j % NB) * C::kB);
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < kWsBK / 16; ++k16)
+        wgmma_tile<BN>(acc, sw128_desc(xa + k16 * 32), sw128_desc(ba + k16 * 32), kk + k16 > 0);
+      wgmma_commit();
+      wgmma_wait<NB - 2>();
+      pin(acc);
+      release(j - (NB - 2));
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    release(j - 1);
+    const int tile = blockIdx.x + t * gridDim.x;
+    const int m0 = (tile % p.m_tiles) * kWsBM + wg * 64, n0 = (tile / p.m_tiles) * BN;
+    if (p.tma_store) {   // through the staging, stored while the next tile runs
+      uint8_t* stg = sy + wg * C::kB;
+      if ((tid & 127) == 0) tma_store_wait<true>();   // the last tile's store has read it
+      warpgroup_sync(wg);
+      stage_ws(acc, stg, warp * 16);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA
+      warpgroup_sync(wg);
+      if ((tid & 127) == 0) tma_store_2d(&y_map, smem_u32(stg), n0, m0);
+    } else {
+      store_tile(acc, a, m0 + warp * 16, n0);
     }
   }
+  if (p.tma_store && (tid & 127) == 0) tma_store_wait<false>();
 }
 
 Args make_args(const void* x, const void* w, const void* s, void* y, int m, int n, int k) {
@@ -428,38 +830,81 @@ int launch_tile(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
+#endif
+    return got == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major [outer, inner] tensor, boxes of [box_outer, box_inner]; rows
+// past the tensor read as zero
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int inner,
+                int outer, int elem_bytes, int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int BITS, int BN>
 int launch_ws_bn(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * ((size_t)BN * (a.k + kPad) + (size_t)kBM * kLX);
-  cudaError_t err = cudaFuncSetAttribute(qmm_ws_kernel<BITS, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using C = WsCfg<BITS, BN>;
+  static bool smem_set[64] = {};   // per device
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev < 64 && !smem_set[dev]) {
+    err = cudaFuncSetAttribute(qmm_ws_kernel<BITS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qmm_ws_kernel<BITS, BN>,
-                                                           kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // one wave: M ranges per stripe so that stripes x ranges ~ blocks in flight
-  const int stripes = (a.n + BN - 1) / BN;
-  const int n_tiles = (a.m + kBM - 1) / kBM;
-  int ranges = (per_sm * sms + stripes - 1) / stripes;
-  ranges = ranges < 1 ? 1 : (ranges > n_tiles ? n_tiles : ranges);
-  const int tiles = (n_tiles + ranges - 1) / ranges;
-  ranges = (n_tiles + tiles - 1) / tiles;
-  if (ranges > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid(stripes, ranges);
-  qmm_ws_kernel<BITS, BN><<<grid, kThreads, smem, stream>>>(a, tiles);
+  CUtensorMap x_map, w_map, y_map;
+  WsArgs p;
+  p.a = a;
+  p.tma_store = a.n % 8 == 0;
+  if (!tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.k, a.m, 2, kWsBK, kWsBM,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k * BITS / 8, a.n, 1, 64, BN,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      (p.tma_store && !tensor_map(&y_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.y, a.n, a.m, 2, BN,
+                                  64, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  p.m_tiles = (a.m + kWsBM - 1) / kWsBM;
+  const long long tiles = (long long)p.m_tiles * ((a.n + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  qmm_ws_kernel<BITS, BN><<<grid, kWsThreads, C::kSmem, stream>>>(x_map, w_map, y_map, p);
   return (int)cudaGetLastError();
 }
 
 template <int BITS>
 int launch_ws(const Args& a, int bn, cudaStream_t stream) {
   if (bad_shape(a.m, a.n, a.k)) return (int)cudaErrorInvalidValue;
-  if (bn == 64) return launch_ws_bn<BITS, 64>(a, stream);
-  if (bn == 32) return launch_ws_bn<BITS, 32>(a, stream);
+  if (bn == 80) return launch_ws_bn<BITS, 80>(a, stream);
+  if (bn == 160) return launch_ws_bn<BITS, 160>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -686,8 +1131,7 @@ int launch_i8(const bf16* x, const I8Args& a, int8_t* xq, float* amax, cudaStrea
 // x [M, K] bf16, w int8 ([N, K] q8 / [N, K / 2] q4), s [N, K / 128] f32,
 // y [M, N] bf16, all contiguous with 16-byte aligned bases.  Each returns the
 // cudaError_t of the launch (0 on success); the ws entry points take the
-// stripe width bn (64 or 32) and refuse a stripe that does not fit in
-// shared memory.
+// tile width bn (80 or 160) and refuse any other.
 extern "C" int q8_matmul_tile(const void* x, const void* w, const void* s, void* y, int m,
                               int n, int k, void* stream) {
   return launch_tile<8>(make_args(x, w, s, y, m, n, k), static_cast<cudaStream_t>(stream));

@@ -22,10 +22,11 @@ replaces ``q8_matmul_int8`` (``:552``, ``_q8q8_kernel``): W8A8 on the
 per-block weights (scales [N, K/128]), the activations quantized per (row,
 128-deep K block) by the same first pass.
 
-:func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule: the
-weight-stationary kernel when the product has at least ``WS_MIN_M`` rows
-(the JAX package's ``_WS_MIN_M``) and the full-K bf16 stripe fits in shared
-memory (:func:`ws_stripe`), else the tiled kernel.  ``q8_dot`` follows the
+:func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule
+(:func:`use_ws`): the weight-stationary kernel when the product has at
+least ``WS_MIN_M`` rows (the JAX package's ``_WS_MIN_M``) and K is at most
+``WS_MAX_K``, else the tiled kernel; the ws kernel's tile width is
+:func:`ws_tile_n`'s choice for the shape.  ``q8_dot`` follows the
 reference's order (``q8_matmul.py:662-700``): a per-column weight first asks
 the JAX package's plan (``ops/quant_plan.pick_large_m_plan``), and where it
 picks ``"int8ws"`` the product runs the W8A8 kernel on per-column scales;
@@ -42,8 +43,8 @@ to ``LAUNCHES[<kernel>]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
 
 import torch
 
@@ -56,10 +57,15 @@ LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
             "q8_matmul_int8": 0}
 
 WS_MIN_M = 2048
-# shared memory one block may use on the H100 (227 KB), and the ws kernel's
-# staged x group beside the stripe: 64 rows x (128 + 8) bf16
-SMEM_MAX = 232448
-_X_STAGE_BYTES = 64 * 136 * 2
+# The ws rule takes K up to 3328, the largest K whose full-K bf16 stripe fit
+# in shared memory in the first ws kernel; the present kernel keeps no
+# stripe and takes any K, so the bound only keeps the dispatch (and every
+# launch count) as it was.  Widening it (K5's K = 5120 products) is later
+# work, decided by the kernel table in PERF.md.
+WS_MAX_K = 3328
+# ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N)
+WS_BM = 128
+WS_TILE_N = (80, 160)
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -75,18 +81,31 @@ def reset_counts() -> None:
     quant.PLAIN_CUDA_CALLS = 0
 
 
-def ws_stripe(k: int) -> Optional[int]:
-    """Stripe width of the ws kernel at depth ``k`` (64 columns up to
-    K = 1280, 32 above), or None where the full-K bf16 stripe and the x
-    group do not fit in one block's shared memory."""
-    bn = 64 if k <= 1280 else 32
-    return bn if bn * (k + 8) * 2 + _X_STAGE_BYTES <= SMEM_MAX else None
+def ws_tile_n(m: int, n: int, sms: int = 132) -> int:
+    """Tile width of the ws kernel for an [m, n] output on ``sms`` SMs: the
+    width of ``WS_TILE_N`` with the least (waves x (width + 32)), a wave
+    being one tile on every SM and 32 columns standing for a tile's fixed
+    cost; ties go to the wider tile."""
+    def cost(bn):
+        tiles = -(-m // WS_BM) * -(-n // bn)
+        return -(-tiles // sms) * (bn + 32), -bn
+    return min(WS_TILE_N, key=cost)
+
+
+def ws_config(m: int, n: int, k: int, sms: int) -> int:
+    """The ws entry points' trailing int: the tile width."""
+    return ws_tile_n(m, n, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def use_ws(m: int, k: int) -> bool:
-    """The dispatch rule: weight-stationary for M >= WS_MIN_M where the
-    stripe fits."""
-    return m >= WS_MIN_M and ws_stripe(k) is not None
+    """The dispatch rule: weight-stationary for M >= WS_MIN_M and K <=
+    WS_MAX_K."""
+    return m >= WS_MIN_M and k <= WS_MAX_K
 
 
 def _lib():
@@ -145,11 +164,7 @@ def _launch(name: str, x, w, s, bits: int):
                    torch.empty(m, k // slab, device=x.device)]
         extra = [slab] if percol else []
     elif name.endswith("_ws"):
-        bn = ws_stripe(k)
-        if bn is None:
-            raise ValueError(f"{name}: a full-K stripe at K={k} does not fit "
-                             "in shared memory")
-        extra = [bn]
+        extra = [ws_config(m, n, k, _sm_count(x.device.index))]
     y = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

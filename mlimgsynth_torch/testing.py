@@ -340,7 +340,8 @@ def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 
 
 # Each quantized-matmul kernel against its plain twin on the card, at the
-# products of the SD1.5 512^2 main path (CFG batch 2) and two ragged ones.
+# products of the SD1.5 512^2 main path (CFG batch 2), the weight-stationary
+# products of the SDXL 1024^2 one (CFG batch 2) and two ragged ones.
 # (kernel kind, M, K, N, where the main path runs it); every case runs for
 # q8 and q4.
 QUANT_CASES = [
@@ -348,6 +349,11 @@ QUANT_CASES = [
     ("ws", 2048, 640, 5120, "ff.net.0.proj, 32x32 level"),
     ("ws", 2048, 2560, 640, "ff.net.2, 32x32 level"),
     ("ws", 2048, 640, 640, "attention q/k/v/out, 32x32 level"),
+    ("ws", 2048, 1280, 1280, "SDXL attention q/k/v/out, 32x32 level"),
+    ("ws", 2048, 1280, 10240, "SDXL ff.net.0.proj, 32x32 level"),
+    ("ws", 8192, 640, 640, "SDXL attention q/k/v/out, 64x64 level"),
+    ("ws", 8192, 640, 5120, "SDXL ff.net.0.proj, 64x64 level"),
+    ("ws", 8192, 2560, 640, "SDXL ff.net.2, 64x64 level"),
     ("ws", 4097, 1280, 200, "ragged M and N"),
     ("tile", 512, 1280, 1280, "attention q/k/v/out, 16x16 level"),
     ("tile", 154, 768, 1280, "cross-attention k/v, 16x16 level"),

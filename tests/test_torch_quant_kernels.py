@@ -80,6 +80,36 @@ def test_unpack_q4_nibble_order():
     assert torch.equal(got, want)
 
 
+# The weight-stationary products of the main paths (M, K, N): SD1.5 512^2
+# and SDXL 1024^2, CFG batch 2; K6 on q8_0, K10 on q4_0.
+WS_PRODUCTS = [
+    (8192, 1280, 320), (2048, 640, 5120), (2048, 2560, 640), (2048, 640, 640),
+    (2048, 1280, 1280), (2048, 1280, 10240), (8192, 640, 640),
+    (8192, 640, 5120), (8192, 2560, 640)]
+
+
+@pytest.mark.parametrize("m,k,n", WS_PRODUCTS + [(2048, 5120, 1280)])
+def test_use_ws_takes_exactly_the_ws_products(m, k, n):
+    """The rule sends the SD1.5 and SDXL ws products to the ws kernel and
+    SDXL's K = 5120 ff.net.2 (2048 rows) to the tiled one, as before the
+    ws kernel kept no stripe."""
+    assert qmm.use_ws(m, k) == (k != 5120)
+
+
+# The ws tiles of every main-path product fill at least this share of the
+# waves they take on the H100's 132 SMs (a persistent block per SM).
+WS_WAVE_FILL_MIN = 0.95
+
+
+@pytest.mark.parametrize("m,k,n", WS_PRODUCTS)
+def test_ws_tile_config_fills_whole_waves(m, k, n):
+    bn = qmm.ws_tile_n(m, n)
+    assert bn in qmm.WS_TILE_N and bn % 16 == 0 and bn <= 256
+    assert qmm.ws_config(m, n, k, 132) == bn
+    tiles = -(-m // qmm.WS_BM) * -(-n // bn)
+    assert tiles / (132 * -(-tiles // 132)) >= WS_WAVE_FILL_MIN, (bn, m, n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -181,6 +211,38 @@ def test_dispatch_launches_the_rule_on_cuda(cuda, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ws_kernel_takes_any_k_on_cuda(cuda, bits):
+    """The ws kernel keeps no full-K stripe: K = 3456, past the dispatch
+    range, runs and agrees with the twin (ragged N)."""
+    name = f"q{bits}_matmul_ws"
+    x, q, s = testing.quant_inputs(2048, 3456, 200, bits)
+    out = getattr(qmm, name)(x, q, s)
+    ref = (quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain)(
+        x, q, s)
+    torch.cuda.synchronize()
+    res = testing.quant_error(out, ref)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ws_kernel_ragged_n_on_cuda(cuda, bits):
+    """N not a multiple of 8 (no tensor map of y: the kernel stores from
+    registers): the first 100 columns of a 104-column product, the latter
+    held to the twin (its TMA store path), bit for bit."""
+    name = f"q{bits}_matmul_ws"
+    x, q, s = testing.quant_inputs(2048, 640, 104, bits)
+    full = getattr(qmm, name)(x, q, s)
+    part = getattr(qmm, name)(x, q[:100].contiguous(), s[:100].contiguous())
+    ref = (quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain)(
+        x, q, s)
+    torch.cuda.synchronize()
+    assert testing.quant_error(full, ref)["ok"]
+    assert torch.equal(part, full[:, :100])
+
+
+@pytest.mark.cuda
 def test_launch_checks_inputs_on_cuda(cuda):
     x, q, s = testing.quant_inputs(64, 256, 64, 8)
     before = dict(qmm.LAUNCHES)
@@ -194,9 +256,6 @@ def test_launch_checks_inputs_on_cuda(cuda):
         off = torch.zeros(64 * 256 + 4, device="cuda",
                           dtype=torch.bfloat16)[4:].view(64, 256)
         qmm.q8_matmul_tile(off, q, s)
-    with pytest.raises(ValueError, match="does not fit"):
-        xw, qw, sw = testing.quant_inputs(8, 3456, 32, 8)
-        qmm.q8_matmul_ws(xw, qw, sw)
     with pytest.raises(ValueError, match="scales"):
         qmm.q8_matmul_ws_int8(x, q, s)       # per-block scales
     with pytest.raises(ValueError, match="slab"):

@@ -3,7 +3,7 @@
 tree's, in one process on one card (needs an H100):
 
     python3 tools/torch_kernel_ab.py OTHER/flash_attention.cu
-    python3 tools/torch_kernel_ab.py OTHER/quant_matmul.cu
+    python3 tools/torch_kernel_ab.py [--stripe-ws] OTHER/quant_matmul.cu
 
 The file name says which source of ``mlimgsynth_torch/csrc/`` it stands
 for; the other version must keep that source's C interface.  Builds both,
@@ -11,8 +11,15 @@ then for every case of that source (``testing.ATTN_CASES``, or
 ``testing.QUANT_CASES`` for q8 and q4 and ``testing.INT8_CASES``) times the
 tree's kernel, the other's, the other's again and the tree's again
 (``testing.median_ms``: device time), checking each output against the
-plain twin first.  Prints one JSON line per case and a summary line with
-the per-source sums.
+plain twin first, and the host time of one call with the card busy
+(``host_us``: the wrapper and the C launcher, the device work queued
+behind a spin).  Prints one JSON line per case and a summary line with the
+per-source sums.
+
+``--stripe-ws``: the other source's weight-stationary entry points take
+the trailing int of the first ws design, the stripe width (64 up to
+K = 1280, 32 above), where the tree's take the tile width of
+``quant_matmul.ws_config``.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -64,12 +72,34 @@ def quant_cases():
 CASES = {"flash_attention": flash_cases, "quant_matmul": quant_cases}
 
 
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds of one call of ``fn``, the calls queued behind a
+    spin of the card so that none waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)   # cycles: ~50 ms at 1.98 GHz
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def stripe_ws_config(m: int, n: int, k: int, sms: int) -> int:
+    return 64 if k <= 1280 else 32
+
+
 def main() -> int:
-    other = Path(sys.argv[1]) if len(sys.argv) == 2 else None
+    args = sys.argv[1:]
+    stripe_ws = "--stripe-ws" in args
+    args = [a for a in args if a != "--stripe-ws"]
+    other = Path(args[0]) if len(args) == 1 else None
     if other is None or other.stem not in CASES \
             or not torch.cuda.is_available():
-        print("usage: torch_kernel_ab.py OTHER/{flash_attention,quant_matmul}"
-              ".cu (needs a CUDA device)", file=sys.stderr)
+        print("usage: torch_kernel_ab.py [--stripe-ws] OTHER/"
+              "{flash_attention,quant_matmul}.cu (needs a CUDA device)",
+              file=sys.stderr)
         return 1
     src = other.stem
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -83,17 +113,23 @@ def main() -> int:
         _build._LIBS.clear()
         libs["other"] = _build.load(src)
         _build.CSRC, _build.BUILD_DIR = csrc0, build0
+        ws_configs = {"tree": qmm.ws_config,
+                      "other": stripe_ws_config if stripe_ws
+                      else qmm.ws_config}
         sums = defaultdict(float)
         for row, fn, plain, check in CASES[src]():
             for i, which in enumerate(("tree", "other", "other", "tree")):
                 _build._LIBS[src] = libs[which]
+                qmm.ws_config = ws_configs[which]
                 if i < 2:
                     row[f"{which}_ok"] = check(fn(), plain())["ok"]
+                    row[f"{which}_host_us"] = host_us(fn)
                 t = testing.median_ms(fn)
                 row.setdefault(f"{which}_ms", []).append(t)
                 sums[which] += t / 2
             print(json.dumps(row), flush=True)
         _build._LIBS[src] = libs["tree"]
+        qmm.ws_config = ws_configs["tree"]
     print(json.dumps({"device": smi, "source": src, "sum_ms": dict(sums)}))
     return 0
 

@@ -33,58 +33,80 @@ from mlimgsynth_torch.ops import _build, quant  # noqa: E402
 from mlimgsynth_torch.ops import flash_attention as fa  # noqa: E402
 from mlimgsynth_torch.ops import quant_matmul as qmm  # noqa: E402
 
-# name -> (source, text in the source, its faulty replacement: every
-# occurrence is replaced, and the kernels that must each fail at least one
-# case; None: any case of the source)
+WEIGHT_ONLY = ("q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
+               "q4_matmul_ws")
+
+# name -> (source, [(text in the source, its faulty replacement)]: every
+# occurrence of each text is replaced, and the kernels that must each fail
+# at least one case; None: any case of the source)
 MUTANTS = {
     # the softmax scale of a 40-wide head taken from its padded depth 48
     "scale_from_padded_depth": (
-        "flash_attention", "s[j][e] * a.scale_log2 : -INFINITY",
-        "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY", None),
+        "flash_attention", [("s[j][e] * a.scale_log2 : -INFINITY",
+                             "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY")],
+        None),
     # the last kv tile of 64 rows skipped
     "last_kv_tile_dropped": (
-        "flash_attention", "for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
-        "for (int n0 = 0; n0 + kBlockN < a.sk; n0 += kBlockN)", None),
+        "flash_attention", [("for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
+                             "for (int n0 = 0; n0 + kBlockN < a.sk; "
+                             "n0 += kBlockN)")], None),
     # the last 16 columns of the QK^T depth left out
     "qk_depth_short_by_16": (
-        "flash_attention", "for (int kk = 0; kk < DQK / 16; ++kk)",
-        "for (int kk = 0; kk < DQK / 16 - 1; ++kk)", None),
-    # each weight group scaled by its neighbour's scale
+        "flash_attention", [("for (int kk = 0; kk < DQK / 16; ++kk)",
+                             "for (int kk = 0; kk < DQK / 16 - 1; ++kk)")],
+        None),
+    # each weight group scaled by its neighbour's scale (the tiled kernels'
+    # loads and the ws kernels' producer copies)
     "scale_group_shifted": (
-        "quant_matmul", "a.s[(long long)n * n_groups + kg]",
-        "a.s[(long long)n * n_groups + (kg + 1) % n_groups]", None),
+        "quant_matmul", [("a.s[(long long)n * n_groups + kg]",
+                          "a.s[(long long)n * n_groups + (kg + 1) % n_groups]")],
+        WEIGHT_ONLY),
     # q4: the high nibble taken as group row j and the low as row j + 64
     "nibble_order_swapped": (
         "quant_matmul",
-        ("deq_store16(d + c, lo, f.sc[j]);\n"
-         "      deq_store16(d + 64 + c, hi, f.sc[j]);"),
-        ("deq_store16(d + c, hi, f.sc[j]);\n"
-         "      deq_store16(d + 64 + c, lo, f.sc[j]);"), None),
+        [("deq_store16(d + c, lo, f.sc[j]);\n"
+          "      deq_store16(d + 64 + c, hi, f.sc[j]);",
+          "deq_store16(d + c, hi, f.sc[j]);\n"
+          "      deq_store16(d + 64 + c, lo, f.sc[j]);"),
+         ("(half ? words[w4] >> 4 : words[w4])",
+          "(half ? words[w4] : words[w4] >> 4)")],
+        ("q4_matmul_tile", "q4_matmul_ws")),
     # the last 128-deep K group left out of the products
     "last_k_group_dropped": (
-        "quant_matmul", "mma_group(acc, sx, sw",
-        "if (kg + 1 < n_groups) mma_group(acc, sx, sw", None),
+        "quant_matmul",
+        [("mma_group(acc, sx, sw", "if (kg + 1 < n_groups) mma_group(acc, sx, sw"),
+         ("for (int k16 = 0; k16 < kWsBK / 16; ++k16)",
+          "for (int k16 = 0; k16 < kWsBK / 16 && kk + 2 < ksteps; ++k16)")],
+        WEIGHT_ONLY),
     # W8A8: each slab folded with the next slab's activation scale
     "slab_scale_shifted": (
-        "quant_matmul", "a.amax[(long long)row * n_slab + sb]",
-        "a.amax[(long long)row * n_slab + (sb + 1) % n_slab]",
+        "quant_matmul", [("a.amax[(long long)row * n_slab + sb]",
+                          "a.amax[(long long)row * n_slab + (sb + 1) % n_slab]")],
         ("q8_matmul_ws_int8",)),
     # W8A8 (both kernels share the quantization pass): activations
     # truncated toward zero instead of rounded
     "activations_truncated": (
-        "quant_matmul", "__float2int_rn(__fmul_rn(f, inv))",
-        "__float2int_rz(__fmul_rn(f, inv))",
+        "quant_matmul", [("__float2int_rn(__fmul_rn(f, inv))",
+                          "__float2int_rz(__fmul_rn(f, inv))")],
         ("q8_matmul_ws_int8", "q8_matmul_int8")),
     # per-block W8A8: each block folded with the next block's weight scale
     "block_weight_scale_shifted": (
-        "quant_matmul", "a.s[(long long)col * n_slab + sb]",
-        "a.s[(long long)col * n_slab + (sb + 1) % n_slab]",
+        "quant_matmul", [("a.s[(long long)col * n_slab + sb]",
+                          "a.s[(long long)col * n_slab + (sb + 1) % n_slab]")],
         ("q8_matmul_int8",)),
 }
 
 
+def record(passed: dict, name: str, res: dict) -> None:
+    """Fold one case's result into ``passed[name]``: (whether every case
+    of the kernel passed, its largest relative L2 error)."""
+    ok, rel = passed.get(name, (True, 0.0))
+    passed[name] = (ok and res["ok"], max(rel, res["rel_l2"]))
+
+
 def flash_cases(variant: str) -> dict:
-    """kernel -> whether every case of it passed."""
+    """kernel -> (whether every case of it passed, its largest relative
+    L2 error)."""
     passed = {}
     for name, shape, sk, where in testing.ATTN_CASES:
         q, k, v = testing.attention_inputs(shape, sk)
@@ -92,12 +114,12 @@ def flash_cases(variant: str) -> dict:
         res = testing.attention_error(out, fa.attention_plain(q, k, v))
         print(json.dumps({"variant": variant, "kernel": name, "where": where,
                           "q": list(shape), "sk": sk, **res}), flush=True)
-        passed[name] = passed.get(name, True) and res["ok"]
+        record(passed, name, res)
     return passed
 
 
 def quant_cases(variant: str) -> dict:
-    """kernel -> whether every case of it passed."""
+    """As :func:`flash_cases`."""
     passed = {}
     for bits in (8, 4):
         plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
@@ -109,7 +131,7 @@ def quant_cases(variant: str) -> dict:
             print(json.dumps({"variant": variant, "kernel": name,
                               "where": where, "mkn": [m, k, n], **res}),
                   flush=True)
-            passed[name] = passed.get(name, True) and res["ok"]
+            record(passed, name, res)
     int8 = [("q8_matmul_ws_int8", testing.INT8_CASES, testing.int8_inputs,
              quant.q8_ws_int8_plain, testing.int8_error),
             ("q8_matmul_int8", testing.Q8_INT8_CASES,
@@ -122,7 +144,7 @@ def quant_cases(variant: str) -> dict:
             print(json.dumps({"variant": variant, "kernel": name,
                               "where": where, "mkn": [m, k, n], **res}),
                   flush=True)
-            passed[name] = passed.get(name, True) and res["ok"]
+            record(passed, name, res)
     return passed
 
 
@@ -134,27 +156,34 @@ def main() -> int:
         print("torch_kernel_mutants: needs a CUDA device", file=sys.stderr)
         return 1
     csrc0 = _build.CSRC
-    summary = {f"as_written:{src}": all(run(src).values())
-               for src, run in CASES.items()}
+    summary, worst = {}, {}
+    for src, run in CASES.items():
+        summary[f"as_written:{src}"] = all(ok for ok, _ in run(src).values())
     with tempfile.TemporaryDirectory() as tmp:
-        for variant, (src_name, old, new, targets) in MUTANTS.items():
+        for variant, (src_name, edits, targets) in MUTANTS.items():
             src = (csrc0 / f"{src_name}.cu").read_text()
-            if old not in src:
-                raise RuntimeError(f"{variant}: '{old}' is not in the source")
+            for old, new in edits:
+                if old not in src:
+                    raise RuntimeError(f"{variant}: '{old}' is not in the "
+                                       "source")
+                src = src.replace(old, new)
             csrc = Path(tmp) / variant
             csrc.mkdir()
-            (csrc / f"{src_name}.cu").write_text(src.replace(old, new))
+            (csrc / f"{src_name}.cu").write_text(src)
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
             passed = CASES[src_name](variant)
             # True: not caught (a targeted kernel, or with no targets every
             # kernel, passed all its cases)
-            summary[variant] = (any(passed[t] for t in targets) if targets
-                                else all(passed.values()))
+            summary[variant] = (any(passed[t][0] for t in targets) if targets
+                                else all(ok for ok, _ in passed.values()))
+            worst[variant] = {k: rel for k, (_, rel) in passed.items()
+                              if targets is None or k in targets}
     written = all(ok for v, ok in summary.items() if v.startswith("as_"))
     caught = all(not ok for v, ok in summary.items()
                  if not v.startswith("as_"))
-    print(json.dumps({"passes": summary, "all_faults_caught": caught}))
+    print(json.dumps({"passes": summary, "largest_rel_l2": worst,
+                      "all_faults_caught": caught}))
     return 0 if written and caught else 1
 
 

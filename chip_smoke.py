@@ -10,8 +10,10 @@ Phases, one result line each (any failure exits non-zero):
   2. build     - compiles csrc/flash_attention.cu and csrc/quant_matmul.cu
                  for sm_90a, one nvcc each, started together; per kernel its
                  registers and spills (ptxas -v) and its wgmma instructions
-                 (HGMMA in cuobjdump's SASS, where the toolkit has it): the
-                 weight-stationary kernels must hold HGMMA and spill nothing;
+                 (HGMMA and IGMMA in cuobjdump's SASS, where the toolkit has
+                 it): the weight-stationary kernels must hold HGMMA, the
+                 W8A8 GEMM kernels IGMMA, and none may spill or have its
+                 wgmma serialized by ptxas;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
                  flash kernels at the SD1.5 512^2, SDXL 1024^2 and
                  SD3-medium 1024^2 main-path shapes and ragged ones, the
@@ -21,8 +23,9 @@ Phases, one result line each (any failure exits non-zero):
                  the per-block W8A8 kernel (MLIS_Q8_MODE=int8) at the SDXL
                  products and ragged ones (the q8 and q4 weight-stationary
                  kernels also at the SDXL products); each with its time, its plain
-                 version's, one PyTorch call's for the same function and the
-                 card's bound;
+                 version's, one PyTorch call's for the same function (for the
+                 W8A8 kernels also torch._int_mm's, the int8 library product)
+                 and the card's bound;
   4. main      - three paths on one seeded random full-width SD1.5
                  checkpoint, one session at a time (512^2, 20 Euler steps,
                  CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
@@ -161,11 +164,7 @@ def main() -> int:
                 "kernels": kernel_report(n)}
             for n, i in _build.BUILD_INFO.items()}
     phase("build", seconds=time.time() - t0, libs=libs)
-    ws = {k: v for k, v in libs["quant_matmul"]["kernels"].items()
-          if k.startswith("qmm_ws_kernel")}
-    if not ws or any(v.get("spill_bytes", 0) or v.get("hgmma") == 0
-                     for v in ws.values()):
-        raise AssertionError(f"weight-stationary kernels: {ws}")
+    check_wgmma_kernels(libs["quant_matmul"]["kernels"])
 
     kernels = (check_flash() + check_quant() + check_int8()
                + check_q8_int8())
@@ -210,12 +209,14 @@ def main() -> int:
             sdxl_reference_check(s, wt, bits)
             if bits == 8:
                 sdxl_ws = time_products(sdxl_products(s), "sdxl")["q8_ws_ms"]
-                time_sdxl_int8_shapes(s)
+                sdxl_int8 = time_sdxl_int8_shapes(s)
             _drop(s)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "q8_matmul_ws":
             k["sdxl_per_request_ms"] = sdxl_ws
+        if k["name"] == "q8_matmul_int8":
+            k["sdxl_per_request_ms"] = sdxl_int8["ms"]
     small_check()
     check_imports()
     phase("done", seconds=time.time() - t_start)
@@ -242,8 +243,10 @@ def _kernel_name(mangled: str) -> str:
 
 def kernel_report(lib: str) -> dict:
     """Per kernel of a built library: registers and spilled bytes from the
-    ptxas -v log, and HGMMA (wgmma) instructions in its SASS where the
-    toolkit has cuobjdump."""
+    ptxas -v log (and ``wgmma_serialized`` where ptxas reports that it
+    serialized the kernel's wgmma), and its wgmma instructions in its SASS
+    where the toolkit has cuobjdump: HGMMA (floating point) and IGMMA
+    (integer)."""
     out, cur = {}, None
     for ln in _build.BUILD_INFO[lib]["log"].splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -253,6 +256,11 @@ def kernel_report(lib: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and cur is not None:
             cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Performance Loss: wgmma.* in the function '(\w+)'", ln)
+        if m:
+            out.setdefault(_kernel_name(m.group(1)), {})[
+                "wgmma_serialized"] = True
+            continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
@@ -266,10 +274,26 @@ def kernel_report(lib: str) -> dict:
             m = re.search(r"Function : (\w+)", ln)
             if m:
                 fn = out.setdefault(_kernel_name(m.group(1)), {})
-                fn["hgmma"] = 0
-            elif fn is not None and "HGMMA" in ln:
-                fn["hgmma"] += 1
+                fn["hgmma"] = fn["igmma"] = 0
+            elif fn is not None:
+                fn["hgmma"] += "HGMMA" in ln
+                fn["igmma"] += "IGMMA" in ln
     return out
+
+
+# the quantized kernels written for wgmma: name prefix -> its SASS opcode
+WGMMA_KERNELS = {"qmm_ws_kernel": "hgmma", "qmm_i8_kernel": "igmma"}
+
+
+def check_wgmma_kernels(report: dict) -> None:
+    """The weight-stationary (K6, K10) and W8A8 (K7, K8) GEMM kernels hold
+    their wgmma instructions (where cuobjdump shows the SASS), spill nothing
+    and keep their wgmma asynchronous."""
+    for prefix, op in WGMMA_KERNELS.items():
+        got = {k: v for k, v in report.items() if k.startswith(prefix)}
+        if not got or any(v.get("spill_bytes", 0) or v.get(op) == 0
+                          or v.get("wgmma_serialized") for v in got.values()):
+            raise AssertionError(f"{prefix} kernels: {got}")
 
 
 def _entry(name: str, source: str, **kv) -> dict:
@@ -372,13 +396,25 @@ def check_quant():
                       "q4_matmul_ws")]
 
 
+def _int_mm_ms(x, q, slab: int):
+    """The int8 library yardstick: one cuBLASLt int8 x int8 -> int32 product
+    (``torch._int_mm``) on the activations quantized at ``slab`` and the int8
+    weight, with no quantization pass and no fold; None where it does not
+    take the shape (it needs M > 16)."""
+    m = x.numel() // x.shape[-1]
+    if m <= 16:
+        return None
+    xq = quant.quantize_slabs(x, slab)[0].reshape(m, -1).to(torch.int8)
+    return ms(lambda: torch._int_mm(xq, q.t()))
+
+
 def check_int8():
     """The W8A8 kernel against its plain version at the SD3 x-stream
     products and ragged ones, held to the limits in ``testing``; the
     library call is one torch.matmul on the weight dequantized to bf16
     beforehand (the product without the activation quantization)."""
     summary = {}
-    per_request = 0.0
+    per_request = collections.defaultdict(float)
     for m, k, n, where in testing.INT8_CASES:
         x, q, s = testing.int8_inputs(m, k, n)
         out = qmm.q8_matmul_ws_int8(x, q, s)
@@ -389,6 +425,7 @@ def check_int8():
         t = {"ms": ms(lambda: qmm.q8_matmul_ws_int8(x, q, s)),
              "plain_ms": ms(lambda: quant.q8_ws_int8_plain(x, q, s)),
              "library_ms": ms(lambda: torch.matmul(x, w.t())),
+             "int8_library_ms": _int_mm_ms(x, q, quant._ws_slab(k)),
              **bound(2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n
                      + 2.0 * m * n, PEAK_INT8_OPS)}
         phase("kernels", kernel="q8_matmul_ws_int8", where=where,
@@ -399,23 +436,26 @@ def check_int8():
             raise AssertionError(f"q8_matmul_ws_int8 {where}: kernel "
                                  "disagrees with its plain version")
         if m == 8192:     # an x-stream product: 24 blocks x 20 evaluations
-            per_request += 24 * SD3_STEPS * t["ms"]
+            for key in ("ms", "library_ms", "int8_library_ms", "bound_ms"):
+                per_request[key] += 24 * SD3_STEPS * t[key]
         if (m, k, n) == (8192, 1536, 6144):
             summary = {"shape": [m, k, n],
                        "max_abs_err": res["max_abs_err"], **t}
     return [_entry("q8_matmul_ws_int8", "quant_matmul",
-                   per_request_ms=per_request, **summary)]
+                   per_request_ms=per_request["ms"],
+                   per_request_sums_ms=dict(per_request), **summary)]
 
 
 def _time_q8_int8(x, q, s) -> dict:
-    """K8, its plain version, and the library call: one torch.matmul on the
+    """K8, its plain version, and the library calls: one torch.matmul on the
     weight dequantized to bf16 beforehand (the product without the
-    activation quantization)."""
+    activation quantization) and the int8 one (:func:`_int_mm_ms`)."""
     w = (q.float().view(q.shape[0], -1, quant.KBLOCK) * s[:, :, None]
          ).view(q.shape[0], -1).bfloat16()
     return {"ms": ms(lambda: qmm.q8_matmul_int8(x, q, s)),
             "plain_ms": ms(lambda: quant.q8_matmul_int8_plain(x, q, s)),
-            "library_ms": ms(lambda: torch.matmul(x, w.t()))}
+            "library_ms": ms(lambda: torch.matmul(x, w.t())),
+            "int8_library_ms": _int_mm_ms(x, q, quant.KBLOCK)}
 
 
 def _q8_int8_bound(m: int, k: int, n: int) -> dict:
@@ -643,8 +683,10 @@ def main_path(s, ckpt, model_type, dim, wt, requests, want_fn,
 # (VAE), and these limits leave about twice that.  Quantized paths: the
 # matmuls alone (the flash kernels run in both).  On the H100 the kernels
 # give the twin's cuBLAS product bit for bit at every product of the path
-# (both sum K in order on the tensor cores in f32), so the UNet output reads
-# 0; another cuBLAS may sum in another order, and a per-product difference
+# (both sum K in order on the tensor cores in f32; the twin disallows
+# cuBLAS's reduction in bf16), so the UNet output reads 0; a sum in another
+# order flips bf16 roundings that the UNet amplifies (an f32 twin on the
+# CUDA cores read 1.6e-2), and a per-product difference
 # at the kernel limit (4e-3, ``testing.QUANT_REL_L2``) would compound
 # through the UNet about as the attention's 3e-3 did (1.6e-2): 1e-2 holds
 # the first and fails a fault that shows in every product.  SD3: one
@@ -772,10 +814,12 @@ def sdxl_reference_check(s, wt, bits):
         del os.environ["MLIS_Q8_MODE"]
 
 
-def time_sdxl_int8_shapes(s):
+def time_sdxl_int8_shapes(s) -> dict:
     """The quantized products of one SDXL q8_0 request under
     MLIS_Q8_MODE=int8 (``sdxl_products``), each timed for the per-block
-    W8A8 kernel beside its bound and the library call."""
+    W8A8 kernel beside its bound and the library calls; returns the
+    per-request sums (``int8_library_ms`` over the products it takes,
+    ``int8_library_calls`` of them)."""
     totals = collections.defaultdict(float)
     calls = sdxl_products(s)
     for (m, k, n), c in sorted(calls.items()):
@@ -784,13 +828,19 @@ def time_sdxl_int8_shapes(s):
              ).view(n, -1).bfloat16()
         t = {"ms": ms(lambda: qmm.q8_matmul_int8(x, q, sc)),
              "library_ms": ms(lambda: torch.matmul(x, w.t())),
+             "int8_library_ms": _int_mm_ms(x, q, quant.KBLOCK),
              **_q8_int8_bound(m, k, n)}
         for key in ("ms", "library_ms", "bound_ms"):
             totals[key] += c * t[key]
+        if t["int8_library_ms"] is not None:
+            totals["int8_library_ms"] += c * t["int8_library_ms"]
+            totals["int8_library_calls"] += c
         phase("shapes", model="sdxl", kernel="q8_matmul_int8",
-              mkn=[m, k, n], calls_per_request=c, **t)
+              mkn=[m, k, n], calls_per_request=c,
+              tile_n=qmm.i8_tile_n(m, n), **t)
     phase("shapes", model="sdxl", kernel="q8_matmul_int8",
           per_request_ms=dict(totals), calls=sum(calls.values()))
+    return totals
 
 
 def time_products(calls, model: str) -> dict:

@@ -106,6 +106,12 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "image_dim", "steps", "seed", "cfg_scale", "method", "scheduler",
             "batch_size", "no_prompt_parse")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
+# the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
+# ``method`` or ``scheduler`` value indexes them
+METHOD_NAMES = ["none", "euler", "heun", "taylor3", "dpmpp2m",
+                "dpmpp2s", "dpmpp2m_sde", "lcm", "unipc"]
+SCHED_NAMES = ["none", "uniform", "karras", "lcm",
+               "exponential", "sgm_uniform", "beta"]
 # weight type -> (compute dtype, quantized bits); None: the device's
 # default (bf16 on a card, f32 on the CPU).  As the JAX package
 # (``mlimgsynth_tpu/api.py:820-837``): q4* run 4-bit weights, the other q
@@ -116,6 +122,31 @@ _WEIGHT_TYPES = {"f32": (torch.float32, 0), "f16": (torch.bfloat16, 0),
                  "q4_0": (None, 4), "q4_1": (None, 4), "q4_k": (None, 4)}
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
+
+
+def _int(v, default=0) -> int:
+    """An integer option value; the empty string gives ``default``."""
+    if isinstance(v, str):
+        v = v.strip()
+        return default if v == "" else int(v)
+    return int(v)
+
+
+def _float(v, default=0.0) -> float:
+    """A float option value; the empty string gives ``default``."""
+    if isinstance(v, str):
+        v = v.strip()
+        return default if v == "" else float(v)
+    return float(v)
+
+
+def _enum_value(v, names):
+    """A ``method`` or ``scheduler`` value: None for the empty string (the
+    option is left alone), an integer as an index into ``names``, else the
+    normalised name."""
+    if isinstance(v, str):
+        return None if v.strip() == "" else _id_norm(v)
+    return names[int(v)]
 
 
 def _bool(v) -> bool:
@@ -213,31 +244,36 @@ class MLImgSynth:
         elif opt == "no_prompt_parse":
             c["no_prompt_parse"] = _bool(v)
         elif opt == "image_dim":
-            c["width"] = int(v)
-            c["height"] = (int(args[1]) if len(args) > 1 and str(args[1])
+            c["width"] = _int(v)
+            c["height"] = (_int(args[1]) if len(args) > 1 and str(args[1])
                            else c["width"])
         elif opt == "steps":
-            c["steps"] = int(v)
+            c["steps"] = _int(v)
         elif opt == "seed":
-            self.rng.seed = int(v)
-            self.rng.offset = 0
+            if str(v) != "":
+                self.rng.seed = int(v)
+                self.rng.offset = 0
         elif opt == "cfg_scale":
-            c["cfg_scale"] = float(v)
+            c["cfg_scale"] = _float(v, 7.0)
         elif opt == "batch_size":
-            c["n_batch"] = max(1, int(v))
+            c["n_batch"] = max(1, _int(v, 1))
         elif opt == "method":
-            m = _id_norm(str(v))
+            m = _enum_value(v, METHOD_NAMES)
+            if m is None:
+                return
             if m not in SOLVERS:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"method '{v}' is not supported by the "
                                 f"PyTorch port (have: {', '.join(SOLVERS)})")
             c["method"] = m
         elif opt == "scheduler":
-            s = _id_norm(str(v))
-            if s not in _SCHEDULERS:
+            sc = _enum_value(v, SCHED_NAMES)
+            if sc is None:
+                return
+            if sc not in _SCHEDULERS:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"invalid scheduler '{v}'")
-            c["scheduler"] = s
+            c["scheduler"] = sc
 
     def _prompt_set(self, key: str, text: str) -> None:
         self.c[key + "_raw"] = text

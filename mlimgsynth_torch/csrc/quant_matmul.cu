@@ -86,47 +86,64 @@
 //                      acc + float(dot) * (amax * (1/127)), with no fused
 //                      multiply-add, exactly as the reference's kernel and
 //                      its XLA twin round; y = bf16_rn(acc * s_col[n]).
-//   What bounds it: at the SD3-medium x-stream products (M = 8192, K = 1536
-//   or 6144) 2*M*N*K integer operations against x (2 bytes), W (1 byte) and
-//   y (2 bytes) once: far above the ridge, so the int8 tensor-core rate
-//   (1,979 TOP/s) is the floor.  What the design has to avoid is quantizing
-//   the same activations many times over (an f32 multiply, a convert and a
-//   byte pack per value, on the CUDA cores): a first version that quantized
-//   x inside every 64 x 64 output tile ran at 4% of the int8 rate.  So two
-//   kernels run per call:
-//   * quant_rows: one warp per (row, slab) takes the slab's amax and writes
-//     the int8 row slab and its amax to scratch the wrapper allocates (x is
-//     read twice and xq written once: memory-bound, a few microseconds);
-//   * qmm_i8: one block per 128 x 128 output tile, 8 warps of 64 x 32 on
-//     mma.sync.m16n8k32 (s8 in, s32 accumulate); K walks in 64-byte chunks
-//     staged by cp.async into two shared-memory buffers, the next chunk's
-//     copy in flight during the products of the current one; at each slab's
-//     end the int32 sums fold into the f32 accumulator with the rows' amax.
-//
-//   q8_matmul_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py q8_matmul_int8 /
-//                   _q8q8_kernel (K8), the MLIS_Q8_MODE=int8 route: W8A8 on
-//                   the per-block weights of the other q8 kernels (int8 [N, K],
-//                   scales f32 [N, K / 128]).  x is quantized per (row,
-//                   128-deep K block) exactly as for K7 (the same quant_rows
-//                   pass at slab 128), and each block folds into the f32 sum
-//                   in block order as acc + (float(dot) * (amax * (1/127))) *
+//   q8_matmul_int8  replaces q8_matmul_int8 / _q8q8_kernel (K8), the
+//                   MLIS_Q8_MODE=int8 route: W8A8 on the per-block weights of
+//                   the other q8 kernels (int8 [N, K], scales f32 [N, K /
+//                   128]).  x is quantized per (row, 128-deep K block) as for
+//                   K7 (slab 128), and each block folds into the f32 sum in
+//                   block order as acc + (float(dot) * (amax * (1/127))) *
 //                   s[n, block], with no fused multiply-add: the association
 //                   and order of the XLA twin (q8_matmul_int8_xla, which the
 //                   reference's tests hold its Pallas kernel to; the Pallas
 //                   kernel itself folds dot * ((amax / 127) * s)); y =
-//                   bf16_rn(acc).  It runs qmm_i8's GEMM with the per-block
-//                   fold (every two 64-byte chunks), so each fold reads the
-//                   rows' amax and the columns' block scale.
-//   What bounds it: on an SDXL q8_0 UNet at 1024^2 the products range from
-//   M = 2 (the embeddings: weight bytes, 1 byte per weight, bound the time)
-//   to M = 8192 (the 64 x 64 level: 2*M*N*K int8 operations, far above the
-//   ridge).  The block fold (an int to float convert, two multiplies and an
-//   add per output and 128 of K) runs on the CUDA cores, about a sixteenth
-//   of the tensor-core work per element and K; like the rest of qmm_i8 it is
-//   simple first and fast later.
+//                   bf16_rn(acc).
+//   Two kernels run per call of either.  quant_rows: one warp per (row,
+//   slab) holds the slab in registers (x read once), takes its amax and
+//   writes the int8 row slab and the amax to scratch the wrapper allocates.
+//   Quantizing inside the GEMM would repeat it once per BN columns (a first
+//   K7 design did, at 4% of the int8 rate); fusing it into the op that
+//   produces x is later work (a slab's amax must exist before its int8
+//   values, and a slab spans several of that op's tiles).  qmm_i8_kernel
+//   <BLOCK_SCALES, BN>, one template for both (BLOCK_SCALES: K8), is built
+//   from qmm_ws_kernel's parts: a persistent block per SM walks 128 x BN
+//   output tiles, M fastest within an N column; BN (32, 80 or 128, the
+//   int8 wgmma N) is picked per shape by the launcher (i8_tile_n, the rule
+//   of ops/quant_matmul.py i8_tile_n) so that the M >= 2048 products fill
+//   whole waves and a product with M <= 128 puts many blocks on the weight
+//   stream (no split-K: it would change the f32 rounding).  A producer warp
+//   keeps a TMA ring of 128-deep stages (xq [128][128] and W [BN][128],
+//   K-major, 128-byte swizzle: one stage is one K8 block) with the rows'
+//   amax and the weight scales copied into shared memory beside the stage
+//   that reads them; two consumer warpgroups (64 rows each) issue four
+//   wgmma m64nBNk32 s8 products a stage into int32 sums, keep one stage in
+//   flight within a slab, and at a slab's end fold with the _rn intrinsics
+//   (float(dot) by __int2float_rn: exact below 2^24, i.e. for slabs up to
+//   1040, and above it rounded to nearest as the twin rounds its product),
+//   then stage the finished tile as bf16 for a TMA store that runs on under
+//   the next tile.
+//   What bounds them (PERF.md; tools/torch_kernel_ablate.py --w8a8,
+//   tools/torch_kernel_trace.py).  K7's floor at the SD3 x-stream products
+//   (M = 8192, K 1536 or 6144) is the int8 rate (1,979 TOP/s).  K8's at
+//   (8192, 640, 5120) is the bf16 output (84 MB, 25 us of its 29 us bound),
+//   and next the fold, which costs the CUDA cores about as many issue slots
+//   a 128-deep block as the products cost the tensor cores.  Measured,
+//   neither floor is reached.  128 x 128 tiles read xq once per 128 columns
+//   and W once per 128 rows, so K7 pulls about 6 TB/s from L2 and its
+//   stages wait on TMA latency that a five-stage ring cannot hide; K8's
+//   consumer warpgroups spend most of a stage in the fold, both at once.
+//   What the design does about its costs: no division in either role's
+//   per-stage loop; no wgmma wait and no read of the int32 sums inside a
+//   branch (ptxas would serialize the products); K7's column scales come through shared memory with the
+//   tile's last stage, not from global memory in the epilogue; the
+//   128-wide tiles stage their output in the 128-byte swizzle (a plain
+//   layout is an 8-way bank conflict).  K8 converts with __int2float_rn:
+//   the exact integer-add conversion (|dot| < 2^22) made the fold slower.
+//   Later work: a 2-block cluster multicasting xq or W (K7's L2 bytes),
+//   two stages of products in flight for K8 (a second set of int32 sums,
+//   which the registers do not hold at BN 128), 256-deep stages.
 //
-// Only the ws kernels use TMA, wgmma and warp specialisation; qmm_i8 double
-// buffers its shared memory with cp.async, _tile stages through registers.
+// qmm_ws_kernel and qmm_i8_kernel use TMA, wgmma and warp specialisation;
+// _tile stages through registers.
 // The TPU artifacts (sublane-padded [g, 8, bn] scales, the VMEM/HBM cost
 // model choosing a geometry, grid-carried accumulators) are not carried over.
 
@@ -909,30 +926,19 @@ int launch_ws(const Args& a, int bn, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// K7: W8A8 product with per-column weight scales
+// K7 / K8: W8A8 products on Hopper (int8 wgmma on a TMA ring, persistent grid)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_s32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // the two bf16 of a 32-bit word as f32
 __device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // Pass 1.  xq[m, k] = rint(x[m, k] * (127 / amax)) and amax[m, k / slab],
-// one warp per (row, slab), lanes striding the slab in 8-value vectors.
+// one warp per (row, slab).  Lane l holds the slab's 8-value vectors l,
+// l + 32, ... (V of them, V * 256 >= slab) in registers, so x is read once.
 constexpr int kQuantWarps = 8;
 
+template <int V>
 __global__ void __launch_bounds__(32 * kQuantWarps)
 quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
                   float* __restrict__ amax, int m, int k, int slab) {
@@ -942,10 +948,15 @@ quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
   const int lane = threadIdx.x & 31;
   const long long off = (job / n_slab) * k + (job % n_slab) * slab;
   const bf16* xr = x + off;
+  uint4 v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    v[i] = lane * 8 + i * 256 < slab ? *reinterpret_cast<const uint4*>(xr + lane * 8 + i * 256)
+                                     : make_uint4(0u, 0u, 0u, 0u);
   float mx = 0.f;
-  for (int c = lane * 8; c < slab; c += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const uint32_t words[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       mx = fmaxf(mx, fmaxf(fabsf(bf_lo(words[e])), fabsf(bf_hi(words[e]))));
@@ -953,9 +964,11 @@ quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   const float inv = mx > 0.f ? __fdiv_rn(127.f, mx) : 0.f;
-  for (int c = lane * 8; c < slab; c += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = lane * 8 + i * 256;
+    if (c >= slab) break;
+    const uint32_t words[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
     uint32_t packed[2] = {0u, 0u};
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -969,11 +982,12 @@ quant_rows_kernel(const bf16* __restrict__ x, int8_t* __restrict__ xq,
   if (lane == 0) amax[job] = mx;
 }
 
-// Pass 2: the int8 product with the slab fold and the column scales.
-constexpr int kI8BM = 128, kI8BN = 128;  // output tile
-constexpr int kI8BK = 64;                // K bytes per staged chunk
-constexpr int kI8LD = kI8BK + 16;        // shared row stride: conflict-free 32-bit fragments
-constexpr int kI8Threads = 256;          // 8 warps, 2 x 4 of 64 x 32
+// Pass 2: the int8 product with the slab fold.
+constexpr int kI8BM = 128;                 // output rows per tile: two consumer warpgroups of 64
+constexpr int kI8BK = 128;                 // K per stage: one 128-byte swizzle row of int8, one K8 block
+constexpr int kI8Consumers = 256;
+constexpr int kI8Threads = kI8Consumers + 32;    // and a producer warp
+constexpr int kI8X = kI8BM * kI8BK;        // one stage's xq tile, bytes
 
 struct I8Args {
   const int8_t* xq;    // [M, K]
@@ -984,146 +998,400 @@ struct I8Args {
   int m, n, k, slab;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 16 : 0));
+struct I8Params {
+  I8Args a;
+  int tma_store;   // y stored by TMA from shared memory (N a multiple of 8)
+  int m_tiles;     // tile t is (t % m_tiles, t / m_tiles): M fastest
+  int tiles;
+};
+
+// Shared memory of one block: the output staging, 64 x BN bf16 for each
+// consumer warpgroup; a ring of stages, each an xq tile [128][128] and a
+// weight tile [BN][128] (both K-major with the 128-byte swizzle), the
+// amax of the tile's 128 rows and the BN block scales (K8) or column
+// scales (K7, on a tile's last stage); the barriers.
+template <int BN>
+struct I8Cfg {
+  static constexpr int kY = 2 * 64 * BN * 2;
+  static constexpr int kW = BN * kI8BK;
+  static constexpr int kF = (kI8BM + BN) * 4;
+  static constexpr int kStage = kI8X + kW + kF;
+  static constexpr int kFixed = kY + 1024 + 256;   // + base alignment, barriers
+  static constexpr int kFit = (kWsSmemMax - kFixed) / kStage;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(kY % 1024 == 0 && kW % 1024 == 0, "1024-byte aligned swizzled tiles");
+  static_assert(kStages >= 4, "a ring of at least four stages");
+};
+
+// d[64 x N] (+)= A[64 x 32] . B[N x 32]^T in int32, both int8 K-major in
+// shared memory (scale_d 0: d = A . B).  d[j][e] holds row 16 * warp +
+// lane / 4 + 8 * (e / 2), column 8 * j + 2 * (lane % 4) + e % 2.
+template <int N>
+__device__ __forceinline__ void wgmma_i8(int (&d)[N / 8][4], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_i8<32>(int (&d)[4][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <>
+__device__ __forceinline__ void wgmma_i8<80>(int (&d)[10][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+template <>
+__device__ __forceinline__ void wgmma_i8<128>(int (&d)[16][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
-// Start the copies of K bytes [kc, kc + 64) of the block's x and weight
-// rows; rows past M or N are zero-filled (from a valid address).
-__device__ __forceinline__ void i8_stage(int8_t* sx, int8_t* sw, const I8Args& a, int m0,
-                                         int n0, int kc) {
+template <int NB>
+__device__ __forceinline__ void pin_i(int (&d)[NB][4]) {
 #pragma unroll
-  for (int j = 0; j < kI8BM * kI8BK / 16 / kI8Threads; ++j) {
-    const int i = threadIdx.x + j * kI8Threads;
-    const int r = i >> 2, c = (i & 3) * 16;
-    const int m = m0 + r, n = n0 + r;
-    cp_async16(sx + r * kI8LD + c, a.xq + (long long)(m < a.m ? m : 0) * a.k + kc + c, m < a.m);
-    cp_async16(sw + r * kI8LD + c, a.w + (long long)(n < a.n ? n : 0) * a.k + kc + c, n < a.n);
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
+}
+
+// Fold a slab's int32 sums into the f32 accumulator, in slab order:
+// acc + float(dot) * (amax * (1/127)), and for K8 times the column's block
+// scale, with no fused multiply-add.  row: this thread's first row in the
+// tile; am: the tile's 128 amax; sc: the tile's BN block scales (K8).
+template <bool BLOCK_SCALES, int NB>
+__device__ __forceinline__ void i8_fold(float (&acc)[1][NB][4], const int (&d)[NB][4],
+                                        const float* am, const float* sc, int row) {
+  const int t = threadIdx.x & 3;
+  const float sa[2] = {__fmul_rn(am[row], 1.f / 127.f), __fmul_rn(am[row + 8], 1.f / 127.f)};
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float2 ws = BLOCK_SCALES ? *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t)
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float part = __fmul_rn(__int2float_rn(d[j][e]), sa[e >> 1]);
+      if (BLOCK_SCALES) part = __fmul_rn(part, (e & 1) ? ws.y : ws.x);
+      acc[0][j][e] = __fadd_rn(acc[0][j][e], part);
+    }
   }
 }
 
-// BLOCK_SCALES false (K7): per-column scales, applied once in the epilogue;
-// true (K8): per-block scales s[n, slab], applied in every slab's fold.
-template <bool BLOCK_SCALES>
-__global__ void __launch_bounds__(kI8Threads) qmm_i8_kernel(const I8Args a) {
-  __shared__ __align__(16) int8_t sx[2][kI8BM * kI8LD];
-  __shared__ __align__(16) int8_t sw[2][kI8BN * kI8LD];
-  const int m0 = blockIdx.x * kI8BM, n0 = blockIdx.y * kI8BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp >> 2) * 64, wn0 = (warp & 3) * 32;
-  const int n_chunks = a.k / kI8BK, per_slab = a.slab / kI8BK, n_slab = a.k / a.slab;
-  float acc[4][4][4];
-  int iacc[4][4][4];
-  zero_acc(acc);
+// A consumer warp's 16 rows of a 64 x BN tile (BN a multiple of 64) as
+// bf16 into its warpgroup's staging: BN / 64 boxes of [64][64], each in the
+// 128-byte swizzle the y tensor map names (16-byte chunk c of row r at
+// (c ^ r % 8) * 16), so that a warp's stores hit 32 distinct banks (a
+// plain [64][128] layout puts the warp's 8 rows in the same banks).
+template <int NB>
+__device__ __forceinline__ void stage_sw128(const float (&d)[1][NB][4], uint8_t* staging, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) iacc[mi][ni][0] = iacc[mi][ni][1] = iacc[mi][ni][2] = iacc[mi][ni][3] = 0;
-  i8_stage(sx[0], sw[0], a, m0, n0, 0);
-  cp_async_commit();
-  if (n_chunks > 1) i8_stage(sx[1], sw[1], a, m0, n0, kI8BK);
-  cp_async_commit();
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait_1();   // chunk c has landed (one later group may be in flight)
-    __syncthreads();
-    const int8_t* bx = sx[c & 1];
-    const int8_t* bw = sw[c & 1];
-#pragma unroll
-    for (int kk = 0; kk < kI8BK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* pa = bx + (wm0 + mi * 16 + g) * kI8LD + kk + 4 * t;
-        af[mi][0] = ld_s32(pa);
-        af[mi][1] = ld_s32(pa + 8 * kI8LD);
-        af[mi][2] = ld_s32(pa + 16);
-        af[mi][3] = ld_s32(pa + 8 * kI8LD + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* pb = bw + (wn0 + ni * 8 + g) * kI8LD + kk + 4 * t;
-        const uint32_t b0 = ld_s32(pb), b1 = ld_s32(pb + 16);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-          mma_s8(iacc[mi][ni], af[mi][0], af[mi][1], af[mi][2], af[mi][3], b0, b1);
-      }
+    for (int j = 0; j < NB; ++j)
+      *reinterpret_cast<uint32_t*>(staging + (j >> 3) * 8192 + row * 128 +
+                                   (((j & 7) ^ (row & 7)) << 4) + 4 * t) =
+          pack_f32(d[0][j][2 * r], d[0][j][2 * r + 1]);
+  }
+}
+
+// Persistent: block b takes tiles b, b + grid, ...  Three roles:
+//   * warp 8, the producer, keeps the ring full: xq and W by TMA; on the
+//     last stage of a slab the rows' amax, on every K8 stage the columns'
+//     block scales and on a K7 tile's last stage its column scales, by
+//     cp.async; a stage's full barrier counts the TMA bytes and the 32
+//     lanes' copies, its empty barrier the 8 consumer warps;
+//   * warpgroups 0 and 1, rows 0-63 and 64-127 of the tile, issue each
+//     stage's four asynchronous m64nBNk32 products into their int32 sums
+//     (the first of a slab overwrites them), keep one stage in flight
+//     within a slab, and at a slab's end wait for their products, fold the
+//     sums into the f32 accumulator (K7, at a tile's last slab: times the
+//     column scales) and free the stage;
+//   * after a tile's last fold each consumer warpgroup stages its rows as
+//     bf16 (in the 128-byte swizzle where BN is 128) and stores them by
+//     TMA, which runs on under the next tile (rows and columns past M and N
+//     are not written); where N is not a multiple of 8, store_tile stores
+//     from registers.
+template <bool BLOCK_SCALES, int BN>
+__global__ void __launch_bounds__(kI8Threads, 1)
+    qmm_i8_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap y_map, const I8Params p) {
+  using C = I8Cfg<BN>;
+  constexpr int R = C::kStages, NB = BN / 8;
+  const I8Args& a = p.a;
+  extern __shared__ unsigned char i8_smem[];
+  uint8_t* sy = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(i8_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sx = sy + C::kY;
+  uint8_t* sw = sx + R * kI8X;
+  float* sa = reinterpret_cast<float*>(sw + R * C::kW);
+  float* ss = sa + R * kI8BM;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + R * BN);
+  uint64_t* empty = full + R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(smem_u32(full + i), 1 + 32);
+      mbar_init(smem_u32(empty + i), kI8Consumers / 32);
     }
-    if ((c + 1) % per_slab == 0) {
-      // fold the slab, in slab order: acc + float(dot) * (amax * (1/127)),
-      // and for K8 times the column's scale of this block
-      const int sb = c / per_slab;
-      float ws[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn0 + ni * 8 + 2 * t + e;
-          ws[ni][e] = BLOCK_SCALES && col < a.n ? a.s[(long long)col * n_slab + sb] : 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_kb = a.k / kI8BK;            // stages per tile
+  const int per_slab = a.slab / kI8BK;     // stages per slab
+  const int n_slab = a.k / a.slab;
+  const int my_tiles = (p.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+
+  if (tid >= kI8Consumers) {   // the producer
+    // running counters, no division per stage: the producer is one warp
+    // and its loop sets the pace of the ring
+    int slot = 0, phase = 0;
+    for (int t = 0; t < my_tiles; ++t) {
+      const int tile = blockIdx.x + t * gridDim.x;
+      const int m0 = (tile % p.m_tiles) * kI8BM, n0 = (tile / p.m_tiles) * BN;
+      for (int kb = 0, ks = 0, sb = 0; kb < n_kb; ++kb) {   // ks: stage within slab sb
+        const uint32_t bar = smem_u32(full + slot);
+        mbar_wait(smem_u32(empty + slot), phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(bar, kI8X + C::kW);
+          tma_load_2d(smem_u32(sx + slot * kI8X), &x_map, bar, kb * kI8BK, m0);
+          tma_load_2d(smem_u32(sw + slot * C::kW), &w_map, bar, kb * kI8BK, n0);
         }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = m0 + wm0 + mi * 16 + g + 8 * r;
-          const float sc =
-              row < a.m ? __fmul_rn(a.amax[(long long)row * n_slab + sb], 1.f / 127.f) : 0.f;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              int& d = iacc[mi][ni][2 * r + e];
-              float part = __fmul_rn(__int2float_rn(d), sc);
-              if (BLOCK_SCALES) part = __fmul_rn(part, ws[ni][e]);
-              acc[mi][ni][2 * r + e] = __fadd_rn(acc[mi][ni][2 * r + e], part);
-              d = 0;
-            }
+        if (ks == per_slab - 1) {   // the slab's fold reads them with this stage
+          for (int r = lane; r < kI8BM; r += 32) {
+            const float* arow = a.amax + (long long)min(m0 + r, a.m - 1) * n_slab;
+            cp_async4(smem_u32(sa + slot * kI8BM + r), arow + sb, m0 + r < a.m);
           }
+          // K8: the block scales; K7: on the tile's last stage, the column scales
+          if (BLOCK_SCALES || kb == n_kb - 1)
+            for (int c = lane; c < BN; c += 32) {
+              const int n = min(n0 + c, a.n - 1);
+              cp_async4(smem_u32(ss + slot * BN + c),
+                        BLOCK_SCALES ? a.s + (long long)n * n_slab + kb : a.s + n, n0 + c < a.n);
+            }
+        }
+        cp_async_arrive(bar);
+        if (++ks == per_slab) ks = 0, ++sb;
+        if (++slot == R) slot = 0, phase ^= 1;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int row = wg * 64 + warp * 16 + (lane >> 2);   // this thread's first row in the tile
+  float acc[1][NB][4];
+  int dot[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) dot[j][0] = dot[j][1] = dot[j][2] = dot[j][3] = 0;
+  int slot = 0, phase = 0, held = -1;   // held: a stage read by products still in flight
+  // stage s is free once the products that read it completed (and, on a
+  // slab's last stage, the fold read its amax and scales)
+  auto free_stage = [&](int s) {
+    if (lane == 0 && s >= 0) mbar_arrive(smem_u32(empty + s));
+    __syncwarp();
+  };
+  // No wgmma wait and no read of the int32 sums sits in a branch: ptxas
+  // would serialize the products.
+  for (int t = 0; t < my_tiles; ++t) {
+    zero_acc(acc);
+    for (int sb = 0; sb < n_slab; ++sb) {
+      for (int ks = 0; ks < per_slab; ++ks) {
+        mbar_wait(smem_u32(full + slot), phase);
+        __syncwarp();
+        const uint32_t xa = smem_u32(sx + slot * kI8X + wg * (kI8X / 2));
+        const uint32_t wa = smem_u32(sw + slot * C::kW);
+        pin_i(dot);
+        wgmma_fence();
+#pragma unroll
+        for (int k32 = 0; k32 < kI8BK / 32; ++k32)   // the slab's first stage overwrites the sums
+          wgmma_i8<BN>(dot, sw128_desc(xa + k32 * 32), sw128_desc(wa + k32 * 32),
+                       k32 > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin_i(dot);
+        free_stage(held);
+        held = slot;
+        if (++slot == R) slot = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();   // the slab's end: fold
+      pin_i(dot);
+      i8_fold<BLOCK_SCALES>(acc, dot, sa + held * kI8BM, ss + held * BN, row);
+      if (!BLOCK_SCALES && sb == n_slab - 1) {   // y = bf16_rn(acc * s_col)
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float2 sc = *reinterpret_cast<const float2*>(ss + held * BN + 8 * j + 2 * (lane & 3));
+          acc[0][j][0] = __fmul_rn(acc[0][j][0], sc.x);
+          acc[0][j][1] = __fmul_rn(acc[0][j][1], sc.y);
+          acc[0][j][2] = __fmul_rn(acc[0][j][2], sc.x);
+          acc[0][j][3] = __fmul_rn(acc[0][j][3], sc.y);
         }
       }
+      free_stage(held);
+      held = -1;
     }
-    __syncthreads();   // every warp is done with buffer c & 1
-    if (c + 2 < n_chunks) i8_stage(sx[c & 1], sw[c & 1], a, m0, n0, (c + 2) * kI8BK);
-    cp_async_commit();   // possibly empty: keeps one group per chunk
-  }
-  // y = bf16_rn(acc * s_col) (K7), bf16_rn(acc) (K8)
-#pragma unroll
-  for (int ni = 0; ni < 4 && !BLOCK_SCALES; ++ni) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn0 + ni * 8 + 2 * t + e;
-      const float sc = col < a.n ? a.s[col] : 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        acc[mi][ni][e] = __fmul_rn(acc[mi][ni][e], sc);
-        acc[mi][ni][2 + e] = __fmul_rn(acc[mi][ni][2 + e], sc);
+    const int tile = blockIdx.x + t * gridDim.x;
+    const int m0 = (tile % p.m_tiles) * kI8BM + wg * 64, n0 = (tile / p.m_tiles) * BN;
+    if (p.tma_store) {   // through the staging, stored while the next tile runs
+      uint8_t* stg = sy + wg * (C::kY / 2);
+      if ((tid & 127) == 0) tma_store_wait<true>();   // the last tile's store has read it
+      warpgroup_sync(wg);
+      if constexpr (BN % 64 == 0)
+        stage_sw128(acc, stg, warp * 16);
+      else
+        stage_ws(acc, stg, warp * 16);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA
+      warpgroup_sync(wg);
+      if ((tid & 127) == 0) {
+        if constexpr (BN % 64 == 0) {
+          for (int h = 0; h < BN / 64 && n0 + 64 * h < a.n; ++h)
+            tma_store_2d(&y_map, smem_u32(stg + h * 8192), n0 + 64 * h, m0);
+        } else {
+          tma_store_2d(&y_map, smem_u32(stg), n0, m0);
+        }
       }
+    } else {
+      const Args ya = {nullptr, nullptr, nullptr, a.y, a.m, a.n, a.k};
+      store_tile(acc, ya, m0 + warp * 16, n0);
     }
   }
-  const Args ya = {nullptr, nullptr, nullptr, a.y, a.m, a.n, a.k};
-  store_tile(acc, ya, m0 + wm0, n0 + wn0);
+  if (p.tma_store && (tid & 127) == 0) tma_store_wait<false>();
+}
+
+// The tile width of the W8A8 kernels for an [m, n] output on sms SMs, the
+// rule of ops/quant_matmul.py i8_tile_n: the width of kI8TileN with the
+// least (waves x (width + 32)), a wave being one tile on every SM and 32
+// columns standing for a tile's fixed cost; ties go to the narrower tile.
+constexpr int kI8TileN[3] = {32, 80, 128};
+
+int i8_tile_n(int m, int n, int sms) {
+  int best = 0;
+  long long best_cost = 0;
+  for (int bn : kI8TileN) {
+    const long long tiles = (long long)((m + kI8BM - 1) / kI8BM) * ((n + bn - 1) / bn);
+    const long long cost = (tiles + sms - 1) / sms * (bn + 32);
+    if (best == 0 || cost < best_cost) best = bn, best_cost = cost;
+  }
+  return best;
+}
+
+template <bool BLOCK_SCALES, int BN>
+int launch_i8_bn(const I8Args& a, int sms, cudaStream_t stream) {
+  using C = I8Cfg<BN>;
+  static bool smem_set[64] = {};   // per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && !smem_set[dev]) {
+    err = cudaFuncSetAttribute(qmm_i8_kernel<BLOCK_SCALES, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  CUtensorMap x_map, w_map, y_map;
+  I8Params p;
+  p.a = a;
+  p.tma_store = a.n % 8 == 0;
+  if (!tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.xq, a.k, a.m, 1, kI8BK, kI8BM,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k, a.n, 1, kI8BK, BN,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (p.tma_store && !tensor_map(&y_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.y, a.n, a.m, 2,
+                                  BN % 64 == 0 ? 64 : BN, 64,
+                                  BN % 64 == 0 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                               : CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  p.m_tiles = (a.m + kI8BM - 1) / kI8BM;
+  const long long tiles = (long long)p.m_tiles * ((a.n + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  qmm_i8_kernel<BLOCK_SCALES, BN><<<grid, kI8Threads, C::kSmem, stream>>>(x_map, w_map, y_map, p);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+void launch_quant(const bf16* x, const I8Args& a, unsigned blocks, cudaStream_t stream) {
+  quant_rows_kernel<V><<<blocks, 32 * kQuantWarps, 0, stream>>>(
+      x, const_cast<int8_t*>(a.xq), const_cast<float*>(a.amax), a.m, a.k, a.slab);
 }
 
 template <bool BLOCK_SCALES>
-int launch_i8(const bf16* x, const I8Args& a, int8_t* xq, float* amax, cudaStream_t stream) {
-  if (bad_shape(a.m, a.n, a.k) || a.slab <= 0 || a.slab % kGroup != 0 || a.k % a.slab != 0)
+int launch_i8(const bf16* x, const I8Args& a, cudaStream_t stream) {
+  if (bad_shape(a.m, a.n, a.k) || a.slab <= 0 || a.slab % kGroup != 0 || a.k % a.slab != 0 ||
+      a.slab > 4096)
     return (int)cudaErrorInvalidValue;
   const long long jobs = (long long)a.m * (a.k / a.slab);
   const long long q_blocks = (jobs + kQuantWarps - 1) / kQuantWarps;
-  const dim3 grid((a.m + kI8BM - 1) / kI8BM, (a.n + kI8BN - 1) / kI8BN);
-  if (q_blocks > 0x7fffffffLL || grid.y > 65535) return (int)cudaErrorInvalidValue;
-  quant_rows_kernel<<<(unsigned)q_blocks, 32 * kQuantWarps, 0, stream>>>(x, xq, amax, a.m, a.k,
-                                                                       a.slab);
-  const cudaError_t err = cudaGetLastError();
+  if (q_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned qb = (unsigned)q_blocks;
+  if (a.slab <= 256) launch_quant<1>(x, a, qb, stream);
+  else if (a.slab <= 512) launch_quant<2>(x, a, qb, stream);
+  else if (a.slab <= 1024) launch_quant<4>(x, a, qb, stream);
+  else if (a.slab <= 2048) launch_quant<8>(x, a, qb, stream);
+  else launch_quant<16>(x, a, qb, stream);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  qmm_i8_kernel<BLOCK_SCALES><<<grid, kI8Threads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  switch (i8_tile_n(a.m, a.n, sms)) {
+    case 32: return launch_i8_bn<BLOCK_SCALES, 32>(a, sms, stream);
+    case 80: return launch_i8_bn<BLOCK_SCALES, 80>(a, sms, stream);
+    default: return launch_i8_bn<BLOCK_SCALES, 128>(a, sms, stream);
+  }
 }
 
 }  // namespace
@@ -1169,8 +1437,7 @@ extern "C" int q8_matmul_ws_int8(const void* x, const void* w, const void* s, vo
   a.n = n;
   a.k = k;
   a.slab = slab;
-  return launch_i8<false>(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
-                          static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
+  return launch_i8<false>(static_cast<const bf16*>(x), a, static_cast<cudaStream_t>(stream));
 }
 
 // x [M, K] bf16, w int8 [N, K], s f32 [N, K / 128] (per block, as the other
@@ -1189,6 +1456,9 @@ extern "C" int q8_matmul_int8(const void* x, const void* w, const void* s, void*
   a.n = n;
   a.k = k;
   a.slab = kGroup;
-  return launch_i8<true>(static_cast<const bf16*>(x), a, static_cast<int8_t*>(xq),
-                         static_cast<float*>(amax), static_cast<cudaStream_t>(stream));
+  return launch_i8<true>(static_cast<const bf16*>(x), a, static_cast<cudaStream_t>(stream));
 }
+
+// The tile width the two W8A8 entry points take for an [m, n] output on sms
+// SMs (ops/quant_matmul.py i8_tile_n is the same rule).
+extern "C" int q8_int8_tile_n(int m, int n, int sms) { return i8_tile_n(m, n, sms); }

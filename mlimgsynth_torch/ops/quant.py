@@ -15,7 +15,8 @@ j + 64 in its high nibble.
 ``q8_matmul_plain`` / ``q4_matmul_plain`` are the plain versions of the CUDA
 kernels in ``ops/quant_matmul.py``: the function of the JAX package's
 ``q8_matmul_xla`` / ``q4_matmul_xla`` (dequantize in f32, round the weight to
-``x.dtype``, one product in ``x.dtype``).  ``q8_ws_int8_plain`` is the plain
+``x.dtype``, one product in ``x.dtype`` summed in f32 and rounded once:
+cuBLAS's reduction in bf16 is disallowed for the call).  ``q8_ws_int8_plain`` is the plain
 version of the W8A8 kernel on per-column weights (``q8_ws_int8_xla``).
 ``q8_matmul_int8_plain`` is the plain version of the W8A8 kernel on per-block
 weights (``q8_matmul_int8_xla``, the ``MLIS_Q8_MODE=int8`` route).
@@ -80,7 +81,20 @@ def _dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
     n, k = q.shape
     w = (q.float().reshape(n, k // KBLOCK, KBLOCK)
          * scale.float()[:, :, None]).reshape(n, k)
-    return torch.matmul(x, w.to(x.dtype).t())
+    # One product summed in f32 and rounded once to x.dtype, as
+    # q8_matmul_xla accumulates.  PyTorch lets cuBLAS reduce a bf16 or f16
+    # product in that type (at N = 100 it does: one bf16 step off in 40% of
+    # the outputs), so that is disallowed for the call.
+    flags = torch.backends.cuda.matmul
+    saved = (flags.allow_bf16_reduced_precision_reduction,
+             flags.allow_fp16_reduced_precision_reduction)
+    flags.allow_bf16_reduced_precision_reduction = False
+    flags.allow_fp16_reduced_precision_reduction = False
+    try:
+        return torch.matmul(x, w.to(x.dtype).t())
+    finally:
+        (flags.allow_bf16_reduced_precision_reduction,
+         flags.allow_fp16_reduced_precision_reduction) = saved
 
 
 def q8_matmul_plain(x, w_q8, w_scale):

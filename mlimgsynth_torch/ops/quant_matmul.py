@@ -66,6 +66,11 @@ WS_MAX_K = 3328
 # ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N)
 WS_BM = 128
 WS_TILE_N = (80, 160)
+# W8A8 (K7, K8) output tiles: WS_BM rows by one of I8_TILE_N columns (the
+# int8 wgmma N).  The C launcher picks the width itself by the same rule
+# (its entry points keep their argtypes); ``q8_int8_tile_n`` in the library
+# returns its choice.
+I8_TILE_N = (32, 80, 128)
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -90,6 +95,17 @@ def ws_tile_n(m: int, n: int, sms: int = 132) -> int:
         tiles = -(-m // WS_BM) * -(-n // bn)
         return -(-tiles // sms) * (bn + 32), -bn
     return min(WS_TILE_N, key=cost)
+
+
+def i8_tile_n(m: int, n: int, sms: int = 132) -> int:
+    """Tile width of the W8A8 kernels for an [m, n] output on ``sms`` SMs:
+    the width of ``I8_TILE_N`` with the least (waves x (width + 32)), as
+    :func:`ws_tile_n`; ties go to the narrower tile (more blocks on the
+    weight stream where M is small)."""
+    def cost(bn):
+        tiles = -(-m // WS_BM) * -(-n // bn)
+        return -(-tiles // sms) * (bn + 32), bn
+    return min(I8_TILE_N, key=cost)
 
 
 def ws_config(m: int, n: int, k: int, sms: int) -> int:

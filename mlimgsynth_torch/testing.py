@@ -355,6 +355,7 @@ QUANT_CASES = [
     ("ws", 8192, 640, 5120, "SDXL ff.net.0.proj, 64x64 level"),
     ("ws", 8192, 2560, 640, "SDXL ff.net.2, 64x64 level"),
     ("ws", 4097, 1280, 200, "ragged M and N"),
+    ("ws", 2048, 640, 100, "N not a multiple of 8: stores from registers"),
     ("tile", 512, 1280, 1280, "attention q/k/v/out, 16x16 level"),
     ("tile", 154, 768, 1280, "cross-attention k/v, 16x16 level"),
     ("tile", 154, 3072, 768, "CLIP mlp.fc2"),
@@ -364,11 +365,12 @@ QUANT_CASES = [
 
 # Limits of a kernel's output against its twin's, on x ~ N(0, 1) and a
 # weight ~ N(0, 1/K) (each output then has a std of about 1).  Both
-# dequantize to the same bf16 weight and accumulate in f32, so their f32
+# dequantize to the same bf16 weight and accumulate in f32 (the twin's
+# cuBLAS product may not reduce in bf16, so it rounds an f32 sum once, as
+# the JAX package's XLA twin does), so their f32
 # sums differ only in summation order (about 1e-6 relative); each rounds its
 # sum to bf16, and two such roundings differ by at most one bf16 step,
-# 2^-7 of the value.  The twin's cuBLAS product may reduce in lower
-# precision, which the absolute term 2^-8 covers.  A wrong kernel differs by
+# 2^-7 of the value, or 2^-8 absolute near zero.  A wrong kernel differs by
 # far more: a scale group shifted, the q4 nibble order swapped or one
 # 128-deep group dropped reads 0.3 or more in relative L2.
 QUANT_REL_L2 = 4e-3
@@ -405,6 +407,7 @@ INT8_CASES = [
     (8192, 1536, 6144, "x_block mlp.fc1"),
     (8192, 6144, 1536, "x_block mlp.fc2"),
     (4097, 1536, 1536, "ragged M"),
+    (2048, 1536, 640, "tile width 80"),
     (300, 768, 200, "ragged M and N, slab 256"),
     (77, 640, 72, "ragged M and N, slab 640"),
 ]

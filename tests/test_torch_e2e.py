@@ -210,3 +210,36 @@ def test_port_generate_never_imports_jax(tmp_path):
         timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+# option_set calls in the forms the CLI and the C ABI pass: empty strings
+# (the reference's defaults, or no change) and integer method and
+# scheduler values (indexes into METHOD_NAMES / SCHED_NAMES)
+OPTION_CALLS = {
+    "empty": [("steps", 12), ("cfg-scale", 5.0), ("method", "dpmpp2m"),
+              ("scheduler", "karras"), ("seed", 42), ("image-dim", 64),
+              ("batch-size", 2), ("steps", ""), ("cfg-scale", ""),
+              ("method", ""), ("scheduler", ""), ("seed", ""),
+              ("batch-size", "")],
+    "integer": [("method", 4), ("scheduler", 2), ("method", 1),
+                ("scheduler", 1), ("steps", "7"), ("cfg-scale", " 3.5 ")],
+    "image_dim_empty": [("image-dim", 64, 96), ("image-dim", "", "")],
+}
+
+
+@pytest.mark.parametrize("calls", list(OPTION_CALLS),
+                         ids=list(OPTION_CALLS))
+def test_option_values_match_jax(calls):
+    """The same option_set calls leave the port's session and the JAX
+    session with the same ``c`` entries and the same seed."""
+    jax_s, torch_s = JaxSession(), torch_api.MLImgSynth(device="cpu")
+    for s in (jax_s, torch_s):
+        s.rng.seed = 7
+        for name, *args in OPTION_CALLS[calls]:
+            s.option_set(name, *args)
+    shared = sorted(set(jax_s.c) & set(torch_s.c) - {"model", "model_type"})
+    assert {"steps", "cfg_scale", "method", "scheduler", "width",
+            "n_batch"} <= set(shared)
+    assert {k: torch_s.c[k] for k in shared} == {k: jax_s.c[k]
+                                                 for k in shared}
+    assert torch_s.rng.seed == jax_s.rng.seed

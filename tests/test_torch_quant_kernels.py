@@ -110,6 +110,32 @@ def test_ws_tile_config_fills_whole_waves(m, k, n):
     assert tiles / (132 * -(-tiles // 132)) >= WS_WAVE_FILL_MIN, (bn, m, n)
 
 
+# The W8A8 products of the main paths with M >= 2048 (M, K, N): K7 on the
+# SD3-medium 1024^2 x stream (CFG batch 2), K8 on an SDXL 1024^2 request
+# under MLIS_Q8_MODE=int8.
+I8_PRODUCTS = [
+    (8192, 1536, 4608), (8192, 1536, 1536), (8192, 1536, 6144),
+    (8192, 6144, 1536), (8192, 640, 5120), (8192, 2560, 640),
+    (8192, 640, 640), (2048, 1280, 10240), (2048, 5120, 1280),
+    (2048, 1280, 1280)]
+
+
+@pytest.mark.parametrize("m,k,n", I8_PRODUCTS)
+def test_i8_tile_n_fills_whole_waves(m, k, n):
+    bn = qmm.i8_tile_n(m, n)
+    assert bn in qmm.I8_TILE_N
+    tiles = -(-m // qmm.WS_BM) * -(-n // bn)
+    assert tiles / (132 * -(-tiles // 132)) >= WS_WAVE_FILL_MIN, (bn, m, n)
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 2816, 1280), (154, 2048, 1280)])
+def test_i8_tile_n_spreads_small_m(m, k, n):
+    """Where M fits one 128-row tile the narrowest width puts the most
+    blocks on the weight stream (no split-K: it would change the f32
+    rounding)."""
+    assert qmm.i8_tile_n(m, n) == min(qmm.I8_TILE_N)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -240,6 +266,17 @@ def test_ws_kernel_ragged_n_on_cuda(cuda, bits):
     torch.cuda.synchronize()
     assert testing.quant_error(full, ref)["ok"]
     assert torch.equal(part, full[:, :100])
+
+
+@pytest.mark.cuda
+def test_i8_tile_n_matches_the_launcher_on_cuda(cuda):
+    """The C launcher of K7 and K8 picks its tile width by the rule of
+    ``i8_tile_n``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = qmm._lib()
+    for m, _, n in I8_PRODUCTS + [(2, 2816, 1280), (154, 2048, 1280),
+                                  (77, 1280, 72), (4097, 640, 200)]:
+        assert lib.q8_int8_tile_n(m, n, sms) == qmm.i8_tile_n(m, n, sms)
 
 
 @pytest.mark.cuda

@@ -8,13 +8,13 @@ tree's, in one process on one card (needs an H100):
 The file name says which source of ``mlimgsynth_torch/csrc/`` it stands
 for; the other version must keep that source's C interface.  Builds both,
 then for every case of that source (``testing.ATTN_CASES``, or
-``testing.QUANT_CASES`` for q8 and q4 and ``testing.INT8_CASES``) times the
-tree's kernel, the other's, the other's again and the tree's again
-(``testing.median_ms``: device time), checking each output against the
-plain twin first, and the host time of one call with the card busy
-(``host_us``: the wrapper and the C launcher, the device work queued
-behind a spin).  Prints one JSON line per case and a summary line with the
-per-source sums.
+``testing.QUANT_CASES`` for q8 and q4, ``testing.INT8_CASES`` and
+``testing.Q8_INT8_CASES``) times the tree's kernel, the other's, the
+other's again and the tree's again (``testing.median_ms``: device time),
+checking each output against the plain twin first, and the host time of
+one call with the card busy (``host_us``: the wrapper and the C launcher,
+the device work queued behind a spin).  Prints one JSON line per case and
+a summary line with the per-source sums, in all and by kernel.
 
 ``--stripe-ws``: the other source's weight-stationary entry points take
 the trailing int of the first ws design, the stripe width (64 up to
@@ -67,6 +67,13 @@ def quant_cases():
                 "where": where},
                lambda a=a: qmm.q8_matmul_ws_int8(*a),
                lambda a=a: quant.q8_ws_int8_plain(*a), testing.int8_error)
+    for m, k, n, where in testing.Q8_INT8_CASES:
+        a = testing.quant_inputs(m, k, n, 8)
+        yield ({"kernel": "q8_matmul_int8", "mkn": [m, k, n],
+                "where": where},
+               lambda a=a: qmm.q8_matmul_int8(*a),
+               lambda a=a: quant.q8_matmul_int8_plain(*a),
+               testing.q8_int8_error)
 
 
 CASES = {"flash_attention": flash_cases, "quant_matmul": quant_cases}
@@ -117,6 +124,7 @@ def main() -> int:
                       "other": stripe_ws_config if stripe_ws
                       else qmm.ws_config}
         sums = defaultdict(float)
+        by_kernel = defaultdict(lambda: defaultdict(float))
         for row, fn, plain, check in CASES[src]():
             for i, which in enumerate(("tree", "other", "other", "tree")):
                 _build._LIBS[src] = libs[which]
@@ -127,10 +135,12 @@ def main() -> int:
                 t = testing.median_ms(fn)
                 row.setdefault(f"{which}_ms", []).append(t)
                 sums[which] += t / 2
+                by_kernel[row["kernel"]][which] += t / 2
             print(json.dumps(row), flush=True)
         _build._LIBS[src] = libs["tree"]
         qmm.ws_config = ws_configs["tree"]
-    print(json.dumps({"device": smi, "source": src, "sum_ms": dict(sums)}))
+    print(json.dumps({"device": smi, "source": src, "sum_ms": dict(sums),
+                      "sum_ms_by_kernel": by_kernel}))
     return 0
 
 

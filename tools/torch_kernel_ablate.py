@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``) with parts of
-its work taken out, to see which part bounds it (needs an H100):
+"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``), or with
+``--w8a8`` the W8A8 kernels (K7 ``q8_matmul_ws_int8`` and K8
+``q8_matmul_int8``), with parts of their work taken out, to see which part
+bounds them (needs an H100):
 
-    python3 tools/torch_kernel_ablate.py
+    python3 tools/torch_kernel_ablate.py [--w8a8] [VARIANT ...]
 
 Each variant is the tree's ``csrc/quant_matmul.cu`` with text edits that
-skip one stage of the kernel's pipeline (the loads of x and the weight,
-the scale copies, the dequantization, the products, the stores), built in
-a temporary directory; its outputs are wrong and only its device time
-(``testing.median_ms``) is read, at three products of the SD1.5 and SDXL
-main paths.  Prints one JSON line per variant, then the card's name and
-power limit.  The repository's own source and build are not touched.
+skip one stage of the kernel's pipeline (K6: the loads of x and the
+weight, the scale copies, the dequantization, the products, the stores;
+K7/K8: the activation quantization pass, the loads of xq and the weight,
+the amax and scale copies, the slab folds, the products, the stores),
+built in a temporary directory; its outputs are wrong and only its device
+time (``testing.median_ms``) is read, at products of the main paths.
+Prints one JSON line per variant, then the card's name and power limit.
+The repository's own source and build are not touched.
 """
 from __future__ import annotations
 
@@ -62,14 +66,69 @@ ABLATIONS = {
 }
 
 
+# K7 at the SD3 q8_0 x-stream products, K8 at SDXL int8-mode products
+W8A8_SHAPES = [("q8_matmul_ws_int8", (8192, 1536, 6144)),
+               ("q8_matmul_ws_int8", (8192, 6144, 1536)),
+               ("q8_matmul_int8", (8192, 640, 5120)),
+               ("q8_matmul_int8", (8192, 640, 640)),
+               ("q8_matmul_int8", (2048, 1280, 10240))]
+_XI = "          tma_load_2d(smem_u32(sx + slot * kI8X), &x_map, bar, kb * kI8BK, m0);"
+_WI = ("          tma_load_2d(smem_u32(sw + slot * C::kW), &w_map, bar, "
+       "kb * kI8BK, n0);")
+I8_NO_QUANT = [("  quant_rows_kernel<V><<<", "  " + _OFF + "quant_rows_kernel<V><<<")]
+I8_NO_LOADS = [(_XI, "          " + _OFF + _XI.strip()),
+               (_WI, "          " + _OFF + _WI.strip()),
+               ("mbar_expect_tx(bar, kI8X + C::kW);", "mbar_expect_tx(bar, 0);")]
+I8_NO_COPIES = [("            cp_async4(smem_u32(sa", "            " + _OFF
+                 + "cp_async4(smem_u32(sa"),
+                ("              cp_async4(smem_u32(ss", "              " + _OFF
+                 + "cp_async4(smem_u32(ss")]
+I8_NO_FOLD = [("i8_fold<BLOCK_SCALES>(acc, dot",
+               _OFF + "i8_fold<BLOCK_SCALES>(acc, dot")]
+I8_NO_PRODUCTS = [("wgmma_i8<BN>(dot, sw128", _OFF + "wgmma_i8<BN>(dot, sw128")]
+I8_NO_STORES = [("    if (p.tma_store) {", "    " + _OFF + "{"),
+                ("      store_tile(acc, ya, m0 + warp * 16, n0);",
+                 "      " + _OFF + "store_tile(acc, ya, m0 + warp * 16, n0);")]
+_PIPE = (I8_NO_QUANT + I8_NO_LOADS + I8_NO_FOLD + I8_NO_PRODUCTS
+         + I8_NO_STORES)
+
+W8A8_ABLATIONS = {
+    "full": [],
+    "no_quant_pass": I8_NO_QUANT,
+    "no_loads": I8_NO_LOADS,
+    "no_amax_scale_copies": I8_NO_COPIES,
+    "no_fold": I8_NO_FOLD,
+    "no_products": I8_NO_PRODUCTS,
+    "no_stores": I8_NO_STORES,
+    "no_fold_no_products": I8_NO_FOLD + I8_NO_PRODUCTS,
+    "pipeline_only": (I8_NO_QUANT + I8_NO_LOADS + I8_NO_COPIES + I8_NO_FOLD
+                      + I8_NO_PRODUCTS),
+    "pipeline_only_no_stores": _PIPE + I8_NO_COPIES,
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ablate: needs a CUDA device", file=sys.stderr)
         return 1
     src0 = (_build.CSRC / "quant_matmul.cu").read_text()
-    inputs = {s: testing.quant_inputs(*s, 8) for s in SHAPES}
+    if "--w8a8" in sys.argv[1:]:
+        ablations = W8A8_ABLATIONS
+        calls = {f"{name}:{m}x{k}x{n}": (
+            getattr(qmm, name),
+            testing.int8_inputs(m, k, n) if name == "q8_matmul_ws_int8"
+            else testing.quant_inputs(m, k, n, 8))
+            for name, (m, k, n) in W8A8_SHAPES}
+    else:
+        ablations = ABLATIONS
+        calls = {f"{m}x{k}x{n}": (qmm.q8_matmul_ws,
+                                  testing.quant_inputs(m, k, n, 8))
+                 for m, k, n in SHAPES}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, edits in ABLATIONS.items():
+        only = [a for a in sys.argv[1:] if not a.startswith("--")]
+        for name, edits in ablations.items():
+            if only and name not in only:
+                continue
             src = src0
             for old, new in edits:
                 if old not in src:
@@ -82,9 +141,8 @@ def main() -> int:
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
             row = {"variant": name}
-            for (m, k, n), (x, q, s) in inputs.items():
-                row[f"{m}x{k}x{n}_ms"] = testing.median_ms(
-                    lambda: qmm.q8_matmul_ws(x, q, s))
+            for key, (fn, args) in calls.items():
+                row[f"{key}_ms"] = testing.median_ms(lambda: fn(*args))
             print(json.dumps(row), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -78,10 +78,10 @@ MUTANTS = {
          ("for (int k16 = 0; k16 < kWsBK / 16; ++k16)",
           "for (int k16 = 0; k16 < kWsBK / 16 && kk + 2 < ksteps; ++k16)")],
         WEIGHT_ONLY),
-    # W8A8: each slab folded with the next slab's activation scale
+    # W8A8: each slab folded with the next slab's activation scale (the
+    # producer's amax copies)
     "slab_scale_shifted": (
-        "quant_matmul", [("a.amax[(long long)row * n_slab + sb]",
-                          "a.amax[(long long)row * n_slab + (sb + 1) % n_slab]")],
+        "quant_matmul", [("arow + sb,", "arow + (sb + 1) % n_slab,")],
         ("q8_matmul_ws_int8",)),
     # W8A8 (both kernels share the quantization pass): activations
     # truncated toward zero instead of rounded
@@ -90,10 +90,17 @@ MUTANTS = {
                           "__float2int_rz(__fmul_rn(f, inv))")],
         ("q8_matmul_ws_int8", "q8_matmul_int8")),
     # per-block W8A8: each block folded with the next block's weight scale
+    # (the producer's scale copies)
     "block_weight_scale_shifted": (
-        "quant_matmul", [("a.s[(long long)col * n_slab + sb]",
-                          "a.s[(long long)col * n_slab + (sb + 1) % n_slab]")],
+        "quant_matmul", [("a.s + (long long)n * n_slab + kb :",
+                          "a.s + (long long)n * n_slab + (kb + 1) % n_slab :")],
         ("q8_matmul_int8",)),
+    # W8A8: a slab's int32 sums not cleared after its fold (only a tile's
+    # first product overwrites them), so every fold adds the earlier slabs
+    # again
+    "slab_sums_not_cleared": (
+        "quant_matmul", [("k32 > 0 || ks > 0", "k32 > 0 || ks > 0 || sb > 0")],
+        ("q8_matmul_ws_int8", "q8_matmul_int8")),
 }
 
 

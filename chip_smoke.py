@@ -11,21 +11,21 @@ Phases, one result line each (any failure exits non-zero):
                  for sm_90a, one nvcc each, started together; per kernel its
                  registers and spills (ptxas -v) and its wgmma instructions
                  (HGMMA and IGMMA in cuobjdump's SASS, where the toolkit has
-                 it): the weight-stationary kernels must hold HGMMA, the
-                 W8A8 GEMM kernels IGMMA, and none may spill or have its
-                 wgmma serialized by ptxas;
+                 it): the weight-only kernels (tiled and weight-
+                 stationary) must hold HGMMA, the W8A8 GEMM kernels IGMMA,
+                 and none may spill or have its wgmma serialized by ptxas;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
                  flash kernels at the SD1.5 512^2, SDXL 1024^2 and
                  SD3-medium 1024^2 main-path shapes and ragged ones, the
                  quantized matmuls (q8 and q4, tiled and weight-stationary)
-                 at the SD1.5 products and ragged M and N, the per-column
-                 W8A8 kernel at the SD3 x-stream products and ragged ones,
-                 the per-block W8A8 kernel (MLIS_Q8_MODE=int8) at the SDXL
-                 products and ragged ones (the q8 and q4 weight-stationary
-                 kernels also at the SDXL products); each with its time, its plain
-                 version's, one PyTorch call's for the same function (for the
-                 W8A8 kernels also torch._int_mm's, the int8 library product)
-                 and the card's bound;
+                 at the SD1.5 products, the most frequent SDXL and SD3 ones
+                 and ragged M and N, the per-column W8A8 kernel at the SD3
+                 x-stream products and ragged ones, the per-block W8A8
+                 kernel (MLIS_Q8_MODE=int8) at the SDXL products and ragged
+                 ones; each with its time, its plain version's, one
+                 PyTorch call's for the same function (for the W8A8 kernels
+                 also torch._int_mm's, the int8 library product) and the
+                 card's bound;
   4. main      - three paths on one seeded random full-width SD1.5
                  checkpoint, one session at a time (512^2, 20 Euler steps,
                  CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
@@ -44,12 +44,14 @@ Phases, one result line each (any failure exits non-zero):
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
                  matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
                  W8A8 kernel);
-  6. shapes    - the quantized products of one SD1.5 q8_0 request and of
-                 one SDXL q8_0 request, each timed for the q8 and q4 kernel
-                 the dispatch picks in the default mode beside its bound and
-                 cuBLAS, and those of the SDXL request under
-                 MLIS_Q8_MODE=int8, each timed for the per-block W8A8 kernel;
-                 each with a per-request sum;
+  6. shapes    - the quantized products of one SD1.5, one SD3-medium and
+                 one SDXL q8_0 request (SD3: but the per-column W8A8
+                 kernel's), each timed for the q8 and q4 kernel the dispatch
+                 picks in the default mode beside its bound and cuBLAS, and
+                 those of the SDXL request under MLIS_Q8_MODE=int8, each
+                 timed for the per-block W8A8 kernel; each with a per-request
+                 sum (in the kernels line, the tiled and weight-stationary
+                 kernels' per-request time on each path);
   7. small     - tiny random SD1 (192^2), SDXL (192^2) and SD3 (512^2)
                  models through the session on the card (bf16, kernels)
                  against the same on the CPU (f32, the path the CPU tests
@@ -182,7 +184,7 @@ def main() -> int:
                     lambda s: sd1_want(8, int8=True), mode="int8"))
             reference_check(s, wt, bits)
             if bits == 8:
-                time_shapes(s)
+                sd1_dq = time_shapes(s)
             _drop(s)
         os.remove(ckpt)
         ckpt = _checkpoint(tmp, "sd3")
@@ -195,6 +197,8 @@ def main() -> int:
                     s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
                     lambda s: sd3_want(s, int8=True), mode="int8"))
             sd3_reference_check(s, wt, bits)
+            if bits == 8:
+                sd3_dq = time_products(sd3_dq_products(s), "sd3")
             _drop(s)
         os.remove(ckpt)
         ckpt = _checkpoint(tmp, "sdxl")
@@ -208,13 +212,18 @@ def main() -> int:
                     lambda s: sdxl_want(s, int8=True), mode="int8"))
             sdxl_reference_check(s, wt, bits)
             if bits == 8:
-                sdxl_ws = time_products(sdxl_products(s), "sdxl")["q8_ws_ms"]
+                sdxl_dq = time_products(sdxl_products(s), "sdxl")
                 sdxl_int8 = time_sdxl_int8_shapes(s)
             _drop(s)
+    dq = {"sd1": sd1_dq, "sdxl": sdxl_dq, "sd3": sd3_dq}
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        if k["name"] == "q8_matmul_ws":
-            k["sdxl_per_request_ms"] = sdxl_ws
+        if k["name"] in ("q8_matmul_tile", "q8_matmul_ws"):
+            # the kernel's device time in one q8_0 request of each path
+            k["per_request_ms"] = {path: t[k["name"] + "_ms"]
+                                   for path, t in dq.items()}
+        if k["name"] == "q4_matmul_tile":   # q4_0 runs on SD1.5
+            k["per_request_ms"] = {"sd1": sd1_dq["q4_matmul_tile_ms"]}
         if k["name"] == "q8_matmul_int8":
             k["sdxl_per_request_ms"] = sdxl_int8["ms"]
     small_check()
@@ -282,11 +291,12 @@ def kernel_report(lib: str) -> dict:
 
 
 # the quantized kernels written for wgmma: name prefix -> its SASS opcode
-WGMMA_KERNELS = {"qmm_ws_kernel": "hgmma", "qmm_i8_kernel": "igmma"}
+WGMMA_KERNELS = {"qmm_ws_kernel": "hgmma", "qmm_tile_kernel": "hgmma",
+                 "qmm_i8_kernel": "igmma"}
 
 
 def check_wgmma_kernels(report: dict) -> None:
-    """The weight-stationary (K6, K10) and W8A8 (K7, K8) GEMM kernels hold
+    """The weight-only (K5, K6, K9, K10) and W8A8 (K7, K8) GEMM kernels hold
     their wgmma instructions (where cuobjdump shows the SASS), spill nothing
     and keep their wgmma asynchronous."""
     for prefix, op in WGMMA_KERNELS.items():
@@ -535,20 +545,18 @@ def _q8_kernel(rows: int, k: int, n: int, percol: bool, int8: bool) -> str:
     return f"q8_matmul_{kind_}"
 
 
-def sd3_want(s, int8: bool = False) -> dict:
-    """The launches of one SD3-medium request, the quantized ones counted
-    from the module tree: each quantized linear with the rows it gets (the
-    two text towers once per request on the 2 x 77 tokens of prompt and
-    negative prompt; per MMDiT evaluation, the CFG batch's 2 x 4096 image
-    tokens in the x stream and the final layer, its 2 x 154 context tokens
-    in the context stream and the context embedder, 2 rows in the adaLN
-    and embedders) and the kernel the dispatch gives that product
-    (``int8``: under MLIS_Q8_MODE=int8)."""
-    want = dict(SD3_FLASH_PER_REQUEST)
-    if not s.qbits:
-        return want
+def sd3_products(s) -> collections.Counter:
+    """(rows, K, N, per column) -> calls of one SD3-medium request's
+    quantized products, from the module tree: each quantized linear with the
+    rows it gets (the two text towers once per request on the 2 x 77 tokens
+    of prompt and negative prompt; per MMDiT evaluation, the CFG batch's 2 x
+    4096 image tokens in the x stream and the final layer, its 2 x 154
+    context tokens in the context stream and the context embedder, 2 rows
+    in the adaLN and embedders) and whether its weight is stored per
+    column."""
     img = 2 * (SD3_DIM // 16) ** 2
     ctx = 2 * 2 * s._mt.clip_p.n_token
+    calls = collections.Counter()
     for prefix, mod in s._models.items():
         for name, m in mod.named_modules():
             if not isinstance(m, blocks_mod.QLinear):
@@ -562,11 +570,34 @@ def sd3_want(s, int8: bool = False) -> dict:
                 rows, times = img, SD3_STEPS
             else:
                 rows, times = ctx, SD3_STEPS
-            key = _q8_kernel(rows, k, n, m.weight_scale.dim() == 1, int8)
-            want[key] = want.get(key, 0) + times
+            calls[(rows, k, n, m.weight_scale.dim() == 1)] += times
+    return calls
+
+
+def sd3_want(s, int8: bool = False) -> dict:
+    """The launches of one SD3-medium request: those of ``sd3_products``,
+    each to the kernel the dispatch gives it (``int8``: under
+    MLIS_Q8_MODE=int8)."""
+    want = dict(SD3_FLASH_PER_REQUEST)
+    if not s.qbits:
+        return want
+    for (rows, k, n, percol), c in sd3_products(s).items():
+        key = _q8_kernel(rows, k, n, percol, int8)
+        want[key] = want.get(key, 0) + c
     if want.get("q8_matmul_ws_int8") != SD3_INT8_PER_REQUEST:
         raise AssertionError(f"the module tree gives {want}")
     return want
+
+
+def sd3_dq_products(s) -> collections.Counter:
+    """(rows, K, N) -> calls of the products of one SD3-medium q8_0 request
+    that run a weight-only kernel in the default mode (every one but the
+    per-column W8A8 kernel's)."""
+    calls = collections.Counter()
+    for (rows, k, n, percol), c in sd3_products(s).items():
+        if _q8_kernel(rows, k, n, percol, False) != "q8_matmul_ws_int8":
+            calls[(rows, k, n)] += c
+    return calls
 
 
 def sdxl_products(s) -> collections.Counter:
@@ -848,7 +879,8 @@ def time_products(calls, model: str) -> dict:
     and q4 kernel the dispatch picks in the default mode: per product the
     calls per request, the kernel, the ws tile width, its time, its plain
     version's, its bound and the library call's time; then the per-request
-    sums, by kernel too (``q8_ws_ms``: K6's device time a request)."""
+    sums, by kernel too (``q8_matmul_ws_ms``: K6's device time a
+    request)."""
     totals = collections.defaultdict(float)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (m, k, n), c in sorted(calls.items()):
@@ -864,14 +896,14 @@ def time_products(calls, model: str) -> dict:
             row[f"q{bits}"] = t
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 totals[f"q{bits}_{key}"] += c * t[key]
-            totals[f"q{bits}_{kind_}_ms"] += c * t["ms"]
+            totals[f"{name}_ms"] += c * t["ms"]
         phase("shapes", model=model, **row)
     phase("shapes", model=model, per_request_ms=dict(totals),
           calls=sum(calls.values()))
     return totals
 
 
-def time_shapes(s):
+def time_shapes(s) -> dict:
     """The quantized products of one SD1.5 q8_0 request (the same for
     q4_0), counted by hooks on a request, through :func:`time_products`."""
     calls = collections.Counter()
@@ -890,7 +922,7 @@ def time_shapes(s):
     finally:
         for h in hooks:
             h.remove()
-    time_products(calls, "sd1")
+    return time_products(calls, "sd1")
 
 
 # (model type, tiny geometry, image side, seed): the SD3 one at 512^2 (its

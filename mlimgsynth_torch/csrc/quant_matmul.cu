@@ -29,16 +29,37 @@
 // a few microseconds.  What the design has to avoid is dequantizing the same
 // weight many times over: the dequantization (an int8 to f32 convert, a
 // multiply and a bf16 round per weight) runs on the CUDA cores at a small
-// fraction of the tensor-core rate.
-//   * _tile: one block per 64 x 64 output tile, 4 warps of 32 x 32; a loop
-//     over K in 128-deep groups stages the x group (16-byte loads) and the
-//     dequantized weight group in shared memory, then mma.sync.m16n8k16
-//     (bf16 in, f32 accumulate) on fragments read with ldmatrix.  The next
-//     group's loads start into registers before the products of the
-//     current one, so their latency overlaps the tensor-core work.  Each
-//     block dequantizes its 64 weight rows once per M tile: cheap where M
-//     is small (CLIP, the 16 x 16 level, cross-attention k/v, the time
-//     embedding), which is where it runs.
+// fraction of the tensor-core rate.  The dispatch (ops/quant_matmul.py
+// use_ws) sends every product with M >= 2048 to _ws, whatever its K, and
+// the rest to _tile.
+//   * _tile (K5, K9), for M < 2048 (CLIP and the text towers, cross-
+//     attention k/v at 2 x 77 rows, the 16 x 16 and 8 x 8 UNet levels,
+//     SD3's context stream at 2 x 154 rows, the embeddings and adaLN at 2
+//     rows).  The weight stream and x's re-reads bound it, not the
+//     tensor cores.  A first design (one 64 x 64 output tile per block,
+//     mma.sync, x and the weight staged through registers with two block
+//     barriers a group) dequantized each weight once per 64 rows of M; the
+//     same tiles on wgmma with K6's dequantizing warpgroup (x the 64-row A
+//     operand, 8 to 128 weight columns the N) were no faster: a 16-deep
+//     step was an m64n16k16 or so, and the roles' barriers, not the
+//     products, set the pace.  This one (qmm_tile_kernel) swaps the
+//     product, y^T = deq(W) . x^T: a block takes 64 weight rows (the
+//     wgmma's M) by one row range of x (its N, NT = 8 to 256 rows, the
+//     launcher's tile_config: ceil(M / 256) ranges, so a weight is
+//     dequantized once where M <= 256 and at most ceil(M / 256) times
+//     above).  A producer warp keeps a ring of 128-deep stages full (x by
+//     TMA in the 128-byte swizzle, the raw weight by TMA, the group's 64
+//     scales by cp.async); one consumer warpgroup dequantizes each 64-deep
+//     half of a stage straight into the registers of the wgmma's A
+//     operand (bf16_rn(q * s), deq_tile's arithmetic; no dequantized tile
+//     goes through shared memory, so no proxy fence) and issues four
+//     m64nNTk16 with B = x from shared memory, while the products of the
+//     half before run.  Each output still sums its K in order in one f32
+//     accumulator on the tensor cores.  What bounds it now (PERF.md): the
+//     consumer warps' own instruction stream, whose dequantization takes
+//     about half of a stage and is not hidden, and each block reading all
+//     of its range's x (M x K x 2 bytes) through shared memory; N / 64
+//     blocks use few of the 132 SMs where N is small.
 //   * _ws (weight-stationary; K6, K10), for M >= 2048: 2*M*N*K flops far
 //     above the ridge (at (2048, 640, 5120) 13.4 GFLOP over 9.9 MB: 13.6 us
 //     of tensor-core time against 3 us of bytes), so the bf16 tensor-core
@@ -70,8 +91,9 @@
 //     now (PERF.md): the bytes from L2 into shared memory (x is read once per
 //     BN columns, the weight once per 128 rows) and shared memory's own
 //     bandwidth, which the TMA writes, the B tiles and the wgmma reads
-//     share.  Later work: a 2-block cluster multicasting x, and K above 3328
-//     (K5's K = 5120 products).
+//     share.  The producer keeps running counters (no division by a run-
+//     time value a stage), and a barrier wait reads the clock only when its
+//     first test fails.  Later work: a 2-block cluster multicasting x.
 //
 //   q8_matmul_ws_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py
 //                      q8_matmul_ws_int8 / _q8_ws_int8_kernel (K7): W8A8
@@ -142,8 +164,8 @@
 //   two stages of products in flight for K8 (a second set of int32 sums,
 //   which the registers do not hold at BN 128), 256-deep stages.
 //
-// qmm_ws_kernel and qmm_i8_kernel use TMA, wgmma and warp specialisation;
-// _tile stages through registers.
+// qmm_tile_kernel, qmm_ws_kernel and qmm_i8_kernel use TMA, wgmma and warp
+// specialisation.
 // The TPU artifacts (sublane-padded [g, 8, bn] scales, the VMEM/HBM cost
 // model choosing a geometry, grid-carried accumulators) are not carried over.
 
@@ -157,10 +179,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kGroup = 128;          // K rows per scale group
-constexpr int kThreads = 128;        // 4 warps
-constexpr int kBM = 64;              // output rows per M tile
-constexpr int kPad = 8;              // shared-memory row padding (bf16): no bank conflicts
-constexpr int kLX = kGroup + kPad;   // row stride of the staged x group
 
 struct Args {
   const bf16* x;      // [M, K]
@@ -170,162 +188,9 @@ struct Args {
   int m, n, k;
 };
 
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// signed byte i (0..3, little-endian) of a 32-bit word
-__device__ __forceinline__ int sbyte(uint32_t w, int i) {
-  return static_cast<int>(w << (24 - 8 * i)) >> 24;
-}
-
-// 16 quantized values -> bf16_rn(q * sc) -> 32 bytes of shared memory
-__device__ __forceinline__ void deq_store16(bf16* dst, const int (&q)[16], float sc) {
-  uint32_t p[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    p[i] = pack_f32(static_cast<float>(q[2 * i]) * sc, static_cast<float>(q[2 * i + 1]) * sc);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(p[0], p[1], p[2], p[3]);
-  d[1] = make_uint4(p[4], p[5], p[6], p[7]);
-}
-
-// One thread's share of a weight group: ROWS rows x 128 K of q8 (8 vectors
-// of 16 bytes a row) or q4 (4 vectors a row), with each vector's scale.
-template <int BITS, int ROWS>
-struct WFetch {
-  static constexpr int kPerRow = BITS == 8 ? 8 : 4;
-  static constexpr int kN = ROWS * kPerRow / kThreads;
-  uint4 v[kN];
-  float sc[kN];
-};
-
-// Start the loads of weight rows [n0, n0 + ROWS) x K group kg; rows at or
-// past N read as zero (with a zero scale).
-template <int BITS, int ROWS>
-__device__ __forceinline__ void fetch_w(WFetch<BITS, ROWS>& f, const Args& a, int n0, int kg) {
-  constexpr int P = WFetch<BITS, ROWS>::kPerRow;
-  const int n_groups = a.k / kGroup;
-  const long long row_bytes = BITS == 8 ? a.k : a.k / 2;
-#pragma unroll
-  for (int j = 0; j < WFetch<BITS, ROWS>::kN; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / P, c = (i % P) * 16, n = n0 + r;
-    f.v[j] = make_uint4(0u, 0u, 0u, 0u);
-    f.sc[j] = 0.f;
-    if (n < a.n) {
-      f.v[j] = *reinterpret_cast<const uint4*>(a.w + n * row_bytes + kg * (kGroup * BITS / 8) + c);
-      f.sc[j] = a.s[(long long)n * n_groups + kg];
-    }
-  }
-}
-
-// Dequantize a fetched group into shared memory: row r at dst + r * ld, the
-// group's 128 values from column col0.  q4: bytes j..j+15 of a row's group
-// hold group rows j..j+15 (low nibbles) and j+64..j+79 (high nibbles).
-template <int BITS, int ROWS>
-__device__ __forceinline__ void store_w(bf16* dst, int ld, const WFetch<BITS, ROWS>& f, int col0) {
-  constexpr int P = WFetch<BITS, ROWS>::kPerRow;
-#pragma unroll
-  for (int j = 0; j < WFetch<BITS, ROWS>::kN; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / P, c = (i % P) * 16;
-    bf16* d = dst + r * ld + col0;
-    const uint32_t words[4] = {f.v[j].x, f.v[j].y, f.v[j].z, f.v[j].w};
-    if (BITS == 8) {
-      int q[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) q[e] = sbyte(words[e >> 2], e & 3);
-      deq_store16(d + c, q, f.sc[j]);
-    } else {
-      int lo[16], hi[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int b = sbyte(words[e >> 2], e & 3);
-        hi[e] = b >> 4;
-        lo[e] = ((b & 15) ^ 8) - 8;
-      }
-      deq_store16(d + c, lo, f.sc[j]);
-      deq_store16(d + 64 + c, hi, f.sc[j]);
-    }
-  }
-}
-
-// One thread's share of an x group: kBM rows x 128 K, 16 vectors a row.
-struct XFetch {
-  static constexpr int kN = kBM * 16 / kThreads;
-  uint4 v[kN];
-};
-
-// Start the loads of x rows [m0, m0 + kBM) x K group kg; rows at or past M
-// read as zero.
-__device__ __forceinline__ void fetch_x(XFetch& f, const Args& a, int m0, int kg) {
-#pragma unroll
-  for (int j = 0; j < XFetch::kN; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i >> 4, c = (i & 15) * 8, m = m0 + r;
-    f.v[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (m < a.m)
-      f.v[j] = *reinterpret_cast<const uint4*>(a.x + (long long)m * a.k + kg * kGroup + c);
-  }
-}
-
-// Stage a fetched x group in shared memory (row stride kLX).
-__device__ __forceinline__ void store_x(bf16* dst, const XFetch& f) {
-#pragma unroll
-  for (int j = 0; j < XFetch::kN; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    *reinterpret_cast<uint4*>(dst + (i >> 4) * kLX + (i & 15) * 8) = f.v[j];
-  }
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// acc[MI x 16 rows][NI x 8 cols] += sx[wm0.., 128] . sw[wn0.., 128]^T.
-// The A fragments of a 16 x 16 step are the four 8 x 8 quarters of its x
-// tile (rows, then the upper 8 columns); the B fragments of two 8-column
-// tiles are the quarters of a 16 x 16 weight tile (k halves, then rows).
-template <int MI, int NI>
-__device__ __forceinline__ void mma_group(float (&acc)[MI][NI][4], const bf16* sx,
-                                          const bf16* sw, int ldw, int wm0, int wn0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* pa = sx + (wm0 + (lane & 15)) * kLX + (lane >> 4) * 8;
-  const bf16* pb = sw + (wn0 + ((lane >> 4) << 3) + (lane & 7)) * ldw + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kk = 0; kk < kGroup / 16; ++kk) {
-    uint32_t af[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) ldsm_x4(af[mi], pa + mi * 16 * kLX + kk * 16);
-#pragma unroll
-    for (int ni = 0; ni < NI; ni += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, pb + ni * 8 * ldw + kk * 16);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        mma16816(acc[mi][ni], af[mi][0], af[mi][1], af[mi][2], af[mi][3], b[0], b[1]);
-        mma16816(acc[mi][ni + 1], af[mi][0], af[mi][1], af[mi][2], af[mi][3], b[2], b[3]);
-      }
-    }
-  }
 }
 
 template <int MI, int NI>
@@ -363,37 +228,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], const 
       }
     }
   }
-}
-
-// One 64 x 64 output tile per block; warps 2 x 2 of 32 x 32.  The loads of
-// K group kg + 1 are in flight while the products of group kg run.
-template <int BITS>
-__global__ void __launch_bounds__(kThreads) qmm_tile_kernel(const Args a) {
-  constexpr int BN = 64;
-  __shared__ __align__(16) bf16 sx[kBM * kLX];
-  __shared__ __align__(16) bf16 sw[BN * kLX];
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5;
-  const int wm0 = (warp >> 1) * 32, wn0 = (warp & 1) * 32;
-  const int n_groups = a.k / kGroup;
-  float acc[2][4][4];
-  zero_acc(acc);
-  XFetch xf;
-  WFetch<BITS, BN> wf;
-  fetch_x(xf, a, m0, 0);
-  fetch_w(wf, a, n0, 0);
-  for (int kg = 0; kg < n_groups; ++kg) {
-    __syncthreads();   // the previous group is consumed
-    store_x(sx, xf);
-    store_w(sw, kLX, wf, 0);
-    __syncthreads();
-    if (kg + 1 < n_groups) {
-      fetch_x(xf, a, m0, kg + 1);
-      fetch_w(wf, a, n0, kg + 1);
-    }
-    mma_group(acc, sx, sw, kLX, wm0, wn0);
-  }
-  store_tile(acc, a, m0 + wm0, n0 + wn0);
 }
 
 // ---------------------------------------------------------------------------
@@ -444,22 +278,28 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
+// whether the phase of parity `parity` completed (the thread may be
+// suspended a while first)
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Waits for the phase of parity `parity` to complete.  A wait of more than
 // about ten seconds (2^34 cycles) traps: the launch then fails with an
-// error instead of holding the card.
+// error instead of holding the card.  The clock is read only once a first
+// test failed: reading it on every wait cost K5 a fifth of its time.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
+  if (mbar_try(bar, parity)) return;
   const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
+  while (!mbar_try(bar, parity))
     if (clock64() - t0 > (1ll << 34)) __trap();
-  }
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -608,7 +448,206 @@ __device__ __forceinline__ void wgmma_tile<160>(float (&d)[1][20][4], uint64_t a
         "+f"(d[0][19][0]), "+f"(d[0][19][1]), "+f"(d[0][19][2]), "+f"(d[0][19][3])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+// As wgmma_tile with A from registers: a holds this thread's A fragment
+// (rows 16 * warp + lane / 4 and + 8, columns 2 * (lane % 4) .. + 1 and
+// + 8 .. + 9, as bf16 pairs, mma.m16n8k16's A layout); the registers must
+// keep their values until the products complete.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[1][N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d);
 
+#define QMM_ACC4(j) "+f"(d[0][j][0]), "+f"(d[0][j][1]), "+f"(d[0][j][2]), "+f"(d[0][j][3])
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[1][1][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[1][2][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[1][4][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[1][6][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[1][8][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[1][10][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[1][12][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9), QMM_ACC4(10), QMM_ACC4(11)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[1][16][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9), QMM_ACC4(10), QMM_ACC4(11),
+        QMM_ACC4(12), QMM_ACC4(13), QMM_ACC4(14), QMM_ACC4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[1][20][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9), QMM_ACC4(10), QMM_ACC4(11),
+        QMM_ACC4(12), QMM_ACC4(13), QMM_ACC4(14), QMM_ACC4(15),
+        QMM_ACC4(16), QMM_ACC4(17), QMM_ACC4(18), QMM_ACC4(19)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[1][24][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9), QMM_ACC4(10), QMM_ACC4(11),
+        QMM_ACC4(12), QMM_ACC4(13), QMM_ACC4(14), QMM_ACC4(15),
+        QMM_ACC4(16), QMM_ACC4(17), QMM_ACC4(18), QMM_ACC4(19),
+        QMM_ACC4(20), QMM_ACC4(21), QMM_ACC4(22), QMM_ACC4(23)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[1][32][4], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : QMM_ACC4(0), QMM_ACC4(1), QMM_ACC4(2), QMM_ACC4(3),
+        QMM_ACC4(4), QMM_ACC4(5), QMM_ACC4(6), QMM_ACC4(7),
+        QMM_ACC4(8), QMM_ACC4(9), QMM_ACC4(10), QMM_ACC4(11),
+        QMM_ACC4(12), QMM_ACC4(13), QMM_ACC4(14), QMM_ACC4(15),
+        QMM_ACC4(16), QMM_ACC4(17), QMM_ACC4(18), QMM_ACC4(19),
+        QMM_ACC4(20), QMM_ACC4(21), QMM_ACC4(22), QMM_ACC4(23),
+        QMM_ACC4(24), QMM_ACC4(25), QMM_ACC4(26), QMM_ACC4(27),
+        QMM_ACC4(28), QMM_ACC4(29), QMM_ACC4(30), QMM_ACC4(31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+#undef QMM_ACC4
 
 // A consumer warp's 16 rows of the tile (d as wgmma_tile leaves it) as bf16
 // into its warpgroup's staging, [64][BN] row-major, from row r0.
@@ -698,8 +737,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   constexpr int S = C::kSteps, R = C::kStages, NB = C::kBufs;
   const Args& a = p.a;
   extern __shared__ unsigned char ws_smem[];
-  uint8_t* sb = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(ws_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  // aligned by an offset from the array, so that the compiler knows every
+  // pointer below is shared memory (shared loads and 32-bit addresses)
+  uint8_t* sb = ws_smem + ((1024 - (smem_u32(ws_smem) & 1023)) & 1023);
   uint8_t* sy = sb + NB * C::kB;   // output staging
   uint8_t* sx = sy + 2 * C::kB;
   uint8_t* sw = sx + R * C::kX;
@@ -728,25 +768,29 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int total = my_tiles * ksteps;
 
   if (tid >= kWsConsumers + kWsDequant) {   // the producer
-    const int per_tile = ksteps / S;
-    for (int st = 0; st < my_tiles * per_tile; ++st) {
-      const int slot = st % R;
-      const int tile = blockIdx.x + (st / per_tile) * gridDim.x;
+    // running counters, no division by a run-time value per stage: the
+    // producer is one warp and its loop sets the pace of the ring
+    int slot = 0, phase = 0;
+    for (int t = 0; t < my_tiles; ++t) {
+      const int tile = blockIdx.x + t * gridDim.x;
       const int m0 = (tile % p.m_tiles) * kWsBM, n0 = (tile / p.m_tiles) * BN;
-      const int k0 = (st % per_tile) * S * kWsBK, kg = k0 / kGroup;
-      const uint32_t bar = smem_u32(full + slot);
-      mbar_wait(smem_u32(empty + slot), ((st / R) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_expect_tx(bar, C::kX + C::kW);
-        for (int h = 0; h < S; ++h)
-          tma_load_2d(smem_u32(sx + slot * C::kX + h * kXBox), &x_map, bar, k0 + h * kWsBK, m0);
-        tma_load_2d(smem_u32(sw + slot * C::kW), &w_map, bar, k0 * BITS / 8, n0);
+      for (int k0 = 0; k0 < a.k; k0 += S * kWsBK) {
+        const int kg = k0 / kGroup;
+        const uint32_t bar = smem_u32(full + slot);
+        mbar_wait(smem_u32(empty + slot), phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(bar, C::kX + C::kW);
+          for (int h = 0; h < S; ++h)
+            tma_load_2d(smem_u32(sx + slot * C::kX + h * kXBox), &x_map, bar, k0 + h * kWsBK, m0);
+          tma_load_2d(smem_u32(sw + slot * C::kW), &w_map, bar, k0 * BITS / 8, n0);
+        }
+        for (int r = lane; r < BN; r += 32) {
+          const int n = min(n0 + r, a.n - 1);
+          cp_async4(smem_u32(ss + slot * BN + r), &a.s[(long long)n * n_groups + kg], n0 + r < a.n);
+        }
+        cp_async_arrive(bar);
+        if (++slot == R) slot = 0, phase ^= 1;
       }
-      for (int r = lane; r < BN; r += 32) {
-        const int n = min(n0 + r, a.n - 1);
-        cp_async4(smem_u32(ss + slot * BN + r), &a.s[(long long)n * n_groups + kg], n0 + r < a.n);
-      }
-      cp_async_arrive(bar);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
@@ -822,6 +866,188 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   if (p.tma_store && (tid & 127) == 0) tma_store_wait<false>();
 }
 
+// ---------------------------------------------------------------------------
+// K5 / K9: the products with M < 2048, swapped: y^T = deq(W) . x^T
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 64;                    // weight rows a block: the wgmma M
+constexpr int kTileThreads = 128 + 32;           // one consumer warpgroup and a producer warp
+constexpr int kTileWBox = kTileRows * 64;        // one TMA box of raw weight: 64 rows x 64 bytes
+
+// Shared memory of one block: a ring of stages, each one 128-deep scale
+// group: x [NT][128] as two [NT][64] boxes in the 128-byte swizzle (the
+// wgmma B operand, K-major); the raw weight, [64][64] bytes in the 64-byte
+// swizzle (q8: two boxes, the group's two 64-deep halves; q4: one, whose
+// low nibbles are the first half and high nibbles the second); the
+// group's 64 scales; the barriers.
+template <int BITS, int NT>
+struct TileCfg {
+  static constexpr int kXBox = NT * kWsBK * 2;
+  static constexpr int kX = 2 * kXBox;
+  static constexpr int kW = (BITS == 8 ? 2 : 1) * kTileWBox;
+  static constexpr int kStage = kX + kW + kTileRows * 4;
+  static constexpr int kFixed = 1024 + 256;        // base alignment, barriers
+  static constexpr int kFit = (kWsSmemMax - kFixed) / kStage;
+  static constexpr int kStages = kFit > 6 ? 6 : kFit;
+  static constexpr int kSmem = kFixed + kStages * kStage;
+  static_assert(NT % 8 == 0 && NT <= 256 && kStages >= 2, "a wgmma N and a ring");
+};
+
+struct TileArgs {
+  Args a;
+  int ranges;   // row ranges of x, NT rows each; block b is (b % ranges, b / ranges)
+};
+
+// This thread's A fragments of one 64-deep half of a stage: rows r0 and r0
+// + 8 of the block's 64 weight rows, k16 chunks c = 0..3; f[c] = (r0, 16c +
+// 2t .. + 1), (r0 + 8, same), (r0, 16c + 2t + 8 .. + 9), (r0 + 8, same), each
+// bf16_rn(q * s) as deq_tile computes it.  raw: [64][64] bytes in the
+// 64-byte swizzle (16-byte chunk c of row r at r * 64 + (c ^ (r / 2) % 4) *
+// 16: the eight rows a warp reads at once land in distinct banks); q4: the
+// nibble of each byte that half picks.  The chunk's 16 bytes are loaded
+// whole and the thread's four picked by byte permutes.
+template <int BITS>
+__device__ __forceinline__ void deq_frag(uint32_t (&f)[4][4], const uint8_t* __restrict__ raw,
+                                         int r0, int t, int half, float s0, float s1) {
+  constexpr float kBias = BITS == 8 ? 8388736.f : 8388616.f;   // 2^23 + 128, 2^23 + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const float s = i ? s1 : s0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 v = *reinterpret_cast<const uint4*>(raw + r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+      // bytes 2t, 2t + 1 (word t / 2) and 2t + 8, 2t + 9 (word 2 + t / 2)
+      const uint32_t lo = (t >> 1) ? v.y : v.x, hi = (t >> 1) ? v.w : v.z;
+      uint32_t w = __byte_perm(lo, hi, (t & 1) ? 0x7632 : 0x5410);
+      w = BITS == 8 ? w ^ 0x80808080u : ((half ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;
+      float q[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        q[e] = __fmul_rn(__fadd_rn(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | e)), -kBias), s);
+      f[c][i] = pack_f32(q[0], q[1]);
+      f[c][2 + i] = pack_f32(q[2], q[3]);
+    }
+  }
+}
+
+// keeps A fragments live up to here: the asynchronous products read their
+// registers until they complete, so the compiler must not reuse them sooner
+__device__ __forceinline__ void pin_a(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(f[c][e])::"memory");
+}
+
+// One block per (row range, 64 weight rows): the weight is dequantized once
+// per row range, and a range holds up to 256 rows, so once where M <= 256.
+// The weight rows are the wgmma's 64-row A operand, dequantized by the
+// consumers into registers, and x's rows (NT, up to 256) its N: a product
+// step is one m64nNTk16 whatever M, and no dequantized tile goes through
+// shared memory.  Two roles:
+//   * warp 4, the producer, keeps the ring of stages full: x and the raw
+//     weight by TMA, the scales by cp.async; a stage's full barrier counts
+//     the TMA bytes and the 32 lanes' copies, its empty barrier the four
+//     consumer warps;
+//   * warpgroup 0 takes each stage in two 64-deep halves: it waits for the
+//     products of the last stage's same half (wgmma_wait<1>: the other half
+//     stays in flight), dequantizes the half's A fragments into their
+//     registers, issues its four products and commits them; after the
+//     second half's wait the last stage is free.  So the dequantization of
+//     one half runs while the products of the other do.  Then y^T's tile
+//     is stored from registers, masked (y[m, n] for the tile's x row m and
+//     weight row n).
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    qmm_tile_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map, const TileArgs p) {
+  using C = TileCfg<BITS, NT>;
+  constexpr int R = C::kStages;
+  const Args& a = p.a;
+  extern __shared__ unsigned char tile_smem[];
+  uint8_t* sx = tile_smem + ((1024 - (smem_u32(tile_smem) & 1023)) & 1023);   // as in qmm_ws_kernel
+  uint8_t* sw = sx + R * C::kX;
+  float* ss = reinterpret_cast<float*>(sw + R * C::kW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + R * kTileRows);
+  uint64_t* empty = full + R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < R; ++i) {
+      mbar_init(smem_u32(full + i), 1 + 32);
+      mbar_init(smem_u32(empty + i), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_groups = a.k / kGroup;
+  const int m0 = (blockIdx.x % p.ranges) * NT, n0 = (blockIdx.x / p.ranges) * kTileRows;
+
+  if (tid >= 128) {   // the producer
+    int slot = 0, phase = 0;
+    for (int kg = 0; kg < n_groups; ++kg) {
+      const uint32_t bar = smem_u32(full + slot);
+      mbar_wait(smem_u32(empty + slot), phase ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar, C::kX + C::kW);
+        for (int h = 0; h < 2; ++h)
+          tma_load_2d(smem_u32(sx + slot * C::kX + h * C::kXBox), &x_map, bar,
+                      kg * kGroup + h * kWsBK, m0);
+        for (int h = 0; h < C::kW / kTileWBox; ++h)
+          tma_load_2d(smem_u32(sw + slot * C::kW + h * kTileWBox), &w_map, bar,
+                      kg * (kGroup * BITS / 8) + h * 64, n0);
+      }
+      for (int r = lane; r < kTileRows; r += 32) {
+        const int n = min(n0 + r, a.n - 1);
+        cp_async4(smem_u32(ss + slot * kTileRows + r), &a.s[(long long)n * n_groups + kg],
+                  n0 + r < a.n);
+      }
+      cp_async_arrive(bar);
+      if (++slot == R) slot = 0, phase ^= 1;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int warp = tid >> 5, t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);   // this thread's weight rows r0, r0 + 8
+  float acc[1][NT / 8][4];
+  zero_acc(acc);
+  uint32_t af[2][4][4];   // A fragments of a stage's two halves
+  int slot = 0, phase = 0;
+  for (int kg = 0; kg < n_groups; ++kg) {
+    mbar_wait(smem_u32(full + slot), phase);
+    const float s0 = ss[slot * kTileRows + r0], s1 = ss[slot * kTileRows + r0 + 8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wgmma_wait<1>();   // the last stage's half h is done: af[h] is free
+      pin(acc);
+      pin_a(af[h]);
+      if (h == 1 && kg > 0 && lane == 0)   // and so is the last stage
+        mbar_arrive(smem_u32(empty + (slot == 0 ? R - 1 : slot - 1)));
+      deq_frag<BITS>(af[h], sw + slot * C::kW + (BITS == 8 ? h * kTileWBox : 0), r0, t,
+                     BITS == 8 ? 0 : h, s0, s1);
+      const uint32_t xb = smem_u32(sx + slot * C::kX + h * C::kXBox);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wgmma_rs<NT>(acc, af[h][c], sw128_desc(xb + c * 32), kg + h + c > 0);
+      wgmma_commit();
+    }
+    if (++slot == R) slot = 0, phase ^= 1;
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  // d[0][j][e] is y^T[r0 + 8 * (e / 2), 8 * j + 2 * t + e % 2] of the tile
+#pragma unroll
+  for (int jj = 0; jj < NT / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + 8 * jj + 2 * t + (e & 1), n = n0 + r0 + 8 * (e >> 1);
+      if (m < a.m && n < a.n) a.y[(long long)m * a.n + n] = __float2bfloat16(acc[0][jj][e]);
+    }
+}
+
 Args make_args(const void* x, const void* w, const void* s, void* y, int m, int n, int k) {
   Args a;
   a.x = static_cast<const bf16*>(x);
@@ -836,15 +1062,6 @@ Args make_args(const void* x, const void* w, const void* s, void* y, int m, int 
 
 bool bad_shape(int m, int n, int k) {
   return m <= 0 || n <= 0 || k <= 0 || k % kGroup != 0;
-}
-
-template <int BITS>
-int launch_tile(const Args& a, cudaStream_t stream) {
-  if (bad_shape(a.m, a.n, a.k)) return (int)cudaErrorInvalidValue;
-  dim3 grid((a.m + kBM - 1) / kBM, (a.n + 63) / 64);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  qmm_tile_kernel<BITS><<<grid, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
@@ -923,6 +1140,71 @@ int launch_ws(const Args& a, int bn, cudaStream_t stream) {
   if (bn == 80) return launch_ws_bn<BITS, 80>(a, stream);
   if (bn == 160) return launch_ws_bn<BITS, 160>(a, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tiled kernel's geometry for a product of m rows, the rule of
+// ops/quant_matmul.py tile_config: x's rows go to ceil(m / 256) row ranges
+// of equal size, so that a weight is dequantized once where M <= 256 and at
+// most ceil(M / 256) times above, and each range to the least width of
+// kTileNT (the wgmma N) that holds it.  Returns (ranges << 16) | width.
+constexpr int kTileNT[11] = {8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256};
+
+int tile_config(int m) {
+  const int ranges = (m + 255) / 256, rows = (m + ranges - 1) / ranges;
+  int nt = 256;
+  for (int w : kTileNT)
+    if (w >= rows) {
+      nt = w;
+      break;
+    }
+  return (ranges << 16) | nt;
+}
+
+template <int BITS, int NT>
+int launch_tile_nt(const Args& a, int ranges, cudaStream_t stream) {
+  using C = TileCfg<BITS, NT>;
+  static bool smem_set[64] = {};   // per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && !smem_set[dev]) {
+    err = cudaFuncSetAttribute(qmm_tile_kernel<BITS, NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  CUtensorMap x_map, w_map;
+  TileArgs p;
+  p.a = a;
+  p.ranges = ranges;
+  if (!tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.k, a.m, 2, kWsBK, NT,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w, a.k * BITS / 8, a.n, 1, 64,
+                  kTileRows, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)ranges * ((a.n + kTileRows - 1) / kTileRows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  qmm_tile_kernel<BITS, NT><<<(unsigned)blocks, kTileThreads, C::kSmem, stream>>>(x_map, w_map, p);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int launch_tile(const Args& a, cudaStream_t stream) {
+  if (bad_shape(a.m, a.n, a.k)) return (int)cudaErrorInvalidValue;
+  const int cfg = tile_config(a.m), ranges = cfg >> 16;
+  switch (cfg & 0xffff) {
+    case 8: return launch_tile_nt<BITS, 8>(a, ranges, stream);
+    case 16: return launch_tile_nt<BITS, 16>(a, ranges, stream);
+    case 32: return launch_tile_nt<BITS, 32>(a, ranges, stream);
+    case 48: return launch_tile_nt<BITS, 48>(a, ranges, stream);
+    case 64: return launch_tile_nt<BITS, 64>(a, ranges, stream);
+    case 80: return launch_tile_nt<BITS, 80>(a, ranges, stream);
+    case 96: return launch_tile_nt<BITS, 96>(a, ranges, stream);
+    case 128: return launch_tile_nt<BITS, 128>(a, ranges, stream);
+    case 160: return launch_tile_nt<BITS, 160>(a, ranges, stream);
+    case 192: return launch_tile_nt<BITS, 192>(a, ranges, stream);
+    default: return launch_tile_nt<BITS, 256>(a, ranges, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1462,3 +1744,8 @@ extern "C" int q8_matmul_int8(const void* x, const void* w, const void* s, void*
 // The tile width the two W8A8 entry points take for an [m, n] output on sms
 // SMs (ops/quant_matmul.py i8_tile_n is the same rule).
 extern "C" int q8_int8_tile_n(int m, int n, int sms) { return i8_tile_n(m, n, sms); }
+
+// The tiled entry points' geometry for a product of m rows: (row ranges
+// << 16) | x rows a range (ops/quant_matmul.py tile_config is the same
+// rule).
+extern "C" int qmm_tile_config(int m) { return tile_config(m); }

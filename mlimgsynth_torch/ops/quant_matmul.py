@@ -24,9 +24,10 @@ per-block weights (scales [N, K/128]), the activations quantized per (row,
 
 :func:`q8_dot` / :func:`q4_dot` pick one by a fixed rule
 (:func:`use_ws`): the weight-stationary kernel when the product has at
-least ``WS_MIN_M`` rows (the JAX package's ``_WS_MIN_M``) and K is at most
-``WS_MAX_K``, else the tiled kernel; the ws kernel's tile width is
-:func:`ws_tile_n`'s choice for the shape.  ``q8_dot`` follows the
+least ``WS_MIN_M`` rows (the JAX package's ``_WS_MIN_M``), whatever its K,
+else the tiled kernel; the ws kernel's tile width is :func:`ws_tile_n`'s
+choice for the shape, the tiled kernel's geometry :func:`tile_config`'s
+(the C launcher applies the same rule itself).  ``q8_dot`` follows the
 reference's order (``q8_matmul.py:662-700``): a per-column weight first asks
 the JAX package's plan (``ops/quant_plan.pick_large_m_plan``), and where it
 picks ``"int8ws"`` the product runs the W8A8 kernel on per-column scales;
@@ -57,12 +58,6 @@ LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
             "q8_matmul_int8": 0}
 
 WS_MIN_M = 2048
-# The ws rule takes K up to 3328, the largest K whose full-K bf16 stripe fit
-# in shared memory in the first ws kernel; the present kernel keeps no
-# stripe and takes any K, so the bound only keeps the dispatch (and every
-# launch count) as it was.  Widening it (K5's K = 5120 products) is later
-# work, decided by the kernel table in PERF.md.
-WS_MAX_K = 3328
 # ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N)
 WS_BM = 128
 WS_TILE_N = (80, 160)
@@ -71,6 +66,11 @@ WS_TILE_N = (80, 160)
 # (its entry points keep their argtypes); ``q8_int8_tile_n`` in the library
 # returns its choice.
 I8_TILE_N = (32, 80, 128)
+# Tiled (K5, K9) blocks: 64 weight rows by one row range of x, the range
+# padded to one of TILE_NT rows (the wgmma N).  The C launcher picks the
+# geometry itself by the rule of :func:`tile_config` (its entry points keep
+# their argtypes); ``qmm_tile_config`` in the library returns its choice.
+TILE_NT = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _WS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -108,6 +108,16 @@ def i8_tile_n(m: int, n: int, sms: int = 132) -> int:
     return min(I8_TILE_N, key=cost)
 
 
+def tile_config(m: int) -> tuple:
+    """(row ranges, rows a range) of the tiled kernel for a product of ``m``
+    rows: ceil(m / 256) ranges of equal size, so that a weight is
+    dequantized once where M <= 256 and at most ceil(M / 256) times above,
+    each padded to the least width of ``TILE_NT`` that holds it."""
+    ranges = -(-m // 256)
+    rows = -(-m // ranges)
+    return ranges, min(w for w in TILE_NT if w >= rows)
+
+
 def ws_config(m: int, n: int, k: int, sms: int) -> int:
     """The ws entry points' trailing int: the tile width."""
     return ws_tile_n(m, n, sms)
@@ -119,9 +129,9 @@ def _sm_count(index: int) -> int:
 
 
 def use_ws(m: int, k: int) -> bool:
-    """The dispatch rule: weight-stationary for M >= WS_MIN_M and K <=
-    WS_MAX_K."""
-    return m >= WS_MIN_M and k <= WS_MAX_K
+    """The dispatch rule: weight-stationary for M >= WS_MIN_M, at any K
+    (the ws kernel keeps no full-K stripe)."""
+    return m >= WS_MIN_M
 
 
 def _lib():

@@ -341,7 +341,8 @@ def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 
 # Each quantized-matmul kernel against its plain twin on the card, at the
 # products of the SD1.5 512^2 main path (CFG batch 2), the weight-stationary
-# products of the SDXL 1024^2 one (CFG batch 2) and two ragged ones.
+# and the most frequent tiled products of the SDXL and SD3-medium 1024^2
+# ones (CFG batch 2) and two ragged ones.
 # (kernel kind, M, K, N, where the main path runs it); every case runs for
 # q8 and q4.
 QUANT_CASES = [
@@ -354,12 +355,19 @@ QUANT_CASES = [
     ("ws", 8192, 640, 640, "SDXL attention q/k/v/out, 64x64 level"),
     ("ws", 8192, 640, 5120, "SDXL ff.net.0.proj, 64x64 level"),
     ("ws", 8192, 2560, 640, "SDXL ff.net.2, 64x64 level"),
+    ("ws", 2048, 5120, 1280, "SDXL ff.net.2, 32x32 level"),
     ("ws", 4097, 1280, 200, "ragged M and N"),
     ("ws", 2048, 640, 100, "N not a multiple of 8: stores from registers"),
     ("tile", 512, 1280, 1280, "attention q/k/v/out, 16x16 level"),
     ("tile", 154, 768, 1280, "cross-attention k/v, 16x16 level"),
     ("tile", 154, 3072, 768, "CLIP mlp.fc2"),
     ("tile", 2, 1280, 320, "resnet emb_proj, 64x64 level"),
+    ("tile", 154, 2048, 640, "SDXL cross-attention k/v, 64x64 level"),
+    ("tile", 154, 2048, 1280, "SDXL cross-attention k/v, 32x32 level"),
+    ("tile", 2, 2816, 1280, "SDXL label embedding"),
+    ("tile", 308, 1536, 6144, "SD3 context mlp.fc1"),
+    ("tile", 308, 6144, 1536, "SD3 context mlp.fc2"),
+    ("tile", 2, 1536, 9216, "SD3 adaLN"),
     ("tile", 77, 768, 200, "ragged M and N"),
 ]
 

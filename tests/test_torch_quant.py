@@ -111,14 +111,13 @@ def test_plain_matches_pallas_kernels(interpret_mode, kernel, m, k, n):
 
 
 def test_dispatch_rule():
-    """ws from the JAX package's _WS_MIN_M rows up to K = 3328 (the largest
-    K whose full-K bf16 stripe fit the first ws kernel); tile otherwise."""
+    """ws from the JAX package's _WS_MIN_M rows at any K (the ws kernel
+    keeps no full-K stripe); tile below."""
     assert qmm.WS_MIN_M == jq8._WS_MIN_M == 2048
-    assert qmm.WS_MAX_K == 3328
     assert qmm.use_ws(2048, 640) and qmm.use_ws(8192, 1280)
     assert qmm.use_ws(2048, 2560) and qmm.use_ws(4096, 3328)
     assert not qmm.use_ws(2047, 640) and not qmm.use_ws(154, 768)
-    assert not qmm.use_ws(8192, 3456)
+    assert qmm.use_ws(8192, 3456) and qmm.use_ws(2048, 5120)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

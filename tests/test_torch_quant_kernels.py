@@ -90,10 +90,10 @@ WS_PRODUCTS = [
 
 @pytest.mark.parametrize("m,k,n", WS_PRODUCTS + [(2048, 5120, 1280)])
 def test_use_ws_takes_exactly_the_ws_products(m, k, n):
-    """The rule sends the SD1.5 and SDXL ws products to the ws kernel and
-    SDXL's K = 5120 ff.net.2 (2048 rows) to the tiled one, as before the
-    ws kernel kept no stripe."""
-    assert qmm.use_ws(m, k) == (k != 5120)
+    """The rule sends every SD1.5 and SDXL product with M >= 2048 to the ws
+    kernel, SDXL's K = 5120 ff.net.2 (2048 rows) included: the ws kernel
+    keeps no full-K stripe."""
+    assert qmm.use_ws(m, k)
 
 
 # The ws tiles of every main-path product fill at least this share of the
@@ -134,6 +134,60 @@ def test_i8_tile_n_spreads_small_m(m, k, n):
     blocks on the weight stream (no split-K: it would change the f32
     rounding)."""
     assert qmm.i8_tile_n(m, n) == min(qmm.I8_TILE_N)
+
+
+# The tiled products of the main paths (M, K, N), CFG batch 2: SD1.5 512^2
+# (the 16 x 16 level's 512 rows, the 8 x 8 level's 128, cross-attention k/v
+# and CLIP-L at 2 x 77 tokens, the embeddings at 2 rows), SDXL 1024^2 (k/v
+# at K 2048, the two text towers, the embeddings and the label MLP) and
+# SD3-medium 1024^2 (the context stream at 2 x 154 tokens, the context
+# embedder, adaLN and the t/y embedders at 2 rows).
+TILE_PRODUCTS = [
+    (512, 1280, 1280), (512, 1280, 10240), (512, 5120, 1280),
+    (128, 1280, 1280), (128, 1280, 10240), (128, 5120, 1280),
+    (154, 768, 320), (154, 768, 640), (154, 768, 1280), (154, 768, 768),
+    (154, 768, 3072), (154, 3072, 768), (2, 1280, 1280), (2, 1280, 640),
+    (2, 1280, 320),
+    (154, 2048, 640), (154, 2048, 1280), (154, 1280, 3840),
+    (154, 1280, 1280), (154, 1280, 5120), (154, 5120, 1280),
+    (2, 2816, 1280),
+    (308, 1536, 4608), (308, 1536, 1536), (308, 1536, 6144),
+    (308, 6144, 1536), (308, 4096, 1536), (2, 1536, 9216), (2, 1536, 3072),
+    (2, 256, 1536), (2, 1536, 1536), (2, 2048, 1536)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 63, 64, 65, 77, 128, 129, 154,
+                               192, 193, 255, 256])
+def test_tile_config_holds_every_row_up_to_256(m):
+    """Up to 256 rows one row range holds every row of the product, so each
+    weight is dequantized once."""
+    ranges, nt = qmm.tile_config(m)
+    assert ranges == 1 and m <= nt <= 256
+
+
+@pytest.mark.parametrize("m", [257, 308, 512, 1000, 2047, 4097])
+def test_tile_config_dequantizes_at_most_once_per_256_rows(m):
+    ranges, nt = qmm.tile_config(m)
+    assert ranges == -(-m // 256)
+    assert (ranges - 1) * nt < m <= ranges * nt   # no range is empty
+
+
+@pytest.mark.parametrize("m,k,n", TILE_PRODUCTS)
+def test_tile_config_pads_little(m, k, n):
+    """At the main paths' products a range is padded by at most a quarter
+    (or to the narrowest wgmma N, 8 rows): the padded rows cost tensor-core
+    work and shared memory, not bytes from device memory."""
+    ranges, nt = qmm.tile_config(m)
+    rows = -(-m // ranges)
+    assert rows <= nt <= max(8, 1.25 * rows), (ranges, nt)
+
+
+@pytest.mark.parametrize("m,k,n", TILE_PRODUCTS)
+def test_tile_width_is_a_wgmma_n(m, k, n):
+    """The width is a bf16 wgmma N (a multiple of 8 up to 256) that the
+    launcher instantiates."""
+    _, nt = qmm.tile_config(m)
+    assert nt in qmm.TILE_NT and nt % 8 == 0 and 8 <= nt <= 256
 
 
 @pytest.fixture
@@ -228,7 +282,7 @@ def test_percol_dispatch_on_cuda(cuda):
 def test_dispatch_launches_the_rule_on_cuda(cuda, bits):
     dot = qmm.q4_dot if bits == 4 else qmm.q8_dot
     for m, k, kind in ((2048, 640, "ws"), (2047, 640, "tile"),
-                       (4096, 3456, "tile")):
+                       (4096, 3456, "ws")):
         x, q, s = testing.quant_inputs(m, k, 64, bits)
         before = dict(qmm.LAUNCHES)
         dot(x.view(1, m, k), q, s)
@@ -239,8 +293,9 @@ def test_dispatch_launches_the_rule_on_cuda(cuda, bits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 def test_ws_kernel_takes_any_k_on_cuda(cuda, bits):
-    """The ws kernel keeps no full-K stripe: K = 3456, past the dispatch
-    range, runs and agrees with the twin (ragged N)."""
+    """The ws kernel keeps no full-K stripe: K = 3456, past the largest K
+    whose stripe fit the first ws design, runs and agrees with the twin
+    (ragged N)."""
     name = f"q{bits}_matmul_ws"
     x, q, s = testing.quant_inputs(2048, 3456, 200, bits)
     out = getattr(qmm, name)(x, q, s)
@@ -277,6 +332,16 @@ def test_i8_tile_n_matches_the_launcher_on_cuda(cuda):
     for m, _, n in I8_PRODUCTS + [(2, 2816, 1280), (154, 2048, 1280),
                                   (77, 1280, 72), (4097, 640, 200)]:
         assert lib.q8_int8_tile_n(m, n, sms) == qmm.i8_tile_n(m, n, sms)
+
+
+@pytest.mark.cuda
+def test_tile_config_matches_the_launcher_on_cuda(cuda):
+    """The C launcher of K5 and K9 picks its geometry by the rule of
+    ``tile_config``."""
+    lib = qmm._lib()
+    for m in sorted({m for m, _, _ in TILE_PRODUCTS} | {1, 77, 257, 4097}):
+        ranges, nt = qmm.tile_config(m)
+        assert lib.qmm_tile_config(m) == (ranges << 16) | nt, m
 
 
 @pytest.mark.cuda

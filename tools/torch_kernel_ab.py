@@ -4,6 +4,7 @@ tree's, in one process on one card (needs an H100):
 
     python3 tools/torch_kernel_ab.py OTHER/flash_attention.cu
     python3 tools/torch_kernel_ab.py [--stripe-ws] OTHER/quant_matmul.cu
+    python3 tools/torch_kernel_ab.py --shapes-from LOG OTHER/quant_matmul.cu
 
 The file name says which source of ``mlimgsynth_torch/csrc/`` it stands
 for; the other version must keep that source's C interface.  Builds both,
@@ -15,6 +16,11 @@ checking each output against the plain twin first, and the host time of
 one call with the card busy (``host_us``: the wrapper and the C launcher,
 the device work queued behind a spin).  Prints one JSON line per case and
 a summary line with the per-source sums, in all and by kernel.
+
+``--shapes-from LOG``: instead of those cases, the tiled products that a
+``chip_smoke.py`` log's ``shapes`` lines list (every product of its SD1.5,
+SD3 and SDXL requests that the dispatch gives the tiled kernel), each for
+q8 and q4.
 
 ``--stripe-ws``: the other source's weight-stationary entry points take
 the trailing int of the first ws design, the stripe width (64 up to
@@ -79,6 +85,29 @@ def quant_cases():
 CASES = {"flash_attention": flash_cases, "quant_matmul": quant_cases}
 
 
+def tile_product_cases(log: str):
+    """The tiled products of a chip_smoke.py log's shapes lines, as
+    :func:`quant_cases` gives its cases."""
+    mkn = set()
+    for line in Path(log).read_text().splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            if row.get("phase") == "shapes" and row.get("kernel") == "tile":
+                mkn.add(tuple(row["mkn"]))
+
+    def cases():
+        for bits in (8, 4):
+            plain = (quant.q4_matmul_plain if bits == 4
+                     else quant.q8_matmul_plain)
+            name = f"q{bits}_matmul_tile"
+            for m, k, n in sorted(mkn):
+                a = testing.quant_inputs(m, k, n, bits)
+                yield ({"kernel": name, "mkn": [m, k, n]},
+                       lambda f=getattr(qmm, name), a=a: f(*a),
+                       lambda p=plain, a=a: p(*a), testing.quant_error)
+    return cases
+
+
 def host_us(fn, n: int = 50) -> float:
     """Host microseconds of one call of ``fn``, the calls queued behind a
     spin of the card so that none waits for the device."""
@@ -101,14 +130,19 @@ def main() -> int:
     args = sys.argv[1:]
     stripe_ws = "--stripe-ws" in args
     args = [a for a in args if a != "--stripe-ws"]
+    log = None
+    if args[:1] == ["--shapes-from"] and len(args) > 1:
+        log, args = args[1], args[2:]
     other = Path(args[0]) if len(args) == 1 else None
     if other is None or other.stem not in CASES \
+            or (log and other.stem != "quant_matmul") \
             or not torch.cuda.is_available():
-        print("usage: torch_kernel_ab.py [--stripe-ws] OTHER/"
-              "{flash_attention,quant_matmul}.cu (needs a CUDA device)",
-              file=sys.stderr)
+        print("usage: torch_kernel_ab.py [--stripe-ws] [--shapes-from LOG] "
+              "OTHER/{flash_attention,quant_matmul}.cu (needs a CUDA "
+              "device)", file=sys.stderr)
         return 1
     src = other.stem
+    cases = tile_product_cases(log) if log else CASES[src]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -125,7 +159,7 @@ def main() -> int:
                       else qmm.ws_config}
         sums = defaultdict(float)
         by_kernel = defaultdict(lambda: defaultdict(float))
-        for row, fn, plain, check in CASES[src]():
+        for row, fn, plain, check in cases():
             for i, which in enumerate(("tree", "other", "other", "tree")):
                 _build._LIBS[src] = libs[which]
                 qmm.ws_config = ws_configs[which]

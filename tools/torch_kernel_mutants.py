@@ -55,8 +55,8 @@ MUTANTS = {
         "flash_attention", [("for (int kk = 0; kk < DQK / 16; ++kk)",
                              "for (int kk = 0; kk < DQK / 16 - 1; ++kk)")],
         None),
-    # each weight group scaled by its neighbour's scale (the tiled kernels'
-    # loads and the ws kernels' producer copies)
+    # each weight group scaled by its neighbour's scale (the producer's
+    # scale copies of the tiled and ws kernels)
     "scale_group_shifted": (
         "quant_matmul", [("a.s[(long long)n * n_groups + kg]",
                           "a.s[(long long)n * n_groups + (kg + 1) % n_groups]")],
@@ -64,20 +64,25 @@ MUTANTS = {
     # q4: the high nibble taken as group row j and the low as row j + 64
     "nibble_order_swapped": (
         "quant_matmul",
-        [("deq_store16(d + c, lo, f.sc[j]);\n"
-          "      deq_store16(d + 64 + c, hi, f.sc[j]);",
-          "deq_store16(d + c, hi, f.sc[j]);\n"
-          "      deq_store16(d + 64 + c, lo, f.sc[j]);"),
-         ("(half ? words[w4] >> 4 : words[w4])",
-          "(half ? words[w4] : words[w4] >> 4)")],
+        [("(half ? words[w4] >> 4 : words[w4])",
+          "(half ? words[w4] : words[w4] >> 4)"),
+         ("(half ? w >> 4 : w)", "(half ? w : w >> 4)")],
         ("q4_matmul_tile", "q4_matmul_ws")),
     # the last 128-deep K group left out of the products
     "last_k_group_dropped": (
         "quant_matmul",
-        [("mma_group(acc, sx, sw", "if (kg + 1 < n_groups) mma_group(acc, sx, sw"),
-         ("for (int k16 = 0; k16 < kWsBK / 16; ++k16)",
-          "for (int k16 = 0; k16 < kWsBK / 16 && kk + 2 < ksteps; ++k16)")],
+        [("for (int k16 = 0; k16 < kWsBK / 16; ++k16)",
+          "for (int k16 = 0; k16 < kWsBK / 16 && kk + 2 < ksteps; ++k16)"),
+         ("for (int c = 0; c < 4; ++c)\n        wgmma_rs<NT>",
+          "for (int c = 0; c < 4 && kg + 1 < n_groups; ++c)\n        wgmma_rs<NT>")],
         WEIGHT_ONLY),
+    # tiled kernels: one 16-deep product step of every group left out (the
+    # last of its second half)
+    "tile_product_step_dropped": (
+        "quant_matmul",
+        [("for (int c = 0; c < 4; ++c)\n        wgmma_rs<NT>",
+          "for (int c = 0; c < 4 - h; ++c)\n        wgmma_rs<NT>")],
+        ("q8_matmul_tile", "q4_matmul_tile")),
     # W8A8: each slab folded with the next slab's activation scale (the
     # producer's amax copies)
     "slab_scale_shifted": (

@@ -11,9 +11,10 @@ Phases, one result line each (any failure exits non-zero):
                  for sm_90a, one nvcc each, started together; per kernel its
                  registers and spills (ptxas -v) and its wgmma instructions
                  (HGMMA and IGMMA in cuobjdump's SASS, where the toolkit has
-                 it): the weight-only kernels (tiled and weight-
-                 stationary) must hold HGMMA, the W8A8 GEMM kernels IGMMA,
-                 and none may spill or have its wgmma serialized by ptxas;
+                 it): the Hopper attention kernel (K1, K3/K4) and the
+                 weight-only kernels (tiled and weight-stationary) must
+                 hold HGMMA, the W8A8 GEMM kernels IGMMA, and none may
+                 spill or have its wgmma serialized by ptxas;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
                  flash kernels at the SD1.5 512^2, SDXL 1024^2 and
                  SD3-medium 1024^2 main-path shapes and ragged ones, the
@@ -24,8 +25,10 @@ Phases, one result line each (any failure exits non-zero):
                  kernel (MLIS_Q8_MODE=int8) at the SDXL products and ragged
                  ones; each with its time, its plain version's, one
                  PyTorch call's for the same function (for the W8A8 kernels
-                 also torch._int_mm's, the int8 library product) and the
-                 card's bound;
+                 also torch._int_mm's, the int8 library product; for the
+                 attention the SDPA backend that PyTorch picks, named) and
+                 the card's bound (the attention also with its floor of
+                 exponentials on the MUFU, exp_ms);
   4. main      - three paths on one seeded random full-width SD1.5
                  checkpoint, one session at a time (512^2, 20 Euler steps,
                  CFG 7, bf16 activations): bf16 weights, 3 requests; q8_0
@@ -62,6 +65,7 @@ Then one JSON line on the kernels and, last, the device JSON line.
 from __future__ import annotations
 
 import collections
+import functools
 import gc
 import json
 import os
@@ -166,7 +170,8 @@ def main() -> int:
                 "kernels": kernel_report(n)}
             for n, i in _build.BUILD_INFO.items()}
     phase("build", seconds=time.time() - t0, libs=libs)
-    check_wgmma_kernels(libs["quant_matmul"]["kernels"])
+    check_wgmma_kernels({**libs["flash_attention"]["kernels"],
+                         **libs["quant_matmul"]["kernels"]})
 
     kernels = (check_flash() + check_quant() + check_int8()
                + check_q8_int8())
@@ -290,15 +295,15 @@ def kernel_report(lib: str) -> dict:
     return out
 
 
-# the quantized kernels written for wgmma: name prefix -> its SASS opcode
-WGMMA_KERNELS = {"qmm_ws_kernel": "hgmma", "qmm_tile_kernel": "hgmma",
-                 "qmm_i8_kernel": "igmma"}
+# the kernels written for wgmma: name prefix -> its SASS opcode
+WGMMA_KERNELS = {"attn_hopper_kernel": "hgmma", "qmm_ws_kernel": "hgmma",
+                 "qmm_tile_kernel": "hgmma", "qmm_i8_kernel": "igmma"}
 
 
 def check_wgmma_kernels(report: dict) -> None:
-    """The weight-only (K5, K6, K9, K10) and W8A8 (K7, K8) GEMM kernels hold
-    their wgmma instructions (where cuobjdump shows the SASS), spill nothing
-    and keep their wgmma asynchronous."""
+    """The attention (K1, K3/K4), weight-only (K5, K6, K9, K10) and W8A8
+    (K7, K8) kernels hold their wgmma instructions (where cuobjdump shows
+    the SASS), spill nothing and keep their wgmma asynchronous."""
     for prefix, op in WGMMA_KERNELS.items():
         got = {k: v for k, v in report.items() if k.startswith(prefix)}
         if not got or any(v.get("spill_bytes", 0) or v.get(op) == 0
@@ -313,12 +318,42 @@ def _entry(name: str, source: str, **kv) -> dict:
             "replaces": REPLACES[name], **extra, "launches": 0, **kv}
 
 
+# One request's calls of each flash kernel at its main-path shapes, (q
+# shape, Sk) -> {model: calls}; they add up to the launch counts above
+FLASH_SHAPE_CALLS = {
+    ((2, 8, 4096, 40), 4096): {"sd1": 100},
+    ((2, 8, 1024, 80), 1024): {"sd1": 100},
+    ((2, 10, 4096, 64), 4096): {"sdxl": 200},
+    ((2, 20, 1024, 64), 1024): {"sdxl": 1200},
+    ((1, 1, 4096, 512), 4096): {"sd1": 1},
+    ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1},
+    ((2, 24, 4250, 64), 4250): {"sd3": 480},
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _exp_rate() -> float:
+    """Exponentials a second on the card: 16 a clock on each SM (its MUFU
+    lanes) at the SM's maximum clock (``nvidia-smi clocks.max.sm``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6
+
+
 def check_flash():
     """Each flash kernel against its plain version at the main-path shapes,
     held to the limits in ``testing`` (relative L2 and elementwise); the
-    library call is PyTorch's scaled_dot_product_attention."""
+    library call is PyTorch's scaled_dot_product_attention, timed on the
+    backend its dispatcher picks (its own choice function; named in
+    ``library``); ``exp_ms``: the least time the card's MUFU units take for
+    the B H Sq Sk exponentials."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    summary = {}
+    summary, per_request = {}, collections.defaultdict(
+        lambda: collections.defaultdict(float))
     for name, shape, sk, where in testing.ATTN_CASES:
         fn = getattr(fa, name)
         q, k, v = testing.attention_inputs(shape, sk)
@@ -327,11 +362,16 @@ def check_flash():
         torch.cuda.synchronize()
         res = testing.attention_error(out, ref)
         b, h, sq, d = shape
+        backend = SDPBackend(torch._fused_sdp_choice(q, k, v))
+        with sdpa_kernel(backend):
+            library_ms = ms(lambda: sdpa(q, k, v))
         t = {"ms": ms(lambda: fn(q, k, v)),
              "plain_ms": ms(lambda: fa.attention_plain(q, k, v)),
-             "library_ms": ms(lambda: sdpa(q, k, v)),
+             "library_ms": library_ms,
+             "library": f"scaled_dot_product_attention {backend.name}",
              **bound(4.0 * b * h * sq * sk * d,
-                     2.0 * b * h * d * (2 * sq + 2 * sk))}
+                     2.0 * b * h * d * (2 * sq + 2 * sk)),
+             "exp_ms": b * h * sq * sk / _exp_rate() * 1e3}
         phase("kernels", kernel=name, where=where, q=list(shape), sk=sk,
               **res, **t,
               limits={"rel_l2": testing.ATTN_REL_L2,
@@ -339,12 +379,26 @@ def check_flash():
         if not res["ok"]:
             raise AssertionError(f"{name} {where}: kernel disagrees with "
                                  "its plain version")
+        for model, calls in FLASH_SHAPE_CALLS.get((shape, sk), {}).items():
+            for key in ("ms", "library_ms", "bound_ms", "exp_ms"):
+                per_request[(name, model)][key] += calls * t[key]
+            per_request[(name, model)]["calls"] += calls
         if sk == shape[2] and name not in summary:  # the main-path shape
             summary[name] = {"shape": [list(shape), sk],
                              "max_abs_err": res["max_abs_err"], **t}
-    summary["flash_attn_joint"]["per_request_ms"] = (
-        SD3_FLASH_PER_REQUEST["flash_attn_joint"]
-        * summary["flash_attn_joint"]["ms"])
+    want = {("flash_attn_fwd", "sd1"): FLASH_PER_REQUEST["flash_attn_fwd"],
+            ("flash_attn_fwd", "sdxl"): SDXL_FLASH_PER_REQUEST[
+                "flash_attn_fwd"],
+            ("flash_attn_joint", "sd3"): SD3_FLASH_PER_REQUEST[
+                "flash_attn_joint"]}
+    for key, calls in want.items():
+        if per_request[key]["calls"] != calls:
+            raise AssertionError(f"FLASH_SHAPE_CALLS gives {key} "
+                                 f"{per_request[key]['calls']} calls")
+    for (name, model), sums in per_request.items():
+        summary[name].setdefault("per_request_ms", {})[model] = sums["ms"]
+        summary[name].setdefault("per_request_sums_ms", {})[model] = dict(
+            sums)
     return [_entry(n, "flash_attention", **summary[n])
             for n in ("flash_attn_fwd", "flash_attn_fwd_wide",
                       "flash_attn_joint")]

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``.  The library
-lands in ``build/kernels/`` beside the package, keyed by a hash of its source
-and flags, so a changed source rebuilds and an unchanged one loads in
-milliseconds.  Nothing
+lands in ``build/kernels/`` beside the package, keyed by a hash of its source,
+the headers of ``csrc/`` and the flags, so a changed source or header
+rebuilds and an unchanged one loads in milliseconds.  Nothing
 is built when this module is imported: the first launch builds.
 """
 from __future__ import annotations
@@ -44,8 +44,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, keyed by the source, every header
+    of ``csrc/`` (the sources include ``hopper.cuh``) and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        key.update(hdr.name.encode() + hdr.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 

@@ -1,19 +1,21 @@
 """Flash-attention wrappers around the CUDA kernels in
 ``csrc/flash_attention.cu``.
 
-Three kernels, all online-softmax forward passes over the natural
+Three entry points, all online-softmax forward passes over the natural
 [B, H, S, D] layout in bf16 (see the source note in the .cu file):
 
 * :func:`flash_attn_fwd` (D <= 128) replaces the JAX package's
   ``flash_attention_t`` (``mlimgsynth_tpu/ops/flash_attention.py:646``,
   Pallas kernel ``_flash_kernel_t``): the UNet self-attention.
+* :func:`flash_attn_joint` (D <= 128) replaces ``stock_flash``
+  (``mlimgsynth_tpu/ops/stock_flash.py:177``, JAX's TPU flash kernel, K3)
+  and ``splash_flash`` (``ops/splash_flash.py:114``, K4): the MMDiT joint
+  attention over text and image tokens.  It launches the same Hopper
+  kernel as :func:`flash_attn_fwd`; the two names keep the launches of
+  each TPU kernel's route apart.
 * :func:`flash_attn_fwd_wide` (128 < D <= 512) replaces
   ``flash_attention`` (``:353``, kernel ``_flash_kernel``): the VAE
-  mid-block's single 512-wide head.
-* :func:`flash_attn_joint` (D <= 128, 128-row q tiles) replaces
-  ``stock_flash`` (``mlimgsynth_tpu/ops/stock_flash.py:177``, JAX's TPU
-  flash kernel, K3) and ``splash_flash`` (``ops/splash_flash.py:114``, K4):
-  the MMDiT joint attention over text and image tokens.
+  mid-block's single 512-wide head, on a kernel of its own.
 
 A wrapper given CPU tensors runs :func:`attention_plain`, the kernels' plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.  Each
@@ -127,9 +129,8 @@ def flash_attn_fwd_wide(q, k, v, scale=None):
 
 
 def flash_attn_joint(q, k, v, scale=None):
-    """As :func:`flash_attn_fwd` (head dim <= 128) with 128-row q tiles:
-    the large-S self- and joint-attention route (``attention``'s K3
-    gate)."""
+    """As :func:`flash_attn_fwd` (head dim <= 128, the same kernel): the
+    large-S self- and joint-attention route (``attention``'s K3 gate)."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale)
     return _launch("flash_attn_joint", q, k, v, scale, 0, 128)

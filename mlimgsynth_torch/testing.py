@@ -292,6 +292,7 @@ ATTN_CASES = [
     ("flash_attn_fwd", (2, 10, 4096, 64), 4096, "SDXL UNet level 1"),
     ("flash_attn_fwd", (2, 20, 1024, 64), 1024, "SDXL UNet level 2"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
+    ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
@@ -299,17 +300,21 @@ ATTN_CASES = [
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
      "MMDiT joint attention, SD3-medium"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
+    ("flash_attn_joint", (1, 2, 2100, 128), 2100, "head dim 128"),
 ]
 
 # Limits of a kernel's output against its twin's, on q, k, v drawn from
 # N(0, 1) in bf16 (each output then has a std of about 0.03).  Both round
 # the output to bf16 (2^-9 relative) and the probabilities to bf16, the
 # twin after normalising and the kernels before, so on the H100 they differ
-# by 3.1e-3 in relative L2 and by at most 2e-3 elementwise at every case
-# below.  A wrong kernel differs by far more: the scale taken from the
-# padded depth (1/sqrt(48) for d = 40), one kv tile of 64 dropped, or the
-# QK^T depth short by 16 columns reads 0.12 to 0.43 in relative L2
-# (tools/torch_kernel_mutants.py plants each and shows it caught).
+# by 3.1e-3 in relative L2 and by at most 4e-3 elementwise at every case
+# below.  A wrong kernel differs by far more: on the H100, the scale taken
+# from the padded depth (1/sqrt(48) for d = 40) reads 0.12 in relative L2,
+# the ragged kv tail dropped 0.16-0.31, the QK^T depth short by 16 columns
+# 0.47, the output not rescaled by a new running max 0.85-0.92, and the
+# tail's columns past Sk left unmasked 0.036-0.055, which only the ragged
+# cases show (tools/torch_kernel_mutants.py plants each and shows it
+# caught).
 ATTN_REL_L2 = 1e-2
 ATTN_ATOL, ATTN_RTOL = 4e-3, 2.0 ** -6
 

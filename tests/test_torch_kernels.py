@@ -49,6 +49,34 @@ def test_cpu_tensors_never_launch(monkeypatch):
     assert tfa.PLAIN_CUDA_CALLS == 0
 
 
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """A library is keyed on its source and on every header of csrc/ (the
+    sources include hopper.cuh), so an edited header rebuilds it."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    first = _build._lib_path("k")
+    assert first == _build._lib_path("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert len({first, second, _build._lib_path("k")}) == 3
+    assert first.parent == tmp_path / "build"
+
+
+def test_sources_share_the_hopper_header():
+    """Both kernel sources take the mbarrier, TMA and wgmma helpers from
+    the one header the build key covers, and define none of them again."""
+    for name in ("flash_attention", "quant_matmul"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper.cuh"' in src
+        for helper in ("void mbar_wait(", "void tma_load_2d(",
+                       "uint64_t sw128_desc(", "EncodeTiledFn encode_tiled("):
+            assert helper not in src, (name, helper)
+    assert (_build.CSRC / "hopper.cuh").exists()
+
+
 def test_launch_refuses_cpu_tensors():
     q, k, v = _qkv(1, 1, 512, 512, 40)
     with pytest.raises(ValueError, match="CUDA"):
@@ -75,6 +103,8 @@ def cuda():
     (1, 1, 4096, 4096, 512),
     (1, 1, 4096, 4095, 512),
     (1, 2, 600, 520, 160),     # wide kernel below its 512 columns
+    (2, 8, 1000, 1024, 80),    # head dim 80 (two boxes, PV width 80), ragged Sq
+    (1, 3, 650, 700, 80),      # head dim 80, ragged Sq and Sk
 ])
 def test_kernel_matches_plain_on_cuda(cuda, b, h, sq, sk, d):
     q, k, v = testing.attention_inputs((b, h, sq, d), sk)

@@ -150,6 +150,8 @@ def main() -> int:
     csrc0, build0 = _build.CSRC, _build.BUILD_DIR
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copy(other, Path(tmp) / f"{src}.cu")
+        for hdr in csrc0.glob("*.cuh"):   # the tree's shared headers
+            shutil.copy(hdr, tmp)
         _build.CSRC, _build.BUILD_DIR = Path(tmp), Path(tmp) / "build"
         _build._LIBS.clear()
         libs["other"] = _build.load(src)

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``), or with
+"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``), with
 ``--w8a8`` the W8A8 kernels (K7 ``q8_matmul_ws_int8`` and K8
-``q8_matmul_int8``), with parts of their work taken out, to see which part
-bounds them (needs an H100):
+``q8_matmul_int8``), or with ``--flash`` the Hopper attention kernel (K1
+``flash_attn_fwd``, K3 ``flash_attn_joint``), with parts of their work
+taken out, to see which part bounds them (needs an H100):
 
-    python3 tools/torch_kernel_ablate.py [--w8a8] [VARIANT ...]
+    python3 tools/torch_kernel_ablate.py [--w8a8 | --flash] [VARIANT ...]
 
-Each variant is the tree's ``csrc/quant_matmul.cu`` with text edits that
-skip one stage of the kernel's pipeline (K6: the loads of x and the
-weight, the scale copies, the dequantization, the products, the stores;
-K7/K8: the activation quantization pass, the loads of xq and the weight,
-the amax and scale copies, the slab folds, the products, the stores),
-built in a temporary directory; its outputs are wrong and only its device
-time (``testing.median_ms``) is read, at products of the main paths.
+Each variant is the tree's ``csrc/quant_matmul.cu`` (``--flash``:
+``csrc/flash_attention.cu``) with text edits that skip one stage of the
+kernel's pipeline (K6: the loads of x and the weight, the scale copies,
+the dequantization, the products, the stores; K7/K8: the activation
+quantization pass, the loads of xq and the weight, the amax and scale
+copies, the slab folds, the products, the stores; K1/K3: the k and v
+loads, the exponentials, the rest of the softmax, either product, the two
+warpgroups' turns), built in a temporary directory; its outputs are wrong
+and only its device time (``testing.median_ms``) is read, at shapes of
+the main paths.
 Prints one JSON line per variant, then the card's name and power limit.
 The repository's own source and build are not touched.
 """
@@ -30,6 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mlimgsynth_torch import testing  # noqa: E402
 from mlimgsynth_torch.ops import _build  # noqa: E402
+from mlimgsynth_torch.ops import flash_attention as fa  # noqa: E402
 from mlimgsynth_torch.ops import quant_matmul as qmm  # noqa: E402
 
 SHAPES = [(2048, 640, 5120), (8192, 2560, 640), (2048, 1280, 10240)]
@@ -107,12 +112,56 @@ W8A8_ABLATIONS = {
 }
 
 
+# K3 at SD3-medium's joint attention, K1 at SDXL's and SD1.5's largest
+FLASH_SHAPES = [("flash_attn_joint", (2, 24, 4250, 64)),
+                ("flash_attn_fwd", (2, 10, 4096, 64)),
+                ("flash_attn_fwd", (2, 20, 1024, 64)),
+                ("flash_attn_fwd", (2, 8, 4096, 40))]
+_K = ("            tma_load_4d(smem_u32(sk + ks * C::kKV + c * C::kKVBox), "
+      "&k_map, bar, c * 64, n0, h, b);")
+_V = ("            tma_load_4d(smem_u32(sv + vs * C::kKV + c * C::kKVBox), "
+      "&v_map, bar, c * 64, n0, h, b);")
+FA_NO_LOADS = [(_K, "            if (n < 0) " + _K.strip()),
+               (_V, "            if (n < 0) " + _V.strip()),
+               ("mbar_expect_tx(bar, C::kKV);", "mbar_expect_tx(bar, 0);")]
+FA_NO_EXP = [("float x = ex2(fmaf(s[j][e], sl, -mb[e >> 1]));",
+              "float x = fmaf(s[j][e], sl, -mb[e >> 1]);")]
+FA_NO_SOFTMAX = [("    softmax_tile<BN, false>(s, sl, 0, m, l, alpha);\n", "")]
+FA_NO_QK = [("    wgmma_ss<BN>(s, sw128_desc(",
+             "    if (qa == 0xffffffffu) wgmma_ss<BN>(s, sw128_desc(")]
+FA_NO_PV = [("wgmma_rs_t<DV>(o, pf[kk],",
+             "if (va == 0xffffffffu) wgmma_rs_t<DV>(o, pf[kk],")]
+FA_NO_TURNS = [("    mbar_wait(my_turn, tph);\n", ""),
+               ("warp_arrive(other_turn);", "(void)other_turn;")]
+
+FLASH_ABLATIONS = {
+    "full": [],
+    "no_loads": FA_NO_LOADS,
+    "no_exp": FA_NO_EXP,
+    "no_softmax": FA_NO_SOFTMAX,
+    "no_qk": FA_NO_QK,
+    "no_pv": FA_NO_PV,
+    "no_products": FA_NO_QK + FA_NO_PV,
+    "no_turns": FA_NO_TURNS,
+    "products_only": FA_NO_SOFTMAX + FA_NO_EXP,
+    "softmax_only": FA_NO_QK + FA_NO_PV,
+    "softmax_only_no_exp": FA_NO_QK + FA_NO_PV + FA_NO_EXP,
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ablate: needs a CUDA device", file=sys.stderr)
         return 1
-    src0 = (_build.CSRC / "quant_matmul.cu").read_text()
-    if "--w8a8" in sys.argv[1:]:
+    csrc0 = _build.CSRC
+    name0 = "flash_attention" if "--flash" in sys.argv[1:] else "quant_matmul"
+    src0 = (_build.CSRC / f"{name0}.cu").read_text()
+    if "--flash" in sys.argv[1:]:
+        ablations = FLASH_ABLATIONS
+        calls = {f"{name}:{'x'.join(map(str, shape))}": (
+            getattr(fa, name), testing.attention_inputs(shape, shape[2]))
+            for name, shape in FLASH_SHAPES}
+    elif "--w8a8" in sys.argv[1:]:
         ablations = W8A8_ABLATIONS
         calls = {f"{name}:{m}x{k}x{n}": (
             getattr(qmm, name),
@@ -137,7 +186,9 @@ def main() -> int:
                 src = src.replace(old, new)
             csrc = Path(tmp) / name
             csrc.mkdir()
-            (csrc / "quant_matmul.cu").write_text(src)
+            (csrc / f"{name0}.cu").write_text(src)
+            for hdr in csrc0.glob("*.cuh"):   # the shared headers
+                (csrc / hdr.name).write_bytes(hdr.read_bytes())
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
             row = {"variant": name}

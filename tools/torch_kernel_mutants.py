@@ -38,23 +38,48 @@ WEIGHT_ONLY = ("q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
 
 # name -> (source, [(text in the source, its faulty replacement)]: every
 # occurrence of each text is replaced, and the kernels that must each fail
-# at least one case; None: any case of the source)
+# at least one case)
+HOPPER_ATTN = ("flash_attn_fwd", "flash_attn_joint")   # attn_hopper_kernel
+WIDE_ATTN = ("flash_attn_fwd_wide",)                   # attn_fwd_kernel
 MUTANTS = {
     # the softmax scale of a 40-wide head taken from its padded depth 48
     "scale_from_padded_depth": (
-        "flash_attention", [("s[j][e] * a.scale_log2 : -INFINITY",
-                             "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY")],
-        None),
-    # the last kv tile of 64 rows skipped
+        "flash_attention", [("const float sl = p.scale_log2;",
+                             "const float sl = p.scale_log2 * 0.91287093f;")],
+        HOPPER_ATTN),
+    # the last kv tile (the ragged tail) never loaded nor computed
     "last_kv_tile_dropped": (
-        "flash_attention", [("for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
-                             "for (int n0 = 0; n0 + kBlockN < a.sk; "
-                             "n0 += kBlockN)")], None),
+        "flash_attention", [("p.n_tiles = (a.sk + BN - 1) / BN;",
+                             "p.n_tiles = a.sk / BN;")], HOPPER_ATTN),
     # the last 16 columns of the QK^T depth left out
     "qk_depth_short_by_16": (
+        "flash_attention", [("for (int kk = 0; kk < KS; ++kk)",
+                             "for (int kk = 0; kk < KS - 1; ++kk)")],
+        HOPPER_ATTN),
+    # the columns past Sk of the last kv tile (zero-filled k rows) not
+    # left out, so their zero logits count in the softmax
+    "tail_mask_dropped": (
+        "flash_attention",
+        [("const bool in = !FIRST || 8 * j + t2 + (e & 1) < lim;",
+          "const bool in = true;"),
+         ("if (FIRST) x = 8 * j + t2 + (e & 1) < lim ? x : 0.f;", "")],
+        HOPPER_ATTN),
+    # the output sums not rescaled when the running max grows
+    "output_not_rescaled": (
+        "flash_attention", [("    rescale(o, alpha);\n", "")], HOPPER_ATTN),
+    # the first design's kernel, now K2's alone: the same three faults
+    "wide_scale_from_padded_depth": (
+        "flash_attention", [("s[j][e] * a.scale_log2 : -INFINITY",
+                             "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY")],
+        WIDE_ATTN),
+    "wide_last_kv_tile_dropped": (
+        "flash_attention", [("for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
+                             "for (int n0 = 0; n0 + kBlockN < a.sk; "
+                             "n0 += kBlockN)")], WIDE_ATTN),
+    "wide_qk_depth_short_by_16": (
         "flash_attention", [("for (int kk = 0; kk < DQK / 16; ++kk)",
                              "for (int kk = 0; kk < DQK / 16 - 1; ++kk)")],
-        None),
+        WIDE_ATTN),
     # each weight group scaled by its neighbour's scale (the producer's
     # scale copies of the tiled and ws kernels)
     "scale_group_shifted": (
@@ -182,15 +207,15 @@ def main() -> int:
             csrc = Path(tmp) / variant
             csrc.mkdir()
             (csrc / f"{src_name}.cu").write_text(src)
+            for hdr in csrc0.glob("*.cuh"):
+                (csrc / hdr.name).write_bytes(hdr.read_bytes())
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
             passed = CASES[src_name](variant)
-            # True: not caught (a targeted kernel, or with no targets every
-            # kernel, passed all its cases)
-            summary[variant] = (any(passed[t][0] for t in targets) if targets
-                                else all(ok for ok, _ in passed.values()))
+            # True: not caught (a targeted kernel passed all its cases)
+            summary[variant] = any(passed[t][0] for t in targets)
             worst[variant] = {k: rel for k, (_, rel) in passed.items()
-                              if targets is None or k in targets}
+                              if k in targets}
     written = all(ok for v, ok in summary.items() if v.startswith("as_"))
     caught = all(not ok for v, ok in summary.items()
                  if not v.startswith("as_"))

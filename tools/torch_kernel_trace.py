@@ -52,13 +52,17 @@ _PROD = "blockIdx.x == 0 && tid == kI8Consumers && gs < 4096"
 EDITS = [
     ("namespace {\n",
      "namespace {\n__device__ long long g_trace[16][4096];\n"),
-    ("    int slot = 0, phase = 0;\n    for (int t = 0; t < my_tiles; ++t) {",
+    ("    // and its loop sets the pace of the ring\n"
+     "    int slot = 0, phase = 0;\n    for (int t = 0; t < my_tiles; ++t) {",
+     "    // and its loop sets the pace of the ring\n"
      "    int slot = 0, phase = 0, gs = 0;\n"
      "    for (int t = 0; t < my_tiles; ++t) {"),
-    ("        mbar_wait(smem_u32(empty + slot), phase ^ 1);\n",
+    ("        mbar_wait(smem_u32(empty + slot), phase ^ 1);\n"
+     "        if (lane == 0) {\n          mbar_expect_tx(bar, kI8X",
      f"        if ({_PROD}) g_trace[0][gs] = clock64();\n"
      "        mbar_wait(smem_u32(empty + slot), phase ^ 1);\n"
-     f"        if ({_PROD}) g_trace[1][gs] = clock64();\n        ++gs;\n"),
+     f"        if ({_PROD}) g_trace[1][gs] = clock64();\n        ++gs;\n"
+     "        if (lane == 0) {\n          mbar_expect_tx(bar, kI8X"),
     ("  int slot = 0, phase = 0, held = -1;",
      "  int slot = 0, phase = 0, held = -1, gs = 0, gsl = 0;\n"
      "  const bool tr = blockIdx.x == 0 && (tid & 127) == 0;"),
@@ -123,6 +127,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_trace: needs a CUDA device", file=sys.stderr)
         return 1
+    csrc0 = _build.CSRC
     src = (_build.CSRC / "quant_matmul.cu").read_text()
     for old, new in EDITS:
         if src.count(old) != 1:
@@ -130,6 +135,8 @@ def main() -> int:
         src = src.replace(old, new)
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "quant_matmul.cu").write_text(src)
+        for hdr in csrc0.glob("*.cuh"):   # the shared headers
+            (Path(tmp) / hdr.name).write_bytes(hdr.read_bytes())
         _build.CSRC, _build.BUILD_DIR = Path(tmp), Path(tmp) / "build"
         _build._LIBS.clear()
         lib = _build.load("quant_matmul")

@@ -54,7 +54,8 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
            "a (red:1.2) fox in the snow, highly detailed"]
 
 # kernel kind: the first of these words found in the kernel's name
-KINDS = [("attn_fwd_kernel", "flash kernels"),
+KINDS = [("attn_hopper_kernel", "flash kernels"),
+         ("attn_fwd_kernel", "flash kernels"),
          ("qmm_", "quantized matmul kernels"),
          ("quant_rows", "quantized matmul kernels"),
          ("nchwToNhwc", "cuDNN layout conversion"),

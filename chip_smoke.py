@@ -11,7 +11,7 @@ Phases, one result line each (any failure exits non-zero):
                  for sm_90a, one nvcc each, started together; per kernel its
                  registers and spills (ptxas -v) and its wgmma instructions
                  (HGMMA and IGMMA in cuobjdump's SASS, where the toolkit has
-                 it): the Hopper attention kernel (K1, K3/K4) and the
+                 it): the attention kernels (K1, K3/K4; K2) and the
                  weight-only kernels (tiled and weight-stationary) must
                  hold HGMMA, the W8A8 GEMM kernels IGMMA, and none may
                  spill or have its wgmma serialized by ptxas;
@@ -296,13 +296,14 @@ def kernel_report(lib: str) -> dict:
 
 
 # the kernels written for wgmma: name prefix -> its SASS opcode
-WGMMA_KERNELS = {"attn_hopper_kernel": "hgmma", "qmm_ws_kernel": "hgmma",
-                 "qmm_tile_kernel": "hgmma", "qmm_i8_kernel": "igmma"}
+WGMMA_KERNELS = {"attn_hopper_kernel": "hgmma", "attn_wide_kernel": "hgmma",
+                 "qmm_ws_kernel": "hgmma", "qmm_tile_kernel": "hgmma",
+                 "qmm_i8_kernel": "igmma"}
 
 
 def check_wgmma_kernels(report: dict) -> None:
-    """The attention (K1, K3/K4), weight-only (K5, K6, K9, K10) and W8A8
-    (K7, K8) kernels hold their wgmma instructions (where cuobjdump shows
+    """The attention (K1, K3/K4, K2), weight-only (K5, K6, K9, K10) and
+    W8A8 (K7, K8) kernels hold their wgmma instructions (where cuobjdump shows
     the SASS), spill nothing and keep their wgmma asynchronous."""
     for prefix, op in WGMMA_KERNELS.items():
         got = {k: v for k, v in report.items() if k.startswith(prefix)}
@@ -349,7 +350,9 @@ def check_flash():
     library call is PyTorch's scaled_dot_product_attention, timed on the
     backend its dispatcher picks (its own choice function; named in
     ``library``); ``exp_ms``: the least time the card's MUFU units take for
-    the B H Sq Sk exponentials."""
+    the B H Sq Sk exponentials.  Each kernel's entry gives its first
+    main-path shape's numbers and, under ``shapes``, those of all of them
+    (K2: the SD1.5 and the SDXL / SD3 VAE mid-block)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     summary, per_request = {}, collections.defaultdict(
@@ -383,9 +386,13 @@ def check_flash():
             for key in ("ms", "library_ms", "bound_ms", "exp_ms"):
                 per_request[(name, model)][key] += calls * t[key]
             per_request[(name, model)]["calls"] += calls
-        if sk == shape[2] and name not in summary:  # the main-path shape
-            summary[name] = {"shape": [list(shape), sk],
-                             "max_abs_err": res["max_abs_err"], **t}
+        if (shape, sk) in FLASH_SHAPE_CALLS:   # a main-path shape
+            if name not in summary:
+                summary[name] = {"shape": [list(shape), sk],
+                                 "max_abs_err": res["max_abs_err"], **t}
+            summary[name].setdefault("shapes", []).append(
+                {"shape": [list(shape), sk],
+                 "max_abs_err": res["max_abs_err"], **t})
     want = {("flash_attn_fwd", "sd1"): FLASH_PER_REQUEST["flash_attn_fwd"],
             ("flash_attn_fwd", "sdxl"): SDXL_FLASH_PER_REQUEST[
                 "flash_attn_fwd"],

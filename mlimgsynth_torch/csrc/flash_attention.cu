@@ -84,12 +84,39 @@
 // overlap only in part; at D = 40 the loads.  The mbarrier, TMA and wgmma
 // helpers are shared with quant_matmul.cu through hopper.cuh.
 //
-// attn_fwd_kernel (K2 only) is the first, Ampere-style design, kept for
-// D = 512 until its own redesign: the 64 x 512 f32 accumulator does not fit
-// in registers, so the output's D is split across blocks (128 columns
-// each, grid.y), every block recomputing the full-depth logits, row max and
-// row sum of its 64-row q tile; mma.sync.m16n8k16 on fragments read with
-// ldmatrix (.trans for v), the k/v tiles staged by cp.async.
+// attn_wide_kernel (K2; 128 < D <= 512, one instantiation at 512: TMA
+// zero-fills the columns past D) holds all of D in one block of 64 q rows,
+// so Q K^T is computed once a tile.  The 64 x 512 f32 output is 128
+// registers a thread over two warpgroups, so each warpgroup owns 256
+// columns of q, k, v and o, and each step:
+//   * S_w = Q[:, w] K[:, w]^T, its half of the depth, as wgmma.m64n64k16
+//     from shared memory;
+//   * the two halves meet in shared memory: each thread writes its partial
+//     as float4s and adds its peer's (thread t of either warpgroup holds
+//     the same elements), on two mbarriers a warp (written, read: warp j
+//     of either warpgroup holds the same 16 rows, so only those two wait
+//     for each other), which trap on a fault where a named barrier would
+//     hang;
+//   * both warpgroups run the same softmax on the full S (K1's helpers; the
+//     exponentials are 1/2048 of the products' flops at D = 512);
+//   * O[:, w] += P V[:, w] as two wgmma.m64n128k16, P from registers, v
+//     MN-major, issued after the next tile's S (the v tile is waited for
+//     between the two, so its load runs while S does) so that the
+//     exchange and the softmax run while it does.
+// No producer warp: it would cap a thread at 168 registers (above), and O
+// alone takes 128.  Each warpgroup's thread 0 loads its own 256 columns
+// of every tile by TMA once its warpgroup has read the last (a warpgroup
+// barrier, then the loads predicated on the thread, with no branch), so
+// the warpgroups share nothing but the exchange.  The k and v tiles are
+// 64 x 512, one stage each: q 64 KB + k + v + the exchange's 32 KB fill
+// the 227 KB.  What bounds it (PERF.md, tools/torch_kernel_ablate.py
+// --flash): the k and v loads, which every block takes whole for its 64 q
+// rows (2 KB a kv row into each SM), and the exchange.  Measured and not
+// kept: 32-row kv tiles in two stages (the 32-wide Q K^T reads q from
+// shared memory twice as often: 1.3x slower), and a 2-block cluster
+// multicasting each k and v tile (half the L2 reads, no faster: each SM
+// still takes in every tile).  The ragged kv tile goes first, and the
+// result is staged in the q tile and written by TMA stores, as in K1.
 // The TPU artifacts (transposed v, ones-row denominator, static max,
 // split-k, scoped-VMEM planning, kv padding with segment ids) are not
 // carried over.
@@ -99,9 +126,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBlockN = 64;   // kv rows per shared-memory tile
-constexpr int kPad = 8;       // shared-memory row padding (bf16): no bank conflicts
 
 struct Args {
   const bf16* q;
@@ -113,267 +137,6 @@ struct Args {
   long long st[4][3];
   float scale_log2;   // scale * log2(e)
 };
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
-// row l % 8 of matrix l / 8), plain or transposed.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// 16 bytes from device to shared memory, asynchronously; zero-filled (and
-// read from nowhere) where !valid, with gmem then any valid address.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying rows [row0, row0 + ROWS) x columns [col0, col0 + WIDTH) of
-// one head's [S, D] slice (row stride rs) into shared memory with row stride
-// WIDTH + kPad, zero-filling rows >= n_rows and columns >= d, in 16-byte
-// copies (d, rs and col0 are multiples of 8 and the base is aligned).
-template <int ROWS, int WIDTH, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, long long rs,
-                                          int row0, int n_rows, int col0, int d) {
-  constexpr int LD = WIDTH + kPad;
-  constexpr int VPR = WIDTH / 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    const bool ok = gr < n_rows && gc < d;
-    cp_async16(sm + r * LD + c, ok ? g + (long long)gr * rs + gc : g, ok);
-  }
-}
-
-// k/v tile stages in shared memory at QK^T depth dqk
-__host__ __device__ constexpr int stages(int dqk) { return dqk <= 128 ? 2 : 1; }
-
-// DQK:   QK^T depth (D zero-padded to a multiple of 16).
-// DV:    output columns per block (grid.y walks D in DV-wide chunks).
-// WARPS: warps per block, 16 q rows each.
-template <int DQK, int DV, int WARPS>
-__global__ void __launch_bounds__(32 * WARPS)
-attn_fwd_kernel(const Args a) {
-  constexpr int kBlockM = 16 * WARPS;
-  constexpr int kThreads = 32 * WARPS;
-  constexpr int LQ = DQK + kPad;
-  constexpr int LV = DV + kPad;
-  constexpr int NT = kBlockN / 8;    // 8-wide logits tiles per kv tile
-  constexpr int OT = DV / 8;         // 8-wide output tiles per warp
-  constexpr int STAGES = stages(DQK);
-  constexpr bool QREG = DQK <= 128;  // q fragments held in registers
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_k = s_q + kBlockM * LQ;
-  bf16* s_v = s_k + STAGES * kBlockN * LQ;
-
-  const int m0 = blockIdx.x * kBlockM;
-  const int dv0 = blockIdx.y * DV;
-  const int b = blockIdx.z / a.n_head, h = blockIdx.z % a.n_head;
-  const bf16* q = a.q + b * a.st[0][0] + h * a.st[0][1];
-  const bf16* k = a.k + b * a.st[1][0] + h * a.st[1][1];
-  const bf16* v = a.v + b * a.st[2][0] + h * a.st[2][1];
-  bf16* o = a.o + b * a.st[3][0] + h * a.st[3][1];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment row group / column pair
-  // ldmatrix row addresses: the A tile (q, 16 x 16), the B tiles of k (two
-  // 8-row kv tiles x 16 deep) and of v (16 kv rows x two 8-column tiles)
-  const bf16* q_w = s_q + (warp * 16 + (lane & 15)) * LQ + (lane >> 4) * 8;
-  const int k_off = (((lane >> 4) << 3) + (lane & 7)) * LQ + ((lane >> 3) & 1) * 8;
-  const int v_off = (lane & 15) * LV + (lane >> 4) * 8;
-
-  load_tile<kBlockM, DQK, kThreads>(s_q, q, a.st[0][2], m0, a.sq, 0, a.d);
-  if (STAGES == 2) {
-    load_tile<kBlockN, DQK, kThreads>(s_k, k, a.st[1][2], 0, a.sk, 0, a.d);
-    load_tile<kBlockN, DV, kThreads>(s_v, v, a.st[2][2], 0, a.sk, dv0, a.d);
-  }
-  cp_async_commit();
-
-  uint32_t qf[QREG ? DQK / 16 : 1][4];
-  float acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // rows g and g + 8 of this warp's 16: running max (base 2) and partial sum
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int n0 = 0; n0 < a.sk; n0 += kBlockN) {
-    const int stage = STAGES == 2 ? (n0 / kBlockN) & 1 : 0;
-    bf16* sk = s_k + stage * kBlockN * LQ;
-    bf16* sv = s_v + stage * kBlockN * LV;
-    if (STAGES == 2) {
-      // the next tile into the other stage, which the previous pass freed
-      if (n0 + kBlockN < a.sk) {
-        load_tile<kBlockN, DQK, kThreads>(s_k + (stage ^ 1) * kBlockN * LQ, k, a.st[1][2],
-                                          n0 + kBlockN, a.sk, 0, a.d);
-        load_tile<kBlockN, DV, kThreads>(s_v + (stage ^ 1) * kBlockN * LV, v, a.st[2][2],
-                                         n0 + kBlockN, a.sk, dv0, a.d);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();   // this tile (and q) landed
-    } else {
-      load_tile<kBlockN, DQK, kThreads>(sk, k, a.st[1][2], n0, a.sk, 0, a.d);
-      load_tile<kBlockN, DV, kThreads>(sv, v, a.st[2][2], n0, a.sk, dv0, a.d);
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (QREG) {
-      if (n0 == 0) {
-#pragma unroll
-        for (int kk = 0; kk < DQK / 16; ++kk) ldsm_x4(qf[kk], q_w + kk * 16);
-      }
-    }
-
-    // logits s[16 x 64] = q_w[16 x DQK] k_tile^T
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      uint32_t af[4];
-      if constexpr (QREG) {
-        af[0] = qf[kk][0], af[1] = qf[kk][1], af[2] = qf[kk][2], af[3] = qf[kk][3];
-      } else {
-        ldsm_x4(af, q_w + kk * 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bk[4];
-        ldsm_x4(bk, sk + j * 8 * LQ + k_off + kk * 16);
-        mma16816(s[j], af[0], af[1], af[2], af[3], bk[0], bk[1]);
-        mma16816(s[j + 1], af[0], af[1], af[2], af[3], bk[2], bk[3]);
-      }
-    }
-
-    // online softmax: scale to base 2, mask the ragged tail, new row max
-    float m_new[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + j * 8 + 2 * t + (e & 1);
-        const float x = col < a.sk ? s[j][e] * a.scale_log2 : -INFINITY;
-        s[j][e] = x;
-        m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-    }
-    // every tile holds at least one unmasked column, so m_new is finite
-    const float alpha[2] = {exp2f(m_run[0] - m_new[0]), exp2f(m_run[1] - m_new[1])};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m_new[e >> 1]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) rs += s[j][2 * r] + s[j][2 * r + 1];
-      l_run[r] = l_run[r] * alpha[r] + rs;
-      m_run[r] = m_new[r];
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // acc[16 x DV] += p[16 x 64] v_tile[64 x DV]; the logits accumulator
-    // layout is the A-operand layout, so p never leaves registers
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a0 = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, sv + kk * 16 * LV + v_off + j * 8);
-        mma16816(acc[j], a0, a1, a2, a3, bv[0], bv[1]);
-        mma16816(acc[j + 1], a0, a1, a2, a3, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage
-  }
-  cp_async_wait<0>();   // no copy outlives the block (only empty groups remain)
-
-  // the four threads of a row group hold disjoint partial row sums
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  const long long os = a.st[3][2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= a.sq) continue;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = dv0 + j * 8 + 2 * t + e;
-        if (col < a.d)
-          o[(long long)row * os + col] = __float2bfloat16(acc[j][2 * r + e] * inv[r]);
-      }
-    }
-  }
-}
-
-template <int DQK, int DV, int WARPS = 4>
-cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  constexpr int kBlockM = 16 * WARPS;
-  const size_t smem =
-      sizeof(bf16) * ((size_t)kBlockM * (DQK + kPad) +
-                      (size_t)stages(DQK) * kBlockN * (DQK + kPad + DV + kPad));
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<DQK, DV, WARPS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kBlockM - 1) / kBlockM, (a.d + DV - 1) / DV, batch * a.n_head);
-  attn_fwd_kernel<DQK, DV, WARPS><<<grid, 32 * WARPS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 Args make_args(const void* q, const void* k, const void* v, void* o, int n_head,
                int sq, int sk, int d, const long long* strides, float scale) {
@@ -683,6 +446,47 @@ __device__ __forceinline__ void advance(int& slot, uint32_t& phase) {
   phase ^= slot == 0;
 }
 
+// 1 / the row sums of a thread's two rows (the four threads of a row
+// group hold parts of each)
+__device__ __forceinline__ void row_inv(float (&inv)[2], float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+}
+
+// o * inv as bf16 into a warpgroup's 64 rows of the 64-column boxes from
+// dst (BOX bytes apart; 8 columns a j), in the 128-byte swizzle of the
+// store's boxes: row r's 16-byte chunk c at r * 128 + (c ^ (r % 8)) * 16
+template <int NJ, int BOX>
+__device__ __forceinline__ void stage_rows(const float (&o)[NJ][4], const float (&inv)[2],
+                                           uint8_t* dst) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      *reinterpret_cast<uint32_t*>(dst + (j >> 3) * BOX + row * 128 + (((j & 7) ^ (row & 7)) << 4) +
+                                   t * 4) = pack_f32(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
+  }
+}
+
+// the warpgroup's staged rows (nb boxes from src, box bytes apart) made
+// visible to the TMA, then written by its thread 0 from column col, row m0
+// (the store clips at S and D)
+__device__ __forceinline__ void store_rows(const CUtensorMap* map, const uint8_t* src, int box, int nb,
+                                           int col, int m0, int h, int b, int wg) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(wg);
+  if ((threadIdx.x & 127) == 0) {
+    for (int c = 0; c < nb; ++c) tma_store_4d(map, smem_u32(src + c * box), col + 64 * c, m0, h, b);
+    tma_store_wait<true>();   // the stores have read the staging before the block ends
+  }
+}
+
 // One block: q rows [128 * blockIdx.x, + 128) of head blockIdx.y of batch
 // blockIdx.z.  Warps 0-7: two consumer warpgroups (rows 0-63 and 64-127);
 // warp 8 lane 0, the producer, issues every load.  The kv tiles go in the
@@ -756,7 +560,6 @@ __global__ void __launch_bounds__(kHThreads, 1)
     return;
   }
 
-  const int warp = (tid >> 5) & 3;
   uint8_t* const sqw = sq + wg * (kQBox / 2);   // this warpgroup's 64 q rows in each box
   const uint32_t qa = smem_u32(sqw);
   const uint32_t ka = smem_u32(sk), va = smem_u32(sv);
@@ -835,31 +638,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
   pin(o);
   pin(pf);
 
-  // o / l as bf16 into this warpgroup's rows of the q tile, in the 128-byte
-  // swizzle of the store's boxes: row r's 16-byte chunk c at r * 128 + (c ^
-  // (r % 8)) * 16
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + 8 * r;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j)
-      *reinterpret_cast<uint32_t*>(sqw + (j >> 3) * kQBox + row * 128 + (((j & 7) ^ (row & 7)) << 4) +
-                                   t * 4) = pack_f32(o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA
-  warpgroup_sync(wg);
-  if ((tid & 127) == 0) {
-    for (int c = 0; c < NB; ++c)
-      tma_store_4d(&o_map, smem_u32(sqw + c * kQBox), c * 64, m0 + wg * 64, h, b);
-    tma_store_wait<true>();   // the stores have read the staging before the block ends
-  }
+  // o / l as bf16 into this warpgroup's rows of the q tile (free by now)
+  float inv[2];
+  row_inv(inv, l);
+  stage_rows<DV / 8, kQBox>(o, inv, sqw);
+  store_rows(&o_map, sqw, kQBox, NB, 0, m0 + wg * 64, h, b, wg);
 }
 
 // a [B, H, S, D] bf16 tensor (unit stride on D, element strides st: batch,
@@ -878,33 +661,43 @@ bool attn_map(CUtensorMap* map, const void* base, int d, int s, int n_head, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DV, int BN>
-int launch_hopper(const Args& a, int batch, cudaStream_t stream) {
-  using C = HCfg<DV, BN>;
-  static bool smem_set[64] = {};   // per device
+typedef void (*AttnKernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, HArgs);
+
+// Launches kernel over blocks of q_rows q rows of one head (grid
+// (ceil(Sq / q_rows), H, B)) with threads threads and smem bytes of shared
+// memory (set once per device in smem_set): q read in boxes of q_rows rows,
+// k and v in tiles of bn rows, o written in boxes of o_rows rows.
+int launch_attn(AttnKernel kernel, bool (&smem_set)[64], int smem, int threads, int q_rows, int bn,
+                int o_rows, const Args& a, int batch, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 64 && !smem_set[dev]) {
-    err = cudaFuncSetAttribute(attn_hopper_kernel<DV, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     smem_set[dev] = true;
   }
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!attn_map(&q_map, a.q, a.d, a.sq, a.n_head, batch, a.st[0], kHM) ||
-      !attn_map(&k_map, a.k, a.d, a.sk, a.n_head, batch, a.st[1], BN) ||
-      !attn_map(&v_map, a.v, a.d, a.sk, a.n_head, batch, a.st[2], BN) ||
-      !attn_map(&o_map, a.o, a.d, a.sq, a.n_head, batch, a.st[3], kHM / 2))
+  if (!attn_map(&q_map, a.q, a.d, a.sq, a.n_head, batch, a.st[0], q_rows) ||
+      !attn_map(&k_map, a.k, a.d, a.sk, a.n_head, batch, a.st[1], bn) ||
+      !attn_map(&v_map, a.v, a.d, a.sk, a.n_head, batch, a.st[2], bn) ||
+      !attn_map(&o_map, a.o, a.d, a.sq, a.n_head, batch, a.st[3], o_rows))
     return (int)cudaErrorInvalidValue;
   HArgs p;
   p.sk = a.sk;
-  p.n_tiles = (a.sk + BN - 1) / BN;
+  p.n_tiles = (a.sk + bn - 1) / bn;
   p.scale_log2 = fabsf(a.scale_log2);
   p.neg = a.scale_log2 < 0.f;
-  const dim3 grid((a.sq + kHM - 1) / kHM, a.n_head, batch);
-  attn_hopper_kernel<DV, BN><<<grid, kHThreads, C::kSmem, stream>>>(q_map, k_map, v_map, o_map, p);
+  const dim3 grid((a.sq + q_rows - 1) / q_rows, a.n_head, batch);
+  kernel<<<grid, threads, smem, stream>>>(q_map, k_map, v_map, o_map, p);
   return (int)cudaGetLastError();
+}
+
+template <int DV, int BN>
+int launch_hopper(const Args& a, int batch, cudaStream_t stream) {
+  static bool smem_set[64] = {};   // per device
+  return launch_attn(attn_hopper_kernel<DV, BN>, smem_set, HCfg<DV, BN>::kSmem, kHThreads, kHM, BN,
+                     kHM / 2, a, batch, stream);
 }
 
 // K1 and K3/K4: the template whose P V width holds d
@@ -914,6 +707,230 @@ int launch_flash(const Args& a, int batch, cudaStream_t stream) {
   if (a.d <= 80) return launch_hopper<80, 128>(a, batch, stream);
   if (a.d <= 128) return launch_hopper<128, 64>(a, batch, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K2: all of D in one block, split between two warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWM = 64;                   // q rows a block (the wgmma M)
+constexpr int kWBN = 64;                  // kv rows a tile (the Q K^T wgmma N)
+constexpr int kWThreads = 256;            // two warpgroups, 256 columns each
+constexpr int kWQBox = kWM * 128;         // one 64-column box of the q tile
+constexpr int kWKVBox = kWBN * 128;       // one box of a k or v tile
+constexpr int kWTile = 8 * kWKVBox;       // a k or v tile, 512 columns
+constexpr int kWX = kWM * kWBN * 4;       // one warpgroup's partial logits (f32)
+constexpr int kWBars = 11;                // mbarriers a warpgroup
+constexpr int kWSmem = 1024 + 8 * kWQBox + 2 * kWTile + 2 * kWX + 2 * kWBars * 8;
+static_assert(kWSmem <= 232448, "the shared memory of one block");
+
+// A shared-memory address the compiler cannot see through: the operand
+// descriptors built from it are not hoisted out of the kv loop (with one
+// k and one v stage they are all loop-invariant, and hoisted they spilled).
+__device__ __forceinline__ uint32_t opaque(uint32_t a) {
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+// this warpgroup's partial logits: its 256 columns of q (qa) against the
+// same columns of the k tile (ka)
+__device__ __forceinline__ void wide_qk(float (&s)[kWBN / 8][4], uint32_t qa, uint32_t ka) {
+  qa = opaque(qa);
+  ka = opaque(ka);
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_ss<kWBN>(s, sw128_desc(qa + (kk >> 2) * kWQBox + (kk & 3) * 32),
+                   sw128_desc(ka + (kk >> 2) * kWKVBox + (kk & 3) * 32), kk > 0);
+  wgmma_commit();
+}
+
+// O[:, this warpgroup's 256 columns] += P V: two products 128 wide, v
+// MN-major (four 64-column boxes from va)
+__device__ __forceinline__ void wide_pv(float (&o)[2][16][4], const uint32_t (&pf)[kWBN / 16][4],
+                                        uint32_t va) {
+  va = opaque(va);
+#pragma unroll
+  for (int kk = 0; kk < kWBN / 16; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      wgmma_rs_t<128>(o[half], pf[kk], mn128_desc(va + half * 2 * kWKVBox + kk * 2048, kWKVBox), 1);
+  wgmma_commit();
+}
+
+// the warpgroup's four 64-column boxes (from column col) of kv rows [n0,
+// n0 + kWBN) of a k or v tile into dst, completing on bar; issued where p
+// holds (thread 0 of the warpgroup), with no branch
+__device__ __forceinline__ void wide_load(bool p, const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                          int col, int n0, int h, int b) {
+  mbar_expect_tx_if(p, bar, 4 * kWKVBox);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) tma_load_4d_if(p, dst + c * kWKVBox, map, bar, col + 64 * c, n0, h, b);
+}
+
+// The full logits: this warpgroup's partial s plus its peer's.  Thread t of
+// either warpgroup holds the same (row, column) elements, so each writes
+// its own to its slot (x_mine, 16 bytes a float4, the 128 threads side by
+// side) and adds its peer's.  bars (of this warp, one arrival a phase):
+// this warp's partial written and read by the peer warp, the peer's
+// written and read (by this one); ph: the exchanges so far, mod 2.
+__device__ __forceinline__ void wide_exchange(float (&s)[kWBN / 8][4], float4* x_mine,
+                                              const float4* x_peer, const uint32_t (&bars)[4],
+                                              uint32_t& ph) {
+  mbar_wait(bars[1], ph ^ 1);   // the peer has read the last partial
+#pragma unroll
+  for (int j = 0; j < kWBN / 8; ++j) x_mine[j * 128] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  __syncwarp();
+  warp_arrive(bars[0]);
+  mbar_wait(bars[2], ph);
+#pragma unroll
+  for (int j = 0; j < kWBN / 8; ++j) {
+    const float4 t = x_peer[j * 128];
+    s[j][0] += t.x, s[j][1] += t.y, s[j][2] += t.z, s[j][3] += t.w;
+  }
+  __syncwarp();
+  warp_arrive(bars[3]);
+  ph ^= 1;
+}
+
+// One block: q rows [64 * blockIdx.x, + 64) of head blockIdx.y of batch
+// blockIdx.z, all of D.  Warpgroup wg owns columns [256 wg, + 256) of q, k,
+// v and o: its thread 0 loads them by TMA (a k or v tile once the
+// warpgroup has read the last), the warpgroup computes its partial logits
+// over those columns, hands them to the other warpgroup through shared
+// memory and adds the other's, runs the softmax on the full logits (both
+// warpgroups alike) and accumulates its 256 output columns.  The kv tiles
+// go in the order n - 1, 0, 1, .., n - 2 (the ragged one first).
+__global__ void __launch_bounds__(kWThreads, 1)
+    attn_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap o_map, const HArgs arg) {
+  extern __shared__ unsigned char w_smem[];
+  uint8_t* sq = w_smem + ((1024 - (smem_u32(w_smem) & 1023)) & 1023);
+  uint8_t* sk = sq + 8 * kWQBox;
+  uint8_t* sv = sk + kWTile;
+  float4* sx = reinterpret_cast<float4*>(sv + kWTile);   // [wg][kWBN / 8][128]
+  // a warpgroup's barriers: q, k and v loaded; a warp's partial logits
+  // written and read by the peer warp, four each
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sv + kWTile + 2 * kWX);
+  enum { kQFull, kKFull, kVFull, kXFull, kXEmpty = kXFull + 4 };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2 * kWBars; ++i) mbar_init(smem_u32(bars + i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int m0 = blockIdx.x * kWM, h = blockIdx.y, b = blockIdx.z;
+  const int n = arg.n_tiles;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const bool leader = (tid & 127) == 0;
+  const int col = 256 * wg;   // the warpgroup's first column
+  uint64_t* const mine = bars + wg * kWBars;
+  uint64_t* const peer = bars + (wg ^ 1) * kWBars;
+  const uint32_t q_full = smem_u32(mine + kQFull), k_full = smem_u32(mine + kKFull),
+                 v_full = smem_u32(mine + kVFull);
+  uint8_t* const sqw = sq + 4 * wg * kWQBox;
+  const uint32_t qa = smem_u32(sqw);
+  const uint32_t ka = smem_u32(sk + 4 * wg * kWKVBox), va = smem_u32(sv + 4 * wg * kWKVBox);
+  // the first kv row of tile j of the order
+  auto row = [n](int j) { return (j == 0 ? n - 1 : j - 1) * kWBN; };
+
+  if (leader) {
+    mbar_expect_tx(q_full, 4 * kWQBox);
+    for (int c = 0; c < 4; ++c)
+      tma_load_4d(smem_u32(sqw + c * kWQBox), &q_map, q_full, col + 64 * c, m0, h, b);
+  }
+  wide_load(leader, &k_map, ka, k_full, col, row(0), h, b);
+  wide_load(leader, &v_map, va, v_full, col, row(0), h, b);
+
+  const float sl = arg.scale_log2;
+  float s[kWBN / 8][4];
+  float o[2][16][4];
+  uint32_t pf[kWBN / 16][4];
+  float m[2], l[2], alpha[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) o[half][j][0] = o[half][j][1] = o[half][j][2] = o[half][j][3] = 0.f;
+  // thread t's slot in this warpgroup's and its peer's partial logits
+  float4* const x_mine = sx + wg * (kWBN / 8) * 128 + (tid & 127);
+  const float4* const x_peer = sx + (wg ^ 1) * (kWBN / 8) * 128 + (tid & 127);
+  const uint32_t x_bars[4] = {smem_u32(mine + kXFull + warp), smem_u32(mine + kXEmpty + warp),
+                              smem_u32(peer + kXFull + warp), smem_u32(peer + kXEmpty + warp)};
+  uint32_t xph = 0;
+
+  mbar_wait(q_full, 0);
+  if (arg.neg) {   // softmax(s * scale) = softmax((-s) * |scale|): negate the q columns (exact)
+    for (int i = tid & 127; i < 4 * kWQBox / 16; i += 128) {
+      uint4* x = reinterpret_cast<uint4*>(sqw) + i;
+      x->x ^= 0x80008000u, x->y ^= 0x80008000u, x->z ^= 0x80008000u, x->w ^= 0x80008000u;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+    warpgroup_sync(wg);
+  }
+
+  // the first tile of the order, the last of kv: columns >= Sk left out
+  mbar_wait(k_full, 0);
+  wgmma_fence();
+  wide_qk(s, qa, ka);
+  wgmma_wait<0>();
+  pin(s);
+  warpgroup_sync(wg);   // the warpgroup is done with the k tile: the next one in
+  wide_load(leader && n > 1, &k_map, ka, k_full, col, row(1), h, b);
+  wide_exchange(s, x_mine, x_peer, x_bars, xph);
+  const int tail = arg.sk - (n - 1) * kWBN;
+  softmax_tile<kWBN, true>(s, sl, tail, m, l, alpha);
+  pack_p<kWBN>(pf, s);
+
+  // each step: S of tile i, then P V of tile i - 1 once its v tile is in
+  // (loaded while S runs); the exchange and the softmax of the new S while
+  // P V runs.  The wgmma_fence after the wait keeps ptxas from placing one
+  // of its own inside the wait's loop, around which it would serialise the
+  // products.
+  for (int i = 1; i < n; ++i) {
+    mbar_wait(k_full, i & 1);
+    wgmma_fence();
+    wide_qk(s, qa, ka);
+    mbar_wait(v_full, (i - 1) & 1);
+    wgmma_fence();
+    wide_pv(o, pf, va);
+    wgmma_wait<1>();
+    pin(s);
+    warpgroup_sync(wg);
+    wide_load(leader && i + 1 < n, &k_map, ka, k_full, col, row(i + 1), h, b);
+    wide_exchange(s, x_mine, x_peer, x_bars, xph);
+    softmax_tile<kWBN, false>(s, sl, 0, m, l, alpha);
+    pin(s);   // the softmax is issued before the wait for P V, not after
+    pin(l);
+    wgmma_wait<0>();
+    pin(o[0]);
+    pin(o[1]);
+    pin(pf);
+    warpgroup_sync(wg);   // done with the v tile: tile i in
+    wide_load(leader, &v_map, va, v_full, col, row(i), h, b);
+    rescale(o[0], alpha);
+    rescale(o[1], alpha);
+    pack_p<kWBN>(pf, s);
+  }
+  mbar_wait(v_full, (n - 1) & 1);
+  wgmma_fence();
+  wide_pv(o, pf, va);
+  wgmma_wait<0>();
+  pin(o[0]);
+  pin(o[1]);
+  pin(pf);
+
+  // o / l as bf16 into the warpgroup's q boxes (its last Q K^T is done)
+  float inv[2];
+  row_inv(inv, l);
+  stage_rows<16, kWQBox>(o[0], inv, sqw);
+  stage_rows<16, kWQBox>(o[1], inv, sqw + 2 * kWQBox);
+  store_rows(&o_map, sqw, kWQBox, 4, col, m0, h, b, wg);
+}
+
+int launch_wide(const Args& a, int batch, cudaStream_t stream) {
+  static bool smem_set[64] = {};   // per device
+  return launch_attn(attn_wide_kernel, smem_set, kWSmem, kWThreads, kWM, kWBN, kWM, a, batch, stream);
 }
 
 }  // namespace
@@ -932,10 +949,9 @@ extern "C" int flash_attn_fwd_wide(const void* q, const void* k, const void* v, 
                                    int batch, int n_head, int sq, int sk, int d,
                                    const long long* strides, float scale,
                                    void* stream) {
-  const Args a = make_args(q, k, v, o, n_head, sq, sk, d, strides, scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d <= 128 || d > 512) return (int)cudaErrorInvalidValue;
-  return (int)launch<512, 128>(a, batch, st);
+  const Args a = make_args(q, k, v, o, n_head, sq, sk, d, strides, scale);
+  return launch_wide(a, batch, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attn_joint(const void* q, const void* k, const void* v, void* o,

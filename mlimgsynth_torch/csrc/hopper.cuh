@@ -45,8 +45,57 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// tma_load_4d and mbar_expect_tx where p holds, with no branch, so that no
+// divergent path sits among wgmma products in flight (ptxas may serialize
+// the products around one)
+__device__ __forceinline__ void tma_load_4d_if(bool p, uint32_t dst, const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"((int)p)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx_if(bool p, uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes), "r"((int)p)
+      : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A wait of more than
+// about ten seconds (2^34 cycles) traps: the launch then fails with an
+// error instead of holding the card.  The clock is read only once a first
+// test failed (reading it on every wait cost K5 a fifth of its time).  The
+// loop is written in PTX, so that the compiler's code holds no branch at
+// the wait: against mbar_wait_cpp, in one process on an H100 80GB HBM3 at
+// 700 W (tools/torch_kernel_ab.py; PERF.md), K2 took 9% less time, K1 and
+// K3 2-4% less, K6/K10 up to 4% less, and K7/K8 the same in sum.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra W_DONE;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "W_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra W_DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"   // 2^34 cycles
+      "@p trap;\n"
+      "bra W_WAIT;\n"
+      "W_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // whether the phase of parity `parity` completed (the thread may be
@@ -62,11 +111,10 @@ __device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
-// Waits for the phase of parity `parity` to complete.  A wait of more than
-// about ten seconds (2^34 cycles) traps: the launch then fails with an
-// error instead of holding the card.  The clock is read only once a first
-// test failed: reading it on every wait cost K5 a fifth of its time.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+// mbar_wait with its loop in C++, which the compiler schedules with the
+// code around it: the tiled kernels (K5/K9) measured up to 6% faster with
+// it than with mbar_wait's PTX loop (M <= 512, same card; PERF.md).
+__device__ __forceinline__ void mbar_wait_cpp(uint32_t bar, uint32_t parity) {
   if (mbar_try(bar, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try(bar, parity))

@@ -885,7 +885,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     int slot = 0, phase = 0;
     for (int kg = 0; kg < n_groups; ++kg) {
       const uint32_t bar = smem_u32(full + slot);
-      mbar_wait(smem_u32(empty + slot), phase ^ 1);
+      mbar_wait_cpp(smem_u32(empty + slot), phase ^ 1);
       if (lane == 0) {
         mbar_expect_tx(bar, C::kX + C::kW);
         for (int h = 0; h < 2; ++h)
@@ -914,7 +914,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   uint32_t af[2][4][4];   // A fragments of a stage's two halves
   int slot = 0, phase = 0;
   for (int kg = 0; kg < n_groups; ++kg) {
-    mbar_wait(smem_u32(full + slot), phase);
+    mbar_wait_cpp(smem_u32(full + slot), phase);
     const float s0 = ss[slot * kTileRows + r0], s1 = ss[slot * kTileRows + r0 + 8];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -297,6 +297,8 @@ ATTN_CASES = [
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
      "SD3 and SDXL VAE mid-block"),
+    ("flash_attn_fwd_wide", (2, 2, 600, 512), 520,
+     "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
      "MMDiT joint attention, SD3-medium"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),

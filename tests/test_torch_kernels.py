@@ -9,6 +9,9 @@ machine with an NVIDIA GPU and no JAX:
 Without a GPU those tests skip; the CPU tests check that CPU tensors take
 the plain twin and never reach a kernel.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +106,10 @@ def cuda():
     (1, 1, 4096, 4096, 512),
     (1, 1, 4096, 4095, 512),
     (1, 2, 600, 520, 160),     # wide kernel below its 512 columns
+    (1, 2, 600, 520, 256),     # wide kernel: the second warpgroup's columns all past d
+    (1, 2, 600, 520, 384),     # wide kernel: half of them past d
+    (1, 1, 1000, 700, 512),    # wide kernel, ragged Sq and Sk
+    (2, 2, 600, 520, 512),     # wide kernel, B * H > 1
     (2, 8, 1000, 1024, 80),    # head dim 80 (two boxes, PV width 80), ragged Sq
     (1, 3, 650, 700, 80),      # head dim 80, ragged Sq and Sk
 ])
@@ -165,17 +172,75 @@ def test_launch_checks_inputs_on_cuda(cuda):
     assert tfa.LAUNCHES == before
 
 
+# the main path's layouts: the UNet's [N, S, H*D] projections viewed as
+# [N, H, S, D], and the VAE mid-block's [N, S, 512] as [N, 1, S, 512]
 @pytest.mark.cuda
-def test_kernel_reads_head_views_on_cuda(cuda):
-    """The main path's layout: [N, S, H*D] projections viewed as
-    [N, H, S, D] (strided); the output keeps the same layout."""
+@pytest.mark.parametrize("name,width,view", [
+    ("flash_attn_fwd", 8 * 40, lambda t: t.view(2, 4096, 8, 40).transpose(1, 2)),
+    ("flash_attn_fwd_wide", 512, lambda t: t[:, None]),
+], ids=["unet", "vae"])
+def test_kernel_reads_head_views_on_cuda(cuda, name, width, view):
+    """The kernels read those strided views in place; the output keeps
+    the same layout."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(2, 4096, 8 * 40, device="cuda", generator=gen)
-               .bfloat16().view(2, 4096, 8, 40).transpose(1, 2)
-               for _ in range(3))
-    out = tfa.flash_attn_fwd(q, k, v)
+    q, k, v = (view(torch.randn(2, 4096, width, device="cuda", generator=gen)
+                    .bfloat16()) for _ in range(3))
+    before = tfa.LAUNCHES[name]
+    out = getattr(tfa, name)(q, k, v)
+    assert tfa.LAUNCHES[name] == before + 1
     assert out.stride() == q.stride()
     ref = tfa.attention_plain(q, k, v)
     torch.cuda.synchronize()
     res = testing.attention_error(out, ref)
     assert res["ok"], res
+
+
+def _tool(name):
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent.parent / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tool_anchors():
+    """(tool, source, the edits of its variant, the edit's index) for every
+    distinct edit anchor of the kernel tools, which plant their faults,
+    ablations and clock records by text replacement."""
+    mutants = _tool("torch_kernel_mutants")
+    ablate = _tool("torch_kernel_ablate")
+    trace = _tool("torch_kernel_trace")
+    tables = [("mutants", {v: (src, edits)
+                           for v, (src, edits, _) in mutants.MUTANTS.items()})]
+    for src, table in (("quant_matmul", ablate.ABLATIONS),
+                       ("quant_matmul", ablate.W8A8_ABLATIONS),
+                       ("flash_attention", ablate.FLASH_ABLATIONS)):
+        tables.append(("ablate", {v: (src, e) for v, e in table.items()}))
+    tables.append(("trace", {"clocks": ("quant_matmul", trace.EDITS)}))
+    seen, out = set(), []
+    for tool, table in tables:
+        for variant, (src, edits) in table.items():
+            for i, (old, _) in enumerate(edits):
+                if (tool, src, old) not in seen:
+                    seen.add((tool, src, old))
+                    out.append(pytest.param(tool, src, edits, i,
+                                            id=f"{tool}-{variant}-{i}"))
+    return out
+
+
+@pytest.mark.parametrize("tool,src,edits,i", _tool_anchors())
+def test_tool_anchor_in_source(tool, src, edits, i):
+    """Each edit anchor of tools/torch_kernel_{mutants,ablate,trace}.py is
+    in its kernel source once the variant's earlier edits are made, as the
+    tool applies them: a source change must not leave a tool editing
+    nothing.  The trace tool's anchors occur exactly once (it refuses
+    others), and so does every mutant anchor of the attention source, so
+    that a fault planted in one attention kernel is planted in no other."""
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    for old, new in edits[:i]:
+        text = text.replace(old, new)
+    count = text.count(edits[i][0])
+    if tool == "trace" or (tool == "mutants" and src == "flash_attention"):
+        assert count == 1, (edits[i][0], count)
+    else:
+        assert count >= 1, edits[i][0]

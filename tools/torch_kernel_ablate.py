@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the weight-stationary kernel (K6, ``q8_matmul_ws``), with
 ``--w8a8`` the W8A8 kernels (K7 ``q8_matmul_ws_int8`` and K8
-``q8_matmul_int8``), or with ``--flash`` the Hopper attention kernel (K1
-``flash_attn_fwd``, K3 ``flash_attn_joint``), with parts of their work
-taken out, to see which part bounds them (needs an H100):
+``q8_matmul_int8``), or with ``--flash`` the Hopper attention kernels (K1
+``flash_attn_fwd``, K3 ``flash_attn_joint``, K2 ``flash_attn_fwd_wide``),
+with parts of their work taken out, to see which part bounds them (needs
+an H100):
 
     python3 tools/torch_kernel_ablate.py [--w8a8 | --flash] [VARIANT ...]
 
@@ -14,7 +15,8 @@ the dequantization, the products, the stores; K7/K8: the activation
 quantization pass, the loads of xq and the weight, the amax and scale
 copies, the slab folds, the products, the stores; K1/K3: the k and v
 loads, the exponentials, the rest of the softmax, either product, the two
-warpgroups' turns), built in a temporary directory; its outputs are wrong
+warpgroups' turns; K2 also their exchange of partial logits), built in a
+temporary directory; its outputs are wrong
 and only its device time (``testing.median_ms``) is read, at shapes of
 the main paths.
 Prints one JSON line per variant, then the card's name and power limit.
@@ -112,11 +114,14 @@ W8A8_ABLATIONS = {
 }
 
 
-# K3 at SD3-medium's joint attention, K1 at SDXL's and SD1.5's largest
+# K3 at SD3-medium's joint attention, K1 at SDXL's and SD1.5's largest,
+# K2 at the VAE mid-block of SD1.5 (512^2) and of SDXL and SD3 (1024^2)
 FLASH_SHAPES = [("flash_attn_joint", (2, 24, 4250, 64)),
                 ("flash_attn_fwd", (2, 10, 4096, 64)),
                 ("flash_attn_fwd", (2, 20, 1024, 64)),
-                ("flash_attn_fwd", (2, 8, 4096, 40))]
+                ("flash_attn_fwd", (2, 8, 4096, 40)),
+                ("flash_attn_fwd_wide", (1, 1, 4096, 512)),
+                ("flash_attn_fwd_wide", (1, 1, 16384, 512))]
 _K = ("            tma_load_4d(smem_u32(sk + ks * C::kKV + c * C::kKVBox), "
       "&k_map, bar, c * 64, n0, h, b);")
 _V = ("            tma_load_4d(smem_u32(sv + vs * C::kKV + c * C::kKVBox), "
@@ -134,18 +139,36 @@ FA_NO_PV = [("wgmma_rs_t<DV>(o, pf[kk],",
 FA_NO_TURNS = [("    mbar_wait(my_turn, tph);\n", ""),
                ("warp_arrive(other_turn);", "(void)other_turn;")]
 
+# K2 (attn_wide_kernel): the same stages, and the two warpgroups' exchange
+# of partial logits
+W_NO_LOADS = [("tma_load_4d_if(p, dst + c * kWKVBox,",
+               "tma_load_4d_if(false, dst + c * kWKVBox,"),
+              ("mbar_expect_tx_if(p, bar, 4 * kWKVBox);",
+               "mbar_expect_tx_if(p, bar, 0);")]
+W_NO_SOFTMAX = [("    softmax_tile<kWBN, false>(s, sl, 0, m, l, alpha);\n", "")]
+W_NO_EXCHANGE = [("  wide_exchange(s, x_mine", "  if (n < 0) wide_exchange(s, x_mine")]
+W_NO_QK = [("    wgmma_ss<kWBN>(s, sw128_desc(",
+            "    if (qa == 0xffffffffu) wgmma_ss<kWBN>(s, sw128_desc(")]
+W_NO_PV = [("wgmma_rs_t<128>(o[half], pf[kk],",
+            "if (va == 0xffffffffu) wgmma_rs_t<128>(o[half], pf[kk],")]
+_SOFTMAX = FA_NO_SOFTMAX + W_NO_SOFTMAX + FA_NO_EXP
+
 FLASH_ABLATIONS = {
     "full": [],
-    "no_loads": FA_NO_LOADS,
+    "no_loads": FA_NO_LOADS + W_NO_LOADS,
     "no_exp": FA_NO_EXP,
-    "no_softmax": FA_NO_SOFTMAX,
-    "no_qk": FA_NO_QK,
-    "no_pv": FA_NO_PV,
-    "no_products": FA_NO_QK + FA_NO_PV,
+    "no_softmax": FA_NO_SOFTMAX + W_NO_SOFTMAX,
+    "no_qk": FA_NO_QK + W_NO_QK,
+    "no_pv": FA_NO_PV + W_NO_PV,
+    "no_products": FA_NO_QK + FA_NO_PV + W_NO_QK + W_NO_PV,
     "no_turns": FA_NO_TURNS,
-    "products_only": FA_NO_SOFTMAX + FA_NO_EXP,
-    "softmax_only": FA_NO_QK + FA_NO_PV,
-    "softmax_only_no_exp": FA_NO_QK + FA_NO_PV + FA_NO_EXP,
+    "no_exchange": W_NO_EXCHANGE,
+    "products_only": _SOFTMAX,
+    "products_only_no_loads": _SOFTMAX + FA_NO_LOADS + W_NO_LOADS
+                              + W_NO_EXCHANGE,
+    "softmax_only": FA_NO_QK + FA_NO_PV + W_NO_QK + W_NO_PV,
+    "softmax_only_no_exp": FA_NO_QK + FA_NO_PV + W_NO_QK + W_NO_PV
+                           + FA_NO_EXP,
 }
 
 

@@ -40,7 +40,7 @@ WEIGHT_ONLY = ("q8_matmul_tile", "q8_matmul_ws", "q4_matmul_tile",
 # occurrence of each text is replaced, and the kernels that must each fail
 # at least one case)
 HOPPER_ATTN = ("flash_attn_fwd", "flash_attn_joint")   # attn_hopper_kernel
-WIDE_ATTN = ("flash_attn_fwd_wide",)                   # attn_fwd_kernel
+WIDE_ATTN = ("flash_attn_fwd_wide",)                   # attn_wide_kernel
 MUTANTS = {
     # the softmax scale of a 40-wide head taken from its padded depth 48
     "scale_from_padded_depth": (
@@ -49,8 +49,8 @@ MUTANTS = {
         HOPPER_ATTN),
     # the last kv tile (the ragged tail) never loaded nor computed
     "last_kv_tile_dropped": (
-        "flash_attention", [("p.n_tiles = (a.sk + BN - 1) / BN;",
-                             "p.n_tiles = a.sk / BN;")], HOPPER_ATTN),
+        "flash_attention", [("const int n = p.n_tiles;",
+                             "const int n = p.sk / BN;")], HOPPER_ATTN),
     # the last 16 columns of the QK^T depth left out
     "qk_depth_short_by_16": (
         "flash_attention", [("for (int kk = 0; kk < KS; ++kk)",
@@ -60,26 +60,37 @@ MUTANTS = {
     # left out, so their zero logits count in the softmax
     "tail_mask_dropped": (
         "flash_attention",
-        [("const bool in = !FIRST || 8 * j + t2 + (e & 1) < lim;",
-          "const bool in = true;"),
-         ("if (FIRST) x = 8 * j + t2 + (e & 1) < lim ? x : 0.f;", "")],
+        [("softmax_tile<BN, true>(s, sl, p.sk - (n - 1) * BN,",
+          "softmax_tile<BN, true>(s, sl, BN,")],
         HOPPER_ATTN),
     # the output sums not rescaled when the running max grows
     "output_not_rescaled": (
         "flash_attention", [("    rescale(o, alpha);\n", "")], HOPPER_ATTN),
-    # the first design's kernel, now K2's alone: the same three faults
+    # K2's kernel: the same four faults, and two of its own
     "wide_scale_from_padded_depth": (
-        "flash_attention", [("s[j][e] * a.scale_log2 : -INFINITY",
-                             "s[j][e] * a.scale_log2 * 0.91287093f : -INFINITY")],
+        "flash_attention", [("const float sl = arg.scale_log2;",
+                             "const float sl = arg.scale_log2 * 0.91287093f;")],
         WIDE_ATTN),
     "wide_last_kv_tile_dropped": (
-        "flash_attention", [("for (int n0 = 0; n0 < a.sk; n0 += kBlockN)",
-                             "for (int n0 = 0; n0 + kBlockN < a.sk; "
-                             "n0 += kBlockN)")], WIDE_ATTN),
+        "flash_attention", [("const int n = arg.n_tiles;",
+                             "const int n = arg.sk / kWBN;")], WIDE_ATTN),
     "wide_qk_depth_short_by_16": (
-        "flash_attention", [("for (int kk = 0; kk < DQK / 16; ++kk)",
-                             "for (int kk = 0; kk < DQK / 16 - 1; ++kk)")],
-        WIDE_ATTN),
+        "flash_attention", [("for (int kk = 0; kk < 16; ++kk)",
+                             "for (int kk = 0; kk < 15; ++kk)")], WIDE_ATTN),
+    "wide_tail_mask_dropped": (
+        "flash_attention",
+        [("softmax_tile<kWBN, true>(s, sl, tail,",
+          "softmax_tile<kWBN, true>(s, sl, kWBN,")], WIDE_ATTN),
+    # the peer warpgroup's partial logits (the other half of the depth)
+    # not added
+    "wide_partial_not_added": (
+        "flash_attention",
+        [("s[j][0] += t.x, s[j][1] += t.y, s[j][2] += t.z, s[j][3] += t.w;",
+          "(void)t;")], WIDE_ATTN),
+    # the output sums not rescaled when the running max grows
+    "wide_output_not_rescaled": (
+        "flash_attention", [("    rescale(o[0], alpha);\n    rescale(o[1], alpha);\n",
+                             "")], WIDE_ATTN),
     # each weight group scaled by its neighbour's scale (the producer's
     # scale copies of the tiled and ws kernels)
     "scale_group_shifted": (

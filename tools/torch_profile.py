@@ -55,7 +55,7 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
 
 # kernel kind: the first of these words found in the kernel's name
 KINDS = [("attn_hopper_kernel", "flash kernels"),
-         ("attn_fwd_kernel", "flash kernels"),
+         ("attn_wide_kernel", "flash kernels"),
          ("qmm_", "quantized matmul kernels"),
          ("quant_rows", "quantized matmul kernels"),
          ("nchwToNhwc", "cuDNN layout conversion"),

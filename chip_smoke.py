@@ -40,13 +40,22 @@ Phases, one result line each (any failure exits non-zero):
                  paths on one seeded random full-width SDXL-base checkpoint
                  (f16 on disk; 1024^2, 20 Euler steps, CFG 7): bf16, 2
                  requests; q8_0, 1 request and 1 under MLIS_Q8_MODE=int8 in
-                 the same session.  Checks the images and the exact kernel
-                 launch counts of every request;
+                 the same session.  Then SD2.1-768-v through the port's CLI
+                 (``cli.main``) on one seeded random full-width checkpoint
+                 (f16 on disk; 768^2, 20 DPM++2M steps, CFG 7): 3 requests,
+                 each PNG read back with the port's decoder and held to the
+                 session's image and infotext, one with --tae on a random
+                 full-width taesd file, and a 4-step request per other
+                 method (euler_a, heun, taylor3, dpmpp2s, dpmpp2m_sde,
+                 unipc; dpmpp2m with --s-noise 1) through the session.
+                 Checks the images and the exact kernel launch counts of
+                 every request (for SD2 per attention shape);
   5. reference - per path, one full-width UNet or MMDiT evaluation with the
                  kernels against the same with the plain versions (bf16: the
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
                  matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
-                 W8A8 kernel);
+                 W8A8 kernel); SD2 also one whole request's latent and
+                 image;
   6. shapes    - the quantized products of one SD1.5, one SD3-medium and
                  one SDXL q8_0 request (SD3: but the per-column W8A8
                  kernel's), each timed for the q8 and q4 kernel the dispatch
@@ -78,7 +87,7 @@ import time
 import numpy as np
 import torch
 
-from mlimgsynth_torch import api, testing
+from mlimgsynth_torch import api, cli, testing
 from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import clip as clip_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
@@ -87,6 +96,9 @@ from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
 from mlimgsynth_torch.ops import quant_matmul as qmm
 from mlimgsynth_torch.ops.quant_plan import pick_large_m_plan
+from mlimgsynth_torch.sampling import schedule as sch
+from mlimgsynth_torch.sampling.solvers import get_solver
+from mlimgsynth_torch.utils import image as image_mod
 
 SOURCES = {"flash_attention": "mlimgsynth_torch/csrc/flash_attention.cu",
            "quant_matmul": "mlimgsynth_torch/csrc/quant_matmul.cu"}
@@ -130,6 +142,22 @@ SDXL_DIM, SDXL_STEPS = 1024, 20
 SDXL_FLASH_PER_REQUEST = {"flash_attn_fwd": 1400, "flash_attn_fwd_wide": 1,
                           "flash_attn_joint": 0}
 SDXL_PATHS = [("bf16", None, 2), ("q8_0", 8, 1)]
+# SD2.1-768-v at 768^2, through the CLI: per UNet evaluation 5
+# self-attentions at each level with attention ([2, 5, 9216, 64] at 96 x 96,
+# [2, 10, 2304, 64] at 48 x 48, [2, 20, 576, 64] at 24 x 24; the 144-token
+# mid level and the 77-token cross-attention run the plain softmax) x 20;
+# the VAE mid-block's [1, 1, 9216, 512] (none with --tae)
+SD2_DIM, SD2_STEPS = 768, 20
+SD2_SHAPES = {(2, 5, 9216, 64): 5, (2, 10, 2304, 64): 5,
+              (2, 20, 576, 64): 5}   # K1 calls per UNet evaluation
+SD2_ARGS = ["-d", str(SD2_DIM), "-s", str(SD2_STEPS), "--method", "dpmpp2m",
+            "--cfg-scale", "7", "-n", "blurry, low quality", "-q"]
+# the other methods, 4 steps each (s_noise needs sigma * sqrt(2) * s_noise
+# above sigma: below 1/sqrt(2) the churn has no real square root, in the
+# JAX package's plan as in the reference's)
+SD2_SWEEP = [("euler_a", 0.0), ("heun", 0.0), ("taylor3", 0.0),
+             ("dpmpp2s", 0.0), ("dpmpp2m_sde", 0.0), ("unipc", 0.0),
+             ("dpmpp2m", 1.0)]
 
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
@@ -220,6 +248,8 @@ def main() -> int:
                 sdxl_dq = time_products(sdxl_products(s), "sdxl")
                 sdxl_int8 = time_sdxl_int8_shapes(s)
             _drop(s)
+        os.remove(ckpt)
+        launches.update(sd2_path(tmp))
     dq = {"sd1": sd1_dq, "sdxl": sdxl_dq, "sd3": sd3_dq}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -329,6 +359,10 @@ FLASH_SHAPE_CALLS = {
     ((1, 1, 4096, 512), 4096): {"sd1": 1},
     ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1},
     ((2, 24, 4250, 64), 4250): {"sd3": 480},
+    ((2, 5, 9216, 64), 9216): {"sd2": 100},
+    ((2, 10, 2304, 64), 2304): {"sd2": 100},
+    ((2, 20, 576, 64), 576): {"sd2": 100},
+    ((1, 1, 9216, 512), 9216): {"sd2": 1},
 }
 
 
@@ -396,6 +430,8 @@ def check_flash():
     want = {("flash_attn_fwd", "sd1"): FLASH_PER_REQUEST["flash_attn_fwd"],
             ("flash_attn_fwd", "sdxl"): SDXL_FLASH_PER_REQUEST[
                 "flash_attn_fwd"],
+            ("flash_attn_fwd", "sd2"): SD2_STEPS * sum(SD2_SHAPES.values()),
+            ("flash_attn_fwd_wide", "sd2"): 1,
             ("flash_attn_joint", "sd3"): SD3_FLASH_PER_REQUEST[
                 "flash_attn_joint"]}
     for key, calls in want.items():
@@ -769,6 +805,161 @@ def main_path(s, ckpt, model_type, dim, wt, requests, want_fn,
     return _counts()
 
 
+def sd2_want_shapes(n_eval: int, vae: bool = True) -> dict:
+    """The flash launches of an SD2 768^2 request of ``n_eval`` UNet
+    evaluations, by kernel and shape."""
+    want = {("flash_attn_fwd", sh): n * n_eval
+            for sh, n in SD2_SHAPES.items()}
+    if vae:
+        want[("flash_attn_fwd_wide", (1, 1, 9216, 512))] = 1
+    return want
+
+
+def _check_launches(what, got_shapes, want_shapes) -> dict:
+    """The launches of one request, by kernel, after checking them by
+    shape against ``want_shapes`` and that no plain version ran on CUDA
+    tensors."""
+    plain = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
+    if dict(got_shapes) != want_shapes or plain:
+        raise AssertionError(f"{what}: launches {dict(got_shapes)}, want "
+                             f"{want_shapes}; plain calls on CUDA {plain}")
+    by_kernel = collections.Counter()
+    for (name, _), n in got_shapes.items():
+        by_kernel[name] += n
+    return dict(by_kernel)
+
+
+def _cli_request(argv):
+    """``cli.main(argv)`` with the session it builds kept: (seconds of the
+    call, the session, the flash launches by kernel and q shape, as
+    ``fa.LAUNCH_SHAPES`` counts them); the session holds the seconds of its
+    ``setup`` (the checkpoint load) and of its ``generate`` after it.
+    Counts are set to 0 just before."""
+    built = []
+    base = api.MLImgSynth
+
+    class Kept(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+        def generate(self):
+            t0 = time.time()
+            self.setup()
+            self.setup_s = time.time() - t0
+            t0 = time.time()
+            out = super().generate()
+            self.generate_s = time.time() - t0
+            return out
+
+    api.MLImgSynth = Kept
+    fa.reset_counts()
+    qmm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        rc = cli.main(argv)
+    finally:
+        api.MLImgSynth = base
+    secs = time.time() - t0
+    if rc != 0 or len(built) != 1:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return secs, built[0], collections.Counter(fa.LAUNCH_SHAPES)
+
+
+def _check_png(path, s) -> None:
+    """The PNG the CLI wrote, read by the port's own decoder, against the
+    session's image quantized to u8 and its infotext."""
+    pix, text = image_mod.png_read(path)
+    want = np.round(s.tensors["image"][0] * 255.0).astype(np.uint8)
+    if (not np.array_equal(pix, want.transpose(1, 2, 0))
+            or text.get("parameters") != s.infotext):
+        raise AssertionError(f"{path}: PNG differs from the session's image "
+                             "or infotext")
+
+
+def _image_ok(img, dim) -> bool:
+    return (img.shape == (1, 3, dim, dim) and bool(np.isfinite(img).all())
+            and float(img.std()) > 0.0)
+
+
+def sd2_path(tmp: str) -> collections.Counter:
+    """SD2.1-768-v through the CLI: three DPM++2M requests (cold, warm,
+    warm), each a ``cli.main`` call that builds its session, loads the
+    checkpoint and writes a PNG; the kernels-against-plain check on the
+    last one's session; one request with --tae; then the solver sweep.
+    Returns the launches of the requests."""
+    ckpt = _checkpoint(tmp, "sd2")
+    tae = os.path.join(tmp, "taesd-random-f16.safetensors")
+    testing.write_random_tae(tae, seed=0)
+    launches = collections.Counter()
+    for i, (seed, prompt) in enumerate(REQUESTS):
+        png = os.path.join(tmp, f"sd2-{i}.png")
+        secs, s, shapes = _cli_request(
+            ["generate", "-m", ckpt, *SD2_ARGS, "-S", str(seed), "-p",
+             prompt, "-o", png])
+        got = _check_launches(f"sd2 request {i}", shapes,
+                              sd2_want_shapes(SD2_STEPS))
+        launches.update(got)
+        img = s.tensors["image"]
+        phase("main", model="sd2", path="bf16", via="cli", request=i,
+              seed=seed, cold=(i == 0), seconds=secs, setup_s=s.setup_s,
+              generate_s=s.generate_s,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=got, launches_by_shape={
+                  f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+              image_mean=float(img.mean()), image_std=float(img.std()),
+              infotext=s.infotext)
+        if not _image_ok(img, SD2_DIM) or s.c["model_type"] != "sd2":
+            raise AssertionError(f"sd2 request {i}: bad image {img.shape}")
+        _check_png(png, s)
+        if i < len(REQUESTS) - 1:
+            _drop(s)
+    sd2_reference_check(s)
+    _drop(s)
+    secs, s, shapes = _cli_request(
+        ["generate", "-m", ckpt, *SD2_ARGS, "-S", "42", "-p", REQUESTS[0][1],
+         "--tae", tae, "-o", os.path.join(tmp, "sd2-tae.png")])
+    got = _check_launches("sd2 --tae", shapes,
+                          sd2_want_shapes(SD2_STEPS, vae=False))
+    launches.update(got)
+    img = s.tensors["image"]
+    phase("main", model="sd2", path="bf16", via="cli", tae=True,
+          seconds=secs, setup_s=s.setup_s, generate_s=s.generate_s,
+          launches=got,
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          image_mean=float(img.mean()), image_std=float(img.std()))
+    if not _image_ok(img, SD2_DIM) or "VAE: tae" not in s.infotext:
+        raise AssertionError("sd2 --tae: bad image or infotext")
+    s.option_set("tae", "")
+    for method, s_noise in SD2_SWEEP:
+        for k, v in [("s-ancestral", 0), ("method", method),
+                     ("s-noise", s_noise), ("steps", 4), ("seed", 7),
+                     ("prompt", "a red fox"), ("nprompt", "blurry")]:
+            s.option_set(k, v)
+        sol = get_solver(s.c["method"])
+        n_step = sch.make_schedule(4, "uniform", sol.n_fe).n_step
+        n_eval = n_step * sol.n_fe - (sol.n_fe - 1)
+        fa.reset_counts()
+        qmm.reset_counts()
+        t0 = time.time()
+        img = s.generate()
+        shapes = collections.Counter(fa.LAUNCH_SHAPES)
+        got = _check_launches(f"sd2 {method}", shapes,
+                              sd2_want_shapes(n_eval))
+        launches.update(got)
+        phase("main", model="sd2", path="bf16", method=method,
+              s_noise=s_noise, s_ancestral=s.c["s_ancestral"], steps=n_step,
+              unet_evaluations=n_eval, seconds=time.time() - t0,
+              launches=got, image_mean=float(img.mean()),
+              image_std=float(img.std()))
+        if not _image_ok(img, SD2_DIM):
+            raise AssertionError(f"sd2 {method}: bad image")
+    _drop(s)
+    os.remove(ckpt)
+    return launches
+
+
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
 # and only the kernels differ between the two runs.  bf16 path: the
 # attention; on the H100 the seeded inputs give 1.6e-2 (UNet) and 6.2e-3
@@ -788,12 +979,18 @@ def main_path(s, ckpt, model_type, dim, wt, requests, want_fn,
 # 2.3e-2 on the H100, held to the SD1 UNet's limit; q8_0 under
 # MLIS_Q8_MODE=int8 (the per-block W8A8 kernel, bit for bit its twin at
 # every case of the kernels phase) reads 0, held to the quantized paths'
-# 1e-2; its VAE decode (5.1e-3) to the SD1 VAE's limit.
+# 1e-2; its VAE decode (5.1e-3) to the SD1 VAE's limit.  SD2 (bf16): the
+# raw v output of one UNet evaluation reads 9.5e-3 on the H100, its VAE
+# decode 7.9e-3, a whole 20-step DPM++2M request's latent 2.34e-2 and
+# image 1.42e-2, each held to the other paths' UNet or VAE limit
+# (``CONTROLS`` reads planted faults beside them).
 REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2,
               "mmdit_v": 3e-2, "mmdit_v_q8_0": 3e-2, "sd3_vae_image": 1.5e-2,
               "sdxl_unet_eps": 3e-2, "sdxl_unet_eps_q8_0_int8": 1e-2,
-              "sdxl_vae_image": 1.5e-2}
+              "sdxl_vae_image": 1.5e-2, "sd2_unet_v": 3e-2,
+              "sd2_vae_image": 1.5e-2, "sd2_request_latent": 3e-2,
+              "sd2_request_image": 1.5e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch
@@ -814,7 +1011,8 @@ def _kernels_vs_plain(wt, bits, run) -> None:
     """``run()`` -> [(output name, tensor)] with the kernels, then again
     with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for their plain
     versions (the attention on the bf16 path, the quantized matmuls on the
-    others); each output held to its ``REF_LIMITS``."""
+    others); each output held to its ``REF_LIMITS``.  Returns the plain
+    run's outputs."""
     kern = run()
     routes = PLAIN_ROUTES[bits]
     saved = {key: getattr(*key) for key in routes}
@@ -839,6 +1037,7 @@ def _kernels_vs_plain(wt, bits, run) -> None:
               kernel_launches_in_plain_run=_counts())
         if not rel < REF_LIMITS[name]:
             raise AssertionError(f"{name}: kernels vs plain rel L2 {rel}")
+    return plain
 
 
 def reference_check(s, wt, bits):
@@ -904,6 +1103,100 @@ def sdxl_reference_check(s, wt, bits):
         _kernels_vs_plain(wt, bits, run)
     finally:
         del os.environ["MLIS_Q8_MODE"]
+
+
+# Planted faults in the flash kernels, each made on one launch's inputs or
+# output (through ``fa._launch``, which every wrapper calls): three of the
+# size of a rounding or range slip (the last 64 kv rows never loaded, the
+# output rounded to fp8 e4m3, a kv loop that ends half way) and two gross
+# ones (each head's output in the next head's place, the rows of a last
+# partial 128-row q block left unwritten).  The SD2 reference check reads
+# each against the plain run beside the limits; each gross fault must read
+# above the limit on one of its outputs.  (On the H100 the first three read
+# inside the limits on one UNet evaluation: random weights give the
+# attention near-uniform weights over similar values.  The kernels phase
+# holds those slips, at the operation.)
+def _rows_unwritten(o):
+    o[:, :, o.shape[2] // 128 * 128:] = 0
+    return o
+
+
+CONTROLS = {
+    "drop_last_kv64": (False, lambda f, n, q, k, v, *a: f(
+        n, q, k[:, :, :-64], v[:, :, :-64], *a)),
+    "fp8_output": (False, lambda f, n, q, k, v, *a: f(n, q, k, v, *a).to(
+        torch.float8_e4m3fn).to(q.dtype)),
+    "kv_loop_half": (False, lambda f, n, q, k, v, *a: f(
+        n, q, k[:, :, :k.shape[2] // 2], v[:, :, :k.shape[2] // 2], *a)),
+    "heads_rolled": (True, lambda f, n, q, k, v, *a: f(
+        n, q, k, v, *a).roll(1, dims=1)),
+    "ragged_q_rows_unwritten": (True, lambda f, n, q, k, v, *a:
+                                _rows_unwritten(f(n, q, k, v, *a))),
+}
+
+
+def _controls(run, plain) -> set:
+    """``run()`` once for each of ``CONTROLS``, its outputs against the
+    plain run's: the readings a faulty kernel gives the gate.  Returns the
+    faults that read above the limit on an output."""
+    real = fa._launch
+    caught = set()
+    for fault, (_, fn) in CONTROLS.items():
+        fa._launch = functools.partial(fn, real)
+        try:
+            outs = run()
+        finally:
+            fa._launch = real
+        for (name, a), (_, b) in zip(outs, plain):
+            rel = ((a - b).norm() / b.norm()).item()
+            if rel > REF_LIMITS[name]:
+                caught.add(fault)
+            phase("control", fault=fault, output=name, rel_l2=rel,
+                  limit=REF_LIMITS[name])
+    return caught
+
+
+def sd2_reference_check(s):
+    """One SD2 UNet evaluation (CFG batch of the last request's
+    conditioning, first sigma; the raw v output, before ``denoise``'s
+    c_skip and c_out, which at sigma 14.6 make ``c_skip * x`` 93% of the
+    result) and one VAE decode of its latent, then one whole request
+    (seed 42, the CLI's options) and its image, each with the attention
+    kernels, with their plain versions and with each planted fault of
+    ``CONTROLS``."""
+    unet, vae = s._models["unet."], s._models["vae."]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hw = SD2_DIM // 8
+    sigma = 14.6
+    x = torch.randn(2, 4, hw, hw, device="cuda", generator=gen) * sigma
+    t = torch.full((2,), 999.0, device="cuda")
+    cond = torch.from_numpy(np.concatenate(
+        [s.tensors["cond"], s.tensors["ncond"]])).cuda()
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+
+    def run():
+        with torch.no_grad():
+            return [("sd2_unet_v", unet(x / (sigma * sigma + 1.0) ** 0.5, t,
+                                        cond).float()),
+                    ("sd2_vae_image", vae(lat).float())]
+
+    caught = _controls(run, _kernels_vs_plain("bf16", None, run))
+
+    def request():
+        s.option_set("seed", REQUESTS[0][0])
+        s.option_set("prompt", REQUESTS[0][1])
+        s.option_set("nprompt", "blurry, low quality")
+        s.generate()
+        return [("sd2_request_latent", torch.from_numpy(
+                    s.tensors["latent"]).cuda()),
+                ("sd2_request_image", torch.from_numpy(
+                    s.tensors["image"]).cuda())]
+
+    caught |= _controls(request, _kernels_vs_plain("bf16", None, request))
+    missed = [f for f, (gross, _) in CONTROLS.items()
+              if gross and f not in caught]
+    if missed:
+        raise AssertionError(f"gross faults {missed} read inside the limits")
 
 
 def time_sdxl_int8_shapes(s) -> dict:
@@ -1033,11 +1326,12 @@ def small_check():
 
 
 def check_imports():
-    """The port ran without jax and without any module of the JAX
-    package."""
+    """The port, its CLI included, ran without jax and without any module
+    of the JAX package."""
     tpu = sorted(m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu")
-    phase("imports", jax="jax" in sys.modules, jax_package=tpu)
-    if "jax" in sys.modules or tpu:
+    ran_cli = "mlimgsynth_torch.cli" in sys.modules
+    phase("imports", jax="jax" in sys.modules, jax_package=tpu, cli=ran_cli)
+    if "jax" in sys.modules or tpu or not ran_cli:
         raise AssertionError(f"jax or JAX-package modules loaded: {tpu}")
 
 

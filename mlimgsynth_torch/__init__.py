@@ -5,7 +5,8 @@ NCHW activations, an explicit device.  The attention and quantized-linear
 hot paths run hand-written CUDA kernels (csrc/) on an NVIDIA Hopper GPU.
 The package imports nothing of mlimgsynth_tpu: it keeps its own copies of
 the host modules it needs (rng, tokenizer, prompt, nameconv, io, the sigma
-schedule, the logger).
+schedule, the logger, the image files).  ``python -m mlimgsynth_torch.cli``
+is its command line.
 """
 
 __version__ = "0.1.0"

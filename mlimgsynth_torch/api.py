@@ -1,5 +1,6 @@
-"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SDXL and
-SD3-medium txt2img.
+"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SD2.1-768-v, SDXL
+and SD3-medium txt2img, decoded by the VAE or, with the ``tae`` option, the
+tiny autoencoder.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -8,7 +9,10 @@ weights load once, onto the session's device, and stay there across
 not port raise ``MlisError``; none is silently ignored.
 
 Arrays at this boundary are float32 numpy NCHW, as in the JAX package; the
-image is ``[n, 3, h, w]`` in [0, 1], quantized through uint8.
+image is ``[n, 3, h, w]`` in [0, 1], quantized through uint8.  After each
+``generate`` the session holds the A1111 "parameters" text of the request
+in ``infotext``; a ``callback(session, progress)`` option sees its stages
+and steps, as the JAX session's does.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import __version__ as _pkg_version
 from . import prompt as prompt_mod
 from . import tokenizer as tok_mod
 from . import weights as weights_mod
@@ -32,7 +37,7 @@ from .models import vae as vae_mod
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import SamplerConfig, make_plan, run_sampler
-from .sampling.solvers import SOLVERS
+from .sampling.solvers import SOLVERS, get_solver
 from .utils.log import g_logger as log
 
 
@@ -44,10 +49,15 @@ class MlisError(Exception):
     E_PROMPT_PARSE = -5
     E_FILE_NOT_FOUND = -6
     E_NAN = -7
+    E_IMAGE = -8
 
     def __init__(self, code: int, msg: str):
         super().__init__(msg)
         self.code = code
+
+
+class Aborted(Exception):
+    """A progress callback asked to stop."""
 
 
 @dataclass
@@ -65,13 +75,17 @@ class ModelTypeDef:
 
 
 def _model_types() -> Dict[str, ModelTypeDef]:
-    """Model types this port runs (tests monkeypatch this table).  sdxl is
+    """Model types this port runs (tests monkeypatch this table).  sd2 is
+    SD2.1-768-v: OpenCLIP ViT-H at clip skip 2, the v-prediction UNet, the
+    SD1 VAE (``mlimgsynth_tpu/api.py:122-123``).  sdxl is
     SDXL-base: CLIP-L and bigG at clip skip 2, the labeled UNet, the SD1 VAE
     at SDXL's scale (``mlimgsynth_tpu/api.py:124-126``).  sd3 is SD3-medium
     (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at clip skip 2
     with zero T5 rows, the MMDiT, the 16-channel VAE."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
                                 unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
+            "sd2": ModelTypeDef("sd2", clip_mod.CLIP_VIT_H_14,
+                                unet_mod.UNET_SD2, vae_mod.VAE_SD1, 768, 2),
             "sdxl": ModelTypeDef("sdxl", clip_mod.CLIP_VIT_L_14,
                                  unet_mod.UNET_SDXL, vae_mod.VAE_SDXL, 1024,
                                  2, clip_mod.CLIP_VIT_BIGG_14),
@@ -104,7 +118,11 @@ def _id_norm(s: str) -> str:
 
 _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "image_dim", "steps", "seed", "cfg_scale", "method", "scheduler",
-            "batch_size", "no_prompt_parse")
+            "batch_size", "no_prompt_parse", "s_noise", "s_ancestral",
+            "clip_skip", "tae", "aux_dir", "callback")
+# options whose string value is one argument: paths and text
+# (``option_set_str``)
+_STR_OPTIONS = ("model", "tae", "aux_dir", "prompt", "nprompt")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
 # the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
 # ``method`` or ``scheduler`` value indexes them
@@ -120,8 +138,33 @@ _WEIGHT_TYPES = {"f32": (torch.float32, 0), "f16": (torch.bfloat16, 0),
                  "bf16": (torch.bfloat16, 0),
                  "q8_0": (None, 8), "q5_k": (None, 8), "q6_k": (None, 8),
                  "q4_0": (None, 4), "q4_1": (None, 4), "q4_k": (None, 4)}
+# progress stages, indexes into STAGE_NAMES (the JAX package's ``STAGE_*``)
+STAGE_IDLE, STAGE_COND_ENCODE, STAGE_IMAGE_DECODE, STAGE_DENOISE = 0, 1, 3, 4
+STAGE_NAMES = ["idle", "cond_encode", "image_encode", "image_decode",
+               "denoise"]
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
+
+
+def _split_args(value: str) -> List[str]:
+    """Split a ','-separated option value with double-quote quoting
+    (the JAX package's ``_split_args``)."""
+    out, cur, in_q = [], [], False
+    for c in value:
+        if in_q:
+            if c == '"':
+                in_q = False
+            else:
+                cur.append(c)
+        elif c == '"':
+            in_q = True
+        elif c == ",":
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(c)
+    out.append("".join(cur))
+    return out
 
 
 def _int(v, default=0) -> int:
@@ -165,31 +208,38 @@ class MLImgSynth:
     type stores the linears in 8 or 4 bits (``qbits``)."""
 
     def __init__(self, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise MlisError(MlisError.E_UNKNOWN,
-                                "no CUDA device found; pass device=\"cpu\" "
-                                "to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise MlisError(MlisError.E_UNKNOWN,
+                            "no CUDA device found; pass device=\"cpu\" "
+                            "to run on the CPU")
         self.dtype = self._default_dtype()
         self.qbits = 0
         self.c = {"model": "", "model_type": "", "prompt_raw": "",
                   "nprompt_raw": "", "width": 0, "height": 0, "steps": 0,
                   "cfg_scale": 7.0, "method": "euler",
                   "scheduler": "uniform", "n_batch": 1,
-                  "no_prompt_parse": False, "clip_skip": 0}
+                  "no_prompt_parse": False, "clip_skip": 0,
+                  "s_noise": 0.0, "s_ancestral": 0.0, "tae": "",
+                  "aux_dir": ""}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
         # per-step latent observer (i_step, latent_nchw)
         self.step_observer: Optional[Callable] = None
+        # progress callback (session, progress dict); a true return aborts
+        self.callback: Optional[Callable] = None
+        self.progress = {"stage": STAGE_IDLE, "step": 0, "step_end": 0,
+                         "nfe": 0, "step_time": 0.0}
+        self.infotext = ""
+        self._nfe = 0
         self.tensors: Dict[str, Optional[np.ndarray]] = {
             k: None for k in ("image", "latent", "cond", "ncond", "label",
                               "nlabel")}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
         self._loaded = ""
+        self._tae_loaded = ""
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -261,6 +311,10 @@ class MLImgSynth:
             m = _enum_value(v, METHOD_NAMES)
             if m is None:
                 return
+            if isinstance(v, str) and m.endswith("_a"):
+                # the ancestral suffix (``api.py:363-375``)
+                m = m[:-2]
+                c["s_ancestral"] = 1.0
             if m not in SOLVERS:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"method '{v}' is not supported by the "
@@ -274,6 +328,60 @@ class MLImgSynth:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"invalid scheduler '{v}'")
             c["scheduler"] = sc
+        elif opt in ("s_noise", "s_ancestral"):
+            c[opt] = _float(v)
+        elif opt == "clip_skip":
+            c["clip_skip"] = _int(v)
+        elif opt in ("tae", "aux_dir"):
+            c[opt] = str(v)
+        elif opt == "callback":
+            self.callback = v
+
+    def option_set_str(self, name: str, value: Optional[str]) -> None:
+        """Set an option from its string form, as the CLI does (the JAX
+        package's ``option_set_str``): paths and text whole, other values
+        split at commas (``image-dim 768,512``)."""
+        opt = _id_norm(name)
+        if opt not in _OPTIONS:
+            raise MlisError(MlisError.E_UNK_OPT,
+                            f"option '{name}' is not supported by the "
+                            "PyTorch port")
+        value = value if value is not None else ""
+        if opt in _STR_OPTIONS:
+            self.option_set(opt, value)
+        elif opt == "callback":
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"option '{opt}' cannot be set with a string "
+                            "value")
+        else:
+            self.option_set(opt, *_split_args(value))
+
+    def _aux_find(self, path: str) -> str:
+        """An auxiliary file (the TAE weights) that does not exist relative
+        to the working directory is looked up under ``aux_dir`` (the JAX
+        package's ``_aux_find``)."""
+        if path and not os.path.exists(path) and self.c["aux_dir"]:
+            cand = os.path.join(self.c["aux_dir"], path)
+            if os.path.exists(cand):
+                return cand
+        return path
+
+    def _cb(self, stage: int, step: int, step_end: int) -> None:
+        """Progress to the ``callback`` (the JAX package's ``_cb``)."""
+        now = time.time()
+        p = self.progress
+        p["step_time"] = now - p.get("_t", now)
+        p["_t"] = now
+        p.update(stage=stage, step=step, step_end=step_end, nfe=self._nfe)
+        if self.callback is not None and self.callback(self, dict(p)):
+            raise Aborted("generation cancelled by callback")
+
+    def text_tokenize(self, text: str) -> List[int]:
+        """Token ids of ``text`` (the model type must be set, or a model
+        file to detect it from)."""
+        if self._mt is None:
+            self.setup()
+        return tok_mod.tokenize(text)
 
     def _prompt_set(self, key: str, text: str) -> None:
         self.c[key + "_raw"] = text
@@ -294,13 +402,39 @@ class MLImgSynth:
     # -- setup --------------------------------------------------------------
 
     def setup(self) -> None:
-        """Load the model onto the session's device (once per model file)."""
+        """Load the model onto the session's device (once per model file),
+        and the TAE decoder where the ``tae`` option names one."""
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
         key = f"{path}|{self.dtype}|{self.qbits}|{self.device}"
-        if self._loaded == key:
-            return
+        if self._loaded != key:
+            self._load_model(path)
+            self._loaded = key
+            self._tae_loaded = ""
+        tae = self._aux_find(self.c["tae"])
+        if tae and self._tae_loaded != tae:
+            self._load_tae(tae)
+            self._tae_loaded = tae
+
+    def _load_tae(self, path: str) -> None:
+        """The TAE decoder from its own taesd file
+        (``mlimgsynth_tpu/api.py:942-976``, ``:1164-1181``); its latent
+        width must be the model family's."""
+        if not os.path.exists(path):
+            raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                            f"tae file not found '{path}'")
+        m = weights_mod.load_tae(path, self.device, self.dtype)
+        if m.P.ch_z != self._mt.vae_p.ch_z:
+            raise MlisError(
+                MlisError.E_IMAGE,
+                f"TAE latent channels ({m.P.ch_z}) do not match the model "
+                f"family's ({self._mt.vae_p.ch_z}) - e.g. taesd is for SD, "
+                "taesd3 for SD3")
+        self._models["tae."] = m
+        log.info(f"TAE loaded: {path} ({m.P})")
+
+    def _load_model(self, path: str) -> None:
         if not os.path.exists(path):
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
                             f"model file not found '{path}'")
@@ -338,7 +472,6 @@ class MLImgSynth:
                     m, prefix, params).eval()
         finally:
             store.close()
-        self._loaded = key
         quant = f", {n_q} linears in int{self.qbits}" if self.qbits else ""
         log.info(f"Model loaded: {self.c['model_type']} on {self.device} "
                  f"({self.dtype}{quant}) {{{time.time() - t0:.3f}s}}")
@@ -425,6 +558,7 @@ class MLImgSynth:
         self.setup()
         c = self.c
         t_start = time.time()
+        self._nfe = 0
         f = self._mt.vae_p.f_down
         n = c["n_batch"]
         latent = np.zeros((n, self._mt.vae_p.ch_z, c["height"] // f,
@@ -439,6 +573,7 @@ class MLImgSynth:
             # encode zeroes the uncond emphasis weights (``api.py:2220-2224``,
             # ref src/mlimgsynth.c:1702)
             cond[1:] = 0.0
+        self._cb(STAGE_COND_ENCODE, 1, 1)
         # [cond xn; uncond xn]
         cond_all = torch.repeat_interleave(cond, n, dim=0)
         label_all = (None if label is None
@@ -446,20 +581,37 @@ class MLImgSynth:
         flow = self._flow()
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
                              n_step=c["steps"], cfg_scale=c["cfg_scale"],
+                             s_ancestral=c["s_ancestral"],
+                             s_noise=c["s_noise"],
                              flow_shift=self._mt.unet_p.flow_shift if flow
                              else 0.0)
-        plan = make_plan(scfg, latent.shape, self.rng, 2 if use_cfg else 1)
+        nfe_per_dxdt = 2 if use_cfg else 1
+        plan = make_plan(scfg, latent.shape, self.rng, nfe_per_dxdt)
+
+        def step_cb(i, n_step):
+            self._nfe = i * plan.nfe_per_step
+            self._cb(STAGE_DENOISE, i, n_step)
+
         with torch.no_grad():
             x = run_sampler(self._models["mmdit." if flow else "unet."],
                             latent, plan, cond_all, scfg,
                             step_observer=self.step_observer,
-                            label_all=label_all)
+                            label_all=label_all,
+                            step_callback=(step_cb if self.callback
+                                           else None))
+            # evaluations run: a 2-evaluation solver's last step has one
+            n_fe = get_solver(c["method"]).n_fe
+            self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
             if not torch.isfinite(x).all():
                 raise MlisError(MlisError.E_NAN, "NaN found in the "
                                 + ("MMDiT" if flow else "UNet") + " output")
-            img = self._models["vae."](x).float()
-            # C-cast truncation to u8, as the reference's tensor_to_image
-            u8 = ((img + 1.0) * (255.0 / 2.0)).clamp(0.0, 255.0).to(torch.uint8)
+            if c["tae"]:
+                # the TAE takes the sampler's latent and gives [0, 1]
+                # (``_decode_u8``'s "tae" branch); C-cast truncation to u8
+                img = self._models["tae."](x).float() * 255.0
+            else:
+                img = (self._models["vae."](x).float() + 1.0) * (255.0 / 2.0)
+            u8 = img.clamp(0.0, 255.0).to(torch.uint8)
         self.tensors["latent"] = x.cpu().numpy()
         self.tensors["cond"] = cond[:1].cpu().numpy()
         self.tensors["ncond"] = cond[1:].cpu().numpy() if use_cfg else None
@@ -468,9 +620,37 @@ class MLImgSynth:
             self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
                                       else None)
         self.tensors["image"] = u8.cpu().numpy().astype(np.float32) / 255.0
+        self._cb(STAGE_IMAGE_DECODE, 1, 1)
+        self._infotext_update(c["width"], c["height"], plan.n_step)
         self._prompt_clear()
         log.info(f"Generation done {{{time.time() - t_start:.3f}s}}")
         return self.tensors["image"]
+
+    def _infotext_update(self, w: int, h: int, n_step: int) -> None:
+        """The A1111-compatible 'parameters' text, for the options the port
+        has (``_infotext_update``, ``mlimgsynth_tpu/api.py:3236-3300``)."""
+        c = self.c
+        out = [c["prompt_raw"] + "\n"]
+        if c["nprompt_raw"]:
+            out.append(f"Negative prompt: {c['nprompt_raw']}\n")
+        out.append(f"Seed: {self.rng.seed}, Sampler: {c['method']}")
+        if c["s_ancestral"] == 1:
+            out.append(" ancestral")
+        out.append(f", Schedule type: {c['scheduler']}")
+        if c["s_ancestral"] > 0:
+            out.append(f", Ancestral: {c['s_ancestral']:g}")
+        if c["s_noise"] > 0:
+            out.append(f", SNoise: {c['s_noise']:g}")
+        if c["cfg_scale"] > 1:
+            out.append(f", CFG scale: {c['cfg_scale']:g}")
+        out.append(f", Steps: {n_step}, NFE: {self._nfe}, Size: {w}x{h}"
+                   f", Clip skip: {c['clip_skip']}")
+        model = os.path.splitext(os.path.basename(c["model"]))[0]
+        out.append(f", Model: {model}")
+        if c["tae"]:
+            out.append(", VAE: tae")
+        out.append(f", Version: MLImgSynth-TPU v{_pkg_version}")
+        self.infotext = "".join(out)
 
     def _prompt_clear(self) -> None:
         """One-shot options cleared after generate (ref: mlis_prompt_clear)."""

@@ -3,7 +3,7 @@
 ``state_dict`` names match the internal scheme below the ``clip.text.``
 (or ``clip2.text.``) prefix (``encoder.layers.N.attn.q_proj.weight`` ...).
 The MLP activation is chosen by width as in the reference: gelu_quick for
-SD1's 768, tanh-gelu for 1024/1280.  A tower built with ``proj=True`` also
+SD1's 768, tanh-gelu for 1024 (SD2's OpenCLIP ViT-H) and 1280 (bigG).  A tower built with ``proj=True`` also
 holds ``text_proj`` [d, d] (JAX layout, ``rows @ text_proj``) and gives the
 projected pooled feature (SD3's two towers; SDXL's second).
 """
@@ -12,11 +12,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..tokenizer import CLIP_VIT_BIGG_14, CLIP_VIT_L_14, ClipParams
+from ..tokenizer import (CLIP_VIT_BIGG_14, CLIP_VIT_H_14, CLIP_VIT_L_14,
+                         ClipParams)
 from . import blocks as B
 
-__all__ = ["ClipParams", "CLIP_VIT_L_14", "CLIP_VIT_BIGG_14", "ClipText",
-           "clip_skip_layers"]
+__all__ = ["ClipParams", "CLIP_VIT_L_14", "CLIP_VIT_H_14", "CLIP_VIT_BIGG_14",
+           "ClipText", "clip_skip_layers"]
 
 
 class _Embed(nn.Module):

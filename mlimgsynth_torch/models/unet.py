@@ -4,7 +4,8 @@ Parameter names below the ``unet.`` prefix match the JAX package's internal
 scheme (``in.1.1.transf.0.attn2.k_proj.weight`` ...).  NCHW activations;
 CFG runs as one batched forward (cond and uncond rows stacked).  SDXL's
 label (the pooled text feature and the size embeddings) enters through
-``label_embed``, added to the time embedding.  Not ported: FreeU,
+``label_embed``, added to the time embedding.  SD2.1 is SD1's UNet with
+heads of 64, a 1024-wide context and v-prediction (``denoise``).  Not ported: FreeU,
 ControlNet, DeepCache and PAG.
 """
 from __future__ import annotations
@@ -43,6 +44,9 @@ class UnetParams:
 
 
 UNET_SD1 = UnetParams(n_head=8, n_ctx=768)
+# SD2.1-768-v: heads of 64 (5, 10, 20 by width), the OpenCLIP ViT-H
+# context, v-prediction
+UNET_SD2 = UnetParams(d_head=64, n_ctx=1024, vparam=True)
 UNET_SDXL = UnetParams(
     attn_res=(4, 2), ch_mult=(1, 2, 4), transf_depth=(1, 2, 10),
     d_head=64, n_ctx=2048, ch_adm_in=2816, clip_norm=False,

@@ -19,12 +19,14 @@ Three entry points, all online-softmax forward passes over the natural
 
 A wrapper given CPU tensors runs :func:`attention_plain`, the kernels' plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.  Each
-launch adds one to ``LAUNCHES[<kernel>]``; ``PLAIN_CUDA_CALLS`` counts calls
+launch adds one to ``LAUNCHES[<kernel>]`` and to ``LAUNCH_SHAPES[(<kernel>,
+q's shape)]``; ``PLAIN_CUDA_CALLS`` counts calls
 of the plain version on CUDA tensors (a benchmark comparing the two makes
 them; the main path never does).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -33,6 +35,7 @@ from . import _build
 
 LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_fwd_wide": 0,
             "flash_attn_joint": 0}
+LAUNCH_SHAPES = collections.Counter()
 PLAIN_CUDA_CALLS = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
@@ -43,6 +46,7 @@ def reset_counts() -> None:
     global PLAIN_CUDA_CALLS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
     PLAIN_CUDA_CALLS = 0
 
 
@@ -110,6 +114,7 @@ def _launch(name: str, q, k, v, scale, d_lo: int, d_hi: int):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, tuple(q.shape))] += 1
     return o
 
 

@@ -64,14 +64,21 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
     """Sigma schedule and all noise, drawn in the reference's order
     (initial, then per step: churn draw, post-step ancestral draw).
     ``latent_shape`` is NCHW; batch sample i draws from its own stream
-    seeded ``seed + i`` (or ``seeds[i]``).  The JAX package's lcm,
-    keep-tail and subseed branches are not ported."""
+    seeded ``seed + i`` (or ``seeds[i]``).  The schedule's step count is
+    that of ``n_step`` model evaluations: a 2-evaluation solver (heun,
+    dpmpp2s) takes half as many steps.  The SDE methods read
+    ``s_ancestral`` as their eta (default 1) and ``s_noise`` as the noise
+    multiplier (``mlimgsynth_tpu/sampling/sampler.py:168-173``).  The JAX
+    package's lcm, keep-tail and subseed branches are not ported."""
     solver = get_solver(cfg.method)
     ls = sch.log_sigmas_flow(cfg.flow_shift) if cfg.flow_shift else None
     s = sch.make_schedule(cfg.n_step, cfg.sched, solver.n_fe, nfe_per_dxdt,
                           cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
-    plan = sch.plan_step_noise(s.sigmas, cfg.s_ancestral, cfg.s_noise, 0.0,
-                               lcm=False)
+    sde_eta = 0.0
+    if solver.name.endswith("_sde"):
+        sde_eta = cfg.s_ancestral if cfg.s_ancestral > 0 else 1.0
+    plan = sch.plan_step_noise(s.sigmas, cfg.s_ancestral, cfg.s_noise,
+                               sde_eta, lcm=False)
     n_step = s.n_step
     n_batch = latent_shape[0]
     sample_shape = tuple(latent_shape[1:])
@@ -121,14 +128,16 @@ def _cfg_mix(d, n: int, cfg_scale: float):
 def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 cond_all: torch.Tensor, cfg: SamplerConfig,
                 step_observer: Optional[Callable] = None,
-                label_all: Optional[torch.Tensor] = None) -> torch.Tensor:
+                label_all: Optional[torch.Tensor] = None,
+                step_callback: Optional[Callable] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
     hold the cond rows, then (with CFG) the uncond rows, on the model's
     device.
-    ``step_observer(i_step, latent_nchw_numpy)`` sees every step.  Returns
-    the final latent, f32 on the device."""
+    ``step_observer(i_step, latent_nchw_numpy)`` sees every step, and
+    ``step_callback(i_step, n_step)`` is told of each (the session's
+    progress).  Returns the final latent, f32 on the device."""
     dev = cond_all.device
     use_cfg = cfg.cfg_scale > 1
     solver = get_solver(cfg.method)
@@ -169,4 +178,6 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         t = f32(plan.t_next[i])
         if step_observer is not None:
             step_observer(i + 1, x.cpu().numpy())
+        if step_callback is not None:
+            step_callback(i + 1, plan.n_step)
     return x

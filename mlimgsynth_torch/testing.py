@@ -4,9 +4,10 @@ checkpoints, a numpy safetensors writer (the machine with the GPU has no
 kernel against its plain twin.
 
 The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
-(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, the SDXL set
-``TINY_MODEL_TYPE_XL``, ``:94-101``, and the SD3 set ``TINY_MODEL_TYPE_SD3``,
-``:387-409``) in the port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
+(``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, the SD2 set
+``TINY_MODEL_TYPE_SD2``, ``:84-93``, the SDXL set ``TINY_MODEL_TYPE_XL``,
+``:94-101``, and the SD3 set ``TINY_MODEL_TYPE_SD3``, ``:387-409``) in the
+port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
 ``TINY_Q_MODEL_TYPE_XL`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that
 the linears quantize.
 """
@@ -25,6 +26,7 @@ import torch
 from . import nameconv
 from .api import ModelTypeDef, build_models
 from .models import mmdit as mmdit_mod
+from .models import tae as tae_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .tokenizer import ClipParams
@@ -48,6 +50,15 @@ TINY_Q_UNET = unet_mod.UnetParams(
     n_head=4, n_te=256, n_ctx=128)
 TINY_Q_MODEL_TYPE = ModelTypeDef("sd1", TINY_Q_CLIP, TINY_Q_UNET, TINY_VAE,
                                  64, 1)
+
+
+# SD2: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:84-93``):
+# the SD1 tiny with v-prediction, clip skip 2
+TINY_UNET_V = unet_mod.UnetParams(
+    n_ch=32, ch_mult=(1, 2), transf_depth=(1, 1), attn_res=(1, 2),
+    n_head=4, n_te=64, n_ctx=32, vparam=True)
+TINY_MODEL_TYPE_SD2 = ModelTypeDef("sd2", TINY_CLIP, TINY_UNET_V, TINY_VAE,
+                                   64, 2)
 
 
 # SDXL: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:94-101``):
@@ -141,40 +152,56 @@ def _sd3_ckpt_name(internal: str):
     return nameconv.internal_to_compvis(internal)   # vae.*
 
 
-# OpenCLIP names of a bigG layer's tails (``transformer.resblocks.N.``)
+# OpenCLIP names of a layer's tails (``transformer.resblocks.N.``)
 _OPENCLIP_TAILS = (("norm1.", "ln_1."), ("norm2.", "ln_2."),
                    ("mlp.fc1.", "mlp.c_fc."), ("mlp.fc2.", "mlp.c_proj."))
+
+
+def _openclip_name(t: str, pre: str):
+    """A text tower's name below ``.text.`` -> its OpenCLIP checkpoint name
+    under ``pre`` (SD2's tower, SDXL's bigG).  A q/k/v tensor gives
+    ``("qkv", i, fused name)``: the file holds q, k and v stacked in one
+    ``in_proj`` tensor."""
+    if t == "embed.token.weight":
+        return pre + "token_embedding.weight"
+    if t == "embed.position.weight":
+        return pre + "positional_embedding"
+    if t == "text_proj":
+        return pre + "text_projection"
+    if t.startswith("ln_final."):
+        return pre + t
+    m = re.match(r"encoder\.layers\.(\d+)\.(.*)", t)
+    if m is None:
+        return None
+    stem, tail = f"{pre}transformer.resblocks.{m.group(1)}.", m.group(2)
+    qkv = re.match(r"attn\.(q|k|v)_proj\.(weight|bias)$", tail)
+    if qkv:
+        return ("qkv", "qkv".index(qkv.group(1)),
+                f"{stem}attn.in_proj_{qkv.group(2)}")
+    for a, b in _OPENCLIP_TAILS:
+        tail = tail.replace(a, b)
+    return stem + tail
+
+
+def _sd2_ckpt_name(internal: str):
+    """Internal name -> SD2.1 single-file checkpoint name (the v2-1_768
+    layout of ``mlimgsynth_tpu/testing.py:write_checkpoint_sd2``): the
+    OpenCLIP ViT-H tower under ``cond_stage_model.model.``, the UNet and
+    VAE as CompVis."""
+    if internal.startswith("clip.text."):
+        return _openclip_name(internal[len("clip.text."):],
+                              "cond_stage_model.model.")
+    return nameconv.internal_to_compvis(internal)
 
 
 def _sdxl_ckpt_name(internal: str):
     """Internal name -> sd_xl_base single-file checkpoint name (CLIP-L under
     ``conditioner.embedders.0.transformer.``, bigG in the OpenCLIP layout
     under ``conditioner.embedders.1.model.``, the UNet and VAE as CompVis),
-    the layout of ``mlimgsynth_tpu/testing.py:write_checkpoint_sdxl``.  A
-    bigG q/k/v tensor gives ``("qkv", i, fused name)``: the file holds q, k
-    and v stacked in one ``in_proj`` tensor."""
+    the layout of ``mlimgsynth_tpu/testing.py:write_checkpoint_sdxl``."""
     if internal.startswith("clip2.text."):
-        pre = "conditioner.embedders.1.model."
-        t = internal[len("clip2.text."):]
-        if t == "embed.token.weight":
-            return pre + "token_embedding.weight"
-        if t == "embed.position.weight":
-            return pre + "positional_embedding"
-        if t == "text_proj":
-            return pre + "text_projection"
-        if t.startswith("ln_final."):
-            return pre + t
-        m = re.match(r"encoder\.layers\.(\d+)\.(.*)", t)
-        if m is None:
-            return None
-        stem, tail = f"{pre}transformer.resblocks.{m.group(1)}.", m.group(2)
-        qkv = re.match(r"attn\.(q|k|v)_proj\.(weight|bias)$", tail)
-        if qkv:
-            return ("qkv", "qkv".index(qkv.group(1)),
-                    f"{stem}attn.in_proj_{qkv.group(2)}")
-        for a, b in _OPENCLIP_TAILS:
-            tail = tail.replace(a, b)
-        return stem + tail
+        return _openclip_name(internal[len("clip2.text."):],
+                              "conditioner.embedders.1.model.")
     ck = nameconv.internal_to_compvis(internal)
     if ck is not None and internal.startswith("clip.text."):
         ck = ck.replace("cond_stage_model.", "conditioner.embedders.0.", 1)
@@ -185,15 +212,18 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
     """Checkpoint name -> (shape in the file, how it is stored, [(internal
     name, shape)]) for every parameter of ``mt``, in parameter order, each
     checked to map back onto its internal names: the CompVis layout for
-    SD1, the sd_xl_base layout for SDXL, the sd3 single-file layout for the
-    flow types.  How: ``"as_is"``; ``"T"``, a Linear-stored text projection
-    (transposed); ``"qkv"``, OpenCLIP's fused q/k/v (stacked on rows);
-    ``"linear"``, SDXL's 1x1 ``proj_in`` / ``proj_out`` stored as linears."""
+    SD1, the v2-1_768 layout for SD2, the sd_xl_base layout for SDXL, the
+    sd3 single-file layout for the flow types.  How: ``"as_is"``; ``"T"``, a
+    Linear-stored text projection (transposed); ``"qkv"``, OpenCLIP's fused
+    q/k/v (stacked on rows); ``"linear"``, SD2.1's and SDXL's 1x1
+    ``proj_in`` / ``proj_out`` stored as linears."""
     flow = getattr(mt.unet_p, "flow", False)
     sdxl = mt.clip2_p is not None and not flow
+    sd2 = mt.name == "sd2"
     out: Dict[str, tuple] = {}
     for name, shape in model_shapes(mt).items():
         ck = (_sd3_ckpt_name(name) if flow else _sdxl_ckpt_name(name) if sdxl
+              else _sd2_ckpt_name(name) if sd2
               else nameconv.internal_to_compvis(name))
         how, file_shape = "as_is", shape
         if isinstance(ck, tuple) and ck[0] == "tproj":
@@ -212,7 +242,8 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
                 prev = out[ck][0]
                 file_shape = (prev[0] + shape[0],) + tuple(shape[1:])
         else:
-            if sdxl and re.search(r"\.proj_(in|out)\.weight$", name):
+            if ((sdxl or sd2)
+                    and re.search(r"\.proj_(in|out)\.weight$", name)):
                 how, file_shape = "linear", shape[:2]
             ok = ck is not None and nameconv.normalize_name(ck) == name
         if not ok:
@@ -275,28 +306,55 @@ def write_safetensors(path, shapes: Dict[str, Tuple[int, ...]], dtype,
 def write_random_checkpoint(path, mt: ModelTypeDef, seed: int = 0,
                             dtype=np.float16) -> None:
     """Seeded random checkpoint of ``mt`` at ``path``: CompVis names for
-    SD1, the sd_xl_base layout for SDXL, the sd3 single-file layout for
-    SD3."""
+    SD1, the v2-1_768 layout for SD2, the sd_xl_base layout for SDXL, the
+    sd3 single-file layout for SD3."""
     shapes = {ck: v[0] for ck, v in _checkpoint_layout(mt).items()}
     write_safetensors(path, shapes, dtype,
                       random_checkpoint_tensors(mt, seed, dtype))
 
 
+def write_random_tae(path, P: tae_mod.TaeParams = tae_mod.TAE_SD1,
+                     seed: int = 0, dtype=np.float16) -> None:
+    """Seeded random taesd-format file of the decoder ``P`` at ``path``
+    (names without prefix, as madebyollin/taesd ships them; full width by
+    default: ``ch_inner`` 64, ``n_blk`` 3), drawn as the checkpoints above
+    are."""
+    with torch.device("meta"):
+        shapes = module_shapes(tae_mod.TaeDecoder(P), "")
+    rng = np.random.default_rng(seed)
+
+    def tensors():
+        for name, shape in shapes.items():
+            mean, std = _init_std(name, shape)
+            arr = (np.full(shape, mean, dtype) if std == 0.0 else
+                   (rng.standard_normal(shape, dtype=np.float32)
+                    * np.float32(std)).astype(dtype))
+            yield name, arr
+
+    write_safetensors(path, shapes, dtype, tensors())
+
+
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
-# 512^2, SDXL 1024^2 and SD3-medium 1024^2 main paths give the kernels, and
-# ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the main path runs
-# it)
+# 512^2, SDXL 1024^2, SD3-medium 1024^2 and SD2.1 768^2 main paths give the
+# kernels, and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
+# main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
     ("flash_attn_fwd", (2, 8, 1024, 80), 1024, "UNet level 1"),
     ("flash_attn_fwd", (2, 10, 4096, 64), 4096, "SDXL UNet level 1"),
     ("flash_attn_fwd", (2, 20, 1024, 64), 1024, "SDXL UNet level 2"),
+    ("flash_attn_fwd", (2, 5, 9216, 64), 9216, "SD2 UNet level 0"),
+    ("flash_attn_fwd", (2, 10, 2304, 64), 2304, "SD2 UNet level 1"),
+    ("flash_attn_fwd", (2, 20, 576, 64), 576,
+     "SD2 UNet level 2 (a 64-row last q block, a 64-column kv tile)"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
      "SD3 and SDXL VAE mid-block"),
+    ("flash_attn_fwd_wide", (1, 1, 9216, 512), 9216,
+     "SD2 VAE mid-block (144 blocks on 132 SMs)"),
     ("flash_attn_fwd_wide", (2, 2, 600, 512), 520,
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from .io.tensorstore import TensorStore
+from .models import tae as tae_mod
 from .models.blocks import QLinear
 from .nameconv import QKV, TProj, normalize_name
 from .ops import quant, quant_plan
@@ -121,6 +122,24 @@ def load_module(module: nn.Module, prefix: str,
           if k.startswith(prefix)}
     module.load_state_dict(sd, strict=True, assign=True)
     return module
+
+
+def load_tae(path: str, device, dtype: torch.dtype) -> nn.Module:
+    """The TAE decoder of a taesd file (diffusers AutoencoderTiny names,
+    no prefix; ``mlimgsynth_tpu/api.py:942-976`` reads them under
+    ``tae.``), its geometry read from the file's shapes."""
+    store = TensorStore.open(path)
+    try:
+        P = tae_mod.tae_params_from_shapes(
+            {k: tuple(e.shape) for k, e in store.tensors.items()})
+        with torch.device("meta"):
+            m = tae_mod.TaeDecoder(P)
+        name_map = {"tae." + raw: NameRef(raw) for raw in store.tensors}
+        params = load_params(store, name_map, module_shapes(m, "tae."),
+                             device, dtype)
+    finally:
+        store.close()
+    return load_module(m, "tae.", params).eval()
 
 
 def quantize_linear_weights(module: nn.Module, prefix: str,

@@ -1,0 +1,128 @@
+"""The port's CLI (``mlimgsynth_torch.cli``) against the JAX package's
+(``mlimgsynth_tpu.cli``): ``generate`` on one tiny SD2 checkpoint with the
+same arguments and seed (the PNG read back with pillow here, its
+``parameters`` text, the ``--olatent`` tensor, a batch's file names, ``-``
+as stdout), ``tokenize``, ``help``, ``version``, and the exits with code 1:
+an unknown command, an unknown option, a command the port lacks, and
+``generate`` without ``-b cpu`` on a machine without a card.
+
+Both CLIs run f32 on the CPU.  Tolerances: the image within 1 LSB (both
+truncate an f32 value to u8, and the two f32 decodes differ by summation
+order), the latent atol/rtol 1e-4 as the session legs
+(tests/test_torch_e2e.py), the text equal.
+"""
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from mlimgsynth_tpu import api as jax_api
+from mlimgsynth_tpu import cli as jcli
+from mlimgsynth_tpu import testing as jtesting
+from mlimgsynth_tpu.utils import image as jimage
+from mlimgsynth_torch import api as torch_api
+from mlimgsynth_torch import cli as tcli
+from mlimgsynth_torch import testing as T
+
+ARGS = ["-d", "64", "-s", "5", "--method", "dpmpp2m", "-S", "42",
+        "-p", "a (cat:1.2) photo", "-n", "blurry", "--weight-type", "f32",
+        "-q"]
+
+
+@pytest.fixture(autouse=True)
+def _tiny_types(monkeypatch):
+    monkeypatch.setattr(jax_api, "_model_types", lambda: {
+        "sd2": jtesting.TINY_MODEL_TYPE_SD2})
+    monkeypatch.setattr(torch_api, "_model_types", lambda: {
+        "sd2": T.TINY_MODEL_TYPE_SD2})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "tiny-sd2.safetensors"
+    jtesting.write_checkpoint_sd2(path, seed=6)
+    return str(path)
+
+
+def _pil(path):
+    im = Image.open(path)
+    return np.asarray(im), im.info.get("parameters")
+
+
+def test_generate_matches_jax_cli(ckpt, tmp_path):
+    outs = {}
+    for name, main in (("jax", jcli.main), ("port", tcli.main)):
+        png, lat = tmp_path / f"{name}.png", tmp_path / f"{name}.tensor"
+        extra = ["-b", "cpu"] if name == "port" else []
+        assert main(["generate", "-m", ckpt, *ARGS, *extra, "-o", str(png),
+                     "--olatent", str(lat)]) == 0
+        outs[name] = (*_pil(png), jimage.tensor_load(str(lat)))
+    (img_j, info_j, lat_j), (img_t, info_t, lat_t) = outs["jax"], \
+        outs["port"]
+    assert img_t.shape == img_j.shape == (64, 64, 3)
+    assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
+    assert info_t == info_j and "Sampler: dpmpp2m" in info_t
+    assert "Clip skip: 2" in info_t and "Model: tiny-sd2" in info_t
+    np.testing.assert_allclose(lat_t, lat_j, atol=1e-4, rtol=1e-4)
+
+
+def test_generate_batch_and_stdout(ckpt, tmp_path, capsysbinary):
+    """A batch writes ``stem-idx.ext`` (the JAX CLI's names); ``-o -``
+    writes PPM to stdout, the bytes the JAX CLI's pillow writer gives for
+    the same pixels."""
+    out = tmp_path / "b.png"
+    assert tcli.main(["generate", "-b", "cpu", "-m", ckpt, *ARGS,
+                      "--batch-size", "2", "-o", str(out)]) == 0
+    assert sorted(os.listdir(tmp_path)) == ["b-0.png", "b-1.png"]
+    imgs = [_pil(tmp_path / f"b-{i}.png")[0] for i in range(2)]
+    assert not np.array_equal(imgs[0], imgs[1])
+    capsysbinary.readouterr()
+    assert tcli.main(["generate", "-b", "cpu", "-m", ckpt, *ARGS,
+                      "-o", "-"]) == 0
+    got = capsysbinary.readouterr().out
+    want = io.BytesIO()
+    Image.fromarray(np.asarray(Image.open(io.BytesIO(got)))).save(
+        want, format="PPM")
+    assert got.startswith(b"P6\n64 64\n255\n") and got == want.getvalue()
+
+
+def test_tokenize_help_version(capsys):
+    for main in (jcli.main, tcli.main):
+        assert main(["tokenize", "-b", "cpu", "--model-type", "sd2",
+                     "-p", "a dog jumping"]) == 0
+    outs = capsys.readouterr().out.split("\n")
+    assert outs[0] == outs[1] == "320 1929 11476"
+    assert tcli.main(["-h"]) == 0
+    out = capsys.readouterr().out
+    assert "generate" in out and "--tae" in out and "dpm++2m_sde" in out
+    assert tcli.main(["-V"]) == 0
+    assert capsys.readouterr().out.startswith("mlimgsynth-torch v")
+
+
+@pytest.mark.parametrize("argv", [
+    ["frobnicate"],
+    ["generate", "-b", "cpu", "--definitely-not-an-option", "1"],
+    ["vae-encode", "-b", "cpu"],
+    ["generate", "-b", "tpu"],
+    ["generate", "-b", "cpu", "--method", "lcm"],
+    ["generate", "-b", "cpu", "-i", "in.png"],
+], ids=["unknown-command", "unknown-option", "not-ported", "backend",
+        "method", "img2img"])
+def test_errors_exit_1(argv):
+    assert tcli.main(argv) == 1
+
+
+def test_generate_needs_the_card_by_default(ckpt, capsys):
+    """No ``-b``: the session is built on CUDA, which this machine lacks;
+    the CLI exits 1 with the session's error and does not fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert tcli.main(["generate", "-m", ckpt, *ARGS, "-o", "x.png"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

@@ -173,7 +173,7 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sd2"), ("weight-type", "q2_k"), ("method", "heun"),
+    ("model-type", "flux_dev"), ("weight-type", "q2_k"), ("method", "lcm"),
     ("lora", "x.safetensors"), ("hires-fix", 2.0), ("prompt", "<lora:x:1>"),
 ])
 def test_unsupported_option_raises(name, value):
@@ -196,6 +196,11 @@ for k, v in [("model", path), ("model-type", "sd1"), ("image-dim", 64),
     s.option_set(k, v)
 img = s.generate()
 assert img.shape == (1, 3, 64, 64) and np.isfinite(img).all()
+from mlimgsynth_torch import cli
+from mlimgsynth_torch.utils import image
+assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
+                 "-S", "1", "-p", "a cat", "-o", "cli.png", "-q"]) == 0
+assert image.png_read("cli.png")[0].shape == (64, 64, 3)
 tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
 assert not tpu, tpu
 print("jax" in sys.modules)
@@ -224,6 +229,9 @@ OPTION_CALLS = {
     "integer": [("method", 4), ("scheduler", 2), ("method", 1),
                 ("scheduler", 1), ("steps", "7"), ("cfg-scale", " 3.5 ")],
     "image_dim_empty": [("image-dim", 64, 96), ("image-dim", "", "")],
+    "ancestral": [("method", "euler_a"), ("s-noise", "1"), ("clip-skip", 2),
+                  ("method", "dpm++2s-a"), ("s-ancestral", " 0.5 "),
+                  ("method", 6), ("tae", "taesd.safetensors")],
 }
 
 

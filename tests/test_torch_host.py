@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host modules (rng, tokenizer,
-prompt, nameconv, io.tensorstore, io.gquant, sampling.schedule, utils.log)
-against the originals: the same seeded inputs through both give equal
-results, exactly."""
+prompt, nameconv, io.tensorstore, io.gquant, sampling.schedule, utils.log,
+utils.image) against the originals: the same seeded inputs through both
+give equal results, exactly.  The port writes its PNGs without pillow, so
+those are compared as pillow reads them (pixels and ``parameters`` text),
+not byte for byte."""
 import dataclasses
 import importlib
 import io
@@ -151,9 +153,37 @@ def _log(pkg, tmp_path):
     return [buf.getvalue(), lg.level_from_str("42"), sorted(lg.NAMES.items())]
 
 
+def _image(pkg, tmp_path):
+    """The tensor<->image converters, the TENSOR files, and the images
+    ``image_save`` writes (PNG with a Latin-1 and a non-Latin-1 infotext,
+    grey and RGBA PNG, PPM and PGM) as pillow reads them back."""
+    from PIL import Image
+    im = _mod(pkg, "utils.image")
+    rng = np.random.default_rng(5)
+    t = rng.uniform(-0.2, 1.2, (2, 3, 7, 5)).astype(np.float32)
+    u8 = rng.integers(0, 256, (7, 5, 4), dtype=np.uint8)
+    out = [im.tensor_from_image_arr(u8), im.tensor_from_image_arr(u8[:, :, 0]),
+           im.tensor_to_image_arr(t, 1)]
+    path = tmp_path / f"{pkg}.tensor"
+    im.tensor_save(str(path), t)
+    out += [path.read_bytes(), im.tensor_load(str(path))]
+    for name, img, info in (("a.png", u8[:, :, :3], "a cat\nSeed: 1"),
+                            ("b.png", u8[:, :, :3], "café 中文"),
+                            ("c.png", u8[:, :, :1], None),
+                            ("d.png", u8, "x"), ("e.ppm", u8[:, :, :3], None),
+                            ("f.pgm", u8[:, :, :1], None)):
+        path = tmp_path / f"{pkg}-{name}"
+        im.image_save(str(path), img, info)
+        pil = Image.open(path)
+        out += [np.asarray(pil), pil.mode, pil.info.get("parameters")]
+        if name.endswith(("ppm", "pgm")):
+            out.append(path.read_bytes())
+    return out
+
+
 CASES = {"tokenizer": _tokenizer, "prompt": _prompt, "rng": _rng,
          "schedule": _schedule, "tensorstore": _tensorstore,
-         "nameconv": _nameconv, "log": _log}
+         "nameconv": _nameconv, "log": _log, "image": _image}
 
 
 def _plain(x):
@@ -179,3 +209,21 @@ def _plain(x):
 def test_copy_matches_original(case, tmp_path):
     got = {pkg: _plain(CASES[case](pkg, tmp_path)) for pkg in PACKAGES}
     assert got["mlimgsynth_torch"] == got["mlimgsynth_tpu"]
+
+
+def test_png_read_reads_what_image_save_writes(tmp_path):
+    """The port's own PNG decoder (the card's machine has no pillow) gives
+    back the pixels and the text of the files its writer makes, and refuses
+    a filtered PNG, which pillow writes."""
+    from PIL import Image
+    from mlimgsynth_torch.utils import image as im
+    u8 = np.random.default_rng(6).integers(0, 256, (9, 4, 3), np.uint8)
+    for info in ("Seed: 1, Sampler: euler", "naïve 中文"):
+        im.image_save(str(tmp_path / "a.png"), u8, info)
+        pix, text = im.png_read(str(tmp_path / "a.png"))
+        np.testing.assert_array_equal(pix, u8)
+        assert text == {"parameters": info}
+    Image.fromarray(np.tile(np.arange(64, dtype=np.uint8), (64, 1))).save(
+        tmp_path / "f.png")
+    with pytest.raises(ValueError, match="filter"):
+        im.png_read(str(tmp_path / "f.png"))

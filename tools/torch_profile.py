@@ -2,8 +2,10 @@
 """Where the time of one request goes on the card (needs a GPU).
 
 Opens a full-width session of the PyTorch port on seeded random weights
-(bf16 activations; 20 Euler steps, CFG 7, batch 1): SD1.5 at 512^2, or
-with ``--model sdxl`` SDXL-base or ``--model sd3`` SD3-medium at 1024^2,
+(bf16 activations; 20 Euler steps, CFG 7, batch 1): SD1.5 at 512^2, with
+``--model sdxl`` SDXL-base or ``--model sd3`` SD3-medium at 1024^2, or with
+``--model sd2`` SD2.1-768-v at 768^2 (20 DPM++2M steps; ``--tae`` decodes
+with a seeded random full-width taesd decoder instead of the VAE),
 for each weight type named on the command line (default bf16; q8_0 and
 q4_0 store the linears quantized; ``q8_0:int8`` measures q8_0 under
 ``MLIS_Q8_MODE=int8``, in the same session as a ``q8_0`` named just
@@ -11,7 +13,7 @@ before it), one session at a time, and measures, all in this one process:
 
   * ``requests``: the wall seconds of a cold and of three warm requests;
   * ``stages``: one request split into text encode, sampler loop and VAE
-    decode, with a device sync at the end of each;
+    (or TAE) decode, with a device sync at the end of each;
   * ``denoiser_step``: 20 UNet or MMDiT evaluations (the CFG batch of 2)
     back to back, by CUDA events;
   * ``trace``: one request traced with ``torch.profiler`` (device activity
@@ -22,8 +24,8 @@ before it), one session at a time, and measures, all in this one process:
     above: two different requests of this run, for an idle share without
     the profiler's cost on the host.
 
-    python3 tools/torch_profile.py [--model sd1|sdxl|sd3] [bf16] [q8_0]
-        [q8_0:int8] [q4_0]
+    python3 tools/torch_profile.py [--model sd1|sd2|sdxl|sd3] [--tae]
+        [bf16] [q8_0] [q8_0:int8] [q4_0]
 
 Prints one JSON line per measurement, each naming its model and weight
 type.
@@ -99,15 +101,16 @@ def timed(label: str, fn, stages: dict):
 
 def stage_times(s, i: int) -> dict:
     stages: dict = {}
-    text, vae, sampler = s._text_cond, s._models["vae."], api.run_sampler
+    dec = "tae." if s.c["tae"] else "vae."
+    text, vae, sampler = s._text_cond, s._models[dec], api.run_sampler
     s._text_cond = timed("text_encode_s", text, stages)
-    s._models["vae."] = timed("vae_decode_s", vae, stages)
+    s._models[dec] = timed(dec[:3] + "_decode_s", vae, stages)
     api.run_sampler = timed("sampler_loop_s", sampler, stages)
     try:
         stages["request_s"] = request(s, i)
     finally:
         del s._text_cond
-        s._models["vae."], api.run_sampler = vae, sampler
+        s._models[dec], api.run_sampler = vae, sampler
     return stages
 
 
@@ -189,11 +192,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     args = sys.argv[1:]
-    model = "sd1"
+    model, tae = "sd1", ""
     if args[:1] == ["--model"]:
         model, args = args[1], args[2:]
-    dim = {"sd1": 512, "sdxl": 1024, "sd3": 1024}[model]
-    out("device", nvidia_smi=smi, torch=torch.__version__, model=model)
+    if args[:1] == ["--tae"]:
+        tae, args = "taesd-random-f16.safetensors", args[1:]
+    dim = {"sd1": 512, "sd2": 768, "sdxl": 1024, "sd3": 1024}[model]
+    out("device", nvidia_smi=smi, torch=torch.__version__, model=model,
+        tae=bool(tae))
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, f"{model}-random-f16.safetensors")
         t0 = time.perf_counter()
@@ -201,6 +207,9 @@ def main() -> int:
                                         seed=0)
         out("checkpoint", model=model, write_s=time.perf_counter() - t0,
             bytes=os.path.getsize(ckpt))
+        if tae:
+            tae = os.path.join(tmp, tae)
+            testing.write_random_tae(tae, seed=0)
         prev = None          # (weight type, session) to reuse
         for arg in args or ["bf16"]:
             wt, _, mode = arg.partition(":")
@@ -210,23 +219,25 @@ def main() -> int:
             os.environ["MLIS_Q8_MODE"] = mode or "dq"
             try:
                 prev = (wt, profile_path(ckpt, model, dim, wt, tmp, s,
-                                         mode or "dq"))
+                                         mode or "dq", tae))
             finally:
                 del os.environ["MLIS_Q8_MODE"]
     return 0
 
 
 def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str,
-                 s=None, mode: str = "dq"):
-    """Every measurement of one weight type (under ``mode``), in session
-    ``s`` or a new one; returns the session."""
-    tag = {"model": model, "path": wt, "mode": mode}
+                 s=None, mode: str = "dq", tae: str = ""):
+    """Every measurement of one weight type (under ``mode``, decoded by the
+    TAE file ``tae`` if given), in session ``s`` or a new one; returns the
+    session."""
+    tag = {"model": model, "path": wt, "mode": mode, "tae": bool(tae)}
     if s is None:
         s = api.MLImgSynth(device="cuda")
         for k, v in [("model", ckpt), ("model-type", model),
                      ("weight-type", wt), ("image-dim", dim), ("steps", 20),
-                     ("cfg-scale", 7.0), ("method", "euler"),
-                     ("scheduler", "uniform")]:
+                     ("cfg-scale", 7.0),
+                     ("method", "dpmpp2m" if model == "sd2" else "euler"),
+                     ("scheduler", "uniform"), ("tae", tae)]:
             s.option_set(k, v)
         t0 = time.perf_counter()
         s.setup()

@@ -48,14 +48,25 @@ Phases, one result line each (any failure exits non-zero):
                  full-width taesd file, and a 4-step request per other
                  method (euler_a, heun, taylor3, dpmpp2s, dpmpp2m_sde,
                  unipc; dpmpp2m with --s-noise 1) through the session.
+                 img2img, inpainting and LoRA (``img2img`` lines): on the
+                 SD1.5 checkpoint through the CLI, with a random full-width
+                 LoRA (rank 16 on every UNet attention projection and
+                 CLIP-L's MLP), an RGB PNG at --f-t-ini 0.6, an RGBA PNG
+                 (top half opaque) at 0.8 and a <lora:NAME:0.8> tag on
+                 txt2img; the LoRA on the q8_0 session; one img2img request
+                 at f_t_ini 0.6 on SDXL, SD3, SD2 and SD2 with --tae.
                  Checks the images and the exact kernel launch counts of
-                 every request (for SD2 per attention shape);
+                 every request (for SD2 and img2img per attention shape:
+                 K2 runs in the VAE encoder and decoder), the inpainting's
+                 kept latent rows (bit for bit the encoded latent) and the
+                 merged LoRA weights (bit for bit bf16(W + delta), or its
+                 quantization, computed on the host);
   5. reference - per path, one full-width UNet or MMDiT evaluation with the
                  kernels against the same with the plain versions (bf16: the
                  attention, plus one VAE decode; q8_0 / q4_0: the quantized
                  matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
                  W8A8 kernel); SD2 also one whole request's latent and
-                 image;
+                 image; the VAE encoder's moments at 512^2 and 1024^2;
   6. shapes    - the quantized products of one SD1.5, one SD3-medium and
                  one SDXL q8_0 request (SD3: but the per-column W8A8
                  kernel's), each timed for the q8 and q4 kernel the dispatch
@@ -88,6 +99,8 @@ import numpy as np
 import torch
 
 from mlimgsynth_torch import api, cli, testing
+from mlimgsynth_torch import weights as weights_mod
+from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import clip as clip_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
@@ -159,6 +172,16 @@ SD2_SWEEP = [("euler_a", 0.0), ("heun", 0.0), ("taylor3", 0.0),
              ("dpmpp2s", 0.0), ("dpmpp2m_sde", 0.0), ("unipc", 0.0),
              ("dpmpp2m", 1.0)]
 
+# img2img, inpainting and LoRA (BASELINE config 4) on SD1.5 512^2 through
+# the CLI, 20 Euler steps cut by f_t_ini (12 and 16 run): (kind, f_t_ini);
+# a random LoRA of rank 16 on every UNet attention projection and CLIP-L's
+# MLP at multiplier 0.8, by --lora on the image requests, by a tag on the
+# txt2img one.  The other models' img2img request runs at I2I_F_T_INI.
+I2I_REQUESTS = [("img2img", 0.6), ("inpaint", 0.8), ("lora_tag", 1.0)]
+I2I_ARGS = ["-d", "512", "-s", "20", "--method", "euler", "--cfg-scale", "7",
+            "-S", "42", "-n", "blurry, low quality", "-q"]
+LORA_RANK, LORA_MULT, I2I_F_T_INI = 16, 0.8, 0.6
+
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -206,6 +229,7 @@ def main() -> int:
     launches = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = _checkpoint(tmp, "sd1")
+        lora = _lora(tmp)
         for wt, bits, n_req in PATHS:
             s = api.MLImgSynth(device="cuda")
             launches.update(main_path(s, ckpt, "sd1", 512, wt,
@@ -218,13 +242,17 @@ def main() -> int:
             reference_check(s, wt, bits)
             if bits == 8:
                 sd1_dq = time_shapes(s)
+                launches.update(lora_q8_request(s, ckpt, lora))
             _drop(s)
+        launches.update(sd1_img2img_path(tmp, ckpt, lora))
         os.remove(ckpt)
         ckpt = _checkpoint(tmp, "sd3")
         for wt, bits, n_req in SD3_PATHS:
             s = api.MLImgSynth(device="cuda")
             launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt,
                                       REQUESTS[:n_req], sd3_want))
+            if not bits:
+                launches.update(img2img_request(s, "sd3", SD3_DIM))
             if bits == 8:
                 launches.update(main_path(
                     s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
@@ -239,6 +267,8 @@ def main() -> int:
             s = api.MLImgSynth(device="cuda")
             launches.update(main_path(s, ckpt, "sdxl", SDXL_DIM, wt,
                                       REQUESTS[:n_req], sdxl_want))
+            if not bits:
+                launches.update(img2img_request(s, "sdxl", SDXL_DIM))
             if bits == 8:
                 launches.update(main_path(
                     s, ckpt, "sdxl", SDXL_DIM, wt, REQUESTS[n_req:n_req + 1],
@@ -356,13 +386,14 @@ FLASH_SHAPE_CALLS = {
     ((2, 8, 1024, 80), 1024): {"sd1": 100},
     ((2, 10, 4096, 64), 4096): {"sdxl": 200},
     ((2, 20, 1024, 64), 1024): {"sdxl": 1200},
-    ((1, 1, 4096, 512), 4096): {"sd1": 1},
-    ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1},
+    ((1, 1, 4096, 512), 4096): {"sd1": 1, "sd1_img2img": 2},
+    ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1, "sd3_img2img": 2,
+                                  "sdxl_img2img": 2},
     ((2, 24, 4250, 64), 4250): {"sd3": 480},
     ((2, 5, 9216, 64), 9216): {"sd2": 100},
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
     ((2, 20, 576, 64), 576): {"sd2": 100},
-    ((1, 1, 9216, 512), 9216): {"sd2": 1},
+    ((1, 1, 9216, 512), 9216): {"sd2": 1, "sd2_img2img": 2},
 }
 
 
@@ -805,16 +836,6 @@ def main_path(s, ckpt, model_type, dim, wt, requests, want_fn,
     return _counts()
 
 
-def sd2_want_shapes(n_eval: int, vae: bool = True) -> dict:
-    """The flash launches of an SD2 768^2 request of ``n_eval`` UNet
-    evaluations, by kernel and shape."""
-    want = {("flash_attn_fwd", sh): n * n_eval
-            for sh, n in SD2_SHAPES.items()}
-    if vae:
-        want[("flash_attn_fwd_wide", (1, 1, 9216, 512))] = 1
-    return want
-
-
 def _check_launches(what, got_shapes, want_shapes) -> dict:
     """The launches of one request, by kernel, after checking them by
     shape against ``want_shapes`` and that no plain version ran on CUDA
@@ -833,8 +854,9 @@ def _cli_request(argv):
     """``cli.main(argv)`` with the session it builds kept: (seconds of the
     call, the session, the flash launches by kernel and q shape, as
     ``fa.LAUNCH_SHAPES`` counts them); the session holds the seconds of its
-    ``setup`` (the checkpoint load) and of its ``generate`` after it.
-    Counts are set to 0 just before."""
+    ``setup`` (the checkpoint load) and of its ``generate`` after it, and
+    the latent it encoded from an input image (``encoded``).  Counts are
+    set to 0 just before."""
     built = []
     base = api.MLImgSynth
 
@@ -851,6 +873,10 @@ def _cli_request(argv):
             out = super().generate()
             self.generate_s = time.time() - t0
             return out
+
+        def image_encode(self, img):
+            self.encoded = super().image_encode(img)
+            return self.encoded
 
     api.MLImgSynth = Kept
     fa.reset_counts()
@@ -899,7 +925,7 @@ def sd2_path(tmp: str) -> collections.Counter:
             ["generate", "-m", ckpt, *SD2_ARGS, "-S", str(seed), "-p",
              prompt, "-o", png])
         got = _check_launches(f"sd2 request {i}", shapes,
-                              sd2_want_shapes(SD2_STEPS))
+                              _flash_want("sd2", SD2_STEPS, 1))
         launches.update(got)
         img = s.tensors["image"]
         phase("main", model="sd2", path="bf16", via="cli", request=i,
@@ -917,11 +943,30 @@ def sd2_path(tmp: str) -> collections.Counter:
             _drop(s)
     sd2_reference_check(s)
     _drop(s)
+    png_in = os.path.join(tmp, "sd2-in.png")
+    image_mod.image_save(png_in, _test_image(SD2_DIM, 2)[:, :, :3])
+    n_step = _n_step(SD2_STEPS, "dpmpp2m", I2I_F_T_INI)
+    for tae_args in ([], ["--tae", tae]):
+        secs, s, shapes = _cli_request(
+            ["generate", "-m", ckpt, *SD2_ARGS, "-S", "42", "-p",
+             REQUESTS[0][1], "-i", png_in, "--f-t-ini", str(I2I_F_T_INI),
+             *tae_args, "-o", os.path.join(tmp, "sd2-i2i.png")])
+        # K2 in the VAE encoder's mid-block and the decoder's; the TAE has
+        # no attention
+        got = _check_launches(f"sd2 img2img {tae_args}", shapes,
+                              _flash_want("sd2", n_step,
+                                          0 if tae_args else 2))
+        launches.update(got)
+        _img2img_phase("sd2", s, secs, got, tae=bool(tae_args),
+                       steps=n_step)
+        _check_img2img(s, os.path.join(tmp, "sd2-i2i.png"), SD2_DIM,
+                       "img2img")
+        _drop(s)
     secs, s, shapes = _cli_request(
         ["generate", "-m", ckpt, *SD2_ARGS, "-S", "42", "-p", REQUESTS[0][1],
          "--tae", tae, "-o", os.path.join(tmp, "sd2-tae.png")])
     got = _check_launches("sd2 --tae", shapes,
-                          sd2_want_shapes(SD2_STEPS, vae=False))
+                          _flash_want("sd2", SD2_STEPS, 0))
     launches.update(got)
     img = s.tensors["image"]
     phase("main", model="sd2", path="bf16", via="cli", tae=True,
@@ -946,7 +991,7 @@ def sd2_path(tmp: str) -> collections.Counter:
         img = s.generate()
         shapes = collections.Counter(fa.LAUNCH_SHAPES)
         got = _check_launches(f"sd2 {method}", shapes,
-                              sd2_want_shapes(n_eval))
+                              _flash_want("sd2", n_eval, 1))
         launches.update(got)
         phase("main", model="sd2", path="bf16", method=method,
               s_noise=s_noise, s_ancestral=s.c["s_ancestral"], steps=n_step,
@@ -958,6 +1003,234 @@ def sd2_path(tmp: str) -> collections.Counter:
     _drop(s)
     os.remove(ckpt)
     return launches
+
+
+def _test_image(dim: int, seed: int = 0) -> np.ndarray:
+    """A seeded uint8 RGBA image [dim, dim, 4]: colour ramps with noise,
+    its top half opaque and its bottom half transparent."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:dim, 0:dim]
+    rgb = np.stack([x, y, (x + y) // 2], axis=-1) * 256 // dim
+    rgb = (rgb + rng.integers(0, 48, rgb.shape)) % 256
+    alpha = np.where(y < dim // 2, 255, 0)[:, :, None]
+    return np.concatenate([rgb, alpha], axis=-1).astype(np.uint8)
+
+
+def _n_step(n: int, method: str, f_t_ini: float, flow_shift: float = 0.0
+            ) -> int:
+    """The steps a request of ``n`` evaluations runs, cut at ``f_t_ini``
+    (the session's own schedule)."""
+    ls = sch.log_sigmas_flow(flow_shift) if flow_shift else None
+    return sch.make_schedule(n, "uniform", get_solver(method).n_fe, 2,
+                             f_t_ini, log_sigmas=ls).n_step
+
+
+def _lora(tmp: str) -> tuple:
+    """A seeded random full-width LoRA of SD1.5 (rank 16 on every UNet
+    attention projection and CLIP-L's MLP, f16): (path, its tensors)."""
+    path = os.path.join(tmp, "style-random-f16.safetensors")
+    t0 = time.time()
+    mt = api._model_types()["sd1"]
+    deltas = testing.write_random_lora(
+        path, mt, testing.lora_attention_targets(mt), rank=LORA_RANK, seed=0)
+    phase("img2img", step="lora", write_s=time.time() - t0,
+          targets=len(deltas), rank=LORA_RANK, bytes=os.path.getsize(path))
+    return path, deltas
+
+
+def _check_lora_weights(s, ckpt: str, deltas: dict, mult: float) -> None:
+    """Every weight the LoRA patches, on the card, against bf16(W + mult *
+    alpha / rank * up @ down) computed on the host in f32 from the
+    checkpoint's W (the session's compute type: bf16 on the card; for a
+    quantized linear, that weight's quantization): bit for bit."""
+    store = TensorStore.open(ckpt)
+    n_eq = n_q = 0
+    worst = 0.0
+    try:
+        name_map = weights_mod.build_name_map(store)
+        for name in testing.lora_attention_targets(s._mt):
+            down, up, alpha = deltas[testing.lora_name(name)]
+            w = weights_mod.read_entry(store, name_map[name]).astype(
+                np.float32)
+            scale = np.float32(alpha / down.shape[0] * mult)
+            want = torch.from_numpy(w + (up @ down) * scale).to(s.dtype)
+            prefix = next(p for p in s._models if name.startswith(p))
+            mod = s._models[prefix].get_submodule(
+                name[len(prefix):-len(".weight")])
+            if isinstance(mod, blocks_mod.QLinear):
+                q, sc = quant.quantize_weight(want.float().numpy())
+                ok = (np.array_equal(mod.weight_q8.cpu().numpy(), q)
+                      and np.array_equal(mod.weight_scale.cpu().numpy(), sc))
+                n_q += 1
+            else:
+                got = mod.weight.detach().cpu()
+                ok = torch.equal(got, want)
+                worst = max(worst, (got.float() - want.float()).abs()
+                            .max().item())
+            n_eq += ok
+    finally:
+        store.close()
+    n = len(deltas)
+    phase("img2img", step="lora_weights", weights=n, equal=n_eq,
+          quantized=n_q, max_abs_err=worst, mult=mult)
+    if n_eq != n:
+        raise AssertionError(f"{n - n_eq} of {n} merged LoRA weights differ "
+                             "from bf16(W + delta) computed on the host")
+
+
+def lora_q8_request(s, ckpt: str, lora: tuple) -> dict:
+    """One request on the q8_0 session with the LoRA: the session reloads
+    the UNet and CLIP-L with the merge made before quantization; the same
+    launches as without it, and its quantized weights those of the merged
+    weight."""
+    s.option_set("lora", lora[0], LORA_MULT)
+    out = main_path(s, ckpt, "sd1", 512, "q8_0", REQUESTS[:1],
+                    lambda s: sd1_want(8))
+    phase("img2img", model="sd1", path="q8_0", step="lora_reload",
+          load_s=s.times["load_s"], lora_merge_s=s.times["lora_merge_s"],
+          reloaded=sorted(s._lora_prefixes))
+    _check_lora_weights(s, ckpt, lora[1], LORA_MULT)
+    return out
+
+
+def _img2img_phase(model, s, secs, got, **kv) -> None:
+    img = s.tensors["image"]
+    phase("img2img", model=model, seconds=secs,
+          setup_s=getattr(s, "setup_s", None),
+          generate_s=getattr(s, "generate_s", None),
+          load_s=s.times.get("load_s"),
+          lora_merge_s=s.times.get("lora_merge_s"),
+          encoder_load_s=s.times.get("encoder_load_s"),
+          image_encode_s=s.times.get("image_encode_s"), launches=got,
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          image_mean=float(img.mean()), image_std=float(img.std()),
+          infotext=s.infotext, **kv)
+
+
+def _check_img2img(s, png, dim: int, mode: str) -> None:
+    """The image, the PNG read back and the infotext's ``Mode:``."""
+    if not _image_ok(s.tensors["image"], dim):
+        raise AssertionError(f"{mode}: bad image")
+    if png is not None:
+        _check_png(png, s)
+    if mode and f"Mode: {mode}, f_t_ini: " not in s.infotext:
+        raise AssertionError(f"{mode}: infotext {s.infotext!r}")
+
+
+def _flash_want(model: str, n_eval: int, n_k2: int) -> dict:
+    """The flash launches of a request of ``model`` with ``n_eval`` UNet or
+    MMDiT evaluations and ``n_k2`` VAE mid-block attentions, by kernel and
+    q shape (``FLASH_SHAPE_CALLS`` holds 20 evaluations)."""
+    want = {}
+    for (shape, _), calls in FLASH_SHAPE_CALLS.items():
+        n = (n_k2 if shape[-1] == 512
+             else calls.get(model, 0) // 20 * n_eval)
+        if model in calls and n:
+            name = ("flash_attn_fwd_wide" if shape[-1] == 512 else
+                    "flash_attn_joint" if model == "sd3" else
+                    "flash_attn_fwd")
+            want[(name, shape)] = n
+    return want
+
+
+def sd1_img2img_path(tmp: str, ckpt: str, lora: tuple) -> collections.Counter:
+    """SD1.5 512^2 img2img, inpainting and a LoRA tag through the CLI
+    (``I2I_REQUESTS``), each call a session that loads the checkpoint with
+    the LoRA merged; the VAE encoder against its plain attention on the
+    inpainting session; the merged weights after the tag request.  Returns
+    the launches."""
+    rgba = _test_image(512, 1)
+    pngs = {"img2img": os.path.join(tmp, "sd1-in-rgb.png"),
+            "inpaint": os.path.join(tmp, "sd1-in-rgba.png")}
+    image_mod.image_save(pngs["img2img"], rgba[:, :, :3])
+    image_mod.image_save(pngs["inpaint"], rgba)
+    name = os.path.splitext(os.path.basename(lora[0]))[0]
+    launches = collections.Counter()
+    for kind, f_t_ini in I2I_REQUESTS:
+        out = os.path.join(tmp, f"sd1-{kind}.png")
+        argv = ["generate", "-m", ckpt, *I2I_ARGS, "-o", out]
+        if kind == "lora_tag":
+            argv += ["--lora-dir", tmp, "-p",
+                     f"{REQUESTS[0][1]} <lora:{name}:{LORA_MULT}>"]
+        else:
+            argv += ["-p", REQUESTS[0][1], "-i", pngs[kind], "--f-t-ini",
+                     str(f_t_ini), "--lora", f"{lora[0]},{LORA_MULT}"]
+        secs, s, shapes = _cli_request(argv)
+        n_step = _n_step(20, "euler", f_t_ini)
+        n_k2 = 1 if kind == "lora_tag" else 2
+        got = _check_launches(f"sd1 {kind}", shapes,
+                              _flash_want("sd1", n_step, n_k2))
+        if any(qmm.LAUNCHES.values()):
+            raise AssertionError(f"sd1 {kind}: quantized kernels launched")
+        launches.update(got)
+        _img2img_phase("sd1", s, secs, got, request=kind, steps=n_step,
+                       f_t_ini=f_t_ini, loras=s._lora_state)
+        _check_img2img(s, out, 512, "" if kind == "lora_tag" else kind)
+        if kind == "img2img" and n_step != 12:
+            raise AssertionError(f"img2img ran {n_step} steps, not 12")
+        if kind == "inpaint":
+            # the kept (opaque) half of the latent is the encoded latent
+            lat, enc = s.tensors["latent"], s.encoded
+            kept = np.array_equal(lat[:, :, :32], enc[:, :, :32])
+            moved = float(np.abs(lat[:, :, 32:] - enc[:, :, 32:]).max())
+            phase("img2img", model="sd1", request=kind, kept_rows_equal=kept,
+                  repainted_max_abs_change=moved)
+            if not kept or moved == 0.0:
+                raise AssertionError("inpaint: the kept latent rows are not "
+                                     "the encoded latent")
+            encoder_reference_check(s, rgba)
+        if kind == "lora_tag":
+            _check_lora_weights(s, ckpt, lora[1], LORA_MULT)
+        _drop(s)
+    return launches
+
+
+def encoder_reference_check(s, rgba) -> None:
+    """The VAE encoder's moments at 512^2 (its mid-block K2 at [1, 1, 4096,
+    512]) and at 1024^2 (the SDXL / SD3 encoder's [1, 1, 16384, 512]) with
+    the kernels against the same with the plain attention; then its device
+    time at each size."""
+    enc = s._encoders["vae."]
+    x512 = torch.from_numpy(rgba[:, :, :3].transpose(2, 0, 1)[None].astype(
+        np.float32) / 127.5 - 1.0).cuda()
+    x1024 = torch.nn.functional.interpolate(x512, scale_factor=2.0,
+                                            mode="bilinear")
+
+    def run():
+        with torch.no_grad():
+            return [("vae_enc_moments_512", enc(x512).float()),
+                    ("vae_enc_moments_1024", enc(x1024).float())]
+
+    _kernels_vs_plain("bf16", None, run)
+    with torch.no_grad():
+        phase("img2img", step="vae_encoder_ms",
+              ms_512=ms(lambda: enc(x512), n=5, reps=1),
+              ms_1024=ms(lambda: enc(x1024), n=5, reps=1))
+
+
+def img2img_request(s, model: str, dim: int) -> dict:
+    """One img2img request at ``I2I_F_T_INI`` on the session (bf16, 20 Euler
+    steps cut), from an RGB image of the session's size: the launches by
+    shape (K2 in the encoder and the decoder) and the image."""
+    s.option_set("image", _test_image(dim, 3)[:, :, :3])
+    s.option_set("f-t-ini", I2I_F_T_INI)
+    s.option_set("seed", REQUESTS[0][0])
+    s.option_set("prompt", REQUESTS[0][1])
+    s.option_set("nprompt", "blurry, low quality")
+    n_step = _n_step(20, "euler", I2I_F_T_INI,
+                     getattr(s._mt.unet_p, "flow_shift", 0.0)
+                     if s._flow() else 0.0)
+    fa.reset_counts()
+    qmm.reset_counts()
+    t0 = time.time()
+    s.generate()
+    secs = time.time() - t0
+    got = _check_launches(f"{model} img2img",
+                          collections.Counter(fa.LAUNCH_SHAPES),
+                          _flash_want(model, n_step, 2))
+    _img2img_phase(model, s, secs, got, steps=n_step, f_t_ini=I2I_F_T_INI)
+    _check_img2img(s, None, dim, "img2img")
+    return got
 
 
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
@@ -990,7 +1263,8 @@ REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "sdxl_unet_eps": 3e-2, "sdxl_unet_eps_q8_0_int8": 1e-2,
               "sdxl_vae_image": 1.5e-2, "sd2_unet_v": 3e-2,
               "sd2_vae_image": 1.5e-2, "sd2_request_latent": 3e-2,
-              "sd2_request_image": 1.5e-2}
+              "sd2_request_image": 1.5e-2, "vae_enc_moments_512": 1.5e-2,
+              "vae_enc_moments_1024": 1.5e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch

@@ -1,6 +1,9 @@
 """Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SD2.1-768-v, SDXL
-and SD3-medium txt2img, decoded by the VAE or, with the ``tae`` option, the
-tiny autoencoder.
+and SD3-medium txt2img, img2img (``image``, ``f_t_ini``) and alpha-mask
+inpainting (``image_mask`` or the image's alpha), with LoRAs (``lora`` and
+``<lora:NAME:MULT>`` prompt tags) merged into the weights as they load;
+encoded and decoded by the VAE or, with the ``tae`` option, the tiny
+autoencoder.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -38,6 +41,7 @@ from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import SamplerConfig, make_plan, run_sampler
 from .sampling.solvers import SOLVERS, get_solver
+from .utils import image as image_mod
 from .utils.log import g_logger as log
 
 
@@ -95,8 +99,8 @@ def _model_types() -> Dict[str, ModelTypeDef]:
 
 
 def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
-    """The modules the session loads for ``mt``, by parameter-name prefix,
-    on the meta device."""
+    """The modules the session loads for ``mt`` to run txt2img, by
+    parameter-name prefix, on the meta device."""
     with torch.device("meta"):
         if not getattr(mt.unet_p, "flow", False):
             towers = {"clip.text.": clip_mod.ClipText(mt.clip_p)}
@@ -111,6 +115,13 @@ def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
                 "vae.": vae_mod.VaeDecoder(mt.vae_p)}
 
 
+def build_encoders(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
+    """The VAE encoder (its names under ``vae.``, beside the decoder's),
+    which the session loads on its first image, on the meta device."""
+    with torch.device("meta"):
+        return {"vae.": vae_mod.VaeEncoder(mt.vae_p)}
+
+
 def _id_norm(s: str) -> str:
     """Case/hyphen-insensitive option and enum names, '+' matches 'p'."""
     return s.lower().replace("-", "_").replace("+", "p")
@@ -119,10 +130,14 @@ def _id_norm(s: str) -> str:
 _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "image_dim", "steps", "seed", "cfg_scale", "method", "scheduler",
             "batch_size", "no_prompt_parse", "s_noise", "s_ancestral",
-            "clip_skip", "tae", "aux_dir", "callback")
+            "clip_skip", "tae", "aux_dir", "callback", "image", "image_mask",
+            "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
+            "tensor_use_flags")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
-_STR_OPTIONS = ("model", "tae", "aux_dir", "prompt", "nprompt")
+_STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt")
+# options that take an object, never a string
+_OBJ_OPTIONS = ("callback", "image", "image_mask")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
 # the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
 # ``method`` or ``scheduler`` value indexes them
@@ -139,9 +154,14 @@ _WEIGHT_TYPES = {"f32": (torch.float32, 0), "f16": (torch.bfloat16, 0),
                  "q8_0": (None, 8), "q5_k": (None, 8), "q6_k": (None, 8),
                  "q4_0": (None, 4), "q4_1": (None, 4), "q4_k": (None, 4)}
 # progress stages, indexes into STAGE_NAMES (the JAX package's ``STAGE_*``)
-STAGE_IDLE, STAGE_COND_ENCODE, STAGE_IMAGE_DECODE, STAGE_DENOISE = 0, 1, 3, 4
+STAGE_IDLE, STAGE_COND_ENCODE, STAGE_IMAGE_ENCODE = 0, 1, 2
+STAGE_IMAGE_DECODE, STAGE_DENOISE = 3, 4
 STAGE_NAMES = ["idle", "cond_encode", "image_encode", "image_decode",
                "denoise"]
+# which of ``tensors`` a request uses (``tensor_use_flags``; the JAX
+# package's ``TUF_*``, ``mlimgsynth_tpu/api.py:77-81``): the image to
+# encode, its mask, a latent to start from, a latent mask
+TUF_IMAGE, TUF_MASK, TUF_LATENT, TUF_LMASK = 1, 2, 4, 8
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
 
@@ -221,7 +241,8 @@ class MLImgSynth:
                   "scheduler": "uniform", "n_batch": 1,
                   "no_prompt_parse": False, "clip_skip": 0,
                   "s_noise": 0.0, "s_ancestral": 0.0, "tae": "",
-                  "aux_dir": ""}
+                  "aux_dir": "", "f_t_ini": 1.0, "f_t_end": 0.0,
+                  "lora_dir": "", "tuflags": 0}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -234,12 +255,23 @@ class MLImgSynth:
         self.infotext = ""
         self._nfe = 0
         self.tensors: Dict[str, Optional[np.ndarray]] = {
-            k: None for k in ("image", "latent", "cond", "ncond", "label",
-                              "nlabel")}
+            k: None for k in ("image", "mask", "latent", "lmask", "cond",
+                              "ncond", "label", "nlabel")}
+        # (path, multiplier, from a prompt tag); tag LoRAs last one request
+        self.loras: List[Tuple[str, float, bool]] = []
+        # seconds of the last setup and request: "load_s" (a whole load or
+        # a LoRA reload, its merges included), "lora_merge_s",
+        # "encoder_load_s", "image_encode_s", "generate_s"
+        self.times: Dict[str, float] = {}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
+        self._encoders: Dict[str, torch.nn.Module] = {}
         self._loaded = ""
         self._tae_loaded = ""
+        # the LoRA list the loaded weights hold, and the module prefixes
+        # its merges touched
+        self._lora_state: Tuple[Tuple[str, float], ...] = ()
+        self._lora_prefixes: set = set()
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -332,10 +364,73 @@ class MLImgSynth:
             c[opt] = _float(v)
         elif opt == "clip_skip":
             c["clip_skip"] = _int(v)
-        elif opt in ("tae", "aux_dir"):
+        elif opt in ("tae", "aux_dir", "lora_dir"):
             c[opt] = str(v)
         elif opt == "callback":
             self.callback = v
+        elif opt == "image":
+            self._image_set(v)
+        elif opt == "image_mask":
+            t = np.asarray(v, np.float32)
+            if t.ndim != 4 or t.shape[1] != 1:
+                raise MlisError(MlisError.E_IMAGE,
+                                "mask must have one channel")
+            self.tensors["mask"] = t
+            c["tuflags"] |= TUF_MASK
+        elif opt == "f_t_ini":
+            c["f_t_ini"] = _float(v, 1.0)
+        elif opt == "f_t_end":
+            c["f_t_end"] = _float(v)
+        elif opt == "lora":
+            mult = _float(args[1], 1.0) if len(args) > 1 else 1.0
+            self._lora_add(str(v), mult, from_prompt=False)
+        elif opt == "lora_clear":
+            self.loras.clear()
+        elif opt == "tensor_use_flags":
+            c["tuflags"] = _int(v)
+
+    def _image_set(self, img) -> None:
+        """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
+        becomes the mask (``_image_set``, ``mlimgsynth_tpu/api.py:771-786``).
+        """
+        img = np.asarray(img)
+        if img.dtype == np.uint8:
+            t = image_mod.tensor_from_image_arr(img)
+        else:
+            t = np.asarray(img, np.float32)
+        if t.ndim != 4:
+            raise MlisError(MlisError.E_IMAGE,
+                            f"invalid image shape {t.shape}")
+        if t.shape[1] == 4:
+            rgb, mask = image_mod.image_alpha_split(t)
+            self.tensors["mask"] = np.ascontiguousarray(mask)
+            t = np.ascontiguousarray(rgb)
+            self.c["tuflags"] |= TUF_MASK
+        elif t.shape[1] != 3:
+            raise MlisError(MlisError.E_IMAGE,
+                            f"invalid number of channels: {t.shape[1]}")
+        self.tensors["image"] = t
+        self.c["tuflags"] |= TUF_IMAGE
+
+    def _lora_find(self, name: str) -> str:
+        """A LoRA file: ``name`` as a path, else ``NAME.safetensors`` under
+        ``lora_dir``, then under ``aux_dir`` (``_lora_find``,
+        ``mlimgsynth_tpu/api.py:637-650``)."""
+        if os.path.exists(name):
+            return name
+        base = self.c["lora_dir"]
+        path = (os.path.join(base, name + ".safetensors") if base
+                else name + ".safetensors")
+        if os.path.exists(path):
+            return path
+        aux = self._aux_find(path)
+        if aux != path and os.path.exists(aux):
+            return aux
+        raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                        f"lora model file not found '{path}'")
+
+    def _lora_add(self, name: str, mult: float, from_prompt: bool) -> None:
+        self.loras.append((self._lora_find(name), mult, from_prompt))
 
     def option_set_str(self, name: str, value: Optional[str]) -> None:
         """Set an option from its string form, as the CLI does (the JAX
@@ -349,7 +444,7 @@ class MLImgSynth:
         value = value if value is not None else ""
         if opt in _STR_OPTIONS:
             self.option_set(opt, value)
-        elif opt == "callback":
+        elif opt in _OBJ_OPTIONS:
             raise MlisError(MlisError.E_OPT_VALUE,
                             f"option '{opt}' cannot be set with a string "
                             "value")
@@ -357,9 +452,9 @@ class MLImgSynth:
             self.option_set(opt, *_split_args(value))
 
     def _aux_find(self, path: str) -> str:
-        """An auxiliary file (the TAE weights) that does not exist relative
-        to the working directory is looked up under ``aux_dir`` (the JAX
-        package's ``_aux_find``)."""
+        """An auxiliary file (the TAE weights, a LoRA) that does not exist
+        relative to the working directory is looked up under ``aux_dir``
+        (the JAX package's ``_aux_find``)."""
         if path and not os.path.exists(path) and self.c["aux_dir"]:
             cand = os.path.join(self.c["aux_dir"], path)
             if os.path.exists(cand):
@@ -384,6 +479,9 @@ class MLImgSynth:
         return tok_mod.tokenize(text)
 
     def _prompt_set(self, key: str, text: str) -> None:
+        """Parse a prompt; its ``<lora:NAME:MULT>`` tags join the LoRA list
+        for one request, those of an earlier prompt leave it
+        (``mlimgsynth_tpu/api.py:593-628``)."""
         self.c[key + "_raw"] = text
         if self.c["no_prompt_parse"]:
             parsed = prompt_mod.prompt_set_raw(text)
@@ -393,34 +491,50 @@ class MLImgSynth:
             except prompt_mod.PromptParseError as e:
                 raise MlisError(MlisError.E_PROMPT_PARSE, str(e))
             _, edited = prompt_mod.expand_editing(text, 0, 1000)
-            if parsed.loras or parsed.embeds or edited:
+            if parsed.embeds or edited:
                 raise MlisError(MlisError.E_OPT_VALUE,
-                                "LoRA tags, embeddings and prompt editing "
-                                "are not supported by the PyTorch port")
+                                "embeddings and prompt editing are not "
+                                "supported by the PyTorch port")
+            if key == "prompt":
+                self.loras = [l for l in self.loras if not l[2]]
+            for name, mult in parsed.loras:
+                self._lora_add(name, mult, from_prompt=True)
         setattr(self, key, parsed)
 
     # -- setup --------------------------------------------------------------
 
     def setup(self) -> None:
-        """Load the model onto the session's device (once per model file),
-        and the TAE decoder where the ``tae`` option names one."""
+        """Load the model onto the session's device (once per model file,
+        weight type and device) with the current LoRAs merged, and the TAE
+        where the ``tae`` option names one (the VAE encoder loads on the
+        first ``image_encode``).  A changed LoRA list reloads the modules
+        that the old list or the new one patches, from the file, so no
+        merge outlives its list."""
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
         key = f"{path}|{self.dtype}|{self.qbits}|{self.device}"
+        loras = tuple((p, m) for p, m, _ in self.loras)
         if self._loaded != key:
-            self._load_model(path)
+            self._models, self._encoders = {}, {}
+            self._load_model(path, loras)
             self._loaded = key
             self._tae_loaded = ""
+        elif loras != self._lora_state:
+            old = self._lora_prefixes
+            self._load_model(path, loras, reload=True)
+            log.info(f"LoRA list changed: reloaded "
+                     f"{', '.join(sorted(old | self._lora_prefixes))} "
+                     f"{{{self.times['load_s']:.3f}s}}")
         tae = self._aux_find(self.c["tae"])
         if tae and self._tae_loaded != tae:
             self._load_tae(tae)
             self._tae_loaded = tae
 
     def _load_tae(self, path: str) -> None:
-        """The TAE decoder from its own taesd file
-        (``mlimgsynth_tpu/api.py:942-976``, ``:1164-1181``); its latent
-        width must be the model family's."""
+        """The TAE decoder, and its encoder where the file holds one, from
+        its own taesd file (``mlimgsynth_tpu/api.py:942-976``,
+        ``:1164-1181``); its latent width must be the model family's."""
         if not os.path.exists(path):
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
                             f"tae file not found '{path}'")
@@ -432,9 +546,19 @@ class MLImgSynth:
                 f"family's ({self._mt.vae_p.ch_z}) - e.g. taesd is for SD, "
                 "taesd3 for SD3")
         self._models["tae."] = m
+        enc = weights_mod.load_tae(path, self.device, self.dtype,
+                                   encoder=True)
+        self._encoders.pop("tae.", None)
+        if enc is not None:
+            self._encoders["tae."] = enc
         log.info(f"TAE loaded: {path} ({m.P})")
 
-    def _load_model(self, path: str) -> None:
+    def _load_model(self, path: str, loras, reload: bool = False,
+                    encoders: bool = False) -> None:
+        """Load modules from the model file with ``loras`` ((path,
+        multiplier) pairs) merged on the host first: every txt2img module,
+        or (``reload``) those that the loaded list or ``loras`` patches, or
+        (``encoders``) the VAE encoder."""
         if not os.path.exists(path):
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
                             f"model file not found '{path}'")
@@ -442,23 +566,36 @@ class MLImgSynth:
         store = TensorStore.open(path)
         try:
             name_map = weights_mod.build_name_map(store)
-            types = _model_types()
-            mt = weights_mod.identify_model(
-                store, name_map, {d.unet_p.n_ctx: k for k, d in types.items()})
-            if mt is None and self._mt is None:
-                raise MlisError(MlisError.E_UNKNOWN,
-                                "could not detect the model type")
-            if self._mt is None:
-                self._option_set("model_type", mt)
-            models = build_models(self._mt)
+            if not (reload or encoders):
+                types = _model_types()
+                mt = weights_mod.identify_model(
+                    store, name_map,
+                    {d.unet_p.n_ctx: k for k, d in types.items()})
+                if mt is None and self._mt is None:
+                    raise MlisError(MlisError.E_UNKNOWN,
+                                    "could not detect the model type")
+                if self._mt is None:
+                    self._option_set("model_type", mt)
+            models = (build_encoders if encoders else build_models)(self._mt)
+            touched = self._lora_touched(name_map, loras, list(models))
+            if reload:
+                want = self._lora_prefixes | touched
+                models = {k: m for k, m in models.items() if k in want}
+                if "vae." in want:     # the encoder reloads on demand
+                    self._encoders.pop("vae.", None)
+            t1 = time.time()
+            self._lora_merge(store, name_map, loras, tuple(models))
+            if not encoders:
+                self.times["lora_merge_s"] = time.time() - t1
             # the DiT families store some 8-bit weights per column, decided
             # for the session's image size (``api.py:1229-1247``)
             m_hint = (dit_m_hint(self.c["height"] or 1024,
                                  self.c["width"] or 1024)
                       if self._flow() else None)
-            self._models = {}
+            target = self._encoders if encoders else self._models
             n_q = 0
             for prefix, m in models.items():
+                target.pop(prefix, None)   # free the old copy first
                 # read to the host, quantize there, then move to the device
                 params = weights_mod.load_params(
                     store, name_map, weights_mod.module_shapes(m, prefix),
@@ -468,13 +605,55 @@ class MLImgSynth:
                         m, prefix, params, self.qbits,
                         m_hint if prefix == "mmdit." else None)
                 params = {k: v.to(self.device) for k, v in params.items()}
-                self._models[prefix] = weights_mod.load_module(
+                target[prefix] = weights_mod.load_module(
                     m, prefix, params).eval()
         finally:
             store.close()
-        quant = f", {n_q} linears in int{self.qbits}" if self.qbits else ""
-        log.info(f"Model loaded: {self.c['model_type']} on {self.device} "
-                 f"({self.dtype}{quant}) {{{time.time() - t0:.3f}s}}")
+        if not encoders:
+            self._lora_state = tuple(loras)
+            self._lora_prefixes = touched
+        secs = time.time() - t0
+        self.times["encoder_load_s" if encoders else "load_s"] = secs
+        quant = f", {n_q} linears in int{self.qbits}" if n_q else ""
+        what = ("VAE encoder" if encoders else ", ".join(models) if reload
+                else f"Model {self.c['model_type']}")
+        log.info(f"{what} loaded on {self.device} ({self.dtype}{quant}, "
+                 f"{len(loras)} LoRAs) {{{secs:.3f}s}}")
+
+    def _lora_touched(self, name_map, loras, prefixes) -> set:
+        """The module prefixes among ``prefixes`` whose weights ``loras``
+        patch, from the LoRA files' tensor names."""
+        out = set()
+        for path, _ in loras:
+            lstore = TensorStore.open(path)
+            try:
+                names = weights_mod.lora_targets(name_map, lstore)
+            finally:
+                lstore.close()
+            out |= {p for p in prefixes for n in names if n.startswith(p)}
+        return out
+
+    def _lora_merge(self, store, name_map, loras, prefixes) -> None:
+        """Merge ``loras`` into ``store``'s cache, for the weights of the
+        modules at ``prefixes`` (``_loras_apply``,
+        ``mlimgsynth_tpu/api.py:1071-1093``)."""
+        for path, mult in loras:
+            lstore = TensorStore.open(path)
+            err = None
+            try:
+                n = weights_mod.lora_apply(
+                    store, name_map, lstore, mult,
+                    only=lambda name: name.startswith(prefixes))
+            except FloatingPointError as e:
+                err = MlisError(MlisError.E_NAN, str(e))
+            except KeyError as e:
+                err = MlisError(MlisError.E_UNKNOWN, f"lora '{path}': {e}")
+            # raised once the failed merge's frames, which hold views of
+            # the mapped files, are gone, so that the files can close
+            lstore.close()
+            if err is not None:
+                raise err
+            log.debug(f"lora '{path}' patched {n} tensors")
 
     def _flow(self) -> bool:
         return bool(getattr(self._mt.unet_p, "flow", False))
@@ -553,16 +732,84 @@ class MLImgSynth:
         return (torch.cat([clip_part, t5_part], dim=1),
                 torch.cat([feat1, feat2], dim=-1))
 
+    @torch.no_grad()
+    def image_encode(self, img: np.ndarray) -> np.ndarray:
+        """img NCHW [n, 3, h, w] in [0, 1] -> the sampler's latent [n, ch_z,
+        h/8, w/8] (``image_encode``, ``mlimgsynth_tpu/api.py:1872-1883``):
+        with the TAE, its encoder's output; else a sample of the VAE
+        encoder's moments (``vae.latent_sample``, in f32), whose noise
+        sample i draws from ``RngPhilox(seed + i, offset)``, after which the
+        session's offset moves on (``:1969-1991``), so the plan's noise
+        follows it.  The sample subtracts the VAE's ``shift_factor`` (SD3),
+        as the decoder adds it back."""
+        self.setup()
+        if not self.c["tae"] and "vae." not in self._encoders:
+            self._load_model(self.c["model"], self._lora_state,
+                             encoders=True)
+        t0 = time.time()
+        x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
+            self.device)
+        if self.c["tae"]:
+            enc = self._encoders.get("tae.")
+            if enc is None:
+                raise MlisError(MlisError.E_IMAGE,
+                                "the TAE file holds no encoder")
+            lat = enc(x).float()
+        else:
+            P = self._mt.vae_p
+            mom = self._encoders["vae."](x * 2.0 - 1.0)
+            n, _, h, w = mom.shape
+            streams = [RngPhilox(self.rng.seed + i, self.rng.offset)
+                       for i in range(n)]
+            rand = np.stack([st.randn_shaped((P.ch_z, h, w))
+                             for st in streams]).astype(np.float32)
+            self.rng.offset = streams[0].offset
+            lat = vae_mod.latent_sample(
+                mom, torch.from_numpy(rand).to(self.device), P)
+        if not torch.isfinite(lat).all():
+            raise MlisError(MlisError.E_NAN, "NaN found in encoded latent")
+        out = lat.cpu().numpy()
+        self.times["image_encode_s"] = time.time() - t0
+        self._cb(STAGE_IMAGE_ENCODE, 1, 1)
+        return out
+
+    def mask_encode(self, mask: np.ndarray) -> np.ndarray:
+        """Image mask -> latent mask by block-mean downsize (reference:
+        mlis_mask_encode)."""
+        f = self._mt.vae_p.f_down if self._mt else 8
+        return image_mod.mask_downsize(np.asarray(mask, np.float32), f)
+
     def generate(self) -> np.ndarray:
-        """Run txt2img with the current options; returns the image."""
+        """Run a request with the current options; returns the image.  With
+        an ``image`` the initial latent is its encoding (img2img, the
+        schedule cut at ``f_t_ini``); with a mask (``image_mask``, the
+        image's alpha) the masked-in region (1 = KEEP) stays that latent."""
         self.setup()
         c = self.c
         t_start = time.time()
         self._nfe = 0
+        self.times.pop("image_encode_s", None)
         f = self._mt.vae_p.f_down
         n = c["n_batch"]
-        latent = np.zeros((n, self._mt.vae_p.ch_z, c["height"] // f,
-                           c["width"] // f), np.float32)
+        h, w = c["height"] // f, c["width"] // f
+        if c["tuflags"] & TUF_IMAGE:
+            img = self.tensors["image"]
+            if img.shape[0] != n:
+                img = np.repeat(img, n // img.shape[0], axis=0)
+            self.tensors["latent"] = self.image_encode(img)
+            c["tuflags"] |= TUF_LATENT
+        if c["tuflags"] & TUF_LATENT:
+            latent = np.asarray(self.tensors["latent"], np.float32)
+            if latent.shape[0] < n:
+                latent = np.repeat(latent, n, axis=0)
+            h, w = latent.shape[2], latent.shape[3]
+        else:
+            latent = np.zeros((n, self._mt.vae_p.ch_z, h, w), np.float32)
+        if c["tuflags"] & TUF_MASK:
+            self.tensors["lmask"] = self.mask_encode(self.tensors["mask"])
+            c["tuflags"] |= TUF_LMASK
+        lmask = (np.asarray(self.tensors["lmask"], np.float32)
+                 if c["tuflags"] & TUF_LMASK else None)
         use_cfg = c["cfg_scale"] > 1
         cond, label = self._text_cond([self.prompt, self.nprompt] if use_cfg
                                       else [self.prompt])
@@ -582,7 +829,8 @@ class MLImgSynth:
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
                              n_step=c["steps"], cfg_scale=c["cfg_scale"],
                              s_ancestral=c["s_ancestral"],
-                             s_noise=c["s_noise"],
+                             s_noise=c["s_noise"], f_t_ini=c["f_t_ini"],
+                             f_t_end=c["f_t_end"],
                              flow_shift=self._mt.unet_p.flow_shift if flow
                              else 0.0)
         nfe_per_dxdt = 2 if use_cfg else 1
@@ -598,7 +846,8 @@ class MLImgSynth:
                             step_observer=self.step_observer,
                             label_all=label_all,
                             step_callback=(step_cb if self.callback
-                                           else None))
+                                           else None),
+                            lmask=lmask)
             # evaluations run: a 2-evaluation solver's last step has one
             n_fe = get_solver(c["method"]).n_fe
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
@@ -621,12 +870,15 @@ class MLImgSynth:
                                       else None)
         self.tensors["image"] = u8.cpu().numpy().astype(np.float32) / 255.0
         self._cb(STAGE_IMAGE_DECODE, 1, 1)
-        self._infotext_update(c["width"], c["height"], plan.n_step)
+        self._infotext_update(w * f, h * f, plan.n_step,
+                              "inpaint" if lmask is not None else "img2img")
         self._prompt_clear()
-        log.info(f"Generation done {{{time.time() - t_start:.3f}s}}")
+        self.times["generate_s"] = time.time() - t_start
+        log.info(f"Generation done {{{self.times['generate_s']:.3f}s}}")
         return self.tensors["image"]
 
-    def _infotext_update(self, w: int, h: int, n_step: int) -> None:
+    def _infotext_update(self, w: int, h: int, n_step: int,
+                         mode: str = "img2img") -> None:
         """The A1111-compatible 'parameters' text, for the options the port
         has (``_infotext_update``, ``mlimgsynth_tpu/api.py:3236-3300``)."""
         c = self.c
@@ -643,6 +895,8 @@ class MLImgSynth:
             out.append(f", SNoise: {c['s_noise']:g}")
         if c["cfg_scale"] > 1:
             out.append(f", CFG scale: {c['cfg_scale']:g}")
+        if c["f_t_ini"] < 1:
+            out.append(f", Mode: {mode}, f_t_ini: {c['f_t_ini']:g}")
         out.append(f", Steps: {n_step}, NFE: {self._nfe}, Size: {w}x{h}"
                    f", Clip skip: {c['clip_skip']}")
         model = os.path.splitext(os.path.basename(c["model"]))[0]
@@ -653,5 +907,10 @@ class MLImgSynth:
         self.infotext = "".join(out)
 
     def _prompt_clear(self) -> None:
-        """One-shot options cleared after generate (ref: mlis_prompt_clear)."""
-        self.c["prompt_raw"] = self.c["nprompt_raw"] = ""
+        """One-shot options cleared after generate (ref: mlis_prompt_clear,
+        ``mlimgsynth_tpu/api.py:2731-2741``): the prompts, ``f_t_ini`` and
+        ``f_t_end``, the tensor flags and the prompt tags' LoRAs."""
+        c = self.c
+        c["prompt_raw"] = c["nprompt_raw"] = ""
+        c["f_t_ini"], c["f_t_end"], c["tuflags"] = 1.0, 0.0, 0
+        self.loras = [l for l in self.loras if not l[2]]

@@ -5,16 +5,21 @@ The same command and flag surface as the JAX package's CLI for the commands
 the port has: ``generate``, ``tokenize``, ``help`` and ``version``.  Short
 options, unknown long options forwarded to the session's option table
 (``option_set_str``), ``-`` as stdout (PPM), progress on stderr, latent
-output via ``--olatent`` and the PNG's ``parameters`` text.  The other
-commands of the JAX CLI exit 1 and say so.
+input and output via ``--ilatent``/``--olatent`` and the PNG's
+``parameters`` text; ``-i`` (PNG or binary PPM/PGM, ``-`` for stdin) for
+img2img, its alpha or ``--imask`` (first channel) for inpainting, and
+``--lora`` / ``<lora:NAME:MULT>``.  The other commands of the JAX CLI exit 1
+and say so.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
 session's error; there is no silent CPU fallback.  Options the port does
-not have (``-i``, ``--lora``, ...) exit 1 as unknown options.
+not have (``--vae-tile``, ...) exit 1 as unknown options.
 
     python -m mlimgsynth_torch.cli generate -m sd2.safetensors -d 768 \\
         -s 20 --method dpmpp2m -S 42 -p "..." -o out.png
+    python -m mlimgsynth_torch.cli generate -m sd15.safetensors -i in.png \\
+        --f-t-ini 0.6 --lora style.safetensors,0.8 -p "..." -o out.png
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import List, Optional
 HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
 Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base and 3-medium are
-implemented, decoded by the VAE or the TAE (--tae).
+implemented: txt2img, img2img and inpainting, with LoRAs; images are
+encoded and decoded by the VAE or the TAE (--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
@@ -40,16 +46,31 @@ Generation options:
   -n --nprompt TEXT    Negative prompt.
   -d --image-dim W,H   Image dimensions. Default: 512 (SD1), 768 (SD2),
                        1024 (SDXL, SD3).
+  -i --input PATH      Input image for img2img or inpainting (PNG or
+                       binary PPM/PGM; - for stdin). Its alpha channel,
+                       where it has one, is the inpainting mask.
+  --imask PATH         Input image mask for inpainting (first channel;
+                       white keeps, black repaints).
   -o --output PATH     Output image path (.png or .ppm; - for stdout as
                        PPM). A batch writes PATH-IDX.EXT.
+  --ilatent PATH       Input latent tensor.
+  --ilmask PATH        Input latent mask tensor.
   --olatent PATH       Output latent tensor path.
-  --no-prompt-parse B  Use the prompt as raw text (no emphasis parsing).
+  --no-prompt-parse B  Use the prompt as raw text (no emphasis or LoRA
+                       tag parsing).
+  --f-t-ini FLOAT      Initial time factor (img2img strength; default 1).
+  --f-t-end FLOAT      End time factor (default 0).
 
 Models and backend:
   -m --model PATH      Model file (safetensors or GGUF).
   --model-type NAME    sd1, sd2, sdxl, sd3 (default: detected).
   --tae PATH           TAE model file. Enables TAE instead of VAE.
-  --aux-dir PATH       Directory searched for a relative --tae path.
+  --aux-dir PATH       Directory searched for a relative --tae or LoRA
+                       path.
+  --lora PATH,MULT     Apply a LoRA (multiplier optional; repeatable).
+                       <lora:NAME:MULT> in a prompt applies NAME for one
+                       request.
+  --lora-dir PATH      Directory searched for <lora:NAME:MULT> prompt tags.
   -b --backend NAME    cuda (default) or cpu.
   --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
   --batch-size INT     Images per batch.
@@ -86,7 +107,7 @@ SHORT_OPTS = {
 
 # long options handled by the CLI itself; everything else forwards to the
 # session's option table
-CLI_PATH_OPTS = ("output", "olatent")
+CLI_PATH_OPTS = ("input", "imask", "ilatent", "ilmask", "output", "olatent")
 # the JAX CLI's commands the port does not have
 NOT_PORTED = ("serve", "list-backends", "vae-encode", "vae-decode",
               "vae-test", "clip-encode", "upscale", "check")
@@ -152,6 +173,26 @@ def parse_args(argv: List[str]) -> CliState:
     return st
 
 
+def _load_image(path: str):
+    """An input image file as uint8 [h, w, c]; ``-`` reads it from stdin."""
+    from .utils import image as image_mod
+    if path == "-":
+        return image_mod.image_load_bytes(sys.stdin.buffer.read(), "stdin")
+    return image_mod.image_load(path)
+
+
+def _load_tensor(path: str):
+    from .api import MlisError
+    from .utils import image as image_mod
+    if not os.path.isfile(path):
+        raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                        f"tensor file not found '{path}'")
+    try:
+        return image_mod.tensor_load(path)
+    except ValueError as e:
+        raise MlisError(MlisError.E_IMAGE, f"{path}: {e}")
+
+
 def _save_image(img_u8, infotext: Optional[str], path: str) -> None:
     from .utils import image as image_mod
     if path == "-":
@@ -181,7 +222,23 @@ def _progress_printer():
 
 
 def cmd_generate(session, state: CliState) -> int:
+    """The inputs (``mlimgsynth_tpu/cli.py:269-287``), the request, the
+    outputs."""
+    from .api import TUF_LATENT, TUF_LMASK
     from .utils import image as image_mod
+    paths = state.paths
+    if paths["input"]:
+        session.option_set("image", _load_image(paths["input"]))
+    if paths["imask"]:
+        m = _load_image(paths["imask"])
+        session.option_set("image_mask",
+                           image_mod.tensor_from_image_arr(m)[:, :1])
+    if paths["ilatent"]:
+        session.tensors["latent"] = _load_tensor(paths["ilatent"])
+        session.c["tuflags"] |= TUF_LATENT
+    if paths["ilmask"]:
+        session.tensors["lmask"] = _load_tensor(paths["ilmask"])
+        session.c["tuflags"] |= TUF_LMASK
     session.generate()
     if state.paths["olatent"]:
         image_mod.tensor_save(state.paths["olatent"],

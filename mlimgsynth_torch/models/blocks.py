@@ -137,13 +137,18 @@ class GroupNorm(nn.Module):
 
 
 class Downsample(nn.Module):
-    """ref: mlb_downsample.  Stride-2 3x3 conv, symmetric pad 1."""
+    """ref: mlb_downsample.  Stride-2 3x3 conv, symmetric pad 1; the VAE
+    encoder's (``vae=True``) pads 0 before and 1 after on both spatial dims
+    (``mlimgsynth_tpu/models/blocks.py:213-219``)."""
 
-    def __init__(self, ch_in: int, ch_out: int):
+    def __init__(self, ch_in: int, ch_out: int, vae: bool = False):
         super().__init__()
-        self.conv = conv2d(ch_in, ch_out, 3, 2, 1)
+        self.vae = vae
+        self.conv = conv2d(ch_in, ch_out, 3, 2, 0 if vae else 1)
 
     def forward(self, x):
+        if self.vae:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

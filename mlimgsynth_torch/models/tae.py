@@ -1,9 +1,11 @@
-"""Tiny autoencoder decoder (port of ``mlimgsynth_tpu/models/tae.py``;
-madebyollin/taesd, the diffusers AutoencoderTiny layout).
+"""Tiny autoencoder (port of ``mlimgsynth_tpu/models/tae.py``;
+madebyollin/taesd, the diffusers AutoencoderTiny layout): the encoder and
+the decoder.
 
 ``state_dict`` names match the taesd file below the ``tae.`` prefix
-(``decoder.layers.N.conv.0.weight`` ...): the session loads the TAE from its
-own file.  Only the decoder is ported (txt2img needs no encoder).
+(``encoder.layers.N.conv.0.weight``, ``decoder.layers.N.conv.0.weight``
+...): the session loads the TAE from its own file.  Neither has
+attention.
 """
 from __future__ import annotations
 
@@ -60,6 +62,36 @@ class TaeBlock(nn.Module):
         y = F.relu(self.conv["0"](x))
         y = self.conv["4"](F.relu(self.conv["2"](y)))
         return F.relu(y + (self.skip(x) if hasattr(self, "skip") else x))
+
+
+class TaeEncoder(nn.Module):
+    """image [N, 3, H, W] in [0, 1] -> latent [N, ch_z, H/8, W/8] (the
+    sampler's latent, unscaled) (ref: mlb_sdtae_encoder,
+    ``tae_encode_apply``, ``mlimgsynth_tpu/models/tae.py:42-56``): a conv,
+    a block, then three times a stride-2 conv without bias and ``n_blk``
+    blocks, and the output conv."""
+
+    def __init__(self, P: TaeParams = TAE_SD1):
+        super().__init__()
+        self.P = P
+        ch = P.ch_inner
+        layers = {"0": B.conv2d(P.ch_x, ch), "1": TaeBlock(ch, ch)}
+        i = 2
+        for _ in range(3):
+            layers[str(i)] = B.conv2d(ch, ch, 3, 2, 1, bias=False)
+            i += 1
+            for _ in range(P.n_blk):
+                layers[str(i)] = TaeBlock(ch, ch)
+                i += 1
+        layers[str(i)] = B.conv2d(ch, P.ch_z)
+        self.encoder = nn.ModuleDict({"layers": nn.ModuleDict(layers)})
+
+    def forward(self, img):
+        layers = self.encoder["layers"]
+        x = img.to(layers["0"].weight.dtype)
+        for m in layers.values():
+            x = m(x)
+        return x
 
 
 class TaeDecoder(nn.Module):

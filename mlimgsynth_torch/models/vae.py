@@ -1,8 +1,11 @@
-"""KL autoencoder decoder (port of ``mlimgsynth_tpu/models/vae.py``).
+"""KL autoencoder (port of ``mlimgsynth_tpu/models/vae.py``): the encoder
+(img2img and inpainting), the decoder, and the latent's mean and sample.
 
 ``state_dict`` names match the internal scheme below the ``vae.`` prefix
-(``decoder.up.0.block.0.norm1.weight`` ...).  Only the decoder is ported in
-this slice (txt2img needs no encoder).
+(``encoder.down.0.block.0.norm1.weight``,
+``decoder.up.0.block.0.norm1.weight`` ...).  Both mid-blocks' single-head
+attention over the whole 512-wide feature map reaches the K2 kernel on the
+card (``ops/attention.py``).
 """
 from __future__ import annotations
 
@@ -66,6 +69,87 @@ class Attn2dSelf(nn.Module):
         o = attention(q, k, v)[:, 0]                          # scale 1/sqrt(C)
         o = self._lin(self.proj_out, o)
         return o.transpose(1, 2).reshape(n, c, h, w) + x
+
+
+class _DownLevel(nn.Module):
+    def __init__(self, ch_in: int, ch_out: int, n_blk: int, downsample: bool):
+        super().__init__()
+        self.block = nn.ModuleList(
+            B.Resnet(ch_in if j == 0 else ch_out, ch_out)
+            for j in range(n_blk))
+        if downsample:
+            self.downsample = B.Downsample(ch_out, ch_out, vae=True)
+
+
+class KlEncoder(nn.Module):
+    """ref: mlb_kl_encoder (``kl_encoder``,
+    ``mlimgsynth_tpu/models/vae.py:64-82``): ``ch_out`` output channels
+    (the moments: mean and log-variance)."""
+
+    def __init__(self, P: VaeParams, ch_out: int):
+        super().__init__()
+        self.conv_in = B.conv2d(P.ch_x, P.ch)
+        down, ch = [], P.ch
+        for i in range(P.n_res):
+            ch_out_i = P.ch * P.ch_mult[i]
+            down.append(_DownLevel(ch, ch_out_i, P.n_res_blk,
+                                   i + 1 != P.n_res))
+            ch = ch_out_i
+        self.down = nn.ModuleList(down)
+        self.mid = nn.ModuleDict({"block_1": B.Resnet(ch, ch),
+                                  "attn_1": Attn2dSelf(ch),
+                                  "block_2": B.Resnet(ch, ch)})
+        self.norm_out = B.GroupNorm(ch)
+        self.conv_out = B.conv2d(ch, ch_out)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for lvl in self.down:
+            for blk in lvl.block:
+                x = blk(x)
+            if hasattr(lvl, "downsample"):
+                x = lvl.downsample(x)
+        for m in self.mid.values():
+            x = m(x)
+        return self.conv_out(B.silu(self.norm_out(x)))
+
+
+class VaeEncoder(nn.Module):
+    """image [N, 3, H, W] in [-1, 1] -> moments [N, 2 ch_z, H/8, W/8] in
+    the compute dtype (ref: mlb_sdvae_encoder, ``vae_encode_apply``,
+    ``mlimgsynth_tpu/models/vae.py:105-112``), through the ``quant_conv``
+    where the VAE has one.  Names below the ``vae.`` prefix."""
+
+    def __init__(self, P: VaeParams):
+        super().__init__()
+        self.P = P
+        self.encoder = KlEncoder(P, P.ch_z * 2)
+        if P.quant_conv:
+            self.quant_conv = B.conv2d(P.ch_z * 2, P.ch_z * 2, 1, 1, 0)
+
+    def forward(self, img):
+        x = self.encoder(img.to(self.encoder.conv_in.weight.dtype))
+        if self.P.quant_conv:
+            x = self.quant_conv(x)
+        return x
+
+
+def latent_mean(moments, P: VaeParams):
+    """moments [N, 2 ch_z, h, w] -> (mean - shift) * scale, f32
+    (ref: sdvae_latent_mean, ``mlimgsynth_tpu/models/vae.py:128-131``)."""
+    return (moments[:, :P.ch_z].float() - P.shift_factor) * P.scale_factor
+
+
+def latent_sample(moments, rand, P: VaeParams):
+    """((mean + exp(logvar / 2) * rand) - shift) * scale in f32, the
+    log-variance clamped to [-30, 20] (ref: sdvae_latent_sample,
+    ``mlimgsynth_tpu/models/vae.py:134-140``); ``rand`` is standard normal
+    of the latent's shape."""
+    m = moments.float()
+    mean = m[:, :P.ch_z]
+    logvar = m[:, P.ch_z:].clamp(-30.0, 20.0)
+    z = mean + torch.exp(logvar * 0.5) * rand.float()
+    return (z - P.shift_factor) * P.scale_factor
 
 
 class _UpLevel(nn.Module):

@@ -12,6 +12,11 @@ timestep ``sigma * n_step_train``, the velocity output used as dx/dsigma,
 and the initial latent scaled by ``1 - sigma_0`` before the noise is added
 (``mlimgsynth_tpu/sampling/sampler.py:118``, ``:162-166``, ``:318-335``,
 ``:622-625``).
+
+img2img starts from an encoded latent over a schedule cut by ``f_t_ini``;
+inpainting also holds the kept region to that latent: a latent mask
+(1 = KEEP) is applied after the initial noise, after a churn draw and after
+every step (``_mask_apply``, JAX ``sampler.py:484-500``, ``:620-628``).
 """
 from __future__ import annotations
 
@@ -125,16 +130,24 @@ def _cfg_mix(d, n: int, cfg_scale: float):
     return d[:n] * cfg_scale + d[n:] * (1 - cfg_scale)
 
 
+def _mask_apply(x, x0, lmask):
+    """Inpainting mask re-application (src/sampling.c:98-110): 1 keeps
+    ``x0``."""
+    return x0 * lmask + x * (1.0 - lmask)
+
+
 def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 cond_all: torch.Tensor, cfg: SamplerConfig,
                 step_observer: Optional[Callable] = None,
                 label_all: Optional[torch.Tensor] = None,
-                step_callback: Optional[Callable] = None) -> torch.Tensor:
+                step_callback: Optional[Callable] = None,
+                lmask: Optional[np.ndarray] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
     hold the cond rows, then (with CFG) the uncond rows, on the model's
-    device.
+    device.  ``lmask`` ([N or 1, 1, h, w], 1 = KEEP) holds its region to
+    the un-noised ``x_init``.
     ``step_observer(i_step, latent_nchw_numpy)`` sees every step, and
     ``step_callback(i_step, n_step)`` is told of each (the session's
     progress).  Returns the final latent, f32 on the device."""
@@ -162,20 +175,28 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
 
     f32 = np.float32
     x = to_dev(x_init).float()
+    x0_keep = x
+    mask = None if lmask is None else to_dev(lmask).float()
     if flow:    # x_t = (1 - sigma) x0 + sigma noise
         x = x * f32(1.0 - float(plan.sigmas[0]))
     x = x + to_dev(plan.noise0) * f32(plan.sigmas[0])
+    if mask is not None:
+        x = _mask_apply(x, x0_keep, mask)
     t = f32(plan.sigmas[0])
     state = solver.init_state(x)
     for i in range(plan.n_step):
         churn = f32(plan.churn_sigma[i])
         if churn > 0:       # stochastic churn (src/sampling.c:138-151)
             x = x + to_dev(plan.churn_noise[i]) * churn
+            if mask is not None:
+                x = _mask_apply(x, x0_keep, mask)
             t = f32(plan.s_hat[i])
         x, state = solver.step(dxdt, x, state, i, t, f32(plan.s_down[i]))
         if plan.s_up[i] > 0:   # post-step ancestral noise
             x = x + to_dev(plan.anc_noise[i]) * f32(plan.s_up[i])
         t = f32(plan.t_next[i])
+        if mask is not None:
+            x = _mask_apply(x, x0_keep, mask)
         if step_observer is not None:
             step_observer(i + 1, x.cpu().numpy())
         if step_callback is not None:

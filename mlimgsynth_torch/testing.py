@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import nameconv
-from .api import ModelTypeDef, build_models
+from .api import ModelTypeDef, build_encoders, build_models
 from .models import mmdit as mmdit_mod
 from .models import tae as tae_mod
 from .models import unet as unet_mod
@@ -108,12 +108,16 @@ TINY_Q_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_Q_CLIP, TINY_Q_MMDIT,
                                      TINY_VAE_SD3, 512, 2, TINY_Q_CLIP2)
 
 
-def model_shapes(mt: ModelTypeDef) -> Dict[str, Tuple[int, ...]]:
+def model_shapes(mt: ModelTypeDef, encoders: bool = False
+                 ) -> Dict[str, Tuple[int, ...]]:
     """Internal name -> shape of every parameter the port loads for
-    ``mt`` (text towers, UNet or MMDiT, VAE decoder), built on the meta
-    device."""
+    ``mt`` to run txt2img (text towers, UNet or MMDiT, VAE decoder), built
+    on the meta device; with ``encoders``, then the VAE encoder's."""
     shapes = {}
-    for prefix, m in build_models(mt).items():
+    models = list(build_models(mt).items())
+    if encoders:
+        models += list(build_encoders(mt).items())
+    for prefix, m in models:
         shapes.update(module_shapes(m, prefix))
     return shapes
 
@@ -221,7 +225,7 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
     sdxl = mt.clip2_p is not None and not flow
     sd2 = mt.name == "sd2"
     out: Dict[str, tuple] = {}
-    for name, shape in model_shapes(mt).items():
+    for name, shape in model_shapes(mt, encoders=True).items():
         ck = (_sd3_ckpt_name(name) if flow else _sdxl_ckpt_name(name) if sdxl
               else _sd2_ckpt_name(name) if sd2
               else nameconv.internal_to_compvis(name))
@@ -315,12 +319,13 @@ def write_random_checkpoint(path, mt: ModelTypeDef, seed: int = 0,
 
 def write_random_tae(path, P: tae_mod.TaeParams = tae_mod.TAE_SD1,
                      seed: int = 0, dtype=np.float16) -> None:
-    """Seeded random taesd-format file of the decoder ``P`` at ``path``
-    (names without prefix, as madebyollin/taesd ships them; full width by
-    default: ``ch_inner`` 64, ``n_blk`` 3), drawn as the checkpoints above
-    are."""
+    """Seeded random taesd-format file of the decoder and the encoder ``P``
+    at ``path`` (names without prefix, as madebyollin/taesd ships them;
+    full width by default: ``ch_inner`` 64, ``n_blk`` 3), drawn as the
+    checkpoints above are, the decoder's first."""
     with torch.device("meta"):
         shapes = module_shapes(tae_mod.TaeDecoder(P), "")
+        shapes.update(module_shapes(tae_mod.TaeEncoder(P), ""))
     rng = np.random.default_rng(seed)
 
     def tensors():
@@ -332,6 +337,94 @@ def write_random_tae(path, P: tae_mod.TaeParams = tae_mod.TAE_SD1,
             yield name, arr
 
     write_safetensors(path, shapes, dtype, tensors())
+
+
+# kohya LoRA prefixes of the text towers: SD1/SD2 name their one tower
+# ``lora_te_``, SDXL its two ``lora_te1_`` / ``lora_te2_``
+_LORA_TE = {"clip.text.": "lora_te_", "clip2.text.": "lora_te2_"}
+_LORA_TE_XL = {"clip.text.": "lora_te1_", "clip2.text.": "lora_te2_"}
+
+
+def lora_name(internal: str, sdxl: bool = False) -> str:
+    """The kohya name stem of a LoRA for the weight ``internal``
+    (``<stem>.weight``, an internal name): ``lora_unet_...`` for the UNet
+    (its CompVis path with dots as underscores), ``lora_te_...`` /
+    ``lora_te1_`` / ``lora_te2_...`` for the text towers (their HF
+    transformers path), ``lora_unet_joint_blocks_...`` for the MMDiT's
+    joint blocks, ``lora_`` plus the CompVis path otherwise.  Checked to map
+    back onto ``internal``."""
+    stem = internal[:-len(".weight")]
+    te = _LORA_TE_XL if sdxl else _LORA_TE
+    pre = next((p for p in te if stem.startswith(p)), None)
+    if pre is not None:
+        t = "text_model." + stem[len(pre):]
+        for a, b in ((".embed.", ".embeddings."), (".norm1", ".layer_norm1"),
+                     (".norm2", ".layer_norm2"), (".attn.", ".self_attn.")):
+            t = t.replace(a, b)
+        name = te[pre] + t.replace(".", "_")
+    elif stem.startswith("mmdit.joint_blocks."):
+        name = "lora_unet_" + stem[len("mmdit."):].replace(".", "_")
+    else:
+        cv = nameconv.internal_to_compvis(internal)
+        if cv is None:
+            raise ValueError(f"no LoRA name for {internal}")
+        cv = cv[:-len(".weight")]
+        if cv.startswith("model.diffusion_model."):
+            cv = "unet_" + cv[len("model.diffusion_model."):].replace(
+                ".", "_")
+        name = "lora_" + cv
+    back = nameconv.normalize_lora_name(
+        name + ".lora_down.weight",
+        "mmdit" if internal.startswith("mmdit.") else "sd")
+    if back != stem + ".lora_down.weight":
+        raise ValueError(f"LoRA name {name} maps to {back}, not {internal}")
+    return name
+
+
+def lora_attention_targets(mt: ModelTypeDef,
+                           towers: Tuple[str, ...] = ("clip.text.",)):
+    """Every UNet attention projection (self and cross: q, k, v, out) and
+    the MLP weights (fc1, fc2) of the text towers at ``towers``: the
+    targets of a typical style LoRA."""
+    proj = re.compile(r"\.attn[12]\.(q|k|v|out)_proj\.weight$")
+    mlp = re.compile(r"\.mlp\.fc[12]\.weight$")
+    return [n for n in model_shapes(mt)
+            if (n.startswith("unet.") and proj.search(n))
+            or (n.startswith(towers) and mlp.search(n))]
+
+
+def write_random_lora(path, mt: ModelTypeDef, targets, rank: int = 4,
+                      seed: int = 0, alpha=None, dtype=np.float16) -> Dict:
+    """Seeded random LoRA file of ``mt`` at ``path``, in kohya names
+    (:func:`lora_name`), of rank ``rank`` for each internal ``<stem>.weight``
+    in ``targets`` (a linear's [out, in] or a conv's [out, in, kh, kw]
+    weight: down is [rank, in * kh * kw], up [out, rank]); ``alpha`` (the
+    ``.alpha`` scalar) defaults to the rank.  down ~ N(0, 1/in) and up ~
+    N(0, 1/rank) / 4, so a full-width delta moves each weight by about a
+    quarter of its own spread.  Returns {stem name: (down, up, alpha)} in
+    f32 as the file holds them."""
+    shapes = model_shapes(mt, encoders=True)
+    sdxl = mt.clip2_p is not None and not getattr(mt.unet_p, "flow", False)
+    rng = np.random.default_rng(seed)
+    header, arrays, out = {}, [], {}
+    a = float(rank if alpha is None else alpha)
+    for name in targets:
+        shape = shapes[name]
+        n_out, n_in = shape[0], int(np.prod(shape[1:]))
+        stem = lora_name(name, sdxl)
+        down = (rng.standard_normal((rank, n_in), dtype=np.float32)
+                / np.float32(math.sqrt(n_in))).astype(dtype)
+        up = (rng.standard_normal((n_out, rank), dtype=np.float32)
+              / np.float32(4.0 * math.sqrt(rank))).astype(dtype)
+        alpha_arr = np.array([a], dtype)
+        for k, v in ((".lora_down.weight", down), (".lora_up.weight", up),
+                     (".alpha", alpha_arr)):
+            header[stem + k] = v.shape
+            arrays.append((stem + k, v))
+        out[stem] = (down.astype(np.float32), up.astype(np.float32),
+                     float(alpha_arr[0]))
+    write_safetensors(path, header, dtype, iter(arrays))
+    return out
 
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5

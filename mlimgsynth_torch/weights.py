@@ -12,7 +12,7 @@ UNet's 1x1 convs [C, C, 1, 1]: the same values, reshaped).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from torch import nn
 from .io.tensorstore import TensorStore
 from .models import tae as tae_mod
 from .models.blocks import QLinear
-from .nameconv import QKV, TProj, normalize_name
+from .nameconv import QKV, TProj, normalize_lora_name, normalize_name
 from .ops import quant, quant_plan
 
 
@@ -124,22 +124,131 @@ def load_module(module: nn.Module, prefix: str,
     return module
 
 
-def load_tae(path: str, device, dtype: torch.dtype) -> nn.Module:
-    """The TAE decoder of a taesd file (diffusers AutoencoderTiny names,
-    no prefix; ``mlimgsynth_tpu/api.py:942-976`` reads them under
-    ``tae.``), its geometry read from the file's shapes."""
+def load_tae(path: str, device, dtype: torch.dtype, encoder: bool = False
+             ) -> Optional[nn.Module]:
+    """The TAE decoder (or, with ``encoder``, the encoder) of a taesd file
+    (diffusers AutoencoderTiny names, no prefix;
+    ``mlimgsynth_tpu/api.py:942-976`` reads them under ``tae.``), its
+    geometry read from the file's shapes.  None for an encoder the file
+    does not hold."""
     store = TensorStore.open(path)
     try:
         P = tae_mod.tae_params_from_shapes(
             {k: tuple(e.shape) for k, e in store.tensors.items()})
+        if encoder and "encoder.layers.0.weight" not in store.tensors:
+            return None
         with torch.device("meta"):
-            m = tae_mod.TaeDecoder(P)
+            m = (tae_mod.TaeEncoder if encoder else tae_mod.TaeDecoder)(P)
         name_map = {"tae." + raw: NameRef(raw) for raw in store.tensors}
         params = load_params(store, name_map, module_shapes(m, "tae."),
                              device, dtype)
     finally:
         store.close()
     return load_module(m, "tae.", params).eval()
+
+
+# ---------------------------------------------------------------------------
+# LoRA merging (the port of ``mlimgsynth_tpu/weights.py:218-296``,
+# reference: src/lora.c)
+# ---------------------------------------------------------------------------
+
+def _lora_family(model_map: Mapping[str, NameRef]) -> str:
+    """The loaded model's family, which tells the diffusers "transformer_
+    blocks" layout of flux double blocks from SD3's joint blocks."""
+    for k in model_map:
+        if k.startswith("flux.double_blocks."):
+            return "flux"
+        if k.startswith("mmdit.joint_blocks."):
+            return "mmdit"
+    return "sd"
+
+
+def _lora_names(lora_store: TensorStore, family: str) -> Dict[str, str]:
+    """Internal (normalised) name -> raw name of a LoRA file's tensors."""
+    out: Dict[str, str] = {}
+    for raw in lora_store.tensors:
+        r = normalize_lora_name(raw, family)
+        if isinstance(r, str):
+            out[r] = raw
+    return out
+
+
+def lora_targets(model_map: Mapping[str, NameRef],
+                 lora_store: TensorStore) -> Set[str]:
+    """The internal ``<stem>.weight`` names a LoRA file patches, from its
+    tensor names alone (no data read)."""
+    out = set()
+    for internal in _lora_names(lora_store, _lora_family(model_map)):
+        if internal.endswith(".lora_down.weight"):
+            stem = internal[:-len(".lora_down.weight")]
+            out.add(stem.split("@", 1)[0] + ".weight")
+    return out
+
+
+def lora_apply(model_store: TensorStore, model_map: Dict[str, NameRef],
+               lora_store: TensorStore, mult: float,
+               only: Optional[Callable[[str], bool]] = None) -> int:
+    """Merge ``dst += mult * scale * up @ down`` into the model store's
+    cache for every ``*.lora_down.weight`` of the LoRA file, in numpy f32 on
+    the host, before the loader casts or quantizes anything (the JAX
+    package's ``lora_apply``; ``scale`` is the file's ``.scale``, else its
+    ``.alpha`` / rank, else 1).  A fused OpenCLIP q/k/v tensor takes the
+    delta in its third; a diffusers-peft DiT stem's ``@num/span/den``
+    fragment addresses rows ``[num*d, (num+span)*d)`` of the fused tensor,
+    ``d = out // den``.  ``only(internal weight name)`` limits the merge to
+    the weights it accepts.  Raises ``FloatingPointError`` when a merged
+    tensor is not finite (reference: src/lora.c:81-87).  Returns the number
+    of tensors patched."""
+    lora_map = _lora_names(lora_store, _lora_family(model_map))
+    n = 0
+    for internal, raw in lora_map.items():
+        if not internal.endswith(".lora_down.weight"):
+            continue
+        stem = internal[:-len(".lora_down.weight")]
+        base, frac = stem, None
+        if "@" in stem:
+            base, f = stem.split("@", 1)
+            frac = tuple(int(v) for v in f.split("/"))
+        if only is not None and not only(base + ".weight"):
+            continue
+        dst_ref = model_map.get(base + ".weight")
+        if dst_ref is None:
+            raise KeyError(f"lora tensor not found in model: {base}.weight")
+        up_raw = lora_map.get(stem + ".lora_up.weight")
+        if up_raw is None:
+            raise KeyError(f"lora up tensor not found: {stem}.lora_up.weight")
+        down = lora_store.read(raw, "f32")
+        up = lora_store.read(up_raw, "f32")
+        rank = down.shape[0]
+        scale = 1.0
+        if stem + ".scale" in lora_map:
+            scale = float(lora_store.read(lora_map[stem + ".scale"],
+                                          "f32").reshape(-1)[0])
+        elif stem + ".alpha" in lora_map:
+            scale = float(lora_store.read(lora_map[stem + ".alpha"],
+                                          "f32").reshape(-1)[0]) / rank
+        scale *= mult
+        delta = (up.reshape(up.shape[0], -1) @
+                 down.reshape(down.shape[0], -1) * scale)
+        if frac is not None or dst_ref.split is not None:
+            # rows of a fused tensor: a peft slice or an OpenCLIP third
+            full = model_store.read(dst_ref.raw, "f32").copy()
+            num, span, den = frac if frac is not None else (dst_ref.split,
+                                                            1, 3)
+            if full.shape[0] % den:
+                raise KeyError(f"lora slice {stem}: out dim "
+                               f"{full.shape[0]} not divisible by {den}")
+            d = full.shape[0] // den
+            sl = slice(num * d, (num + span) * d)
+            full[sl] = full[sl] + delta.reshape(full[sl].shape)
+        else:
+            base_w = read_entry(model_store, dst_ref)
+            full = base_w + delta.reshape(base_w.shape)
+        if not np.isfinite(full).all():
+            raise FloatingPointError(f"NaN in LoRA result for {stem}")
+        model_store.cache_set(dst_ref.raw, full)
+        n += 1
+    return n
 
 
 def quantize_linear_weights(module: nn.Module, prefix: str,

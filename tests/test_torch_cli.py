@@ -112,11 +112,74 @@ def test_tokenize_help_version(capsys):
     ["vae-encode", "-b", "cpu"],
     ["generate", "-b", "tpu"],
     ["generate", "-b", "cpu", "--method", "lcm"],
-    ["generate", "-b", "cpu", "-i", "in.png"],
+    ["generate", "-b", "cpu", "--vae-tile", "256"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
-        "method", "img2img"])
+        "method", "vae-tile"])
 def test_errors_exit_1(argv):
     assert tcli.main(argv) == 1
+
+
+@pytest.mark.parametrize("flag", ["-i", "--imask", "--lora", "--ilatent"])
+def test_missing_input_file_exits_1(ckpt, tmp_path, capsys, flag):
+    """A missing input image, mask, LoRA or latent file exits 1 with the
+    session's ``E_FILE_NOT_FOUND`` message (the LoRA's when the option is
+    set, the others' when ``generate`` reads them)."""
+    missing = str(tmp_path / "missing.png")
+    assert tcli.main(["generate", "-b", "cpu", "-m", ckpt, *ARGS, flag,
+                      missing, "-o", str(tmp_path / "x.png")]) == 1
+    assert "not found" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "x.png")
+
+
+def _inputs(tmp_path):
+    """An RGB PNG, a grey mask PNG (white keeps the top half) and a LoRA on
+    the UNet's attention and the text tower's MLP."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (64, 64, 3)).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "in.png")
+    mask = np.zeros((64, 64), np.uint8)
+    mask[:32] = 255
+    Image.fromarray(mask).save(tmp_path / "mask.png")
+    mt = T.TINY_MODEL_TYPE_SD2
+    T.write_random_lora(tmp_path / "style.safetensors", mt,
+                        T.lora_attention_targets(mt), rank=4, seed=2,
+                        alpha=16.0, dtype=np.float32)
+
+
+@pytest.mark.parametrize("how", ["image", "latent"])
+def test_img2img_inpaint_lora_match_jax_cli(ckpt, tmp_path, how):
+    """``-i``, ``--imask``, ``--f-t-ini``, ``--lora PATH,MULT`` and a
+    ``<lora:NAME:MULT>`` tag found through ``--lora-dir``, against the JAX
+    CLI on the same files; then (``latent``) ``--ilatent`` and ``--ilmask``
+    from TENSOR files.  The PNG within 1 LSB, the text equal, the latent
+    1e-4."""
+    _inputs(tmp_path)
+    if how == "image":
+        extra = ["-i", str(tmp_path / "in.png"), "--imask",
+                 str(tmp_path / "mask.png"), "--f-t-ini", "0.6",
+                 "--lora", f"{tmp_path / 'style.safetensors'},0.7"]
+    else:
+        lat = np.random.default_rng(12).standard_normal(
+            (1, 4, 8, 8)).astype(np.float32)
+        lmask = np.zeros((1, 1, 8, 8), np.float32)
+        lmask[:, :, :, :4] = 1.0
+        jimage.tensor_save(str(tmp_path / "in.tensor"), lat)
+        jimage.tensor_save(str(tmp_path / "in-mask.tensor"), lmask)
+        extra = ["--ilatent", str(tmp_path / "in.tensor"), "--ilmask",
+                 str(tmp_path / "in-mask.tensor"), "--f-t-ini", "0.5",
+                 "--lora-dir", str(tmp_path), "-p", "a cat <lora:style:0.5>"]
+    outs = {}
+    for name, main in (("jax", jcli.main), ("port", tcli.main)):
+        png, lat = tmp_path / f"{name}.png", tmp_path / f"{name}.tensor"
+        cpu = ["-b", "cpu"] if name == "port" else []
+        assert main(["generate", "-m", ckpt, *ARGS, *cpu, *extra,
+                     "-o", str(png), "--olatent", str(lat)]) == 0
+        outs[name] = (*_pil(png), jimage.tensor_load(str(lat)))
+    (img_j, info_j, lat_j), (img_t, info_t, lat_t) = outs["jax"], \
+        outs["port"]
+    assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
+    assert info_t == info_j and "Mode: inpaint, f_t_ini: " in info_t
+    np.testing.assert_allclose(lat_t, lat_j, atol=1e-4, rtol=1e-4)
 
 
 def test_generate_needs_the_card_by_default(ckpt, capsys):

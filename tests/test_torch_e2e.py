@@ -157,6 +157,35 @@ def test_quantized_generate_matches_jax(tiny_q_ckpt, weight_type):
     assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
 
 
+# prompts of two 77-token windows: 98 tokens, and a BREAK; each against a
+# one-window negative prompt, whose uncond row the sessions pad to the cond
+# row's window count
+LONG_PROMPT = ", ".join(["a detailed photograph of a red fox in the snow"]
+                        * 9)
+MULTI_WINDOW = {"long": LONG_PROMPT,
+                "break": "a (cat:1.3) on a hill BREAK a [bicycle] at dusk"}
+
+
+@pytest.mark.parametrize("which", list(MULTI_WINDOW))
+def test_multi_window_prompt_matches_jax(tiny_ckpt, which, monkeypatch):
+    """A prompt of two windows against the JAX session's window rule
+    (``_window_count``, ``_clip_encode_rows``): per-step latents 1e-4, image
+    PSNR > 40 dB, and the conditioning of 2 x 77 rows."""
+    monkeypatch.setattr(sys.modules[__name__], "OPTS",
+                        OPTS[:-2] + [("prompt", MULTI_WINDOW[which]),
+                                     ("nprompt", NPROMPT)])
+    traj_j, img_j = _run(JaxSession(), tiny_ckpt, "euler", "uniform", 1)
+    ts = torch_api.MLImgSynth(device="cpu")
+    traj_t, img_t = _run(ts, tiny_ckpt, "euler", "uniform", 1)
+    assert ts.tensors["cond"].shape == ts.tensors["ncond"].shape \
+        == (1, 154, 32)
+    for i, (a, b) in enumerate(zip(traj_j, traj_t)):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {i} latent mismatch")
+    psnr = _psnr_u8(np.round(img_j * 255), np.round(img_t * 255))
+    assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
+
+
 def test_session_keeps_weights_across_requests(tiny_ckpt):
     s = torch_api.MLImgSynth(device="cpu")
     s.option_set("model", tiny_ckpt)
@@ -174,7 +203,8 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 @pytest.mark.parametrize("name,value", [
     ("model-type", "flux_dev"), ("weight-type", "q2_k"), ("method", "lcm"),
-    ("lora", "x.safetensors"), ("hires-fix", 2.0), ("prompt", "<lora:x:1>"),
+    ("vae-tile", 256), ("hires-fix", 2.0), ("prompt", "a [cat:dog:0.5]"),
+    ("prompt", "an <emb:x> cat"),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")
@@ -201,6 +231,16 @@ from mlimgsynth_torch.utils import image
 assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
                  "-S", "1", "-p", "a cat", "-o", "cli.png", "-q"]) == 0
 assert image.png_read("cli.png")[0].shape == (64, 64, 3)
+rgba = np.random.default_rng(0).integers(0, 256, (64, 64, 4)).astype(
+    np.uint8)
+image.image_save("in.png", rgba)
+testing.write_random_lora("style.safetensors", testing.TINY_MODEL_TYPE,
+                          testing.lora_attention_targets(
+                              testing.TINY_MODEL_TYPE))
+assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
+                 "-S", "1", "-p", "a cat <lora:style:0.5>", "-i", "in.png",
+                 "--f-t-ini", "0.7", "-o", "i2i.png", "-q"]) == 0
+assert "Mode: inpaint" in image.png_read("i2i.png")[1]["parameters"]
 tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
 assert not tpu, tpu
 print("jax" in sys.modules)

@@ -181,9 +181,21 @@ def _image(pkg, tmp_path):
     return out
 
 
+def _masks(pkg, tmp_path):
+    """``mask_downsize`` by 8 and 2 and ``image_alpha_split`` on seeded
+    [n, c, h, w] arrays."""
+    im = _mod(pkg, "utils.image")
+    rng = np.random.default_rng(9)
+    mask = rng.uniform(0.0, 1.0, (2, 1, 32, 48)).astype(np.float32)
+    rgba = rng.uniform(0.0, 1.0, (2, 4, 16, 8)).astype(np.float32)
+    return [im.mask_downsize(mask, 8), im.mask_downsize(mask, 2),
+            *im.image_alpha_split(rgba)]
+
+
 CASES = {"tokenizer": _tokenizer, "prompt": _prompt, "rng": _rng,
          "schedule": _schedule, "tensorstore": _tensorstore,
-         "nameconv": _nameconv, "log": _log, "image": _image}
+         "nameconv": _nameconv, "log": _log, "image": _image,
+         "masks": _masks}
 
 
 def _plain(x):
@@ -213,8 +225,8 @@ def test_copy_matches_original(case, tmp_path):
 
 def test_png_read_reads_what_image_save_writes(tmp_path):
     """The port's own PNG decoder (the card's machine has no pillow) gives
-    back the pixels and the text of the files its writer makes, and refuses
-    a filtered PNG, which pillow writes."""
+    back the pixels and the text of the files its writer makes, and reads
+    a PNG whose rows pillow filtered as pillow does."""
     from PIL import Image
     from mlimgsynth_torch.utils import image as im
     u8 = np.random.default_rng(6).integers(0, 256, (9, 4, 3), np.uint8)
@@ -223,7 +235,7 @@ def test_png_read_reads_what_image_save_writes(tmp_path):
         pix, text = im.png_read(str(tmp_path / "a.png"))
         np.testing.assert_array_equal(pix, u8)
         assert text == {"parameters": info}
-    Image.fromarray(np.tile(np.arange(64, dtype=np.uint8), (64, 1))).save(
-        tmp_path / "f.png")
-    with pytest.raises(ValueError, match="filter"):
-        im.png_read(str(tmp_path / "f.png"))
+    ramp = np.tile(np.arange(64, dtype=np.uint8), (64, 1))
+    Image.fromarray(ramp).save(tmp_path / "f.png")
+    pix, _ = im.png_read(str(tmp_path / "f.png"))
+    np.testing.assert_array_equal(pix[:, :, 0], ramp)

@@ -154,10 +154,13 @@ def test_sd2_checkpoint_layout_round_trips():
     """The full-width SD2.1 writer's names: the OpenCLIP tower with fused
     q/k/v under ``cond_stage_model.model.``, linear ``proj_in`` /
     ``proj_out``, every one mapping back to the port's parameters
-    (``_checkpoint_layout`` raises otherwise); about 1.27 G parameters."""
+    (``_checkpoint_layout`` raises otherwise); about 1.30 G parameters,
+    the VAE encoder's 34 M among them."""
     lay = T._checkpoint_layout(torch_api._model_types()["sd2"])
     n = sum(int(np.prod(v[0])) for v in lay.values())
-    assert 1.25e9 < n < 1.30e9
+    assert 1.28e9 < n < 1.32e9
+    assert ("first_stage_model.encoder.mid.attn_1.q.weight" in lay
+            and "first_stage_model.quant_conv.weight" in lay)
     qkv = ("cond_stage_model.model.transformer.resblocks.23.attn."
            "in_proj_weight")
     assert lay[qkv][:2] == ((3072, 1024), "qkv")

@@ -93,6 +93,27 @@ def test_sd3_generate_matches_jax(sd3_ckpt, method):
     assert not cond[:, 77:].any() and not cond[:, :, 64:].any()
 
 
+LONG_PROMPT = ", ".join(["a detailed photograph of a red fox in the snow"]
+                        * 9) + " BREAK a cat"
+
+
+def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
+    """A prompt of three windows (98 tokens, then a BREAK): flow models
+    condition on its first window only, in both packages."""
+    monkeypatch.setattr(sys.modules[__name__], "OPTS",
+                        OPTS[:-2] + [("prompt", LONG_PROMPT),
+                                     ("nprompt", NPROMPT)])
+    traj_j, img_j = _run(JaxSession(), sd3_ckpt, "euler")
+    ts = torch_api.MLImgSynth(device="cpu")
+    traj_t, img_t = _run(ts, sd3_ckpt, "euler")
+    assert ts.tensors["cond"].shape == (1, 154, 80)
+    for i, (a, b) in enumerate(zip(traj_j, traj_t)):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {i} latent mismatch")
+    psnr = _psnr_u8(np.round(img_j * 255), np.round(img_t * 255))
+    assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
+
+
 @pytest.mark.parametrize("name,value", [
     ("t5", "t5xxl.safetensors"), ("t5-tokenizer", "tokenizer.json"),
     ("t5-tokens", 256), ("model-type", "sd35_large"),

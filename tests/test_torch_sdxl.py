@@ -207,6 +207,57 @@ def test_sdxl_cond_and_label_rows_match_jax(xl, monkeypatch, nprompt):
                                   np.tile(got.reshape(1, -1), (2, 1)))
 
 
+LONG_PROMPT = ", ".join(["a detailed photograph of a red fox in the snow"]
+                        * 9) + " BREAK a (cat:1.3) riding a [bicycle]"
+
+
+def test_sdxl_multi_window_prompt_matches_jax(xl, monkeypatch):
+    """A prompt of three windows (98 tokens, then a BREAK) against a
+    one-window negative prompt: both towers encode every window, bigG's
+    pooled feature is read from window 0, and the uncond rows are padded
+    to the cond rows' windows."""
+    j, t = xl.run("long", [("prompt", LONG_PROMPT), ("nprompt", NPROMPT)],
+                  monkeypatch)
+    _assert_same_run(j, t)
+    tens = t[2]
+    assert tens["cond"].shape == tens["ncond"].shape == (1, 3 * 77, 64)
+    for k in ("cond", "ncond", "label", "nlabel"):
+        np.testing.assert_allclose(tens[k], j[2][k], atol=1e-4, rtol=1e-4)
+
+
+def test_sdxl_img2img_lora_matches_jax(xl, monkeypatch, tmp_path):
+    """img2img at ``f_t_ini`` 0.6 with a LoRA (kohya ``lora_te1_`` /
+    ``lora_te2_`` / ``lora_unet_`` names) on both text towers' MLPs, bigG's
+    fused q and v thirds and every UNet attention projection."""
+    mt = T.TINY_MODEL_TYPE_XL
+    targets = T.lora_attention_targets(mt, ("clip.text.", "clip2.text."))
+    targets += [f"clip2.text.encoder.layers.{i}.attn.{w}_proj.weight"
+                for i in (0, 1) for w in "qv"]
+    lora = tmp_path / "xl-style.safetensors"
+    T.write_random_lora(lora, mt, targets, rank=4, seed=3, alpha=16.0,
+                        dtype=np.float32)
+    img = np.random.default_rng(4).integers(0, 256, (64, 64, 3)).astype(
+        np.uint8)
+    try:
+        j, t = xl.run("i2i-lora", [("nprompt", NPROMPT), ("image", img),
+                                   ("f-t-ini", 0.6), ("lora", str(lora))],
+                      monkeypatch)
+        assert xl.ts._lora_prefixes == {"unet.", "clip.text.",
+                                        "clip2.text."}
+    finally:
+        for s in (xl.js, xl.ts):
+            s.option_set("lora-clear", "")
+    (traj_j, img_j, _), (traj_t, img_t, _) = j, t
+    assert len(traj_j) == len(traj_t) == 3
+    for i, (a, b) in enumerate(zip(traj_j, traj_t)):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"step {i} latent mismatch")
+    psnr = _psnr_u8(np.round(img_j * 255), np.round(img_t * 255))
+    assert psnr > 40.0, f"final image PSNR {psnr:.1f} dB <= 40"
+    for k in ("cond", "ncond", "label", "nlabel"):
+        np.testing.assert_allclose(t[2][k], j[2][k], atol=1e-4, rtol=1e-4)
+
+
 def test_sdxl_q8_int8_mode_matches_jax(xl_q, monkeypatch):
     """The quantizing tiny SDXL at q8_0 with ``MLIS_Q8_MODE=int8`` in both
     packages: every quantized product quantizes its activations per (row,

@@ -1,9 +1,9 @@
-"""The port's TAE decoder against the JAX package's: ``TaeDecoder`` against
-``tae_decode_apply`` on the JAX package's ``write_tiny_tae`` files (4- and
-16-channel latents), and a tiny SD1 session with the ``tae`` option against
-the JAX session with it (the latents, the image and the infotext with its
-``VAE: tae`` marker), also with a relative TAE path found through
-``aux_dir``.
+"""The port's TAE against the JAX package's: ``TaeDecoder`` and
+``TaeEncoder`` against ``tae_decode_apply`` and ``tae_encode_apply`` on the
+JAX package's ``write_tiny_tae`` files (4- and 16-channel latents), and a
+tiny SD1 session with the ``tae`` option against the JAX session with it
+(the latents, the image and the infotext with its ``VAE: tae`` marker),
+also with a relative TAE path found through ``aux_dir``, and for img2img.
 
 f32 on the CPU.  Tolerances: the decoder's output atol/rtol 1e-4 (summation
 order between XLA:CPU's and torch's convolutions over 13 layers); the
@@ -69,6 +69,26 @@ def test_tae_decoder_matches_jax(tmp_path, ch_z):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("ch_z", [4, 16])
+def test_tae_encoder_matches_jax(tmp_path, ch_z):
+    """The encoder takes the image in [0, 1] (not [-1, 1]) to the sampler's
+    latent."""
+    path = str(tmp_path / "tae.safetensors")
+    P = write_tiny_tae(path, seed=ch_z + 1, ch_z=ch_z)
+    m = tweights.load_tae(path, "cpu", torch.float32, encoder=True)
+    assert isinstance(m, ttae.TaeEncoder) and m.P == ttae.TaeParams(
+        **dataclasses.asdict(P))
+    img = np.random.default_rng(2).uniform(0, 1, (2, 3, 64, 48)).astype(
+        np.float32)
+    want = np.asarray(jax.jit(lambda p, x: jtae.tae_encode_apply(
+        JB.Ctx(p, dtype=jnp.float32), x, P))(
+        _jax_params(path), img.transpose(0, 2, 3, 1))).transpose(0, 3, 1, 2)
+    with torch.no_grad():
+        got = m(torch.from_numpy(img)).numpy()
+    assert got.shape == (2, ch_z, 8, 6)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
 def test_tae_params_from_a_full_width_file(tmp_path):
     """``write_random_tae``'s full-width taesd decoder (ch_inner 64, three
     blocks a level) reads back as ``TAE_SD1``."""
@@ -77,20 +97,22 @@ def test_tae_params_from_a_full_width_file(tmp_path):
     m = tweights.load_tae(path, "cpu", torch.float32)
     assert m.P == ttae.TAE_SD1
     assert len(m.decoder["layers"]) == 19 - 4   # the ReLU, 3 upsamples
+    enc = tweights.load_tae(path, "cpu", torch.float32, encoder=True)
+    assert len(enc.encoder["layers"]) == 15
 
 
-def _run(s, ckpt, tae):
+def _run(s, ckpt, tae, extra=()):
     traj = []
     for k, v in [("model", ckpt), ("model-type", "sd1"),
                  ("weight-type", "f32"), ("image-dim", 64), ("steps", 4),
                  ("seed", 9), ("cfg-scale", 5.0), ("prompt", "a test"),
-                 ("tae", tae)]:
+                 ("tae", tae), *extra]:
         s.option_set(k, v)
     s.step_observer = lambda i, lat: traj.append(np.asarray(lat).copy())
     return traj, np.asarray(s.generate(), np.float32), s.infotext
 
 
-@pytest.mark.parametrize("where", ["path", "aux_dir"])
+@pytest.mark.parametrize("where", ["path", "aux_dir", "img2img"])
 def test_tae_session_matches_jax(tmp_path, monkeypatch, where):
     ckpt = str(tmp_path / "sd1.safetensors")
     write_tiny_checkpoint(ckpt)
@@ -106,13 +128,18 @@ def test_tae_session_matches_jax(tmp_path, monkeypatch, where):
         tae = "taesd.safetensors"
     else:
         tae = str(aux / "taesd.safetensors")
+    # img2img: the TAE encoder (image in [0, 1], no noise drawn) gives the
+    # initial latent; 2 of the 4 steps run
+    extra = ([("image", np.random.default_rng(3).integers(
+        0, 256, (64, 64, 3)).astype(np.uint8)), ("f-t-ini", 0.5)]
+             if where == "img2img" else [])
     res = []
     for s in (JaxSession(), torch_api.MLImgSynth(device="cpu")):
         if where == "aux_dir":
             s.option_set("aux-dir", str(aux))
-        res.append(_run(s, ckpt, tae))
+        res.append(_run(s, ckpt, tae, extra))
     (traj_j, img_j, info_j), (traj_t, img_t, info_t) = res
-    assert len(traj_t) == len(traj_j) == 4
+    assert len(traj_t) == len(traj_j) == (2 if extra else 4)
     for i, (a, b) in enumerate(zip(traj_j, traj_t)):
         np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4,
                                    err_msg=f"step {i}")

@@ -55,15 +55,31 @@ Phases, one result line each (any failure exits non-zero):
                  (top half opaque) at 0.8 and a <lora:NAME:0.8> tag on
                  txt2img; the LoRA on the q8_0 session; one img2img request
                  at f_t_ini 0.6 on SDXL, SD3, SD2 and SD2 with --tae.
-                 Checks the images and the exact kernel launch counts of
-                 every request (for SD2 and img2img per attention shape:
-                 K2 runs in the VAE encoder and decoder), the inpainting's
-                 kept latent rows (bit for bit the encoded latent) and the
-                 merged LoRA weights (bit for bit bf16(W + delta), or its
-                 quantization, computed on the host);
+                 The memory paths (``lowmem`` lines, BASELINE config 5):
+                 on the SDXL checkpoint, the bf16 session and a q4_0
+                 session each run one request with neither option, then
+                 two with --unet-split 1 --vae-tile 512 (the first takes
+                 the weights to the host, the second is the low-memory
+                 request, held under q4_0 to 4 GiB of
+                 max_memory_allocated); their latents equal bit for bit;
+                 the tiled decode of the q4_0 latent with the kernels
+                 against the plain attention, and its device time beside
+                 the whole decode's; one SD1.5 img2img CLI call with
+                 --vae-tile 256 --unet-split 1.  Each prints its peak
+                 allocated and reserved memory, its stage moves and decode
+                 seconds.  Checks the images and the exact kernel launch
+                 counts of every request (for SD2, img2img and lowmem per
+                 shape: K2 runs in the VAE encoder and decoder, or once a
+                 tile; K9/K10 per product), the inpainting's kept latent
+                 rows (bit for bit the encoded latent), the merged LoRA
+                 weights (bit for bit bf16(W + delta), or its quantization,
+                 computed on the host) and, under --unet-split, that no
+                 tensor of the text encoders or the UNet is left on the
+                 card after a request;
   5. reference - per path, one full-width UNet or MMDiT evaluation with the
                  kernels against the same with the plain versions (bf16: the
-                 attention, plus one VAE decode; q8_0 / q4_0: the quantized
+                 attention, plus one VAE decode, and SDXL's tiled decode
+                 under --vae-tile 512; q8_0 / q4_0: the quantized
                  matmuls; SDXL q8_0 under MLIS_Q8_MODE=int8: the per-block
                  W8A8 kernel); SD2 also one whole request's latent and
                  image; the VAE encoder's moments at 512^2 and 1024^2;
@@ -76,9 +92,10 @@ Phases, one result line each (any failure exits non-zero):
                  sum (in the kernels line, the tiled and weight-stationary
                  kernels' per-request time on each path);
   7. small     - tiny random SD1 (192^2), SDXL (192^2) and SD3 (512^2)
-                 models through the session on the card (bf16, kernels)
-                 against the same on the CPU (f32, the path the CPU tests
-                 hold against the JAX package);
+                 models, and the quantizing tiny SDXL (256^2) under q4_0
+                 with both memory options, through the session on the card
+                 (bf16, kernels) against the same on the CPU (f32, the path
+                 the CPU tests hold against the JAX package);
   8. imports   - nothing of jax or of the JAX package was loaded.
 Then one JSON line on the kernels and, last, the device JSON line.
 """
@@ -182,6 +199,15 @@ I2I_ARGS = ["-d", "512", "-s", "20", "--method", "euler", "--cfg-scale", "7",
             "-S", "42", "-n", "blurry, low quality", "-q"]
 LORA_RANK, LORA_MULT, I2I_F_T_INI = 16, 0.8, 0.6
 
+# The memory paths (BASELINE config 5): SDXL-base 1024^2 with --unet-split
+# and --vae-tile 512 (4 decode tiles of 640^2: K2 at [1, 1, 6400, 512]),
+# under q4_0 held to the reference's 4 GiB of device memory; SD1.5 512^2
+# img2img through the CLI with --vae-tile 256 (4 encode and 4 decode tiles
+# of 384^2: K2 at [1, 1, 2304, 512])
+LOWMEM = {"vae-tile": 512, "unet-split": 1}
+LOWMEM_BYTES = 4 * 2 ** 30
+SD1_LOWMEM_ARGS = ["--vae-tile", "256", "--unet-split", "1"]
+
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -245,6 +271,7 @@ def main() -> int:
                 launches.update(lora_q8_request(s, ckpt, lora))
             _drop(s)
         launches.update(sd1_img2img_path(tmp, ckpt, lora))
+        launches.update(sd1_lowmem_cli(tmp, ckpt))
         os.remove(ckpt)
         ckpt = _checkpoint(tmp, "sd3")
         for wt, bits, n_req in SD3_PATHS:
@@ -274,10 +301,13 @@ def main() -> int:
                     s, ckpt, "sdxl", SDXL_DIM, wt, REQUESTS[n_req:n_req + 1],
                     lambda s: sdxl_want(s, int8=True), mode="int8"))
             sdxl_reference_check(s, wt, bits)
+            if not bits:
+                launches.update(sdxl_lowmem_requests(s, wt))
             if bits == 8:
                 sdxl_dq = time_products(sdxl_products(s), "sdxl")
                 sdxl_int8 = time_sdxl_int8_shapes(s)
             _drop(s)
+        launches.update(sdxl_lowmem_path(ckpt))
         os.remove(ckpt)
         launches.update(sd2_path(tmp))
     dq = {"sd1": sd1_dq, "sdxl": sdxl_dq, "sd3": sd3_dq}
@@ -287,8 +317,10 @@ def main() -> int:
             # the kernel's device time in one q8_0 request of each path
             k["per_request_ms"] = {path: t[k["name"] + "_ms"]
                                    for path, t in dq.items()}
-        if k["name"] == "q4_matmul_tile":   # q4_0 runs on SD1.5
-            k["per_request_ms"] = {"sd1": sd1_dq["q4_matmul_tile_ms"]}
+        if k["name"] in ("q4_matmul_tile", "q4_matmul_ws"):
+            # q4_0 runs on SD1.5 and, in the lowmem lines, on SDXL
+            k["per_request_ms"] = {path: dq[path][k["name"] + "_ms"]
+                                   for path in ("sd1", "sdxl")}
         if k["name"] == "q8_matmul_int8":
             k["sdxl_per_request_ms"] = sdxl_int8["ms"]
     small_check()
@@ -394,6 +426,8 @@ FLASH_SHAPE_CALLS = {
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
     ((2, 20, 576, 64), 576): {"sd2": 100},
     ((1, 1, 9216, 512), 9216): {"sd2": 1, "sd2_img2img": 2},
+    ((1, 1, 6400, 512), 6400): {"sdxl_lowmem": 4},
+    ((1, 1, 2304, 512), 2304): {"sd1_lowmem_img2img": 8},
 }
 
 
@@ -646,6 +680,7 @@ def _checkpoint(tmp: str, model_type: str) -> str:
 
 def _drop(s) -> None:
     del s._models
+    s._host.clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -746,7 +781,7 @@ def sdxl_products(s) -> collections.Counter:
         for name, m in mod.named_modules():
             if not isinstance(m, blocks_mod.QLinear):
                 continue
-            n, k = m.weight_q8.shape
+            n, k = m.weight_scale.shape[0], m.weight_scale.shape[1] * 128
             if prefix != "unet.":
                 layer = int(name.split(".")[2])
                 if n_run is None or layer < n_run:
@@ -897,8 +932,8 @@ def _check_png(path, s) -> None:
     """The PNG the CLI wrote, read by the port's own decoder, against the
     session's image quantized to u8 and its infotext."""
     pix, text = image_mod.png_read(path)
-    want = np.round(s.tensors["image"][0] * 255.0).astype(np.uint8)
-    if (not np.array_equal(pix, want.transpose(1, 2, 0))
+    want = image_mod.tensor_to_image_arr(s.tensors["image"], 0)
+    if (not np.array_equal(pix, want)
             or text.get("parameters") != s.infotext):
         raise AssertionError(f"{path}: PNG differs from the session's image "
                              "or infotext")
@@ -1233,6 +1268,151 @@ def img2img_request(s, model: str, dim: int) -> dict:
     return got
 
 
+def _staged_on_card(s) -> list:
+    """The staged modules of which some tensor lies on the card."""
+    return [p for p in api._STAGED if p in s._models
+            and any(t.is_cuda for t in s._models[p].state_dict().values())]
+
+
+def _lowmem_phase(s, secs, shapes, got, **kv) -> None:
+    img = s.tensors["image"]
+    phase("main", step="lowmem", seconds=secs,
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          max_memory_reserved=torch.cuda.max_memory_reserved(),
+          moves_s={k: v for k, v in s.times.items() if k.startswith("move_")},
+          decode_s=s.times.get("decode_s"),
+          image_encode_s=s.times.get("image_encode_s"),
+          resident=sorted(s.resident),
+          host_bytes=sum(t.numel() * t.element_size()
+                         for d in s._host.values() for t in d.values()),
+          launches=got,
+          launches_by_shape={f"{k[0]} {list(k[1])}": n
+                             for k, n in sorted(shapes.items())},
+          image_mean=float(img.mean()), image_std=float(img.std()), **kv)
+
+
+def sdxl_lowmem_requests(s, wt: str) -> collections.Counter:
+    """On an SDXL-base 1024^2 session of weight type ``wt``: one request
+    with neither memory option, then two with ``LOWMEM`` (the first takes
+    the session's weights to the host, the second is the low-memory
+    request), the same seed and prompts.  Each must launch exactly its K1,
+    K2 and (q4_0) K9/K10 counts per shape, with no plain version on CUDA
+    tensors, and the latents must be equal bit for bit; the last request
+    (q4_0) must peak at or under ``LOWMEM_BYTES``.  Returns the launches."""
+    quant = collections.Counter()
+    if s.qbits:
+        for (rows, k, n), c in sdxl_products(s).items():
+            kind_ = "ws" if qmm.use_ws(rows, k) else "tile"
+            quant[(f"q{s.qbits}_matmul_{kind_}", (rows, k, n))] += c
+    k1 = _flash_want("sdxl", SDXL_STEPS, 0)
+    launches, latents = collections.Counter(), []
+    for i, opts in enumerate([{"vae-tile": 0, "unet-split": 0}, LOWMEM,
+                              LOWMEM]):
+        for k, v in [*opts.items(), ("seed", REQUESTS[0][0]),
+                     ("prompt", REQUESTS[0][1]),
+                     ("nprompt", "blurry, low quality")]:
+            s.option_set(k, v)
+        k2 = ({("flash_attn_fwd_wide", (1, 1, 6400, 512)): 4}
+              if opts["vae-tile"] else
+              {("flash_attn_fwd_wide", (1, 1, 16384, 512)): 1})
+        want = {**k1, **quant, **k2}
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        img = s.generate()
+        secs = time.time() - t0
+        shapes = collections.Counter(fa.LAUNCH_SHAPES) + collections.Counter(
+            qmm.LAUNCH_SHAPES)
+        got = _check_launches(f"sdxl {wt} lowmem {opts}", shapes, want)
+        launches.update(got)
+        latents.append(s.tensors["latent"])
+        peak = torch.cuda.max_memory_allocated()
+        _lowmem_phase(s, secs, shapes, got, model="sdxl", path=wt,
+                      request=i, options=opts,
+                      latent_equal_to_request_0=bool(np.array_equal(
+                          latents[0], latents[-1])),
+                      limit_bytes=LOWMEM_BYTES if s.qbits else None)
+        if not _image_ok(img, SDXL_DIM):
+            raise AssertionError(f"sdxl {wt} lowmem {i}: bad image")
+        if opts["unet-split"] and (_staged_on_card(s)
+                                   or s.resident != {"vae."}):
+            raise AssertionError(f"sdxl {wt} lowmem {i}: staged modules on "
+                                 f"the card after the request: "
+                                 f"{_staged_on_card(s)} {s.resident}")
+        if not np.array_equal(latents[0], latents[-1]):
+            raise AssertionError(f"sdxl {wt} lowmem {i}: the latent differs "
+                                 "from the one without the options")
+        if s.qbits and i == 2 and peak > LOWMEM_BYTES:
+            raise AssertionError(f"sdxl {wt} lowmem: peak {peak} B over "
+                                 f"{LOWMEM_BYTES}")
+    return launches
+
+
+def sdxl_lowmem_path(ckpt: str) -> collections.Counter:
+    """SDXL-base 1024^2 under q4_0: a session (K9/K10 take every quantized
+    product), :func:`sdxl_lowmem_requests`, then the tiled decode of its
+    latent with the kernels against the same with the plain attention, and
+    the device time of the tiled and the whole decode.  Returns the
+    launches."""
+    s = api.MLImgSynth(device="cuda")
+    for k, v in [("model", ckpt), ("model-type", "sdxl"),
+                 ("weight-type", "q4_0"), ("image-dim", SDXL_DIM),
+                 ("steps", SDXL_STEPS), ("cfg-scale", 7.0),
+                 ("method", "euler"), ("scheduler", "uniform")]:
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    phase("main", step="lowmem", model="sdxl", path="q4_0",
+          load_s=time.time() - t0, quantized_linears=sum(
+              isinstance(m, blocks_mod.QLinear)
+              for mod in s._models.values() for m in mod.modules()))
+    launches = sdxl_lowmem_requests(s, "q4_0")
+    vae = s._models["vae."]
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+
+    def run():
+        with torch.no_grad():
+            return [("sdxl_vae_tiled_image",
+                     api._tiled_decode(vae, lat, LOWMEM["vae-tile"]))]
+
+    _kernels_vs_plain("bf16", None, run)
+    with torch.no_grad():
+        phase("main", step="lowmem", model="sdxl", what="decode_ms",
+              tiled_ms=ms(lambda: api._tiled_decode(
+                  vae, lat, LOWMEM["vae-tile"]), n=5, reps=1),
+              whole_ms=ms(lambda: vae(lat), n=5, reps=1))
+    _drop(s)
+    return launches
+
+
+def sd1_lowmem_cli(tmp: str, ckpt: str) -> collections.Counter:
+    """SD1.5 512^2 img2img at ``I2I_F_T_INI`` through the CLI with
+    ``SD1_LOWMEM_ARGS``: K2 once in each of the 4 encode and 4 decode
+    tiles; the PNG is the session's float image as the writer truncates
+    it.  Returns the launches."""
+    png_in = os.path.join(tmp, "sd1-in-rgb.png")
+    out = os.path.join(tmp, "sd1-lowmem.png")
+    secs, s, shapes = _cli_request(
+        ["generate", "-m", ckpt, *I2I_ARGS, "-p", REQUESTS[0][1], "-i",
+         png_in, "--f-t-ini", str(I2I_F_T_INI), *SD1_LOWMEM_ARGS, "-o",
+         out])
+    n_step = _n_step(20, "euler", I2I_F_T_INI)
+    want = {**_flash_want("sd1", n_step, 0),
+            ("flash_attn_fwd_wide", (1, 1, 2304, 512)): 8}
+    got = _check_launches("sd1 lowmem img2img", shapes, want)
+    _lowmem_phase(s, secs, shapes, got, model="sd1", path="bf16", via="cli",
+                  args=SD1_LOWMEM_ARGS, steps=n_step, setup_s=s.setup_s,
+                  generate_s=s.generate_s)
+    _check_img2img(s, out, 512, "img2img")
+    if _staged_on_card(s) or s.resident != {"vae."}:
+        raise AssertionError(f"sd1 lowmem: staged modules on the card "
+                             f"after the request: {s.resident}")
+    _drop(s)
+    return collections.Counter(got)
+
+
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
 # and only the kernels differ between the two runs.  bf16 path: the
 # attention; on the H100 the seeded inputs give 1.6e-2 (UNet) and 6.2e-3
@@ -1264,7 +1444,8 @@ REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "sdxl_vae_image": 1.5e-2, "sd2_unet_v": 3e-2,
               "sd2_vae_image": 1.5e-2, "sd2_request_latent": 3e-2,
               "sd2_request_image": 1.5e-2, "vae_enc_moments_512": 1.5e-2,
-              "vae_enc_moments_1024": 1.5e-2}
+              "vae_enc_moments_1024": 1.5e-2,
+              "sdxl_vae_tiled_image": 1.5e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch
@@ -1559,6 +1740,12 @@ def time_shapes(s) -> dict:
 SMALL_CASES = [("sd1", testing.TINY_MODEL_TYPE, 192, 1),
                ("sdxl", testing.TINY_MODEL_TYPE_XL, 192, 3),
                ("sd3", testing.TINY_Q_MODEL_TYPE_SD3, 512, 2)]
+# (model type, tiny geometry, image side, seed, options): the tiny SDXL at
+# widths that quantize, under q4_0 with both memory options (64-px tiles:
+# 16 decode tiles of 24 x 24 latent pixels at 256^2)
+SMALL_OPTION_CASES = [("sdxl", testing.TINY_Q_MODEL_TYPE_XL, 256, 4,
+                       [("weight-type", "q4_0"), ("vae-tile", 64),
+                        ("unet-split", 1)])]
 
 
 def small_check():
@@ -1568,7 +1755,8 @@ def small_check():
     about 39 dB and 0.035 for SD1."""
     types = api._model_types
     try:
-        for name, mt, dim, seed in SMALL_CASES:
+        for name, mt, dim, seed, opts in (
+                [c + ([],) for c in SMALL_CASES] + SMALL_OPTION_CASES):
             api._model_types = lambda name=name, mt=mt: {name: mt}
             out, launches = {}, 0
             with tempfile.TemporaryDirectory() as tmp:
@@ -1579,18 +1767,24 @@ def small_check():
                     for k, v in [("model", ckpt), ("image-dim", dim),
                                  ("steps", 10), ("seed", 5),
                                  ("cfg-scale", 7.0), ("prompt", "a red fox"),
-                                 ("nprompt", "blurry")]:
+                                 ("nprompt", "blurry"), *opts]:
                         s.option_set(k, v)
-                    before = sum(fa.LAUNCHES.values())
+                    fa.reset_counts()
+                    qmm.reset_counts()
                     out[dev] = (s.generate(), s.tensors["latent"])
-                    launches += sum(fa.LAUNCHES.values()) - before
+                    launches += sum(_counts().values())
+                    if opts and dev == "cuda" and not all(
+                            qmm.LAUNCHES[k] for k in ("q4_matmul_tile",
+                                                      "q4_matmul_ws")):
+                        raise AssertionError(f"tiny {name} {opts}: "
+                                             f"{qmm.LAUNCHES}")
             (img_g, lat_g), (img_c, lat_c) = out["cuda"], out["cpu"]
             mse = float(np.mean((np.round(img_g * 255)
                                  - np.round(img_c * 255)) ** 2))
             psnr = 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
             rel = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
-            phase("small", model=name, image_dim=dim, psnr_db=psnr,
-                  latent_rel_l2=rel, kernel_launches=launches,
+            phase("small", model=name, image_dim=dim, options=opts,
+                  psnr_db=psnr, latent_rel_l2=rel, kernel_launches=launches,
                   limits={"psnr_db": 30.0, "latent_rel_l2": 0.1})
             if not (psnr > 30.0 and rel < 0.1 and launches > 0):
                 raise AssertionError(f"tiny {name} model: card and CPU "

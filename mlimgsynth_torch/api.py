@@ -3,16 +3,22 @@ and SD3-medium txt2img, img2img (``image``, ``f_t_ini``) and alpha-mask
 inpainting (``image_mask`` or the image's alpha), with LoRAs (``lora`` and
 ``<lora:NAME:MULT>`` prompt tags) merged into the weights as they load;
 encoded and decoded by the VAE or, with the ``tae`` option, the tiny
-autoencoder.
+autoencoder.  Two memory options: ``vae_tile`` (the VAE encodes and
+decodes in overlapping tiles) and ``unet_split`` (stage-wise weight
+residency: the text encoders and the denoiser are on the card only for
+their stage).
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
 weights load once, onto the session's device, and stay there across
-``generate`` calls.  Options, model types and weight types this slice does
-not port raise ``MlisError``; none is silently ignored.
+``generate`` calls (under ``unet_split``, on the host between stages).
+Options, model types and weight types this slice does not port raise
+``MlisError``; none is silently ignored.
 
 Arrays at this boundary are float32 numpy NCHW, as in the JAX package; the
-image is ``[n, 3, h, w]`` in [0, 1], quantized through uint8.  After each
+image is ``[n, 3, h, w]`` in [0, 1], quantized through uint8 (under
+``vae_tile`` with the VAE, the decoder's float output, as the JAX
+session's ``image_decode`` gives it).  After each
 ``generate`` the session holds the A1111 "parameters" text of the request
 in ``infotext``; a ``callback(session, progress)`` option sees its stages
 and steps, as the JAX session's does.
@@ -132,7 +138,7 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "batch_size", "no_prompt_parse", "s_noise", "s_ancestral",
             "clip_skip", "tae", "aux_dir", "callback", "image", "image_mask",
             "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
-            "tensor_use_flags")
+            "tensor_use_flags", "vae_tile", "unet_split")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt")
@@ -164,6 +170,10 @@ STAGE_NAMES = ["idle", "cond_encode", "image_encode", "image_decode",
 TUF_IMAGE, TUF_MASK, TUF_LATENT, TUF_LMASK = 1, 2, 4, 8
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
+# the modules that ``unet_split`` keeps on the host between their stages:
+# the text encoders (on the card for the conditioning) and the denoiser
+# (for the sampler loop); the VAE and the TAE stay on the card
+_STAGED = ("clip.text.", "clip2.text.", "unet.", "mmdit.")
 
 
 def _split_args(value: str) -> List[str]:
@@ -220,6 +230,82 @@ def _bool(v) -> bool:
     return bool(v)
 
 
+def _tile_geometry(full0, full1, n0, n1, k):
+    """Row-major tile origins + inner write boxes (tile-relative), matching
+    the reference's stitch rule: skip the k-margin on non-edge sides
+    (src/vae.c:365-385; the JAX package's ``_tile_geometry``,
+    ``mlimgsynth_tpu/api.py:3521-3540``)."""
+    step0, step1 = n0 - k * 2, n1 - k * 2
+    n_t0 = (full0 + step0 - 1) // step0
+    n_t1 = (full1 + step1 - 1) // step1
+    origins, boxes = [], []
+    for t1 in range(n_t1):
+        i1 = min(t1 * step1, full1 - n1)
+        for t0 in range(n_t0):
+            i0 = min(t0 * step0, full0 - n0)
+            d0 = k if i0 else 0
+            d1 = k if i1 else 0
+            ty1 = n1 - k if i1 + n1 < full1 else n1
+            tx1 = n0 - k if i0 + n0 < full0 else n0
+            origins.append((i1, i0))
+            boxes.append((d1, ty1, d0, tx1))
+    return np.asarray(origins, np.int32), np.asarray(boxes, np.int32)
+
+
+def _tiled_decode(vae, lat: torch.Tensor, tile_px: int) -> torch.Tensor:
+    """latent [n, ch_z, lh, lw] (scaled) -> image [n, 3, f lh, f lw] in
+    [-1, 1], f32, decoded by ``vae`` (a ``VaeDecoder``) in tiles of
+    ``tile_px`` (rounded up to a multiple of 64) plus a margin of 8 latent
+    pixels on each side (``_tiled_decode``, ``mlimgsynth_tpu/api.py:
+    3648-3679``).  Each tile writes its inner box into the canvas, in
+    ``_tile_geometry``'s order, so a later tile overwrites an earlier one
+    where the clamped last tile overlaps it.  One tile that covers the
+    latent is the untiled decode."""
+    f = vae.P.f_down
+    k = 8
+    n, _, lh, lw = lat.shape
+    tile_px = (tile_px + 63) // 64 * 64
+    n0 = min(tile_px // f + k * 2, lw)
+    n1 = min(tile_px // f + k * 2, lh)
+    if n0 == lw and n1 == lh:
+        return vae(lat).float()
+    origins, boxes = _tile_geometry(lw, lh, n0, n1, k)
+    log.info(f"VAE tiled decode: {len(origins)} tiles of "
+             f"{n0 * f}x{n1 * f}px")
+    img = torch.zeros(n, vae.P.ch_x, lh * f, lw * f, device=lat.device)
+    for (y, x), (y0, y1, x0, x1) in zip(origins.tolist(), boxes.tolist()):
+        dec = vae(lat[:, :, y:y + n1, x:x + n0])
+        img[:, :, (y + y0) * f:(y + y1) * f, (x + x0) * f:(x + x1) * f] = \
+            dec[:, :, y0 * f:y1 * f, x0 * f:x1 * f]
+    return img
+
+
+def _tiled_encode(enc, img: torch.Tensor, tile_px: int) -> torch.Tensor:
+    """image [n, 3, ih, iw] in [-1, 1] -> moments [n, 2 ch_z, ih/f, iw/f],
+    f32, encoded by ``enc`` (a ``VaeEncoder``) in tiles of ``tile_px``
+    (rounded up to a multiple of 64) plus a margin of 8 f image pixels on
+    each side (``_tiled_encode``, ``mlimgsynth_tpu/api.py:3682-3705``),
+    stitched as :func:`_tiled_decode` stitches."""
+    f = enc.P.f_down
+    k = f * 8
+    n, _, ih, iw = img.shape
+    tile_px = (tile_px + 63) // 64 * 64
+    n0 = min(tile_px + k * 2, iw)
+    n1 = min(tile_px + k * 2, ih)
+    if n0 == iw and n1 == ih:
+        return enc(img).float()
+    origins, boxes = _tile_geometry(iw, ih, n0, n1, k)
+    log.info(f"VAE tiled encode: {len(origins)} tiles of {n0}x{n1}px")
+    mom = torch.zeros(n, enc.P.ch_z * 2, ih // f, iw // f,
+                      device=img.device)
+    for (y, x), (y0, y1, x0, x1) in zip(origins.tolist(), boxes.tolist()):
+        e = enc(img[:, :, y:y + n1, x:x + n0])
+        oy, ox = y // f, x // f
+        mom[:, :, oy + y0 // f:oy + y1 // f, ox + x0 // f:ox + x1 // f] = \
+            e[:, :, y0 // f:y1 // f, x0 // f:x1 // f]
+    return mom
+
+
 class MLImgSynth:
     """The session.  ``device`` defaults to the first CUDA card; without
     one the session refuses to start unless the caller asks for the CPU
@@ -242,7 +328,8 @@ class MLImgSynth:
                   "no_prompt_parse": False, "clip_skip": 0,
                   "s_noise": 0.0, "s_ancestral": 0.0, "tae": "",
                   "aux_dir": "", "f_t_ini": 1.0, "f_t_end": 0.0,
-                  "lora_dir": "", "tuflags": 0}
+                  "lora_dir": "", "tuflags": 0, "vae_tile": 0,
+                  "unet_split": False}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -261,7 +348,9 @@ class MLImgSynth:
         self.loras: List[Tuple[str, float, bool]] = []
         # seconds of the last setup and request: "load_s" (a whole load or
         # a LoRA reload, its merges included), "lora_merge_s",
-        # "encoder_load_s", "image_encode_s", "generate_s"
+        # "encoder_load_s", "image_encode_s", "decode_s", "generate_s";
+        # under ``unet_split`` each stage move, "move_in_<module>_s" and
+        # "move_out_<module>_s" (module: clip, clip2, unet, mmdit)
         self.times: Dict[str, float] = {}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
@@ -272,6 +361,12 @@ class MLImgSynth:
         # its merges touched
         self._lora_state: Tuple[Tuple[str, float], ...] = ()
         self._lora_prefixes: set = set()
+        # the residency record: prefixes of ``_models`` whose weights are
+        # on the session's device; under ``unet_split`` the others of
+        # ``_STAGED`` hold their host copy (``_host``, pinned on a card),
+        # which is also the state that each stage puts on the device
+        self.resident: set = set()
+        self._host: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -388,6 +483,10 @@ class MLImgSynth:
             self.loras.clear()
         elif opt == "tensor_use_flags":
             c["tuflags"] = _int(v)
+        elif opt == "vae_tile":
+            c["vae_tile"] = _int(v)
+        elif opt == "unet_split":
+            c["unet_split"] = _bool(v)
 
     def _image_set(self, img) -> None:
         """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
@@ -509,7 +608,10 @@ class MLImgSynth:
         where the ``tae`` option names one (the VAE encoder loads on the
         first ``image_encode``).  A changed LoRA list reloads the modules
         that the old list or the new one patches, from the file, so no
-        merge outlives its list."""
+        merge outlives its list.  Under ``unet_split`` the text encoders
+        and the denoiser load to the host and go to the device for their
+        stage only (:meth:`_stage_in`); with the option off, every module
+        is on the device after ``setup``."""
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
@@ -517,6 +619,7 @@ class MLImgSynth:
         loras = tuple((p, m) for p, m, _ in self.loras)
         if self._loaded != key:
             self._models, self._encoders = {}, {}
+            self._host, self.resident = {}, set()
             self._load_model(path, loras)
             self._loaded = key
             self._tae_loaded = ""
@@ -526,10 +629,60 @@ class MLImgSynth:
             log.info(f"LoRA list changed: reloaded "
                      f"{', '.join(sorted(old | self._lora_prefixes))} "
                      f"{{{self.times['load_s']:.3f}s}}")
+        if not self.c["unet_split"]:
+            for prefix in list(self._host):
+                self._stage_in(prefix)
+            self._host.clear()
         tae = self._aux_find(self.c["tae"])
         if tae and self._tae_loaded != tae:
             self._load_tae(tae)
             self._tae_loaded = tae
+
+    def _stage_in(self, prefix: str) -> None:
+        """Put the weights of the staged module at ``prefix`` on the device
+        (a copy of its host state; ``times["move_in_<module>_s"]``, the copy
+        waited for).  A module already there stays."""
+        if prefix in self.resident:
+            return
+        t0 = time.time()
+        weights_mod.load_module(
+            self._models[prefix], prefix,
+            {k: v.to(self.device, non_blocking=True)
+             for k, v in self._host[prefix].items()})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.resident.add(prefix)
+        self.times[f"move_in_{prefix.split('.')[0]}_s"] = \
+            time.time() - t0
+
+    def _stage_out(self, prefix: str) -> None:
+        """Take the staged module at ``prefix`` off the device: it holds
+        its host state again (made from the device copy where the module
+        loaded before ``unet_split`` was set) and no tensor of it is left
+        on the card, whose cached blocks ``empty_cache`` frees
+        (``times["move_out_<module>_s"]``)."""
+        if prefix not in self.resident:
+            return
+        t0 = time.time()
+        m = self._models[prefix]
+        if prefix not in self._host:
+            self._host[prefix] = {prefix + k: self._pin(v)
+                                  for k, v in m.state_dict().items()}
+        weights_mod.load_module(m, prefix, self._host[prefix])
+        self.resident.discard(prefix)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.times[f"move_out_{prefix.split('.')[0]}_s"] = \
+            time.time() - t0
+
+    def _pin(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` (on the host or the device), in page-locked
+        memory where the session runs on a card, so that its copy to the
+        card is one DMA at the bus's rate."""
+        if self.device.type != "cuda":
+            return t.to("cpu")
+        return torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t)
 
     def _load_tae(self, path: str) -> None:
         """The TAE decoder, and its encoder where the file holds one, from
@@ -546,6 +699,7 @@ class MLImgSynth:
                 f"family's ({self._mt.vae_p.ch_z}) - e.g. taesd is for SD, "
                 "taesd3 for SD3")
         self._models["tae."] = m
+        self.resident.add("tae.")
         enc = weights_mod.load_tae(path, self.device, self.dtype,
                                    encoder=True)
         self._encoders.pop("tae.", None)
@@ -604,7 +758,19 @@ class MLImgSynth:
                     n_q += weights_mod.quantize_linear_weights(
                         m, prefix, params, self.qbits,
                         m_hint if prefix == "mmdit." else None)
-                params = {k: v.to(self.device) for k, v in params.items()}
+                if encoders:     # the VAE encoder stays on the device
+                    params = {k: v.to(self.device)
+                              for k, v in params.items()}
+                elif self.c["unet_split"] and prefix in _STAGED:
+                    # on the host until its stage
+                    params = {k: self._pin(v) for k, v in params.items()}
+                    self._host[prefix] = params
+                    self.resident.discard(prefix)
+                else:
+                    params = {k: v.to(self.device)
+                              for k, v in params.items()}
+                    self._host.pop(prefix, None)
+                    self.resident.add(prefix)
                 target[prefix] = weights_mod.load_module(
                     m, prefix, params).eval()
         finally:
@@ -756,22 +922,64 @@ class MLImgSynth:
                                 "the TAE file holds no encoder")
             lat = enc(x).float()
         else:
-            P = self._mt.vae_p
-            mom = self._encoders["vae."](x * 2.0 - 1.0)
-            n, _, h, w = mom.shape
-            streams = [RngPhilox(self.rng.seed + i, self.rng.offset)
-                       for i in range(n)]
-            rand = np.stack([st.randn_shaped((P.ch_z, h, w))
-                             for st in streams]).astype(np.float32)
-            self.rng.offset = streams[0].offset
-            lat = vae_mod.latent_sample(
-                mom, torch.from_numpy(rand).to(self.device), P)
+            lat = self._vae_encode(x)
         if not torch.isfinite(lat).all():
             raise MlisError(MlisError.E_NAN, "NaN found in encoded latent")
         out = lat.cpu().numpy()
         self.times["image_encode_s"] = time.time() - t0
         self._cb(STAGE_IMAGE_ENCODE, 1, 1)
         return out
+
+    def _vae_encode(self, x: torch.Tensor) -> torch.Tensor:
+        """img [n, 3, h, w] in [0, 1] on the device -> a sample of the VAE
+        encoder's moments (in tiles under ``vae_tile``), as
+        :meth:`image_encode` describes (``_vae_encode``,
+        ``mlimgsynth_tpu/api.py:1969-1991``)."""
+        P = self._mt.vae_p
+        enc = self._encoders["vae."]
+        tile = self.c["vae_tile"]
+        x = x * 2.0 - 1.0
+        mom = _tiled_encode(enc, x, tile) if tile > 0 else enc(x)
+        n, _, h, w = mom.shape
+        streams = [RngPhilox(self.rng.seed + i, self.rng.offset)
+                   for i in range(n)]
+        rand = np.stack([st.randn_shaped((P.ch_z, h, w))
+                         for st in streams]).astype(np.float32)
+        self.rng.offset = streams[0].offset
+        return vae_mod.latent_sample(
+            mom, torch.from_numpy(rand).to(self.device), P)
+
+    def _vae_decode(self, x: torch.Tensor) -> torch.Tensor:
+        """The sampler's latent on the device -> the VAE's image (x + 1) / 2
+        in f32, neither clamped nor quantized, decoded in tiles under
+        ``vae_tile`` (``_vae_decode``, ``mlimgsynth_tpu/api.py:
+        1993-2006``)."""
+        vae = self._models["vae."]
+        tile = self.c["vae_tile"]
+        img = _tiled_decode(vae, x, tile) if tile > 0 else vae(x).float()
+        return (img + 1.0) / 2.0
+
+    @torch.no_grad()
+    def image_decode(self, latent: np.ndarray) -> np.ndarray:
+        """latent NCHW [n, ch_z, h, w] (scaled) -> image [n, 3, 8h, 8w] in
+        [0, 1] (``image_decode``, ``mlimgsynth_tpu/api.py:1885-1895``): the
+        VAE's float output (tiled under ``vae_tile``) or the TAE's, clamped
+        (its ``_tae_decode``)."""
+        self.setup()
+        x = torch.from_numpy(np.ascontiguousarray(latent, np.float32)).to(
+            self.device)
+        out = self._image_decode(x).cpu().numpy()
+        self._cb(STAGE_IMAGE_DECODE, 1, 1)
+        return out
+
+    def _image_decode(self, x: torch.Tensor) -> torch.Tensor:
+        if self.c["tae"]:
+            img = self._models["tae."](x).float().clamp(0.0, 1.0)
+        else:
+            img = self._vae_decode(x)
+        if not torch.isfinite(img).all():
+            raise MlisError(MlisError.E_NAN, "NaN found in decoded image")
+        return img
 
     def mask_encode(self, mask: np.ndarray) -> np.ndarray:
         """Image mask -> latent mask by block-mean downsize (reference:
@@ -788,7 +996,9 @@ class MLImgSynth:
         c = self.c
         t_start = time.time()
         self._nfe = 0
-        self.times.pop("image_encode_s", None)
+        for k in [k for k in self.times
+                  if k == "image_encode_s" or k.startswith("move_")]:
+            del self.times[k]
         f = self._mt.vae_p.f_down
         n = c["n_batch"]
         h, w = c["height"] // f, c["width"] // f
@@ -811,8 +1021,20 @@ class MLImgSynth:
         lmask = (np.asarray(self.tensors["lmask"], np.float32)
                  if c["tuflags"] & TUF_LMASK else None)
         use_cfg = c["cfg_scale"] > 1
+        flow = self._flow()
+        towers = [p for p in ("clip.text.", "clip2.text.")
+                  if p in self._models]
+        for prefix in towers:
+            self._stage_in(prefix)
         cond, label = self._text_cond([self.prompt, self.nprompt] if use_cfg
                                       else [self.prompt])
+        denoiser = "mmdit." if flow else "unet."
+        if c["unet_split"]:
+            # stage-wise residency (``api.py:2402-2405``): the text
+            # encoders leave the card before the loop
+            for prefix in towers:
+                self._stage_out(prefix)
+        self._stage_in(denoiser)
         if (use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False)
                 and not c["nprompt_raw"]):
             # SDXL: an empty negative prompt conditions on zero context rows
@@ -825,7 +1047,6 @@ class MLImgSynth:
         cond_all = torch.repeat_interleave(cond, n, dim=0)
         label_all = (None if label is None
                      else torch.repeat_interleave(label, n, dim=0))
-        flow = self._flow()
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
                              n_step=c["steps"], cfg_scale=c["cfg_scale"],
                              s_ancestral=c["s_ancestral"],
@@ -841,7 +1062,7 @@ class MLImgSynth:
             self._cb(STAGE_DENOISE, i, n_step)
 
         with torch.no_grad():
-            x = run_sampler(self._models["mmdit." if flow else "unet."],
+            x = run_sampler(self._models[denoiser],
                             latent, plan, cond_all, scfg,
                             step_observer=self.step_observer,
                             label_all=label_all,
@@ -854,13 +1075,25 @@ class MLImgSynth:
             if not torch.isfinite(x).all():
                 raise MlisError(MlisError.E_NAN, "NaN found in the "
                                 + ("MMDiT" if flow else "UNet") + " output")
-            if c["tae"]:
-                # the TAE takes the sampler's latent and gives [0, 1]
-                # (``_decode_u8``'s "tae" branch); C-cast truncation to u8
-                img = self._models["tae."](x).float() * 255.0
+            if c["unet_split"]:
+                # the denoiser leaves the card after the loop (``:2480``)
+                self._stage_out(denoiser)
+            t_dec = time.time()
+            if c["vae_tile"] > 0 and not c["tae"]:
+                # the JAX session's ``image_decode`` branch (``:2499``):
+                # the float image, neither clamped nor quantized
+                image = self._image_decode(x).cpu().numpy()
             else:
-                img = (self._models["vae."](x).float() + 1.0) * (255.0 / 2.0)
-            u8 = img.clamp(0.0, 255.0).to(torch.uint8)
+                if c["tae"]:
+                    # the TAE takes the sampler's latent and gives [0, 1]
+                    # (``_decode_u8``'s "tae" branch); C-cast truncation
+                    img = self._models["tae."](x).float() * 255.0
+                else:
+                    img = ((self._models["vae."](x).float() + 1.0)
+                           * (255.0 / 2.0))
+                u8 = img.clamp(0.0, 255.0).to(torch.uint8)
+                image = u8.cpu().numpy().astype(np.float32) / 255.0
+            self.times["decode_s"] = time.time() - t_dec
         self.tensors["latent"] = x.cpu().numpy()
         self.tensors["cond"] = cond[:1].cpu().numpy()
         self.tensors["ncond"] = cond[1:].cpu().numpy() if use_cfg else None
@@ -868,7 +1101,7 @@ class MLImgSynth:
             self.tensors["label"] = label[:1].cpu().numpy()
             self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
                                       else None)
-        self.tensors["image"] = u8.cpu().numpy().astype(np.float32) / 255.0
+        self.tensors["image"] = image
         self._cb(STAGE_IMAGE_DECODE, 1, 1)
         self._infotext_update(w * f, h * f, plan.n_step,
                               "inpaint" if lmask is not None else "img2img")

@@ -14,7 +14,8 @@ and say so.
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
 session's error; there is no silent CPU fallback.  Options the port does
-not have (``--vae-tile``, ...) exit 1 as unknown options.
+not have (``--deepcache``, ...) exit 1 as unknown options.  The memory
+options ``--vae-tile`` and ``--unet-split`` forward to the session.
 
     python -m mlimgsynth_torch.cli generate -m sd2.safetensors -d 768 \\
         -s 20 --method dpmpp2m -S 42 -p "..." -o out.png
@@ -72,6 +73,8 @@ Models and backend:
                        request.
   --lora-dir PATH      Directory searched for <lora:NAME:MULT> prompt tags.
   -b --backend NAME    cuda (default) or cpu.
+  --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
+  --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
   --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
   --batch-size INT     Images per batch.
 

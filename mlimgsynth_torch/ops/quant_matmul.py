@@ -39,10 +39,11 @@ keeps the reference's switch.
 
 A wrapper given a CPU tensor runs the plain version (``ops/quant.py``);
 given CUDA tensors it launches its kernel or raises.  Each launch adds one
-to ``LAUNCHES[<kernel>]``.
+to ``LAUNCHES[<kernel>]`` and to ``LAUNCH_SHAPES[(<kernel>, (M, K, N))]``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -56,6 +57,7 @@ from .quant_plan import pick_large_m_plan
 LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
             "q4_matmul_tile": 0, "q4_matmul_ws": 0, "q8_matmul_ws_int8": 0,
             "q8_matmul_int8": 0}
+LAUNCH_SHAPES = collections.Counter()
 
 WS_MIN_M = 2048
 # ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N)
@@ -83,6 +85,7 @@ _I8WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 def reset_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
     quant.PLAIN_CUDA_CALLS = 0
 
 
@@ -201,6 +204,7 @@ def _launch(name: str, x, w, s, bits: int):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, (m, k, n))] += 1
     return y.reshape(x.shape[:-1] + (n,))
 
 

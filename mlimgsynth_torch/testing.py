@@ -448,6 +448,10 @@ ATTN_CASES = [
      "SD3 and SDXL VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 9216, 512), 9216,
      "SD2 VAE mid-block (144 blocks on 132 SMs)"),
+    ("flash_attn_fwd_wide", (1, 1, 6400, 512), 6400,
+     "SDXL VAE tile of 640^2 (--vae-tile 512; 100 blocks, one wave)"),
+    ("flash_attn_fwd_wide", (1, 1, 2304, 512), 2304,
+     "SD1.5 VAE tile of 384^2 (--vae-tile 256)"),
     ("flash_attn_fwd_wide", (2, 2, 600, 512), 520,
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,

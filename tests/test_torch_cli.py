@@ -112,9 +112,9 @@ def test_tokenize_help_version(capsys):
     ["vae-encode", "-b", "cpu"],
     ["generate", "-b", "tpu"],
     ["generate", "-b", "cpu", "--method", "lcm"],
-    ["generate", "-b", "cpu", "--vae-tile", "256"],
+    ["generate", "-b", "cpu", "--deepcache", "3"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
-        "method", "vae-tile"])
+        "method", "deepcache"])
 def test_errors_exit_1(argv):
     assert tcli.main(argv) == 1
 

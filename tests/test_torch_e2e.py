@@ -203,7 +203,7 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 @pytest.mark.parametrize("name,value", [
     ("model-type", "flux_dev"), ("weight-type", "q2_k"), ("method", "lcm"),
-    ("vae-tile", 256), ("hires-fix", 2.0), ("prompt", "a [cat:dog:0.5]"),
+    ("deepcache", 3), ("hires-fix", 2.0), ("prompt", "a [cat:dog:0.5]"),
     ("prompt", "an <emb:x> cat"),
 ])
 def test_unsupported_option_raises(name, value):

@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's host modules (rng, tokenizer,
 prompt, nameconv, io.tensorstore, io.gquant, sampling.schedule, utils.log,
-utils.image) against the originals: the same seeded inputs through both
+utils.image, the session's ``_tile_geometry``) against the originals: the same seeded inputs through both
 give equal results, exactly.  The port writes its PNGs without pillow, so
 those are compared as pillow reads them (pixels and ``parameters`` text),
 not byte for byte."""
@@ -192,10 +192,21 @@ def _masks(pkg, tmp_path):
             *im.image_alpha_split(rgba)]
 
 
+def _tiles(pkg, tmp_path):
+    """The session's ``_tile_geometry`` (pure numpy) on the tiled VAE's
+    canvases: square and not, a side one tile covers, a clamped last tile,
+    the encoder's 64-px margin, one tile."""
+    api = _mod(pkg, "api")
+    return [api._tile_geometry(*g) for g in (
+        (32, 32, 24, 24, 8), (56, 40, 24, 24, 8), (24, 40, 24, 24, 8),
+        (50, 37, 24, 24, 8), (448, 320, 192, 192, 64), (24, 24, 24, 24, 8),
+        (128, 128, 80, 80, 8), (1024, 1024, 640, 640, 64))]
+
+
 CASES = {"tokenizer": _tokenizer, "prompt": _prompt, "rng": _rng,
          "schedule": _schedule, "tensorstore": _tensorstore,
          "nameconv": _nameconv, "log": _log, "image": _image,
-         "masks": _masks}
+         "masks": _masks, "tiles": _tiles}
 
 
 def _plain(x):

@@ -55,6 +55,22 @@ Phases, one result line each (any failure exits non-zero):
                  (top half opaque) at 0.8 and a <lora:NAME:0.8> tag on
                  txt2img; the LoRA on the q8_0 session; one img2img request
                  at f_t_ini 0.6 on SDXL, SD3, SD2 and SD2 with --tae.
+                 SD3 with T5-XXL context (``t5`` lines): on the SD3
+                 checkpoint with a seeded random full-width T5-XXL file
+                 (f16, drawn on the card) by --t5 and a made-up Unigram
+                 tokenizer.json of 32,128 pieces, a bf16 session runs one
+                 request at t5_tokens 77 and one at 256 (joint attention
+                 over 4,250 and 4,429 rows), each with its T5 encode time
+                 and peak memory; the T5 rows in bf16 against f32 on the
+                 card; the 256 request's latent with the kernels against
+                 the same with the plain attention.  Embeddings and prompt
+                 editing (``embed_edit`` lines): on the SD1.5 checkpoint
+                 through the CLI, an <emb:NAME> whose table is CLIP-L's
+                 rows of "cat" gives the latent of the word, bit for bit;
+                 on that session "[a cat:a dog:10]" at 20 Euler steps gives
+                 the latents of "a cat" through step 10, bit for bit, and
+                 other ones after; on SDXL the same with an embedding of
+                 both towers' rows in an edited prompt.
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -116,11 +132,13 @@ import numpy as np
 import torch
 
 from mlimgsynth_torch import api, cli, testing
+from mlimgsynth_torch import tokenizer as tok_mod
 from mlimgsynth_torch import weights as weights_mod
 from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import clip as clip_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
+from mlimgsynth_torch.models import t5 as t5_mod
 from mlimgsynth_torch.models import unet as unet_mod
 from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
@@ -208,16 +226,56 @@ LOWMEM = {"vae-tile": 512, "unet-split": 1}
 LOWMEM_BYTES = 4 * 2 ** 30
 SD1_LOWMEM_ARGS = ["--vae-tile", "256", "--unet-split", "1"]
 
+# SD3-medium with T5-XXL context: one bf16 request at each t5_tokens (the
+# joint attention over 4096 image + 77 CLIP + t5_tokens rows); a prompt of
+# more than 77 T5 tokens, so that 77 cuts it and 256 pads it; the made-up
+# tokenizer's charsmap maps full-width Latin letters, digits and the
+# ellipsis.  T5_REL_L2 holds the T5 rows in bf16 against f32 on the card:
+# a 24-layer random T5 at width 1024 on the CPU read 2.2e-2 (77 tokens) and
+# 2.4e-2 (256), bf16 against f32, and the limit leaves 2.5 times that; the
+# full-width T5-XXL on the H100 reads 1.7e-2 and 1.5e-2.
+T5_TOKENS = (77, 256)
+T5_PROMPT = ("a photograph of an astronaut riding a white horse across the "
+             "surface of the moon, the earth rising over the horizon behind "
+             "him, dramatic rim light, highly detailed, ３５ｍｍ film grain, "
+             "wide angle lens, cinematic composition, and a small red flag "
+             "planted in the grey dust in the foreground…")
+T5_RULES = {**{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+            **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)},
+            **{chr(0xFF10 + i): chr(0x30 + i) for i in range(10)},
+            "…": "..."}
+T5_REL_L2 = 6e-2
+
+# Embeddings and prompt editing: a prompt with a word, an embedding of that
+# word's token rows in its place, and an edit that switches at EDIT_STEP
+# of 20 Euler steps
+EMBED_PROMPT = "a photograph of a {} sitting on a red sofa"
+EDIT_PROMPTS = {"sd1": ("a photograph of [a cat:a dog:10] sitting on a red "
+                        "sofa", "a photograph of a cat sitting on a red sofa"),
+                "sdxl": ("a photograph of a <emb:xcat> [in the snow:in the "
+                         "rain:10]", "a photograph of a cat in the snow")}
+EDIT_STEP = 10
+
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 ms = testing.median_ms   # a call's device time
+# a plain version takes 2-100 times its kernel's time, so 5 samples of 2
+# calls give its median well enough (the kernels keep 20 samples of 10)
+PLAIN = {"n": 5, "reps": 2}
+
+
+# the card's name and power limit (``nvidia-smi``), and the seconds since
+# the start, on every line
+CARD = ""
+T_START = time.time()
 
 
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    print(json.dumps({"phase": name, **kv, "card": CARD,
+                      "t": time.time() - T_START}), flush=True)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> dict:
@@ -231,12 +289,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
+    global CARD
     t_start = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD = smi
     kind = torch.cuda.get_device_name(0)
     phase("device", kind=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -272,6 +332,7 @@ def main() -> int:
             _drop(s)
         launches.update(sd1_img2img_path(tmp, ckpt, lora))
         launches.update(sd1_lowmem_cli(tmp, ckpt))
+        launches.update(embed_edit_sd1(tmp, ckpt))
         os.remove(ckpt)
         ckpt = _checkpoint(tmp, "sd3")
         for wt, bits, n_req in SD3_PATHS:
@@ -285,6 +346,8 @@ def main() -> int:
                     s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
                     lambda s: sd3_want(s, int8=True), mode="int8"))
             sd3_reference_check(s, wt, bits)
+            if not bits:
+                launches.update(t5_path(s, tmp))
             if bits == 8:
                 sd3_dq = time_products(sd3_dq_products(s), "sd3")
             _drop(s)
@@ -302,6 +365,7 @@ def main() -> int:
                     lambda s: sdxl_want(s, int8=True), mode="int8"))
             sdxl_reference_check(s, wt, bits)
             if not bits:
+                launches.update(embed_edit_sdxl(s, ckpt, tmp))
                 launches.update(sdxl_lowmem_requests(s, wt))
             if bits == 8:
                 sdxl_dq = time_products(sdxl_products(s), "sdxl")
@@ -420,8 +484,10 @@ FLASH_SHAPE_CALLS = {
     ((2, 20, 1024, 64), 1024): {"sdxl": 1200},
     ((1, 1, 4096, 512), 4096): {"sd1": 1, "sd1_img2img": 2},
     ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1, "sd3_img2img": 2,
-                                  "sdxl_img2img": 2},
-    ((2, 24, 4250, 64), 4250): {"sd3": 480},
+                                  "sdxl_img2img": 2, "sd3_t5_77": 1,
+                                  "sd3_t5_256": 1},
+    ((2, 24, 4250, 64), 4250): {"sd3": 480, "sd3_t5_77": 480},
+    ((2, 24, 4429, 64), 4429): {"sd3_t5_256": 480},
     ((2, 5, 9216, 64), 9216): {"sd2": 100},
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
     ((2, 20, 576, 64), 576): {"sd2": 100},
@@ -468,7 +534,7 @@ def check_flash():
         with sdpa_kernel(backend):
             library_ms = ms(lambda: sdpa(q, k, v))
         t = {"ms": ms(lambda: fn(q, k, v)),
-             "plain_ms": ms(lambda: fa.attention_plain(q, k, v)),
+             "plain_ms": ms(lambda: fa.attention_plain(q, k, v), **PLAIN),
              "library_ms": library_ms,
              "library": f"scaled_dot_product_attention {backend.name}",
              **bound(4.0 * b * h * sq * sk * d,
@@ -529,7 +595,7 @@ def _time_quant(name: str, x, q, s, bits: int) -> dict:
          ).view(w.shape[0], -1).bfloat16()
     fn = getattr(qmm, name)
     return {"ms": ms(lambda: fn(x, q, s)),
-            "plain_ms": ms(lambda: plain(x, q, s)),
+            "plain_ms": ms(lambda: plain(x, q, s), **PLAIN),
             "library_ms": ms(lambda: torch.matmul(x, w.t()))}
 
 
@@ -595,7 +661,8 @@ def check_int8():
         res = testing.int8_error(out, ref)
         w = (q.float() * s[:, None]).bfloat16()
         t = {"ms": ms(lambda: qmm.q8_matmul_ws_int8(x, q, s)),
-             "plain_ms": ms(lambda: quant.q8_ws_int8_plain(x, q, s)),
+             "plain_ms": ms(lambda: quant.q8_ws_int8_plain(x, q, s),
+                            **PLAIN),
              "library_ms": ms(lambda: torch.matmul(x, w.t())),
              "int8_library_ms": _int_mm_ms(x, q, quant._ws_slab(k)),
              **bound(2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n
@@ -625,7 +692,8 @@ def _time_q8_int8(x, q, s) -> dict:
     w = (q.float().view(q.shape[0], -1, quant.KBLOCK) * s[:, :, None]
          ).view(q.shape[0], -1).bfloat16()
     return {"ms": ms(lambda: qmm.q8_matmul_int8(x, q, s)),
-            "plain_ms": ms(lambda: quant.q8_matmul_int8_plain(x, q, s)),
+            "plain_ms": ms(lambda: quant.q8_matmul_int8_plain(x, q, s),
+                           **PLAIN),
             "library_ms": ms(lambda: torch.matmul(x, w.t())),
             "int8_library_ms": _int_mm_ms(x, q, quant.KBLOCK)}
 
@@ -713,12 +781,15 @@ def sd3_products(s) -> collections.Counter:
     quantized products, from the module tree: each quantized linear with the
     rows it gets (the two text towers once per request on the 2 x 77 tokens
     of prompt and negative prompt; per MMDiT evaluation, the CFG batch's 2 x
-    4096 image tokens in the x stream and the final layer, its 2 x 154
+    4096 image tokens in the x stream and the final layer, its 2 x (77 +
+    the T5 rows: t5_tokens with T5 weights and a tokenizer, else 77)
     context tokens in the context stream and the context embedder, 2 rows
     in the adaLN and embedders) and whether its weight is stored per
     column."""
     img = 2 * (SD3_DIM // 16) ** 2
-    ctx = 2 * 2 * s._mt.clip_p.n_token
+    n_tok = s._mt.clip_p.n_token
+    t5 = (s.c["t5"] or s._bundled_t5) and s.c["t5_tokenizer"]
+    ctx = 2 * (n_tok + (s.c["t5_tokens"] if t5 else n_tok))
     calls = collections.Counter()
     for prefix, mod in s._models.items():
         for name, m in mod.named_modules():
@@ -1162,7 +1233,7 @@ def _flash_want(model: str, n_eval: int, n_k2: int) -> dict:
              else calls.get(model, 0) // 20 * n_eval)
         if model in calls and n:
             name = ("flash_attn_fwd_wide" if shape[-1] == 512 else
-                    "flash_attn_joint" if model == "sd3" else
+                    "flash_attn_joint" if model.startswith("sd3") else
                     "flash_attn_fwd")
             want[(name, shape)] = n
     return want
@@ -1413,6 +1484,212 @@ def sd1_lowmem_cli(tmp: str, ckpt: str) -> collections.Counter:
     return collections.Counter(got)
 
 
+def _t5_tokens(s, texts, n_tok: int) -> torch.Tensor:
+    """The session's T5 token ids of ``texts`` at ``n_tok``, on its
+    device."""
+    return torch.as_tensor(t5_mod.tokenize(texts, n_tok, s.c["t5_tokenizer"]),
+                           dtype=torch.long, device=s.device)
+
+
+def t5_path(s, tmp: str) -> collections.Counter:
+    """SD3-medium 1024^2 bf16 with T5-XXL context (``t5`` lines) on the
+    bf16 SD3 session ``s``: a seeded random full-width T5-XXL file given by
+    --t5 and a made-up Unigram tokenizer.json; one request at each
+    ``T5_TOKENS`` with exact launches
+    by shape (K3 at [2, 24, 4096 + 77 + t5_tokens, 64]), its T5 encode
+    time (host, in the request; device, the two rows alone) and peak
+    memory; the T5 rows in bf16 against f32 on the card; the last
+    request's latent with the kernels against the plain attention.
+    Returns the launches of the requests."""
+    t5 = os.path.join(tmp, "t5xxl-random-f16.safetensors")
+    t0 = time.time()
+    testing.write_random_t5(t5, t5_mod.T5_XXL, seed=0, device="cuda")
+    write_s = time.time() - t0
+    tok = os.path.join(tmp, "t5-tokenizer.json")
+    testing.write_tokenizer_json(tok, testing.unigram_tokenizer_spec(
+        testing.random_unigram_pieces(t5_mod.T5_XXL.n_vocab, seed=0),
+        charsmap=testing.build_charsmap(T5_RULES), eos=True))
+    phase("t5", step="files", t5_write_s=write_s,
+          t5_bytes=os.path.getsize(t5))
+    s.option_set("t5", t5)
+    s.option_set("t5-tokenizer", tok)
+    t0 = time.time()
+    s._t5_load()
+    phase("t5", step="setup", t5_load_s=time.time() - t0,
+          t5_params=sum(p.numel() for p in s._t5.parameters()),
+          t5_geometry=s._t5.P.__dict__,
+          memory_allocated=torch.cuda.memory_allocated())
+    launches = collections.Counter()
+    toks = {}
+    for n_tok in T5_TOKENS:
+        s.option_set("t5-tokens", n_tok)
+        s.option_set("seed", REQUESTS[0][0])
+        s.option_set("prompt", T5_PROMPT)
+        s.option_set("nprompt", "blurry, low quality")
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        img = s.generate()
+        secs = time.time() - t0
+        got = _check_launches(f"sd3 t5_tokens {n_tok}",
+                              collections.Counter(fa.LAUNCH_SHAPES),
+                              _flash_want(f"sd3_t5_{n_tok}", SD3_STEPS, 1))
+        if any(qmm.LAUNCHES.values()):
+            raise AssertionError(f"sd3 t5: quantized kernels {qmm.LAUNCHES}")
+        launches.update(got)
+        cond = s.tensors["cond"]
+        toks[n_tok] = _t5_tokens(s, [T5_PROMPT, "blurry, low quality"],
+                                 n_tok)
+        with torch.no_grad():
+            enc_ms = ms(lambda: s._t5(toks[n_tok]), n=5, reps=2)
+        phase("t5", t5_tokens=n_tok, seconds=secs,
+              t5_encode_s=s.times["t5_encode_s"], t5_encode_ms=enc_ms,
+              prompt_t5_tokens=int((toks[n_tok][0] != 0).sum()),
+              cond_rows=cond.shape[1], launches=got,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              image_mean=float(img.mean()), image_std=float(img.std()))
+        want = (1, 77 + n_tok, s._mt.unet_p.d_ctx_in)
+        if (not _image_ok(img, SD3_DIM) or cond.shape != want
+                or not np.abs(cond[:, 77:]).max() > 0):
+            raise AssertionError(f"sd3 t5_tokens {n_tok}: image "
+                                 f"{img.shape} or cond {cond.shape}")
+    # the T5 rows in bf16 (the session's) against an f32 encoder loaded
+    # from the same file, both on the card
+    s32 = api.MLImgSynth(device="cuda")
+    s32.option_set("t5", t5)
+    s32.dtype = torch.float32
+    s32._t5_load()
+    for n_tok, t in toks.items():
+        with torch.no_grad():
+            a, b = s._t5(t).float(), s32._t5(t)
+        rel = ((a - b).norm() / b.norm()).item()
+        phase("t5", step="bf16_vs_f32", t5_tokens=n_tok, rel_l2=rel,
+              limit=T5_REL_L2)
+        if not rel < T5_REL_L2:
+            raise AssertionError(f"T5 bf16 against f32: rel L2 {rel}")
+    del s32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run():
+        s.option_set("seed", REQUESTS[0][0])
+        s.option_set("prompt", T5_PROMPT)
+        s.option_set("nprompt", "blurry, low quality")
+        s.generate()
+        return [("sd3_t5_request_latent",
+                 torch.from_numpy(s.tensors["latent"]))]
+
+    _kernels_vs_plain("bf16", None, run)
+    return launches
+
+
+def _token_rows(ckpt: str, prefix: str, word: str) -> np.ndarray:
+    """The token-table rows of ``word`` in the text tower at ``prefix`` of
+    a checkpoint, f32 (the file's f16 values)."""
+    st = TensorStore.open(ckpt)
+    ref = weights_mod.build_name_map(st)[prefix + "embed.token.weight"]
+    table = weights_mod.read_entry(st, ref)
+    rows = np.array(table[tok_mod.tokenize(word)], np.float32)
+    del table      # a view of the mapped file, which then can close
+    st.close()
+    return rows
+
+
+def _edit_check(s, model: str) -> collections.Counter:
+    """``EDIT_PROMPTS[model]`` on session ``s`` (20 Euler steps, CFG 7): the
+    edited request's latents equal the plain one's bit for bit through step
+    ``EDIT_STEP`` and differ at every step after it; each request launches
+    exactly what a request of ``model`` does.  Returns the launches."""
+    launches, traj = collections.Counter(), {}
+    for kind, prompt in zip(("edit", "plain"), EDIT_PROMPTS[model]):
+        steps = []
+        s.step_observer = lambda i, lat, steps=steps: steps.append(lat)
+        s.option_set("seed", REQUESTS[0][0])
+        s.option_set("prompt", prompt)
+        s.option_set("nprompt", "blurry, low quality")
+        fa.reset_counts()
+        qmm.reset_counts()
+        t0 = time.time()
+        img = s.generate()
+        secs = time.time() - t0
+        got = _check_launches(f"{model} {kind}",
+                              collections.Counter(fa.LAUNCH_SHAPES),
+                              _flash_want(model, 20, 1))
+        launches.update(got)
+        traj[kind] = steps
+        phase("embed_edit", model=model, request=kind, seconds=secs,
+              cond_rows=s.tensors["cond"].shape[0], launches=got,
+              image_ok=_image_ok(img, s.c["width"]))
+        if not _image_ok(img, s.c["width"]):
+            raise AssertionError(f"{model} {kind}: bad image")
+    s.step_observer = None
+    equal = [bool(np.array_equal(a, b))
+             for a, b in zip(traj["edit"], traj["plain"])]
+    phase("embed_edit", model=model, request="edit_vs_plain",
+          switch_step=EDIT_STEP, steps_equal=equal)
+    if (len(equal) != 20 or not all(equal[:EDIT_STEP])
+            or any(equal[EDIT_STEP:])):
+        raise AssertionError(f"{model} prompt editing: steps equal {equal}")
+    return launches
+
+
+def embed_edit_sd1(tmp: str, ckpt: str) -> collections.Counter:
+    """SD1.5 512^2 through the CLI with --embed-dir: ``<emb:likecat>``, a
+    table of CLIP-L's rows of "cat"; then, on the CLI's session, the word
+    (latents bit for bit) and prompt editing (:func:`_edit_check`).
+    Returns the launches."""
+    testing.write_embedding(os.path.join(tmp, "likecat.safetensors"), {
+        "emb_params": _token_rows(ckpt, "clip.text.", "cat")})
+    out = os.path.join(tmp, "sd1-embedding.png")
+    secs, s, shapes = _cli_request(
+        ["generate", "-m", ckpt, *I2I_ARGS, "--embed-dir", tmp, "-p",
+         EMBED_PROMPT.format("<emb:likecat>"), "-o", out])
+    got = _check_launches("sd1 embedding", shapes, _flash_want("sd1", 20, 1))
+    _check_png(out, s)
+    rows = s._models["clip.text."].embed.token.weight.shape[0]
+    phase("embed_edit", model="sd1", via="cli", request="embedding",
+          seconds=secs, setup_s=s.setup_s, generate_s=s.generate_s,
+          token_table_rows=rows, launches=got)
+    if rows != 49409:
+        raise AssertionError(f"sd1 embedding: token table of {rows} rows")
+    launches = collections.Counter(got)
+    lat = {"embedding": s.tensors["latent"]}
+    s.option_set("seed", REQUESTS[0][0])
+    s.option_set("prompt", EMBED_PROMPT.format("cat"))
+    s.option_set("nprompt", "blurry, low quality")
+    fa.reset_counts()
+    qmm.reset_counts()
+    t0 = time.time()
+    s.generate()
+    got = _check_launches("sd1 word", collections.Counter(fa.LAUNCH_SHAPES),
+                          _flash_want("sd1", 20, 1))
+    launches.update(got)
+    lat["word"] = s.tensors["latent"]
+    phase("embed_edit", model="sd1", request="word",
+          seconds=time.time() - t0, launches=got)
+    equal = bool(np.array_equal(lat["embedding"], lat["word"]))
+    phase("embed_edit", model="sd1", request="embedding_vs_word",
+          latent_equal=equal)
+    if not equal:
+        raise AssertionError("sd1: the embedding's latent is not the word's")
+    launches.update(_edit_check(s, "sd1"))
+    _drop(s)
+    return launches
+
+
+def embed_edit_sdxl(s, ckpt: str, tmp: str) -> collections.Counter:
+    """SDXL-base 1024^2 on the bf16 session: an embedding of both towers'
+    rows of "cat" (``clip_l``, ``clip_g``) in an edited prompt, against
+    the word in the plain prompt (:func:`_edit_check`).  Returns the
+    launches."""
+    testing.write_embedding(os.path.join(tmp, "xcat.safetensors"), {
+        "clip_l": _token_rows(ckpt, "clip.text.", "cat"),
+        "clip_g": _token_rows(ckpt, "clip2.text.", "cat")})
+    s.option_set("embed-dir", tmp)
+    return _edit_check(s, "sdxl")
+
+
 # Relative L2 limits of the reference phase.  Every layer computes in bf16
 # and only the kernels differ between the two runs.  bf16 path: the
 # attention; on the H100 the seeded inputs give 1.6e-2 (UNet) and 6.2e-3
@@ -1436,7 +1713,9 @@ def sd1_lowmem_cli(tmp: str, ckpt: str) -> collections.Counter:
 # raw v output of one UNet evaluation reads 9.5e-3 on the H100, its VAE
 # decode 7.9e-3, a whole 20-step DPM++2M request's latent 2.34e-2 and
 # image 1.42e-2, each held to the other paths' UNet or VAE limit
-# (``CONTROLS`` reads planted faults beside them).
+# (``CONTROLS`` reads planted faults beside them).  SD3 with 256 T5 tokens:
+# a whole 20-step Euler request's latent, held to the SD2 request latent's
+# limit.
 REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "unet_eps_q8_0": 1e-2, "unet_eps_q4_0": 1e-2,
               "mmdit_v": 3e-2, "mmdit_v_q8_0": 3e-2, "sd3_vae_image": 1.5e-2,
@@ -1445,7 +1724,7 @@ REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "sd2_vae_image": 1.5e-2, "sd2_request_latent": 3e-2,
               "sd2_request_image": 1.5e-2, "vae_enc_moments_512": 1.5e-2,
               "vae_enc_moments_1024": 1.5e-2,
-              "sdxl_vae_tiled_image": 1.5e-2}
+              "sdxl_vae_tiled_image": 1.5e-2, "sd3_t5_request_latent": 3e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch

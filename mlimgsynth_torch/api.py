@@ -6,7 +6,11 @@ encoded and decoded by the VAE or, with the ``tae`` option, the tiny
 autoencoder.  Two memory options: ``vae_tile`` (the VAE encodes and
 decodes in overlapping tiles) and ``unet_split`` (stage-wise weight
 residency: the text encoders and the denoiser are on the card only for
-their stage).
+their stage).  The prompt layer: textual-inversion embeddings
+(``<emb:NAME>`` tags, files under ``embed_dir``), A1111 prompt editing
+(``[from:to:when]``, ``[a|b]``) on the UNet models, and SD3's T5-XXL
+context (``t5`` weights, bundled or a file of their own, read with the
+``t5_tokenizer`` ``tokenizer.json``; ``t5_tokens`` rows).
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -37,33 +41,21 @@ from . import __version__ as _pkg_version
 from . import prompt as prompt_mod
 from . import tokenizer as tok_mod
 from . import weights as weights_mod
+from .errors import MlisError
 from .io.tensorstore import TensorStore
 from .models import blocks as blocks_mod
 from .models import clip as clip_mod
 from .models import mmdit as mmdit_mod
+from .models import t5 as t5_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
-from .sampling.sampler import SamplerConfig, make_plan, run_sampler
+from .sampling.sampler import (SamplerConfig, make_plan, plan_n_step,
+                               run_sampler)
 from .sampling.solvers import SOLVERS, get_solver
 from .utils import image as image_mod
 from .utils.log import g_logger as log
-
-
-class MlisError(Exception):
-    """Error with a negative code matching MLIS_ErrCode."""
-    E_UNKNOWN = -1
-    E_UNK_OPT = -3
-    E_OPT_VALUE = -4
-    E_PROMPT_PARSE = -5
-    E_FILE_NOT_FOUND = -6
-    E_NAN = -7
-    E_IMAGE = -8
-
-    def __init__(self, code: int, msg: str):
-        super().__init__(msg)
-        self.code = code
 
 
 class Aborted(Exception):
@@ -91,7 +83,8 @@ def _model_types() -> Dict[str, ModelTypeDef]:
     SDXL-base: CLIP-L and bigG at clip skip 2, the labeled UNet, the SD1 VAE
     at SDXL's scale (``mlimgsynth_tpu/api.py:124-126``).  sd3 is SD3-medium
     (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at clip skip 2
-    with zero T5 rows, the MMDiT, the 16-channel VAE."""
+    (and T5-XXL where its weights and a tokenizer are given, else zero T5
+    rows), the MMDiT, the 16-channel VAE."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
                                 unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
             "sd2": ModelTypeDef("sd2", clip_mod.CLIP_VIT_H_14,
@@ -138,10 +131,12 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "batch_size", "no_prompt_parse", "s_noise", "s_ancestral",
             "clip_skip", "tae", "aux_dir", "callback", "image", "image_mask",
             "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
-            "tensor_use_flags", "vae_tile", "unet_split")
+            "tensor_use_flags", "vae_tile", "unet_split", "embed_dir",
+            "t5", "t5_tokenizer", "t5_tokens")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
-_STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt")
+_STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
+                "embed_dir", "t5", "t5_tokenizer")
 # options that take an object, never a string
 _OBJ_OPTIONS = ("callback", "image", "image_mask")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
@@ -174,6 +169,10 @@ _BOOL = {"true": True, "yes": True, "y": True, "1": True,
 # the text encoders (on the card for the conditioning) and the denoiser
 # (for the sampler loop); the VAE and the TAE stay on the card
 _STAGED = ("clip.text.", "clip2.text.", "unet.", "mmdit.")
+_TOWERS = ("clip.text.", "clip2.text.")
+# the prefixes a standalone T5 file's names may carry
+# (``mlimgsynth_tpu/api.py:978-996``)
+_T5_FILE_PREFIXES = ("text_encoders.t5xxl.", "transformer.")
 
 
 def _split_args(value: str) -> List[str]:
@@ -329,7 +328,8 @@ class MLImgSynth:
                   "s_noise": 0.0, "s_ancestral": 0.0, "tae": "",
                   "aux_dir": "", "f_t_ini": 1.0, "f_t_end": 0.0,
                   "lora_dir": "", "tuflags": 0, "vae_tile": 0,
-                  "unet_split": False}
+                  "unet_split": False, "embed_dir": "", "t5": "",
+                  "t5_tokenizer": "", "t5_tokens": 77}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -348,9 +348,11 @@ class MLImgSynth:
         self.loras: List[Tuple[str, float, bool]] = []
         # seconds of the last setup and request: "load_s" (a whole load or
         # a LoRA reload, its merges included), "lora_merge_s",
-        # "encoder_load_s", "image_encode_s", "decode_s", "generate_s";
-        # under ``unet_split`` each stage move, "move_in_<module>_s" and
-        # "move_out_<module>_s" (module: clip, clip2, unet, mmdit)
+        # "encoder_load_s", "embed_reload_s" (the text towers reloaded for
+        # new embeddings), "t5_load_s", "t5_encode_s", "image_encode_s",
+        # "decode_s", "generate_s"; under ``unet_split`` each stage move,
+        # "move_in_<module>_s" and "move_out_<module>_s" (module: clip,
+        # clip2, unet, mmdit)
         self.times: Dict[str, float] = {}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
@@ -367,6 +369,20 @@ class MLImgSynth:
         # which is also the state that each stage puts on the device
         self.resident: set = set()
         self._host: Dict[str, Dict[str, torch.Tensor]] = {}
+        # textual inversion: name -> {"ids": [int], "tables": {"clip" or
+        # "clip2": f32 [k, d]}}, appended to the CLIP token tables in
+        # registration order (token id n_vocab + row); ``_embed_version``
+        # counts changes of the registry, ``_towers_embeds`` the version
+        # each loaded tower holds
+        self._embeds: Dict[str, dict] = {}
+        self._embed_order: List[str] = []
+        self._embed_version = 0
+        self._towers_embeds: Dict[str, int] = {}
+        self._bundled_t5 = False
+        # the T5 encoder (on the device once loaded; it stays there under
+        # ``unet_split``, as in the JAX session) and the weights it holds
+        self._t5: Optional[t5_mod.T5Encoder] = None
+        self._t5_key = ""
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -487,6 +503,18 @@ class MLImgSynth:
             c["vae_tile"] = _int(v)
         elif opt == "unet_split":
             c["unet_split"] = _bool(v)
+        elif opt == "embed_dir":
+            if str(v) != c["embed_dir"]:
+                c["embed_dir"] = str(v)
+                self._embeds_clear()
+        elif opt == "t5":
+            if str(v) != c["t5"]:
+                c["t5"] = str(v)
+                self._t5, self._t5_key = None, ""   # free the old encoder
+        elif opt == "t5_tokenizer":
+            c["t5_tokenizer"] = str(v)
+        elif opt == "t5_tokens":
+            c["t5_tokens"] = _int(v, 77)
 
     def _image_set(self, img) -> None:
         """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
@@ -577,28 +605,158 @@ class MLImgSynth:
             self.setup()
         return tok_mod.tokenize(text)
 
+    def _parse_prompt_text(self, text: str) -> prompt_mod.PromptText:
+        """A prompt parsed without touching the session: prompt editing is
+        probed first (the emphasis parser would read its colons as weights)
+        and the fields hold the step-0 expansion, ``editing`` telling that
+        ``generate`` expands it again per step
+        (``mlimgsynth_tpu/api.py:596-610``, ``:2748-2760``)."""
+        if self.c["no_prompt_parse"]:
+            return prompt_mod.prompt_set_raw(text)
+        t0, edited = prompt_mod.expand_editing(text, 0, 1000)
+        try:
+            parsed = prompt_mod.prompt_set_parse(t0 if edited else text)
+        except prompt_mod.PromptParseError as e:
+            raise MlisError(MlisError.E_PROMPT_PARSE, str(e))
+        parsed.editing = bool(edited)
+        return parsed
+
     def _prompt_set(self, key: str, text: str) -> None:
         """Parse a prompt; its ``<lora:NAME:MULT>`` tags join the LoRA list
         for one request, those of an earlier prompt leave it
         (``mlimgsynth_tpu/api.py:593-628``)."""
         self.c[key + "_raw"] = text
-        if self.c["no_prompt_parse"]:
-            parsed = prompt_mod.prompt_set_raw(text)
-        else:
-            try:
-                parsed = prompt_mod.prompt_set_parse(text)
-            except prompt_mod.PromptParseError as e:
-                raise MlisError(MlisError.E_PROMPT_PARSE, str(e))
-            _, edited = prompt_mod.expand_editing(text, 0, 1000)
-            if parsed.embeds or edited:
-                raise MlisError(MlisError.E_OPT_VALUE,
-                                "embeddings and prompt editing are not "
-                                "supported by the PyTorch port")
+        parsed = self._parse_prompt_text(text)
+        if not self.c["no_prompt_parse"]:
             if key == "prompt":
                 self.loras = [l for l in self.loras if not l[2]]
             for name, mult in parsed.loras:
                 self._lora_add(name, mult, from_prompt=True)
         setattr(self, key, parsed)
+
+    # -- textual inversion (``mlimgsynth_tpu/api.py:658-770``) ---------------
+
+    def _embeds_clear(self) -> None:
+        if self._embeds:
+            self._embeds.clear()
+            self._embed_order.clear()
+            self._embed_version += 1
+
+    def _embed_find(self, name: str) -> str:
+        """An embedding file: ``name`` as a path, else ``NAME.safetensors``
+        then ``NAME.pt`` under ``embed_dir``, each also under ``aux_dir``."""
+        if os.path.exists(name) and not os.path.isdir(name):
+            return name
+        base = self.c["embed_dir"]
+        for ext in (".safetensors", ".pt"):
+            path = os.path.join(base, name + ext) if base else name + ext
+            if os.path.exists(path):
+                return path
+            aux = self._aux_find(path)
+            if aux != path and os.path.exists(aux):
+                return aux
+        raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                        f"embedding file not found '{name}'")
+
+    @staticmethod
+    def _embed_read_tables(path: str) -> Dict[str, np.ndarray]:
+        """An embedding file -> {"clip": f32 [k, d]} and/or {"clip2": f32
+        [k, d2]}: safetensors with ``emb_params`` (A1111, one encoder) or
+        ``clip_l`` / ``clip_g`` (SDXL), or a torch ``.pt`` with
+        ``string_to_param`` (or ``emb_params``), read with
+        ``weights_only``."""
+        tables: Dict[str, np.ndarray] = {}
+        if path.endswith(".pt"):
+            try:
+                obj = torch.load(path, map_location="cpu", weights_only=True)
+            except Exception as e:
+                raise MlisError(MlisError.E_UNKNOWN,
+                                f"embedding '{path}' unreadable: {e}")
+            stp = obj.get("string_to_param") if isinstance(obj, dict) \
+                else None
+            t = None
+            if isinstance(stp, dict) and stp:
+                t = next(iter(stp.values()))
+            elif isinstance(obj, dict) and "emb_params" in obj:
+                t = obj["emb_params"]
+            if not isinstance(t, torch.Tensor):
+                raise MlisError(MlisError.E_UNKNOWN,
+                                f"unrecognized embedding layout '{path}'")
+            tables["clip"] = t.detach().float().numpy()
+        else:
+            st = TensorStore.open(path)
+            try:
+                names = set(st.names())
+                for key, sub in (("emb_params", "clip"), ("clip_l", "clip"),
+                                 ("clip_g", "clip2")):
+                    if key in names:
+                        tables[sub] = np.array(st.read(key, "f32"))
+                if not tables:
+                    raise MlisError(
+                        MlisError.E_UNKNOWN,
+                        f"unrecognized embedding layout '{path}' "
+                        f"(keys: {sorted(names)[:8]})")
+            finally:
+                st.close()
+        return {k: np.atleast_2d(np.asarray(t, np.float32))
+                for k, t in tables.items()}
+
+    def _embed_token_ids(self, name: str) -> List[int]:
+        """The token ids of a named embedding, read and registered on its
+        first use: one table per text tower of the model, each of the
+        tower's width, all of one vector count."""
+        reg = self._embeds.get(name)
+        if reg is not None:
+            return reg["ids"]
+        path = self._embed_find(name)
+        tables = self._embed_read_tables(path)
+        mt = self._mt
+        need = ["clip"] + (["clip2"] if mt.clip2_p is not None else [])
+        for sub in need:
+            P = mt.clip_p if sub == "clip" else mt.clip2_p
+            t = tables.get(sub)
+            if t is None:
+                raise MlisError(
+                    MlisError.E_UNKNOWN,
+                    f"embedding '{name}' has no table for {sub} "
+                    f"(model type {self.c['model_type']})")
+            if t.shape[1] != P.d_embed:
+                raise MlisError(
+                    MlisError.E_UNKNOWN,
+                    f"embedding '{name}' {sub} width {t.shape[1]} != "
+                    f"model d_embed {P.d_embed}")
+        ks = {tables[sub].shape[0] for sub in need}
+        if len(ks) != 1:
+            raise MlisError(MlisError.E_UNKNOWN,
+                            f"embedding '{name}' per-encoder vector counts "
+                            f"differ: {sorted(ks)}")
+        base = mt.clip_p.n_vocab + sum(len(self._embeds[n]["ids"])
+                                       for n in self._embed_order)
+        ids = list(range(base, base + ks.pop()))
+        self._embeds[name] = {"ids": ids,
+                              "tables": {sub: tables[sub] for sub in need}}
+        self._embed_order.append(name)
+        self._embed_version += 1
+        log.info(f"embedding '{name}': {len(ids)} vector(s) from {path}")
+        return ids
+
+    def _embed_rows(self, prefix: str) -> Optional[np.ndarray]:
+        """The rows appended to the token table of the tower at ``prefix``,
+        in id order (None without embeddings)."""
+        if not self._embed_order:
+            return None
+        sub = prefix.split(".")[0]
+        return np.concatenate([self._embeds[n]["tables"][sub]
+                               for n in self._embed_order])
+
+    def _embeds_sync(self) -> None:
+        """Reload the text towers when the embedding registry changed since
+        they loaded, so that their token tables hold its rows (the JAX
+        session drops its cached tower parameters, ``api.py:757-759``)."""
+        stale = {p for p in _TOWERS if p in self._models
+                 and self._towers_embeds.get(p) != self._embed_version}
+        if stale:
+            self._load_model(self.c["model"], self._lora_state, only=stale)
 
     # -- setup --------------------------------------------------------------
 
@@ -620,6 +778,7 @@ class MLImgSynth:
         if self._loaded != key:
             self._models, self._encoders = {}, {}
             self._host, self.resident = {}, set()
+            self._embeds_clear()     # token ids and widths are per model
             self._load_model(path, loras)
             self._loaded = key
             self._tae_loaded = ""
@@ -708,11 +867,13 @@ class MLImgSynth:
         log.info(f"TAE loaded: {path} ({m.P})")
 
     def _load_model(self, path: str, loras, reload: bool = False,
-                    encoders: bool = False) -> None:
+                    encoders: bool = False, only=None) -> None:
         """Load modules from the model file with ``loras`` ((path,
         multiplier) pairs) merged on the host first: every txt2img module,
         or (``reload``) those that the loaded list or ``loras`` patches, or
-        (``encoders``) the VAE encoder."""
+        (``encoders``) the VAE encoder, or the modules at the prefixes
+        ``only``.  A text tower's token table takes the rows of the
+        registered embeddings (``mlimgsynth_tpu/api.py:1220-1227``)."""
         if not os.path.exists(path):
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
                             f"model file not found '{path}'")
@@ -720,7 +881,8 @@ class MLImgSynth:
         store = TensorStore.open(path)
         try:
             name_map = weights_mod.build_name_map(store)
-            if not (reload or encoders):
+            if not (reload or encoders or only):
+                self._bundled_t5 = "t5.shared.weight" in name_map
                 types = _model_types()
                 mt = weights_mod.identify_model(
                     store, name_map,
@@ -737,9 +899,11 @@ class MLImgSynth:
                 models = {k: m for k, m in models.items() if k in want}
                 if "vae." in want:     # the encoder reloads on demand
                     self._encoders.pop("vae.", None)
+            elif only is not None:
+                models = {k: m for k, m in models.items() if k in only}
             t1 = time.time()
             self._lora_merge(store, name_map, loras, tuple(models))
-            if not encoders:
+            if not (encoders or only):
                 self.times["lora_merge_s"] = time.time() - t1
             # the DiT families store some 8-bit weights per column, decided
             # for the session's image size (``api.py:1229-1247``)
@@ -754,6 +918,8 @@ class MLImgSynth:
                 params = weights_mod.load_params(
                     store, name_map, weights_mod.module_shapes(m, prefix),
                     "cpu", self.dtype)
+                if prefix in _TOWERS:
+                    self._grow_token_table(m, prefix, params)
                 if self.qbits:
                     n_q += weights_mod.quantize_linear_weights(
                         m, prefix, params, self.qbits,
@@ -775,16 +941,33 @@ class MLImgSynth:
                     m, prefix, params).eval()
         finally:
             store.close()
-        if not encoders:
+        if not (encoders or only):
             self._lora_state = tuple(loras)
             self._lora_prefixes = touched
         secs = time.time() - t0
-        self.times["encoder_load_s" if encoders else "load_s"] = secs
+        self.times["encoder_load_s" if encoders
+                   else "embed_reload_s" if only else "load_s"] = secs
         quant = f", {n_q} linears in int{self.qbits}" if n_q else ""
-        what = ("VAE encoder" if encoders else ", ".join(models) if reload
+        what = ("VAE encoder" if encoders
+                else ", ".join(models) if reload or only
                 else f"Model {self.c['model_type']}")
         log.info(f"{what} loaded on {self.device} ({self.dtype}{quant}, "
                  f"{len(loras)} LoRAs) {{{secs:.3f}s}}")
+
+    def _grow_token_table(self, m, prefix: str,
+                          params: Dict[str, torch.Tensor]) -> None:
+        """Append the registered embeddings' rows to the token table in
+        ``params`` of the tower ``m`` at ``prefix`` (on the meta device,
+        its table then made as tall), in the table's dtype; record the
+        registry version the tower holds."""
+        rows = self._embed_rows(prefix)
+        if rows is not None:
+            key = prefix + "embed.token.weight"
+            tw = params[key]
+            params[key] = torch.cat([tw, torch.from_numpy(rows).to(tw.dtype)])
+            with torch.device("meta"):
+                m.embed.token = torch.nn.Embedding(*params[key].shape)
+        self._towers_embeds[prefix] = self._embed_version
 
     def _lora_touched(self, name_map, loras, prefixes) -> set:
         """The module prefixes among ``prefixes`` whose weights ``loras``
@@ -828,25 +1011,35 @@ class MLImgSynth:
 
     def _prompt_tokens(self, pt: prompt_mod.PromptText
                        ) -> Tuple[List[int], List[float]]:
+        """The token stream and emphasis weights of a parsed prompt; an
+        embedding's marker chunk gives its ids (``_prompt_tokens``,
+        ``mlimgsynth_tpu/api.py:1486-1502``)."""
         toks: List[int] = []
         wts: List[float] = []
         for text, w in (pt.chunks or [(pt.text, 1.0)]):
-            t = ([tok_mod.BREAK_TOKEN] if text == prompt_mod.BREAK_MARK
-                 else tok_mod.tokenize(text))
+            if text == prompt_mod.BREAK_MARK:
+                t = [tok_mod.BREAK_TOKEN]
+            elif text.startswith(prompt_mod.EMBED_MARK):
+                t = self._embed_token_ids(text[len(prompt_mod.EMBED_MARK):])
+            else:
+                t = tok_mod.tokenize(text)
             toks.extend(t)
             wts.extend([w] * len(t))
         return toks, wts
 
-    def _encode_tower(self, prefix: str, P: tok_mod.ClipParams, raw,
-                      want_feat: bool):
-        """One batched encode of token streams ``raw`` by the tower at
-        ``prefix``, emphasis weights applied (ref: ``_clip_encode_rows``,
-        mlis_clip_tokens_encode).  Flow models condition on one window
-        (``_window_count``).  Returns (hidden f32, pooled feature or
-        None)."""
-        n_win = max(len(tok_mod.split_windows(P, t, w)[0]) for t, w in raw)
+    def _n_window(self, P: tok_mod.ClipParams, raw) -> int:
+        """The encoder windows shared by a batch of token streams: the
+        longest's (``_window_count``); flow models condition on one."""
         if self._flow():
-            n_win = 1
+            return 1
+        return max(len(tok_mod.split_windows(P, t, w)[0]) for t, w in raw)
+
+    def _encode_tower(self, prefix: str, P: tok_mod.ClipParams, raw,
+                      want_feat: bool, n_win: int):
+        """One batched encode of token streams ``raw`` by the tower at
+        ``prefix``, in ``n_win`` windows each, emphasis weights applied
+        (ref: ``_clip_encode_rows``, mlis_clip_tokens_encode).  Returns
+        (hidden f32, pooled feature or None)."""
         toks, wmat, fidx = [], [], []
         for t, w in raw:
             wins, wrows, f0 = tok_mod.split_windows(P, t, w, n_window=n_win)
@@ -862,24 +1055,48 @@ class MLImgSynth:
         return emb.float() * w[:, :, None], feat
 
     @torch.no_grad()
-    def _text_cond(self, pts: List[prompt_mod.PromptText]
+    def _text_cond(self, pts: List[prompt_mod.PromptText],
+                   chunk: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(cond, label) rows for several prompts in batched encodes.  SD3
+        """(cond, label) rows for several prompts, encoded in batches of
+        ``chunk`` rows (default: all at once; a short last batch filled
+        with its last row), every row in the same windows.  The text towers come onto the device first (reloaded if
+        the prompts registered an embedding).  SD3
         (``api.py:1705-1721``): both towers' skip hiddens concatenated on
-        features, zero-padded to the T5 width, then the T5 context's rows,
-        zeros here (the JAX package's mode without ``--t5``); the label is
-        the two pooled features concatenated.  SDXL (``api.py:1722-1736``):
-        the two skip hiddens concatenated on features; the label is bigG's
-        pooled projected feature (from the same pass as its skip hidden)
-        and the size embeddings of ``[h, w, 0, 0, h, w]``, 256 each."""
+        features, zero-padded to the T5 width, then the T5 context's rows
+        (:meth:`_t5_rows`); the label is the two pooled features
+        concatenated.  SDXL (``api.py:1722-1736``): the two skip hiddens
+        concatenated on features; the label is bigG's pooled projected
+        feature (from the same pass as its skip hidden) and the size
+        embeddings of ``[h, w, 0, 0, h, w]``, 256 each."""
         raw = [self._prompt_tokens(pt) for pt in pts]
+        self._embeds_sync()
+        for prefix in _TOWERS:
+            if prefix in self._models:
+                self._stage_in(prefix)
         mt = self._mt
+        chunk = chunk or len(raw)
+
+        def encode(prefix, P, want_feat):
+            # a short last batch repeats its last row, so that every
+            # batch has the same rows
+            n_win = self._n_window(P, raw)
+            parts = []
+            for i in range(0, len(raw), chunk):
+                rows = raw[i:i + chunk]
+                parts.append(self._encode_tower(
+                    prefix, P, rows + rows[-1:] * (chunk - len(rows)),
+                    want_feat, n_win))
+            n = len(raw)
+            return (torch.cat([e for e, _ in parts])[:n],
+                    torch.cat([f for _, f in parts])[:n] if want_feat
+                    else None)
+
         if not self._flow():
-            emb1 = self._encode_tower("clip.text.", mt.clip_p, raw, False)[0]
+            emb1 = encode("clip.text.", mt.clip_p, False)[0]
             if not mt.unet_p.cond_label:
                 return emb1, None
-            emb2, feat = self._encode_tower("clip2.text.", mt.clip2_p, raw,
-                                            True)
+            emb2, feat = encode("clip2.text.", mt.clip2_p, True)
             h, w = self.c["height"], self.c["width"]
             sizes = torch.tensor([h, w, 0, 0, h, w], dtype=torch.float32,
                                  device=self.device)
@@ -887,16 +1104,163 @@ class MLImgSynth:
             return (torch.cat([emb1, emb2], dim=-1),
                     torch.cat([feat.float(), se.expand(len(pts), -1)],
                               dim=-1))
-        emb1, feat1 = self._encode_tower("clip.text.", mt.clip_p, raw, True)
-        emb2, feat2 = self._encode_tower("clip2.text.", mt.clip2_p, raw, True)
+        emb1, feat1 = encode("clip.text.", mt.clip_p, True)
+        emb2, feat2 = encode("clip2.text.", mt.clip2_p, True)
         d_ctx = mt.unet_p.d_ctx_in
         clip_part = torch.cat([emb1, emb2], dim=-1)
         clip_part = torch.nn.functional.pad(
             clip_part, (0, d_ctx - clip_part.shape[-1]))
-        t5_part = torch.zeros(len(pts), mt.clip_p.n_token, d_ctx,
-                              device=self.device)
-        return (torch.cat([clip_part, t5_part], dim=1),
+        return (torch.cat([clip_part, self._t5_rows(pts, d_ctx)], dim=1),
                 torch.cat([feat1, feat2], dim=-1))
+
+    # -- T5 (``mlimgsynth_tpu/api.py:944-996``, ``:1188-1231``, ``:1759-1791``)
+
+    def _t5_rows(self, pts: List[prompt_mod.PromptText],
+                 d_ctx: int) -> torch.Tensor:
+        """f32 [len(pts), rows, d_ctx] T5 context rows of the prompts'
+        texts: the encoder's output on ``t5_tokens`` tokens, zero-padded to
+        ``d_ctx``, where T5 weights (the ``t5`` file, or bundled in the
+        model file) and a ``t5_tokenizer`` are given; else zero rows of the
+        CLIP token length (the public SD3 pipelines' mode without T5)."""
+        c = self.c
+        have = bool(c["t5"]) or self._bundled_t5
+        if not have or not c["t5_tokenizer"]:
+            if have:
+                log.warning("T5 weights present but no t5-tokenizer set; "
+                            "using zero T5 context rows")
+            return torch.zeros(len(pts), self._mt.clip_p.n_token, d_ctx,
+                               device=self.device)
+        self._t5_load()
+        toks = t5_mod.tokenize([pt.text for pt in pts],
+                               n_token=int(c["t5_tokens"] or 77),
+                               tokenizer_json=self._aux_find(
+                                   c["t5_tokenizer"]))
+        t0 = time.time()
+        emb = self._t5(torch.as_tensor(toks, dtype=torch.long,
+                                       device=self.device)).float()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.times["t5_encode_s"] = time.time() - t0
+        return torch.nn.functional.pad(emb, (0, d_ctx - emb.shape[-1]))
+
+    def _t5_load(self) -> None:
+        """Load the T5 encoder onto the device in the compute dtype (never
+        quantized, as in the JAX session), from the ``t5`` file (its names
+        bare or under ``text_encoders.t5xxl.`` / ``transformer.``) or from
+        the model file's ``text_encoders.t5xxl.*``; the geometry from the
+        tensor shapes.  Once per source file, dtype and device."""
+        c = self.c
+        src = self._aux_find(c["t5"]) if c["t5"] else c["model"]
+        key = f"{src}|{self.dtype}|{self.device}"
+        if self._t5 is not None and self._t5_key == key:
+            return
+        self._t5 = None
+        if not os.path.exists(src):
+            raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                            f"t5 file not found '{c['t5']}'")
+        t0 = time.time()
+        store = TensorStore.open(src)
+        err = None
+        try:
+            if c["t5"]:
+                name_map = {}
+                for raw in store.tensors:
+                    t = raw
+                    for pre in _T5_FILE_PREFIXES:
+                        if t.startswith(pre):
+                            t = t[len(pre):]
+                    name_map.setdefault("t5." + t, weights_mod.NameRef(raw))
+            else:
+                name_map = {n: r for n, r in
+                            weights_mod.build_name_map(store).items()
+                            if n.startswith("t5.")}
+            shapes = {n: tuple(store.tensors[r.raw].shape)
+                      for n, r in name_map.items() if r.split is None}
+            try:
+                P = t5_mod.params_from_spec_shapes(shapes)
+            except KeyError as e:
+                raise MlisError(MlisError.E_UNKNOWN,
+                                f"no T5 tensors recognized in '{src}' "
+                                f"(missing {e})")
+            with torch.device("meta"):
+                m = t5_mod.T5Encoder(P)
+            try:
+                params = weights_mod.load_params(
+                    store, name_map, weights_mod.module_shapes(m, "t5."),
+                    self.device, self.dtype)
+            except (KeyError, ValueError) as e:
+                # raised once the failed read's frames, which hold views of
+                # the mapped file, are gone, so that the file can close
+                err = MlisError(MlisError.E_UNKNOWN, f"T5 '{src}': {e}")
+            else:
+                self._t5 = weights_mod.load_module(m, "t5.", params).eval()
+        finally:
+            store.close()
+        if err is not None:
+            raise err
+        self._t5_key = key
+        self.times["t5_load_s"] = time.time() - t0
+        log.info(f"T5 loaded on {self.device} ({self.dtype}; d_model "
+                 f"{P.d_model}, {P.n_layer} layers, {P.n_head} heads) "
+                 f"{{{self.times['t5_load_s']:.3f}s}}")
+
+    # -- prompt editing (``mlimgsynth_tpu/api.py:1574-1608``) -----------------
+
+    def _edit_segments(self, use_cfg: bool, scfg: SamplerConfig):
+        """(prompt segments, negative segments, loop steps) of a request
+        whose prompt or (with CFG) negative prompt edits, each segment list
+        ``editing_segments``' (texts, step -> text) or None; None without
+        editing (``generate``, ``mlimgsynth_tpu/api.py:2187-2211``).  Flow
+        models raise."""
+        c = self.c
+        if c["no_prompt_parse"] or not (
+                self.prompt.editing or use_cfg and self.nprompt.editing):
+            return None
+        if self._flow():
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "prompt editing is not supported for flow models")
+        n_plan = plan_n_step(scfg, 2 if use_cfg else 1)
+        ep = prompt_mod.editing_segments(c["prompt_raw"], n_plan)
+        en = (prompt_mod.editing_segments(c["nprompt_raw"], n_plan)
+              if use_cfg else None)
+        if ep is None and en is None:
+            return None
+        return ep, en, n_plan
+
+    def _edit_cond_bank(self, edit_segs, use_cfg: bool, n_batch: int):
+        """The conditioning bank of an editing request: every distinct
+        segment text encoded (prompt segments first, then negative ones;
+        an empty negative segment zero rows on the models that zero an
+        empty negative prompt), and the int [steps, rows] matrix of the
+        bank rows each step conditions on, [cond x n; uncond x n].  The
+        bank encodes in batches of the request's own rows (2 with CFG), so
+        that a segment's rows are those the same text gives without
+        editing, bit for bit on the card too (a GEMM's kernel, and so its
+        sums, depend on the batch's rows)."""
+        ep, en, n_plan = edit_segs
+        c = self.c
+        p_texts, p_idx = (ep if ep is not None
+                          else ([c["prompt_raw"]], [0] * n_plan))
+        u_texts, u_idx = [], None
+        if use_cfg:
+            u_texts, u_idx = (en if en is not None
+                              else ([c["nprompt_raw"]], [0] * n_plan))
+        pts = [self._parse_prompt_text(t) for t in p_texts + u_texts]
+        rows, lrows = self._text_cond(pts, chunk=2 if use_cfg else 1)
+        k = len(p_texts)
+        if use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False):
+            for j, t in enumerate(u_texts):
+                if not t:
+                    rows[k + j] = 0.0
+        idx = np.empty((n_plan, (2 if use_cfg else 1) * n_batch), np.int64)
+        for i in range(n_plan):
+            idx[i, :n_batch] = p_idx[i]
+            if use_cfg:
+                idx[i, n_batch:] = k + u_idx[i]
+        log.info(f"Prompt editing: {k} prompt"
+                 + (f" + {len(u_texts)} negative" if use_cfg else "")
+                 + f" segment(s) over {n_plan} steps")
+        return rows, lrows, idx
 
     @torch.no_grad()
     def image_encode(self, img: np.ndarray) -> np.ndarray:
@@ -1022,31 +1386,6 @@ class MLImgSynth:
                  if c["tuflags"] & TUF_LMASK else None)
         use_cfg = c["cfg_scale"] > 1
         flow = self._flow()
-        towers = [p for p in ("clip.text.", "clip2.text.")
-                  if p in self._models]
-        for prefix in towers:
-            self._stage_in(prefix)
-        cond, label = self._text_cond([self.prompt, self.nprompt] if use_cfg
-                                      else [self.prompt])
-        denoiser = "mmdit." if flow else "unet."
-        if c["unet_split"]:
-            # stage-wise residency (``api.py:2402-2405``): the text
-            # encoders leave the card before the loop
-            for prefix in towers:
-                self._stage_out(prefix)
-        self._stage_in(denoiser)
-        if (use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False)
-                and not c["nprompt_raw"]):
-            # SDXL: an empty negative prompt conditions on zero context rows
-            # and keeps its label, as the JAX session's default (fused)
-            # encode zeroes the uncond emphasis weights (``api.py:2220-2224``,
-            # ref src/mlimgsynth.c:1702)
-            cond[1:] = 0.0
-        self._cb(STAGE_COND_ENCODE, 1, 1)
-        # [cond xn; uncond xn]
-        cond_all = torch.repeat_interleave(cond, n, dim=0)
-        label_all = (None if label is None
-                     else torch.repeat_interleave(label, n, dim=0))
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
                              n_step=c["steps"], cfg_scale=c["cfg_scale"],
                              s_ancestral=c["s_ancestral"],
@@ -1054,6 +1393,37 @@ class MLImgSynth:
                              f_t_end=c["f_t_end"],
                              flow_shift=self._mt.unet_p.flow_shift if flow
                              else 0.0)
+        edit_segs = self._edit_segments(use_cfg, scfg)
+        edit_steps = None
+        if edit_segs is not None:
+            # the bank and its rows per step; tensors["cond"] holds the
+            # bank (``api.py:2301-2305``)
+            cond, label, edit_steps = self._edit_cond_bank(edit_segs,
+                                                           use_cfg, n)
+            cond_all, label_all = cond, label
+        else:
+            cond, label = self._text_cond([self.prompt, self.nprompt]
+                                          if use_cfg else [self.prompt])
+            if (use_cfg and not c["nprompt_raw"]
+                    and getattr(self._mt.unet_p, "uncond_empty_zero", False)):
+                # SDXL: an empty negative prompt conditions on zero context
+                # rows and keeps its label, as the JAX session's default
+                # (fused) encode zeroes the uncond emphasis weights
+                # (``api.py:2220-2224``, ref src/mlimgsynth.c:1702)
+                cond[1:] = 0.0
+            # [cond xn; uncond xn]
+            cond_all = torch.repeat_interleave(cond, n, dim=0)
+            label_all = (None if label is None
+                         else torch.repeat_interleave(label, n, dim=0))
+        denoiser = "mmdit." if flow else "unet."
+        if c["unet_split"]:
+            # stage-wise residency (``api.py:2402-2405``): the text
+            # encoders leave the card before the loop (T5 stays)
+            for prefix in _TOWERS:
+                if prefix in self._models:
+                    self._stage_out(prefix)
+        self._stage_in(denoiser)
+        self._cb(STAGE_COND_ENCODE, 1, 1)
         nfe_per_dxdt = 2 if use_cfg else 1
         plan = make_plan(scfg, latent.shape, self.rng, nfe_per_dxdt)
 
@@ -1068,7 +1438,7 @@ class MLImgSynth:
                             label_all=label_all,
                             step_callback=(step_cb if self.callback
                                            else None),
-                            lmask=lmask)
+                            lmask=lmask, cond_steps=edit_steps)
             # evaluations run: a 2-evaluation solver's last step has one
             n_fe = get_solver(c["method"]).n_fe
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
@@ -1095,12 +1465,19 @@ class MLImgSynth:
                 image = u8.cpu().numpy().astype(np.float32) / 255.0
             self.times["decode_s"] = time.time() - t_dec
         self.tensors["latent"] = x.cpu().numpy()
-        self.tensors["cond"] = cond[:1].cpu().numpy()
-        self.tensors["ncond"] = cond[1:].cpu().numpy() if use_cfg else None
-        if label is not None:
-            self.tensors["label"] = label[:1].cpu().numpy()
-            self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
-                                      else None)
+        if edit_steps is not None:
+            self.tensors["cond"] = cond.cpu().numpy()
+            self.tensors["ncond"] = self.tensors["nlabel"] = None
+            self.tensors["label"] = (None if label is None
+                                     else label.cpu().numpy())
+        else:
+            self.tensors["cond"] = cond[:1].cpu().numpy()
+            self.tensors["ncond"] = (cond[1:].cpu().numpy() if use_cfg
+                                     else None)
+            if label is not None:
+                self.tensors["label"] = label[:1].cpu().numpy()
+                self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
+                                          else None)
         self.tensors["image"] = image
         self._cb(STAGE_IMAGE_DECODE, 1, 1)
         self._infotext_update(w * f, h * f, plan.n_step,

@@ -7,8 +7,9 @@ options, unknown long options forwarded to the session's option table
 (``option_set_str``), ``-`` as stdout (PPM), progress on stderr, latent
 input and output via ``--ilatent``/``--olatent`` and the PNG's
 ``parameters`` text; ``-i`` (PNG or binary PPM/PGM, ``-`` for stdin) for
-img2img, its alpha or ``--imask`` (first channel) for inpainting, and
-``--lora`` / ``<lora:NAME:MULT>``.  The other commands of the JAX CLI exit 1
+img2img, its alpha or ``--imask`` (first channel) for inpainting,
+``--lora`` / ``<lora:NAME:MULT>``, ``--embed-dir`` / ``<emb:NAME>``, prompt
+editing, and SD3's ``--t5`` / ``--t5-tokenizer`` / ``--t5-tokens``.  The other commands of the JAX CLI exit 1
 and say so.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
@@ -31,8 +32,9 @@ from typing import List, Optional
 HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
 Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base and 3-medium are
-implemented: txt2img, img2img and inpainting, with LoRAs; images are
-encoded and decoded by the VAE or the TAE (--tae).
+implemented: txt2img, img2img and inpainting, with LoRAs, textual-inversion
+embeddings, prompt editing (UNet models) and SD3's T5-XXL context; images
+are encoded and decoded by the VAE or the TAE (--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
@@ -57,8 +59,11 @@ Generation options:
   --ilatent PATH       Input latent tensor.
   --ilmask PATH        Input latent mask tensor.
   --olatent PATH       Output latent tensor path.
-  --no-prompt-parse B  Use the prompt as raw text (no emphasis or LoRA
-                       tag parsing).
+  --no-prompt-parse B  Use the prompt as raw text (no emphasis, tag or
+                       editing parsing). Prompts support A1111 emphasis
+                       ((x:1.5), [x]), <lora:NAME:MULT>, <emb:NAME>, and
+                       prompt editing ([from:to:when], [add:when],
+                       [gone::when], [a|b]; not on SD3).
   --f-t-ini FLOAT      Initial time factor (img2img strength; default 1).
   --f-t-end FLOAT      End time factor (default 0).
 
@@ -72,6 +77,13 @@ Models and backend:
                        <lora:NAME:MULT> in a prompt applies NAME for one
                        request.
   --lora-dir PATH      Directory searched for <lora:NAME:MULT> prompt tags.
+  --embed-dir PATH     Directory searched for <emb:NAME> textual-inversion
+                       embeddings (NAME.safetensors or NAME.pt).
+  --t5 PATH            SD3: T5-XXL encoder weights (a T5 file; a model file
+                       that bundles text_encoders.t5xxl.* needs none).
+  --t5-tokenizer PATH  SD3: the T5 tokenizer.json; without it the T5
+                       context is zero rows.
+  --t5-tokens INT      SD3: T5 context tokens (default 77).
   -b --backend NAME    cuda (default) or cpu.
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.

@@ -64,6 +64,22 @@ class SamplingPlan:
     anc_noise: np.ndarray
 
 
+def _schedule(cfg: SamplerConfig, nfe_per_dxdt: int):
+    ls = sch.log_sigmas_flow(cfg.flow_shift) if cfg.flow_shift else None
+    return sch.make_schedule(cfg.n_step, cfg.sched,
+                             get_solver(cfg.method).n_fe, nfe_per_dxdt,
+                             cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
+
+
+def plan_n_step(cfg: SamplerConfig, nfe_per_dxdt: int = 1) -> int:
+    """The loop's step count that ``make_plan`` will give (the schedule's
+    length after the NFE division and the ``f_t`` cuts), wanted before the
+    encode when prompt editing maps text segments onto steps
+    (``mlimgsynth_tpu/sampling/sampler.py:110-121``, without its lcm and
+    keep-tail branches, which this port has not)."""
+    return _schedule(cfg, nfe_per_dxdt).n_step
+
+
 def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
               nfe_per_dxdt: int = 1, seeds=None) -> SamplingPlan:
     """Sigma schedule and all noise, drawn in the reference's order
@@ -76,9 +92,7 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
     multiplier (``mlimgsynth_tpu/sampling/sampler.py:168-173``).  The JAX
     package's lcm, keep-tail and subseed branches are not ported."""
     solver = get_solver(cfg.method)
-    ls = sch.log_sigmas_flow(cfg.flow_shift) if cfg.flow_shift else None
-    s = sch.make_schedule(cfg.n_step, cfg.sched, solver.n_fe, nfe_per_dxdt,
-                          cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
+    s = _schedule(cfg, nfe_per_dxdt)
     sde_eta = 0.0
     if solver.name.endswith("_sde"):
         sde_eta = cfg.s_ancestral if cfg.s_ancestral > 0 else 1.0
@@ -141,13 +155,18 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 step_observer: Optional[Callable] = None,
                 label_all: Optional[torch.Tensor] = None,
                 step_callback: Optional[Callable] = None,
-                lmask: Optional[np.ndarray] = None) -> torch.Tensor:
+                lmask: Optional[np.ndarray] = None,
+                cond_steps: Optional[np.ndarray] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
     hold the cond rows, then (with CFG) the uncond rows, on the model's
     device.  ``lmask`` ([N or 1, 1, h, w], 1 = KEEP) holds its region to
-    the un-noised ``x_init``.
+    the un-noised ``x_init``.  With ``cond_steps`` (prompt editing, an int
+    [n_step, rows] matrix) ``cond_all`` and ``label_all`` are a bank of
+    encoded rows, and step i conditions on the rows ``cond_steps[i]``
+    picks, in the same cond-then-uncond layout (the JAX loop's gather,
+    ``mlimgsynth_tpu/sampling/sampler.py:312-316``, ``:862-875``).
     ``step_observer(i_step, latent_nchw_numpy)`` sees every step, and
     ``step_callback(i_step, n_step)`` is told of each (the session's
     progress).  Returns the final latent, f32 on the device."""
@@ -159,6 +178,11 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    bank, label_bank = cond_all, label_all
+    if cond_steps is not None and len(cond_steps) != plan.n_step:
+        raise ValueError(f"{len(cond_steps)} conditioning steps for a plan "
+                         f"of {plan.n_step}")
 
     def dxdt(x, sigma):
         n = x.shape[0]
@@ -185,6 +209,11 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     t = f32(plan.sigmas[0])
     state = solver.init_state(x)
     for i in range(plan.n_step):
+        if cond_steps is not None:
+            rows = torch.as_tensor(np.asarray(cond_steps[i], np.int64),
+                                   device=dev)
+            cond_all = bank[rows]
+            label_all = None if label_bank is None else label_bank[rows]
         churn = f32(plan.churn_sigma[i])
         if churn > 0:       # stochastic churn (src/sampling.c:138-151)
             x = x + to_dev(plan.churn_noise[i]) * churn

@@ -13,6 +13,7 @@ the linears quantize.
 """
 from __future__ import annotations
 
+import base64
 import json
 import math
 import re
@@ -26,6 +27,7 @@ import torch
 from . import nameconv
 from .api import ModelTypeDef, build_encoders, build_models
 from .models import mmdit as mmdit_mod
+from .models import t5 as t5_mod
 from .models import tae as tae_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
@@ -106,6 +108,14 @@ TINY_Q_MMDIT = mmdit_mod.MmditParams(
     n_ctx=256)
 TINY_Q_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_Q_CLIP, TINY_Q_MMDIT,
                                      TINY_VAE_SD3, 512, 2, TINY_Q_CLIP2)
+
+
+# T5: the encoder-parity geometry (128 wide, 4 heads of 32) and one narrow
+# enough for the tiny SD3's 80-wide context (its rows zero-padded to 80)
+TINY_T5 = t5_mod.T5Params(d_model=128, d_kv=32, n_head=4, d_ff=256,
+                          n_layer=2, n_vocab=512)
+TINY_T5_SD3 = t5_mod.T5Params(d_model=64, d_kv=16, n_head=4, d_ff=96,
+                              n_layer=2, n_vocab=512)
 
 
 def model_shapes(mt: ModelTypeDef, encoders: bool = False
@@ -339,6 +349,56 @@ def write_random_tae(path, P: tae_mod.TaeParams = tae_mod.TAE_SD1,
     write_safetensors(path, shapes, dtype, tensors())
 
 
+def t5_file_shapes(P: t5_mod.T5Params, prefix: str = ""
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """HF ``T5EncoderModel`` name (under ``prefix``: "" for a bare T5 file,
+    ``text_encoders.t5xxl.transformer.`` as the sd3 single file bundles it)
+    -> shape of every tensor the port's T5 loads."""
+    with torch.device("meta"):
+        shapes = module_shapes(t5_mod.T5Encoder(P), "")
+    return {prefix + k: v for k, v in shapes.items()}
+
+
+def write_random_t5(path, P: t5_mod.T5Params = TINY_T5, seed: int = 0,
+                    dtype=np.float16, prefix: str = "",
+                    device: str = "cpu") -> None:
+    """Seeded random T5 encoder file of ``P`` at ``path`` in HF names
+    (:func:`t5_file_shapes`), drawn as Hugging Face initializes a T5: the
+    norm scales 1, the token table N(0, 1), the query projection N(0,
+    1/(d_model d_kv)) (T5's attention is unscaled: the query carries
+    1/sqrt(d_kv)), every other tensor N(0, 1/fan_in) (the position-bias
+    table 1/n_head); one tensor at a time by a torch generator on
+    ``device`` (a card draws the 4.8 B values of T5-XXL in seconds)."""
+    shapes = t5_file_shapes(P, prefix)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tdtype = {np.dtype(np.float16): torch.float16,
+              np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
+
+    def tensors():
+        for name, shape in shapes.items():
+            if len(shape) == 1:
+                arr = np.ones(shape, dtype)
+            else:
+                std = (1.0 if name.endswith("shared.weight") else
+                       1.0 / math.sqrt(shape[1] * (
+                           P.d_kv if name.endswith(".q.weight") else 1)))
+                arr = (torch.randn(shape, generator=gen, device=device)
+                       .mul_(std).to(tdtype).cpu().numpy())
+            yield name, arr
+
+    write_safetensors(path, shapes, dtype, tensors())
+
+
+def write_embedding(path, tables: Dict[str, np.ndarray]) -> None:
+    """A textual-inversion file at ``path`` (f32): ``{"emb_params": rows}``
+    in the A1111 layout, or ``{"clip_l": rows, "clip_g": rows}`` for SDXL,
+    each [vectors, width]."""
+    tables = {k: np.ascontiguousarray(v, np.float32)
+              for k, v in tables.items()}
+    write_safetensors(path, {k: v.shape for k, v in tables.items()},
+                      np.float32, iter(tables.items()))
+
+
 # kohya LoRA prefixes of the text towers: SD1/SD2 name their one tower
 # ``lora_te_``, SDXL its two ``lora_te1_`` / ``lora_te2_``
 _LORA_TE = {"clip.text.": "lora_te_", "clip2.text.": "lora_te2_"}
@@ -428,8 +488,8 @@ def write_random_lora(path, mt: ModelTypeDef, targets, rank: int = 4,
 
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
-# 512^2, SDXL 1024^2, SD3-medium 1024^2 and SD2.1 768^2 main paths give the
-# kernels, and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
+# 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens) and
+# SD2.1 768^2 main paths give the kernels, and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
 # main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
@@ -456,6 +516,8 @@ ATTN_CASES = [
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
      "MMDiT joint attention, SD3-medium"),
+    ("flash_attn_joint", (2, 24, 4429, 64), 4429,
+     "SD3-medium with 256 T5 tokens (a ragged tail of 13 past 69 x 64)"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
     ("flash_attn_joint", (1, 2, 2100, 128), 2100, "head dim 128"),
 ]
@@ -665,3 +727,121 @@ def median_ms(fn, n: int = 20, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
+
+
+# -- tokenizer.json files (the T5 tokenizer's format) ------------------------
+
+def build_charsmap(rules: Dict[str, str]) -> bytes:
+    """sentencepiece's ``precompiled_charsmap`` for ``rules`` (key ->
+    replacement, non-empty keys without NUL): a little-endian u32 trie size
+    in bytes, the Darts double array over each key's UTF-8 bytes (a unit's
+    low 8 bits its label, bit 8 "has a leaf", bits 10-31 the XOR offset to
+    its children, a leaf unit bit 31 and its value; padded to whole blocks
+    of 256 units), then the NUL-terminated
+    replacements, a leaf's value the byte offset of its own."""
+    trie: dict = {}
+    strings = bytearray()
+    for key, rep in rules.items():
+        if not key or "\0" in key:
+            raise ValueError(f"charsmap key {key!r}")
+        node = trie
+        for c in key.encode("utf-8"):
+            node = node.setdefault(c, {})
+        node[None] = len(strings)
+        strings += rep.encode("utf-8") + b"\0"
+    units = {0: 0}
+    used_bases = set()
+
+    def place(node, pos):
+        labels = sorted(0 if c is None else c for c in node)
+        base = 1
+        while base in used_bases or any((base ^ c) in units or base ^ c == 0
+                                        for c in labels):
+            base += 1
+        used_bases.add(base)
+        off = pos ^ base
+        if off >= 1 << 21:
+            raise ValueError("charsmap too large for the units' offset field")
+        units[pos] = (units[pos] & 0x1FF) | (off << 10)
+        for c in labels:
+            units[base ^ c] = 0
+        for c, child in node.items():
+            if c is None:
+                units[base] = (1 << 31) | child
+                units[pos] |= 1 << 8
+        for c, child in sorted((c, n) for c, n in node.items()
+                               if c is not None):
+            units[base ^ c] = c
+            place(child, base ^ c)
+
+    place(trie, 0)
+    # every base ^ label (label < 256) inside the array, as Darts blocks of
+    # 256 units leave it
+    arr = [0] * ((max(max(units), max(used_bases)) | 0xFF) + 1)
+    for p, u in units.items():
+        arr[p] = u
+    blob = struct.pack(f"<{len(arr)}I", *arr)
+    return struct.pack("<I", len(blob)) + blob + bytes(strings)
+
+
+def unigram_tokenizer_spec(pieces, unk_id: int = 2, charsmap: bytes = None,
+                           eos: bool = False) -> dict:
+    """A ``tokenizer.json`` dict in the layout ``tokenizers`` saves: a
+    Unigram model over ``pieces`` ((piece, score) in id order), a Metaspace
+    pre-tokenizer, a normalizer of the T5 files' form (the charsmap's
+    ``Precompiled`` where one is given, then runs of spaces replaced by
+    one), and, with ``eos``, a ``TemplateProcessing`` that appends
+    ``</s>`` (id 1), as the T5 tokenizer that Hugging Face distributes
+    does."""
+    norms = [{"type": "Replace", "pattern": {"Regex": " {2,}"},
+              "content": " "}]
+    if charsmap is not None:
+        norms.insert(0, {"type": "Precompiled", "precompiled_charsmap":
+                         base64.b64encode(charsmap).decode()})
+    post = None
+    if eos:
+        seq = {"Sequence": {"id": "A", "type_id": 0}}
+        post = {"type": "TemplateProcessing",
+                "single": [seq, {"SpecialToken": {"id": "</s>",
+                                                  "type_id": 0}}],
+                "pair": [seq, {"Sequence": {"id": "B", "type_id": 1}}],
+                "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                            "tokens": ["</s>"]}}}
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [],
+            "normalizer": {"type": "Sequence", "normalizers": norms},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                              "prepend_scheme": "always", "split": True},
+            "post_processor": post, "decoder": None,
+            "model": {"type": "Unigram", "unk_id": unk_id,
+                      "vocab": [[p, float(s)] for p, s in pieces],
+                      "byte_fallback": False}}
+
+
+def random_unigram_pieces(n_vocab: int, seed: int = 0):
+    """``n_vocab`` (piece, score) pairs: ``<pad>``, ``</s>``, ``<unk>``,
+    then ``▁`` and the printable ASCII characters alone and after
+    ``▁``, then made-up pieces of 2-8 lowercase letters (half after
+    ``▁``), all distinct, with seeded log-probability scores."""
+    rng = np.random.default_rng(seed)
+    pieces = ["<pad>", "</s>", "<unk>", "▁"]
+    chars = [chr(c) for c in range(33, 127)]
+    pieces += chars + ["▁" + c for c in chars]
+    seen = set(pieces)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(pieces) < n_vocab:
+        w = "".join(rng.choice(letters, rng.integers(2, 9)))
+        if rng.random() < 0.5:
+            w = "▁" + w
+        if w not in seen:
+            seen.add(w)
+            pieces.append(w)
+    pieces = pieces[:n_vocab]
+    scores = -rng.uniform(2.0, 14.0, len(pieces))
+    scores[:3] = 0.0
+    return list(zip(pieces, scores.tolist()))
+
+
+def write_tokenizer_json(path, spec: dict) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False, indent=1)

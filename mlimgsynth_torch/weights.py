@@ -304,8 +304,10 @@ def quantize_linear_weights(module: nn.Module, prefix: str,
 
 
 # JAX 2-D params kept as-is (embedding tables, position embeddings, text
-# projection); every other 2-D param is a [in, out] linear weight
-_AS_IS_2D = (".embed.token.weight", ".embed.position.weight", ".text_proj")
+# projection, T5's token and relative-position tables); every other 2-D
+# param is a [in, out] linear weight
+_AS_IS_2D = (".embed.token.weight", ".embed.position.weight", ".text_proj",
+             ".shared.weight", ".relative_attention_bias.weight")
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray]

@@ -102,6 +102,8 @@ def test_tokenize_help_version(capsys):
     assert tcli.main(["-h"]) == 0
     out = capsys.readouterr().out
     assert "generate" in out and "--tae" in out and "dpm++2m_sde" in out
+    for flag in ("--embed-dir", "--t5", "--t5-tokenizer", "--t5-tokens"):
+        assert flag in out
     assert tcli.main(["-V"]) == 0
     assert capsys.readouterr().out.startswith("mlimgsynth-torch v")
 
@@ -189,3 +191,63 @@ def test_generate_needs_the_card_by_default(ckpt, capsys):
         pytest.skip("a CUDA device is present")
     assert tcli.main(["generate", "-m", ckpt, *ARGS, "-o", "x.png"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def _cli_pair(ckpt, tmp_path, extra):
+    """The JAX CLI and the port's on the same arguments: (PNG, its
+    parameters text, the output latent) of each."""
+    outs = {}
+    for name, main in (("jax", jcli.main), ("port", tcli.main)):
+        png, lat = tmp_path / f"{name}.png", tmp_path / f"{name}.tensor"
+        cpu = ["-b", "cpu"] if name == "port" else []
+        assert main(["generate", "-m", ckpt, *ARGS, *cpu, *extra,
+                     "-o", str(png), "--olatent", str(lat)]) == 0
+        outs[name] = (*_pil(png), jimage.tensor_load(str(lat)))
+    return outs["jax"], outs["port"]
+
+
+def test_embed_dir_and_prompt_editing_match_jax_cli(ckpt, tmp_path):
+    """``--embed-dir`` with an ``<emb:NAME>`` tag whose table is CLIP's rows
+    of "cat", and prompt editing in both prompts: against the JAX CLI, and
+    the embedding's latent equal to the word's."""
+    s = torch_api.MLImgSynth(device="cpu")
+    s.option_set("model", ckpt)
+    s.setup()
+    ids = s.text_tokenize("cat")
+    table = s._models["clip.text."].embed.token.weight.detach().numpy()
+    T.write_embedding(tmp_path / "likecat.safetensors",
+                      {"emb_params": table[ids]})
+    edit = ["--embed-dir", str(tmp_path), "-n", "[blurry|noisy]"]
+    (img_j, info_j, lat_j), (img_t, info_t, lat_t) = _cli_pair(
+        ckpt, tmp_path, edit + ["-p", "a <emb:likecat> [photo:picture:2]"])
+    assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
+    assert info_t == info_j
+    assert info_t.startswith("a <emb:likecat> [photo:picture:2]\n")
+    np.testing.assert_allclose(lat_t, lat_j, atol=1e-4, rtol=1e-4)
+    word = tmp_path / "word.tensor"
+    assert tcli.main(["generate", "-m", ckpt, *ARGS, "-b", "cpu", *edit,
+                      "-p", "a cat [photo:picture:2]", "-o",
+                      str(tmp_path / "w.png"), "--olatent", str(word)]) == 0
+    np.testing.assert_array_equal(jimage.tensor_load(str(word)), lat_t)
+
+
+def test_t5_options_match_jax_cli(tmp_path, monkeypatch):
+    """``--t5``, ``--t5-tokenizer`` and ``--t5-tokens`` on a tiny SD3
+    checkpoint with a tiny T5 file, against the JAX CLI."""
+    monkeypatch.setenv("MLIS_TINY_MODELS", "1")
+    monkeypatch.setattr(jax_api, "_model_types", lambda: {
+        "sd3": jtesting.TINY_MODEL_TYPE_SD3})
+    monkeypatch.setattr(torch_api, "_model_types", lambda: {
+        "sd3": T.TINY_MODEL_TYPE_SD3})
+    sd3, t5 = str(tmp_path / "sd3.safetensors"), str(tmp_path / "t5.st")
+    jtesting.write_checkpoint_sd3(sd3, seed=3)
+    T.write_random_t5(t5, T.TINY_T5_SD3, seed=4, dtype=np.float32)
+    tok = str(tmp_path / "tokenizer.json")
+    T.write_tokenizer_json(tok, T.unigram_tokenizer_spec(
+        T.random_unigram_pieces(T.TINY_T5_SD3.n_vocab, seed=5), eos=True))
+    (img_j, info_j, lat_j), (img_t, info_t, lat_t) = _cli_pair(
+        sd3, tmp_path, ["--t5", t5, "--t5-tokenizer", tok,
+                        "--t5-tokens", "96"])
+    assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
+    assert info_t == info_j
+    np.testing.assert_allclose(lat_t, lat_j, atol=1e-4, rtol=1e-4)

@@ -203,8 +203,8 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 @pytest.mark.parametrize("name,value", [
     ("model-type", "flux_dev"), ("weight-type", "q2_k"), ("method", "lcm"),
-    ("deepcache", 3), ("hires-fix", 2.0), ("prompt", "a [cat:dog:0.5]"),
-    ("prompt", "an <emb:x> cat"),
+    ("deepcache", 3), ("hires-fix", 2.0), ("control-net", "cn.safetensors"),
+    ("model-type", "sd35_medium"),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")
@@ -241,6 +241,31 @@ assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
                  "-S", "1", "-p", "a cat <lora:style:0.5>", "-i", "in.png",
                  "--f-t-ini", "0.7", "-o", "i2i.png", "-q"]) == 0
 assert "Mode: inpaint" in image.png_read("i2i.png")[1]["parameters"]
+# the prompt layer: an embedding, prompt editing, SD3 with T5 context
+rows = s._models["clip.text."].embed.token.weight.detach().numpy()
+testing.write_embedding("likecat.safetensors",
+                        {"emb_params": rows[s.text_tokenize("cat")]})
+for k, v in [("embed-dir", "."), ("seed", 1), ("steps", 2),
+             ("prompt", "a <emb:likecat> [photo:picture:1]")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all() and s.tensors["cond"].shape[0] == 3
+api._model_types = lambda: {"sd3": testing.TINY_MODEL_TYPE_SD3}
+testing.write_random_checkpoint("sd3.st", testing.TINY_MODEL_TYPE_SD3,
+                                seed=3, dtype=np.float32)
+testing.write_random_t5("t5.st", testing.TINY_T5_SD3, dtype=np.float32)
+testing.write_tokenizer_json("tok.json", testing.unigram_tokenizer_spec(
+    testing.random_unigram_pieces(512), eos=True))
+s = api.MLImgSynth(device="cpu")
+for k, v in [("model", "sd3.st"), ("image-dim", 64), ("steps", 2),
+             ("t5", "t5.st"), ("t5-tokenizer", "tok.json"),
+             ("prompt", "a cat")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all()
+assert s.tensors["cond"].shape == (1, 154, 80)
+assert s.tensors["cond"][:, 77:].any()
+new = {"mlimgsynth_torch.tokenizer_json", "mlimgsynth_torch.models.t5",
+       "mlimgsynth_torch.errors"}
+assert new <= set(sys.modules), new - set(sys.modules)
 tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
 assert not tpu, tpu
 print("jax" in sys.modules)

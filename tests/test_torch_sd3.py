@@ -115,8 +115,8 @@ def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("t5", "t5xxl.safetensors"), ("t5-tokenizer", "tokenizer.json"),
-    ("t5-tokens", 256), ("model-type", "sd35_large"),
+    ("model-type", "sd35_medium"), ("slg-scale", 2.5),
+    ("model-type", "flux_dev"), ("model-type", "sd35_large"),
 ])
 def test_unported_sd3_options_raise(name, value):
     s = torch_api.MLImgSynth(device="cpu")

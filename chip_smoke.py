@@ -16,8 +16,9 @@ Phases, one result line each (any failure exits non-zero):
                  hold HGMMA, the W8A8 GEMM kernels IGMMA, and none may
                  spill or have its wgmma serialized by ptxas;
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
-                 flash kernels at the SD1.5 512^2, SDXL 1024^2 and
-                 SD3-medium 1024^2 main-path shapes and ragged ones, the
+                 flash kernels at the SD1.5 512^2, SDXL 1024^2,
+                 SD3-medium, SD3.5 and Flux 1024^2 main-path shapes (K3
+                 at head dim 128 for Flux) and ragged ones, the
                  quantized matmuls (q8 and q4, tiled and weight-stationary)
                  at the SD1.5 products, the most frequent SDXL and SD3 ones
                  and ragged M and N, the per-column W8A8 kernel at the SD3
@@ -71,6 +72,20 @@ Phases, one result line each (any failure exits non-zero):
                  the latents of "a cat" through step 10, bit for bit, and
                  other ones after; on SDXL the same with an embedding of
                  both towers' rows in an edited prompt.
+                 SD3.5 and Flux.1 (``sd35`` and ``flux`` lines), 1024^2
+                 at full width and depth on seeded random files drawn on
+                 the card, with the T5-XXL file of the ``t5`` lines:
+                 SD3.5-medium (MMDiT-X) and SD3.5-large, 20 Euler steps,
+                 CFG 7, 77 T5 tokens, 2 requests each; Flux.1-dev from
+                 component files (transformer, CLIP-L, VAE), 20 Euler
+                 steps at guidance 3.5 and 512 T5 tokens, 2 requests
+                 through the session and one CLI call (--clip, --vae,
+                 --t5); Flux.1-schnell, 4 steps, cfg 1, 256 T5 tokens, one
+                 request.  Each with its setup and request seconds, peak
+                 memory and exact K3 and K2 launches; one denoiser
+                 evaluation with the kernels against the plain attention
+                 (held to 3e-2) and the whole last request's latent the
+                 same two ways (reported).
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -112,15 +127,19 @@ Phases, one result line each (any failure exits non-zero):
                  with both memory options, through the session on the card
                  (bf16, kernels) against the same on the CPU (f32, the path
                  the CPU tests hold against the JAX package);
-  8. imports   - nothing of jax or of the JAX package was loaded.
+  8. imports   - nothing of jax or of the JAX package was loaded, and the
+                 CLI, T5 and Flux modules were.
 Then one JSON line on the kernels and, last, the device JSON line.
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import functools
 import gc
 import json
+import math
+import multiprocessing
 import os
 import re
 import subprocess
@@ -137,6 +156,7 @@ from mlimgsynth_torch import weights as weights_mod
 from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import clip as clip_mod
+from mlimgsynth_torch.models import flux as flux_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
 from mlimgsynth_torch.models import t5 as t5_mod
 from mlimgsynth_torch.models import unet as unet_mod
@@ -245,6 +265,26 @@ T5_RULES = {**{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
             **{chr(0xFF10 + i): chr(0x30 + i) for i in range(10)},
             "…": "..."}
 T5_REL_L2 = 6e-2
+# the T5-XXL file and tokenizer the ``t5`` lines write, which the SD3.5 and
+# Flux lines use too
+T5_FILE, T5_TOKENIZER = "t5xxl-random-f16.safetensors", "t5-tokenizer.json"
+
+# The other DiT families (``sd35`` and ``flux`` lines), 1024^2 at full
+# width and depth: SD3.5-medium and -large, 20 Euler steps, CFG 7, 77 T5
+# tokens, two requests each; Flux.1-dev, 20 Euler steps at guidance 3.5
+# and 512 T5 tokens (BFL's default for dev), two requests and a CLI call;
+# Flux.1-schnell, 4 steps, cfg 1, 256 T5 tokens, one request.  K3 a
+# request: one joint attention per block and evaluation (SD3.5-medium also
+# one attn2 in each of blocks 0-12), K2 once in the VAE decode.
+DIT_DIM, SD35_STEPS = 1024, 20
+FLUX_RUNS = {"flux_dev": {"steps": 20, "cfg": 3.5, "t5_tokens": 512,
+                          "requests": 2},
+             "flux_schnell": {"steps": 4, "cfg": 1.0, "t5_tokens": 256,
+                              "requests": 1}}
+REQUEST_EVALS = {"flux_schnell": 4}
+DIT_K3_PER_REQUEST = {"sd35_medium": 24 * 20 + 13 * 20,
+                      "sd35_large": 38 * 20, "flux_dev": 57 * 20,
+                      "flux_schnell": 57 * 4}
 
 # Embeddings and prompt editing: a prompt with a word, an embedding of that
 # word's token rows in its place, and an edit that switches at EDIT_STEP
@@ -313,67 +353,19 @@ def main() -> int:
     kernels = (check_flash() + check_quant() + check_int8()
                + check_q8_int8())
     launches = collections.Counter()
+    # the numpy draws of the four checkpoints run in one process of their
+    # own (no share of this one's interpreter lock, which the host-bound
+    # requests need), in the order the paths take them, while the paths run
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = _checkpoint(tmp, "sd1")
-        lora = _lora(tmp)
-        for wt, bits, n_req in PATHS:
-            s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, "sd1", 512, wt,
-                                      REQUESTS[:n_req],
-                                      lambda s, bits=bits: sd1_want(bits)))
-            if bits == 8:
-                launches.update(main_path(
-                    s, ckpt, "sd1", 512, wt, REQUESTS[n_req:n_req + 1],
-                    lambda s: sd1_want(8, int8=True), mode="int8"))
-            reference_check(s, wt, bits)
-            if bits == 8:
-                sd1_dq = time_shapes(s)
-                launches.update(lora_q8_request(s, ckpt, lora))
-            _drop(s)
-        launches.update(sd1_img2img_path(tmp, ckpt, lora))
-        launches.update(sd1_lowmem_cli(tmp, ckpt))
-        launches.update(embed_edit_sd1(tmp, ckpt))
-        os.remove(ckpt)
-        ckpt = _checkpoint(tmp, "sd3")
-        for wt, bits, n_req in SD3_PATHS:
-            s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt,
-                                      REQUESTS[:n_req], sd3_want))
-            if not bits:
-                launches.update(img2img_request(s, "sd3", SD3_DIM))
-            if bits == 8:
-                launches.update(main_path(
-                    s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
-                    lambda s: sd3_want(s, int8=True), mode="int8"))
-            sd3_reference_check(s, wt, bits)
-            if not bits:
-                launches.update(t5_path(s, tmp))
-            if bits == 8:
-                sd3_dq = time_products(sd3_dq_products(s), "sd3")
-            _drop(s)
-        os.remove(ckpt)
-        ckpt = _checkpoint(tmp, "sdxl")
-        for wt, bits, n_req in SDXL_PATHS:
-            s = api.MLImgSynth(device="cuda")
-            launches.update(main_path(s, ckpt, "sdxl", SDXL_DIM, wt,
-                                      REQUESTS[:n_req], sdxl_want))
-            if not bits:
-                launches.update(img2img_request(s, "sdxl", SDXL_DIM))
-            if bits == 8:
-                launches.update(main_path(
-                    s, ckpt, "sdxl", SDXL_DIM, wt, REQUESTS[n_req:n_req + 1],
-                    lambda s: sdxl_want(s, int8=True), mode="int8"))
-            sdxl_reference_check(s, wt, bits)
-            if not bits:
-                launches.update(embed_edit_sdxl(s, ckpt, tmp))
-                launches.update(sdxl_lowmem_requests(s, wt))
-            if bits == 8:
-                sdxl_dq = time_products(sdxl_products(s), "sdxl")
-                sdxl_int8 = time_sdxl_int8_shapes(s)
-            _drop(s)
-        launches.update(sdxl_lowmem_path(ckpt))
-        os.remove(ckpt)
-        launches.update(sd2_path(tmp))
+        try:
+            for model_type in ("sd1", "sd3", "sdxl", "sd2"):
+                _WRITES[model_type] = pool.submit(_write_checkpoint, tmp,
+                                                  model_type)
+            sd1_dq, sd3_dq, sdxl_dq, sdxl_int8 = _paths(tmp, launches)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
     dq = {"sd1": sd1_dq, "sdxl": sdxl_dq, "sd3": sd3_dq}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -395,6 +387,79 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _paths(tmp: str, launches: collections.Counter):
+    """The full-width paths in ``tmp``, their launches added to
+    ``launches``: SD1.5, SD3, SDXL, SD2, SD3.5 and Flux.  Returns the timed
+    quantized products of the SD1.5, SD3 and SDXL q8_0 requests and of the
+    SDXL one under MLIS_Q8_MODE=int8."""
+    ckpt = _checkpoint(tmp, "sd1")
+    lora = _lora(tmp)
+    for wt, bits, n_req in PATHS:
+        s = api.MLImgSynth(device="cuda")
+        launches.update(main_path(s, ckpt, "sd1", 512, wt,
+                                  REQUESTS[:n_req],
+                                  lambda s, bits=bits: sd1_want(bits)))
+        if bits == 8:
+            launches.update(main_path(
+                s, ckpt, "sd1", 512, wt, REQUESTS[n_req:n_req + 1],
+                lambda s: sd1_want(8, int8=True), mode="int8"))
+        reference_check(s, wt, bits)
+        if bits == 8:
+            sd1_dq = time_shapes(s)
+            launches.update(lora_q8_request(s, ckpt, lora))
+        _drop(s)
+    launches.update(sd1_img2img_path(tmp, ckpt, lora))
+    launches.update(sd1_lowmem_cli(tmp, ckpt))
+    launches.update(embed_edit_sd1(tmp, ckpt))
+    os.remove(ckpt)
+    ckpt = _checkpoint(tmp, "sd3")
+    for wt, bits, n_req in SD3_PATHS:
+        s = api.MLImgSynth(device="cuda")
+        launches.update(main_path(s, ckpt, "sd3", SD3_DIM, wt,
+                                  REQUESTS[:n_req], sd3_want))
+        if not bits:
+            launches.update(img2img_request(s, "sd3", SD3_DIM))
+        if bits == 8:
+            launches.update(main_path(
+                s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
+                lambda s: sd3_want(s, int8=True), mode="int8"))
+        sd3_reference_check(s, wt, bits)
+        if not bits:
+            launches.update(t5_path(s, tmp))
+        if bits == 8:
+            sd3_dq = time_products(sd3_dq_products(s), "sd3")
+        _drop(s)
+    os.remove(ckpt)
+    ckpt = _checkpoint(tmp, "sdxl")
+    for wt, bits, n_req in SDXL_PATHS:
+        s = api.MLImgSynth(device="cuda")
+        launches.update(main_path(s, ckpt, "sdxl", SDXL_DIM, wt,
+                                  REQUESTS[:n_req], sdxl_want))
+        if not bits:
+            launches.update(img2img_request(s, "sdxl", SDXL_DIM))
+        if bits == 8:
+            launches.update(main_path(
+                s, ckpt, "sdxl", SDXL_DIM, wt, REQUESTS[n_req:n_req + 1],
+                lambda s: sdxl_want(s, int8=True), mode="int8"))
+        sdxl_reference_check(s, wt, bits)
+        if not bits:
+            launches.update(embed_edit_sdxl(s, ckpt, tmp))
+            launches.update(sdxl_lowmem_requests(s, wt))
+        if bits == 8:
+            sdxl_dq = time_products(sdxl_products(s), "sdxl")
+            sdxl_int8 = time_sdxl_int8_shapes(s)
+        _drop(s)
+    launches.update(sdxl_lowmem_path(ckpt))
+    os.remove(ckpt)
+    launches.update(sd2_path(tmp))
+    t5 = {"t5": os.path.join(tmp, T5_FILE),
+          "t5_tokenizer": os.path.join(tmp, T5_TOKENIZER)}
+    launches.update(sd35_path(tmp, t5))
+    launches.update(flux_path(tmp, t5))
+    os.remove(t5["t5"])
+    return sd1_dq, sd3_dq, sdxl_dq, sdxl_int8
 
 
 def _kernel_name(mangled: str) -> str:
@@ -485,8 +550,15 @@ FLASH_SHAPE_CALLS = {
     ((1, 1, 4096, 512), 4096): {"sd1": 1, "sd1_img2img": 2},
     ((1, 1, 16384, 512), 16384): {"sd3": 1, "sdxl": 1, "sd3_img2img": 2,
                                   "sdxl_img2img": 2, "sd3_t5_77": 1,
-                                  "sd3_t5_256": 1},
-    ((2, 24, 4250, 64), 4250): {"sd3": 480, "sd3_t5_77": 480},
+                                  "sd3_t5_256": 1, "sd35_medium": 1,
+                                  "sd35_large": 1, "flux_dev": 1,
+                                  "flux_schnell": 1},
+    ((2, 24, 4250, 64), 4250): {"sd3": 480, "sd3_t5_77": 480,
+                                "sd35_medium": 480},
+    ((2, 24, 4096, 64), 4096): {"sd35_medium": 260},
+    ((2, 38, 4250, 64), 4250): {"sd35_large": 760},
+    ((1, 24, 4608, 128), 4608): {"flux_dev": 1140},
+    ((1, 24, 4352, 128), 4352): {"flux_schnell": 228},
     ((2, 24, 4429, 64), 4429): {"sd3_t5_256": 480},
     ((2, 5, 9216, 64), 9216): {"sd2": 100},
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
@@ -564,7 +636,9 @@ def check_flash():
             ("flash_attn_fwd", "sd2"): SD2_STEPS * sum(SD2_SHAPES.values()),
             ("flash_attn_fwd_wide", "sd2"): 1,
             ("flash_attn_joint", "sd3"): SD3_FLASH_PER_REQUEST[
-                "flash_attn_joint"]}
+                "flash_attn_joint"],
+            **{("flash_attn_joint", m): c for m, c in
+               DIT_K3_PER_REQUEST.items()}}
     for key, calls in want.items():
         if per_request[key]["calls"] != calls:
             raise AssertionError(f"FLASH_SHAPE_CALLS gives {key} "
@@ -735,14 +809,30 @@ def _counts():
     return {**fa.LAUNCHES, **qmm.LAUNCHES}
 
 
-def _checkpoint(tmp: str, model_type: str) -> str:
-    """A seeded random full-width f16 checkpoint of ``model_type``."""
+# model type -> the future of its checkpoint's write in the background
+_WRITES = {}
+
+
+def _write_checkpoint(tmp: str, model_type: str):
+    """A seeded random full-width f16 checkpoint of ``model_type``, drawn
+    by numpy: (its path, the seconds it took)."""
     path = os.path.join(tmp, f"{model_type}-random-f16.safetensors")
     t0 = time.time()
     testing.write_random_checkpoint(path, api._model_types()[model_type],
                                     seed=0)
-    phase("main", model=model_type, step="checkpoint",
-          write_s=time.time() - t0, bytes=os.path.getsize(path))
+    return path, time.time() - t0
+
+
+def _checkpoint(tmp: str, model_type: str) -> str:
+    """The checkpoint of ``model_type``: written in the background
+    (``_WRITES``; ``wait_s``, the seconds the run waited for it) or
+    here."""
+    fut = _WRITES.pop(model_type, None)
+    t0 = time.time()
+    path, write_s = (fut.result() if fut is not None
+                     else _write_checkpoint(tmp, model_type))
+    phase("main", model=model_type, step="checkpoint", write_s=write_s,
+          wait_s=time.time() - t0, bytes=os.path.getsize(path))
     return path
 
 
@@ -1111,6 +1201,208 @@ def sd2_path(tmp: str) -> collections.Counter:
     return launches
 
 
+def _release(s) -> None:
+    """Free a session's weights on the card, its T5 encoder's too."""
+    s._t5 = None
+    _drop(s)
+
+
+def _first_eval(model):
+    """A forward pre-hook on ``model`` that keeps the inputs of its next
+    call, cloned: (the list it fills, the hook's handle)."""
+    got = []
+
+    def hook(mod, args):
+        if not got:
+            got.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args))
+
+    return got, model.register_forward_pre_hook(hook)
+
+
+def dit_requests(s, model: str, requests, steps: int, line: str
+                 ) -> collections.Counter:
+    """The txt2img ``requests`` (seed, prompt) on the SD3.5 or Flux session
+    ``s`` (options set), each with its exact flash launches by shape (K3
+    at the model's shapes, K2 once) and its peak memory; then the in-situ
+    check: the denoiser's first evaluation of the last request, with the
+    kernels against the same with the plain attention (``REF_LIMITS``),
+    and that whole request's latent, the same two ways (reported).
+    Returns the launches of the requests."""
+    launches = collections.Counter()
+    den = s._models[s._denoiser()]
+    for i, (seed, prompt) in enumerate(requests):
+        s.option_set("seed", seed)
+        s.option_set("prompt", prompt)
+        s.option_set("nprompt", "blurry, low quality")
+        first, hook = _first_eval(den)
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            img = s.generate()
+        finally:
+            hook.remove()
+        secs = time.time() - t0
+        shapes = collections.Counter(fa.LAUNCH_SHAPES)
+        got = _check_launches(f"{model} request {i}", shapes,
+                              _flash_want(model, steps, 1))
+        if any(qmm.LAUNCHES.values()):
+            raise AssertionError(f"{model}: quantized kernels "
+                                 f"{qmm.LAUNCHES}")
+        launches.update(got)
+        phase(line, model=model, request=i, seed=seed,
+              cold=(i == 0), seconds=secs, steps=steps,
+              cfg_scale=s.c["cfg_scale"], t5_tokens=s.c["t5_tokens"],
+              t5_encode_s=s.times.get("t5_encode_s"),
+              cond_rows=s.tensors["cond"].shape[1],
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=got, launches_by_shape={
+                  f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+              image_mean=float(img.mean()), image_std=float(img.std()))
+        if not _image_ok(img, DIT_DIM) or s.c["model_type"] != model:
+            raise AssertionError(f"{model} request {i}: bad image "
+                                 f"{img.shape}")
+    x_kern = torch.from_numpy(s.tensors["latent"])
+    first = first[0]
+
+    def run():
+        with torch.no_grad():
+            return [(f"{model}_v", den(*first).float())]
+
+    _kernels_vs_plain("bf16", None, run)
+
+    def request():
+        s.option_set("seed", requests[-1][0])
+        s.option_set("prompt", requests[-1][1])
+        s.option_set("nprompt", "blurry, low quality")
+        s.generate()
+        return torch.from_numpy(s.tensors["latent"])
+
+    x_plain = _plain_run(request)
+    phase("reference", path="bf16", output=f"{model}_request_latent",
+          rel_l2=((x_kern - x_plain).norm() / x_plain.norm()).item(),
+          limit=None, plain_calls=fa.PLAIN_CUDA_CALLS)
+    return launches
+
+
+def _dit_session(model: str, files: dict, t5_tokens: int, steps: int,
+                 cfg: float, line: str):
+    """A bf16 session of ``model`` on ``files`` ("model", and "clip" and
+    "vae" where the model ships as components), with the T5-XXL file and
+    tokenizer of the ``t5`` lines, set up (weights and T5 loaded) and its
+    setup seconds reported."""
+    s = api.MLImgSynth(device="cuda")
+    opts = [("model", files["model"]), ("model-type", model),
+            ("clip", files.get("clip", "")), ("vae", files.get("vae", "")),
+            ("t5", files["t5"]), ("t5-tokenizer", files["t5_tokenizer"]),
+            ("t5-tokens", t5_tokens), ("image-dim", DIT_DIM),
+            ("steps", steps), ("cfg-scale", cfg), ("method", "euler"),
+            ("scheduler", "uniform")]
+    for k, v in opts:
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    load_s = time.time() - t0
+    s._t5_load()
+    phase(line, model=model, step="setup", load_s=load_s,
+          t5_load_s=s.times["t5_load_s"],
+          params=sum(p.numel() for p in s._models[s._denoiser()]
+                     .parameters()),
+          memory_allocated=torch.cuda.memory_allocated())
+    return s
+
+
+def sd35_path(tmp: str, t5: dict) -> collections.Counter:
+    """SD3.5-medium and SD3.5-large at 1024^2 (``sd35`` lines): a seeded
+    random full-width checkpoint of each drawn on the card, with the
+    T5-XXL file of the ``t5`` lines at 77 tokens, 20 Euler steps, CFG 7,
+    two requests (``dit_requests``).  Returns the launches."""
+    launches = collections.Counter()
+    for model in ("sd35_medium", "sd35_large"):
+        path = os.path.join(tmp, f"{model}-random-f16.safetensors")
+        t0 = time.time()
+        testing.write_random_checkpoint(path, api._model_types()[model],
+                                        seed=0, device="cuda")
+        phase("sd35", model=model, step="checkpoint",
+              write_s=time.time() - t0, bytes=os.path.getsize(path))
+        s = _dit_session(model, {"model": path, **t5}, 77, SD35_STEPS,
+                         7.0, "sd35")
+        launches.update(dit_requests(s, model, REQUESTS[:2], SD35_STEPS,
+                                     "sd35"))
+        _release(s)
+        del s
+        os.remove(path)
+    return launches
+
+
+def flux_path(tmp: str, t5: dict) -> collections.Counter:
+    """Flux.1-dev and -schnell at 1024^2 (``flux`` lines): seeded random
+    full-width component files drawn on the card (the transformer in bare
+    BFL names, CLIP-L in the HF layout, the VAE bare), with the T5-XXL
+    file of the ``t5`` lines.  Dev: 20 Euler steps at guidance 3.5 and 512
+    T5 tokens, two requests through the session (``dit_requests``) and
+    one call of the CLI (-m, --clip, --vae, --t5, --t5-tokenizer,
+    --t5-tokens 512) with its PNG read back.  Schnell: 4 steps, cfg 1,
+    256 T5 tokens, one request, on the same transformer file (schnell is
+    dev without ``guidance_in``, whose tensors it leaves unread).  Returns
+    the launches."""
+    mt = api._model_types()["flux_dev"]
+    t0 = time.time()
+    files = testing.write_random_flux_files(tmp, mt, seed=0, device="cuda")
+    phase("flux", step="files", write_s=time.time() - t0,
+          bytes={k: os.path.getsize(p) for k, p in files.items()},
+          mod_std=testing.FLUX_MOD_STD)
+    files.update(t5)
+    launches = collections.Counter()
+    dev, fast = FLUX_RUNS["flux_dev"], FLUX_RUNS["flux_schnell"]
+    s = _dit_session("flux_dev", files, dev["t5_tokens"], dev["steps"],
+                     dev["cfg"], "flux")
+    shift = flux_mod.dynamic_flow_shift(s._mt.unet_p, DIT_DIM // 8,
+                                        DIT_DIM // 8)
+    phase("flux", model="flux_dev", flow_shift=shift)
+    if abs(shift - math.exp(1.15)) > 1e-9:
+        raise AssertionError(f"flux_dev: the schedule's shift {shift}")
+    launches.update(dit_requests(s, "flux_dev", REQUESTS[:dev["requests"]],
+                                 dev["steps"], "flux"))
+    _release(s)
+    del s
+    png = os.path.join(tmp, "flux-dev.png")
+    seed, prompt = REQUESTS[2]
+    secs, s, shapes = _cli_request(
+        ["generate", "-m", files["model"], "--clip", files["clip"],
+         "--vae", files["vae"], "--t5", files["t5"], "--t5-tokenizer",
+         files["t5_tokenizer"], "--t5-tokens", str(dev["t5_tokens"]),
+         "-d", str(DIT_DIM), "-s", str(dev["steps"]), "--cfg-scale",
+         str(dev["cfg"]), "-S", str(seed), "-p", prompt, "-o", png, "-q"])
+    got = _check_launches("flux_dev cli", shapes,
+                          _flash_want("flux_dev", dev["steps"], 1))
+    launches.update(got)
+    img = s.tensors["image"]
+    phase("flux", model="flux_dev", via="cli", seconds=secs,
+          setup_s=s.setup_s, generate_s=s.generate_s,
+          t5_load_s=s.times.get("t5_load_s"),
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=got, image_mean=float(img.mean()),
+          image_std=float(img.std()), infotext=s.infotext)
+    if not _image_ok(img, DIT_DIM) or s.c["model_type"] != "flux_dev":
+        raise AssertionError(f"flux_dev cli: bad image {img.shape}")
+    _check_png(png, s)
+    _release(s)
+    del s
+    s = _dit_session("flux_schnell", files, fast["t5_tokens"],
+                     fast["steps"], fast["cfg"], "flux")
+    launches.update(dit_requests(s, "flux_schnell",
+                                 REQUESTS[:fast["requests"]],
+                                 fast["steps"], "flux"))
+    _release(s)
+    del s
+    for key in ("model", "clip", "vae"):
+        os.remove(files[key])
+    return launches
+
+
 def _test_image(dim: int, seed: int = 0) -> np.ndarray:
     """A seeded uint8 RGBA image [dim, dim, 4]: colour ramps with noise,
     its top half opaque and its bottom half transparent."""
@@ -1224,17 +1516,19 @@ def _check_img2img(s, png, dim: int, mode: str) -> None:
 
 
 def _flash_want(model: str, n_eval: int, n_k2: int) -> dict:
-    """The flash launches of a request of ``model`` with ``n_eval`` UNet or
-    MMDiT evaluations and ``n_k2`` VAE mid-block attentions, by kernel and
-    q shape (``FLASH_SHAPE_CALLS`` holds 20 evaluations)."""
+    """The flash launches of a request of ``model`` with ``n_eval`` UNet,
+    MMDiT or Flux evaluations and ``n_k2`` VAE mid-block attentions, by
+    kernel and q shape (``FLASH_SHAPE_CALLS`` holds a request of 20
+    evaluations, of ``REQUEST_EVALS`` where it names the model)."""
     want = {}
+    per = REQUEST_EVALS.get(model, 20)
     for (shape, _), calls in FLASH_SHAPE_CALLS.items():
         n = (n_k2 if shape[-1] == 512
-             else calls.get(model, 0) // 20 * n_eval)
+             else calls.get(model, 0) // per * n_eval)
         if model in calls and n:
             name = ("flash_attn_fwd_wide" if shape[-1] == 512 else
-                    "flash_attn_joint" if model.startswith("sd3") else
-                    "flash_attn_fwd")
+                    "flash_attn_joint" if model.startswith(("sd3", "flux"))
+                    else "flash_attn_fwd")
             want[(name, shape)] = n
     return want
 
@@ -1501,11 +1795,11 @@ def t5_path(s, tmp: str) -> collections.Counter:
     memory; the T5 rows in bf16 against f32 on the card; the last
     request's latent with the kernels against the plain attention.
     Returns the launches of the requests."""
-    t5 = os.path.join(tmp, "t5xxl-random-f16.safetensors")
+    t5 = os.path.join(tmp, T5_FILE)
     t0 = time.time()
     testing.write_random_t5(t5, t5_mod.T5_XXL, seed=0, device="cuda")
     write_s = time.time() - t0
-    tok = os.path.join(tmp, "t5-tokenizer.json")
+    tok = os.path.join(tmp, T5_TOKENIZER)
     testing.write_tokenizer_json(tok, testing.unigram_tokenizer_spec(
         testing.random_unigram_pieces(t5_mod.T5_XXL.n_vocab, seed=0),
         charsmap=testing.build_charsmap(T5_RULES), eos=True))
@@ -1724,7 +2018,9 @@ REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "sd2_vae_image": 1.5e-2, "sd2_request_latent": 3e-2,
               "sd2_request_image": 1.5e-2, "vae_enc_moments_512": 1.5e-2,
               "vae_enc_moments_1024": 1.5e-2,
-              "sdxl_vae_tiled_image": 1.5e-2, "sd3_t5_request_latent": 3e-2}
+              "sdxl_vae_tiled_image": 1.5e-2, "sd3_t5_request_latent": 3e-2,
+              "sd35_medium_v": 3e-2, "sd35_large_v": 3e-2,
+              "flux_dev_v": 3e-2, "flux_schnell_v": 3e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch
@@ -1741,13 +2037,10 @@ PLAIN_ROUTES = {
 }
 
 
-def _kernels_vs_plain(wt, bits, run) -> None:
-    """``run()`` -> [(output name, tensor)] with the kernels, then again
-    with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for their plain
-    versions (the attention on the bf16 path, the quantized matmuls on the
-    others); each output held to its ``REF_LIMITS``.  Returns the plain
-    run's outputs."""
-    kern = run()
+def _plain_run(run, bits=None):
+    """``run()`` with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for
+    their plain versions (the attention, or the quantized matmuls), checked
+    to go through the plain versions and to launch no kernel of them."""
     routes = PLAIN_ROUTES[bits]
     saved = {key: getattr(*key) for key in routes}
     for (mod, attr), fn in routes.items():
@@ -1755,15 +2048,26 @@ def _kernels_vs_plain(wt, bits, run) -> None:
     fa.reset_counts()
     qmm.reset_counts()
     try:
-        plain = run()
+        out = run()
     finally:
         for (mod, attr), fn in saved.items():
             setattr(mod, attr, fn)
-    # the plain run went through the plain versions and no kernel of them
-    plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
     routed = qmm.LAUNCHES if bits else fa.LAUNCHES
-    if not plain_calls or any(routed.values()):
-        raise AssertionError(f"{wt}: the plain run launched {routed}")
+    if (not fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
+            or any(routed.values())):
+        raise AssertionError(f"the plain run launched {routed}")
+    return out
+
+
+def _kernels_vs_plain(wt, bits, run) -> None:
+    """``run()`` -> [(output name, tensor)] with the kernels, then again
+    with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for their plain
+    versions (the attention on the bf16 path, the quantized matmuls on the
+    others); each output held to its ``REF_LIMITS``.  Returns the plain
+    run's outputs."""
+    kern = run()
+    plain = _plain_run(run, bits)
+    plain_calls = fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS
     for (name, a), (_, b) in zip(kern, plain):
         rel = ((a - b).norm() / b.norm()).item()
         phase("reference", path=wt, output=name, rel_l2=rel,
@@ -2073,12 +2377,15 @@ def small_check():
 
 
 def check_imports():
-    """The port, its CLI included, ran without jax and without any module
-    of the JAX package."""
+    """The port, its CLI, T5 and Flux included, ran without jax and
+    without any module of the JAX package."""
     tpu = sorted(m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu")
     ran_cli = "mlimgsynth_torch.cli" in sys.modules
-    phase("imports", jax="jax" in sys.modules, jax_package=tpu, cli=ran_cli)
-    if "jax" in sys.modules or tpu or not ran_cli:
+    ran = {m: m in sys.modules for m in ("mlimgsynth_torch.models.flux",
+                                         "mlimgsynth_torch.models.t5")}
+    phase("imports", jax="jax" in sys.modules, jax_package=tpu, cli=ran_cli,
+          modules=ran)
+    if "jax" in sys.modules or tpu or not ran_cli or not all(ran.values()):
         raise AssertionError(f"jax or JAX-package modules loaded: {tpu}")
 
 

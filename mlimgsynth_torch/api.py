@@ -1,5 +1,6 @@
-"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SD2.1-768-v, SDXL
-and SD3-medium txt2img, img2img (``image``, ``f_t_ini``) and alpha-mask
+"""Session API (port of ``mlimgsynth_tpu/api.py``): SD1.5, SD2.1-768-v,
+SDXL, SD3-medium, SD3.5-large and -medium, and Flux.1-schnell and -dev
+txt2img, img2img (``image``, ``f_t_ini``) and alpha-mask
 inpainting (``image_mask`` or the image's alpha), with LoRAs (``lora`` and
 ``<lora:NAME:MULT>`` prompt tags) merged into the weights as they load;
 encoded and decoded by the VAE or, with the ``tae`` option, the tiny
@@ -8,9 +9,12 @@ decodes in overlapping tiles) and ``unet_split`` (stage-wise weight
 residency: the text encoders and the denoiser are on the card only for
 their stage).  The prompt layer: textual-inversion embeddings
 (``<emb:NAME>`` tags, files under ``embed_dir``), A1111 prompt editing
-(``[from:to:when]``, ``[a|b]``) on the UNet models, and SD3's T5-XXL
-context (``t5`` weights, bundled or a file of their own, read with the
-``t5_tokenizer`` ``tokenizer.json``; ``t5_tokens`` rows).
+(``[from:to:when]``, ``[a|b]``) on the UNet models, and the T5-XXL
+context of SD3, SD3.5 and Flux (``t5`` weights, bundled or a file of their
+own, read with the ``t5_tokenizer`` ``tokenizer.json``; ``t5_tokens``
+rows).  A model that ships as components (Flux: a transformer-only file)
+takes its text tower and its autoencoder from the ``clip`` and ``vae``
+files.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -45,10 +49,12 @@ from .errors import MlisError
 from .io.tensorstore import TensorStore
 from .models import blocks as blocks_mod
 from .models import clip as clip_mod
+from .models import flux as flux_mod
 from .models import mmdit as mmdit_mod
 from .models import t5 as t5_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
+from .nameconv import normalize_name
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import (SamplerConfig, make_plan, plan_n_step,
@@ -65,8 +71,9 @@ class Aborted(Exception):
 @dataclass
 class ModelTypeDef:
     """``unet_p`` is the denoiser's parameters: ``UnetParams`` or, for the
-    SD3 family, ``MmditParams`` (``flow``).  ``clip2_p`` is the second text
-    tower (bigG, SDXL and SD3), None for single-tower types."""
+    flow models, ``MmditParams`` (the SD3 family) or ``FluxParams``
+    (``flux``).  ``clip2_p`` is the second text tower (bigG, SDXL and the
+    SD3 family), None for single-tower types."""
     name: str
     clip_p: tok_mod.ClipParams
     unet_p: object
@@ -84,7 +91,10 @@ def _model_types() -> Dict[str, ModelTypeDef]:
     at SDXL's scale (``mlimgsynth_tpu/api.py:124-126``).  sd3 is SD3-medium
     (Stability AI's sd3_medium.safetensors): CLIP-L and bigG at clip skip 2
     (and T5-XXL where its weights and a tokenizer are given, else zero T5
-    rows), the MMDiT, the 16-channel VAE."""
+    rows), the MMDiT, the 16-channel VAE.  sd35_large and sd35_medium
+    condition as sd3 does (``mlimgsynth_tpu/api.py:141-148``).
+    flux_schnell and flux_dev: CLIP-L alone, at clip skip 1, for the pooled
+    row, T5-XXL for the context, the Flux VAE (``:149-158``)."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
                                 unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
             "sd2": ModelTypeDef("sd2", clip_mod.CLIP_VIT_H_14,
@@ -94,7 +104,21 @@ def _model_types() -> Dict[str, ModelTypeDef]:
                                  2, clip_mod.CLIP_VIT_BIGG_14),
             "sd3": ModelTypeDef("sd3", clip_mod.CLIP_VIT_L_14,
                                 mmdit_mod.MMDIT_SD3_MEDIUM, vae_mod.VAE_SD3,
-                                1024, 2, clip_mod.CLIP_VIT_BIGG_14)}
+                                1024, 2, clip_mod.CLIP_VIT_BIGG_14),
+            "sd35_large": ModelTypeDef(
+                "sd35_large", clip_mod.CLIP_VIT_L_14,
+                mmdit_mod.MMDIT_SD35_LARGE, vae_mod.VAE_SD3, 1024, 2,
+                clip_mod.CLIP_VIT_BIGG_14),
+            "sd35_medium": ModelTypeDef(
+                "sd35_medium", clip_mod.CLIP_VIT_L_14,
+                mmdit_mod.MMDIT_SD35_MEDIUM, vae_mod.VAE_SD3, 1024, 2,
+                clip_mod.CLIP_VIT_BIGG_14),
+            "flux_schnell": ModelTypeDef(
+                "flux_schnell", clip_mod.CLIP_VIT_L_14,
+                flux_mod.FLUX_SCHNELL, vae_mod.VAE_FLUX, 1024, 1),
+            "flux_dev": ModelTypeDef(
+                "flux_dev", clip_mod.CLIP_VIT_L_14, flux_mod.FLUX_DEV,
+                vae_mod.VAE_FLUX, 1024, 1)}
 
 
 def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
@@ -107,6 +131,11 @@ def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
                 towers["clip2.text."] = clip_mod.ClipText(mt.clip2_p,
                                                           proj=True)
             return {**towers, "unet.": unet_mod.UNet(mt.unet_p),
+                    "vae.": vae_mod.VaeDecoder(mt.vae_p)}
+        if getattr(mt.unet_p, "flux", False):
+            # the unprojected pooled row: no text projection
+            return {"clip.text.": clip_mod.ClipText(mt.clip_p),
+                    "flux.": flux_mod.Flux(mt.unet_p),
                     "vae.": vae_mod.VaeDecoder(mt.vae_p)}
         return {"clip.text.": clip_mod.ClipText(mt.clip_p, proj=True),
                 "clip2.text.": clip_mod.ClipText(mt.clip2_p, proj=True),
@@ -132,11 +161,11 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "clip_skip", "tae", "aux_dir", "callback", "image", "image_mask",
             "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
             "tensor_use_flags", "vae_tile", "unet_split", "embed_dir",
-            "t5", "t5_tokenizer", "t5_tokens")
+            "t5", "t5_tokenizer", "t5_tokens", "clip", "vae")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
-                "embed_dir", "t5", "t5_tokenizer")
+                "embed_dir", "t5", "t5_tokenizer", "clip", "vae")
 # options that take an object, never a string
 _OBJ_OPTIONS = ("callback", "image", "image_mask")
 _SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
@@ -168,11 +197,35 @@ _BOOL = {"true": True, "yes": True, "y": True, "1": True,
 # the modules that ``unet_split`` keeps on the host between their stages:
 # the text encoders (on the card for the conditioning) and the denoiser
 # (for the sampler loop); the VAE and the TAE stay on the card
-_STAGED = ("clip.text.", "clip2.text.", "unet.", "mmdit.")
+_STAGED = ("clip.text.", "clip2.text.", "unet.", "mmdit.", "flux.")
 _TOWERS = ("clip.text.", "clip2.text.")
 # the prefixes a standalone T5 file's names may carry
 # (``mlimgsynth_tpu/api.py:978-996``)
 _T5_FILE_PREFIXES = ("text_encoders.t5xxl.", "transformer.")
+
+
+def _clip_file_name(t: str):
+    """A CLIP file's tensor name -> its internal name: the HF
+    ``CLIPTextModel`` layout (``text_model.*``) as the CompVis checkpoint
+    nests it, any other name as a checkpoint's (``mlimgsynth_tpu/api.py:
+    997-1009``)."""
+    if t.startswith("text_model."):
+        t = "cond_stage_model.transformer." + t
+    return normalize_name(t)
+
+
+def _vae_file_name(t: str):
+    """A VAE file's tensor name -> its internal name: bare ``encoder.`` /
+    ``decoder.`` names under ``first_stage_model.`` (``:1010-1022``)."""
+    if not t.startswith("first_stage_model."):
+        t = "first_stage_model." + t
+    return normalize_name(t)
+
+
+# the auxiliary files of a model that ships as components: option ->
+# (the prefix their tensors are read under, the name transform)
+_AUX_FILES = {"clip": ("clip_ckpt.", _clip_file_name),
+              "vae": ("vae_ckpt.", _vae_file_name)}
 
 
 def _split_args(value: str) -> List[str]:
@@ -329,7 +382,8 @@ class MLImgSynth:
                   "aux_dir": "", "f_t_ini": 1.0, "f_t_end": 0.0,
                   "lora_dir": "", "tuflags": 0, "vae_tile": 0,
                   "unet_split": False, "embed_dir": "", "t5": "",
-                  "t5_tokenizer": "", "t5_tokens": 77}
+                  "t5_tokenizer": "", "t5_tokens": 77, "clip": "",
+                  "vae": ""}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -352,7 +406,7 @@ class MLImgSynth:
         # new embeddings), "t5_load_s", "t5_encode_s", "image_encode_s",
         # "decode_s", "generate_s"; under ``unet_split`` each stage move,
         # "move_in_<module>_s" and "move_out_<module>_s" (module: clip,
-        # clip2, unet, mmdit)
+        # clip2, unet, mmdit, flux)
         self.times: Dict[str, float] = {}
         self._mt: Optional[ModelTypeDef] = None
         self._models: Dict[str, torch.nn.Module] = {}
@@ -513,6 +567,8 @@ class MLImgSynth:
                 self._t5, self._t5_key = None, ""   # free the old encoder
         elif opt == "t5_tokenizer":
             c["t5_tokenizer"] = str(v)
+        elif opt in ("clip", "vae"):
+            c[opt] = str(v)     # a new file reloads the model (``setup``)
         elif opt == "t5_tokens":
             c["t5_tokens"] = _int(v, 77)
 
@@ -773,7 +829,8 @@ class MLImgSynth:
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
-        key = f"{path}|{self.dtype}|{self.qbits}|{self.device}"
+        key = (f"{path}|{self.c['clip']}|{self.c['vae']}|{self.dtype}|"
+               f"{self.qbits}|{self.device}")
         loras = tuple((p, m) for p, m, _ in self.loras)
         if self._loaded != key:
             self._models, self._encoders = {}, {}
@@ -880,7 +937,7 @@ class MLImgSynth:
         t0 = time.time()
         store = TensorStore.open(path)
         try:
-            name_map = weights_mod.build_name_map(store)
+            name_map = self._name_map(store)
             if not (reload or encoders or only):
                 self._bundled_t5 = "t5.shared.weight" in name_map
                 types = _model_types()
@@ -892,6 +949,7 @@ class MLImgSynth:
                                     "could not detect the model type")
                 if self._mt is None:
                     self._option_set("model_type", mt)
+            self._unported_check(loras)
             models = (build_encoders if encoders else build_models)(self._mt)
             touched = self._lora_touched(name_map, loras, list(models))
             if reload:
@@ -911,13 +969,28 @@ class MLImgSynth:
                                  self.c["width"] or 1024)
                       if self._flow() else None)
             target = self._encoders if encoders else self._models
-            n_q = 0
+            n_q, err = 0, None
             for prefix, m in models.items():
                 target.pop(prefix, None)   # free the old copy first
-                # read to the host, quantize there, then move to the device
-                params = weights_mod.load_params(
-                    store, name_map, weights_mod.module_shapes(m, prefix),
-                    "cpu", self.dtype)
+                # read to the host and quantize there, or (float weights
+                # that stay on the device) read to the device and cast
+                # there, then move to the device
+                staged = (self.c["unet_split"] and prefix in _STAGED
+                          and not encoders)
+                try:
+                    params = weights_mod.load_params(
+                        store, name_map, weights_mod.module_shapes(m, prefix),
+                        "cpu" if self.qbits or staged else self.device,
+                        self.dtype)
+                except KeyError as e:
+                    # raised once the store is closed; a model that ships
+                    # as components takes its text tower and its VAE from
+                    # the ``clip`` and ``vae`` files
+                    err = MlisError(MlisError.E_UNKNOWN,
+                                    f"{prefix[:-1]}: {e.args[0]} (a model "
+                                    "file without a text encoder or VAE "
+                                    "needs the clip and vae options)")
+                    break
                 if prefix in _TOWERS:
                     self._grow_token_table(m, prefix, params)
                 if self.qbits:
@@ -927,7 +1000,7 @@ class MLImgSynth:
                 if encoders:     # the VAE encoder stays on the device
                     params = {k: v.to(self.device)
                               for k, v in params.items()}
-                elif self.c["unet_split"] and prefix in _STAGED:
+                elif staged:
                     # on the host until its stage
                     params = {k: self._pin(v) for k, v in params.items()}
                     self._host[prefix] = params
@@ -941,6 +1014,8 @@ class MLImgSynth:
                     m, prefix, params).eval()
         finally:
             store.close()
+        if err is not None:
+            raise err
         if not (encoders or only):
             self._lora_state = tuple(loras)
             self._lora_prefixes = touched
@@ -954,6 +1029,43 @@ class MLImgSynth:
         log.info(f"{what} loaded on {self.device} ({self.dtype}{quant}, "
                  f"{len(loras)} LoRAs) {{{secs:.3f}s}}")
 
+    def _name_map(self, store: TensorStore) -> Dict[str, weights_mod.NameRef]:
+        """Internal name -> entry of the model file ``store``, with the
+        ``clip`` and ``vae`` files read into the store under their prefixes
+        and mapped (``mlimgsynth_tpu/api.py:949-1022``): a name the model
+        file maps stays its own.  A file that maps no tensor raises."""
+        name_map = weights_mod.build_name_map(store)
+        for opt, (prefix, transform) in _AUX_FILES.items():
+            if not self.c[opt]:
+                continue
+            p = self._aux_find(self.c[opt])
+            if not os.path.exists(p):
+                raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                                f"{opt} file not found '{self.c[opt]}'")
+            store.read_file(p, prefix=prefix)
+            n = weights_mod.merge_prefixed(name_map, store, prefix, transform)
+            if not n:
+                raise MlisError(MlisError.E_UNKNOWN,
+                                f"no {opt.upper()} tensors recognized in "
+                                f"'{self.c[opt]}'")
+            log.debug(f"{opt} file: {n} tensors mapped")
+        return name_map
+
+    def _unported_check(self, loras) -> None:
+        """Options of the JAX session that this port does not carry for
+        the model type raise: quantized weight types on SD3.5 and Flux,
+        LoRAs on Flux."""
+        P, name = self._mt.unet_p, self._mt.name
+        flux = getattr(P, "flux", False)
+        if self.qbits and (flux or getattr(P, "qk_norm", False)):
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"weight-type: quantized weights on {name} are "
+                            "not supported by the PyTorch port")
+        if loras and flux:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"lora: LoRAs on {name} are not supported by the "
+                            "PyTorch port")
+
     def _grow_token_table(self, m, prefix: str,
                           params: Dict[str, torch.Tensor]) -> None:
         """Append the registered embeddings' rows to the token table in
@@ -964,7 +1076,8 @@ class MLImgSynth:
         if rows is not None:
             key = prefix + "embed.token.weight"
             tw = params[key]
-            params[key] = torch.cat([tw, torch.from_numpy(rows).to(tw.dtype)])
+            params[key] = torch.cat([tw, torch.from_numpy(rows).to(
+                tw.device, tw.dtype)])
             with torch.device("meta"):
                 m.embed.token = torch.nn.Embedding(*params[key].shape)
         self._towers_embeds[prefix] = self._embed_version
@@ -1006,6 +1119,13 @@ class MLImgSynth:
 
     def _flow(self) -> bool:
         return bool(getattr(self._mt.unet_p, "flow", False))
+
+    def _denoiser(self) -> str:
+        """The prefix of the denoiser module: ``unet.``, ``mmdit.`` (the
+        SD3 family) or ``flux.``."""
+        if getattr(self._mt.unet_p, "flux", False):
+            return "flux."
+        return "mmdit." if self._flow() else "unet."
 
     # -- generation ---------------------------------------------------------
 
@@ -1104,6 +1224,12 @@ class MLImgSynth:
             return (torch.cat([emb1, emb2], dim=-1),
                     torch.cat([feat.float(), se.expand(len(pts), -1)],
                               dim=-1))
+        if getattr(mt.unet_p, "flux", False):
+            # Flux (``api.py:1699-1704``): the context is T5's rows alone
+            # (zero rows of CLIP's length without T5), the label CLIP-L's
+            # unprojected pooled row
+            feat = encode("clip.text.", mt.clip_p, True)[1]
+            return self._t5_rows(pts, mt.unet_p.d_ctx_in), feat
         emb1, feat1 = encode("clip.text.", mt.clip_p, True)
         emb2, feat2 = encode("clip2.text.", mt.clip2_p, True)
         d_ctx = mt.unet_p.d_ctx_in
@@ -1384,15 +1510,22 @@ class MLImgSynth:
             c["tuflags"] |= TUF_LMASK
         lmask = (np.asarray(self.tensors["lmask"], np.float32)
                  if c["tuflags"] & TUF_LMASK else None)
-        use_cfg = c["cfg_scale"] > 1
+        P = self._mt.unet_p
         flow = self._flow()
+        # Flux dev embeds the guidance: cfg_scale is its value, and there
+        # is no uncond batch (``api.py:2182-2186``)
+        guidance = getattr(P, "guidance_embed", False)
+        eff_cfg = 1.0 if guidance else c["cfg_scale"]
+        use_cfg = eff_cfg > 1
+        flow_shift = 0.0
+        if flow:    # dev's grows with the image (``api.py:2354-2357``)
+            flow_shift = (flux_mod.dynamic_flow_shift(P, h, w)
+                          if getattr(P, "flux", False) else P.flow_shift)
         scfg = SamplerConfig(method=c["method"], sched=c["scheduler"],
-                             n_step=c["steps"], cfg_scale=c["cfg_scale"],
+                             n_step=c["steps"], cfg_scale=eff_cfg,
                              s_ancestral=c["s_ancestral"],
                              s_noise=c["s_noise"], f_t_ini=c["f_t_ini"],
-                             f_t_end=c["f_t_end"],
-                             flow_shift=self._mt.unet_p.flow_shift if flow
-                             else 0.0)
+                             f_t_end=c["f_t_end"], flow_shift=flow_shift)
         edit_segs = self._edit_segments(use_cfg, scfg)
         edit_steps = None
         if edit_segs is not None:
@@ -1415,7 +1548,12 @@ class MLImgSynth:
             cond_all = torch.repeat_interleave(cond, n, dim=0)
             label_all = (None if label is None
                          else torch.repeat_interleave(label, n, dim=0))
-        denoiser = "mmdit." if flow else "unet."
+        if guidance:
+            # the guidance value rides as the label's last column
+            # (``api.py:2325-2331``)
+            label_all = torch.cat([label_all, label_all.new_full(
+                (label_all.shape[0], 1), c["cfg_scale"])], dim=-1)
+        denoiser = self._denoiser()
         if c["unet_split"]:
             # stage-wise residency (``api.py:2402-2405``): the text
             # encoders leave the card before the loop (T5 stays)
@@ -1444,7 +1582,8 @@ class MLImgSynth:
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
             if not torch.isfinite(x).all():
                 raise MlisError(MlisError.E_NAN, "NaN found in the "
-                                + ("MMDiT" if flow else "UNet") + " output")
+                                + {"unet.": "UNet", "mmdit.": "MMDiT",
+                                   "flux.": "Flux"}[denoiser] + " output")
             if c["unet_split"]:
                 # the denoiser leaves the card after the loop (``:2480``)
                 self._stage_out(denoiser)

@@ -9,8 +9,9 @@ input and output via ``--ilatent``/``--olatent`` and the PNG's
 ``parameters`` text; ``-i`` (PNG or binary PPM/PGM, ``-`` for stdin) for
 img2img, its alpha or ``--imask`` (first channel) for inpainting,
 ``--lora`` / ``<lora:NAME:MULT>``, ``--embed-dir`` / ``<emb:NAME>``, prompt
-editing, and SD3's ``--t5`` / ``--t5-tokenizer`` / ``--t5-tokens``.  The other commands of the JAX CLI exit 1
-and say so.
+editing, the T5 options ``--t5`` / ``--t5-tokenizer`` / ``--t5-tokens``
+(SD3, SD3.5, Flux), and ``--clip`` / ``--vae`` for a model that ships as
+components (Flux).  The other commands of the JAX CLI exit 1 and say so.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
@@ -31,10 +32,12 @@ from typing import List, Optional
 
 HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
-Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base and 3-medium are
-implemented: txt2img, img2img and inpainting, with LoRAs, textual-inversion
-embeddings, prompt editing (UNet models) and SD3's T5-XXL context; images
-are encoded and decoded by the VAE or the TAE (--tae).
+Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base, 3-medium, 3.5-large
+and 3.5-medium, and Flux.1-schnell and -dev are implemented: txt2img,
+img2img and inpainting, with LoRAs (not on Flux), textual-inversion
+embeddings, prompt editing (UNet models) and the T5-XXL context of SD3,
+SD3.5 and Flux; images are encoded and decoded by the VAE or the TAE
+(--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
@@ -48,7 +51,7 @@ Generation options:
   -p --prompt TEXT     Prompt for text conditioning.
   -n --nprompt TEXT    Negative prompt.
   -d --image-dim W,H   Image dimensions. Default: 512 (SD1), 768 (SD2),
-                       1024 (SDXL, SD3).
+                       1024 (SDXL, SD3, SD3.5, Flux).
   -i --input PATH      Input image for img2img or inpainting (PNG or
                        binary PPM/PGM; - for stdin). Its alpha channel,
                        where it has one, is the inpainting mask.
@@ -63,31 +66,39 @@ Generation options:
                        editing parsing). Prompts support A1111 emphasis
                        ((x:1.5), [x]), <lora:NAME:MULT>, <emb:NAME>, and
                        prompt editing ([from:to:when], [add:when],
-                       [gone::when], [a|b]; not on SD3).
+                       [gone::when], [a|b]; not on SD3, SD3.5, Flux).
   --f-t-ini FLOAT      Initial time factor (img2img strength; default 1).
   --f-t-end FLOAT      End time factor (default 0).
 
 Models and backend:
   -m --model PATH      Model file (safetensors or GGUF).
-  --model-type NAME    sd1, sd2, sdxl, sd3 (default: detected).
+  --model-type NAME    sd1, sd2, sdxl, sd3, sd35_large, sd35_medium,
+                       flux_schnell, flux_dev (default: detected).
+  --clip PATH          CLIP-L text tower file (HF text_model.* names), for
+                       a model that ships without one (Flux).
+  --vae PATH           VAE file (bare encoder./decoder. names), for a
+                       model that ships without one (Flux: ae.safetensors).
   --tae PATH           TAE model file. Enables TAE instead of VAE.
   --aux-dir PATH       Directory searched for a relative --tae or LoRA
                        path.
-  --lora PATH,MULT     Apply a LoRA (multiplier optional; repeatable).
+  --lora PATH,MULT     Apply a LoRA (multiplier optional; repeatable; not
+                       on Flux).
                        <lora:NAME:MULT> in a prompt applies NAME for one
                        request.
   --lora-dir PATH      Directory searched for <lora:NAME:MULT> prompt tags.
   --embed-dir PATH     Directory searched for <emb:NAME> textual-inversion
                        embeddings (NAME.safetensors or NAME.pt).
-  --t5 PATH            SD3: T5-XXL encoder weights (a T5 file; a model file
-                       that bundles text_encoders.t5xxl.* needs none).
-  --t5-tokenizer PATH  SD3: the T5 tokenizer.json; without it the T5
-                       context is zero rows.
-  --t5-tokens INT      SD3: T5 context tokens (default 77).
+  --t5 PATH            SD3/SD3.5/Flux: T5-XXL encoder weights (a T5 file;
+                       a model file that bundles text_encoders.t5xxl.*
+                       needs none).
+  --t5-tokenizer PATH  SD3/SD3.5/Flux: the T5 tokenizer.json; without it
+                       the T5 context is zero rows.
+  --t5-tokens INT      SD3/SD3.5/Flux: T5 context tokens (default 77).
   -b --backend NAME    cuda (default) or cpu.
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
-  --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
+  --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...; the
+                       quantized ones not on SD3.5 and Flux).
   --batch-size INT     Images per batch.
 
 Sampling:
@@ -101,8 +112,11 @@ Sampling:
                        beta.
   --s-noise FLOAT      Per-step noise injection (try 1).
   --s-ancestral FLOAT  Ancestral sampling noise level (try 1).
-  --cfg-scale FLOAT    Classifier-free guidance scale (default 7).
-  --clip-skip INT      CLIP layers to skip. Default: 1 (SD1), 2 (SD2/XL/3).
+  --cfg-scale FLOAT    Classifier-free guidance scale (default 7); on
+                       Flux-dev the embedded guidance value (no uncond
+                       pass).
+  --clip-skip INT      CLIP layers to skip. Default: 1 (SD1, Flux), 2
+                       (SD2/XL/3/3.5).
 
 Output control:
   -v --verbose         More information output (repeatable).

@@ -135,6 +135,8 @@ class TensorStore:
         self.meta: Dict[str, str] = {}
         self.cache: Dict[str, np.ndarray] = {}
         self._files: List = []
+        # the views of a second file's map held by its entries
+        self._subs: List["TensorStore"] = []
         self.data: Optional[memoryview] = None
         self.format: Optional[str] = None
 
@@ -271,6 +273,7 @@ class TensorStore:
         sub = TensorStore.__new__(TensorStore)
         sub.data = data
         sub.cache = self.cache
+        self._subs.append(sub)
         return sub
 
     # -- access -------------------------------------------------------------
@@ -296,6 +299,9 @@ class TensorStore:
 
     def close(self) -> None:
         self.data = None
+        for sub in self._subs:
+            sub.data = None
+        self._subs.clear()
         for f, mm in self._files:
             mm.close()
             f.close()

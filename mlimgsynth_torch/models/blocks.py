@@ -113,6 +113,22 @@ class LayerNorm(nn.Module):
                             self.eps).to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm over the last dim, f32 statistics, eps 1e-6: the per-head
+    q/k norms of SD3.5 (``mlimgsynth_tpu/models/mmdit.py:93-98``, its scale
+    named ``weight``) and Flux (``flux.py:117-122``, ``scale``)."""
+
+    def __init__(self, dim: int, param: str = "weight"):
+        super().__init__()
+        self.param = param
+        self.register_parameter(param, nn.Parameter(torch.ones(dim)))
+
+    def forward(self, x):
+        xf = x.float()
+        n = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
+        return (n * getattr(self, self.param).float()).to(x.dtype)
+
+
 def modulate(x, shift, scale):
     """adaLN modulation (``mlimgsynth_tpu/models/mmdit.py:87-90``): shift
     and scale are f32 [N, d], x is [N, S, d] in the compute dtype."""

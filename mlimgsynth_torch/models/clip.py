@@ -3,9 +3,11 @@
 ``state_dict`` names match the internal scheme below the ``clip.text.``
 (or ``clip2.text.``) prefix (``encoder.layers.N.attn.q_proj.weight`` ...).
 The MLP activation is chosen by width as in the reference: gelu_quick for
-SD1's 768, tanh-gelu for 1024 (SD2's OpenCLIP ViT-H) and 1280 (bigG).  A tower built with ``proj=True`` also
-holds ``text_proj`` [d, d] (JAX layout, ``rows @ text_proj``) and gives the
-projected pooled feature (SD3's two towers; SDXL's second).
+SD1's 768, tanh-gelu for 1024 (SD2's OpenCLIP ViT-H) and 1280 (bigG).  A
+tower built with ``proj=True`` also holds ``text_proj`` [d, d] (JAX layout,
+``rows @ text_proj``) and gives the projected pooled feature (SD3's two
+towers; SDXL's second); one without gives the unprojected pooled row (HF
+``pooler_output``, Flux's label; ``feat_proj=False`` in the JAX package).
 """
 from __future__ import annotations
 
@@ -80,9 +82,10 @@ class ClipText(nn.Module):
         """ref: ``clip_text_apply`` (``mlimgsynth_tpu/models/clip.py:
         50-95``).  Returns (hidden [N, n_token, d], feat): the hidden after
         ``clip_skip`` (normed if ``norm``) and, where ``feat_idx`` [N] is
-        given, the projected pooled feature f32 [N, d] of that token,
-        read from the full stack after the final norm.  One pass serves
-        both: the skip hidden is taken mid-stack."""
+        given, the pooled feature f32 [N, d] of that token, read from the
+        full stack after the final norm and projected by ``text_proj``
+        where the tower has one.  One pass serves both: the skip hidden is
+        taken mid-stack."""
         n_eff = clip_skip_layers(self.P, clip_skip)
         layers = self.encoder["layers"]
         n_run = len(layers) if feat_idx is not None else n_eff
@@ -96,7 +99,9 @@ class ClipText(nn.Module):
         if feat_idx is not None:
             rows = self.ln_final(x)[torch.arange(x.shape[0],
                                                  device=x.device), feat_idx]
-            feat = rows.float() @ self.text_proj.float()
+            feat = rows.float()
+            if hasattr(self, "text_proj"):
+                feat = feat @ self.text_proj.float()
         return (self.ln_final(x_skip) if norm else x_skip), feat
 
     def encode_windows(self, tokens, clip_skip: int = 0, norm: bool = True,

@@ -1,11 +1,13 @@
-"""MMDiT diffusion transformer, SD3-medium (port of
-``mlimgsynth_tpu/models/mmdit.py``).
+"""MMDiT diffusion transformer, SD3-medium, SD3.5-large and SD3.5-medium
+(port of ``mlimgsynth_tpu/models/mmdit.py``).
 
 ``state_dict`` names match the internal scheme below the ``mmdit.`` prefix
 (``joint_blocks.N.x_block.attn.qkv.weight`` ...), which is the sd3
-single-file layout's.  Only the branches the SD3-medium txt2img path runs
-are ported: no qk-norm (SD3.5), no MMDiT-X second attention, no skip-layer
-guidance, no block cache, no pipeline-stacked blocks.  The fused qkv stays
+single-file layout's.  SD3.5 adds the per-head RMSNorm of q and k
+(``qk_norm``, ``attn.ln_q`` / ``attn.ln_k``) and, on medium (MMDiT-X), a
+second latent-only self-attention (``x_block.attn2``) in the first 13
+blocks.  Not ported: skip-layer guidance, the block cache, pipeline-stacked
+blocks.  The fused qkv stays
 one linear (one product, and one quantized weight on the q8 path, as the
 JAX package's ``_qkv`` ``B.linear`` branch, ``:139-148``).  Activations are
 [N, S, d] token streams; the latent at the boundary is NCHW.
@@ -13,6 +15,7 @@ JAX package's ``_qkv`` ``B.linear`` branch, ``:139-148``).  Activations are
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +39,10 @@ class MmditParams:
     d_pooled: int = 2048        # pooled conditioning width (CLIP-L + bigG)
     pos_embed_max: int = 192    # side of the learned pos-embed grid
     d_t_embed: int = 256
+    qk_norm: bool = False       # RMSNorm on per-head q and k (SD3.5)
+    # MMDiT-X (SD3.5-medium): the blocks whose x-block carries a second
+    # self-attention over the latent tokens only (attn2, a 9-chunk adaLN)
+    x_self_attn_layers: Tuple[int, ...] = ()
     # fields shared with UnetParams that the session and sampler read
     n_ctx: int = 4096
     clip_norm: bool = False
@@ -53,6 +60,12 @@ class MmditParams:
 
 
 MMDIT_SD3_MEDIUM = MmditParams(depth=24)
+# ``mlimgsynth_tpu/models/mmdit.py:79-84``: large is 38 blocks of width 2432
+# with qk-norm; medium is SD3-medium's geometry with qk-norm, a 384-side
+# pos-embed grid and MMDiT-X in blocks 0-12
+MMDIT_SD35_LARGE = MmditParams(depth=38, qk_norm=True)
+MMDIT_SD35_MEDIUM = MmditParams(depth=24, qk_norm=True, pos_embed_max=384,
+                                x_self_attn_layers=tuple(range(13)))
 
 
 def _linear_f32(lin, x):
@@ -82,11 +95,31 @@ class _AdaLN(nn.Module):
 
 
 class _Attn(nn.Module):
-    def __init__(self, d: int, proj: bool):
+    def __init__(self, d: int, proj: bool, d_head: int = 0):
         super().__init__()
         self.qkv = B.linear(d, 3 * d)
         if proj:
             self.proj = B.linear(d, d)
+        if d_head:      # qk-norm
+            self.ln_q = B.RMSNorm(d_head)
+            self.ln_k = B.RMSNorm(d_head)
+
+    def heads(self, x, n_head: int):
+        """[N, S, d] -> q, k, v [N, H, S, D], views of one fused product,
+        q and k normed per head under qk-norm (``_qkv``,
+        ``mmdit.py:101-148``)."""
+        y = self.qkv(x)
+        n, s, _ = y.shape
+        y = y.view(n, s, 3, n_head, -1).permute(2, 0, 3, 1, 4)
+        q, k, v = y[0], y[1], y[2]
+        if hasattr(self, "ln_q"):
+            q, k = self.ln_q(q), self.ln_k(k)
+        return q, k, v
+
+    def out(self, o):
+        """[N, H, S, D] attention output -> [N, S, d] through ``proj``."""
+        n, h, s, dh = o.shape
+        return self.proj(o.transpose(1, 2).reshape(n, s, h * dh))
 
 
 class _Mlp(nn.Module):
@@ -102,30 +135,30 @@ class _Mlp(nn.Module):
 class _Stream(_AdaLN):
     """One stream of a joint block (``context_block`` or ``x_block``);
     ``pre_only`` (the last block's context side) feeds the attention and
-    ends there."""
+    ends there; ``x_self_attn`` (MMDiT-X) adds ``attn2`` and three more
+    adaLN chunks."""
 
-    def __init__(self, P: MmditParams, pre_only: bool):
-        super().__init__(P.width, 2 if pre_only else 6)
+    def __init__(self, P: MmditParams, pre_only: bool,
+                 x_self_attn: bool = False):
+        super().__init__(P.width, 2 if pre_only else
+                         9 if x_self_attn else 6)
         self.pre_only = pre_only
+        d_head = P.width // P.heads if P.qk_norm else 0
         self.norm1 = B.LayerNorm(P.width, eps=1e-6, affine=False)
-        self.attn = _Attn(P.width, not pre_only)
+        self.attn = _Attn(P.width, not pre_only, d_head)
+        if x_self_attn:
+            self.attn2 = _Attn(P.width, True, d_head)
         if not pre_only:
             self.norm2 = B.LayerNorm(P.width, eps=1e-6, affine=False)
             self.mlp = _Mlp(P.width)
 
-    def qkv(self, x, shift, scale, n_head: int):
-        """[N, S, d] -> q, k, v [N, H, S, D] views of one fused product."""
-        y = self.attn.qkv(B.modulate(self.norm1(x), shift, scale))
-        n, s, _ = y.shape
-        y = y.view(n, s, 3, n_head, -1).permute(2, 0, 3, 1, 4)
-        return y[0], y[1], y[2]
-
-    def post(self, x, o, gate, shift2, scale2, gate2):
-        """Residual updates after the attention: proj, then the MLP."""
-        n, h, s, dh = o.shape
+    def post(self, x, o, gate, shift2, scale2, gate2, extra=None):
+        """Residual updates after the attention: proj, then ``extra`` (the
+        gated MMDiT-X branch, added before ``norm2``), then the MLP."""
         dt = x.dtype
-        x = x + gate[:, None, :].to(dt) * self.attn.proj(
-            o.transpose(1, 2).reshape(n, s, h * dh))
+        x = x + gate[:, None, :].to(dt) * self.attn.out(o)
+        if extra is not None:
+            x = x + extra
         xn = B.modulate(self.norm2(x), shift2, scale2)
         return x + gate2[:, None, :].to(dt) * self.mlp(xn)
 
@@ -133,24 +166,35 @@ class _Stream(_AdaLN):
 class JointBlock(nn.Module):
     """ref: ``joint_block`` (``mmdit.py:181-248``): both streams project
     q/k/v, one attention runs over the concatenated sequence (context
-    tokens first), the outputs split back per stream."""
+    tokens first), the outputs split back per stream.  With
+    ``x_self_attn`` the x-stream also runs ``attn2`` over its own tokens,
+    off the same ``norm1`` output with its own shift and scale."""
 
-    def __init__(self, P: MmditParams, ctx_pre_only: bool):
+    def __init__(self, P: MmditParams, ctx_pre_only: bool,
+                 x_self_attn: bool = False):
         super().__init__()
         self.n_head = P.heads
         self.context_block = _Stream(P, ctx_pre_only)
-        self.x_block = _Stream(P, False)
+        self.x_block = _Stream(P, False, x_self_attn)
 
     def forward(self, cx, x, c):
         cb, xb = self.context_block, self.x_block
         cm = cb.mods(c)
         xm = xb.mods(c)
-        cq, ck, cv = cb.qkv(cx, cm[0], cm[1], self.n_head)
-        xq, xk, xv = xb.qkv(x, xm[0], xm[1], self.n_head)
+        cq, ck, cv = cb.attn.heads(B.modulate(cb.norm1(cx), cm[0], cm[1]),
+                                   self.n_head)
+        xn0 = xb.norm1(x)
+        xq, xk, xv = xb.attn.heads(B.modulate(xn0, xm[0], xm[1]),
+                                   self.n_head)
         sc = cx.shape[1]
         o = attention(torch.cat([cq, xq], dim=2), torch.cat([ck, xk], dim=2),
                       torch.cat([cv, xv], dim=2))
-        x = xb.post(x, o[:, :, sc:], *xm[2:])
+        extra = None
+        if len(xm) == 9:    # MMDiT-X: attn2 over the latent tokens
+            o2 = attention(*xb.attn2.heads(B.modulate(xn0, xm[6], xm[7]),
+                                           self.n_head))
+            extra = xm[8][:, None, :].to(x.dtype) * xb.attn2.out(o2)
+        x = xb.post(x, o[:, :, sc:], *xm[2:6], extra=extra)
         if cb.pre_only:
             return None, x
         return cb.post(cx, o[:, :, :sc], *cm[2:]), x
@@ -196,7 +240,8 @@ class MMDiT(nn.Module):
         self.y_embedder = _Embedder(P.d_pooled, P.width)
         self.context_embedder = B.linear(P.d_ctx_in, P.width)
         self.joint_blocks = nn.ModuleList(
-            JointBlock(P, i == P.depth - 1) for i in range(P.depth))
+            JointBlock(P, i == P.depth - 1, i in P.x_self_attn_layers)
+            for i in range(P.depth))
         self.final_layer = _FinalLayer(P)
 
     def _pos_embed_crop(self, hp: int, wp: int):

@@ -44,6 +44,10 @@ VAE_SDXL = VaeParams(scale_factor=0.13025)
 # (``mlimgsynth_tpu/models/vae.py:42-43``)
 VAE_SD3 = VaeParams(ch_z=16, d_embed=16, scale_factor=1.5305,
                     shift_factor=0.0609, quant_conv=False)
+# Flux: the SD3 autoencoder at another scale and shift
+# (``mlimgsynth_tpu/models/vae.py:44-46``)
+VAE_FLUX = VaeParams(ch_z=16, d_embed=16, scale_factor=0.3611,
+                     shift_factor=0.1159, quant_conv=False)
 
 
 class Attn2dSelf(nn.Module):

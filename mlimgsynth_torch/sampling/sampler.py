@@ -6,7 +6,7 @@ loop replaces ``lax.scan`` and runs CFG as one batched model call per step
 (cond rows then uncond rows).  Latents at this module's boundary are NCHW
 numpy float32, as in the JAX package.
 
-Rectified-flow models (the MMDiT, ``flow_shift`` set) take the JAX
+Rectified-flow models (the MMDiT and Flux, ``flow_shift`` set) take the JAX
 package's flow branch: the schedule on ``log_sigmas_flow(shift)``, the model
 timestep ``sigma * n_step_train``, the velocity output used as dx/dsigma,
 and the initial latent scaled by ``1 - sigma_0`` before the noise is added
@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..models import flux as flux_mod
 from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
 from ..rng import RngPhilox
@@ -174,6 +175,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     use_cfg = cfg.cfg_scale > 1
     solver = get_solver(cfg.method)
     flow = bool(getattr(model.P, "flow", False))
+    flow_denoise = (flux_mod.denoise if getattr(model.P, "flux", False)
+                    else mmdit_mod.denoise)
     log_sigmas = np.asarray(sch.get_log_sigmas(), np.float32)
 
     def to_dev(a):
@@ -189,8 +192,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         xb = torch.cat([x, x]) if use_cfg else x
         if flow:
             t = np.float32(sigma) * np.float32(model.P.n_step_train)
-            d = mmdit_mod.denoise(model, xb, np.float32(sigma), t, cond_all,
-                                  label_all)
+            d = flow_denoise(model, xb, np.float32(sigma), t, cond_all,
+                             label_all)
         else:
             t = sigma_to_t(log_sigmas, sigma)
             d = unet_mod.denoise(model, xb, np.float32(sigma), t, cond_all,

@@ -6,10 +6,12 @@ kernel against its plain twin.
 The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
 (``TINY_CLIP``, ``TINY_UNET``, ``TINY_VAE``, the SD2 set
 ``TINY_MODEL_TYPE_SD2``, ``:84-93``, the SDXL set ``TINY_MODEL_TYPE_XL``,
-``:94-101``, and the SD3 set ``TINY_MODEL_TYPE_SD3``, ``:387-409``) in the
-port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
+``:94-101``, the SD3 set ``TINY_MODEL_TYPE_SD3``, ``:387-409``, its
+MMDiT-X ``TINY_MMDIT_X``, ``:396-404``, and the Flux set, ``:547-563``) in
+the port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
 ``TINY_Q_MODEL_TYPE_XL`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that
-the linears quantize.
+the linears quantize.  A Flux model ships as component files
+(:func:`write_random_flux_files`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import numpy as np
 import torch
 
 from . import nameconv
-from .api import ModelTypeDef, build_encoders, build_models
+from .api import (ModelTypeDef, _clip_file_name, _vae_file_name,
+                  build_encoders, build_models)
+from .models import flux as flux_mod
 from .models import mmdit as mmdit_mod
 from .models import t5 as t5_mod
 from .models import tae as tae_mod
@@ -98,6 +102,33 @@ TINY_VAE_SD3 = vae_mod.VaeParams(ch=32, ch_mult=(1, 1, 2, 2),
 TINY_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_CLIP, TINY_MMDIT,
                                    TINY_VAE_SD3, 64, 2, TINY_CLIP2)
 
+# SD3.5: the JAX package's MMDiT-X tiny (``mlimgsynth_tpu/testing.py:
+# 396-404``): qk-norm and attn2 in block 0
+TINY_MMDIT_X = mmdit_mod.MmditParams(
+    depth=2, d_model=32, n_head=2, patch=2, n_ch_in=4, n_ch_out=4,
+    d_ctx_in=80, d_pooled=64, pos_embed_max=8, d_t_embed=16,
+    n_ctx=80, qk_norm=True, x_self_attn_layers=(0,))
+TINY_MODEL_TYPE_SD35 = ModelTypeDef("sd35_medium", TINY_CLIP, TINY_MMDIT_X,
+                                    TINY_VAE_SD3, 64, 2, TINY_CLIP2)
+
+# Flux: the JAX package's tiny set (``mlimgsynth_tpu/testing.py:547-563``),
+# one double and one single block 32 wide, 4-channel latents
+TINY_FLUX_SCHNELL = flux_mod.FluxParams(
+    depth_double=1, depth_single=1, d_model=32, n_head=2,
+    axes_dim=(4, 6, 6), n_ch_in=16, n_ch_out=16, d_ctx_in=48,
+    d_pooled=32, n_ctx=48)
+TINY_FLUX_DEV = flux_mod.FluxParams(
+    depth_double=1, depth_single=1, d_model=32, n_head=2,
+    axes_dim=(4, 6, 6), n_ch_in=16, n_ch_out=16, d_ctx_in=48,
+    d_pooled=32, n_ctx=48, guidance_embed=True, dynamic_shift=True)
+TINY_VAE_FLUX = vae_mod.VaeParams(ch=32, ch_mult=(1, 1, 2, 2),
+                                  scale_factor=0.3611, shift_factor=0.1159,
+                                  quant_conv=False)
+TINY_MODEL_TYPE_FLUX = ModelTypeDef("flux_schnell", TINY_CLIP,
+                                    TINY_FLUX_SCHNELL, TINY_VAE_FLUX, 64, 1)
+TINY_MODEL_TYPE_FLUX_DEV = ModelTypeDef("flux_dev", TINY_CLIP, TINY_FLUX_DEV,
+                                        TINY_VAE_FLUX, 64, 1)
+
 # The SD3 set at widths that quantize: 128 wide with 2 heads of 64, every
 # MMDiT linear's input a multiple of 128.  At 512^2 the CFG batch holds
 # 2 x 1024 image tokens, so the x-stream products reach the 2048 rows of
@@ -144,6 +175,19 @@ def _init_std(name: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
     return 0.0, 1.0 / math.sqrt(int(np.prod(shape[1:])))
 
 
+def _hf_clip_name(internal: str) -> str:
+    """``clip.text.*`` -> the HF ``CLIPTextModel`` name (``text_model.*``;
+    ``mlimgsynth_tpu/testing.py:566-576``)."""
+    t = "text_model." + internal.split(".text.", 1)[1]
+    for a, b in (("embed.position.", "embeddings.position_embedding."),
+                 ("embed.token.", "embeddings.token_embedding."),
+                 (".norm1.", ".layer_norm1."), (".norm2.", ".layer_norm2."),
+                 (".attn.", ".self_attn."),
+                 ("text_model.ln_final.", "text_model.final_layer_norm.")):
+        t = t.replace(a, b)
+    return t
+
+
 def _sd3_ckpt_name(internal: str):
     """Internal name -> sd3 single-file checkpoint name (the port's copy of
     ``mlimgsynth_tpu/testing.py:412-432``).  ``text_proj`` gives a marker
@@ -152,13 +196,7 @@ def _sd3_ckpt_name(internal: str):
         return "model.diffusion_model." + internal[len("mmdit."):]
     if internal.startswith(("clip.text.", "clip2.text.")):
         tower = "clip_l" if internal.startswith("clip.") else "clip_g"
-        t = "text_model." + internal.split(".text.", 1)[1]
-        t = t.replace("embed.position.", "embeddings.position_embedding.")
-        t = t.replace("embed.token.", "embeddings.token_embedding.")
-        t = t.replace(".norm1.", ".layer_norm1.")
-        t = t.replace(".norm2.", ".layer_norm2.")
-        t = t.replace(".attn.", ".self_attn.")
-        t = t.replace("text_model.ln_final.", "text_model.final_layer_norm.")
+        t = _hf_clip_name(internal)
         pre = f"text_encoders.{tower}.transformer."
         if t == "text_model.text_proj":
             return ("tproj", pre + "text_model.text_projection.weight")
@@ -267,13 +305,29 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
     return out
 
 
+def _draw(shape, std: float, dtype, rng=None, gen=None, device="cpu"):
+    """N(0, std^2) values of ``shape`` in ``dtype`` (numpy), from the numpy
+    stream ``rng`` or, where it is None, the torch generator ``gen`` on
+    ``device`` (a card draws billions of values in seconds)."""
+    if rng is not None:
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std)).astype(dtype)
+    tdtype = {np.dtype(np.float16): torch.float16,
+              np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
+    return (torch.randn(shape, generator=gen, device=device).mul_(std)
+            .to(tdtype).cpu().numpy())
+
+
 def random_checkpoint_tensors(mt: ModelTypeDef, seed: int = 0,
-                              dtype=np.float16
+                              dtype=np.float16, device=None
                               ) -> Iterator[Tuple[str, np.ndarray]]:
     """(checkpoint name, array) for every tensor of ``mt``'s checkpoint,
     drawn in order from one seeded stream, one at a time (a fused q/k/v
-    tensor draws its three parts together)."""
-    rng = np.random.default_rng(seed)
+    tensor draws its three parts together): numpy's, or with ``device`` a
+    torch generator's on that device."""
+    rng = np.random.default_rng(seed) if device is None else None
+    gen = (None if device is None else
+           torch.Generator(device=device).manual_seed(seed))
     for ck, (file_shape, how, members) in _checkpoint_layout(mt).items():
         parts = []
         for name, shape in members:
@@ -281,8 +335,7 @@ def random_checkpoint_tensors(mt: ModelTypeDef, seed: int = 0,
             if std == 0.0:
                 arr = np.full(shape, mean, dtype)
             else:
-                arr = rng.standard_normal(shape, dtype=np.float32)
-                arr = (arr * np.float32(std)).astype(dtype)
+                arr = _draw(shape, std, dtype, rng, gen, device)
             parts.append(arr)
         arr = np.concatenate(parts) if how == "qkv" else parts[0]
         if how == "T":
@@ -314,17 +367,92 @@ def write_safetensors(path, shapes: Dict[str, Tuple[int, ...]], dtype,
                                                        dtype):
                 raise ValueError(f"{name} {arr.dtype} {arr.shape} does not "
                                  f"match the header entry {want}")
-            f.write(np.ascontiguousarray(arr).tobytes())
+            f.write(np.ascontiguousarray(arr).data)
 
 
 def write_random_checkpoint(path, mt: ModelTypeDef, seed: int = 0,
-                            dtype=np.float16) -> None:
+                            dtype=np.float16, device=None) -> None:
     """Seeded random checkpoint of ``mt`` at ``path``: CompVis names for
     SD1, the v2-1_768 layout for SD2, the sd_xl_base layout for SDXL, the
-    sd3 single-file layout for SD3."""
+    sd3 single-file layout for SD3 and SD3.5; drawn by numpy, or with
+    ``device`` by a torch generator on that device."""
     shapes = {ck: v[0] for ck, v in _checkpoint_layout(mt).items()}
     write_safetensors(path, shapes, dtype,
-                      random_checkpoint_tensors(mt, seed, dtype))
+                      random_checkpoint_tensors(mt, seed, dtype, device))
+
+
+def flux_file_layout(mt: ModelTypeDef, encoders: bool = True
+                     ) -> Dict[str, Dict[str, Tuple[str, tuple]]]:
+    """The component files of a Flux model type, as BFL and Hugging Face
+    ship them: {"model": bare transformer names (``double_blocks.0.img_attn.
+    qkv.weight``), "clip": CLIP-L in the HF layout (``text_model.*``, no
+    text projection), "vae": bare ``encoder.`` / ``decoder.`` names (the
+    encoder with ``encoders``)}, each {name in the file: (internal name,
+    shape)}, checked to map back through the session's transforms."""
+    out = {"model": {}, "clip": {}, "vae": {}}
+    for name, shape in model_shapes(mt, encoders).items():
+        if name.startswith("flux."):
+            key, fname = "model", name[len("flux."):]
+            back = nameconv.normalize_name(fname)
+        elif name.startswith("clip.text."):
+            key, fname = "clip", _hf_clip_name(name)
+            back = _clip_file_name(fname)
+        else:
+            key = "vae"
+            fname = nameconv.internal_to_compvis(name)[
+                len("first_stage_model."):]
+            back = _vae_file_name(fname)
+        if back != name:
+            raise ValueError(f"no {key} file round trip for {name}")
+        out[key][fname] = (name, shape)
+    return out
+
+
+# The scale of a random full-width Flux: N(0, 1/fan_in) for every matrix
+# but the modulation products (``*_mod.lin``, ``modulation.lin``,
+# ``final_layer.adaLN_modulation.1``), drawn at half that std.  Their
+# outputs are each block's shift, scale and gates: at half width a
+# block's gated branches add about a quarter as much variance to the
+# residual stream, which 57 blocks accumulate, and (1 + scale) stays
+# positive for most channels, as in a trained adaLN; RMSNorm scales are 1
+# and biases 0, so the attention logits of the normed q and k stay within
+# +-sqrt(128) in bf16.
+FLUX_MOD_STD = 0.5
+
+
+def _flux_std(name: str, shape: Tuple[int, ...]) -> Tuple[float, float]:
+    mean, std = _init_std(name, shape)
+    if std and name.endswith(("_mod.lin.weight", "modulation.lin.weight",
+                              "adaLN_modulation.1.weight")):
+        std *= FLUX_MOD_STD
+    return mean, std
+
+
+def write_random_flux_files(dirpath, mt: ModelTypeDef, seed: int = 0,
+                            dtype=np.float16, device="cpu"
+                            ) -> Dict[str, str]:
+    """Seeded random component files of the Flux type ``mt`` under
+    ``dirpath`` (:func:`flux_file_layout`; the scale :data:`FLUX_MOD_STD`
+    states), drawn one tensor at a time by a torch generator on ``device``
+    (a card draws the 12 B values of Flux.1 in seconds, numpy in minutes):
+    model, then CLIP-L, then the VAE.  Returns {"model", "clip", "vae":
+    path}."""
+    import os
+    gen = torch.Generator(device=device).manual_seed(seed)
+    paths = {}
+    for key, entries in flux_file_layout(mt).items():
+        def tensors(entries=entries):
+            for fname, (name, shape) in entries.items():
+                mean, std = _flux_std(name, shape)
+                yield fname, (np.full(shape, mean, dtype) if std == 0.0 else
+                              _draw(shape, std, dtype, gen=gen,
+                                    device=device))
+
+        paths[key] = os.path.join(str(dirpath),
+                                  f"flux-random-{key}.safetensors")
+        write_safetensors(paths[key], {f: v[1] for f, v in entries.items()},
+                          dtype, tensors())
+    return paths
 
 
 def write_random_tae(path, P: tae_mod.TaeParams = tae_mod.TAE_SD1,
@@ -371,8 +499,6 @@ def write_random_t5(path, P: t5_mod.T5Params = TINY_T5, seed: int = 0,
     ``device`` (a card draws the 4.8 B values of T5-XXL in seconds)."""
     shapes = t5_file_shapes(P, prefix)
     gen = torch.Generator(device=device).manual_seed(seed)
-    tdtype = {np.dtype(np.float16): torch.float16,
-              np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
 
     def tensors():
         for name, shape in shapes.items():
@@ -382,8 +508,7 @@ def write_random_t5(path, P: t5_mod.T5Params = TINY_T5, seed: int = 0,
                 std = (1.0 if name.endswith("shared.weight") else
                        1.0 / math.sqrt(shape[1] * (
                            P.d_kv if name.endswith(".q.weight") else 1)))
-                arr = (torch.randn(shape, generator=gen, device=device)
-                       .mul_(std).to(tdtype).cpu().numpy())
+                arr = _draw(shape, std, dtype, gen=gen, device=device)
             yield name, arr
 
     write_safetensors(path, shapes, dtype, tensors())
@@ -488,8 +613,9 @@ def write_random_lora(path, mt: ModelTypeDef, targets, rank: int = 4,
 
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
-# 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens) and
-# SD2.1 768^2 main paths give the kernels, and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
+# 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens), SD2.1
+# 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels, and
+# ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
 # main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
@@ -518,6 +644,14 @@ ATTN_CASES = [
      "MMDiT joint attention, SD3-medium"),
     ("flash_attn_joint", (2, 24, 4429, 64), 4429,
      "SD3-medium with 256 T5 tokens (a ragged tail of 13 past 69 x 64)"),
+    ("flash_attn_joint", (2, 38, 4250, 64), 4250,
+     "MMDiT joint attention, SD3.5-large (38 heads)"),
+    ("flash_attn_joint", (2, 24, 4096, 64), 4096,
+     "MMDiT-X attn2 over the latent tokens, SD3.5-medium"),
+    ("flash_attn_joint", (1, 24, 4608, 128), 4608,
+     "Flux-dev joint attention, 512 T5 tokens (head dim 128)"),
+    ("flash_attn_joint", (1, 24, 4352, 128), 4352,
+     "Flux-schnell joint attention, 256 T5 tokens (head dim 128)"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
     ("flash_attn_joint", (1, 2, 2100, 128), 2100, "head dim 128"),
 ]

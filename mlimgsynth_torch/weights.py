@@ -32,46 +32,74 @@ class NameRef:
     transpose: bool = False      # HF Linear-stored text_projection.weight
 
 
+def register_name(out: Dict[str, NameRef], raw: str, r) -> None:
+    """Register one ``normalize_name`` result (a name, a ``QKV`` or a
+    ``TProj``) for ``raw``; the first mapping wins.  ``final_layer.*`` has
+    the same names in the MMDiT and Flux layouts: an ``mmdit.`` one is
+    also registered under ``flux.`` (``mlimgsynth_tpu/weights.py:
+    39-59``)."""
+    if r is None:
+        return
+    if isinstance(r, QKV):
+        stem, suffix = ((r.name[:-len("in_proj_weight")], "weight")
+                        if r.name.endswith("in_proj_weight")
+                        else (r.name[:-len("in_proj_bias")], "bias"))
+        for i, which in enumerate(("q_proj", "k_proj", "v_proj")):
+            out.setdefault(f"{stem}{which}.{suffix}", NameRef(raw, split=i))
+    elif isinstance(r, TProj):
+        out.setdefault(r.name, NameRef(raw, transpose=True))
+    else:
+        out.setdefault(r, NameRef(raw))
+        if r.startswith("mmdit.final_layer."):
+            out.setdefault("flux." + r[len("mmdit."):], NameRef(raw))
+
+
 def build_name_map(store: TensorStore) -> Dict[str, NameRef]:
     """Internal name -> checkpoint entry; the first mapping wins."""
     out: Dict[str, NameRef] = {}
     for raw in store.tensors:
-        r = normalize_name(raw)
-        if r is None:
-            continue
-        if isinstance(r, QKV):
-            stem, suffix = ((r.name[:-len("in_proj_weight")], "weight")
-                            if r.name.endswith("in_proj_weight")
-                            else (r.name[:-len("in_proj_bias")], "bias"))
-            for i, which in enumerate(("q_proj", "k_proj", "v_proj")):
-                out.setdefault(f"{stem}{which}.{suffix}", NameRef(raw, split=i))
-        elif isinstance(r, TProj):
-            out.setdefault(r.name, NameRef(raw, transpose=True))
-        else:
-            out.setdefault(r, NameRef(raw))
+        register_name(out, raw, normalize_name(raw))
     return out
+
+
+def merge_prefixed(name_map: Dict[str, NameRef], store: TensorStore,
+                   prefix: str, transform: Callable) -> int:
+    """Map the tensors of an auxiliary file, read into ``store`` under
+    ``prefix``, into ``name_map`` through ``transform(name in the file)``,
+    a ``normalize_name``-style result (``merge_prefixed``,
+    ``mlimgsynth_tpu/weights.py:67-75``).  Returns how many names it
+    added."""
+    n0 = len(name_map)
+    for raw in store.tensors:
+        if raw.startswith(prefix):
+            register_name(name_map, raw, transform(raw[len(prefix):]))
+    return len(name_map) - n0
 
 
 def identify_model(store: TensorStore, name_map: Dict[str, NameRef],
                    width_table: Mapping[int, str]) -> Optional[str]:
     """Model type from the UNet cross-attention K width (ref:
     mlis_model_identify), probed in the first block that has one (SDXL's
-    first level has no attention), or the SD3 family from its MMDiT joint
-    blocks (``mlimgsynth_tpu/weights.py:70-108``); None when nothing
-    matches."""
+    first level has no attention); the SD3 family from its MMDiT joint
+    blocks (width 2432: SD3.5-large; a second x-block attention: SD3.5-
+    medium); Flux from its double blocks (``guidance_in``: dev)
+    (``mlimgsynth_tpu/weights.py:78-114``).  None when nothing matches."""
     for probe in ("unet.in.1.1.transf.0.attn2.k_proj.weight",
                   "unet.in.4.1.transf.0.attn2.k_proj.weight"):
         ref = name_map.get(probe)
         if ref is not None:
             return width_table.get(int(store.tensors[ref.raw].shape[-1]))
     ref = name_map.get("mmdit.joint_blocks.0.x_block.attn.qkv.weight")
-    if ref is None:
-        return None
-    if int(store.tensors[ref.raw].shape[-1]) == 2432:
-        return "sd35_large"
-    if "mmdit.joint_blocks.0.x_block.attn2.qkv.weight" in name_map:
-        return "sd35_medium"
-    return "sd3"
+    if ref is not None:
+        if int(store.tensors[ref.raw].shape[-1]) == 2432:
+            return "sd35_large"
+        if "mmdit.joint_blocks.0.x_block.attn2.qkv.weight" in name_map:
+            return "sd35_medium"
+        return "sd3"
+    if "flux.double_blocks.0.img_attn.qkv.weight" in name_map:
+        return ("flux_dev" if "flux.guidance_in.in_layer.weight" in name_map
+                else "flux_schnell")
+    return None
 
 
 def read_entry(store: TensorStore, ref: NameRef) -> np.ndarray:

@@ -202,9 +202,9 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "flux_dev"), ("weight-type", "q2_k"), ("method", "lcm"),
-    ("deepcache", 3), ("hires-fix", 2.0), ("control-net", "cn.safetensors"),
-    ("model-type", "sd35_medium"),
+    ("model-type", "sdxl_refiner"), ("weight-type", "q2_k"),
+    ("method", "lcm"), ("deepcache", 3), ("hires-fix", 2.0),
+    ("control-net", "cn.safetensors"), ("pag-scale", 3.0),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")

@@ -5,7 +5,12 @@ Opens a full-width session of the PyTorch port on seeded random weights
 (bf16 activations; 20 Euler steps, CFG 7, batch 1): SD1.5 at 512^2, with
 ``--model sdxl`` SDXL-base or ``--model sd3`` SD3-medium at 1024^2, or with
 ``--model sd2`` SD2.1-768-v at 768^2 (20 DPM++2M steps; ``--tae`` decodes
-with a seeded random full-width taesd decoder instead of the VAE),
+with a seeded random full-width taesd decoder instead of the VAE), or
+with ``--model sd35_large|sd35_medium|flux_dev|flux_schnell`` those at
+1024^2 as ``chip_smoke.py``'s ``sd35`` and ``flux`` lines run them (files
+drawn on the card, Flux as component files; a random T5-XXL file and
+tokenizer at 77 T5 tokens for SD3.5, 512 for Flux-dev and 256 for
+schnell; Flux-dev at guidance 3.5 without CFG, schnell 4 steps at cfg 1),
 for each weight type named on the command line (default bf16; q8_0 and
 q4_0 store the linears quantized; ``q8_0:int8`` measures q8_0 under
 ``MLIS_Q8_MODE=int8``, in the same session as a ``q8_0`` named just
@@ -14,8 +19,9 @@ before it), one session at a time, and measures, all in this one process:
   * ``requests``: the wall seconds of a cold and of three warm requests;
   * ``stages``: one request split into text encode, sampler loop and VAE
     (or TAE) decode, with a device sync at the end of each;
-  * ``denoiser_step``: 20 UNet or MMDiT evaluations (the CFG batch of 2)
-    back to back, by CUDA events;
+  * ``denoiser_step``: 20 evaluations of the denoiser on the first
+    evaluation's inputs of a request (the CFG batch of 2; Flux-dev and
+    schnell at cfg 1 a batch of 1) back to back, by CUDA events;
   * ``trace``: one request traced with ``torch.profiler`` (device activity
     only): device busy time (the union of kernel, copy and fill intervals),
     kernel count, the idle share of that traced request's wall time, and
@@ -24,8 +30,9 @@ before it), one session at a time, and measures, all in this one process:
     above: two different requests of this run, for an idle share without
     the profiler's cost on the host.
 
-    python3 tools/torch_profile.py [--model sd1|sd2|sdxl|sd3] [--tae]
-        [bf16] [q8_0] [q8_0:int8] [q4_0]
+    python3 tools/torch_profile.py [--model sd1|sd2|sdxl|sd3|sd35_large|
+        sd35_medium|flux_dev|flux_schnell] [--tae] [bf16] [q8_0]
+        [q8_0:int8] [q4_0]
 
 Prints one JSON line per measurement, each naming its model and weight
 type.
@@ -47,8 +54,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from mlimgsynth_torch import api, testing  # noqa: E402
-from mlimgsynth_torch.models import mmdit as mmdit_mod  # noqa: E402
-from mlimgsynth_torch.models import unet as unet_mod  # noqa: E402
+from mlimgsynth_torch.models import t5 as t5_mod  # noqa: E402
 
 WARM, EVALS, TOP = 3, 20, 20
 PROMPTS = ["a photograph of an astronaut riding a horse",
@@ -114,26 +120,26 @@ def stage_times(s, i: int) -> dict:
     return stages
 
 
-def denoiser_step_ms(s, n: int) -> float:
-    """One denoiser evaluation on the CFG batch at the first sigma."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    cond = torch.from_numpy(s.tensors["cond"]).cuda().repeat(2, 1, 1)
-    lat = s.tensors["latent"].shape
-    if "mmdit." in s._models:
-        label = torch.from_numpy(s.tensors["label"]).cuda().repeat(2, 1)
-        x = torch.randn(2, *lat[1:], device="cuda", generator=gen)
+def denoiser_step_ms(s, n: int):
+    """One denoiser evaluation on the inputs of a request's first one (its
+    first sigma, the CFG batch where the request has one): (ms, batch)."""
+    den = s._models[s._denoiser()]
+    first = []
 
-        def step():
-            mmdit_mod.denoise(s._models["mmdit."], x, 1.0, 1000.0, cond,
-                              label)
-    else:
-        x = torch.randn(2, *lat[1:], device="cuda", generator=gen) * 14.6
-        label = (None if s.tensors["label"] is None else
-                 torch.from_numpy(s.tensors["label"]).cuda().repeat(2, 1))
+    def hook(mod, args):
+        if not first:
+            first.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args))
 
-        def step():
-            unet_mod.denoise(s._models["unet."], x, 14.6, 999.0, cond,
-                             label)
+    handle = den.register_forward_pre_hook(hook)
+    try:
+        request(s, 0)
+    finally:
+        handle.remove()
+
+    def step():
+        den(*first[0])
+
     with torch.no_grad():
         step()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -143,7 +149,7 @@ def denoiser_step_ms(s, n: int) -> float:
             step()
         e1.record()
         torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
+    return e0.elapsed_time(e1) / n, first[0][0].shape[0]
 
 
 def traced_request(s, i: int, tmp: str, top: int) -> dict:
@@ -197,16 +203,14 @@ def main() -> int:
         model, args = args[1], args[2:]
     if args[:1] == ["--tae"]:
         tae, args = "taesd-random-f16.safetensors", args[1:]
-    dim = {"sd1": 512, "sd2": 768, "sdxl": 1024, "sd3": 1024}[model]
+    dim = {"sd1": 512, "sd2": 768}.get(model, 1024)
     out("device", nvidia_smi=smi, torch=torch.__version__, model=model,
         tae=bool(tae))
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, f"{model}-random-f16.safetensors")
         t0 = time.perf_counter()
-        testing.write_random_checkpoint(ckpt, api._model_types()[model],
-                                        seed=0)
+        ckpt = write_model(tmp, model)
         out("checkpoint", model=model, write_s=time.perf_counter() - t0,
-            bytes=os.path.getsize(ckpt))
+            bytes=sum(os.path.getsize(p) for p in ckpt.values()))
         if tae:
             tae = os.path.join(tmp, tae)
             testing.write_random_tae(tae, seed=0)
@@ -225,7 +229,41 @@ def main() -> int:
     return 0
 
 
-def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str,
+# the SD3.5 and Flux runs of ``chip_smoke.py``: (steps, cfg, T5 tokens)
+DIT_RUNS = {"sd35_large": (20, 7.0, 77), "sd35_medium": (20, 7.0, 77),
+            "flux_dev": (20, 3.5, 512), "flux_schnell": (4, 1.0, 256)}
+
+
+def write_model(tmp: str, model: str) -> dict:
+    """The seeded random files of ``model`` in ``tmp``, as session options:
+    a numpy-drawn checkpoint ("model"), or for SD3.5 and Flux one drawn on
+    the card (Flux: its component files, "model", "clip", "vae") with a
+    random T5-XXL file and tokenizer ("t5", "t5-tokenizer")."""
+    mt = api._model_types()[model]
+    if model not in DIT_RUNS:
+        path = os.path.join(tmp, f"{model}-random-f16.safetensors")
+        testing.write_random_checkpoint(path, mt, seed=0)
+        return {"model": path}
+    if model.startswith("flux"):
+        files = testing.write_random_flux_files(tmp, mt, seed=0,
+                                                device="cuda")
+    else:
+        files = {"model": os.path.join(tmp, f"{model}.safetensors")}
+        testing.write_random_checkpoint(files["model"], mt, seed=0,
+                                        device="cuda")
+    files["t5"] = os.path.join(tmp, "t5xxl-random-f16.safetensors")
+    testing.write_random_t5(files["t5"], t5_mod.T5_XXL, seed=0,
+                            device="cuda")
+    files["t5-tokenizer"] = os.path.join(tmp, "t5-tokenizer.json")
+    testing.write_tokenizer_json(files["t5-tokenizer"],
+                                 testing.unigram_tokenizer_spec(
+                                     testing.random_unigram_pieces(
+                                         t5_mod.T5_XXL.n_vocab, seed=0),
+                                     eos=True))
+    return files
+
+
+def profile_path(ckpt: dict, model: str, dim: int, wt: str, tmp: str,
                  s=None, mode: str = "dq", tae: str = ""):
     """Every measurement of one weight type (under ``mode``, decoded by the
     TAE file ``tae`` if given), in session ``s`` or a new one; returns the
@@ -233,14 +271,18 @@ def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str,
     tag = {"model": model, "path": wt, "mode": mode, "tae": bool(tae)}
     if s is None:
         s = api.MLImgSynth(device="cuda")
-        for k, v in [("model", ckpt), ("model-type", model),
-                     ("weight-type", wt), ("image-dim", dim), ("steps", 20),
-                     ("cfg-scale", 7.0),
+        steps, cfg, t5_tokens = DIT_RUNS.get(model, (20, 7.0, 77))
+        for k, v in [*ckpt.items(), ("model-type", model),
+                     ("weight-type", wt), ("image-dim", dim),
+                     ("steps", steps), ("cfg-scale", cfg),
+                     ("t5-tokens", t5_tokens),
                      ("method", "dpmpp2m" if model == "sd2" else "euler"),
                      ("scheduler", "uniform"), ("tae", tae)]:
             s.option_set(k, v)
         t0 = time.perf_counter()
         s.setup()
+        if "t5" in ckpt:
+            s._t5_load()
         out("setup", **tag, setup_s=time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     cold = request(s, 0)
@@ -248,8 +290,8 @@ def profile_path(ckpt: str, model: str, dim: int, wt: str, tmp: str,
     out("requests", **tag, cold_s=cold, warm_s=warm,
         max_memory_allocated=torch.cuda.max_memory_allocated())
     out("stages", **tag, **stage_times(s, 1))
-    out("denoiser_step", **tag, batch=2, evals=EVALS,
-        ms=denoiser_step_ms(s, EVALS))
+    step_ms, batch = denoiser_step_ms(s, EVALS)
+    out("denoiser_step", **tag, batch=batch, evals=EVALS, ms=step_ms)
     trace = traced_request(s, 2, tmp, TOP)
     out("trace", **tag, **trace)
     med = statistics.median(warm)

@@ -18,13 +18,15 @@ Phases, one result line each (any failure exits non-zero):
   3. kernels   - each kernel against its plain PyTorch version, bf16: the
                  flash kernels at the SD1.5 512^2, SDXL 1024^2,
                  SD3-medium, SD3.5 and Flux 1024^2 main-path shapes (K3
-                 at head dim 128 for Flux) and ragged ones, the
-                 quantized matmuls (q8 and q4, tiled and weight-stationary)
-                 at the SD1.5 products, the most frequent SDXL and SD3 ones
-                 and ragged M and N, the per-column W8A8 kernel at the SD3
-                 x-stream products and ragged ones, the per-block W8A8
-                 kernel (MLIS_Q8_MODE=int8) at the SDXL products and ragged
-                 ones; each with its time, its plain version's, one
+                 at head dim 128 for Flux, at batch 1 for SD3.5-medium's
+                 skip-layer pass) and ragged ones, the quantized matmuls
+                 (q8 and q4, tiled and weight-stationary) at the SD1.5
+                 products, the most frequent SDXL, SD3, SD2 and Flux ones
+                 and ragged M and N, the per-column W8A8 kernel at the
+                 SD3, SD3.5 (slab 2432) and Flux products and ragged ones,
+                 the per-block W8A8 kernel (MLIS_Q8_MODE=int8) at the SDXL
+                 and Flux products and ragged ones; each with its time,
+                 its plain version's, one
                  PyTorch call's for the same function (for the W8A8 kernels
                  also torch._int_mm's, the int8 library product; for the
                  attention the SDPA backend that PyTorch picks, named) and
@@ -85,7 +87,27 @@ Phases, one result line each (any failure exits non-zero):
                  memory and exact K3 and K2 launches; one denoiser
                  evaluation with the kernels against the plain attention
                  (held to 3e-2) and the whole last request's latent the
-                 same two ways (reported).
+                 same two ways (reported).  Then each of those sessions
+                 switched to a quantized weight type (the weights read to
+                 the card and quantized there; T5 stays loaded):
+                 Flux.1-dev q8_0, 2 requests and 1 under
+                 MLIS_Q8_MODE=int8, its peak below the bf16 session's,
+                 then a seeded random rank-16 LoRA of every double
+                 block's image qkv, attention output and MLP input and
+                 every single block's linear1 and linear2, in kohya names
+                 and in PEFT names (4-step requests; the merged weights
+                 checked against the host, the two latents equal);
+                 Flux.1-schnell q4_0, 1 request; SD3.5-large q8_0, 1
+                 request (K7 at the activation slab 2432 on every
+                 x-stream qkv, proj and fc1); SD3.5-medium q8_0 with
+                 skip-layer guidance (2.5 on layers 7-9, steps 0-3: four
+                 batch-1 evaluations), 1 request.  Each with exact
+                 launches by kernel and shape (the quantized products
+                 from the module tree) and one denoiser evaluation with
+                 the kernels against the quantized matmuls' plain
+                 versions (3e-2).  SD2.1 under q8_0 closes the SD2
+                 lines: 2 requests, exact launches by product, one UNet
+                 evaluation against the plain versions (1e-2).
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -286,6 +308,25 @@ DIT_K3_PER_REQUEST = {"sd35_medium": 24 * 20 + 13 * 20,
                       "sd35_large": 38 * 20, "flux_dev": 57 * 20,
                       "flux_schnell": 57 * 4}
 
+# Quantized weight types on SD3.5 and Flux (the ``sd35`` and ``flux`` lines
+# with a ``path``), each on the session of its bf16 lines, switched to the
+# weight type (the T5 encoder stays loaded): Flux-dev q8_0, two requests and
+# one under MLIS_Q8_MODE=int8, then its LoRA requests; Flux-schnell q4_0,
+# one request; SD3.5-large q8_0, one request (K7 at the activation slab
+# 2432 = K); SD3.5-medium q8_0 with skip-layer guidance (scale 2.5 on
+# layers 7-9 over the default window, 0.01-0.2 of the steps: steps 0-3 of
+# 20 make one more evaluation of the cond rows, batch 1).  The LoRA: rank
+# 16 on every double block's image qkv, attention output and MLP input and
+# every single block's linear1 and linear2, in kohya names and in PEFT
+# names (the fused targets' slices), each a request of LORA_STEPS steps.
+DIT_Q = {"flux_dev": ("q8_0", 8), "flux_schnell": ("q4_0", 4),
+         "sd35_large": ("q8_0", 8), "sd35_medium": ("q8_0", 8)}
+SD35_SLG = [("slg-scale", 2.5), ("slg-layers", "7,8,9")]
+LORA_STEPS = 4
+# SD2.1-768-v under q8_0: two requests through the session on the SD2
+# checkpoint, 20 DPM++2M steps, CFG 7 (K5 and K6 at SD2's products)
+SD2_Q8 = "q8_0"
+
 # Embeddings and prompt editing: a prompt with a word, an embedding of that
 # word's token rows in its place, and an edit that switches at EDIT_STEP
 # of 20 Euler steps
@@ -318,6 +359,18 @@ def phase(name: str, **kv) -> None:
                       "t": time.time() - T_START}), flush=True)
 
 
+def _clocks() -> dict:
+    """The card's SM clock, its maximum, power draw and temperature
+    (``nvidia-smi``): a run whose clock sits well below the maximum under
+    load is throttled, and its times read slow."""
+    keys = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+    vals = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(", ")
+    return {"clocks": dict(zip(keys, vals))}
+
+
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> dict:
     t_ops, t_mem = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
@@ -339,7 +392,7 @@ def main() -> int:
     CARD = smi
     kind = torch.cuda.get_device_name(0)
     phase("device", kind=kind, count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda)
+          torch=torch.__version__, cuda=torch.version.cuda, **_clocks())
 
     t0 = time.time()
     _build.load_all(SOURCES)
@@ -350,12 +403,11 @@ def main() -> int:
     check_wgmma_kernels({**libs["flash_attention"]["kernels"],
                          **libs["quant_matmul"]["kernels"]})
 
-    kernels = (check_flash() + check_quant() + check_int8()
-               + check_q8_int8())
     launches = collections.Counter()
     # the numpy draws of the four checkpoints run in one process of their
     # own (no share of this one's interpreter lock, which the host-bound
-    # requests need), in the order the paths take them, while the paths run
+    # requests need), in the order the paths take them, while the kernels
+    # phase and the paths run
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -363,6 +415,8 @@ def main() -> int:
             for model_type in ("sd1", "sd3", "sdxl", "sd2"):
                 _WRITES[model_type] = pool.submit(_write_checkpoint, tmp,
                                                   model_type)
+            kernels = (check_flash() + check_quant() + check_int8()
+                       + check_q8_int8())
             sd1_dq, sd3_dq, sdxl_dq, sdxl_int8 = _paths(tmp, launches)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -381,7 +435,7 @@ def main() -> int:
             k["sdxl_per_request_ms"] = sdxl_int8["ms"]
     small_check()
     check_imports()
-    phase("done", seconds=time.time() - t_start)
+    phase("done", seconds=time.time() - t_start, **_clocks())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -448,7 +502,8 @@ def _paths(tmp: str, launches: collections.Counter):
             launches.update(embed_edit_sdxl(s, ckpt, tmp))
             launches.update(sdxl_lowmem_requests(s, wt))
         if bits == 8:
-            sdxl_dq = time_products(sdxl_products(s), "sdxl")
+            sdxl_dq = time_products(
+                unet_products(s, SDXL_DIM, SDXL_STEPS), "sdxl")
             sdxl_int8 = time_sdxl_int8_shapes(s)
         _drop(s)
     launches.update(sdxl_lowmem_path(ckpt))
@@ -560,6 +615,10 @@ FLASH_SHAPE_CALLS = {
     ((1, 24, 4608, 128), 4608): {"flux_dev": 1140},
     ((1, 24, 4352, 128), 4352): {"flux_schnell": 228},
     ((2, 24, 4429, 64), 4429): {"sd3_t5_256": 480},
+    # SD3.5-medium's skip-layer pass (batch 1, layers 7-9 left out) on 4
+    # steps of 20: 21 joint attentions and 10 attn2 a pass
+    ((1, 24, 4250, 64), 4250): {"sd35_medium_slg": 84},
+    ((1, 24, 4096, 64), 4096): {"sd35_medium_slg": 40},
     ((2, 5, 9216, 64), 9216): {"sd2": 100},
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
     ((2, 20, 576, 64), 576): {"sd2": 100},
@@ -748,7 +807,8 @@ def check_int8():
         if not res["ok"]:
             raise AssertionError(f"q8_matmul_ws_int8 {where}: kernel "
                                  "disagrees with its plain version")
-        if m == 8192:     # an x-stream product: 24 blocks x 20 evaluations
+        if m == 8192 and k in (1536, 6144):
+            # an SD3 x-stream product: 24 blocks x 20 evaluations
             for key in ("ms", "library_ms", "int8_library_ms", "bound_ms"):
                 per_request[key] += 24 * SD3_STEPS * t[key]
         if (m, k, n) == (8192, 1536, 6144):
@@ -866,46 +926,14 @@ def _q8_kernel(rows: int, k: int, n: int, percol: bool, int8: bool) -> str:
     return f"q8_matmul_{kind_}"
 
 
-def sd3_products(s) -> collections.Counter:
-    """(rows, K, N, per column) -> calls of one SD3-medium request's
-    quantized products, from the module tree: each quantized linear with the
-    rows it gets (the two text towers once per request on the 2 x 77 tokens
-    of prompt and negative prompt; per MMDiT evaluation, the CFG batch's 2 x
-    4096 image tokens in the x stream and the final layer, its 2 x (77 +
-    the T5 rows: t5_tokens with T5 weights and a tokenizer, else 77)
-    context tokens in the context stream and the context embedder, 2 rows
-    in the adaLN and embedders) and whether its weight is stored per
-    column."""
-    img = 2 * (SD3_DIM // 16) ** 2
-    n_tok = s._mt.clip_p.n_token
-    t5 = (s.c["t5"] or s._bundled_t5) and s.c["t5_tokenizer"]
-    ctx = 2 * (n_tok + (s.c["t5_tokens"] if t5 else n_tok))
-    calls = collections.Counter()
-    for prefix, mod in s._models.items():
-        for name, m in mod.named_modules():
-            if not isinstance(m, blocks_mod.QLinear):
-                continue
-            n, k = m.weight_q8.shape
-            if prefix != "mmdit.":
-                rows, times = 2 * s._mt.clip_p.n_token, 1
-            elif "adaLN" in name or name.startswith(("t_", "y_")):
-                rows, times = 2, SD3_STEPS
-            elif ".x_block." in name or name == "final_layer.linear":
-                rows, times = img, SD3_STEPS
-            else:
-                rows, times = ctx, SD3_STEPS
-            calls[(rows, k, n, m.weight_scale.dim() == 1)] += times
-    return calls
-
-
 def sd3_want(s, int8: bool = False) -> dict:
-    """The launches of one SD3-medium request: those of ``sd3_products``,
+    """The launches of one SD3-medium request: those of ``dit_products``,
     each to the kernel the dispatch gives it (``int8``: under
     MLIS_Q8_MODE=int8)."""
     want = dict(SD3_FLASH_PER_REQUEST)
     if not s.qbits:
         return want
-    for (rows, k, n, percol), c in sd3_products(s).items():
+    for (rows, k, n, percol), c in dit_products(s, SD3_STEPS).items():
         key = _q8_kernel(rows, k, n, percol, int8)
         want[key] = want.get(key, 0) + c
     if want.get("q8_matmul_ws_int8") != SD3_INT8_PER_REQUEST:
@@ -918,45 +946,9 @@ def sd3_dq_products(s) -> collections.Counter:
     that run a weight-only kernel in the default mode (every one but the
     per-column W8A8 kernel's)."""
     calls = collections.Counter()
-    for (rows, k, n, percol), c in sd3_products(s).items():
+    for (rows, k, n, percol), c in dit_products(s, SD3_STEPS).items():
         if _q8_kernel(rows, k, n, percol, False) != "q8_matmul_ws_int8":
             calls[(rows, k, n)] += c
-    return calls
-
-
-def sdxl_products(s) -> collections.Counter:
-    """(rows, K, N) -> calls of one SDXL 1024^2 request's quantized
-    products, from the module tree: the text towers once on the 2 x 77
-    tokens of prompt and negative prompt (CLIP-L runs its first 11 layers at
-    clip skip 2, bigG all 32 for its pooled feature); per UNet evaluation x
-    20, the time, label and resnet embeddings at 2 rows, the
-    cross-attention k/v at 2 x 77 rows and every other transformer linear
-    at the CFG batch's tokens of its level (2 x 64^2 at 640 channels, 2 x
-    32^2 at 1280)."""
-    P = s._mt.unet_p
-    ctx = 2 * s._mt.clip_p.n_token
-    calls = collections.Counter()
-    for prefix, mod in s._models.items():
-        n_run = (clip_mod.clip_skip_layers(s._mt.clip_p, s.c["clip_skip"])
-                 if prefix == "clip.text." else None)
-        for name, m in mod.named_modules():
-            if not isinstance(m, blocks_mod.QLinear):
-                continue
-            n, k = m.weight_scale.shape[0], m.weight_scale.shape[1] * 128
-            if prefix != "unet.":
-                layer = int(name.split(".")[2])
-                if n_run is None or layer < n_run:
-                    calls[(ctx, k, n)] += 1
-                continue
-            if "embed" in name or "emb_proj" in name:
-                rows = 2
-            elif ".attn2.k_proj" in name or ".attn2.v_proj" in name:
-                rows = ctx
-            else:
-                st = mod.get_submodule(name.split(".transf.")[0])
-                level = P.ch_mult.index(st.proj_in.in_channels // P.n_ch)
-                rows = 2 * (SDXL_DIM // 8 >> level) ** 2
-            calls[(rows, k, n)] += SDXL_STEPS
     return calls
 
 
@@ -966,7 +958,7 @@ def sdxl_want(s, int8: bool = False) -> dict:
     want = dict(SDXL_FLASH_PER_REQUEST)
     if not s.qbits:
         return want
-    for (rows, k, n), c in sdxl_products(s).items():
+    for (rows, k, n), c in unet_products(s, SDXL_DIM, SDXL_STEPS).items():
         key = _q8_kernel(rows, k, n, False, int8)
         want[key] = want.get(key, 0) + c
     return want
@@ -1196,8 +1188,111 @@ def sd2_path(tmp: str) -> collections.Counter:
               image_std=float(img.std()))
         if not _image_ok(img, SD2_DIM):
             raise AssertionError(f"sd2 {method}: bad image")
+    launches.update(sd2_q8_request(s))
     _drop(s)
     os.remove(ckpt)
+    return launches
+
+
+def unet_products(s, dim: int, n_eval: int) -> collections.Counter:
+    """(rows, K, N) -> calls of one SD2 or SDXL request's quantized
+    products at ``dim``^2, from the module tree: the text towers once on
+    the 2 x 77 tokens of prompt and negative prompt (CLIP-L or ViT-H its
+    first layers, to the clip skip; bigG all of them, for its pooled
+    feature); per UNet evaluation (``n_eval``), the time, label and resnet
+    embeddings at 2 rows, the cross-attention k/v at 2 x 77 rows and every
+    other transformer linear at the CFG batch's tokens of its level (in.i
+    at level (i - 1) / (n_res + 1), out.j at the last level less j / (n_res
+    + 1), mid at the last)."""
+    P = s._mt.unet_p
+    ctx = 2 * s._mt.clip_p.n_token
+    last, per = len(P.ch_mult) - 1, P.n_res_blk + 1
+    calls = collections.Counter()
+    for prefix, mod in s._models.items():
+        n_run = (clip_mod.clip_skip_layers(s._mt.clip_p, s.c["clip_skip"])
+                 if prefix == "clip.text." else None)
+        for name, m in mod.named_modules():
+            if not isinstance(m, blocks_mod.QLinear):
+                continue
+            n, k = m.weight_scale.shape[0], m.weight_scale.shape[1] * 128
+            if prefix != "unet.":
+                if n_run is None or int(name.split(".")[2]) < n_run:
+                    calls[(ctx, k, n)] += 1
+                continue
+            part, idx = name.split(".")[:2]
+            if "embed" in name or "emb_proj" in name:
+                rows = 2
+            elif ".attn2.k_proj" in name or ".attn2.v_proj" in name:
+                rows = ctx
+            else:
+                level = (last if part == "mid" else (int(idx) - 1) // per
+                         if part == "in" else last - int(idx) // per)
+                rows = 2 * (dim // 8 >> level) ** 2
+            calls[(rows, k, n)] += n_eval
+    return calls
+
+
+def sd2_q8_request(s) -> collections.Counter:
+    """SD2.1-768-v under q8_0 (``main`` lines with ``path`` q8_0), the one
+    path of the port that had not run on the card: the SD2 session switched
+    to q8_0 (the checkpoint read to the card and quantized there), two
+    requests at 768^2, 20 DPM++2M steps, CFG 7, each with its exact
+    launches by kernel and shape (K1 per attention shape, K2, K5 and K6 per
+    product, ``unet_products``) and peak memory; then one UNet evaluation
+    (the raw v output) with the quantized matmuls against their plain
+    versions.  Returns the launches."""
+    for k, v in [("weight-type", SD2_Q8), ("tae", ""), ("method", "dpmpp2m"),
+                 ("s-noise", 0), ("s-ancestral", 0), ("steps", SD2_STEPS),
+                 ("cfg-scale", 7.0), ("image-dim", SD2_DIM)]:
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    torch.cuda.synchronize()
+    phase("main", model="sd2", path=SD2_Q8, step="setup",
+          load_s=time.time() - t0, quantized_linears=sum(
+              isinstance(m, blocks_mod.QLinear)
+              for mod in s._models.values() for m in mod.modules()))
+    want = {**_flash_want("sd2", SD2_STEPS, 1),
+            **_quant_want({key + (False,): c for key, c in unet_products(
+                s, SD2_DIM, SD2_STEPS).items()}, 8)}
+    launches = collections.Counter()
+    for i, (seed, prompt) in enumerate(REQUESTS[:2]):
+        s.option_set("seed", seed)
+        s.option_set("prompt", prompt)
+        s.option_set("nprompt", "blurry, low quality")
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        img = s.generate()
+        secs = time.time() - t0
+        shapes = (collections.Counter(fa.LAUNCH_SHAPES)
+                  + collections.Counter(qmm.LAUNCH_SHAPES))
+        got = _check_launches(f"sd2 q8_0 request {i}", shapes, want)
+        launches.update(got)
+        phase("main", model="sd2", path=SD2_Q8, request=i, seed=seed,
+              cold=(i == 0), seconds=secs,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=got, launches_by_shape={
+                  f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+              image_mean=float(img.mean()), image_std=float(img.std()))
+        if not _image_ok(img, SD2_DIM):
+            raise AssertionError(f"sd2 q8_0: bad image {img.shape}")
+    unet = s._models["unet."]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hw, sigma = SD2_DIM // 8, 14.6
+    x = torch.randn(2, 4, hw, hw, device="cuda", generator=gen) * sigma
+    t = torch.full((2,), 999.0, device="cuda")
+    cond = torch.from_numpy(np.concatenate(
+        [s.tensors["cond"], s.tensors["ncond"]])).cuda()
+
+    def run():
+        with torch.no_grad():
+            return [("sd2_unet_v_q8_0", unet(
+                x / (sigma * sigma + 1.0) ** 0.5, t,
+                cond).float())]
+
+    _kernels_vs_plain(SD2_Q8, 8, run)
     return launches
 
 
@@ -1252,6 +1347,8 @@ def dit_requests(s, model: str, requests, steps: int, line: str
             raise AssertionError(f"{model}: quantized kernels "
                                  f"{qmm.LAUNCHES}")
         launches.update(got)
+        s.peak_bytes = max(getattr(s, "peak_bytes", 0),
+                           torch.cuda.max_memory_allocated())
         phase(line, model=model, request=i, seed=seed,
               cold=(i == 0), seconds=secs, steps=steps,
               cfg_scale=s.c["cfg_scale"], t5_tokens=s.c["t5_tokens"],
@@ -1314,6 +1411,303 @@ def _dit_session(model: str, files: dict, t5_tokens: int, steps: int,
     return s
 
 
+def _t5_rows(s) -> int:
+    """The T5 context rows of a request of ``s``: ``t5_tokens`` with T5
+    weights and a tokenizer, else CLIP's 77 zero rows."""
+    t5 = (s.c["t5"] or s._bundled_t5) and s.c["t5_tokenizer"]
+    return s.c["t5_tokens"] if t5 else s._mt.clip_p.n_token
+
+
+def dit_products(s, n_eval: int, slg_evals: int = 0) -> collections.Counter:
+    """(rows, K, N, per column) -> calls of one SD3, SD3.5 or Flux
+    request's quantized products at DIT_DIM^2, from the module tree: the
+    text towers once, every layer (the pooled row is read at the top), on
+    the 77 rows of each prompt (the prompt, and the negative prompt under
+    CFG); per denoiser evaluation (``n_eval``), the batch's image tokens in
+    the image-stream products and the final linear, its context rows (CLIP
+    and T5 on the SD3 family, T5 on Flux) in the context-stream products and
+    ``context_embedder`` / ``txt_in``, both in Flux's single blocks, and a
+    row a sample in the modulations and embedders; under skip-layer
+    guidance ``slg_evals`` more evaluations of the cond rows alone (batch
+    1) without the blocks of ``slg-layers``."""
+    P = s._mt.unet_p
+    flux = getattr(P, "flux", False)
+    cfg = 1.0 if getattr(P, "guidance_embed", False) else s.c["cfg_scale"]
+    b = 2 if cfg > 1 else 1
+    img, txt = (DIT_DIM // 16) ** 2, _t5_rows(s) + (0 if flux else 77)
+    skip = ({int(v) for v in s.c["slg_layers"].split(",")} if slg_evals
+            else set())
+    calls = collections.Counter()
+    for prefix, mod in s._models.items():
+        for name, m in mod.named_modules():
+            if not isinstance(m, blocks_mod.QLinear):
+                continue
+            n = m.weight_scale.shape[0]
+            k = (m.weight_q4.shape[1] * 2 if m.bits == 4
+                 else m.weight_q8.shape[1])
+            key = (k, n, m.weight_scale.dim() == 1)
+            if prefix in ("clip.text.", "clip2.text."):
+                calls[(b * s._mt.clip_p.n_token,) + key] += 1
+                continue
+            parts = name.split(".")
+            block = (int(parts[1]) + (P.depth_double if parts[0]
+                                      == "single_blocks" else 0)
+                     if parts[0] in ("joint_blocks", "double_blocks",
+                                     "single_blocks") else None)
+            if ("adaLN" in name or "_mod." in name or "modulation" in name
+                    or parts[0] in ("t_embedder", "y_embedder", "time_in",
+                                    "guidance_in", "vector_in")):
+                rows = 1
+            elif (".x_block." in name or ".img_" in name
+                  or name == "final_layer.linear"):
+                rows = img
+            elif parts[0] == "single_blocks":
+                rows = img + txt
+            else:       # the context stream, context_embedder, txt_in
+                rows = txt
+            calls[(b * rows,) + key] += n_eval
+            if slg_evals and block not in skip:
+                calls[(rows,) + key] += slg_evals
+    return calls
+
+
+def _quant_want(calls, bits: int, int8: bool = False) -> dict:
+    """(kernel, (rows, K, N)) -> launches of ``calls``, each product to the
+    kernel ``qmm.q8_dot`` / ``q4_dot`` gives it (``int8``: under
+    MLIS_Q8_MODE=int8)."""
+    want = collections.Counter()
+    for (rows, k, n, percol), c in calls.items():
+        name = (_q8_kernel(rows, k, n, percol, int8) if bits == 8 else
+                "q4_matmul_" + ("ws" if qmm.use_ws(rows, k) else "tile"))
+        want[(name, (rows, k, n))] += c
+    return dict(want)
+
+
+def _slg_flash_want(s, slg_evals: int) -> dict:
+    """The flash launches of ``slg_evals`` skip-layer passes of an SD3.5
+    session (batch 1): a joint attention in each block the pass runs, an
+    attn2 in each of those with MMDiT-X's second attention."""
+    P = s._mt.unet_p
+    skip = {int(v) for v in s.c["slg_layers"].split(",")}
+    run = [i for i in range(P.depth) if i not in skip]
+    s_joint = (DIT_DIM // 16) ** 2 + 77 + _t5_rows(s)
+    want = {("flash_attn_joint", (1, P.heads, s_joint, 64)):
+            slg_evals * len(run)}
+    n2 = sum(i in P.x_self_attn_layers for i in run)
+    if n2:
+        want[("flash_attn_joint", (1, P.heads, (DIT_DIM // 16) ** 2, 64))] \
+            = slg_evals * n2
+    return want
+
+
+def _slg_evals(s, steps: int) -> int:
+    """The evaluations a request of ``s`` steers by skip-layer guidance:
+    those of the steps in its window (one each under euler)."""
+    if not s.c["slg_scale"]:
+        return 0
+    i0 = int(round(s.c["slg_start"] * steps))
+    i1 = max(int(round(s.c["slg_end"] * steps)), i0 + 1)
+    return min(i1, steps) - i0
+
+
+def dit_switch(s, model: str, line: str, opts) -> None:
+    """Set ``opts`` (a weight type among them) on the SD3.5 or Flux session
+    ``s`` and set it up again (the denoiser, the text tower and the VAE
+    reload, their weights read to the card and quantized there; the T5
+    encoder stays), with its setup seconds, quantized and per-column
+    linears and device memory reported."""
+    for k, v in opts:
+        s.option_set(k, v)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    s.setup()
+    torch.cuda.synchronize()
+    qlin = [m for mod in s._models.values() for m in mod.modules()
+            if isinstance(m, blocks_mod.QLinear)]
+    phase(line, model=model, path=DIT_Q[model][0], step="setup",
+          load_s=time.time() - t0, lora_merge_s=s.times.get("lora_merge_s"),
+          quantized_linears=len(qlin),
+          per_column=sum(m.weight_scale.dim() == 1 for m in qlin),
+          memory_allocated=torch.cuda.memory_allocated(),
+          options=dict(opts))
+
+
+def dit_q_requests(s, model: str, requests, steps: int, line: str,
+                   mode: str = "dq", check: bool = True
+                   ) -> collections.Counter:
+    """The txt2img ``requests`` (seed, prompt) on the quantized SD3.5 or
+    Flux session ``s`` under MLIS_Q8_MODE ``mode``, each with its exact
+    launches by kernel and shape (the flash kernels' and each quantized
+    product's, ``dit_products``; the skip-layer passes' too) and its peak
+    memory; then (``check``) the in-situ check: the denoiser's first
+    evaluation of the last request with the kernels against the same with
+    the quantized matmuls' plain versions (``REF_LIMITS``).  Returns the
+    launches of the requests."""
+    wt, bits = DIT_Q[model]
+    launches = collections.Counter()
+    den = s._models[s._denoiser()]
+    slg = _slg_evals(s, steps)
+    want = {**_flash_want(model, steps, 1), **_quant_want(
+        dit_products(s, steps, slg), bits, mode == "int8")}
+    if slg:
+        want.update(_slg_flash_want(s, slg))
+    os.environ["MLIS_Q8_MODE"] = mode
+    s.peak_bytes = 0
+    try:
+        for i, (seed, prompt) in enumerate(requests):
+            s.option_set("seed", seed)
+            s.option_set("prompt", prompt)
+            s.option_set("nprompt", "blurry, low quality")
+            first, hook = _first_eval(den)
+            fa.reset_counts()
+            qmm.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            try:
+                img = s.generate()
+            finally:
+                hook.remove()
+            secs = time.time() - t0
+            shapes = (collections.Counter(fa.LAUNCH_SHAPES)
+                      + collections.Counter(qmm.LAUNCH_SHAPES))
+            got = _check_launches(f"{model} {wt} {mode} request {i}",
+                                  shapes, want)
+            launches.update(got)
+            s.last_shapes = shapes
+            s.peak_bytes = max(s.peak_bytes,
+                               torch.cuda.max_memory_allocated())
+            phase(line, model=model, path=wt, mode=mode, request=i,
+                  **_clocks(), seed=seed, steps=steps, slg_evaluations=slg,
+                  cold=(i == 0 and mode == "dq"), seconds=secs,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  launches=got, launches_by_shape={
+                      f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+                  image_mean=float(img.mean()), image_std=float(img.std()))
+            if not _image_ok(img, DIT_DIM) or s.c["model_type"] != model:
+                raise AssertionError(f"{model} {wt} request {i}: bad "
+                                     f"image {img.shape}")
+        if check:
+            first = first[0]
+
+            def run():
+                with torch.no_grad():
+                    return [(f"{model}_v_{wt}" + (
+                        "_int8" if mode == "int8" else ""),
+                             den(*first).float())]
+
+            _kernels_vs_plain(wt, bits, run)
+    finally:
+        del os.environ["MLIS_Q8_MODE"]
+    return launches
+
+
+def _check_flux_lora_weights(s, path: str, deltas: dict, mult: float,
+                             n_numpy: int = 5) -> None:
+    """Every weight the Flux LoRA patches, on the card, against the
+    quantization of bf16(W + mult * alpha / rank * up @ down) computed on
+    the host in f32 from the file's W (per column where the session stores
+    the weight so): bit for bit, quantized on the card by the session's
+    torch quantizers; the first ``n_numpy`` also by the numpy ones, which
+    the CPU tests hold against the JAX package's."""
+    store = TensorStore.open(path)
+    n_eq = n_np = 0
+
+    def host(item):
+        # numpy and torch release the interpreter lock: threads share out
+        # the host work of the 133 weights
+        name, (down, up, alpha) = item
+        w = weights_mod.read_entry(store, name_map[name]).astype(np.float32)
+        scale = np.float32(alpha / down.shape[0] * mult)
+        return name, torch.from_numpy(w + (up @ down) * scale).to(s.dtype)
+
+    try:
+        name_map = weights_mod.build_name_map(store)
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            refs = list(pool.map(host, deltas.items()))
+        for j, (name, want) in enumerate(refs):
+            mod = s._models["flux."].get_submodule(
+                name[len("flux."):-len(".weight")])
+            percol = mod.weight_scale.dim() == 1
+            q, sc = quant.quantize_weight_torch(want.cuda())
+            if percol:
+                q, sc, _ = quant.percol_from_blocks_torch(q, sc)
+            ok = torch.equal(mod.weight_q8, q) and torch.equal(
+                mod.weight_scale, sc)
+            if j < n_numpy:
+                qn, sn = quant.quantize_weight(want.float().numpy())
+                if percol:
+                    qn, sn, _ = quant.percol_from_blocks(qn, sn)
+                ok = ok and (np.array_equal(q.cpu().numpy(), qn)
+                             and np.array_equal(sc.cpu().numpy(), sn))
+                n_np += 1
+            n_eq += ok
+    finally:
+        store.close()
+    n = len(deltas)
+    phase("flux", step="lora_weights", weights=n, equal=n_eq,
+          numpy_checked=n_np, mult=mult)
+    if n_eq != n:
+        raise AssertionError(f"{n - n_eq} of {n} merged Flux LoRA weights "
+                             "differ from their host reference")
+
+
+def flux_lora_requests(s, tmp: str, files: dict) -> collections.Counter:
+    """The Flux-dev q8_0 session ``s`` with a seeded random full-width LoRA
+    (rank 16, ``testing.write_random_flux_lora``), in kohya names, then in
+    PEFT names: each a LoRA list change that reloads the transformer
+    alone (merged on the host, then quantized on the card) and a request
+    of LORA_STEPS steps with its exact launches; the kohya weights checked
+    against the host (``_check_flux_lora_weights``), the PEFT ones equal to
+    them, and the two latents equal, bit for bit.  Returns the
+    launches."""
+    launches = collections.Counter()
+    saved, latents = {}, {}
+    for kind in ("kohya", "peft"):
+        path = os.path.join(tmp, f"flux-lora-{kind}-f16.safetensors")
+        t0 = time.time()
+        deltas = testing.write_random_flux_lora(
+            path, s._mt, rank=LORA_RANK, seed=0, peft=kind == "peft")
+        phase("flux", step="lora", kind=kind, write_s=time.time() - t0,
+              targets=len(deltas), rank=LORA_RANK,
+              bytes=os.path.getsize(path))
+        s.option_set("lora-clear", 1)
+        s.option_set("lora", path, LORA_MULT)
+        s.option_set("steps", LORA_STEPS)
+        t0 = time.time()
+        s.setup()
+        torch.cuda.synchronize()
+        phase("flux", model="flux_dev", path="q8_0", step="lora_reload",
+              kind=kind, seconds=time.time() - t0,
+              load_s=s.times["load_s"], lora_merge_s=s.times["lora_merge_s"],
+              reloaded=sorted(s._lora_prefixes))
+        if s._lora_prefixes != {"flux."}:
+            raise AssertionError(f"flux LoRA reloaded {s._lora_prefixes}")
+        launches.update(dit_q_requests(s, "flux_dev", REQUESTS[:1],
+                                       LORA_STEPS, "flux", check=False))
+        latents[kind] = s.tensors["latent"]
+        mods = {n: s._models["flux."].get_submodule(
+            n[len("flux."):-len(".weight")]) for n in deltas}
+        if kind == "kohya":
+            _check_flux_lora_weights(s, files["model"], deltas, LORA_MULT)
+            saved = {n: (m.weight_q8.clone(), m.weight_scale.clone())
+                     for n, m in mods.items()}
+        else:
+            same = sum(torch.equal(m.weight_q8, saved[n][0])
+                       and torch.equal(m.weight_scale, saved[n][1])
+                       for n, m in mods.items())
+            phase("flux", step="lora_peft_weights", weights=len(mods),
+                  equal_to_kohya=same)
+            if same != len(mods):
+                raise AssertionError("PEFT and kohya LoRA weights differ")
+        os.remove(path)
+    saved.clear()
+    equal = bool(np.array_equal(latents["kohya"], latents["peft"]))
+    phase("flux", step="lora_latents", kohya_equals_peft=equal)
+    if not equal:
+        raise AssertionError("the kohya and PEFT LoRAs' latents differ")
+    return launches
+
+
 def sd35_path(tmp: str, t5: dict) -> collections.Counter:
     """SD3.5-medium and SD3.5-large at 1024^2 (``sd35`` lines): a seeded
     random full-width checkpoint of each drawn on the card, with the
@@ -1331,6 +1725,18 @@ def sd35_path(tmp: str, t5: dict) -> collections.Counter:
                          7.0, "sd35")
         launches.update(dit_requests(s, model, REQUESTS[:2], SD35_STEPS,
                                      "sd35"))
+        # the same session quantized (SD3.5-medium with skip-layer
+        # guidance)
+        dit_switch(s, model, "sd35", [("weight-type", DIT_Q[model][0])]
+                   + (SD35_SLG if model == "sd35_medium" else []))
+        launches.update(dit_q_requests(s, model, REQUESTS[:1], SD35_STEPS,
+                                       "sd35"))
+        if model == "sd35_large":
+            k7 = sum(n for (name, shape), n in s.last_shapes.items()
+                     if name == "q8_matmul_ws_int8" and shape[1] == 2432)
+            phase("sd35", model=model, path="q8_0", k7_slab_2432=k7)
+            if k7 != 3 * 38 * SD35_STEPS:
+                raise AssertionError(f"K7 at slab 2432: {k7} launches")
         _release(s)
         del s
         os.remove(path)
@@ -1366,6 +1772,21 @@ def flux_path(tmp: str, t5: dict) -> collections.Counter:
         raise AssertionError(f"flux_dev: the schedule's shift {shift}")
     launches.update(dit_requests(s, "flux_dev", REQUESTS[:dev["requests"]],
                                  dev["steps"], "flux"))
+    bf16_peak = s.peak_bytes
+    # the same session in q8_0: two requests, one under MLIS_Q8_MODE=int8
+    # (K8), then the LoRA requests
+    dit_switch(s, "flux_dev", "flux", [("weight-type", "q8_0")])
+    launches.update(dit_q_requests(s, "flux_dev", REQUESTS[:2],
+                                   dev["steps"], "flux"))
+    q8_peak = s.peak_bytes
+    phase("flux", model="flux_dev", path="q8_0", peak_bytes=q8_peak,
+          bf16_peak_bytes=bf16_peak)
+    if not q8_peak < bf16_peak:
+        raise AssertionError(f"flux_dev q8_0 peaks at {q8_peak} B, bf16 at "
+                             f"{bf16_peak}")
+    launches.update(dit_q_requests(s, "flux_dev", REQUESTS[2:3],
+                                   dev["steps"], "flux", mode="int8"))
+    launches.update(flux_lora_requests(s, tmp, files))
     _release(s)
     del s
     png = os.path.join(tmp, "flux-dev.png")
@@ -1396,6 +1817,9 @@ def flux_path(tmp: str, t5: dict) -> collections.Counter:
     launches.update(dit_requests(s, "flux_schnell",
                                  REQUESTS[:fast["requests"]],
                                  fast["steps"], "flux"))
+    dit_switch(s, "flux_schnell", "flux", [("weight-type", "q4_0")])
+    launches.update(dit_q_requests(s, "flux_schnell", REQUESTS[:1],
+                                   fast["steps"], "flux"))
     _release(s)
     del s
     for key in ("model", "clip", "vae"):
@@ -1666,7 +2090,8 @@ def sdxl_lowmem_requests(s, wt: str) -> collections.Counter:
     (q4_0) must peak at or under ``LOWMEM_BYTES``.  Returns the launches."""
     quant = collections.Counter()
     if s.qbits:
-        for (rows, k, n), c in sdxl_products(s).items():
+        for (rows, k, n), c in unet_products(s, SDXL_DIM,
+                                             SDXL_STEPS).items():
             kind_ = "ws" if qmm.use_ws(rows, k) else "tile"
             quant[(f"q{s.qbits}_matmul_{kind_}", (rows, k, n))] += c
     k1 = _flash_want("sdxl", SDXL_STEPS, 0)
@@ -2020,7 +2445,10 @@ REF_LIMITS = {"unet_eps": 3e-2, "vae_image": 1.5e-2,
               "vae_enc_moments_1024": 1.5e-2,
               "sdxl_vae_tiled_image": 1.5e-2, "sd3_t5_request_latent": 3e-2,
               "sd35_medium_v": 3e-2, "sd35_large_v": 3e-2,
-              "flux_dev_v": 3e-2, "flux_schnell_v": 3e-2}
+              "flux_dev_v": 3e-2, "flux_schnell_v": 3e-2,
+              "flux_dev_v_q8_0": 3e-2, "flux_dev_v_q8_0_int8": 3e-2,
+              "flux_schnell_v_q4_0": 3e-2, "sd35_large_v_q8_0": 3e-2,
+              "sd35_medium_v_q8_0": 3e-2, "sd2_unet_v_q8_0": 1e-2}
 
 # the kernel wrappers and their plain versions: the plain run of the
 # reference phase swaps them, so both runs take the same dispatch
@@ -2239,12 +2667,12 @@ def sd2_reference_check(s):
 
 def time_sdxl_int8_shapes(s) -> dict:
     """The quantized products of one SDXL q8_0 request under
-    MLIS_Q8_MODE=int8 (``sdxl_products``), each timed for the per-block
+    MLIS_Q8_MODE=int8 (``unet_products``), each timed for the per-block
     W8A8 kernel beside its bound and the library calls; returns the
     per-request sums (``int8_library_ms`` over the products it takes,
     ``int8_library_calls`` of them)."""
     totals = collections.defaultdict(float)
-    calls = sdxl_products(s)
+    calls = unet_products(s, SDXL_DIM, SDXL_STEPS)
     for (m, k, n), c in sorted(calls.items()):
         x, q, sc = testing.quant_inputs(m, k, n, 8)
         w = (q.float().view(n, -1, quant.KBLOCK) * sc[:, :, None]

@@ -14,7 +14,10 @@ context of SD3, SD3.5 and Flux (``t5`` weights, bundled or a file of their
 own, read with the ``t5_tokenizer`` ``tokenizer.json``; ``t5_tokens``
 rows).  A model that ships as components (Flux: a transformer-only file)
 takes its text tower and its autoencoder from the ``clip`` and ``vae``
-files.
+files.  Every weight type runs on every model type: quantized linears are
+quantized where the weights are read to (the card, or the host for a
+module staged there).  The DiT families take skip-layer guidance
+(``slg_scale``, ``slg_layers``, ``slg_start``, ``slg_end``).
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -58,7 +61,7 @@ from .nameconv import normalize_name
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import (SamplerConfig, make_plan, plan_n_step,
-                               run_sampler)
+                               run_sampler, slg_plan)
 from .sampling.solvers import SOLVERS, get_solver
 from .utils import image as image_mod
 from .utils.log import g_logger as log
@@ -161,7 +164,8 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "clip_skip", "tae", "aux_dir", "callback", "image", "image_mask",
             "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
             "tensor_use_flags", "vae_tile", "unet_split", "embed_dir",
-            "t5", "t5_tokenizer", "t5_tokens", "clip", "vae")
+            "t5", "t5_tokenizer", "t5_tokens", "clip", "vae", "slg_scale",
+            "slg_layers", "slg_start", "slg_end", "no_decode")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
@@ -373,6 +377,9 @@ class MLImgSynth:
                             "to run on the CPU")
         self.dtype = self._default_dtype()
         self.qbits = 0
+        # a ``weight-type`` the caller set; else a model file of quantized
+        # tensors sets ``qbits`` (``_load_model``)
+        self._wtype_set = False
         self.c = {"model": "", "model_type": "", "prompt_raw": "",
                   "nprompt_raw": "", "width": 0, "height": 0, "steps": 0,
                   "cfg_scale": 7.0, "method": "euler",
@@ -383,7 +390,8 @@ class MLImgSynth:
                   "lora_dir": "", "tuflags": 0, "vae_tile": 0,
                   "unet_split": False, "embed_dir": "", "t5": "",
                   "t5_tokenizer": "", "t5_tokens": 77, "clip": "",
-                  "vae": ""}
+                  "vae": "", "slg_scale": 0.0, "slg_layers": "7,8,9",
+                  "slg_start": 0.01, "slg_end": 0.2, "no_decode": False}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -479,6 +487,7 @@ class MLImgSynth:
             wt = str(v).lower()
             if wt in ("", "none", "-1"):
                 self.dtype, self.qbits = self._default_dtype(), 0
+                self._wtype_set = False
                 return
             if wt not in _WEIGHT_TYPES:
                 raise MlisError(MlisError.E_OPT_VALUE,
@@ -486,10 +495,11 @@ class MLImgSynth:
                                 f"{', '.join(_WEIGHT_TYPES)})")
             dtype, self.qbits = _WEIGHT_TYPES[wt]
             self.dtype = dtype or self._default_dtype()
+            self._wtype_set = True
         elif opt in ("prompt", "nprompt"):
             self._prompt_set(opt, str(v))
-        elif opt == "no_prompt_parse":
-            c["no_prompt_parse"] = _bool(v)
+        elif opt in ("no_prompt_parse", "no_decode"):
+            c[opt] = _bool(v)
         elif opt == "image_dim":
             c["width"] = _int(v)
             c["height"] = (_int(args[1]) if len(args) > 1 and str(args[1])
@@ -571,6 +581,31 @@ class MLImgSynth:
             c[opt] = str(v)     # a new file reloads the model (``setup``)
         elif opt == "t5_tokens":
             c["t5_tokens"] = _int(v, 77)
+        elif opt == "slg_scale":
+            # skip-layer guidance (``mlimgsynth_tpu/api.py:403-432``)
+            f = _float(v)
+            if f < 0:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "slg-scale must be >= 0")
+            c["slg_scale"] = f
+        elif opt == "slg_layers":
+            # rejoined: ``option_set_str`` splits "7,8,9" into three values
+            txt = ",".join(str(a) for a in args)
+            try:
+                layers = tuple(int(x) for x in txt.split(",") if x.strip())
+            except ValueError:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                f"invalid slg-layers '{txt}'")
+            if not layers:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "slg-layers must name at least one block")
+            c["slg_layers"] = ",".join(str(x) for x in layers)
+        elif opt in ("slg_start", "slg_end"):
+            f = _float(v)
+            if not 0.0 <= f <= 1.0:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                f"{opt} must be in [0, 1]")
+            c[opt] = f
 
     def _image_set(self, img) -> None:
         """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
@@ -830,7 +865,7 @@ class MLImgSynth:
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
         key = (f"{path}|{self.c['clip']}|{self.c['vae']}|{self.dtype}|"
-               f"{self.qbits}|{self.device}")
+               f"{self.qbits if self._wtype_set else 'file'}|{self.device}")
         loras = tuple((p, m) for p, m, _ in self.loras)
         if self._loaded != key:
             self._models, self._encoders = {}, {}
@@ -949,7 +984,12 @@ class MLImgSynth:
                                     "could not detect the model type")
                 if self._mt is None:
                     self._option_set("model_type", mt)
-            self._unported_check(loras)
+                if not self._wtype_set:
+                    # the file's weight type, where its tensors are
+                    # quantized (a GGUF q8_0 or q4_*: ``api.py:1066-1068``);
+                    # float files keep the device's compute type
+                    ft = weights_mod.stored_type(store, name_map)
+                    self.qbits = _WEIGHT_TYPES.get(ft, (None, 0))[1]
             models = (build_encoders if encoders else build_models)(self._mt)
             touched = self._lora_touched(name_map, loras, list(models))
             if reload:
@@ -964,24 +1004,25 @@ class MLImgSynth:
             if not (encoders or only):
                 self.times["lora_merge_s"] = time.time() - t1
             # the DiT families store some 8-bit weights per column, decided
-            # for the session's image size (``api.py:1229-1247``)
+            # for the session's image size: tokens and 256 context rows,
+            # doubled for the CFG batch but on Flux (``api.py:1229-1247``)
             m_hint = (dit_m_hint(self.c["height"] or 1024,
-                                 self.c["width"] or 1024)
+                                 self.c["width"] or 1024,
+                                 flux=self._denoiser() == "flux.")
                       if self._flow() else None)
             target = self._encoders if encoders else self._models
             n_q, err = 0, None
             for prefix, m in models.items():
                 target.pop(prefix, None)   # free the old copy first
-                # read to the host and quantize there, or (float weights
-                # that stay on the device) read to the device and cast
-                # there, then move to the device
+                # read to the device and cast (and quantize) there, or, for
+                # a module staged on the host, read to the host and cast
+                # (and quantize) there
                 staged = (self.c["unet_split"] and prefix in _STAGED
                           and not encoders)
                 try:
                     params = weights_mod.load_params(
                         store, name_map, weights_mod.module_shapes(m, prefix),
-                        "cpu" if self.qbits or staged else self.device,
-                        self.dtype)
+                        "cpu" if staged else self.device, self.dtype)
                 except KeyError as e:
                     # raised once the store is closed; a model that ships
                     # as components takes its text tower and its VAE from
@@ -996,7 +1037,7 @@ class MLImgSynth:
                 if self.qbits:
                     n_q += weights_mod.quantize_linear_weights(
                         m, prefix, params, self.qbits,
-                        m_hint if prefix == "mmdit." else None)
+                        m_hint if prefix == self._denoiser() else None)
                 if encoders:     # the VAE encoder stays on the device
                     params = {k: v.to(self.device)
                               for k, v in params.items()}
@@ -1050,21 +1091,6 @@ class MLImgSynth:
                                 f"'{self.c[opt]}'")
             log.debug(f"{opt} file: {n} tensors mapped")
         return name_map
-
-    def _unported_check(self, loras) -> None:
-        """Options of the JAX session that this port does not carry for
-        the model type raise: quantized weight types on SD3.5 and Flux,
-        LoRAs on Flux."""
-        P, name = self._mt.unet_p, self._mt.name
-        flux = getattr(P, "flux", False)
-        if self.qbits and (flux or getattr(P, "qk_norm", False)):
-            raise MlisError(MlisError.E_OPT_VALUE,
-                            f"weight-type: quantized weights on {name} are "
-                            "not supported by the PyTorch port")
-        if loras and flux:
-            raise MlisError(MlisError.E_OPT_VALUE,
-                            f"lora: LoRAs on {name} are not supported by the "
-                            "PyTorch port")
 
     def _grow_token_table(self, m, prefix: str,
                           params: Dict[str, torch.Tensor]) -> None:
@@ -1478,7 +1504,9 @@ class MLImgSynth:
         return image_mod.mask_downsize(np.asarray(mask, np.float32), f)
 
     def generate(self) -> np.ndarray:
-        """Run a request with the current options; returns the image.  With
+        """Run a request with the current options; returns the image (with
+        ``no_decode``, the latent, and ``tensors["image"]`` is left as it
+        was).  With
         an ``image`` the initial latent is its encoding (img2img, the
         schedule cut at ``f_t_ini``); with a mask (``image_mask``, the
         image's alpha) the masked-in region (1 = KEEP) stays that latent."""
@@ -1525,7 +1553,11 @@ class MLImgSynth:
                              n_step=c["steps"], cfg_scale=eff_cfg,
                              s_ancestral=c["s_ancestral"],
                              s_noise=c["s_noise"], f_t_ini=c["f_t_ini"],
-                             f_t_end=c["f_t_end"], flow_shift=flow_shift)
+                             f_t_end=c["f_t_end"], flow_shift=flow_shift,
+                             **_slg_kw(c))
+        # skip-layer guidance's errors before the noise is drawn, as the
+        # JAX session's ``_guidance_checks`` (``api.py:2028-2059``)
+        slg_plan(scfg, P, c["steps"])
         edit_segs = self._edit_segments(use_cfg, scfg)
         edit_steps = None
         if edit_segs is not None:
@@ -1588,7 +1620,10 @@ class MLImgSynth:
                 # the denoiser leaves the card after the loop (``:2480``)
                 self._stage_out(denoiser)
             t_dec = time.time()
-            if c["vae_tile"] > 0 and not c["tae"]:
+            if c["no_decode"]:
+                # the latent is the result (``api.py:2484``, ``:2510``)
+                image = None
+            elif c["vae_tile"] > 0 and not c["tae"]:
                 # the JAX session's ``image_decode`` branch (``:2499``):
                 # the float image, neither clamped nor quantized
                 image = self._image_decode(x).cpu().numpy()
@@ -1617,14 +1652,15 @@ class MLImgSynth:
                 self.tensors["label"] = label[:1].cpu().numpy()
                 self.tensors["nlabel"] = (label[1:].cpu().numpy() if use_cfg
                                           else None)
-        self.tensors["image"] = image
-        self._cb(STAGE_IMAGE_DECODE, 1, 1)
+        if image is not None:
+            self.tensors["image"] = image
+            self._cb(STAGE_IMAGE_DECODE, 1, 1)
         self._infotext_update(w * f, h * f, plan.n_step,
                               "inpaint" if lmask is not None else "img2img")
         self._prompt_clear()
         self.times["generate_s"] = time.time() - t_start
         log.info(f"Generation done {{{self.times['generate_s']:.3f}s}}")
-        return self.tensors["image"]
+        return self.tensors["latent"] if image is None else image
 
     def _infotext_update(self, w: int, h: int, n_step: int,
                          mode: str = "img2img") -> None:
@@ -1644,6 +1680,11 @@ class MLImgSynth:
             out.append(f", SNoise: {c['s_noise']:g}")
         if c["cfg_scale"] > 1:
             out.append(f", CFG scale: {c['cfg_scale']:g}")
+        if c["slg_scale"] > 0:
+            out.append(f", SLG scale: {c['slg_scale']:g}"
+                       f", SLG layers: {c['slg_layers']}"
+                       f", SLG start: {c['slg_start']:g}"
+                       f", SLG end: {c['slg_end']:g}")
         if c["f_t_ini"] < 1:
             out.append(f", Mode: {mode}, f_t_ini: {c['f_t_ini']:g}")
         out.append(f", Steps: {n_step}, NFE: {self._nfe}, Size: {w}x{h}"
@@ -1663,3 +1704,15 @@ class MLImgSynth:
         c["prompt_raw"] = c["nprompt_raw"] = ""
         c["f_t_ini"], c["f_t_end"], c["tuflags"] = 1.0, 0.0, 0
         self.loras = [l for l in self.loras if not l[2]]
+
+
+def _slg_kw(c) -> dict:
+    """``SamplerConfig`` keywords of skip-layer guidance from the options
+    (``_slg_kw``, ``mlimgsynth_tpu/api.py:3320-3329``)."""
+    if not c["slg_scale"]:
+        return {}
+    return {"slg_scale": float(c["slg_scale"]),
+            "slg_layers": tuple(int(v) for v in str(c["slg_layers"])
+                                .split(",") if v.strip()),
+            "slg_start": float(c["slg_start"]),
+            "slg_end": float(c["slg_end"])}

@@ -34,10 +34,10 @@ HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
 Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base, 3-medium, 3.5-large
 and 3.5-medium, and Flux.1-schnell and -dev are implemented: txt2img,
-img2img and inpainting, with LoRAs (not on Flux), textual-inversion
-embeddings, prompt editing (UNet models) and the T5-XXL context of SD3,
-SD3.5 and Flux; images are encoded and decoded by the VAE or the TAE
-(--tae).
+img2img and inpainting, with LoRAs, textual-inversion embeddings, prompt
+editing (UNet models), skip-layer guidance (SD3, SD3.5, Flux) and the
+T5-XXL context of SD3, SD3.5 and Flux; images are encoded and decoded by
+the VAE or the TAE (--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
@@ -62,6 +62,8 @@ Generation options:
   --ilatent PATH       Input latent tensor.
   --ilmask PATH        Input latent mask tensor.
   --olatent PATH       Output latent tensor path.
+  --no-decode BOOL     Skip the decode: the latent is the result (for
+                       --olatent; no image is written).
   --no-prompt-parse B  Use the prompt as raw text (no emphasis, tag or
                        editing parsing). Prompts support A1111 emphasis
                        ((x:1.5), [x]), <lora:NAME:MULT>, <emb:NAME>, and
@@ -81,8 +83,7 @@ Models and backend:
   --tae PATH           TAE model file. Enables TAE instead of VAE.
   --aux-dir PATH       Directory searched for a relative --tae or LoRA
                        path.
-  --lora PATH,MULT     Apply a LoRA (multiplier optional; repeatable; not
-                       on Flux).
+  --lora PATH,MULT     Apply a LoRA (multiplier optional; repeatable).
                        <lora:NAME:MULT> in a prompt applies NAME for one
                        request.
   --lora-dir PATH      Directory searched for <lora:NAME:MULT> prompt tags.
@@ -97,8 +98,7 @@ Models and backend:
   -b --backend NAME    cuda (default) or cpu.
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
-  --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...; the
-                       quantized ones not on SD3.5 and Flux).
+  --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
   --batch-size INT     Images per batch.
 
 Sampling:
@@ -115,6 +115,12 @@ Sampling:
   --cfg-scale FLOAT    Classifier-free guidance scale (default 7); on
                        Flux-dev the embedded guidance value (no uncond
                        pass).
+  --slg-scale FLOAT    Skip-layer guidance scale (SD3/SD3.5/Flux;
+                       SD3.5-medium recommends 2.5-3; default 0 = off).
+  --slg-layers LIST    Blocks left out in the SLG pass (default 7,8,9;
+                       Flux: 0-18 double, 19-56 single blocks).
+  --slg-start FLOAT    SLG window start, fraction of steps (default 0.01).
+  --slg-end FLOAT      SLG window end, fraction of steps (default 0.2).
   --clip-skip INT      CLIP layers to skip. Default: 1 (SD1, Flux), 2
                        (SD2/XL/3/3.5).
 
@@ -272,8 +278,8 @@ def cmd_generate(session, state: CliState) -> int:
     if state.paths["olatent"]:
         image_mod.tensor_save(state.paths["olatent"],
                               session.tensors["latent"])
-    if state.paths["output"]:
-        img = session.tensors["image"]
+    img = session.tensors["image"]
+    if state.paths["output"] and img is not None:     # not with --no-decode
         for idx in range(img.shape[0]):
             path = state.paths["output"]
             if img.shape[0] > 1 and path != "-":

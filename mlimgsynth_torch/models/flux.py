@@ -293,11 +293,14 @@ class Flux(nn.Module):
                                     rope_tables(self.P, hp, wp, s_txt))
         return self._rope[key]
 
-    def forward(self, x, t, cond, pooled, guidance=None):
+    def forward(self, x, t, cond, pooled, guidance=None, skip_layers=()):
         """x: [N, C, H, W] latent, t: [N] timesteps (sigma * 1000), cond:
         [N, S, d_ctx_in] T5 rows, pooled: [N, d_pooled] CLIP-L's pooled
         row, ``guidance``: [N] embedded-guidance values (dev; None is 0)
-        -> the velocity [N, C, H, W] in the parameters' dtype."""
+        -> the velocity [N, C, H, W] in the parameters' dtype.  The blocks
+        whose indices ``skip_layers`` names are left out: 0 .. depth_double
+        - 1 the double blocks, then the single blocks (``flux.py:254-256``,
+        ``:346-367``)."""
         P = self.P
         dtype = self.img_in.weight.dtype
         n, cl, hh, ww = x.shape
@@ -317,11 +320,13 @@ class Flux(nn.Module):
         vec = vec + self.vector_in(pooled.to(dtype))
         s_txt = cond.shape[1]
         cos, sin = self.rope(hp, wp, s_txt, x.device)
-        for blk in self.double_blocks:
-            img, txt = blk(img, txt, vec, cos, sin)
+        for i, blk in enumerate(self.double_blocks):
+            if i not in skip_layers:
+                img, txt = blk(img, txt, vec, cos, sin)
         xx = torch.cat([txt, img], dim=1)
-        for blk in self.single_blocks:
-            xx = blk(xx, vec, cos, sin)
+        for i, blk in enumerate(self.single_blocks, P.depth_double):
+            if i not in skip_layers:
+                xx = blk(xx, vec, cos, sin)
         img = xx[:, s_txt:]
         fl = self.final_layer
         shift, scale = fl.adaLN_modulation["1"](F.silu(vec)).float().chunk(
@@ -332,7 +337,7 @@ class Flux(nn.Module):
         return img.reshape(n, cl, hh, ww)
 
 
-def denoise(model: Flux, x, sigma, t, cond, label):
+def denoise(model: Flux, x, sigma, t, cond, label, skip_layers=()):
     """Rectified-flow wrapper (``denoise``, ``flux.py:389-411``): the
     velocity is the solver's derivative; ``t`` is ``sigma *
     n_step_train``, scalar or [N]; on dev the label's column ``d_pooled``
@@ -344,4 +349,4 @@ def denoise(model: Flux, x, sigma, t, cond, label):
     if P.guidance_embed:
         guidance = label[:, P.d_pooled].float()
         label = label[:, :P.d_pooled]
-    return model(x, t, cond, label, guidance).float()
+    return model(x, t, cond, label, guidance, skip_layers).float()

@@ -6,8 +6,8 @@
 single-file layout's.  SD3.5 adds the per-head RMSNorm of q and k
 (``qk_norm``, ``attn.ln_q`` / ``attn.ln_k``) and, on medium (MMDiT-X), a
 second latent-only self-attention (``x_block.attn2``) in the first 13
-blocks.  Not ported: skip-layer guidance, the block cache, pipeline-stacked
-blocks.  The fused qkv stays
+blocks.  Skip-layer guidance leaves joint blocks out by index.  Not
+ported: the block cache, pipeline-stacked blocks.  The fused qkv stays
 one linear (one product, and one quantized weight on the q8 path, as the
 JAX package's ``_qkv`` ``B.linear`` branch, ``:139-148``).  Activations are
 [N, S, d] token streams; the latent at the boundary is NCHW.
@@ -252,10 +252,12 @@ class MMDiT(nn.Module):
         top, left = (g - hp) // 2, (g - wp) // 2
         return pe[top:top + hp, left:left + wp].reshape(1, hp * wp, -1)
 
-    def forward(self, x, t, cond, pooled):
+    def forward(self, x, t, cond, pooled, skip_layers=()):
         """x: [N, C, H, W] latent, t: [N] timesteps (0..1000 scale), cond:
         [N, S, d_ctx_in] context tokens, pooled: [N, d_pooled] -> the
-        velocity [N, C, H, W] in the parameters' dtype."""
+        velocity [N, C, H, W] in the parameters' dtype.  The joint blocks
+        whose indices ``skip_layers`` names are left out (skip-layer
+        guidance's degraded pass, ``mmdit.py:280-284``, ``:360-366``)."""
         P = self.P
         dtype = self.pos_embed.dtype
         n, _, h, w = x.shape
@@ -267,8 +269,9 @@ class MMDiT(nn.Module):
         ye = self.y_embedder(pooled.to(dtype))
         c = (te + ye).float()
         cx = self.context_embedder(cond.to(dtype))
-        for blk in self.joint_blocks:
-            cx, xe = blk(cx, xe, c)
+        for i, blk in enumerate(self.joint_blocks):
+            if i not in skip_layers:
+                cx, xe = blk(cx, xe, c)
         fl = self.final_layer
         shift, scale = fl.mods(c)
         xe = fl.linear(B.modulate(fl.norm_final(xe), shift, scale))
@@ -278,11 +281,11 @@ class MMDiT(nn.Module):
                                                       hp * p, wp * p)
 
 
-def denoise(model: MMDiT, x, sigma, t, cond, label):
+def denoise(model: MMDiT, x, sigma, t, cond, label, skip_layers=()):
     """Rectified-flow wrapper (``denoise``, ``mmdit.py:390-408``): the
     model predicts the velocity ``noise - x0 = dx/dsigma``, so its output
     is the solver's derivative with no input or output scaling; ``t`` is
     ``sigma * n_step_train``, scalar or [N].  Returns f32."""
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=x.device).expand(x.shape[0])
-    return model(x, t, cond, label).float()
+    return model(x, t, cond, label, skip_layers).float()

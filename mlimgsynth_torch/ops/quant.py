@@ -26,6 +26,15 @@ kernel makes them; the main path never does).
 Per-column storage (the DiT families' int8 weight-stationary route):
 ``percol_from_blocks`` turns a stored per-block pair into int8 [N, K] with
 f32 scales [N], as ``mlimgsynth_tpu/ops/q8_matmul.py:347-374`` does.
+
+The session quantizes with the torch versions (``quantize_weight_torch``,
+``quantize_weight_q4_torch``, ``percol_from_blocks_torch``), on whatever
+device the weight lies: on a card, a weight read there is quantized there.
+They do the numpy versions' arithmetic and give their values bit for bit:
+``amax / 127`` as a true division (a Python-number divisor would make
+CUDA multiply by its reciprocal), the ``1e-30`` floor, ``round`` half to
+even, and numpy's median of an even count (the mean of the two middle
+values, where ``torch.median`` takes the lower one).
 """
 from __future__ import annotations
 
@@ -63,6 +72,37 @@ def quantize_weight_q4(w: np.ndarray):
     hi = q[:, :, HALF:] << 4                      # group rows 64..127
     packed = (lo | hi).astype(np.int8).reshape(n, k // 2)
     return packed, scale.reshape(n, k // KBLOCK)
+
+
+def _block_quant(w: torch.Tensor, qmax: float):
+    """[N, K] float -> (integer-valued f32 [N, K/128, 128], f32 scales
+    [N, K/128, 1]): ``amax / qmax`` per 128-deep group, the values rounded
+    half to even and clipped to +-qmax."""
+    n, k = w.shape
+    assert k % KBLOCK == 0, (n, k)
+    wb = w.float().reshape(n, k // KBLOCK, KBLOCK)
+    amax = wb.abs().amax(dim=2, keepdim=True)
+    scale = amax / torch.full_like(amax, qmax)
+    q = torch.round(wb / scale.clamp_min(1e-30)).clamp_(-qmax, qmax)
+    return q, scale
+
+
+def quantize_weight_torch(w: torch.Tensor):
+    """:func:`quantize_weight` on a tensor, on its device: [N, K] float ->
+    (int8 [N, K], f32 scales [N, K/128])."""
+    q, scale = _block_quant(w, 127.0)
+    n, k = w.shape
+    return q.to(torch.int8).reshape(n, k), scale.reshape(n, k // KBLOCK)
+
+
+def quantize_weight_q4_torch(w: torch.Tensor):
+    """:func:`quantize_weight_q4` on a tensor, on its device: [N, K] float
+    -> (packed int8 [N, K/2], f32 scales [N, K/128])."""
+    q, scale = _block_quant(w, 7.0)
+    q = q.to(torch.int8)
+    n, k = w.shape
+    packed = (q[:, :, :HALF] & 0x0F) | (q[:, :, HALF:] << 4)
+    return packed.reshape(n, k // 2), scale.reshape(n, k // KBLOCK)
 
 
 def unpack_q4(packed: torch.Tensor) -> torch.Tensor:
@@ -124,6 +164,25 @@ def percol_from_blocks(q: np.ndarray, s_block: np.ndarray):
     med = np.maximum(np.median(s_block, axis=1), 1e-30)
     ratio = float(np.max(s_col / med))
     return q2.astype(np.int8), s_col, ratio
+
+
+def percol_from_blocks_torch(q: torch.Tensor, s_block: torch.Tensor):
+    """:func:`percol_from_blocks` on tensors, on their device: (int8 [N,
+    K], f32 [N, K/128]) -> (int8 [N, K], f32 [N], scale_ratio)."""
+    n, k = q.shape
+    w = (q.float().reshape(n, k // KBLOCK, KBLOCK)
+         * s_block[:, :, None]).reshape(n, k)
+    amax = w.abs().amax(dim=1)
+    s_col = amax / torch.full_like(amax, 127.0)
+    q2 = torch.round(w / s_col.clamp_min(1e-30)[:, None]).clamp_(-127, 127)
+    srt = s_block.sort(dim=1).values
+    nb = srt.shape[1]
+    # np.median: the middle value, or the f32 mean of the two middle ones
+    med = (srt[:, nb // 2] if nb % 2 else
+           (srt[:, nb // 2 - 1] + srt[:, nb // 2]) / torch.full_like(
+               srt[:, 0], 2.0))
+    ratio = float((s_col / med.clamp_min(1e-30)).max())
+    return q2.to(torch.int8), s_col, ratio
 
 
 # worst-column s_col / median block scale allowed before a weight stays

@@ -13,6 +13,12 @@ and the initial latent scaled by ``1 - sigma_0`` before the noise is added
 (``mlimgsynth_tpu/sampling/sampler.py:118``, ``:162-166``, ``:318-335``,
 ``:622-625``).
 
+Skip-layer guidance (the DiT families): on the steps of the window
+``[round(slg_start n), max(round(slg_end n), i0 + 1))`` each evaluation
+adds one conditional-only evaluation with the ``slg_layers`` blocks left
+out and steers away from it, ``out + slg_scale (d_cond - d_skip)``
+(``mlimgsynth_tpu/sampling/sampler.py:356-372``, ``:955-982``).
+
 img2img starts from an encoded latent over a schedule cut by ``f_t_ini``;
 inpainting also holds the kept region to that latent: a latent mask
 (1 = KEEP) is applied after the initial noise, after a churn draw and after
@@ -26,6 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..errors import MlisError
 from ..models import flux as flux_mod
 from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
@@ -47,6 +54,13 @@ class SamplerConfig:
     f_t_end: float = 0.0
     # rectified-flow resolution shift (0: the SD beta-linear schedule)
     flow_shift: float = 0.0
+    # skip-layer guidance (DiT families): one extra conditional evaluation
+    # with ``slg_layers`` blocks left out on the steps in the [slg_start,
+    # slg_end) fraction of the schedule; 0 is off
+    slg_scale: float = 0.0
+    slg_layers: tuple = (7, 8, 9)
+    slg_start: float = 0.01
+    slg_end: float = 0.2
 
 
 @dataclass
@@ -145,6 +159,33 @@ def _cfg_mix(d, n: int, cfg_scale: float):
     return d[:n] * cfg_scale + d[n:] * (1 - cfg_scale)
 
 
+def slg_plan(cfg: SamplerConfig, unet_p, n_step: int):
+    """(scale, layers, i0, i1) of skip-layer guidance over a loop of
+    ``n_step`` steps, or None when ``slg_scale`` is 0; ``MlisError``
+    (``E_OPT_VALUE``) for a model that is not a DiT, layers out of range
+    for its depth, or an empty window (``sampler.py:960-982``)."""
+    if cfg.slg_scale <= 0:
+        return None
+    if not getattr(unet_p, "flow", False):
+        raise MlisError(
+            MlisError.E_OPT_VALUE,
+            "skip-layer guidance requires a DiT model (SD3/SD3.5/Flux)")
+    depth = (getattr(unet_p, "depth", 0)
+             or getattr(unet_p, "depth_double", 0)
+             + getattr(unet_p, "depth_single", 0))
+    layers = tuple(sorted(int(v) for v in cfg.slg_layers))
+    if not layers or min(layers) < 0 or max(layers) >= depth:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        f"slg layers out of range for depth {depth}: "
+                        f"{layers}")
+    if cfg.slg_end <= cfg.slg_start:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "slg window is empty (slg_end <= slg_start)")
+    i0 = int(round(cfg.slg_start * n_step))
+    i1 = max(int(round(cfg.slg_end * n_step)), i0 + 1)
+    return float(cfg.slg_scale), layers, i0, i1
+
+
 def _mask_apply(x, x0, lmask):
     """Inpainting mask re-application (src/sampling.c:98-110): 1 keeps
     ``x0``."""
@@ -167,7 +208,9 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     [n_step, rows] matrix) ``cond_all`` and ``label_all`` are a bank of
     encoded rows, and step i conditions on the rows ``cond_steps[i]``
     picks, in the same cond-then-uncond layout (the JAX loop's gather,
-    ``mlimgsynth_tpu/sampling/sampler.py:312-316``, ``:862-875``).
+    ``mlimgsynth_tpu/sampling/sampler.py:312-316``, ``:862-875``).  With
+    ``cfg.slg_scale`` set, the steps of the skip-layer window evaluate the
+    cond rows once more with the layers left out (:func:`slg_plan`).
     ``step_observer(i_step, latent_nchw_numpy)`` sees every step, and
     ``step_callback(i_step, n_step)`` is told of each (the session's
     progress).  Returns the final latent, f32 on the device."""
@@ -187,18 +230,35 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         raise ValueError(f"{len(cond_steps)} conditioning steps for a plan "
                          f"of {plan.n_step}")
 
-    def dxdt(x, sigma):
-        n = x.shape[0]
-        xb = torch.cat([x, x]) if use_cfg else x
-        if flow:
-            t = np.float32(sigma) * np.float32(model.P.n_step_train)
-            d = flow_denoise(model, xb, np.float32(sigma), t, cond_all,
-                             label_all)
-        else:
-            t = sigma_to_t(log_sigmas, sigma)
-            d = unet_mod.denoise(model, xb, np.float32(sigma), t, cond_all,
+    slg = slg_plan(cfg, model.P, plan.n_step)
+
+    def dxdt_at(i):
+        """The derivative of step ``i``: under skip-layer guidance inside
+        its window, steered away from the cond rows' evaluation with the
+        layers left out."""
+        steer = slg is not None and slg[2] <= i < slg[3]
+
+        def dxdt(x, sigma):
+            n = x.shape[0]
+            xb = torch.cat([x, x]) if use_cfg else x
+            if flow:
+                t = np.float32(sigma) * np.float32(model.P.n_step_train)
+                d = flow_denoise(model, xb, np.float32(sigma), t, cond_all,
                                  label_all)
-        return _cfg_mix(d, n, cfg.cfg_scale) if use_cfg else d
+            else:
+                t = sigma_to_t(log_sigmas, sigma)
+                d = unet_mod.denoise(model, xb, np.float32(sigma), t,
+                                     cond_all, label_all)
+            out = _cfg_mix(d, n, cfg.cfg_scale) if use_cfg else d
+            if steer:
+                scale, layers, _, _ = slg
+                d_skip = flow_denoise(
+                    model, x, np.float32(sigma), t, cond_all[:n],
+                    None if label_all is None else label_all[:n],
+                    skip_layers=layers)
+                out = out + scale * (d[:n] - d_skip)
+            return out
+        return dxdt
 
     f32 = np.float32
     x = to_dev(x_init).float()
@@ -223,7 +283,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
             if mask is not None:
                 x = _mask_apply(x, x0_keep, mask)
             t = f32(plan.s_hat[i])
-        x, state = solver.step(dxdt, x, state, i, t, f32(plan.s_down[i]))
+        x, state = solver.step(dxdt_at(i), x, state, i, t,
+                               f32(plan.s_down[i]))
         if plan.s_up[i] > 0:   # post-step ancestral noise
             x = x + to_dev(plan.anc_noise[i]) * f32(plan.s_up[i])
         t = f32(plan.t_next[i])

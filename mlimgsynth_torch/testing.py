@@ -9,13 +9,16 @@ The tiny geometries carry the values of ``mlimgsynth_tpu/testing.py``
 ``:94-101``, the SD3 set ``TINY_MODEL_TYPE_SD3``, ``:387-409``, its
 MMDiT-X ``TINY_MMDIT_X``, ``:396-404``, and the Flux set, ``:547-563``) in
 the port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
-``TINY_Q_MODEL_TYPE_XL`` and ``TINY_Q_MODEL_TYPE_SD3`` widen them so that
-the linears quantize.  A Flux model ships as component files
-(:func:`write_random_flux_files`).
+``TINY_Q_MODEL_TYPE_XL``, ``TINY_Q_MODEL_TYPE_SD3``, ``TINY_Q_MODEL_TYPE_SD35``
+and the ``TINY_Q_MODEL_TYPE_FLUX*`` pair widen them so that the linears
+quantize.  A Flux model ships as component files
+(:func:`write_random_flux_files`); its LoRAs come in kohya or
+diffusers-PEFT names (:func:`write_random_flux_lora`).
 """
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import math
 import re
@@ -140,6 +143,38 @@ TINY_Q_MMDIT = mmdit_mod.MmditParams(
 TINY_Q_MODEL_TYPE_SD3 = ModelTypeDef("sd3", TINY_Q_CLIP, TINY_Q_MMDIT,
                                      TINY_VAE_SD3, 512, 2, TINY_Q_CLIP2)
 
+
+# The SD3.5-medium set at widths that quantize: TINY_Q_MMDIT with qk-norm
+# and MMDiT-X's attn2 in block 0, conditioned by the 32-wide towers of the
+# JAX package's tiny SD3 files (a 64-wide pooled row, which stays in the
+# compute dtype; the 64 context columns zero-padded to 256).  At 512^2 the
+# CFG batch's x-stream products have 2 x 1024 rows, the W8A8 route's.
+TINY_Q_MMDIT_X = dataclasses.replace(TINY_Q_MMDIT, d_pooled=64,
+                                     qk_norm=True, x_self_attn_layers=(0,))
+TINY_Q_MODEL_TYPE_SD35 = ModelTypeDef("sd35_medium", TINY_CLIP,
+                                      TINY_Q_MMDIT_X, TINY_VAE_SD3, 512, 2,
+                                      TINY_CLIP2)
+
+# The Flux set at widths that quantize: one double and one single block
+# 128 wide with 2 heads of 64 (RoPE axes 16 + 24 + 24), a 128-wide
+# context; ``img_in`` (16 packed channels) and ``vector_in`` (the tiny
+# CLIP-L's 32-wide pooled row) stay in the compute dtype, as the full
+# model's ``img_in`` (64) does.  Flux has no CFG batch, so the per-column
+# storage needs 768^2: ``dit_m_hint(768, 768, flux=True)`` = 2,560 tokens
+# (512^2 gives 1,280, below the W8A8 route's 2,048 rows).
+TINY_Q_FLUX_SCHNELL = flux_mod.FluxParams(
+    depth_double=1, depth_single=1, d_model=128, n_head=2,
+    axes_dim=(16, 24, 24), n_ch_in=16, n_ch_out=16, d_ctx_in=128,
+    d_pooled=32, n_ctx=128)
+TINY_Q_FLUX_DEV = dataclasses.replace(TINY_Q_FLUX_SCHNELL,
+                                      guidance_embed=True,
+                                      dynamic_shift=True)
+TINY_Q_MODEL_TYPE_FLUX = ModelTypeDef("flux_schnell", TINY_CLIP,
+                                      TINY_Q_FLUX_SCHNELL, TINY_VAE_FLUX,
+                                      768, 1)
+TINY_Q_MODEL_TYPE_FLUX_DEV = ModelTypeDef("flux_dev", TINY_CLIP,
+                                          TINY_Q_FLUX_DEV, TINY_VAE_FLUX,
+                                          768, 1)
 
 # T5: the encoder-parity geometry (128 wide, 4 heads of 32) and one narrow
 # enough for the tiny SD3's 80-wide context (its rows zero-padded to 80)
@@ -612,6 +647,79 @@ def write_random_lora(path, mt: ModelTypeDef, targets, rank: int = 4,
     return out
 
 
+# A Flux LoRA's targets in every block: the image stream's fused qkv, its
+# attention output and its MLP input in the double blocks, ``linear1`` (the
+# fused qkv and MLP input) and ``linear2`` in the single blocks.  In
+# diffusers-PEFT names a fused target is one slice: the q third of the qkv
+# (``attn.to_q``), the MLP's four sevenths of ``linear1`` (``proj_mlp``).
+# (weight tail, kohya module, PEFT module, PEFT row slice (num, span, den)
+# or None)
+_FLUX_LORA_DOUBLE = (("img_attn.qkv", "img_attn_qkv", "attn.to_q", (0, 1, 3)),
+                     ("img_attn.proj", "img_attn_proj", "attn.to_out.0",
+                      None),
+                     ("img_mlp.0", "img_mlp_0", "ff.net.0.proj", None))
+_FLUX_LORA_SINGLE = (("linear1", "linear1", "proj_mlp", (3, 4, 7)),
+                     ("linear2", "linear2", "proj_out", None))
+
+
+def write_random_flux_lora(path, mt: ModelTypeDef, rank: int = 4,
+                           seed: int = 0, peft: bool = False,
+                           dtype=np.float16) -> Dict:
+    """Seeded random LoRA of the Flux type ``mt`` at ``path`` on the
+    targets above in every block: kohya names
+    (``lora_unet_double_blocks_0_img_attn_qkv``, ``.alpha`` = rank), or
+    with ``peft`` diffusers-PEFT ones (``transformer.transformer_blocks.0.
+    attn.to_q``, no alpha: scale 1), a fused target's pair on its slice.
+    Both draw the same values for a seed, and the kohya file holds a
+    sliced target's up rows zero-padded into the fused weight, so the two
+    files merge into the same weights bit for bit.  down ~ N(0, 1/in), up ~
+    N(0, 1/rank) / 4, as :func:`write_random_lora`.  Returns {internal
+    weight name: (down, up over the whole weight, alpha)} in f32 as the
+    kohya file holds them."""
+    shapes = model_shapes(mt)
+    rng = np.random.default_rng(seed)
+    header, arrays, out = {}, [], {}
+    P = mt.unet_p
+    for blocks, table, pblocks, depth in (
+            ("double_blocks", _FLUX_LORA_DOUBLE, "transformer_blocks",
+             P.depth_double),
+            ("single_blocks", _FLUX_LORA_SINGLE,
+             "single_transformer_blocks", P.depth_single)):
+        for i in range(depth):
+            for tail, kmod, pmod, frac in table:
+                name = f"flux.{blocks}.{i}.{tail}.weight"
+                n_out, n_in = shapes[name]
+                rows = n_out if frac is None else n_out // frac[2] * frac[1]
+                r0 = 0 if frac is None else n_out // frac[2] * frac[0]
+                down = (rng.standard_normal((rank, n_in), dtype=np.float32)
+                        / np.float32(math.sqrt(n_in))).astype(dtype)
+                up = (rng.standard_normal((rows, rank), dtype=np.float32)
+                      / np.float32(4.0 * math.sqrt(rank))).astype(dtype)
+                full = np.zeros((n_out, rank), dtype)
+                full[r0:r0 + rows] = up
+                if peft:
+                    stem = f"transformer.{pblocks}.{i}.{pmod}"
+                    pairs = ((".lora_A.weight", down), (".lora_B.weight", up))
+                    at = "" if frac is None else "@%d/%d/%d" % frac
+                    want = f"flux.{blocks}.{i}.{tail}{at}"
+                else:
+                    stem = f"lora_unet_{blocks}_{i}_{kmod}"
+                    pairs = ((".lora_down.weight", down),
+                             (".lora_up.weight", full),
+                             (".alpha", np.array([rank], dtype)))
+                    want = f"flux.{blocks}.{i}.{tail}"
+                back = nameconv.normalize_lora_name(stem + pairs[0][0],
+                                                    "flux")
+                if back != want + ".lora_down.weight":
+                    raise ValueError(f"LoRA name {stem} maps to {back}")
+                for k, v in pairs:
+                    header[stem + k] = v.shape
+                    arrays.append((stem + k, v))
+                out[name] = (down.astype(np.float32),
+                             full.astype(np.float32), float(rank))
+    write_safetensors(path, header, dtype, iter(arrays))
+    return out
+
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
 # 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens), SD2.1
 # 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels, and
@@ -652,6 +760,10 @@ ATTN_CASES = [
      "Flux-dev joint attention, 512 T5 tokens (head dim 128)"),
     ("flash_attn_joint", (1, 24, 4352, 128), 4352,
      "Flux-schnell joint attention, 256 T5 tokens (head dim 128)"),
+    ("flash_attn_joint", (1, 24, 4250, 64), 4250,
+     "SD3.5-medium skip-layer pass, joint attention (batch 1)"),
+    ("flash_attn_joint", (1, 24, 4096, 64), 4096,
+     "SD3.5-medium skip-layer pass, MMDiT-X attn2 (batch 1)"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),
     ("flash_attn_joint", (1, 2, 2100, 128), 2100, "head dim 128"),
 ]
@@ -700,7 +812,10 @@ def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 # Each quantized-matmul kernel against its plain twin on the card, at the
 # products of the SD1.5 512^2 main path (CFG batch 2), the weight-stationary
 # and the most frequent tiled products of the SDXL and SD3-medium 1024^2
-# ones (CFG batch 2) and two ragged ones.
+# ones (CFG batch 2), SD2.1-768-v's (CFG batch 2 of 96^2, 48^2 and 24^2
+# tokens), the weight-only products of Flux.1 at 1024^2 (no CFG batch: 4096
+# image tokens, 512 T5 tokens on dev, 256 on schnell, 4608 and 4352 in the
+# single blocks) and two ragged ones.
 # (kernel kind, M, K, N, where the main path runs it); every case runs for
 # q8 and q4.
 QUANT_CASES = [
@@ -726,6 +841,19 @@ QUANT_CASES = [
     ("tile", 308, 1536, 6144, "SD3 context mlp.fc1"),
     ("tile", 308, 6144, 1536, "SD3 context mlp.fc2"),
     ("tile", 2, 1536, 9216, "SD3 adaLN"),
+    ("ws", 18432, 1280, 320, "SD2 ff.net.2, 96x96 level"),
+    ("ws", 4608, 640, 640, "SD2 attention q/k/v/out, 48x48 level"),
+    ("tile", 1152, 1280, 1280, "SD2 attention q/k/v/out, 24x24 level"),
+    ("tile", 154, 1024, 640, "SD2 cross-attention k/v, 48x48 level"),
+    ("ws", 4096, 12288, 3072, "Flux img_mlp.2"),
+    ("ws", 4608, 15360, 3072, "Flux single-block linear2"),
+    ("ws", 4352, 3072, 21504, "Flux-schnell single-block linear1 (q4_0)"),
+    ("ws", 4096, 3072, 64, "Flux final linear (N 64)"),
+    ("tile", 512, 3072, 9216, "Flux txt_attn.qkv, 512 T5 tokens"),
+    ("tile", 512, 12288, 3072, "Flux txt_mlp.2, 512 T5 tokens"),
+    ("tile", 512, 4096, 3072, "Flux txt_in"),
+    ("tile", 256, 3072, 12288, "Flux-schnell txt_mlp.0, 256 T5 tokens"),
+    ("tile", 1, 3072, 18432, "Flux double-block modulation"),
     ("tile", 77, 768, 200, "ragged M and N"),
 ]
 
@@ -765,13 +893,24 @@ def quant_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 
 # The W8A8 kernel on per-column weights against its plain twin: the four
 # x-stream products of SD3-medium at 1024^2 (CFG batch 2 x 4096 image
-# tokens; slab 512 at K 1536, 1024 at K 6144), a ragged M, and ragged N with
-# slabs 256 and 640 (K itself).  (M, K, N, where the main path runs it)
+# tokens; slab 512 at K 1536, 1024 at K 6144), those of SD3.5-large (K 2432
+# = 19 x 128 has no slab of 1024, 512 or 256: the slab is K itself, where a
+# slab's integer dot no longer fits an f32 exactly), SD3.5-medium's
+# batch-1 skip-layer pass, Flux.1's per-column products (4096 image
+# tokens, 4608 in the single blocks), a ragged M, and ragged N with slabs
+# 256 and 640 (K itself).  (M, K, N, where the main path runs it)
 INT8_CASES = [
     (8192, 1536, 4608, "x_block attn.qkv"),
     (8192, 1536, 1536, "x_block attn.proj"),
     (8192, 1536, 6144, "x_block mlp.fc1"),
     (8192, 6144, 1536, "x_block mlp.fc2"),
+    (8192, 2432, 7296, "SD3.5-large x_block attn.qkv (slab 2432)"),
+    (8192, 2432, 2432, "SD3.5-large x_block attn.proj (slab 2432)"),
+    (8192, 2432, 9728, "SD3.5-large x_block mlp.fc1 (slab 2432)"),
+    (4096, 1536, 4608, "SD3.5-medium skip-layer pass x_block attn.qkv"),
+    (4096, 3072, 9216, "Flux img_attn.qkv"),
+    (4096, 3072, 12288, "Flux img_mlp.0"),
+    (4608, 3072, 21504, "Flux single-block linear1"),
     (4097, 1536, 1536, "ragged M"),
     (2048, 1536, 640, "tile width 80"),
     (300, 768, 200, "ragged M and N, slab 256"),
@@ -812,7 +951,9 @@ def int8_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 # The W8A8 kernel on per-block weights (K8, the ``MLIS_Q8_MODE=int8`` route)
 # against its plain twin: products of an SDXL q8_0 UNet at 1024^2 (CFG
 # batch 2: 8,192 tokens at the 64 x 64 level, 2,048 at 32 x 32, 2 x 77
-# context rows, 2 label rows) and ragged M and N.  (M, K, N, where the main
+# context rows, 2 label rows), the per-block ones of Flux.1-dev at 1024^2
+# (the single blocks' linear2 at 4608 rows, the text stream at 512, the
+# modulation at 1) and ragged M and N.  (M, K, N, where the main
 # path runs it); the inputs are ``quant_inputs(m, k, n, 8)``.
 Q8_INT8_CASES = [
     (8192, 640, 5120, "ff.net.0.proj, 64x64 level"),
@@ -822,6 +963,9 @@ Q8_INT8_CASES = [
     (2048, 5120, 1280, "ff.net.2, 32x32 level"),
     (154, 2048, 1280, "cross-attention k/v, 32x32 level"),
     (2, 2816, 1280, "label_embed.0"),
+    (4608, 15360, 3072, "Flux single-block linear2"),
+    (512, 3072, 9216, "Flux txt_attn.qkv"),
+    (1, 3072, 18432, "Flux double-block modulation"),
     (4097, 640, 200, "ragged M and N"),
     (77, 1280, 72, "ragged M and N"),
 ]

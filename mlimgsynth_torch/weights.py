@@ -11,6 +11,8 @@ UNet's 1x1 convs [C, C, 1, 1]: the same values, reshaped).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Optional, Set, Tuple
 
@@ -76,6 +78,13 @@ def merge_prefixed(name_map: Dict[str, NameRef], store: TensorStore,
     return len(name_map) - n0
 
 
+# the denoiser tensors ``identify_model`` reads, in its order
+_PROBES = ("unet.in.1.1.transf.0.attn2.k_proj.weight",
+           "unet.in.4.1.transf.0.attn2.k_proj.weight",
+           "mmdit.joint_blocks.0.x_block.attn.qkv.weight",
+           "flux.double_blocks.0.img_attn.qkv.weight")
+
+
 def identify_model(store: TensorStore, name_map: Dict[str, NameRef],
                    width_table: Mapping[int, str]) -> Optional[str]:
     """Model type from the UNet cross-attention K width (ref:
@@ -84,22 +93,30 @@ def identify_model(store: TensorStore, name_map: Dict[str, NameRef],
     blocks (width 2432: SD3.5-large; a second x-block attention: SD3.5-
     medium); Flux from its double blocks (``guidance_in``: dev)
     (``mlimgsynth_tpu/weights.py:78-114``).  None when nothing matches."""
-    for probe in ("unet.in.1.1.transf.0.attn2.k_proj.weight",
-                  "unet.in.4.1.transf.0.attn2.k_proj.weight"):
+    for probe in _PROBES[:2]:
         ref = name_map.get(probe)
         if ref is not None:
             return width_table.get(int(store.tensors[ref.raw].shape[-1]))
-    ref = name_map.get("mmdit.joint_blocks.0.x_block.attn.qkv.weight")
+    ref = name_map.get(_PROBES[2])
     if ref is not None:
         if int(store.tensors[ref.raw].shape[-1]) == 2432:
             return "sd35_large"
         if "mmdit.joint_blocks.0.x_block.attn2.qkv.weight" in name_map:
             return "sd35_medium"
         return "sd3"
-    if "flux.double_blocks.0.img_attn.qkv.weight" in name_map:
+    if _PROBES[3] in name_map:
         return ("flux_dev" if "flux.guidance_in.in_layer.weight" in name_map
                 else "flux_schnell")
     return None
+
+
+def stored_type(store: TensorStore, name_map: Dict[str, NameRef]
+                ) -> Optional[str]:
+    """The stored type ("f16", "q8_0", ...) of the denoiser tensor that
+    :func:`identify_model` reads, the file's weight type (the second value
+    of the JAX package's ``identify_model``); None where it reads none."""
+    ref = next((name_map[p] for p in _PROBES if p in name_map), None)
+    return None if ref is None else store.tensors[ref.raw].dtype
 
 
 def read_entry(store: TensorStore, ref: NameRef) -> np.ndarray:
@@ -224,11 +241,16 @@ def lora_apply(model_store: TensorStore, model_map: Dict[str, NameRef],
     delta in its third; a diffusers-peft DiT stem's ``@num/span/den``
     fragment addresses rows ``[num*d, (num+span)*d)`` of the fused tensor,
     ``d = out // den``.  ``only(internal weight name)`` limits the merge to
-    the weights it accepts.  Raises ``FloatingPointError`` when a merged
-    tensor is not finite (reference: src/lora.c:81-87).  Returns the number
-    of tensors patched."""
+    the weights it accepts.  The patches of one tensor apply in the file's
+    order; different tensors merge in parallel threads (numpy's array
+    operations release the interpreter lock), each by the same arithmetic
+    as one at a time.  Raises ``FloatingPointError`` when a merged tensor
+    is not finite (reference: src/lora.c:81-87).  Returns the number of
+    tensors patched."""
     lora_map = _lora_names(lora_store, _lora_family(model_map))
-    n = 0
+    # checkpoint tensor -> its patches in file order: (stem, fragment,
+    # destination entry, down name, up name)
+    patches: Dict[str, list] = {}
     for internal, raw in lora_map.items():
         if not internal.endswith(".lora_down.weight"):
             continue
@@ -245,38 +267,53 @@ def lora_apply(model_store: TensorStore, model_map: Dict[str, NameRef],
         up_raw = lora_map.get(stem + ".lora_up.weight")
         if up_raw is None:
             raise KeyError(f"lora up tensor not found: {stem}.lora_up.weight")
-        down = lora_store.read(raw, "f32")
-        up = lora_store.read(up_raw, "f32")
-        rank = down.shape[0]
-        scale = 1.0
+        patches.setdefault(dst_ref.raw, []).append(
+            (stem, frac, dst_ref, raw, up_raw))
+
+    def scale_of(stem: str, rank: int) -> float:
         if stem + ".scale" in lora_map:
-            scale = float(lora_store.read(lora_map[stem + ".scale"],
-                                          "f32").reshape(-1)[0])
-        elif stem + ".alpha" in lora_map:
-            scale = float(lora_store.read(lora_map[stem + ".alpha"],
-                                          "f32").reshape(-1)[0]) / rank
-        scale *= mult
-        delta = (up.reshape(up.shape[0], -1) @
-                 down.reshape(down.shape[0], -1) * scale)
-        if frac is not None or dst_ref.split is not None:
-            # rows of a fused tensor: a peft slice or an OpenCLIP third
-            full = model_store.read(dst_ref.raw, "f32").copy()
-            num, span, den = frac if frac is not None else (dst_ref.split,
-                                                            1, 3)
-            if full.shape[0] % den:
-                raise KeyError(f"lora slice {stem}: out dim "
-                               f"{full.shape[0]} not divisible by {den}")
-            d = full.shape[0] // den
-            sl = slice(num * d, (num + span) * d)
-            full[sl] = full[sl] + delta.reshape(full[sl].shape)
-        else:
-            base_w = read_entry(model_store, dst_ref)
-            full = base_w + delta.reshape(base_w.shape)
-        if not np.isfinite(full).all():
-            raise FloatingPointError(f"NaN in LoRA result for {stem}")
-        model_store.cache_set(dst_ref.raw, full)
-        n += 1
-    return n
+            return float(lora_store.read(lora_map[stem + ".scale"],
+                                         "f32").reshape(-1)[0])
+        if stem + ".alpha" in lora_map:
+            return float(lora_store.read(lora_map[stem + ".alpha"],
+                                         "f32").reshape(-1)[0]) / rank
+        return 1.0
+
+    def merge(dst_raw: str) -> np.ndarray:
+        """The tensor ``dst_raw`` with its patches merged in order."""
+        cur = None          # the tensor after the patches so far
+        for stem, frac, dst_ref, raw, up_raw in patches[dst_raw]:
+            down = lora_store.read(raw, "f32")
+            up = lora_store.read(up_raw, "f32")
+            scale = scale_of(stem, down.shape[0]) * mult
+            delta = (up.reshape(up.shape[0], -1) @
+                     down.reshape(down.shape[0], -1) * scale)
+            if frac is not None or dst_ref.split is not None:
+                # rows of a fused tensor: a peft slice or an OpenCLIP third
+                full = np.array(model_store.read(dst_raw) if cur is None
+                                else cur, np.float32, copy=True)
+                num, span, den = (frac if frac is not None
+                                  else (dst_ref.split, 1, 3))
+                if full.shape[0] % den:
+                    raise KeyError(f"lora slice {stem}: out dim "
+                                   f"{full.shape[0]} not divisible by {den}")
+                d = full.shape[0] // den
+                sl = slice(num * d, (num + span) * d)
+                full[sl] = full[sl] + delta.reshape(full[sl].shape)
+            else:
+                base_w = (read_entry(model_store, dst_ref) if cur is None
+                          else cur.T if dst_ref.transpose else cur)
+                full = base_w + delta.reshape(base_w.shape)
+            if not np.isfinite(full).all():
+                raise FloatingPointError(f"NaN in LoRA result for {stem}")
+            cur = full
+        return cur
+
+    workers = min(8, os.cpu_count() or 1, max(len(patches), 1))
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        for dst_raw, full in zip(patches, pool.map(merge, patches)):
+            model_store.cache_set(dst_raw, full)
+    return sum(len(p) for p in patches.values())
 
 
 def quantize_linear_weights(module: nn.Module, prefix: str,
@@ -287,9 +324,10 @@ def quantize_linear_weights(module: nn.Module, prefix: str,
     ``mlimgsynth_tpu/weights.py:299-359``).  Every ``nn.Linear`` of
     ``module`` whose input width is a multiple of 128 becomes a ``QLinear``
     of ``bits`` (on the meta device, to be loaded), and its ``.weight`` in
-    ``params`` (CPU tensors in the compute dtype) becomes ``.weight_q8`` or
-    ``.weight_q4`` and ``.weight_scale``, made from the weight as loaded in
-    that dtype.
+    ``params`` (tensors in the compute dtype, on the CPU or the card)
+    becomes ``.weight_q8`` or ``.weight_q4`` and ``.weight_scale``, made
+    from the weight as loaded in that dtype, on the weight's device, by the
+    torch quantizers of ``ops/quant.py`` (bit for bit the numpy ones).
 
     ``percol_m_hint`` (the DiT families' token count, ``quant_plan.
     dit_m_hint``): 8-bit weights whose shape ``percol_eligible`` picks are
@@ -297,29 +335,30 @@ def quantize_linear_weights(module: nn.Module, prefix: str,
     one weight whose worst column exceeds ``PERCOL_MAX_SCALE_RATIO`` keeps
     its whole shape group per block.  ``percol_from_blocks`` runs once per
     candidate weight.  Returns the number quantized."""
-    fn = quant.quantize_weight_q4 if bits == 4 else quant.quantize_weight
+    fn = (quant.quantize_weight_q4_torch if bits == 4
+          else quant.quantize_weight_torch)
     names = [name for name, m in module.named_modules()
              if isinstance(m, nn.Linear) and m.in_features % quant.KBLOCK == 0]
     groups: Dict[Tuple[int, int], list] = {}
     for name in names:
         lin = module.get_submodule(name)
         key = f"{prefix}{name}.weight"
-        q, scale = fn(params.pop(key).float().numpy())
-        params[f"{key}_q{bits}"] = torch.from_numpy(q)
-        params[f"{key}_scale"] = torch.from_numpy(scale)
+        q, scale = fn(params.pop(key))
+        params[f"{key}_q{bits}"] = q
+        params[f"{key}_scale"] = scale
         k, n = lin.in_features, lin.out_features
         if (bits == 8 and percol_m_hint is not None
                 and quant_plan.percol_eligible(k, n, percol_m_hint)):
             groups.setdefault((k, n), []).append(
-                (name, quant.percol_from_blocks(q, scale)))
+                (name, quant.percol_from_blocks_torch(q, scale)))
     percol = set()
     for members in groups.values():
         if max(r for _, (_, _, r) in members) > quant.PERCOL_MAX_SCALE_RATIO:
             continue
         for name, (qc, sc, _) in members:
             key = f"{prefix}{name}.weight"
-            params[f"{key}_q8"] = torch.from_numpy(qc)
-            params[f"{key}_scale"] = torch.from_numpy(sc)
+            params[f"{key}_q8"] = qc
+            params[f"{key}_scale"] = sc
             percol.add(name)
     for name in names:
         lin = module.get_submodule(name)

@@ -10,9 +10,11 @@ the label's last column, the resolution-dependent schedule shift) and dev
 with T5 rows (a tiny T5 file and a Unigram ``tokenizer.json`` by
 ``testing.write_tokenizer_json``): every step's latent at atol/rtol 1e-4,
 f32 on the CPU; the CLI's output latent and an img2img request likewise
-(the JAX session's missing VAE shift corrected).  Options the port does
-not carry for Flux raise ``MlisError`` naming them; a subprocess runs the
-port's own random Flux files without jax.
+(the JAX session's missing VAE shift corrected).  Prompt editing raises
+``MlisError`` on Flux, as in the JAX session; a subprocess runs the port's
+own random Flux files without jax.  Quantized weights, LoRAs and skip-layer
+guidance on Flux: tests/test_torch_dit_quant*.py, test_torch_flux_lora.py
+and test_torch_slg.py.
 """
 import json
 import os
@@ -207,28 +209,6 @@ def _session(files, kind, *opts):
     for k, v in _opts(files, kind) + list(opts):
         s.option_set(k, v)
     return s
-
-
-@pytest.mark.parametrize("wt", ["q8_0", "q4_0", "q4_k"])
-def test_flux_quantized_weights_raise(files, wt):
-    s = _session(files, "schnell", ("weight-type", wt))
-    with pytest.raises(torch_api.MlisError, match="weight-type"):
-        s.setup()
-
-
-def test_flux_lora_raises(files, tmp_path):
-    lora = str(tmp_path / "l.safetensors")
-    T.write_safetensors(lora, {"lora_unet_double_blocks_0_img_attn_qkv."
-                               "lora_down.weight": (2, 32)}, np.float32,
-                        iter([("lora_unet_double_blocks_0_img_attn_qkv."
-                               "lora_down.weight",
-                               np.zeros((2, 32), np.float32))]))
-    s = _session(files, "schnell", ("lora", lora))
-    with pytest.raises(torch_api.MlisError, match="lora"):
-        s.setup()
-    s = _session(files, "schnell", ("prompt", f"a cat <lora:{lora}:0.5>"))
-    with pytest.raises(torch_api.MlisError, match="lora"):
-        s.generate()
 
 
 def test_flux_prompt_editing_raises(files):

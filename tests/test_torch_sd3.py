@@ -115,8 +115,8 @@ def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sdxl_refiner"), ("slg-scale", 2.5),
-    ("slg-layers", "7,8,9"), ("deepcache", 2),
+    ("model-type", "sdxl_refiner"), ("pag-scale", 3.0),
+    ("cfg-rescale", 0.7), ("deepcache", 2),
 ])
 def test_unported_sd3_options_raise(name, value):
     s = torch_api.MLImgSynth(device="cpu")

@@ -274,16 +274,3 @@ def test_sd35_img2img_matches_jax(jax_runs, monkeypatch):
                                    err_msg=f"step {i} latent mismatch")
     mse = np.mean((np.round(img_j * 255) - np.round(img_t * 255)) ** 2)
     assert mse == 0 or 10 * np.log10(255.0 ** 2 / mse) > 40.0
-
-
-@pytest.mark.parametrize("wt", ["q8_0", "q4_0"])
-def test_sd35_quantized_weights_raise(jax_runs, monkeypatch, wt):
-    name = "sd35_medium"
-    mt = torch_api.ModelTypeDef(name, T.TINY_CLIP, T.TINY_MMDIT_X,
-                                T.TINY_VAE_SD3, 64, 2, T.TINY_CLIP2)
-    monkeypatch.setattr(torch_api, "_model_types", lambda: {name: mt})
-    s = torch_api.MLImgSynth(device="cpu")
-    s.option_set("model", jax_runs[name][0])
-    s.option_set("weight-type", wt)
-    with pytest.raises(torch_api.MlisError, match="weight-type"):
-        s.setup()

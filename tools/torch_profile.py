@@ -12,9 +12,11 @@ drawn on the card, Flux as component files; a random T5-XXL file and
 tokenizer at 77 T5 tokens for SD3.5, 512 for Flux-dev and 256 for
 schnell; Flux-dev at guidance 3.5 without CFG, schnell 4 steps at cfg 1),
 for each weight type named on the command line (default bf16; q8_0 and
-q4_0 store the linears quantized; ``q8_0:int8`` measures q8_0 under
+q4_0 store the linears quantized, on every model type, the weights read to
+the card and quantized there; ``q8_0:int8`` measures q8_0 under
 ``MLIS_Q8_MODE=int8``, in the same session as a ``q8_0`` named just
-before it), one session at a time, and measures, all in this one process:
+before it), one session at a time (the one before freed first), and
+measures, all in this one process:
 
   * ``requests``: the wall seconds of a cold and of three warm requests;
   * ``stages``: one request split into text encode, sampler loop and VAE
@@ -39,6 +41,7 @@ type.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -76,6 +79,18 @@ KINDS = [("attn_hopper_kernel", "flash kernels"),
 
 def out(kind: str, **kv) -> None:
     print(json.dumps({"measure": kind, **kv}), flush=True)
+
+
+def clocks() -> dict:
+    """The card's SM clock, its maximum, power draw and temperature now
+    (``nvidia-smi``): a clock well below the maximum under load means the
+    card is throttled and the times read slow."""
+    keys = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+    vals = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(", ")
+    return dict(zip(keys, vals))
 
 
 def kind_of(name: str) -> str:
@@ -219,6 +234,7 @@ def main() -> int:
             wt, _, mode = arg.partition(":")
             s = prev[1] if prev and prev[0] == wt else None
             prev = None
+            gc.collect()
             torch.cuda.empty_cache()
             os.environ["MLIS_Q8_MODE"] = mode or "dq"
             try:
@@ -288,7 +304,8 @@ def profile_path(ckpt: dict, model: str, dim: int, wt: str, tmp: str,
     cold = request(s, 0)
     warm = [request(s, 1 + i) for i in range(WARM)]
     out("requests", **tag, cold_s=cold, warm_s=warm,
-        max_memory_allocated=torch.cuda.max_memory_allocated())
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        clocks=clocks())
     out("stages", **tag, **stage_times(s, 1))
     step_ms, batch = denoiser_step_ms(s, EVALS)
     out("denoiser_step", **tag, batch=batch, evals=EVALS, ms=step_ms)

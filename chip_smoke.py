@@ -108,6 +108,23 @@ Phases, one result line each (any failure exits non-zero):
                  versions (3e-2).  SD2.1 under q8_0 closes the SD2
                  lines: 2 requests, exact launches by product, one UNet
                  evaluation against the plain versions (1e-2).
+                 One img2img request at f_t_ini 0.6 on SD3.5-medium and on
+                 Flux-dev (K2 in the encoder and the decoder), and SD3
+                 q8_0 with the T5-XXL file at 77 tokens, each with exact
+                 launches and an in-situ evaluation; on Flux-dev q8_0 and
+                 schnell q4_0 the ``drift_groups`` lines: one evaluation
+                 with the weight-only kernels on for one product group at
+                 a time (the one-row modulations and embedders, the text
+                 stream, the long-K products, the rest), the plain
+                 versions as they are (every group 0.0) and without their
+                 few-row padding.  The sampler and guidance options
+                 (``features`` lines), one request each: SD1.5 with
+                 cfg_rescale 0.7, a subseed at 0.3 (the initial noise bit
+                 for bit the numpy slerp), lcm (4 steps), FreeU, PAG 3 (K1
+                 at batch 1) and tiling (the VAE decode wrap-equivariant);
+                 SDXL with PAG, DeepCache 3 and FreeU; Flux-dev and SD3
+                 with DeepCache 2; each with exact launches by shape and an
+                 in-situ evaluation of the option's own path.
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -186,6 +203,8 @@ from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
 from mlimgsynth_torch.ops import quant_matmul as qmm
 from mlimgsynth_torch.ops.quant_plan import pick_large_m_plan
+from mlimgsynth_torch.rng import RngPhilox
+from mlimgsynth_torch.sampling import sampler as sampler_mod
 from mlimgsynth_torch.sampling import schedule as sch
 from mlimgsynth_torch.sampling.solvers import get_solver
 from mlimgsynth_torch.utils import image as image_mod
@@ -337,6 +356,36 @@ EDIT_PROMPTS = {"sd1": ("a photograph of [a cat:a dog:10] sitting on a red "
                          "rain:10]", "a photograph of a cat in the snow")}
 EDIT_STEP = 10
 
+# The sampler and guidance options (``features`` lines), each one request
+# at the main path's settings (20 Euler steps, CFG 7) on a bf16 session:
+# SD1.5 512^2 with cfg_rescale 0.7, a subseed at strength 0.3, the lcm
+# method (4 steps, CFG 1.5), FreeU (the family's values), PAG 3.0 (one
+# batch-1 evaluation of the cond rows a step, K1 at batch 1) and seamless
+# tiling; SDXL 1024^2 with PAG, DeepCache 3 and FreeU; Flux-dev and SD3
+# with DeepCache 2.  (feature, options); the options go back to
+# FEATURE_RESET after each.  TILING_WRAP_REL_L2 holds the tiled VAE
+# decode of a latent rolled by k against the decode rolled by 8k: both
+# sum the same products in other orders (cuDNN's tiles, K2's kv order),
+# a bf16 rounding apart.
+FEATURES = {
+    "sd1": [("cfg_rescale", [("cfg-rescale", 0.7)]),
+            ("subseed", [("subseed", 4242), ("subseed-strength", 0.3)]),
+            ("lcm", [("method", "lcm"), ("steps", 4), ("cfg-scale", 1.5)]),
+            ("freeu", [("freeu", "1")]),
+            ("pag", [("pag-scale", 3.0)]),
+            ("tiling", [("tiling", 1)])],
+    "sdxl": [("pag", [("pag-scale", 3.0)]),
+             ("deepcache", [("deepcache", 3)]),
+             ("freeu", [("freeu", "1")])],
+    "flux_dev": [("deepcache", [("deepcache", 2)])],
+    "sd3": [("deepcache", [("deepcache", 2)])],
+}
+FEATURE_RESET = [("cfg-rescale", 0.0), ("subseed", -1),
+                 ("subseed-strength", 0.0), ("method", "euler"),
+                 ("steps", 20), ("freeu", ""), ("pag-scale", 0.0),
+                 ("tiling", 0), ("deepcache", 0)]
+TILING_WRAP_REL_L2, TILING_ROLL = 1e-2, (3, 5)
+
 # The card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 and int8
 # tensor cores, and device memory.
 PEAK_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -467,6 +516,7 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(sd1_img2img_path(tmp, ckpt, lora))
     launches.update(sd1_lowmem_cli(tmp, ckpt))
     launches.update(embed_edit_sd1(tmp, ckpt))
+    launches.update(features_sd1(ckpt))
     os.remove(ckpt)
     ckpt = _checkpoint(tmp, "sd3")
     for wt, bits, n_req in SD3_PATHS:
@@ -481,9 +531,12 @@ def _paths(tmp: str, launches: collections.Counter):
                 lambda s: sd3_want(s, int8=True), mode="int8"))
         sd3_reference_check(s, wt, bits)
         if not bits:
+            launches.update(features(s, "sd3"))
             launches.update(t5_path(s, tmp))
         if bits == 8:
             sd3_dq = time_products(sd3_dq_products(s), "sd3")
+            launches.update(sd3_q8_t5_request(s, tmp))
+            s._t5 = None
         _drop(s)
     os.remove(ckpt)
     ckpt = _checkpoint(tmp, "sdxl")
@@ -499,6 +552,7 @@ def _paths(tmp: str, launches: collections.Counter):
                 lambda s: sdxl_want(s, int8=True), mode="int8"))
         sdxl_reference_check(s, wt, bits)
         if not bits:
+            launches.update(features(s, "sdxl"))
             launches.update(embed_edit_sdxl(s, ckpt, tmp))
             launches.update(sdxl_lowmem_requests(s, wt))
         if bits == 8:
@@ -619,6 +673,12 @@ FLASH_SHAPE_CALLS = {
     # steps of 20: 21 joint attentions and 10 attn2 a pass
     ((1, 24, 4250, 64), 4250): {"sd35_medium_slg": 84},
     ((1, 24, 4096, 64), 4096): {"sd35_medium_slg": 40},
+    # PAG's batch-1 evaluation of the cond rows on each of 20 steps (the
+    # SDXL mid transformer's self-attention, identity there, runs none)
+    ((1, 8, 4096, 40), 4096): {"sd1_pag": 100},
+    ((1, 8, 1024, 80), 1024): {"sd1_pag": 100},
+    ((1, 10, 4096, 64), 4096): {"sdxl_pag": 200},
+    ((1, 20, 1024, 64), 1024): {"sdxl_pag": 1000},
     ((2, 5, 9216, 64), 9216): {"sd2": 100},
     ((2, 10, 2304, 64), 2304): {"sd2": 100},
     ((2, 20, 576, 64), 576): {"sd2": 100},
@@ -1587,7 +1647,7 @@ def dit_q_requests(s, model: str, requests, steps: int, line: str,
                 raise AssertionError(f"{model} {wt} request {i}: bad "
                                      f"image {img.shape}")
         if check:
-            first = first[0]
+            first = s.first_eval = first[0]
 
             def run():
                 with torch.no_grad():
@@ -1725,6 +1785,8 @@ def sd35_path(tmp: str, t5: dict) -> collections.Counter:
                          7.0, "sd35")
         launches.update(dit_requests(s, model, REQUESTS[:2], SD35_STEPS,
                                      "sd35"))
+        if model == "sd35_medium":
+            launches.update(dit_img2img_request(s, model))
         # the same session quantized (SD3.5-medium with skip-layer
         # guidance)
         dit_switch(s, model, "sd35", [("weight-type", DIT_Q[model][0])]
@@ -1773,12 +1835,15 @@ def flux_path(tmp: str, t5: dict) -> collections.Counter:
     launches.update(dit_requests(s, "flux_dev", REQUESTS[:dev["requests"]],
                                  dev["steps"], "flux"))
     bf16_peak = s.peak_bytes
+    launches.update(dit_img2img_request(s, "flux_dev"))
+    launches.update(features(s, "flux_dev"))
     # the same session in q8_0: two requests, one under MLIS_Q8_MODE=int8
     # (K8), then the LoRA requests
     dit_switch(s, "flux_dev", "flux", [("weight-type", "q8_0")])
     launches.update(dit_q_requests(s, "flux_dev", REQUESTS[:2],
                                    dev["steps"], "flux"))
     q8_peak = s.peak_bytes
+    flux_drift_groups(s, "flux_dev")
     phase("flux", model="flux_dev", path="q8_0", peak_bytes=q8_peak,
           bf16_peak_bytes=bf16_peak)
     if not q8_peak < bf16_peak:
@@ -1820,6 +1885,7 @@ def flux_path(tmp: str, t5: dict) -> collections.Counter:
     dit_switch(s, "flux_schnell", "flux", [("weight-type", "q4_0")])
     launches.update(dit_q_requests(s, "flux_schnell", REQUESTS[:1],
                                    fast["steps"], "flux"))
+    flux_drift_groups(s, "flux_schnell")
     _release(s)
     del s
     for key in ("model", "clip", "vae"):
@@ -2487,7 +2553,7 @@ def _plain_run(run, bits=None):
     return out
 
 
-def _kernels_vs_plain(wt, bits, run) -> None:
+def _kernels_vs_plain(wt, bits, run, **kv) -> None:
     """``run()`` -> [(output name, tensor)] with the kernels, then again
     with the wrappers of ``PLAIN_ROUTES[bits]`` swapped for their plain
     versions (the attention on the bf16 path, the quantized matmuls on the
@@ -2500,7 +2566,7 @@ def _kernels_vs_plain(wt, bits, run) -> None:
         rel = ((a - b).norm() / b.norm()).item()
         phase("reference", path=wt, output=name, rel_l2=rel,
               limit=REF_LIMITS[name], plain_calls=plain_calls,
-              kernel_launches_in_plain_run=_counts())
+              kernel_launches_in_plain_run=_counts(), **kv)
         if not rel < REF_LIMITS[name]:
             raise AssertionError(f"{name}: kernels vs plain rel L2 {rel}")
     return plain
@@ -2743,6 +2809,362 @@ def time_shapes(s) -> dict:
         for h in hooks:
             h.remove()
     return time_products(calls, "sd1")
+
+
+# -- the sampler and guidance options (``features`` lines) -------------------
+
+# the in-situ output each model's feature requests are held to
+FEATURE_OUTPUT = {"sd1": "unet_eps", "sdxl": "sdxl_unet_eps",
+                  "sd3": "mmdit_v", "flux_dev": "flux_dev_v"}
+# the infotext each feature's request gives
+FEATURE_TEXT = {"cfg_rescale": "CFG Rescale: 0.7",
+                "subseed": "Variation seed: 4242, Variation seed strength: "
+                           "0.3",
+                "lcm": "Sampler: lcm, Schedule type: lcm",
+                "freeu": ", FreeU: ", "pag": ", PAG scale: 3",
+                "deepcache": ", DeepCache: ", "tiling": ""}
+
+
+def _capture(model, pred):
+    """A forward pre-hook on ``model`` that keeps the inputs (positional
+    and keyword, tensors cloned) of its first call for which ``pred(args,
+    kwargs)`` holds: (the list it fills, the hook's handle)."""
+    got = []
+
+    def clone(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def hook(mod, args, kwargs):
+        if not got and pred(args, kwargs):
+            got.append((tuple(clone(a) for a in args),
+                        {k: clone(v) for k, v in kwargs.items()}))
+
+    return got, model.register_forward_pre_hook(hook, with_kwargs=True)
+
+
+def _dc_refreshes(n_step: int, k: int) -> int:
+    """The steps of ``n_step`` on which DeepCache at ``k`` runs the whole
+    model: i % k == 0 or i < max(1, n_step // 10)."""
+    warm = max(1, n_step // 10)
+    return sum(i % k == 0 or i < warm for i in range(n_step))
+
+
+def _feature_want(s, model: str, feature: str, n_step: int) -> dict:
+    """The flash launches of one feature request by kernel and shape: a
+    request's (K1 or K3, and K2 once); PAG adds its batch-1 evaluation's
+    K1 shapes; DeepCache runs the UNet's attention on refresh steps only
+    (SDXL's level 0 has none) and a DiT's first ``dc_split`` blocks on the
+    others."""
+    want = _flash_want(model, n_step, 1)
+    if feature == "pag":
+        want.update(_flash_want(model + "_pag", n_step, 0))
+    elif feature == "deepcache":
+        full = _dc_refreshes(n_step, s.c["deepcache"])
+        if not s._flow():
+            return _flash_want(model, full, 1)
+        P = s._mt.unet_p
+        split = (flux_mod.dc_split(P.depth_double)
+                 if getattr(P, "flux", False) else mmdit_mod.dc_split(P.depth))
+        for key in want:
+            if key[0] == "flash_attn_joint":
+                per = want[key] // n_step
+                want[key] = full * per + (n_step - full) * split
+    return want
+
+
+def _feature_pred(s, feature: str):
+    """Which denoiser call a feature request's in-situ check takes: PAG's
+    perturbed evaluation; under DeepCache a DiT's first shallow one (the
+    cache its last positional input) and a UNet's first whole one, which
+    keeps the cache (SDXL's shallow path, level 0, holds no attention);
+    else the first."""
+    if feature == "pag":
+        return lambda a, kw: bool(kw.get("pag"))
+    if feature == "deepcache":
+        if s._flow():
+            return lambda a, kw: a[-1] is not None
+        return lambda a, kw: bool(kw.get("want_cache"))
+    return lambda a, kw: True
+
+
+def feature_request(s, model: str, feature: str, opts) -> dict:
+    """One request of the bf16 session ``s`` with ``opts`` set (put back
+    after it): its seconds, its exact flash launches by shape
+    (``_feature_want``), its image and infotext, and the in-situ check of
+    one of its denoiser evaluations (``_feature_pred``) with the kernels
+    against the plain attention (``REF_LIMITS``); the subseed request's
+    initial noise bit for bit the numpy slerp of its two streams; the
+    tiling request's VAE decode wrap-equivariant (``tiling_check``).
+    Returns the launches."""
+    den = s._models[s._denoiser()]
+    saved = [(k, s.c[api._id_norm(k)]) for k, _ in opts]
+    for k, v in opts:
+        s.option_set(k, v)
+    n_step = sampler_mod.plan_n_step(sampler_mod.SamplerConfig(
+        method=s.c["method"], n_step=s.c["steps"]))
+    seed, prompt = REQUESTS[0]
+    s.option_set("seed", seed)
+    s.option_set("prompt", prompt)
+    s.option_set("nprompt", "blurry, low quality")
+    want = _feature_want(s, model, feature, n_step)
+    got_in, hook = _capture(den, _feature_pred(s, feature))
+    plans, make_plan = [], api.make_plan
+
+    def keep_plan(*a, **kw):
+        plans.append(make_plan(*a, **kw))
+        return plans[-1]
+
+    api.make_plan = keep_plan
+    fa.reset_counts()
+    qmm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        img = s.generate()
+    finally:
+        hook.remove()
+        api.make_plan = make_plan
+    secs = time.time() - t0
+    shapes = collections.Counter(fa.LAUNCH_SHAPES) + collections.Counter(
+        qmm.LAUNCH_SHAPES)
+    got = _check_launches(f"{model} {feature}", shapes, want)
+    dim = img.shape[-1]
+    phase("features", model=model, feature=feature, options=dict(opts),
+          seconds=secs, steps=n_step, nfe=s._nfe, **_clocks(),
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=got, launches_by_shape={
+              f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+          image_mean=float(img.mean()), image_std=float(img.std()),
+          infotext=s.infotext)
+    if not _image_ok(img, dim) or FEATURE_TEXT[feature] not in s.infotext:
+        raise AssertionError(f"{model} {feature}: bad image {img.shape} or "
+                             f"infotext {s.infotext!r}")
+    args, kw = got_in[0]
+
+    def run():
+        with torch.no_grad():
+            out = den(*args, **kw)
+            out = out[0] if isinstance(out, tuple) else out
+            return [(FEATURE_OUTPUT[model], out.float())]
+
+    _kernels_vs_plain("bf16", None, run, model=model, feature=feature)
+    if feature == "subseed":
+        subseed_check(plans[0], seed, dict(opts))
+    if feature == "tiling":
+        tiling_check(s)
+    for k, v in saved:
+        s.option_set(k, v)
+    return got
+
+
+def subseed_check(plan, seed: int, opts: dict) -> None:
+    """The subseed request's initial noise (the plan the session drew)
+    against the numpy slerp of the seed's and the subseed's streams, drawn
+    here: bit for bit."""
+    shape = plan.noise0.shape[1:]
+    base = RngPhilox(seed, 0).randn_shaped(shape)[None].astype(np.float32)
+    sub = RngPhilox(opts["subseed"], 0).randn_shaped(shape)[None].astype(
+        np.float32)
+    want = sampler_mod._noise_slerp(base, sub, opts["subseed-strength"])
+    equal = bool(np.array_equal(plan.noise0, want))
+    phase("features", model="sd1", feature="subseed", step="noise",
+          noise0_bit_equal=equal,
+          differs_from_seed_noise=bool(not np.array_equal(plan.noise0,
+                                                          base)))
+    if not equal or np.array_equal(plan.noise0, base):
+        raise AssertionError("subseed: the initial noise is not the slerp")
+
+
+def tiling_check(s) -> None:
+    """Wrap-equivariance on the card: the VAE decode (bf16, tiling on) of
+    the tiling request's latent rolled by ``TILING_ROLL`` equals its
+    decode rolled by 8 times that, within ``TILING_WRAP_REL_L2``; the
+    untiled decode, for contrast, does not wrap."""
+    vae = s._models["vae."]
+    f = vae.P.f_down
+    lat = torch.from_numpy(s.tensors["latent"]).cuda()
+    k = TILING_ROLL
+    rel = {}
+    with torch.no_grad():
+        for on in (True, False):
+            blocks_mod.set_tiling(vae, on)
+            a = torch.roll(vae(lat).float(), (k[0] * f, k[1] * f), (2, 3))
+            b = vae(torch.roll(lat, k, (2, 3))).float()
+            rel[on] = ((a - b).norm() / b.norm()).item()
+    phase("features", model="sd1", feature="tiling", step="wrap",
+          roll=list(k), rel_l2=rel[True], untiled_rel_l2=rel[False],
+          limit=TILING_WRAP_REL_L2)
+    if not rel[True] < TILING_WRAP_REL_L2 or not rel[False] > rel[True]:
+        raise AssertionError(f"tiling: the decode does not wrap {rel}")
+
+
+def features(s, model: str) -> collections.Counter:
+    """The ``FEATURES`` requests of ``model`` on its bf16 session ``s``."""
+    launches = collections.Counter()
+    for feature, opts in FEATURES[model]:
+        launches.update(feature_request(s, model, feature, opts))
+    return launches
+
+
+def features_sd1(ckpt: str) -> collections.Counter:
+    """The SD1.5 512^2 ``features`` requests on a bf16 session of
+    ``ckpt``."""
+    s = api.MLImgSynth(device="cuda")
+    for k, v in [("model", ckpt), ("model-type", "sd1"),
+                 ("weight-type", "bf16"), ("image-dim", 512), ("steps", 20),
+                 ("cfg-scale", 7.0), ("method", "euler"),
+                 ("scheduler", "uniform")]:
+        s.option_set(k, v)
+    s.setup()
+    launches = features(s, "sd1")
+    _drop(s)
+    return launches
+
+
+def dit_img2img_request(s, model: str) -> dict:
+    """One img2img request at ``I2I_F_T_INI`` on the bf16 SD3.5 or Flux
+    session (``img2img_request``: K2 in the encoder and the decoder, K3 at
+    the model's shape for the cut step count, ``image_encode_s``), and its
+    first denoiser evaluation with the kernels against the plain
+    attention (``REF_LIMITS``)."""
+    den = s._models[s._denoiser()]
+    first, hook = _first_eval(den)
+    try:
+        got = img2img_request(s, model, DIT_DIM)
+    finally:
+        hook.remove()
+    args = first[0]
+
+    def run():
+        with torch.no_grad():
+            return [(f"{model}_v", den(*args).float())]
+
+    _kernels_vs_plain("bf16", None, run, model=model, request="img2img")
+    return got
+
+
+def sd3_q8_t5_request(s, tmp: str) -> collections.Counter:
+    """SD3-medium q8_0 with the T5-XXL file of the ``t5`` lines at 77
+    tokens (the T5 encoder in bf16, never quantized): one request with its
+    exact launches by kernel and shape (the quantized products for 77 CLIP
+    and 77 T5 context rows, ``dit_products``) and the in-situ check of its
+    first MMDiT evaluation against the quantized matmuls' plain versions
+    (``mmdit_v_q8_0``)."""
+    for k, v in [("t5", os.path.join(tmp, T5_FILE)),
+                 ("t5-tokenizer", os.path.join(tmp, T5_TOKENIZER)),
+                 ("t5-tokens", 77)]:
+        s.option_set(k, v)
+    t0 = time.time()
+    s._t5_load()
+    t5_load_s = time.time() - t0
+    want = {**_flash_want("sd3", SD3_STEPS, 1),
+            **_quant_want(dit_products(s, SD3_STEPS), 8)}
+    den = s._models["mmdit."]
+    seed, prompt = REQUESTS[0]
+    s.option_set("seed", seed)
+    s.option_set("prompt", prompt)
+    s.option_set("nprompt", "blurry, low quality")
+    first, hook = _first_eval(den)
+    fa.reset_counts()
+    qmm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        img = s.generate()
+    finally:
+        hook.remove()
+    secs = time.time() - t0
+    shapes = collections.Counter(fa.LAUNCH_SHAPES) + collections.Counter(
+        qmm.LAUNCH_SHAPES)
+    got = _check_launches("sd3 q8_0 t5", shapes, want)
+    cond = s.tensors["cond"]
+    phase("t5", model="sd3", path="q8_0", seconds=secs, t5_load_s=t5_load_s,
+          t5_encode_s=s.times.get("t5_encode_s"), t5_tokens=77,
+          cond_rows=cond.shape[1], t5_rows_nonzero=bool(
+              np.abs(cond[:, 77:]).max() > 0), **_clocks(),
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=got, launches_by_shape={
+              f"{k[0]} {list(k[1])}": n for k, n in shapes.items()},
+          image_mean=float(img.mean()), image_std=float(img.std()))
+    if not _image_ok(img, SD3_DIM) or not np.abs(cond[:, 77:]).max() > 0:
+        raise AssertionError("sd3 q8_0 t5: bad image or zero T5 rows")
+    args = first[0]
+
+    def run():
+        with torch.no_grad():
+            return [("mmdit_v_q8_0", den(*args).float())]
+
+    _kernels_vs_plain("q8_0", 8, run, model="sd3", t5_tokens=77)
+    return collections.Counter(got)
+
+
+# Flux's weight-only products by group (the in-situ drift search): the
+# modulations at one row (N 18432, 9216, 6144), the embedders at one row
+# (time_in, guidance_in, vector_in: N 3072), the text stream at its T5
+# rows, the long-K products (mlp.2 and linear2, K 12288 and 15360) and the
+# rest (single-block linear1 on q4_0, the final linear)
+DRIFT_GROUPS = ("modulations", "embedders", "text_stream", "long_k",
+                "other")
+
+
+def _drift_group(s, m: int, k: int, n: int) -> str:
+    if m == 1:
+        return "embedders" if n == s._mt.unet_p.d_model else "modulations"
+    if m == _t5_rows(s):
+        return "text_stream"
+    return "long_k" if k >= 12288 else "other"
+
+
+def flux_drift_groups(s, model: str) -> None:
+    """The first Flux evaluation of the last quantized request (on the
+    inputs ``dit_q_requests`` kept) with the weight-only kernels on for one
+    product group at a time and the plain versions elsewhere, against the
+    plain versions everywhere; once with the plain versions as they are
+    (products of fewer than ``quant.PAD_ROWS`` rows padded with zero rows)
+    and once with that padding off, as it was when Flux-dev q8_0 read
+    1.8e-2 in situ.  Each group's difference is reported; with the padded
+    versions every group must read 0.0."""
+    wt, bits = DIT_Q[model]
+    den = s._models["flux."]
+    args = s.first_eval
+    names = [f"q{bits}_matmul_tile", f"q{bits}_matmul_ws"]
+    kernels = {n: getattr(qmm, n) for n in names}
+    plain = quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain
+    pad_rows = quant.PAD_ROWS
+
+    def evaluate(group, padded):
+        def route(kern):
+            def fn(x, w, sc):
+                m, k = x.numel() // x.shape[-1], x.shape[-1]
+                if group == "all" or _drift_group(s, m, k,
+                                                   w.shape[0]) == group:
+                    return kern(x, w, sc)
+                return plain(x, w, sc)
+            return fn
+        for n in names:
+            setattr(qmm, n, route(kernels[n]))
+        quant.PAD_ROWS = pad_rows if padded else 0
+        qmm.reset_counts()
+        try:
+            with torch.no_grad():
+                return den(*args).float(), dict(qmm.LAUNCHES)
+        finally:
+            for n in names:
+                setattr(qmm, n, kernels[n])
+            quant.PAD_ROWS = pad_rows
+
+    for padded in (True, False):
+        ref, _ = evaluate(None, padded)
+        for group in DRIFT_GROUPS + ("all",):
+            out, launched = evaluate(group, padded)
+            rel = ((out - ref).norm() / ref.norm()).item()
+            phase("flux", model=model, path=wt, step="drift_groups",
+                  padded=padded, group=group, rel_l2=rel,
+                  max_abs_err=(out - ref).abs().max().item(),
+                  launches=launched)
+            if padded and rel != 0.0:
+                raise AssertionError(f"{model} {wt}: group {group} reads "
+                                     f"{rel} against the plain versions")
 
 
 # (model type, tiny geometry, image side, seed): the SD3 one at 512^2 (its

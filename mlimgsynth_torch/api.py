@@ -17,7 +17,12 @@ takes its text tower and its autoencoder from the ``clip`` and ``vae``
 files.  Every weight type runs on every model type: quantized linears are
 quantized where the weights are read to (the card, or the host for a
 module staged there).  The DiT families take skip-layer guidance
-(``slg_scale``, ``slg_layers``, ``slg_start``, ``slg_end``).
+(``slg_scale``, ``slg_layers``, ``slg_start``, ``slg_end``), the SD UNets
+perturbed-attention guidance (``pag_scale``, ``pag_start``, ``pag_end``)
+and FreeU (``freeu``); every model takes ``cfg_rescale``, seed variations
+(``subseed``, ``subseed_strength``), DeepCache (``deepcache``) and
+seamless tiling (``tiling``: the loaded conv modules pad circularly for
+the request), and the UNets the ``lcm`` method.
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -60,8 +65,8 @@ from .models import vae as vae_mod
 from .nameconv import normalize_name
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
-from .sampling.sampler import (SamplerConfig, make_plan, plan_n_step,
-                               run_sampler, slg_plan)
+from .sampling.sampler import (DC_METHODS, SamplerConfig, make_plan,
+                               pag_plan, plan_n_step, run_sampler, slg_plan)
 from .sampling.solvers import SOLVERS, get_solver
 from .utils import image as image_mod
 from .utils.log import g_logger as log
@@ -165,14 +170,17 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "f_t_ini", "f_t_end", "lora", "lora_dir", "lora_clear",
             "tensor_use_flags", "vae_tile", "unet_split", "embed_dir",
             "t5", "t5_tokenizer", "t5_tokens", "clip", "vae", "slg_scale",
-            "slg_layers", "slg_start", "slg_end", "no_decode")
+            "slg_layers", "slg_start", "slg_end", "no_decode", "cfg_rescale",
+            "subseed", "subseed_strength", "pag_scale", "pag_start",
+            "pag_end", "deepcache", "freeu", "tiling")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
                 "embed_dir", "t5", "t5_tokenizer", "clip", "vae")
 # options that take an object, never a string
 _OBJ_OPTIONS = ("callback", "image", "image_mask")
-_SCHEDULERS = ("uniform", "karras", "exponential", "sgm_uniform", "beta")
+_SCHEDULERS = ("uniform", "karras", "lcm", "exponential", "sgm_uniform",
+               "beta")
 # the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
 # ``method`` or ``scheduler`` value indexes them
 METHOD_NAMES = ["none", "euler", "heun", "taylor3", "dpmpp2m",
@@ -196,6 +204,10 @@ STAGE_NAMES = ["idle", "cond_encode", "image_encode", "image_decode",
 # package's ``TUF_*``, ``mlimgsynth_tpu/api.py:77-81``): the image to
 # encode, its mask, a latent to start from, a latent mask
 TUF_IMAGE, TUF_MASK, TUF_LATENT, TUF_LMASK = 1, 2, 4, 8
+# FreeU's (b1, b2, s1, s2) by family, for ``freeu`` 1 / auto
+# (``_FREEU_DEFAULTS``, ``mlimgsynth_tpu/api.py:1830-1832``)
+_FREEU_DEFAULTS = {"sd1": (1.5, 1.6, 0.9, 0.2), "sd2": (1.4, 1.6, 0.9, 0.2),
+                   "sdxl": (1.3, 1.4, 0.9, 0.2)}
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
 # the modules that ``unet_split`` keeps on the host between their stages:
@@ -391,7 +403,10 @@ class MLImgSynth:
                   "unet_split": False, "embed_dir": "", "t5": "",
                   "t5_tokenizer": "", "t5_tokens": 77, "clip": "",
                   "vae": "", "slg_scale": 0.0, "slg_layers": "7,8,9",
-                  "slg_start": 0.01, "slg_end": 0.2, "no_decode": False}
+                  "slg_start": 0.01, "slg_end": 0.2, "no_decode": False,
+                  "cfg_rescale": 0.0, "pag_scale": 0.0, "pag_start": 0.0,
+                  "pag_end": 1.0, "subseed": -1, "subseed_strength": 0.0,
+                  "deepcache": 0, "tiling": False, "freeu": ""}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -402,6 +417,8 @@ class MLImgSynth:
         self.progress = {"stage": STAGE_IDLE, "step": 0, "step_end": 0,
                          "nfe": 0, "step_time": 0.0}
         self.infotext = ""
+        # the variation seed of the last request (infotext)
+        self._subseed_eff = -1
         self._nfe = 0
         self.tensors: Dict[str, Optional[np.ndarray]] = {
             k: None for k in ("image", "mask", "latent", "lmask", "cond",
@@ -600,12 +617,37 @@ class MLImgSynth:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 "slg-layers must name at least one block")
             c["slg_layers"] = ",".join(str(x) for x in layers)
-        elif opt in ("slg_start", "slg_end"):
+        elif opt in ("slg_start", "slg_end", "pag_start", "pag_end"):
             f = _float(v)
             if not 0.0 <= f <= 1.0:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"{opt} must be in [0, 1]")
             c[opt] = f
+        elif opt == "cfg_rescale":
+            # (``mlimgsynth_tpu/api.py:397-414``, ``:505-522``)
+            f = _float(v)
+            if not 0.0 <= f <= 1.0:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "cfg-rescale must be in [0, 1]")
+            c["cfg_rescale"] = f
+        elif opt == "pag_scale":
+            f = _float(v)
+            if f < 0:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "pag-scale must be >= 0")
+            c["pag_scale"] = f
+        elif opt == "subseed":
+            c["subseed"] = _int(v, -1)
+        elif opt == "subseed_strength":
+            c["subseed_strength"] = _float(v, 0.0)
+        elif opt == "deepcache":
+            c["deepcache"] = _int(v, 0)
+        elif opt == "freeu":
+            # rejoined: ``option_set_str`` splits "B1,B2,S1,S2"
+            c["freeu"] = ",".join(str(a) for a in args).strip()
+            _freeu_parse(c["freeu"])    # a bad value fails here
+        elif opt == "tiling":
+            c["tiling"] = bool(_int(v, 0))
 
     def _image_set(self, img) -> None:
         """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
@@ -1454,6 +1496,8 @@ class MLImgSynth:
         P = self._mt.vae_p
         enc = self._encoders["vae."]
         tile = self.c["vae_tile"]
+        # seamless tiling wraps the whole-image encode, not a tile's
+        blocks_mod.set_tiling(enc, self.c["tiling"] and tile <= 0)
         x = x * 2.0 - 1.0
         mom = _tiled_encode(enc, x, tile) if tile > 0 else enc(x)
         n, _, h, w = mom.shape
@@ -1472,6 +1516,7 @@ class MLImgSynth:
         1993-2006``)."""
         vae = self._models["vae."]
         tile = self.c["vae_tile"]
+        blocks_mod.set_tiling(vae, self.c["tiling"] and tile <= 0)
         img = _tiled_decode(vae, x, tile) if tile > 0 else vae(x).float()
         return (img + 1.0) / 2.0
 
@@ -1490,6 +1535,8 @@ class MLImgSynth:
 
     def _image_decode(self, x: torch.Tensor) -> torch.Tensor:
         if self.c["tae"]:
+            # the JAX session's ``_tae_decode`` does not wrap
+            blocks_mod.set_tiling(self._models["tae."], False)
             img = self._models["tae."](x).float().clamp(0.0, 1.0)
         else:
             img = self._vae_decode(x)
@@ -1554,10 +1601,12 @@ class MLImgSynth:
                              s_ancestral=c["s_ancestral"],
                              s_noise=c["s_noise"], f_t_ini=c["f_t_ini"],
                              f_t_end=c["f_t_end"], flow_shift=flow_shift,
-                             **_slg_kw(c))
-        # skip-layer guidance's errors before the noise is drawn, as the
-        # JAX session's ``_guidance_checks`` (``api.py:2028-2059``)
+                             cfg_rescale=c["cfg_rescale"], **_slg_kw(c))
+        # the guidance options' errors before the noise is drawn, as the
+        # JAX session's ``_guidance_checks`` (``api.py:2028-2071``)
         slg_plan(scfg, P, c["steps"])
+        pag_plan(scfg, P, c["steps"], c["deepcache"])
+        freeu = self._freeu_resolve()
         edit_segs = self._edit_segments(use_cfg, scfg)
         edit_steps = None
         if edit_segs is not None:
@@ -1585,6 +1634,7 @@ class MLImgSynth:
             # (``api.py:2325-2331``)
             label_all = torch.cat([label_all, label_all.new_full(
                 (label_all.shape[0], 1), c["cfg_scale"])], dim=-1)
+        self._deepcache_check(flow, edit_steps)
         denoiser = self._denoiser()
         if c["unet_split"]:
             # stage-wise residency (``api.py:2402-2405``): the text
@@ -1595,7 +1645,20 @@ class MLImgSynth:
         self._stage_in(denoiser)
         self._cb(STAGE_COND_ENCODE, 1, 1)
         nfe_per_dxdt = 2 if use_cfg else 1
-        plan = make_plan(scfg, latent.shape, self.rng, nfe_per_dxdt)
+        subseeds = None
+        if c["subseed_strength"] > 0:
+            # seed variations (``api.py:2366-2376``): by default far from
+            # the seed streams (seed + i), so that row i's variation noise
+            # is no other row's base noise
+            sub0 = (c["subseed"] if c["subseed"] >= 0
+                    else self.rng.seed + (1 << 31))
+            self._subseed_eff = sub0
+            subseeds = [sub0 + i for i in range(n)]
+        plan = make_plan(scfg, latent.shape, self.rng, nfe_per_dxdt,
+                         subseeds=subseeds,
+                         subseed_strength=c["subseed_strength"])
+        # seamless tiling: the denoiser's convs wrap for this request
+        blocks_mod.set_tiling(self._models[denoiser], c["tiling"])
 
         def step_cb(i, n_step):
             self._nfe = i * plan.nfe_per_step
@@ -1608,7 +1671,8 @@ class MLImgSynth:
                             label_all=label_all,
                             step_callback=(step_cb if self.callback
                                            else None),
-                            lmask=lmask, cond_steps=edit_steps)
+                            lmask=lmask, cond_steps=edit_steps,
+                            deepcache=c["deepcache"], freeu=freeu)
             # evaluations run: a 2-evaluation solver's last step has one
             n_fe = get_solver(c["method"]).n_fe
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
@@ -1628,13 +1692,16 @@ class MLImgSynth:
                 # the float image, neither clamped nor quantized
                 image = self._image_decode(x).cpu().numpy()
             else:
+                # the loop's decode wraps under seamless tiling
+                # (``_decode_u8``, ``sampler.py:652-656``)
+                dec = self._models["tae." if c["tae"] else "vae."]
+                blocks_mod.set_tiling(dec, c["tiling"])
                 if c["tae"]:
                     # the TAE takes the sampler's latent and gives [0, 1]
                     # (``_decode_u8``'s "tae" branch); C-cast truncation
-                    img = self._models["tae."](x).float() * 255.0
+                    img = dec(x).float() * 255.0
                 else:
-                    img = ((self._models["vae."](x).float() + 1.0)
-                           * (255.0 / 2.0))
+                    img = (dec(x).float() + 1.0) * (255.0 / 2.0)
                 u8 = img.clamp(0.0, 255.0).to(torch.uint8)
                 image = u8.cpu().numpy().astype(np.float32) / 255.0
             self.times["decode_s"] = time.time() - t_dec
@@ -1670,21 +1737,41 @@ class MLImgSynth:
         out = [c["prompt_raw"] + "\n"]
         if c["nprompt_raw"]:
             out.append(f"Negative prompt: {c['nprompt_raw']}\n")
-        out.append(f"Seed: {self.rng.seed}, Sampler: {c['method']}")
+        out.append(f"Seed: {self.rng.seed}")
+        if c["subseed_strength"] > 0:
+            out.append(f", Variation seed: {self._subseed_eff}, "
+                       f"Variation seed strength: "
+                       f"{c['subseed_strength']:g}")
+        out.append(f", Sampler: {c['method']}")
         if c["s_ancestral"] == 1:
             out.append(" ancestral")
-        out.append(f", Schedule type: {c['scheduler']}")
+        # the lcm method runs the lcm grid unless a scheduler was chosen
+        sched = ("lcm" if c["method"] == "lcm"
+                 and c["scheduler"] == "uniform" else c["scheduler"])
+        out.append(f", Schedule type: {sched}")
         if c["s_ancestral"] > 0:
             out.append(f", Ancestral: {c['s_ancestral']:g}")
         if c["s_noise"] > 0:
             out.append(f", SNoise: {c['s_noise']:g}")
         if c["cfg_scale"] > 1:
             out.append(f", CFG scale: {c['cfg_scale']:g}")
+        if c["cfg_rescale"] > 0 and c["cfg_scale"] > 1:
+            out.append(f", CFG Rescale: {c['cfg_rescale']:g}")
         if c["slg_scale"] > 0:
             out.append(f", SLG scale: {c['slg_scale']:g}"
                        f", SLG layers: {c['slg_layers']}"
                        f", SLG start: {c['slg_start']:g}"
                        f", SLG end: {c['slg_end']:g}")
+        if c["pag_scale"] > 0:
+            out.append(f", PAG scale: {c['pag_scale']:g}")
+            if c["pag_start"] > 0 or c["pag_end"] < 1:
+                out.append(f", PAG start: {c['pag_start']:g}"
+                           f", PAG end: {c['pag_end']:g}")
+        if c["deepcache"] > 1:
+            out.append(f", DeepCache: {c['deepcache']}")
+        if _freeu_parse(c["freeu"]) is not None:
+            out.append(", FreeU: " + ",".join(
+                f"{v:g}" for v in self._freeu_resolve()))
         if c["f_t_ini"] < 1:
             out.append(f", Mode: {mode}, f_t_ini: {c['f_t_ini']:g}")
         out.append(f", Steps: {n_step}, NFE: {self._nfe}, Size: {w}x{h}"
@@ -1695,6 +1782,42 @@ class MLImgSynth:
             out.append(", VAE: tae")
         out.append(f", Version: MLImgSynth-TPU v{_pkg_version}")
         self.infotext = "".join(out)
+
+    def _freeu_resolve(self):
+        """The request's FreeU (b1, b2, s1, s2), or None: ``freeu`` "auto"
+        (or a true value) picks the family's values; ``MlisError`` on a
+        flow model (``_freeu_resolve``, ``mlimgsynth_tpu/api.py:
+        1852-1866``)."""
+        fu = _freeu_parse(self.c["freeu"])
+        if fu is None:
+            return None
+        P = self._mt.unet_p
+        if getattr(P, "flow", False):
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "freeu applies to UNet families only")
+        if fu != "auto":
+            return fu
+        fam = ("sdxl" if P.ch_adm_in
+               else "sd2" if P.n_ctx >= 1024 else "sd1")
+        return _FREEU_DEFAULTS[fam]
+
+    def _deepcache_check(self, flow: bool, edit_steps) -> None:
+        """DeepCache runs on the plain SD UNet, MMDiT and Flux loops with
+        a solver of one evaluation a step, without prompt editing or SLG
+        (``_deepcache_check``, ``mlimgsynth_tpu/api.py:1555-1572``; the
+        port has no ControlNet, inpaint-variant model or mesh)."""
+        c = self.c
+        if c["deepcache"] <= 1:
+            return
+        if edit_steps is not None or c["method"] not in DC_METHODS:
+            raise MlisError(
+                MlisError.E_OPT_VALUE,
+                "deepcache supports SD-UNet, SD3/MMDiT and Flux families "
+                "(no ControlNet/inpaint-variant/editing/mesh), 1-eval "
+                "solvers only: " + ", ".join(DC_METHODS))
+        if flow and c["slg_scale"] > 0:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "deepcache is not supported with slg-scale")
 
     def _prompt_clear(self) -> None:
         """One-shot options cleared after generate (ref: mlis_prompt_clear,
@@ -1707,12 +1830,38 @@ class MLImgSynth:
 
 
 def _slg_kw(c) -> dict:
-    """``SamplerConfig`` keywords of skip-layer guidance from the options
-    (``_slg_kw``, ``mlimgsynth_tpu/api.py:3320-3329``)."""
-    if not c["slg_scale"]:
-        return {}
-    return {"slg_scale": float(c["slg_scale"]),
-            "slg_layers": tuple(int(v) for v in str(c["slg_layers"])
-                                .split(",") if v.strip()),
-            "slg_start": float(c["slg_start"]),
-            "slg_end": float(c["slg_end"])}
+    """``SamplerConfig`` keywords of skip-layer and perturbed-attention
+    guidance from the options (``_slg_kw``, ``mlimgsynth_tpu/api.py:
+    3320-3334``)."""
+    kw = {}
+    if c["slg_scale"]:
+        kw.update(slg_scale=float(c["slg_scale"]),
+                  slg_layers=tuple(int(v) for v in str(c["slg_layers"])
+                                   .split(",") if v.strip()),
+                  slg_start=float(c["slg_start"]),
+                  slg_end=float(c["slg_end"]))
+    if c["pag_scale"]:
+        kw.update(pag_scale=float(c["pag_scale"]),
+                  pag_start=float(c["pag_start"]),
+                  pag_end=float(c["pag_end"]))
+    return kw
+
+
+def _freeu_parse(v: str):
+    """A ``freeu`` value: None when off (empty, 0, n, no, false, off),
+    "auto" when on (1, y, yes, true, on, auto), else the four floats
+    B1,B2,S1,S2; ``MlisError`` otherwise (``_freeu_parse``,
+    ``mlimgsynth_tpu/api.py:1834-1850``)."""
+    v = str(v).strip()
+    if not v or v.lower() in ("0", "n", "no", "false", "off"):
+        return None
+    if v.lower() in ("1", "y", "yes", "true", "on", "auto"):
+        return "auto"
+    try:
+        parts = tuple(float(x) for x in v.replace(";", ",").split(","))
+    except ValueError:
+        parts = ()
+    if len(parts) != 4:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "freeu: expected y/n or B1,B2,S1,S2")
+    return parts

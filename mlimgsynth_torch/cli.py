@@ -16,8 +16,11 @@ components (Flux).  The other commands of the JAX CLI exit 1 and say so.
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
 session's error; there is no silent CPU fallback.  Options the port does
-not have (``--deepcache``, ...) exit 1 as unknown options.  The memory
-options ``--vae-tile`` and ``--unet-split`` forward to the session.
+not have (``--hires-fix``, ``--refiner``, ...) exit 1 as unknown options.
+The memory options ``--vae-tile`` and ``--unet-split`` and the sampler and
+guidance options (``--cfg-rescale``, ``--subseed``, ``--method lcm``,
+``--freeu``, ``--pag-*``, ``--deepcache``, ``--tiling``) forward to the
+session.
 
     python -m mlimgsynth_torch.cli generate -m sd2.safetensors -d 768 \\
         -s 20 --method dpmpp2m -S 42 -p "..." -o out.png
@@ -35,9 +38,10 @@ Image synthesis using AI, PyTorch/CUDA port.
 Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base, 3-medium, 3.5-large
 and 3.5-medium, and Flux.1-schnell and -dev are implemented: txt2img,
 img2img and inpainting, with LoRAs, textual-inversion embeddings, prompt
-editing (UNet models), skip-layer guidance (SD3, SD3.5, Flux) and the
-T5-XXL context of SD3, SD3.5 and Flux; images are encoded and decoded by
-the VAE or the TAE (--tae).
+editing (UNet models), skip-layer guidance (SD3, SD3.5, Flux),
+perturbed-attention guidance and FreeU (UNet models), CFG rescale, seed
+variations, DeepCache, seamless tiling and the T5-XXL context of SD3, SD3.5
+and Flux; images are encoded and decoded by the VAE or the TAE (--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
@@ -71,6 +75,17 @@ Generation options:
                        [gone::when], [a|b]; not on SD3, SD3.5, Flux).
   --f-t-ini FLOAT      Initial time factor (img2img strength; default 1).
   --f-t-end FLOAT      End time factor (default 0).
+  --subseed N          Variation seed (with --subseed-strength F: the
+                       initial noise slerps toward this stream; default
+                       seed + 2^31).
+  --tiling B           Seamless tiling: circular conv padding in the
+                       denoiser and the VAE, the output wraps without seams
+                       (textures).
+  --deepcache N        DeepCache-style model caching: refresh the deep
+                       part every N steps, reuse it in between.  UNets
+                       cache the deep levels and the mid transformer;
+                       SD3/SD3.5/Flux cache the deep block tail.  1-eval
+                       solvers only (euler, dpm++2m[_sde], taylor3, unipc).
 
 Models and backend:
   -m --model PATH      Model file (safetensors or GGUF).
@@ -106,21 +121,30 @@ Sampling:
   -s --steps INT       Denoising steps (model evaluations: heun and dpm++2s
                        take two a step).
   --method NAME        euler, euler_a, heun, taylor3, dpm++2m, dpm++2s,
-                       dpm++2s_a, dpm++2m_sde, unipc (default euler; an
-                       _a suffix samples ancestrally).
+                       dpm++2s_a, dpm++2m_sde, lcm, unipc (default euler;
+                       an _a suffix samples ancestrally; lcm is consistency
+                       sampling for LCM/LCM-LoRA UNet models).
   --scheduler NAME     uniform (default), karras, exponential, sgm_uniform,
-                       beta.
+                       beta, lcm (implied by --method lcm).
   --s-noise FLOAT      Per-step noise injection (try 1).
   --s-ancestral FLOAT  Ancestral sampling noise level (try 1).
   --cfg-scale FLOAT    Classifier-free guidance scale (default 7); on
                        Flux-dev the embedded guidance value (no uncond
                        pass).
+  --cfg-rescale FLOAT  CFG std-rescale phi in [0,1] (Lin et al. 2023;
+                       counters v-pred over-exposure, try 0.7; default 0).
+  --freeu VAL          FreeU backbone/skip reweighting: y = per-family
+                       defaults, or explicit B1,B2,S1,S2 (UNet models).
   --slg-scale FLOAT    Skip-layer guidance scale (SD3/SD3.5/Flux;
                        SD3.5-medium recommends 2.5-3; default 0 = off).
   --slg-layers LIST    Blocks left out in the SLG pass (default 7,8,9;
                        Flux: 0-18 double, 19-56 single blocks).
   --slg-start FLOAT    SLG window start, fraction of steps (default 0.01).
   --slg-end FLOAT      SLG window end, fraction of steps (default 0.2).
+  --pag-scale FLOAT    Perturbed-attention guidance scale (UNet models;
+                       try 3; extra eval with identity mid self-attention).
+  --pag-start FLOAT    PAG window start, fraction of steps (default 0).
+  --pag-end FLOAT      PAG window end, fraction of steps (default 1).
   --clip-skip INT      CLIP layers to skip. Default: 1 (SD1, Flux), 2
                        (SD2/XL/3/3.5).
 

@@ -8,6 +8,11 @@ maps onto the modules through the ``nameconv`` rules.
 Conventions: NCHW activations, torch weight layouts (linear [out, in],
 conv OIHW), compute in the parameters' dtype; norms take their statistics
 in f32 and softmax runs in f32 (``ops/attention.py``).
+
+Seamless tiling (the JAX package's ``Ctx(tiling=True)``, ``blocks.py:
+53-59``, ``:143-146``, ``:244-247``) is a switch on the loaded modules:
+:func:`set_tiling` makes every padded conv pad circularly, so the conv
+stack is wrap-equivariant; the weights stay where they are.
 """
 from __future__ import annotations
 
@@ -93,6 +98,18 @@ def conv2d(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
                      bias=bias)
 
 
+def set_tiling(module: nn.Module, on: bool) -> None:
+    """Seamless tiling on or off for every padded conv of ``module``: the
+    conv pads circularly (``padding_mode``), and the VAE encoder's
+    asymmetric downsampling pad wraps too.  Unpadded convs (1x1, the DiT's
+    patchify) are left alone."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d) and any(m.padding):
+            m.padding_mode = "circular" if on else "zeros"
+        elif isinstance(m, Downsample):
+            m.tiling = on
+
+
 class LayerNorm(nn.Module):
     """ref: mlb_nn_layer_norm.  Normalizes the last dim; f32 statistics.
     ``affine=False`` has no parameters (the MMDiT's norms, eps 1e-6)."""
@@ -160,11 +177,13 @@ class Downsample(nn.Module):
     def __init__(self, ch_in: int, ch_out: int, vae: bool = False):
         super().__init__()
         self.vae = vae
+        self.tiling = False
         self.conv = conv2d(ch_in, ch_out, 3, 2, 0 if vae else 1)
 
     def forward(self, x):
         if self.vae:
-            x = F.pad(x, (0, 1, 0, 1))
+            x = F.pad(x, (0, 1, 0, 1),
+                      mode="circular" if self.tiling else "constant")
         return self.conv(x)
 
 
@@ -244,8 +263,14 @@ class AttnMHead(nn.Module):
         self.v_proj = linear(d_kv, d_embed, bias)
         self.out_proj = linear(d_embed, d_out, bias_out)
 
-    def forward(self, x, kv=None, mask: bool = False):
+    def forward(self, x, kv=None, mask: bool = False,
+                identity: bool = False):
+        """``identity``: perturbed-attention mode (``attn_mhead``,
+        ``mlimgsynth_tpu/models/blocks.py:389-396``): the attention map is
+        the identity, so the output is ``out_proj(v_proj(kv))``."""
         kv = x if kv is None else kv
+        if identity:
+            return self.out_proj(self.v_proj(kv))
         n, sq, sk = x.shape[0], x.shape[1], kv.shape[1]
         h = self.n_head
 
@@ -258,7 +283,8 @@ class AttnMHead(nn.Module):
 
 
 class BasicTransformer(nn.Module):
-    """ref: mlb_basic_transf.  x: [N, S, d], c: [N, S_ctx, d_ctx]."""
+    """ref: mlb_basic_transf.  x: [N, S, d], c: [N, S_ctx, d_ctx];
+    ``self_identity`` gives the self-attention the identity map (PAG)."""
 
     def __init__(self, d: int, d_ctx: int, n_head: int):
         super().__init__()
@@ -269,8 +295,8 @@ class BasicTransformer(nn.Module):
         self.norm3 = LayerNorm(d)
         self.ff = FeedForward(d, d)
 
-    def forward(self, x, c):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, c, self_identity: bool = False):
+        x = x + self.attn1(self.norm1(x), identity=self_identity)
         x = x + self.attn2(self.norm2(x), c)
         return x + self.ff(self.norm3(x))
 

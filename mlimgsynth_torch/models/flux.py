@@ -264,8 +264,8 @@ class _FinalLayer(nn.Module):
 
 
 class Flux(nn.Module):
-    """ref: ``flux_apply`` (``flux.py:246-386``) without its ``--pp`` and
-    ``--deepcache`` branches.  ``state_dict`` names are the internal names
+    """ref: ``flux_apply`` (``flux.py:246-386``) without its ``--pp``
+    branch.  ``state_dict`` names are the internal names
     without the ``flux.`` prefix."""
 
     def __init__(self, P: FluxParams):
@@ -293,14 +293,19 @@ class Flux(nn.Module):
                                     rope_tables(self.P, hp, wp, s_txt))
         return self._rope[key]
 
-    def forward(self, x, t, cond, pooled, guidance=None, skip_layers=()):
+    def forward(self, x, t, cond, pooled, guidance=None, skip_layers=(),
+                want_cache: bool = False, use_cache=None):
         """x: [N, C, H, W] latent, t: [N] timesteps (sigma * 1000), cond:
         [N, S, d_ctx_in] T5 rows, pooled: [N, d_pooled] CLIP-L's pooled
         row, ``guidance``: [N] embedded-guidance values (dev; None is 0)
         -> the velocity [N, C, H, W] in the parameters' dtype.  The blocks
         whose indices ``skip_layers`` names are left out: 0 .. depth_double
         - 1 the double blocks, then the single blocks (``flux.py:254-256``,
-        ``:346-367``)."""
+        ``:346-367``).  DeepCache (``flux.py:258-264``, ``:346-371``):
+        ``want_cache`` also returns the residual of the joint (text ++
+        image) stream after the first :func:`dc_split` double blocks;
+        ``use_cache`` (that residual) runs only those blocks and adds
+        it."""
         P = self.P
         dtype = self.img_in.weight.dtype
         n, cl, hh, ww = x.shape
@@ -320,13 +325,27 @@ class Flux(nn.Module):
         vec = vec + self.vector_in(pooled.to(dtype))
         s_txt = cond.shape[1]
         cos, sin = self.rope(hp, wp, s_txt, x.device)
-        for i, blk in enumerate(self.double_blocks):
+        dc = want_cache or use_cache is not None
+        if dc and skip_layers:
+            raise ValueError("deepcache: incompatible with skip_layers")
+        split = dc_split(P.depth_double) if dc else P.depth_double
+        for i, blk in enumerate(self.double_blocks[:split]):
             if i not in skip_layers:
                 img, txt = blk(img, txt, vec, cos, sin)
         xx = torch.cat([txt, img], dim=1)
-        for i, blk in enumerate(self.single_blocks, P.depth_double):
-            if i not in skip_layers:
-                xx = blk(xx, vec, cos, sin)
+        shallow = xx
+        if use_cache is not None:
+            xx = xx + use_cache.to(xx.dtype)
+        else:
+            for i, blk in enumerate(self.double_blocks[split:], split):
+                if i not in skip_layers:
+                    img, txt = blk(img, txt, vec, cos, sin)
+            if split < P.depth_double:
+                xx = torch.cat([txt, img], dim=1)
+            for i, blk in enumerate(self.single_blocks, P.depth_double):
+                if i not in skip_layers:
+                    xx = blk(xx, vec, cos, sin)
+        cache = xx - shallow if want_cache else None
         img = xx[:, s_txt:]
         fl = self.final_layer
         shift, scale = fl.adaLN_modulation["1"](F.silu(vec)).float().chunk(
@@ -334,10 +353,18 @@ class Flux(nn.Module):
         img = fl.linear(B.modulate(_ln(img), shift, scale))
         # unpack [N, hp wp, 4 C] -> [N, C, H, W]
         img = img.view(n, hp, wp, 2, 2, cl).permute(0, 5, 1, 3, 2, 4)
-        return img.reshape(n, cl, hh, ww)
+        img = img.reshape(n, cl, hh, ww)
+        return (img, cache) if want_cache else img
 
 
-def denoise(model: Flux, x, sigma, t, cond, label, skip_layers=()):
+def dc_split(depth_double: int) -> int:
+    """DeepCache's split: the first ``max(1, depth_double // 8)`` double
+    blocks always run (``_dc_split``, ``flux.py:234-243``)."""
+    return max(1, depth_double // 8)
+
+
+def denoise(model: Flux, x, sigma, t, cond, label, skip_layers=(),
+            want_cache: bool = False, use_cache=None):
     """Rectified-flow wrapper (``denoise``, ``flux.py:389-411``): the
     velocity is the solver's derivative; ``t`` is ``sigma *
     n_step_train``, scalar or [N]; on dev the label's column ``d_pooled``
@@ -349,4 +376,8 @@ def denoise(model: Flux, x, sigma, t, cond, label, skip_layers=()):
     if P.guidance_embed:
         guidance = label[:, P.d_pooled].float()
         label = label[:, :P.d_pooled]
-    return model(x, t, cond, label, guidance, skip_layers).float()
+    out = model(x, t, cond, label, guidance, skip_layers, want_cache,
+                use_cache)
+    if want_cache:
+        return out[0].float(), out[1]
+    return out.float()

@@ -252,12 +252,18 @@ class MMDiT(nn.Module):
         top, left = (g - hp) // 2, (g - wp) // 2
         return pe[top:top + hp, left:left + wp].reshape(1, hp * wp, -1)
 
-    def forward(self, x, t, cond, pooled, skip_layers=()):
+    def forward(self, x, t, cond, pooled, skip_layers=(),
+                want_cache: bool = False, use_cache=None):
         """x: [N, C, H, W] latent, t: [N] timesteps (0..1000 scale), cond:
         [N, S, d_ctx_in] context tokens, pooled: [N, d_pooled] -> the
         velocity [N, C, H, W] in the parameters' dtype.  The joint blocks
         whose indices ``skip_layers`` names are left out (skip-layer
-        guidance's degraded pass, ``mmdit.py:280-284``, ``:360-366``)."""
+        guidance's degraded pass, ``mmdit.py:280-284``, ``:360-366``).
+        DeepCache (``mmdit.py:286-297``, ``:354-371``): ``want_cache`` also
+        returns the deep tail's residual on the image stream (the stream
+        after every block less the stream after the first
+        :func:`dc_split` blocks); ``use_cache`` (that residual) runs only
+        those first blocks and adds it."""
         P = self.P
         dtype = self.pos_embed.dtype
         n, _, h, w = x.shape
@@ -269,23 +275,48 @@ class MMDiT(nn.Module):
         ye = self.y_embedder(pooled.to(dtype))
         c = (te + ye).float()
         cx = self.context_embedder(cond.to(dtype))
-        for i, blk in enumerate(self.joint_blocks):
+        dc = want_cache or use_cache is not None
+        if dc and skip_layers:
+            raise ValueError("deepcache: incompatible with skip_layers")
+        k_cache = dc_split(P.depth) if dc else 0
+        xe_shallow = None
+        for i, blk in enumerate(self.joint_blocks[:k_cache]
+                                if use_cache is not None
+                                else self.joint_blocks):
             if i not in skip_layers:
                 cx, xe = blk(cx, xe, c)
+            if want_cache and i == k_cache - 1:
+                xe_shallow = xe
+        if use_cache is not None:
+            xe = xe + use_cache.to(xe.dtype)
+        cache = xe - xe_shallow if want_cache else None
         fl = self.final_layer
         shift, scale = fl.mods(c)
         xe = fl.linear(B.modulate(fl.norm_final(xe), shift, scale))
         # unpatchify [N, hp*wp, p*p*C] -> [N, C, H, W]
         out = xe.view(n, hp, wp, p, p, P.n_ch_out)
-        return out.permute(0, 5, 1, 3, 2, 4).reshape(n, P.n_ch_out,
-                                                      hp * p, wp * p)
+        out = out.permute(0, 5, 1, 3, 2, 4).reshape(n, P.n_ch_out,
+                                                     hp * p, wp * p)
+        return (out, cache) if want_cache else out
 
 
-def denoise(model: MMDiT, x, sigma, t, cond, label, skip_layers=()):
+def dc_split(depth: int) -> int:
+    """DeepCache's split: the first ``max(1, depth // 8)`` joint blocks
+    always run, the rest is the cached deep tail (``_dc_split``,
+    ``mmdit.py:263-270``)."""
+    return max(1, depth // 8)
+
+
+def denoise(model: MMDiT, x, sigma, t, cond, label, skip_layers=(),
+            want_cache: bool = False, use_cache=None):
     """Rectified-flow wrapper (``denoise``, ``mmdit.py:390-408``): the
     model predicts the velocity ``noise - x0 = dx/dsigma``, so its output
     is the solver's derivative with no input or output scaling; ``t`` is
-    ``sigma * n_step_train``, scalar or [N].  Returns f32."""
+    ``sigma * n_step_train``, scalar or [N].  Returns f32 (with
+    ``want_cache``, and the cache)."""
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=x.device).expand(x.shape[0])
-    return model(x, t, cond, label, skip_layers).float()
+    out = model(x, t, cond, label, skip_layers, want_cache, use_cache)
+    if want_cache:
+        return out[0].float(), out[1]
+    return out.float()

@@ -5,8 +5,12 @@ scheme (``in.1.1.transf.0.attn2.k_proj.weight`` ...).  NCHW activations;
 CFG runs as one batched forward (cond and uncond rows stacked).  SDXL's
 label (the pooled text feature and the size embeddings) enters through
 ``label_embed``, added to the time embedding.  SD2.1 is SD1's UNet with
-heads of 64, a 1024-wide context and v-prediction (``denoise``).  Not ported: FreeU,
-ControlNet, DeepCache and PAG.
+heads of 64, a 1024-wide context and v-prediction (``denoise``).  The
+sampler's options reach into the forward: FreeU at each decoder block
+(``_freeu_apply``), perturbed-attention guidance's identity self-attention
+in the mid transformer (``pag``) and DeepCache's split at the feature
+entering the level-0 decoder (``want_cache`` / ``use_cache``;
+``mlimgsynth_tpu/models/unet.py:108-246``).  Not ported: ControlNet.
 """
 from __future__ import annotations
 
@@ -69,12 +73,12 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = B.conv2d(ch, ch, 1, 1, 0)
 
-    def forward(self, x, cond):
+    def forward(self, x, cond, self_identity: bool = False):
         n, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
         y = y.flatten(2).transpose(1, 2)            # [N, HW, C]
         for blk in self.transf:
-            y = blk(y, cond)
+            y = blk(y, cond, self_identity)
         y = y.transpose(1, 2).reshape(n, c, h, w)
         return self.proj_out(y) + x
 
@@ -147,56 +151,118 @@ class UNet(nn.Module):
             emb = emb + self.label_embed["2"](B.silu(le))
         return emb
 
-    def forward(self, x, t, cond, label=None):
+    def forward(self, x, t, cond, label=None, freeu=None, pag: bool = False,
+                want_cache: bool = False, use_cache=None):
         """x: [N, 4, H, W], t: [N], cond: [N, S_ctx, n_ctx], label: [N,
-        ch_adm_in] or None -> [N, 4, H, W] in the parameters' dtype."""
+        ch_adm_in] or None -> [N, 4, H, W] in the parameters' dtype.
+        ``freeu`` (b1, b2, s1, s2) reweights each decoder block's backbone
+        feature and skip; ``pag`` gives the mid transformer the identity
+        self-attention map.  ``want_cache`` also returns the feature
+        entering the level-0 decoder; ``use_cache`` (that feature) runs only
+        the shallow path: the level-0 encoder and decoder blocks and the
+        head (``unet_apply``, ``mlimgsynth_tpu/models/unet.py:143-246``)."""
+        P = self.P
         dtype = self._modules["in"]["conv"].weight.dtype
         x, cond = x.to(dtype), cond.to(dtype)
         emb = self.embed(t, label)
         blocks_in = self._modules["in"]
         x = blocks_in["conv"](x)
         stack = [x]
-        for name, blk in blocks_in.items():
-            if name == "conv":
-                continue
-            x = self._run(blk, x, emb, cond)
+        names = [k for k in blocks_in if k != "conv"]
+        outs = [k for k in self.out if k not in ("norm", "conv")]
+        i0 = (len(P.ch_mult) - 1) * (P.n_res_blk + 1)   # level 0's first
+        if use_cache is not None:
+            names, outs = names[:P.n_res_blk], outs[i0:]
+        for name in names:
+            x = self._run(blocks_in[name], x, emb, cond)
             stack.append(x)
-        for blk in self.mid.values():
-            x = self._run(blk, x, emb, cond)
-        for name, blk in self.out.items():
-            if name in ("norm", "conv"):
-                continue
-            x = self._run(blk, torch.cat([x, stack.pop()], dim=1), emb, cond)
-        return self.out["conv"](B.silu(self.out["norm"](x)))
+        cache = None
+        if use_cache is not None:
+            x = use_cache.to(dtype)
+        else:
+            for name, blk in self.mid.items():
+                x = self._run(blk, x, emb, cond, pag and name == "1")
+        for name in outs:
+            if want_cache and name == str(i0):
+                cache = x
+            h = stack.pop()
+            if freeu is not None:
+                x, h = _freeu_apply(x, h, P, freeu)
+            x = self._run(self.out[name], torch.cat([x, h], dim=1), emb,
+                          cond)
+        out = self.out["conv"](B.silu(self.out["norm"](x)))
+        return (out, cache) if want_cache else out
 
     @staticmethod
-    def _run(blk, x, emb, cond):
+    def _run(blk, x, emb, cond, self_identity: bool = False):
         for m in (blk.values() if isinstance(blk, nn.ModuleDict) else [blk]):
             if isinstance(m, B.Resnet):
                 x = m(x, emb)
             elif isinstance(m, SpatialTransformer):
-                x = m(x, cond)
+                x = m(x, cond, self_identity)
             else:
                 x = m(x)
         return x
+
+
+def _freeu_filter(h, scale, threshold: int = 1):
+    """FreeU's skip-connection Fourier filter (``_freeu_filter``,
+    ``mlimgsynth_tpu/models/unet.py:108-120``): the ``threshold`` lowest
+    spatial frequencies of each side scaled, an f32 FFT over H and W."""
+    hf = torch.fft.fft2(h.float(), dim=(2, 3))
+    H, W = h.shape[2], h.shape[3]
+    ih = torch.arange(H, device=h.device)
+    iw = torch.arange(W, device=h.device)
+    mh = (ih < threshold) | (ih >= H - threshold)
+    mw = (iw < threshold) | (iw >= W - threshold)
+    mask = torch.where(mh[:, None] & mw[None, :],
+                       torch.tensor(float(scale), device=h.device),
+                       torch.tensor(1.0, device=h.device))
+    return torch.fft.ifft2(hf * mask, dim=(2, 3)).real.to(h.dtype)
+
+
+def _freeu_apply(x, h, P: UnetParams, freeu):
+    """FreeU at one decoder block (``_freeu_apply``, ``unet.py:123-140``):
+    the first half of the backbone feature's channels scaled by b and the
+    skip low-pass filtered by s, (b1, s1) where the feature has 4 n_ch
+    channels, (b2, s2) where it has 2 n_ch, nothing elsewhere."""
+    b1, b2, s1, s2 = freeu
+    cb = x.shape[1]
+    if cb == P.n_ch * 4:
+        b, s = b1, s1
+    elif cb == P.n_ch * 2:
+        b, s = b2, s2
+    else:
+        return x, h
+    half = cb // 2
+    b = torch.tensor(float(b), dtype=x.dtype, device=x.device)
+    x = torch.cat([x[:, :half] * b, x[:, half:]], dim=1)
+    return x, _freeu_filter(h, s)
 
 
 def _bcast(s, x):
     return s.reshape(s.shape + (1,) * (x.dim() - s.dim()))
 
 
-def denoise(unet: UNet, x, sigma, t, cond, label=None):
+def denoise(unet: UNet, x, sigma, t, cond, label=None, freeu=None,
+            pag: bool = False, want_cache: bool = False, use_cache=None):
     """k-diffusion wrapper: input scaling ``c_in = 1/sqrt(sigma^2 + 1)`` and,
     for v-param models, ``c_skip``/``c_out`` (ref: unet_denoise_run).
-    Returns the f32 derivative ``dx/dsigma`` the solvers use.  ``sigma`` and
+    Returns the f32 derivative ``dx/dsigma`` the solvers use (with
+    ``want_cache``, and the cache: :meth:`UNet.forward`).  ``sigma`` and
     ``t`` are scalars or [N]; ``label`` [N, ch_adm_in] for SDXL."""
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
     c_in = 1.0 / torch.sqrt(sigma * sigma + 1.0)
     t = torch.as_tensor(t, dtype=torch.float32,
                         device=x.device).expand(x.shape[0])
-    out = unet(x * _bcast(c_in, x), t, cond, label).float()
+    out = unet(x * _bcast(c_in, x), t, cond, label, freeu=freeu, pag=pag,
+               want_cache=want_cache, use_cache=use_cache)
+    cache = None
+    if want_cache:
+        out, cache = out
+    out = out.float()
     if unet.P.vparam:
         c_skip = sigma / (sigma * sigma + 1.0)
         c_out = 1.0 / torch.sqrt(sigma * sigma + 1.0)
         out = out * _bcast(c_out, out) + x.float() * _bcast(c_skip, x)
-    return out
+    return (out, cache) if want_cache else out

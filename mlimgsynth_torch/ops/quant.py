@@ -16,7 +16,9 @@ j + 64 in its high nibble.
 kernels in ``ops/quant_matmul.py``: the function of the JAX package's
 ``q8_matmul_xla`` / ``q4_matmul_xla`` (dequantize in f32, round the weight to
 ``x.dtype``, one product in ``x.dtype`` summed in f32 and rounded once:
-cuBLAS's reduction in bf16 is disallowed for the call).  ``q8_ws_int8_plain`` is the plain
+cuBLAS's reduction in bf16 is disallowed for the call, and a product of
+fewer than 64 rows on the card is padded to 64 with zero rows, so that
+cuBLAS sums over K in the kernels' order).  ``q8_ws_int8_plain`` is the plain
 version of the W8A8 kernel on per-column weights (``q8_ws_int8_xla``).
 ``q8_matmul_int8_plain`` is the plain version of the W8A8 kernel on per-block
 weights (``q8_matmul_int8_xla``, the ``MLIS_Q8_MODE=int8`` route).
@@ -114,6 +116,11 @@ def unpack_q4(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=2).reshape(n, 2 * k2)
 
 
+# the fewest rows of x the plain weight-only product hands to cuBLAS on the
+# card (see ``_dequant_matmul``)
+PAD_ROWS = 64
+
+
 def _dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
     global PLAIN_CUDA_CALLS
     if x.is_cuda:
@@ -125,13 +132,24 @@ def _dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
     # q8_matmul_xla accumulates.  PyTorch lets cuBLAS reduce a bf16 or f16
     # product in that type (at N = 100 it does: one bf16 step off in 40% of
     # the outputs), so that is disallowed for the call.
+    # Below PAD_ROWS rows cuBLAS may pick another reduction than the
+    # kernels' single pass over K in order (at (1, 3072, 3072), Flux's
+    # embedders, 4 of 3,072 outputs one bf16 step off), so such a product
+    # on the card runs padded with zero rows, where it picks theirs.
+    rows = x.numel() // k
+    pad = x.is_cuda and 0 < rows < PAD_ROWS
     flags = torch.backends.cuda.matmul
     saved = (flags.allow_bf16_reduced_precision_reduction,
              flags.allow_fp16_reduced_precision_reduction)
     flags.allow_bf16_reduced_precision_reduction = False
     flags.allow_fp16_reduced_precision_reduction = False
     try:
-        return torch.matmul(x, w.to(x.dtype).t())
+        if not pad:
+            return torch.matmul(x, w.to(x.dtype).t())
+        xp = x.new_zeros(PAD_ROWS, k)
+        xp[:rows] = x.reshape(rows, k)
+        y = torch.matmul(xp, w.to(x.dtype).t())[:rows]
+        return y.reshape(x.shape[:-1] + (n,))
     finally:
         (flags.allow_bf16_reduced_precision_reduction,
          flags.allow_fp16_reduced_precision_reduction) = saved

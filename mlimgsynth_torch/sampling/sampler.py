@@ -19,6 +19,16 @@ adds one conditional-only evaluation with the ``slg_layers`` blocks left
 out and steers away from it, ``out + slg_scale (d_cond - d_skip)``
 (``mlimgsynth_tpu/sampling/sampler.py:356-372``, ``:955-982``).
 
+The other guidance and sampling options of the JAX package: ``cfg_rescale``
+(the CFG output's per-sample std pulled back toward the cond prediction's,
+``_cfg_mix``, ``:267-283``), perturbed-attention guidance (one more
+cond-only evaluation with the UNet's mid self-attention map the identity on
+the steps of its window, ``:373-392``), DeepCache (the model's deep part
+rerun only on refresh steps, its output cached in between, ``:242-265``,
+``:427-482``), the lcm method (``:403-425``) and seed variations (the
+initial noise slerped toward a subseed's, ``:127-143``, ``:199-205``).
+FreeU reaches the UNet through ``run_sampler(freeu=...)``.
+
 img2img starts from an encoded latent over a schedule cut by ``f_t_ini``;
 inpainting also holds the kept region to that latent: a latent mask
 (1 = KEEP) is applied after the initial noise, after a churn draw and after
@@ -61,6 +71,15 @@ class SamplerConfig:
     slg_layers: tuple = (7, 8, 9)
     slg_start: float = 0.01
     slg_end: float = 0.2
+    # CFG rescale phi (0 is off): the CFG output blended toward itself
+    # rescaled to the cond prediction's per-sample std
+    cfg_rescale: float = 0.0
+    # perturbed-attention guidance (SD UNets): one extra cond-only
+    # evaluation with the mid transformer's self-attention map the
+    # identity on the steps in the [pag_start, pag_end) fraction; 0 is off
+    pag_scale: float = 0.0
+    pag_start: float = 0.0
+    pag_end: float = 1.0
 
 
 @dataclass
@@ -79,10 +98,27 @@ class SamplingPlan:
     anc_noise: np.ndarray
 
 
+# the solvers DeepCache composes with: one model evaluation a step (lcm
+# evaluates once too but steps in the loop body; ``DC_METHODS``,
+# ``mlimgsynth_tpu/sampling/sampler.py:242-245``)
+DC_METHODS = ("euler", "dpmpp2m", "dpmpp2m_sde", "taylor3", "unipc")
+
+
 def _schedule(cfg: SamplerConfig, nfe_per_dxdt: int):
-    ls = sch.log_sigmas_flow(cfg.flow_shift) if cfg.flow_shift else None
-    return sch.make_schedule(cfg.n_step, cfg.sched,
-                             get_solver(cfg.method).n_fe, nfe_per_dxdt,
+    """The step schedule; the lcm method takes the lcm grid unless another
+    scheduler than uniform was chosen (``sampler.py:155-168``)."""
+    solver = get_solver(cfg.method)
+    sched = cfg.sched
+    if solver.name == "lcm" and sched in (None, "", sch.SCHED_UNIFORM):
+        sched = sch.SCHED_LCM
+    ls = None
+    if cfg.flow_shift:
+        if solver.name == "lcm":
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "lcm sampling is not defined for rectified-flow "
+                            "models")
+        ls = sch.log_sigmas_flow(cfg.flow_shift)
+    return sch.make_schedule(cfg.n_step, sched, solver.n_fe, nfe_per_dxdt,
                              cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
 
 
@@ -90,13 +126,34 @@ def plan_n_step(cfg: SamplerConfig, nfe_per_dxdt: int = 1) -> int:
     """The loop's step count that ``make_plan`` will give (the schedule's
     length after the NFE division and the ``f_t`` cuts), wanted before the
     encode when prompt editing maps text segments onto steps
-    (``mlimgsynth_tpu/sampling/sampler.py:110-121``, without its lcm and
-    keep-tail branches, which this port has not)."""
+    (``mlimgsynth_tpu/sampling/sampler.py:110-124``, without its keep-tail
+    branch, which this port has not)."""
     return _schedule(cfg, nfe_per_dxdt).n_step
 
 
+def _noise_slerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
+    """Per-sample spherical interpolation over the flattened noise
+    (A1111's seed variations; the JAX package's ``_noise_slerp``,
+    ``sampler.py:127-143``, with its numpy arithmetic, so the noise is
+    the same bit for bit)."""
+    out = np.empty_like(a)
+    for i in range(a.shape[0]):
+        va, vb = a[i].ravel(), b[i].ravel()
+        dot = float(np.dot(va, vb)
+                    / (np.linalg.norm(va) * np.linalg.norm(vb)))
+        if abs(dot) > 0.9995:
+            out[i] = (1.0 - t) * a[i] + t * b[i]
+        else:
+            om = np.arccos(dot)
+            so = np.sin(om)
+            out[i] = ((np.sin((1.0 - t) * om) / so) * a[i]
+                      + (np.sin(t * om) / so) * b[i])
+    return out
+
+
 def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
-              nfe_per_dxdt: int = 1, seeds=None) -> SamplingPlan:
+              nfe_per_dxdt: int = 1, seeds=None, subseeds=None,
+              subseed_strength: float = 0.0) -> SamplingPlan:
     """Sigma schedule and all noise, drawn in the reference's order
     (initial, then per step: churn draw, post-step ancestral draw).
     ``latent_shape`` is NCHW; batch sample i draws from its own stream
@@ -104,15 +161,19 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
     that of ``n_step`` model evaluations: a 2-evaluation solver (heun,
     dpmpp2s) takes half as many steps.  The SDE methods read
     ``s_ancestral`` as their eta (default 1) and ``s_noise`` as the noise
-    multiplier (``mlimgsynth_tpu/sampling/sampler.py:168-173``).  The JAX
-    package's lcm, keep-tail and subseed branches are not ported."""
+    multiplier (``mlimgsynth_tpu/sampling/sampler.py:168-173``).  The lcm
+    method takes the lcm noise plan: a full re-noise to the next sigma on
+    the ancestral slot.  With ``subseeds`` (one a sample) and a
+    ``subseed_strength`` above 0, the initial noise is slerped toward each
+    subseed's fresh stream; the per-step draws stay on the seed streams
+    (``:199-205``).  The JAX package's keep-tail branch is not ported."""
     solver = get_solver(cfg.method)
     s = _schedule(cfg, nfe_per_dxdt)
     sde_eta = 0.0
     if solver.name.endswith("_sde"):
         sde_eta = cfg.s_ancestral if cfg.s_ancestral > 0 else 1.0
     plan = sch.plan_step_noise(s.sigmas, cfg.s_ancestral, cfg.s_noise,
-                               sde_eta, lcm=False)
+                               sde_eta, lcm=(solver.name == "lcm"))
     n_step = s.n_step
     n_batch = latent_shape[0]
     sample_shape = tuple(latent_shape[1:])
@@ -127,6 +188,10 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
         return out.astype(np.float32)
 
     noise0 = draw()
+    if subseed_strength > 0 and subseeds is not None:
+        sub = np.stack([RngPhilox(sd, 0).randn_shaped(sample_shape)
+                        for sd in subseeds]).astype(np.float32)
+        noise0 = _noise_slerp(noise0, sub, float(subseed_strength))
     churn = np.zeros((n_step,) + tuple(latent_shape), np.float32)
     anc = np.zeros_like(churn)
     for i in range(n_step):
@@ -153,17 +218,29 @@ def sigma_to_t(log_sigmas: np.ndarray, sigma) -> np.float32:
     return np.clip(t, np.float32(0.0), np.float32(n - 1))
 
 
-def _cfg_mix(d, n: int, cfg_scale: float):
-    """CFG mixing of a stacked [cond; uncond] model output."""
+def _cfg_mix(d, n: int, cfg_scale: float, cfg_rescale: float = 0.0):
+    """CFG mixing of a stacked [cond; uncond] model output; with
+    ``cfg_rescale`` (phi) blended toward the mix rescaled to the cond
+    prediction's per-sample std (ddof 1, in f32, floor 1e-8; Lin et al.
+    2023, section 3.4; ``_cfg_mix``, ``sampler.py:267-283``)."""
     cfg_scale = np.float32(cfg_scale)
-    return d[:n] * cfg_scale + d[n:] * (1 - cfg_scale)
+    out = d[:n] * cfg_scale + d[n:] * (1 - cfg_scale)
+    if cfg_rescale > 0:
+        ax = tuple(range(1, out.dim()))
+        std_c = torch.std(d[:n].float(), dim=ax, keepdim=True,
+                          correction=1)
+        std_o = torch.std(out.float(), dim=ax, keepdim=True, correction=1)
+        scaled = out * (std_c / torch.clamp(std_o, min=1e-8)).to(out.dtype)
+        out = cfg_rescale * scaled + (1.0 - cfg_rescale) * out
+    return out
 
 
-def slg_plan(cfg: SamplerConfig, unet_p, n_step: int):
+def slg_plan(cfg: SamplerConfig, unet_p, n_step: int, deepcache: int = 0):
     """(scale, layers, i0, i1) of skip-layer guidance over a loop of
     ``n_step`` steps, or None when ``slg_scale`` is 0; ``MlisError``
     (``E_OPT_VALUE``) for a model that is not a DiT, layers out of range
-    for its depth, or an empty window (``sampler.py:960-982``)."""
+    for its depth, an empty window, or with DeepCache
+    (``sampler.py:960-982``)."""
     if cfg.slg_scale <= 0:
         return None
     if not getattr(unet_p, "flow", False):
@@ -181,9 +258,53 @@ def slg_plan(cfg: SamplerConfig, unet_p, n_step: int):
     if cfg.slg_end <= cfg.slg_start:
         raise MlisError(MlisError.E_OPT_VALUE,
                         "slg window is empty (slg_end <= slg_start)")
+    if deepcache > 1:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "slg: unsupported with deepcache")
     i0 = int(round(cfg.slg_start * n_step))
     i1 = max(int(round(cfg.slg_end * n_step)), i0 + 1)
     return float(cfg.slg_scale), layers, i0, i1
+
+
+def pag_plan(cfg: SamplerConfig, unet_p, n_step: int, deepcache: int = 0):
+    """(scale, i0, i1) of perturbed-attention guidance over a loop of
+    ``n_step`` steps, or None when ``pag_scale`` is 0; ``MlisError``
+    (``E_OPT_VALUE``) for a model without an SD UNet's attention, with
+    DeepCache, or an empty window (``sampler.py:983-998``)."""
+    if cfg.pag_scale <= 0:
+        return None
+    if getattr(unet_p, "flow", False) or not getattr(unet_p, "attn_res", ()):
+        raise MlisError(
+            MlisError.E_OPT_VALUE,
+            "perturbed-attention guidance requires an SD-UNet model")
+    if deepcache > 1:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "pag: unsupported with deepcache")
+    if cfg.pag_end <= cfg.pag_start:
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "pag window is empty (pag_end <= pag_start)")
+    i0 = int(round(cfg.pag_start * n_step))
+    i1 = max(int(round(cfg.pag_end * n_step)), i0 + 1)
+    return float(cfg.pag_scale), i0, i1
+
+
+def deepcache_check(method: str, unet_p, deepcache: int,
+                    cond_steps=None) -> int:
+    """DeepCache's refresh interval (0 off, for ``deepcache`` <= 1);
+    ``ValueError`` where the JAX loop refuses it: a solver of more than one
+    evaluation a step, prompt editing, or a UNet of one level
+    (``sampler.py:799-813``; the session checks first, with
+    ``MlisError``)."""
+    if deepcache <= 1:
+        return 0
+    if method not in DC_METHODS:
+        raise ValueError("deepcache needs a 1-eval/step solver "
+                         f"({', '.join(DC_METHODS)})")
+    if cond_steps is not None or (not getattr(unet_p, "flow", False)
+                                  and len(getattr(unet_p, "ch_mult", ()))
+                                  < 2):
+        raise ValueError("deepcache: unsupported configuration")
+    return int(deepcache)
 
 
 def _mask_apply(x, x0, lmask):
@@ -198,7 +319,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 label_all: Optional[torch.Tensor] = None,
                 step_callback: Optional[Callable] = None,
                 lmask: Optional[np.ndarray] = None,
-                cond_steps: Optional[np.ndarray] = None) -> torch.Tensor:
+                cond_steps: Optional[np.ndarray] = None,
+                deepcache: int = 0, freeu=None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
@@ -210,12 +332,22 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     picks, in the same cond-then-uncond layout (the JAX loop's gather,
     ``mlimgsynth_tpu/sampling/sampler.py:312-316``, ``:862-875``).  With
     ``cfg.slg_scale`` set, the steps of the skip-layer window evaluate the
-    cond rows once more with the layers left out (:func:`slg_plan`).
-    ``step_observer(i_step, latent_nchw_numpy)`` sees every step, and
-    ``step_callback(i_step, n_step)`` is told of each (the session's
-    progress).  Returns the final latent, f32 on the device."""
+    cond rows once more with the layers left out (:func:`slg_plan`); with
+    ``cfg.pag_scale``, the steps of the PAG window once more with the
+    identity mid self-attention (:func:`pag_plan`).  ``deepcache`` k > 1
+    runs the model whole on steps i with i % k == 0 or i < max(1, n_step
+    // 10) and keeps its deep part's output, and only its shallow part on
+    the others (``sampler.py:427-482``, ``:1001``).  ``freeu`` (b1, b2,
+    s1, s2) goes to every UNet evaluation.  The lcm method takes its step
+    here: the boundary-scaled x0 prediction (sigma_data 0.5, timestep
+    scaling 10), then a full re-noise to the next sigma
+    (``sampler.py:403-425``).  ``step_observer(i_step,
+    latent_nchw_numpy)`` sees every step, and ``step_callback(i_step,
+    n_step)`` is told of each (the session's progress).  Returns the final
+    latent, f32 on the device."""
     dev = cond_all.device
     use_cfg = cfg.cfg_scale > 1
+    cfg_rescale = float(cfg.cfg_rescale) if use_cfg else 0.0
     solver = get_solver(cfg.method)
     flow = bool(getattr(model.P, "flow", False))
     flow_denoise = (flux_mod.denoise if getattr(model.P, "flux", False)
@@ -230,32 +362,52 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         raise ValueError(f"{len(cond_steps)} conditioning steps for a plan "
                          f"of {plan.n_step}")
 
-    slg = slg_plan(cfg, model.P, plan.n_step)
+    dc = deepcache_check(solver.name, model.P, deepcache, cond_steps)
+    dc_warm = max(1, plan.n_step // 10)
+    slg = slg_plan(cfg, model.P, plan.n_step, dc)
+    pag = pag_plan(cfg, model.P, plan.n_step, dc)
+    cache = [None]      # DeepCache's deep output, kept across steps
+
+    def den(xb, sigma, ca, la, **kw):
+        """One evaluation of the model on ``xb`` at ``sigma``."""
+        if flow:
+            t = np.float32(sigma) * np.float32(model.P.n_step_train)
+            return flow_denoise(model, xb, np.float32(sigma), t, ca, la,
+                                **kw)
+        return unet_mod.denoise(model, xb, np.float32(sigma),
+                                sigma_to_t(log_sigmas, sigma), ca, la,
+                                freeu=freeu, **kw)
 
     def dxdt_at(i):
-        """The derivative of step ``i``: under skip-layer guidance inside
-        its window, steered away from the cond rows' evaluation with the
-        layers left out."""
+        """The derivative of step ``i``: the CFG mix, steered away from the
+        cond rows' degraded evaluation inside the skip-layer or PAG window;
+        under DeepCache the whole model on refresh steps, the shallow part
+        on the others."""
         steer = slg is not None and slg[2] <= i < slg[3]
+        perturb = pag is not None and pag[1] <= i < pag[2]
+        refresh = i % max(dc, 1) == 0 or i < dc_warm
 
         def dxdt(x, sigma):
             n = x.shape[0]
             xb = torch.cat([x, x]) if use_cfg else x
-            if flow:
-                t = np.float32(sigma) * np.float32(model.P.n_step_train)
-                d = flow_denoise(model, xb, np.float32(sigma), t, cond_all,
-                                 label_all)
+            if dc and refresh:
+                d, cache[0] = den(xb, sigma, cond_all, label_all,
+                                  want_cache=True)
+            elif dc:
+                d = den(xb, sigma, cond_all, label_all, use_cache=cache[0])
             else:
-                t = sigma_to_t(log_sigmas, sigma)
-                d = unet_mod.denoise(model, xb, np.float32(sigma), t,
-                                     cond_all, label_all)
-            out = _cfg_mix(d, n, cfg.cfg_scale) if use_cfg else d
-            if steer:
-                scale, layers, _, _ = slg
-                d_skip = flow_denoise(
-                    model, x, np.float32(sigma), t, cond_all[:n],
-                    None if label_all is None else label_all[:n],
-                    skip_layers=layers)
+                d = den(xb, sigma, cond_all, label_all)
+            out = _cfg_mix(d, n, cfg.cfg_scale, cfg_rescale) if use_cfg \
+                else d
+            if steer or perturb:
+                la = None if label_all is None else label_all[:n]
+                if steer:
+                    scale = slg[0]
+                    d_skip = den(x, sigma, cond_all[:n], la,
+                                 skip_layers=slg[1])
+                else:
+                    scale = pag[0]
+                    d_skip = den(x, sigma, cond_all[:n], la, pag=True)
                 out = out + scale * (d[:n] - d_skip)
             return out
         return dxdt
@@ -277,14 +429,24 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                                    device=dev)
             cond_all = bank[rows]
             label_all = None if label_bank is None else label_bank[rows]
-        churn = f32(plan.churn_sigma[i])
-        if churn > 0:       # stochastic churn (src/sampling.c:138-151)
-            x = x + to_dev(plan.churn_noise[i]) * churn
-            if mask is not None:
-                x = _mask_apply(x, x0_keep, mask)
-            t = f32(plan.s_hat[i])
-        x, state = solver.step(dxdt_at(i), x, state, i, t,
-                               f32(plan.s_down[i]))
+        if solver.name == "lcm":
+            # the consistency function's x0 through the boundary scalings,
+            # then the re-noise on the ancestral slot (no churn)
+            d = x - t * dxdt_at(i)(x, t)
+            ts = sigma_to_t(log_sigmas, t) * f32(10.0)
+            c_skip = f32(0.25) / (ts * ts + f32(0.25))
+            c_out = ts / np.sqrt(ts * ts + f32(0.25))
+            c_in = f32(1.0) / np.sqrt(t * t + f32(1.0))
+            x = d * c_out + x * (c_skip * c_in)
+        else:
+            churn = f32(plan.churn_sigma[i])
+            if churn > 0:       # stochastic churn (src/sampling.c:138-151)
+                x = x + to_dev(plan.churn_noise[i]) * churn
+                if mask is not None:
+                    x = _mask_apply(x, x0_keep, mask)
+                t = f32(plan.s_hat[i])
+            x, state = solver.step(dxdt_at(i), x, state, i, t,
+                                   f32(plan.s_down[i]))
         if plan.s_up[i] > 0:   # post-step ancestral noise
             x = x + to_dev(plan.anc_noise[i]) * f32(plan.s_up[i])
         t = f32(plan.t_next[i])

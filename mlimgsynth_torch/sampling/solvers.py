@@ -5,8 +5,9 @@ Each solver advances ``x`` from sigma ``t_cur`` to ``t_next`` given
 numpy float32, as the JAX package computes them in f32; its branchy
 ``jnp.where`` / ``lax.cond`` forms become host branches on those scalars
 and on the Python step index, so a skipped model evaluation is not run.
-All methods of the JAX package but ``lcm`` are ported: lcm's step lives in
-the JAX sampler's body with its own schedule, and raises here.
+Every method of the JAX package is ported.  lcm's step lives in the
+sampler's loop (it needs the sigma -> timestep table, which a solver does
+not see); its entry here is the JAX package's placeholder, never called.
 """
 from __future__ import annotations
 
@@ -152,10 +153,14 @@ DPMPP2S = SolverClass("dpmpp2s", 2, _euler_init, _dpmpp2s_step)
 # package's note at ``solvers.py:125-139``)
 DPMPP2M_SDE = SolverClass("dpmpp2m_sde", 1, _dpmpp2m_init, _dpmpp2m_step)
 UNIPC = SolverClass("unipc", 1, _unipc_init, _unipc_step)
+# latent-consistency sampling: one evaluation a step, taken by the sampler's
+# loop (``sampler.run_sampler``; ``mlimgsynth_tpu/sampling/solvers.py:
+# 145-154``)
+LCM = SolverClass("lcm", 1, _euler_init, _euler_step)
 
 SOLVERS: Dict[str, SolverClass] = {
     s.name: s for s in (EULER, HEUN, TAYLOR3, DPMPP2M, DPMPP2S, DPMPP2M_SDE,
-                        UNIPC)}
+                        LCM, UNIPC)}
 
 # Method ids matching MLIS_Method (the JAX package's ``METHOD_IDS``)
 METHOD_IDS = {1: "euler", 2: "heun", 3: "taylor3", 4: "dpmpp2m",

@@ -722,7 +722,8 @@ def write_random_flux_lora(path, mt: ModelTypeDef, rank: int = 4,
 
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
 # 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens), SD2.1
-# 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels, and
+# 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels
+# (perturbed-attention guidance's cond-only evaluation at batch 1), and
 # ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
 # main path runs it)
 ATTN_CASES = [
@@ -734,6 +735,14 @@ ATTN_CASES = [
     ("flash_attn_fwd", (2, 10, 2304, 64), 2304, "SD2 UNet level 1"),
     ("flash_attn_fwd", (2, 20, 576, 64), 576,
      "SD2 UNet level 2 (a 64-row last q block, a 64-column kv tile)"),
+    ("flash_attn_fwd", (1, 8, 4096, 40), 4096,
+     "SD1.5 PAG evaluation (batch 1), level 0"),
+    ("flash_attn_fwd", (1, 8, 1024, 80), 1024,
+     "SD1.5 PAG evaluation (batch 1), level 1"),
+    ("flash_attn_fwd", (1, 10, 4096, 64), 4096,
+     "SDXL PAG evaluation (batch 1), level 1"),
+    ("flash_attn_fwd", (1, 20, 1024, 64), 1024,
+     "SDXL PAG evaluation (batch 1), level 2"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
@@ -959,6 +968,7 @@ Q8_INT8_CASES = [
     (8192, 640, 5120, "ff.net.0.proj, 64x64 level"),
     (8192, 2560, 640, "ff.net.2, 64x64 level"),
     (8192, 640, 640, "attention q/k/v/out, 64x64 level"),
+    (2048, 1280, 1280, "attention q/k/v/out, 32x32 level"),
     (2048, 1280, 10240, "ff.net.0.proj, 32x32 level"),
     (2048, 5120, 1280, "ff.net.2, 32x32 level"),
     (154, 2048, 1280, "cross-attention k/v, 32x32 level"),

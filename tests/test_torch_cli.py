@@ -113,10 +113,10 @@ def test_tokenize_help_version(capsys):
     ["generate", "-b", "cpu", "--definitely-not-an-option", "1"],
     ["vae-encode", "-b", "cpu"],
     ["generate", "-b", "tpu"],
-    ["generate", "-b", "cpu", "--method", "lcm"],
-    ["generate", "-b", "cpu", "--deepcache", "3"],
+    ["generate", "-b", "cpu", "--hires-fix", "2"],
+    ["generate", "-b", "cpu", "--refiner", "refiner.safetensors"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
-        "method", "deepcache"])
+        "hires-fix", "refiner"])
 def test_errors_exit_1(argv):
     assert tcli.main(argv) == 1
 

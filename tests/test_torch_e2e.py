@@ -203,8 +203,8 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 @pytest.mark.parametrize("name,value", [
     ("model-type", "sdxl_refiner"), ("weight-type", "q2_k"),
-    ("method", "lcm"), ("deepcache", 3), ("hires-fix", 2.0),
-    ("control-net", "cn.safetensors"), ("pag-scale", 3.0),
+    ("mask-blur", 4.0), ("inpaint-full-res", 1), ("hires-fix", 2.0),
+    ("control-net", "cn.safetensors"), ("upscaler", "x4.pth"),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")
@@ -249,6 +249,17 @@ for k, v in [("embed-dir", "."), ("seed", 1), ("steps", 2),
              ("prompt", "a <emb:likecat> [photo:picture:1]")]:
     s.option_set(k, v)
 assert np.isfinite(s.generate()).all() and s.tensors["cond"].shape[0] == 3
+# the sampler and guidance options
+for k, v in [("cfg-rescale", 0.7), ("subseed", 5), ("subseed-strength", 0.3),
+             ("freeu", "1"), ("pag-scale", 2.0), ("tiling", 1),
+             ("method", "lcm"), ("steps", 2), ("prompt", "a cat")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all()
+assert "FreeU: 1.5,1.6,0.9,0.2" in s.infotext, s.infotext
+for k, v in [("pag-scale", 0.0), ("method", "euler"), ("deepcache", 2),
+             ("steps", 3), ("prompt", "a cat")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all() and "DeepCache: 2" in s.infotext
 api._model_types = lambda: {"sd3": testing.TINY_MODEL_TYPE_SD3}
 testing.write_random_checkpoint("sd3.st", testing.TINY_MODEL_TYPE_SD3,
                                 seed=3, dtype=np.float32)

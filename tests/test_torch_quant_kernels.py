@@ -215,6 +215,35 @@ def test_kernel_matches_plain_on_cuda(cuda, bits, kind, m, k, n, where):
     assert res["ok"], (where, res)
 
 
+# Flux's one-row products (a sample's embedders and modulations, no CFG
+# batch): the kernel bit for bit its plain version, on an input drawn as in
+# the model (SiLU of a normal row, the embedders' and modulations' input).
+# Unpadded, cuBLAS summed (1, 3072, 3072) in another order than the kernel
+# (4 of 3,072 outputs a bf16 step off on the H100), which drifted a whole
+# Flux-dev q8_0 evaluation by 1.8e-2 against its plain run.
+FEW_ROW_PRODUCTS = [(1, 3072, 3072, "Flux time_in / vector_in out_layer"),
+                    (1, 3072, 18432, "Flux double-block modulation"),
+                    (1, 3072, 9216, "Flux single-block modulation"),
+                    (1, 256, 3072, "Flux time_in in_layer"),
+                    (2, 3072, 3072, "a CFG batch of two rows")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n,where", FEW_ROW_PRODUCTS)
+def test_few_row_products_match_plain_bit_for_bit_on_cuda(cuda, bits, m, k,
+                                                          n, where):
+    _, q, s = testing.quant_inputs(m, k, n, bits)
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    x = torch.nn.functional.silu(
+        torch.randn(m, k, device="cuda", generator=gen) * 2.0).bfloat16()
+    name = f"q{bits}_matmul_tile"
+    out = getattr(qmm, name)(x, q, s)
+    ref = (quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain)(
+        x, q, s)
+    assert torch.equal(out, ref), (where, (out != ref).sum().item())
+
+
 # bf16 in and out, held to the limits of testing.int8_error (the reasons
 # are stated there)
 @pytest.mark.cuda

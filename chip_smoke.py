@@ -125,6 +125,23 @@ Phases, one result line each (any failure exits non-zero):
                  SDXL with PAG, DeepCache 3 and FreeU; Flux-dev and SD3
                  with DeepCache 2; each with exact launches by shape and an
                  in-situ evaluation of the option's own path.
+                 The second-stage and control paths, one request each on
+                 bf16 sessions: ``inpaint`` (SD1.5: a 768^2 RGBA image
+                 with an off-centre hole at full resolution, mask blur 4,
+                 the image outside the box kept exactly; a random
+                 full-width 9-channel inpaint variant drawn on the card),
+                 ``controlnet`` (a random full-width SD1.5 ControlNet
+                 drawn on the card, a 512^2 hint, strength 0.8), ``hires``
+                 (SD1.5 512^2 -> 1024^2 by the latent, then by a random
+                 RRDBNet x4plus: K1 at the 1024^2 levels, the wide kernel
+                 at head dim 160), ``upscale`` (the CLI's upscale of a
+                 512^2 PNG by that model, whole and in 256-pixel tiles:
+                 no kernel, time and memory) and ``refiner`` (SDXL-base
+                 with a random full-width refiner drawn on the card at
+                 switch 0.8, then the refiner alone), each with its
+                 seconds, peak memory, exact launches by shape and, but
+                 ``upscale``, one denoiser evaluation of its path with the
+                 kernels against the plain attention in situ.
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -195,6 +212,7 @@ from mlimgsynth_torch import weights as weights_mod
 from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import blocks as blocks_mod
 from mlimgsynth_torch.models import clip as clip_mod
+from mlimgsynth_torch.models import esrgan as esr_mod
 from mlimgsynth_torch.models import flux as flux_mod
 from mlimgsynth_torch.models import mmdit as mmdit_mod
 from mlimgsynth_torch.models import t5 as t5_mod
@@ -517,6 +535,7 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(sd1_lowmem_cli(tmp, ckpt))
     launches.update(embed_edit_sd1(tmp, ckpt))
     launches.update(features_sd1(ckpt))
+    launches.update(second_stage_sd1(tmp, ckpt))
     os.remove(ckpt)
     ckpt = _checkpoint(tmp, "sd3")
     for wt, bits, n_req in SD3_PATHS:
@@ -553,6 +572,7 @@ def _paths(tmp: str, launches: collections.Counter):
         sdxl_reference_check(s, wt, bits)
         if not bits:
             launches.update(features(s, "sdxl"))
+            launches.update(refiner_path(s, tmp))
             launches.update(embed_edit_sdxl(s, ckpt, tmp))
             launches.update(sdxl_lowmem_requests(s, wt))
         if bits == 8:
@@ -652,8 +672,15 @@ def _entry(name: str, source: str, **kv) -> dict:
 # One request's calls of each flash kernel at its main-path shapes, (q
 # shape, Sk) -> {model: calls}; they add up to the launch counts above
 FLASH_SHAPE_CALLS = {
-    ((2, 8, 4096, 40), 4096): {"sd1": 100},
-    ((2, 8, 1024, 80), 1024): {"sd1": 100},
+    ((2, 8, 4096, 40), 4096): {"sd1": 100, "sd1_cnet": 40},
+    ((2, 8, 1024, 80), 1024): {"sd1": 100, "sd1_cnet": 40},
+    # the hires fix's second pass at 1024^2 (level 2: head dim 160 on the
+    # wide kernel) and the SDXL refiner's levels 1 and 2 at 1024^2
+    ((2, 8, 16384, 40), 16384): {"sd1_1024": 100},
+    ((2, 8, 4096, 80), 4096): {"sd1_1024": 100},
+    ((2, 8, 1024, 160), 1024): {"sd1_1024": 100},
+    ((2, 12, 4096, 64), 4096): {"sdxl_refiner": 400},
+    ((2, 24, 1024, 64), 1024): {"sdxl_refiner": 400},
     ((2, 10, 4096, 64), 4096): {"sdxl": 200},
     ((2, 20, 1024, 64), 1024): {"sdxl": 1200},
     ((1, 1, 4096, 512), 4096): {"sd1": 1, "sd1_img2img": 2},
@@ -661,7 +688,8 @@ FLASH_SHAPE_CALLS = {
                                   "sdxl_img2img": 2, "sd3_t5_77": 1,
                                   "sd3_t5_256": 1, "sd35_medium": 1,
                                   "sd35_large": 1, "flux_dev": 1,
-                                  "flux_schnell": 1},
+                                  "flux_schnell": 1, "sd1_1024": 1,
+                                  "sdxl_refiner": 1},
     ((2, 24, 4250, 64), 4250): {"sd3": 480, "sd3_t5_77": 480,
                                 "sd35_medium": 480},
     ((2, 24, 4096, 64), 4096): {"sd35_medium": 260},
@@ -2016,11 +2044,19 @@ def _flash_want(model: str, n_eval: int, n_k2: int) -> dict:
         n = (n_k2 if shape[-1] == 512
              else calls.get(model, 0) // per * n_eval)
         if model in calls and n:
-            name = ("flash_attn_fwd_wide" if shape[-1] == 512 else
+            name = ("flash_attn_fwd_wide" if shape[-1] > 128 else
                     "flash_attn_joint" if model.startswith(("sd3", "flux"))
                     else "flash_attn_fwd")
             want[(name, shape)] = n
     return want
+
+
+def _want_sum(*wants) -> dict:
+    """The launches by kernel and shape of several parts of a request."""
+    out = collections.Counter()
+    for w in wants:
+        out.update(w)
+    return dict(out)
 
 
 def sd1_img2img_path(tmp: str, ckpt: str, lora: tuple) -> collections.Counter:
@@ -3170,6 +3206,344 @@ def flux_drift_groups(s, model: str) -> None:
 # (model type, tiny geometry, image side, seed): the SD3 one at 512^2 (its
 # largest, a 32 x 32 patch grid) runs the joint kernel in the VAE's
 # mid-block (64 x 64 latent tokens)
+# The second-stage and control paths (``inpaint``, ``controlnet``,
+# ``hires``, ``upscale`` and ``refiner`` lines), on the SD1.5 checkpoint at
+# 512^2 (20 Euler steps, CFG 7) and the SDXL-base one at 1024^2:
+# inpainting at full resolution (a 768^2 RGBA image with an off-centre
+# hole, the mask blurred by INPAINT_BLUR, its box padded by INPAINT_PAD and
+# processed at 512^2, f_t_ini INPAINT_F_T_INI) and on a random full-width
+# 9-channel inpaint-variant SD1.5 (drawn on the card; 20 steps from the
+# RGBA image, K2 in the sampled and the deterministic encode and the
+# decode); a random full-width SD1.5 ControlNet (control_model.* layout,
+# drawn on the card; its encoder copy adds 2 self-attentions at each of
+# SD1.5's two flash levels per evaluation) at CNET_STRENGTH on a 512^2
+# hint; the hires fix 512^2 -> 1024^2 (HIRES: 14 second-pass steps, the
+# UNet's level 2 at head dim 160 on the wide kernel), by the latent and by
+# a random RRDBNet x4plus (ESRGAN_X4: 23 blocks, 64 wide); the CLI's
+# upscale of the 512^2 image by that model, whole and in UPSCALE_TILE tiles;
+# SDXL-base with a random full-width SDXL refiner (drawn on the card) at
+# REFINER_SWITCH, then one request of the refiner alone.
+INPAINT_BLUR, INPAINT_PAD, INPAINT_F_T_INI = 4.0, 32, 0.8
+INPAINT_IMAGE, INPAINT_HOLE = 768, (96, 288, 448, 704)   # y0, y1, x0, x1
+CNET_STRENGTH = 0.8
+HIRES = [("hires-fix", 2.0), ("hires-denoise", 0.7)]
+HIRES_DIM, HIRES_UPSCALER = 1024, "RealESRGAN_x4plus"
+ESRGAN_X4 = esr_mod.EsrganParams(n_feat=64, n_block=23, growth=32)
+UPSCALE_TILE = 256
+REFINER_SWITCH = 0.8
+
+
+def _sd1_session(ckpt: str):
+    """A bf16 SD1.5 512^2 session of ``ckpt``, loaded: (it, load s)."""
+    s = api.MLImgSynth(device="cuda")
+    for k, v in [("model", ckpt), ("model-type", "sd1"),
+                 ("weight-type", "bf16"), ("image-dim", 512), ("steps", 20),
+                 ("cfg-scale", 7.0), ("method", "euler"),
+                 ("scheduler", "uniform")]:
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    return s, time.time() - t0
+
+
+def _request(s, line: str, what: str, want: dict, **opts):
+    """One request of ``s`` with ``opts`` (prompt and seed of REQUESTS[0])
+    and its flash launches by shape, checked exactly against ``want``:
+    (the image or latent, its seconds, the launches by kernel)."""
+    for k, v in [("seed", REQUESTS[0][0]), ("prompt", REQUESTS[0][1]),
+                 ("nprompt", "blurry, low quality"), *opts.items()]:
+        s.option_set(k.replace("_", "-"), v)
+    fa.reset_counts()
+    qmm.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = s.generate()
+    secs = time.time() - t0
+    shapes = collections.Counter(fa.LAUNCH_SHAPES)
+    got = _check_launches(f"{line} {what}", shapes, want)
+    if any(qmm.LAUNCHES.values()):
+        raise AssertionError(f"{line} {what}: quantized kernels launched")
+    phase(line, request=what, seconds=secs, **_clocks(),
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          launches=got, launches_by_shape={
+              f"{k[0]} {list(k[1])}": n for k, n in sorted(shapes.items())},
+          times={k: v for k, v in s.times.items()
+                 if k.endswith("_s") and not k.startswith("move_")},
+          image_mean=float(out.mean()), image_std=float(out.std()),
+          infotext=s.infotext)
+    return out, secs, got
+
+
+def _in_situ(line: str, what: str, model=None, got_in=None, run=None,
+             **kv) -> None:
+    """The in-situ check of a line: the call of ``model`` that
+    ``_capture`` recorded in ``got_in``, or ``run``, with the kernels
+    against the same with the plain attention, held to
+    ``REF_LIMITS[what]``."""
+    if run is None:
+        args, kw = got_in[0]
+
+        def run():
+            with torch.no_grad():
+                out = model(*args, **kw)
+                out = out[0] if isinstance(out, tuple) else out
+                return [(what, out.float())]
+
+    _kernels_vs_plain("bf16", None, run, line=line, **kv)
+
+
+def inpaint_requests(s, tmp: str) -> collections.Counter:
+    """The ``inpaint`` lines: full-resolution inpainting with a blurred
+    mask on the SD1.5 session ``s``, then a request of a random 9-channel
+    inpaint-variant SD1.5 with one of its UNet evaluations in situ.
+    Returns the launches."""
+    launches = collections.Counter()
+    rgba = _test_image(INPAINT_IMAGE, 5)
+    y0, y1, x0, x1 = INPAINT_HOLE
+    rgba[:, :, 3] = 255
+    rgba[y0:y1, x0:x1, 3] = 0
+    n_step = _n_step(20, "euler", INPAINT_F_T_INI)
+    img, _, got = _request(
+        s, "inpaint", "full_res", _flash_want("sd1", n_step, 2),
+        image=rgba, f_t_ini=INPAINT_F_T_INI, mask_blur=INPAINT_BLUR,
+        inpaint_full_res=1, inpaint_full_res_padding=INPAINT_PAD)
+    launches.update(got)
+    mask = rgba[None, None, :, :, 3].astype(np.float32) / 255.0
+    box = image_mod.inpaint_crop_region(
+        1.0 - image_mod.mask_gaussian_blur(mask, INPAINT_BLUR), 512, 512,
+        INPAINT_PAD)
+    bx0, by0, bx1, by1 = box
+    outside = np.ones((INPAINT_IMAGE, INPAINT_IMAGE), bool)
+    outside[by0:by1, bx0:bx1] = False
+    kept = bool(np.array_equal(
+        img[0].transpose(1, 2, 0)[outside],
+        rgba[:, :, :3][outside].astype(np.float32) / 255.0))
+    lm = s.tensors["lmask"]
+    blurred = int(((lm > 0) & (lm < 1)).sum())
+    phase("inpaint", request="full_res", box=list(box),
+          outside_box_equal_input=kept, blurred_lmask_values=blurred)
+    if (img.shape != (1, 3, INPAINT_IMAGE, INPAINT_IMAGE) or not kept
+            or not blurred or "Inpaint area: only masked" not in s.infotext
+            or not np.isfinite(img).all()):
+        raise AssertionError(f"inpaint full_res: image {img.shape}, kept "
+                             f"{kept}, blurred {blurred}, {s.infotext!r}")
+    s.option_set("inpaint-full-res", 0)
+    s.option_set("mask-blur", 0.0)
+    # the 9-channel inpaint variant, drawn on the card
+    mt9 = testing.inpaint_variant(api._model_types()["sd1"])
+    path = os.path.join(tmp, "sd1-inpainting-random-f16.safetensors")
+    t0 = time.time()
+    testing.write_random_checkpoint(path, mt9, seed=1, device="cuda")
+    write_s = time.time() - t0
+    v, load_s = _sd1_session(path)
+    phase("inpaint", request="variant", step="checkpoint", write_s=write_s,
+          load_s=load_s, bytes=os.path.getsize(path),
+          n_ch_in=v._mt.unet_p.n_ch_in)
+    unet = v._models["unet."]
+    got_in, hook = _capture(unet, lambda a, kw: True)
+    try:
+        _, _, got = _request(v, "inpaint", "variant",
+                             _flash_want("sd1", 20, 3),
+                             image=_test_image(512, 6))
+    finally:
+        hook.remove()
+    launches.update(got)
+    if v._mt.unet_p.n_ch_in != 9 or got_in[0][0][0].shape[1] != 9:
+        raise AssertionError("inpaint variant: the UNet does not take 9 "
+                             "input channels")
+    _in_situ("inpaint", "unet_eps", unet, got_in, request="variant")
+    _drop(v)
+    os.remove(path)
+    return launches
+
+
+def controlnet_request(s, tmp: str) -> collections.Counter:
+    """The ``controlnet`` line: a random full-width SD1.5 ControlNet,
+    drawn on the card, on the SD1.5 session ``s``; one request, exact
+    launches (the UNet's and the encoder copy's), and the ControlNet and
+    UNet evaluation of its first step in situ.  Returns the launches."""
+    path = os.path.join(tmp, "sd1-controlnet-random-f16.safetensors")
+    t0 = time.time()
+    shapes = testing.write_random_controlnet(
+        path, api._model_types()["sd1"], seed=2, device="cuda")
+    write_s = time.time() - t0
+    hint = np.zeros((512, 512, 3), np.uint8)
+    hint[::32] = 255
+    hint[:, 100:104] = 255
+    s.option_set("control-net", path)
+    s.option_set("control-image", hint)
+    t0 = time.time()
+    s.setup()
+    phase("controlnet", step="load", write_s=write_s,
+          load_s=time.time() - t0, tensors=len(shapes),
+          bytes=os.path.getsize(path))
+    cnet, unet = s._models["cnet."], s._models["unet."]
+    got_in, hook = _capture(cnet, lambda a, kw: True)
+    try:
+        _, _, got = _request(
+            s, "controlnet", "request",
+            _want_sum(_flash_want("sd1", 20, 1),
+                      _flash_want("sd1_cnet", 20, 0)),
+            control_strength=CNET_STRENGTH)
+    finally:
+        hook.remove()
+    if f"ControlNet strength: {CNET_STRENGTH:g}" not in s.infotext:
+        raise AssertionError(f"controlnet: infotext {s.infotext!r}")
+    (x, t, cond, label, feat), _ = got_in[0]
+
+    def run():
+        with torch.no_grad():
+            res = [r * CNET_STRENGTH for r in cnet(x, t, cond, label, feat)]
+            return [("unet_eps", unet(x, t, cond, label,
+                                      control=res).float())]
+
+    _in_situ("controlnet", "unet_eps", run=run)
+    s.option_set("control-net", "")
+    s.option_set("control-image", "")
+    s.setup()
+    os.remove(path)
+    return collections.Counter(got)
+
+
+def hires_requests(s, tmp: str) -> collections.Counter:
+    """The ``hires`` lines on the SD1.5 session ``s``: 512^2 -> 1024^2 by
+    the latent (its 1024^2 UNet evaluation in situ, the 17 GB plain
+    softmax of level 0 included), then by the random RRDBNet x4plus (the
+    first pass decoded, upscaled to 2048^2, Lanczos-resized to 1024^2,
+    encoded).  Returns the launches and the upscaler's path."""
+    launches = collections.Counter()
+    n2 = _n_step(20, "euler", dict(HIRES)["hires-denoise"])
+    for k, v in HIRES:
+        s.option_set(k, v)
+    unet = s._models["unet."]
+    got_in, hook = _capture(unet, lambda a, kw: a[0].shape[-1] == 128)
+    try:
+        lat_img, _, got = _request(
+            s, "hires", "latent",
+            _want_sum(_flash_want("sd1", 20, 0),
+                      _flash_want("sd1_1024", n2, 1)))
+    finally:
+        hook.remove()
+    launches.update(got)
+    if not _image_ok(lat_img, HIRES_DIM) or "Hires upscale: 2" not in \
+            s.infotext:
+        raise AssertionError(f"hires latent: image {lat_img.shape}")
+    _in_situ("hires", "unet_eps", unet, got_in, request="latent")
+    path = os.path.join(tmp, "RealESRGAN_x4plus-random.pth")
+    t0 = time.time()
+    testing.write_random_esrgan(path, ESRGAN_X4, seed=3)
+    phase("hires", step="upscaler", write_s=time.time() - t0,
+          bytes=os.path.getsize(path))
+    s.option_set("upscaler", path)
+    s.option_set("hires-upscaler", HIRES_UPSCALER)
+    img, _, got = _request(
+        s, "hires", "image",
+        _want_sum(_flash_want("sd1", 20, 1), _flash_want("sd1_1024", n2, 2)))
+    launches.update(got)
+    if not _image_ok(img, HIRES_DIM) or f"Hires upscaler: " \
+            f"{HIRES_UPSCALER}" not in s.infotext:
+        raise AssertionError(f"hires image: image {img.shape}")
+    for k, v in [("hires-fix", 0.0), ("hires-upscaler", "")]:
+        s.option_set(k, v)
+    return launches, path
+
+
+def upscale_cli(tmp: str, up: str) -> None:
+    """The ``upscale`` lines: the CLI's ``upscale`` of a 512^2 PNG by the
+    random RRDBNet x4plus, whole and in tiles of ``UPSCALE_TILE``: no flash
+    kernel, the 2048^2 PNGs read back, the tiles' seams measured against
+    the whole pass."""
+    src = os.path.join(tmp, "up-in.png")
+    image_mod.image_save(src, _test_image(512, 7)[:, :, :3])
+    outs = {}
+    for what, extra in (("whole", []),
+                        ("tiled", ["--upscale-tile", str(UPSCALE_TILE)])):
+        out = os.path.join(tmp, f"up-{what}.png")
+        secs, s, shapes = _cli_request(["upscale", "--upscaler", up, "-i",
+                                        src, "-o", out, "-q", *extra])
+        if shapes or any(qmm.LAUNCHES.values()):
+            raise AssertionError(f"upscale {what}: kernels launched")
+        outs[what] = image_mod.png_read(out)[0].astype(np.float32)
+        phase("upscale", request=what, seconds=secs,
+              upscale_s=s.times.get("upscale_s"),
+              upscaler_load_s=s.times.get("upscaler_load_s"),
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              shape=list(outs[what].shape), tile=UPSCALE_TILE if extra
+              else 0, **_clocks())
+        if outs[what].shape != (2048, 2048, 3):
+            raise AssertionError(f"upscale {what}: {outs[what].shape}")
+        del s
+    diff = np.abs(outs["tiled"] - outs["whole"])
+    phase("upscale", step="tiled_vs_whole", max_abs_u8=float(diff.max()),
+          mean_abs_u8=float(diff.mean()))
+
+
+def second_stage_sd1(tmp: str, ckpt: str) -> collections.Counter:
+    """The SD1.5 lines of the second-stage and control paths on a bf16
+    session of ``ckpt``: ``inpaint``, ``controlnet``, ``hires``, then the
+    ``upscale`` CLI calls.  Returns the launches."""
+    s, load_s = _sd1_session(ckpt)
+    phase("inpaint", step="setup", load_s=load_s)
+    launches = inpaint_requests(s, tmp)
+    launches.update(controlnet_request(s, tmp))
+    got, up = hires_requests(s, tmp)
+    launches.update(got)
+    _drop(s)
+    upscale_cli(tmp, up)
+    os.remove(up)
+    return launches
+
+
+def refiner_path(s, tmp: str) -> collections.Counter:
+    """The ``refiner`` lines on the SDXL-base bf16 session ``s``: a random
+    full-width SDXL refiner drawn on the card, one ensemble request at
+    ``REFINER_SWITCH`` (the base's steps to the switch, the refiner's after
+    it; exact launches of both models) with a refiner UNet evaluation in
+    situ, then one request of the refiner alone.  Returns the launches."""
+    mt = api._model_types()["sdxl_refiner"]
+    path = os.path.join(tmp, "sdxl_refiner-random-f16.safetensors")
+    t0 = time.time()
+    testing.write_random_checkpoint(path, mt, seed=4, device="cuda")
+    phase("refiner", step="checkpoint", write_s=time.time() - t0,
+          bytes=os.path.getsize(path))
+    s.option_set("refiner", path)
+    s.option_set("refiner-switch", REFINER_SWITCH)
+    cut = 1.0 - REFINER_SWITCH
+    n_base = sampler_mod.plan_n_step(sampler_mod.SamplerConfig(
+        n_step=SDXL_STEPS, f_t_end=cut, keep_tail=True), 2)
+    n_ref = sampler_mod.plan_n_step(sampler_mod.SamplerConfig(
+        n_step=SDXL_STEPS, f_t_ini=cut), 2)
+    rs = s._refiner_get()
+    t0 = time.time()
+    rs.setup()
+    phase("refiner", step="setup", load_s=time.time() - t0,
+          base_steps=n_base, refiner_steps=n_ref)
+    got_in, hook = _capture(rs._models["unet."], lambda a, kw: True)
+    try:
+        img, _, got = _request(
+            s, "refiner", "ensemble",
+            _want_sum(_flash_want("sdxl", n_base, 0),
+                      _flash_want("sdxl_refiner", n_ref, 1)))
+    finally:
+        hook.remove()
+    launches = collections.Counter(got)
+    if not _image_ok(img, SDXL_DIM) or "Refiner switch: 0.8" not in \
+            s.infotext:
+        raise AssertionError(f"refiner: image {img.shape}, {s.infotext!r}")
+    _in_situ("refiner", "sdxl_unet_eps", rs._models["unet."], got_in)
+    img, _, got = _request(rs, "refiner", "alone",
+                           _flash_want("sdxl_refiner", SDXL_STEPS, 1))
+    launches.update(got)
+    if not _image_ok(img, SDXL_DIM):
+        raise AssertionError(f"refiner alone: image {img.shape}")
+    s.option_set("refiner", "")
+    _drop(rs)
+    s._refiner = None
+    os.remove(path)
+    return launches
+
+
 SMALL_CASES = [("sd1", testing.TINY_MODEL_TYPE, 192, 1),
                ("sdxl", testing.TINY_MODEL_TYPE_XL, 192, 3),
                ("sd3", testing.TINY_Q_MODEL_TYPE_SD3, 512, 2)]
@@ -3231,8 +3605,10 @@ def check_imports():
     without any module of the JAX package."""
     tpu = sorted(m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu")
     ran_cli = "mlimgsynth_torch.cli" in sys.modules
-    ran = {m: m in sys.modules for m in ("mlimgsynth_torch.models.flux",
-                                         "mlimgsynth_torch.models.t5")}
+    ran = {m: m in sys.modules for m in (
+        "mlimgsynth_torch.models.flux", "mlimgsynth_torch.models.t5",
+        "mlimgsynth_torch.models.controlnet",
+        "mlimgsynth_torch.models.esrgan")}
     phase("imports", jax="jax" in sys.modules, jax_package=tpu, cli=ran_cli,
           modules=ran)
     if "jax" in sys.modules or tpu or not ran_cli or not all(ran.values()):

@@ -22,7 +22,16 @@ perturbed-attention guidance (``pag_scale``, ``pag_start``, ``pag_end``)
 and FreeU (``freeu``); every model takes ``cfg_rescale``, seed variations
 (``subseed``, ``subseed_strength``), DeepCache (``deepcache``) and
 seamless tiling (``tiling``: the loaded conv modules pad circularly for
-the request), and the UNets the ``lcm`` method.
+the request), and the UNets the ``lcm`` method.  The second-stage and
+control paths: inpainting with a blurred mask (``mask_blur``) or at full
+resolution around the mask (``inpaint_full_res``,
+``inpaint_full_res_padding``), inpaint-variant UNets (9 input channels,
+found from the checkpoint), ControlNet (``control_net``,
+``control_image``, ``control_strength``), ESRGAN upscaling (``upscaler``,
+:meth:`MLImgSynth.upscale`), the hires fix (``hires_fix``,
+``hires_denoise``, ``hires_steps``, ``hires_upscaler``), the SDXL refiner
+as a model type (``sdxl_refiner``) and as the second stage of an SDXL
+request (``refiner``, ``refiner_switch``).
 
 ``MLImgSynth`` keeps the JAX session's option names and its
 ``option_set`` / ``setup`` / ``generate`` / ``tensors`` surface.  The
@@ -41,6 +50,7 @@ and steps, as the JAX session's does.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -57,12 +67,14 @@ from .errors import MlisError
 from .io.tensorstore import TensorStore
 from .models import blocks as blocks_mod
 from .models import clip as clip_mod
+from .models import controlnet as cnet_mod
+from .models import esrgan as esr_mod
 from .models import flux as flux_mod
 from .models import mmdit as mmdit_mod
 from .models import t5 as t5_mod
 from .models import unet as unet_mod
 from .models import vae as vae_mod
-from .nameconv import normalize_name
+from .nameconv import normalize_cnet_name, normalize_name
 from .ops.quant_plan import dit_m_hint
 from .rng import RngPhilox
 from .sampling.sampler import (DC_METHODS, SamplerConfig, make_plan,
@@ -102,7 +114,10 @@ def _model_types() -> Dict[str, ModelTypeDef]:
     rows), the MMDiT, the 16-channel VAE.  sd35_large and sd35_medium
     condition as sd3 does (``mlimgsynth_tpu/api.py:141-148``).
     flux_schnell and flux_dev: CLIP-L alone, at clip skip 1, for the pooled
-    row, T5-XXL for the context, the Flux VAE (``:149-158``)."""
+    row, T5-XXL for the context, the Flux VAE (``:149-158``).  sdxl_refiner
+    is the SDXL refiner: the bigG tower alone (with its projection, under
+    ``clip.``) at clip skip 2, the refiner UNet, the SDXL VAE
+    (``:127-132``)."""
     return {"sd1": ModelTypeDef("sd1", clip_mod.CLIP_VIT_L_14,
                                 unet_mod.UNET_SD1, vae_mod.VAE_SD1, 512, 1),
             "sd2": ModelTypeDef("sd2", clip_mod.CLIP_VIT_H_14,
@@ -110,6 +125,9 @@ def _model_types() -> Dict[str, ModelTypeDef]:
             "sdxl": ModelTypeDef("sdxl", clip_mod.CLIP_VIT_L_14,
                                  unet_mod.UNET_SDXL, vae_mod.VAE_SDXL, 1024,
                                  2, clip_mod.CLIP_VIT_BIGG_14),
+            "sdxl_refiner": ModelTypeDef(
+                "sdxl_refiner", clip_mod.CLIP_VIT_BIGG_14,
+                unet_mod.UNET_SDXL_REFINER, vae_mod.VAE_SDXL, 1024, 2),
             "sd3": ModelTypeDef("sd3", clip_mod.CLIP_VIT_L_14,
                                 mmdit_mod.MMDIT_SD3_MEDIUM, vae_mod.VAE_SD3,
                                 1024, 2, clip_mod.CLIP_VIT_BIGG_14),
@@ -134,7 +152,9 @@ def build_models(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
     parameter-name prefix, on the meta device."""
     with torch.device("meta"):
         if not getattr(mt.unet_p, "flow", False):
-            towers = {"clip.text.": clip_mod.ClipText(mt.clip_p)}
+            # the refiner's single tower gives the projected pooled feature
+            towers = {"clip.text.": clip_mod.ClipText(
+                mt.clip_p, proj=_single_label(mt))}
             if mt.clip2_p is not None:      # SDXL: bigG with its projection
                 towers["clip2.text."] = clip_mod.ClipText(mt.clip2_p,
                                                           proj=True)
@@ -158,6 +178,18 @@ def build_encoders(mt: ModelTypeDef) -> Dict[str, torch.nn.Module]:
         return {"vae.": vae_mod.VaeEncoder(mt.vae_p)}
 
 
+def _single_label(mt: ModelTypeDef) -> bool:
+    """A labeled UNet conditioned by one tower (the SDXL refiner)."""
+    return bool(mt.unet_p.cond_label) and mt.clip2_p is None
+
+
+def build_controlnet(mt: ModelTypeDef) -> torch.nn.Module:
+    """The ControlNet of ``mt``'s UNet (its inputs as wide as the UNet's),
+    on the meta device."""
+    with torch.device("meta"):
+        return cnet_mod.ControlNet(mt.unet_p)
+
+
 def _id_norm(s: str) -> str:
     """Case/hyphen-insensitive option and enum names, '+' matches 'p'."""
     return s.lower().replace("-", "_").replace("+", "p")
@@ -172,13 +204,18 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "t5", "t5_tokenizer", "t5_tokens", "clip", "vae", "slg_scale",
             "slg_layers", "slg_start", "slg_end", "no_decode", "cfg_rescale",
             "subseed", "subseed_strength", "pag_scale", "pag_start",
-            "pag_end", "deepcache", "freeu", "tiling")
+            "pag_end", "deepcache", "freeu", "tiling", "mask_blur",
+            "inpaint_full_res", "inpaint_full_res_padding", "control_net",
+            "control_image", "control_strength", "upscaler", "hires_fix",
+            "hires_denoise", "hires_steps", "hires_upscaler", "refiner",
+            "refiner_switch")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
-                "embed_dir", "t5", "t5_tokenizer", "clip", "vae")
+                "embed_dir", "t5", "t5_tokenizer", "clip", "vae",
+                "control_net", "upscaler", "hires_upscaler", "refiner")
 # options that take an object, never a string
-_OBJ_OPTIONS = ("callback", "image", "image_mask")
+_OBJ_OPTIONS = ("callback", "image", "image_mask", "control_image")
 _SCHEDULERS = ("uniform", "karras", "lcm", "exponential", "sgm_uniform",
                "beta")
 # the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
@@ -406,7 +443,13 @@ class MLImgSynth:
                   "slg_start": 0.01, "slg_end": 0.2, "no_decode": False,
                   "cfg_rescale": 0.0, "pag_scale": 0.0, "pag_start": 0.0,
                   "pag_end": 1.0, "subseed": -1, "subseed_strength": 0.0,
-                  "deepcache": 0, "tiling": False, "freeu": ""}
+                  "deepcache": 0, "tiling": False, "freeu": "",
+                  "mask_blur": 0.0, "inpaint_full_res": 0,
+                  "inpaint_full_res_padding": 32, "control_net": "",
+                  "control_strength": 1.0, "upscaler": "",
+                  "hires_fix": 0.0, "hires_denoise": 0.7, "hires_steps": 0,
+                  "hires_upscaler": "", "refiner": "",
+                  "refiner_switch": 0.8}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -422,7 +465,7 @@ class MLImgSynth:
         self._nfe = 0
         self.tensors: Dict[str, Optional[np.ndarray]] = {
             k: None for k in ("image", "mask", "latent", "lmask", "cond",
-                              "ncond", "label", "nlabel")}
+                              "ncond", "label", "nlabel", "control_image")}
         # (path, multiplier, from a prompt tag); tag LoRAs last one request
         self.loras: List[Tuple[str, float, bool]] = []
         # seconds of the last setup and request: "load_s" (a whole load or
@@ -462,6 +505,20 @@ class MLImgSynth:
         # ``unet_split``, as in the JAX session) and the weights it holds
         self._t5: Optional[t5_mod.T5Encoder] = None
         self._t5_key = ""
+        # the ControlNet file ``_models["cnet."]`` holds
+        self._cnet_loaded = ""
+        # the upscaler (module, params) and the file, dtype and device it
+        # was read for
+        self._upscaler = None
+        self._upscaler_key = ""
+        # the second-stage dispatch: guards against re-entry (inside a
+        # full-resolution inpaint, a hires stage, an ensemble stage), the
+        # ensemble's handoff knobs (``SamplerConfig.keep_tail`` /
+        # ``noise_add``) and its refiner sub-session
+        self._in_fullres = self._in_hires = self._in_refiner = False
+        self._keep_tail, self._noise_add = False, True
+        self._refiner: Optional["MLImgSynth"] = None
+        self._refiner_path = ""
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -495,7 +552,11 @@ class MLImgSynth:
                 raise MlisError(MlisError.E_OPT_VALUE,
                                 f"model type '{v}' is not supported by the "
                                 f"PyTorch port (have: {', '.join(types)})")
-            self._mt = types[mt]
+            if self._mt is None or mt != c["model_type"]:
+                # the same type keeps the loaded geometry (an
+                # inpaint-variant UNet's input width); another reloads
+                self._mt = types[mt]
+                self._loaded = ""
             c["model_type"] = mt
             c["width"] = c["width"] or self._mt.default_dim
             c["height"] = c["height"] or c["width"]
@@ -648,6 +709,42 @@ class MLImgSynth:
             _freeu_parse(c["freeu"])    # a bad value fails here
         elif opt == "tiling":
             c["tiling"] = bool(_int(v, 0))
+        elif opt == "mask_blur":
+            c["mask_blur"] = _float(v, 0.0)
+        elif opt == "inpaint_full_res":
+            c["inpaint_full_res"] = _int(v, 0)
+        elif opt == "inpaint_full_res_padding":
+            c["inpaint_full_res_padding"] = _int(v, 32)
+        elif opt in ("control_net", "upscaler", "hires_upscaler", "refiner"):
+            # a new ControlNet or upscaler file loads on its next use
+            c[opt] = str(v)
+        elif opt == "control_image":
+            self._control_image_set(v)
+        elif opt == "control_strength":
+            c["control_strength"] = _float(v, 1.0)
+        elif opt == "hires_fix":
+            c["hires_fix"] = _float(v, 0.0)
+        elif opt == "hires_denoise":
+            c["hires_denoise"] = _float(v, 0.7)
+        elif opt == "hires_steps":
+            c["hires_steps"] = _int(v, 0)
+        elif opt == "refiner_switch":
+            c["refiner_switch"] = _float(v, 0.8)
+
+    def _control_image_set(self, t) -> None:
+        """The ControlNet hint: uint8 [h,w,3] or float NCHW [n,3,h,w] in
+        [0, 1]; None or "" clears it (``mlimgsynth_tpu/api.py:478-489``)."""
+        if t is None or (isinstance(t, str) and t == ""):
+            self.tensors["control_image"] = None
+            return
+        t = np.asarray(t)
+        if t.dtype == np.uint8:
+            t = image_mod.tensor_from_image_arr(t)
+        t = np.asarray(t, np.float32)
+        if t.ndim != 4 or t.shape[1] != 3:
+            raise MlisError(MlisError.E_IMAGE,
+                            "control image must be [n,3,h,w] or u8 hwc")
+        self.tensors["control_image"] = t
 
     def _image_set(self, img) -> None:
         """uint8 [h,w,c] or float NCHW in [0, 1]; a 4th channel (alpha)
@@ -912,6 +1009,7 @@ class MLImgSynth:
         if self._loaded != key:
             self._models, self._encoders = {}, {}
             self._host, self.resident = {}, set()
+            self._cnet_loaded = ""
             self._embeds_clear()     # token ids and widths are per model
             self._load_model(path, loras)
             self._loaded = key
@@ -930,6 +1028,66 @@ class MLImgSynth:
         if tae and self._tae_loaded != tae:
             self._load_tae(tae)
             self._tae_loaded = tae
+        cnet = self._aux_find(self.c["control_net"])
+        if cnet != self._cnet_loaded:
+            self._models.pop("cnet.", None)
+            self.resident.discard("cnet.")
+            self._cnet_loaded = ""
+            if cnet:
+                self._load_cnet(cnet)
+                self._cnet_loaded = cnet
+
+    def _load_cnet(self, path: str) -> None:
+        """The ControlNet of ``control_net`` onto the device, beside the
+        UNet (never staged to the host), in the session's dtype and, under
+        a quantized weight type, with its linears quantized: its own file,
+        its names through ``normalize_cnet_name`` (the CompVis
+        ``control_model.*`` or the diffusers layout;
+        ``mlimgsynth_tpu/api.py:966-972``, ``:1024-1037``)."""
+        if not os.path.exists(path):
+            raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                            f"control-net file not found "
+                            f"'{self.c['control_net']}'")
+        if self._flow():
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "control-net applies to the SD UNet families "
+                            "only")
+        t0 = time.time()
+        store = TensorStore.open(path)
+        err = None
+        try:
+            name_map: Dict[str, weights_mod.NameRef] = {}
+            for raw in store.tensors:
+                r = normalize_cnet_name(raw)
+                if r is not None:
+                    name_map.setdefault(r, weights_mod.NameRef(raw))
+            if not name_map:
+                raise MlisError(MlisError.E_UNKNOWN,
+                                "no ControlNet tensors recognized in "
+                                f"'{self.c['control_net']}'")
+            m = build_controlnet(self._mt)
+            try:
+                params = weights_mod.load_params(
+                    store, name_map, weights_mod.module_shapes(m, "cnet."),
+                    self.device, self.dtype)
+            except (KeyError, ValueError) as e:
+                # raised once the store is closed
+                err = MlisError(MlisError.E_UNKNOWN,
+                                f"control-net '{path}': {e}")
+            else:
+                if self.qbits:
+                    weights_mod.quantize_linear_weights(m, "cnet.", params,
+                                                        self.qbits, None)
+                self._models["cnet."] = weights_mod.load_module(
+                    m, "cnet.", params).eval()
+                self.resident.add("cnet.")
+        finally:
+            store.close()
+        if err is not None:
+            raise err
+        self.times["cnet_load_s"] = time.time() - t0
+        log.info(f"ControlNet loaded on {self.device}: {len(name_map)} "
+                 f"tensors {{{self.times['cnet_load_s']:.3f}s}}")
 
     def _stage_in(self, prefix: str) -> None:
         """Put the weights of the staged module at ``prefix`` on the device
@@ -1032,6 +1190,18 @@ class MLImgSynth:
                     # float files keep the device's compute type
                     ft = weights_mod.stored_type(store, name_map)
                     self.qbits = _WEIGHT_TYPES.get(ft, (None, 0))[1]
+                # an inpaint-variant UNet (sd-v1-5-inpainting: 9 input
+                # channels) takes its input width from the checkpoint
+                # (``api.py:1053-1066``)
+                ref = name_map.get("unet.in.conv.weight")
+                if ref is not None and not self._flow():
+                    n_in = int(store.tensors[ref.raw].shape[1])
+                    if n_in != self._mt.unet_p.n_ch_in:
+                        self._mt = dataclasses.replace(
+                            self._mt, unet_p=dataclasses.replace(
+                                self._mt.unet_p, n_ch_in=n_in))
+                        log.info(f"UNet input channels: {n_in} "
+                                 "(inpaint-variant model)")
             models = (build_encoders if encoders else build_models)(self._mt)
             touched = self._lora_touched(name_map, loras, list(models))
             if reload:
@@ -1244,7 +1414,7 @@ class MLImgSynth:
 
     @torch.no_grad()
     def _text_cond(self, pts: List[prompt_mod.PromptText],
-                   chunk: Optional[int] = None
+                   chunk: Optional[int] = None, n_uncond: int = 0
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(cond, label) rows for several prompts, encoded in batches of
         ``chunk`` rows (default: all at once; a short last batch filled
@@ -1256,7 +1426,12 @@ class MLImgSynth:
         concatenated.  SDXL (``api.py:1722-1736``): the two skip hiddens
         concatenated on features; the label is bigG's pooled projected
         feature (from the same pass as its skip hidden) and the size
-        embeddings of ``[h, w, 0, 0, h, w]``, 256 each."""
+        embeddings of ``[h, w, 0, 0, h, w]``, 256 each.  The SDXL refiner
+        (``api.py:1738-1752``): its one tower's skip hidden; the label is its
+        pooled projected feature and the embeddings of ``[h, w, 0, 0,
+        score]``, the score ``AESTHETIC_NSCORE`` on the last ``n_uncond``
+        rows (the negative prompts) and ``AESTHETIC_SCORE`` on the
+        others."""
         raw = [self._prompt_tokens(pt) for pt in pts]
         self._embeds_sync()
         for prefix in _TOWERS:
@@ -1281,9 +1456,20 @@ class MLImgSynth:
                     else None)
 
         if not self._flow():
-            emb1 = encode("clip.text.", mt.clip_p, False)[0]
+            single = _single_label(mt)
+            emb1, feat = encode("clip.text.", mt.clip_p, single)
             if not mt.unet_p.cond_label:
                 return emb1, None
+            if single:
+                h, w, n = self.c["height"], self.c["width"], len(pts)
+                sizes = torch.tensor(
+                    [[h, w, 0, 0, unet_mod.AESTHETIC_NSCORE
+                      if i >= n - n_uncond else unet_mod.AESTHETIC_SCORE]
+                     for i in range(n)], dtype=torch.float32,
+                    device=self.device)
+                se = blocks_mod.timestep_embedding(sizes.reshape(-1), 256)
+                return emb1, torch.cat([feat.float(), se.reshape(n, -1)],
+                                       dim=-1)
             emb2, feat = encode("clip2.text.", mt.clip2_p, True)
             h, w = self.c["height"], self.c["width"]
             sizes = torch.tensor([h, w, 0, 0, h, w], dtype=torch.float32,
@@ -1440,7 +1626,8 @@ class MLImgSynth:
             u_texts, u_idx = (en if en is not None
                               else ([c["nprompt_raw"]], [0] * n_plan))
         pts = [self._parse_prompt_text(t) for t in p_texts + u_texts]
-        rows, lrows = self._text_cond(pts, chunk=2 if use_cfg else 1)
+        rows, lrows = self._text_cond(pts, chunk=2 if use_cfg else 1,
+                                      n_uncond=len(u_texts))
         k = len(p_texts)
         if use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False):
             for j, t in enumerate(u_texts):
@@ -1457,15 +1644,17 @@ class MLImgSynth:
         return rows, lrows, idx
 
     @torch.no_grad()
-    def image_encode(self, img: np.ndarray) -> np.ndarray:
+    def image_encode(self, img: np.ndarray, sample: bool = True
+                     ) -> np.ndarray:
         """img NCHW [n, 3, h, w] in [0, 1] -> the sampler's latent [n, ch_z,
         h/8, w/8] (``image_encode``, ``mlimgsynth_tpu/api.py:1872-1883``):
         with the TAE, its encoder's output; else a sample of the VAE
         encoder's moments (``vae.latent_sample``, in f32), whose noise
         sample i draws from ``RngPhilox(seed + i, offset)``, after which the
         session's offset moves on (``:1969-1991``), so the plan's noise
-        follows it.  The sample subtracts the VAE's ``shift_factor`` (SD3),
-        as the decoder adds it back."""
+        follows it; with ``sample`` False the moments' mean, no noise drawn
+        (the inpaint-variant conditioning).  The latent subtracts the VAE's
+        ``shift_factor`` (SD3), as the decoder adds it back."""
         self.setup()
         if not self.c["tae"] and "vae." not in self._encoders:
             self._load_model(self.c["model"], self._lora_state,
@@ -1480,7 +1669,7 @@ class MLImgSynth:
                                 "the TAE file holds no encoder")
             lat = enc(x).float()
         else:
-            lat = self._vae_encode(x)
+            lat = self._vae_encode(x, sample)
         if not torch.isfinite(lat).all():
             raise MlisError(MlisError.E_NAN, "NaN found in encoded latent")
         out = lat.cpu().numpy()
@@ -1488,9 +1677,10 @@ class MLImgSynth:
         self._cb(STAGE_IMAGE_ENCODE, 1, 1)
         return out
 
-    def _vae_encode(self, x: torch.Tensor) -> torch.Tensor:
+    def _vae_encode(self, x: torch.Tensor, sample: bool = True
+                    ) -> torch.Tensor:
         """img [n, 3, h, w] in [0, 1] on the device -> a sample of the VAE
-        encoder's moments (in tiles under ``vae_tile``), as
+        encoder's moments (in tiles under ``vae_tile``), or their mean, as
         :meth:`image_encode` describes (``_vae_encode``,
         ``mlimgsynth_tpu/api.py:1969-1991``)."""
         P = self._mt.vae_p
@@ -1500,6 +1690,8 @@ class MLImgSynth:
         blocks_mod.set_tiling(enc, self.c["tiling"] and tile <= 0)
         x = x * 2.0 - 1.0
         mom = _tiled_encode(enc, x, tile) if tile > 0 else enc(x)
+        if not sample:
+            return vae_mod.latent_mean(mom, P)
         n, _, h, w = mom.shape
         streams = [RngPhilox(self.rng.seed + i, self.rng.offset)
                    for i in range(n)]
@@ -1556,7 +1748,24 @@ class MLImgSynth:
         was).  With
         an ``image`` the initial latent is its encoding (img2img, the
         schedule cut at ``f_t_ini``); with a mask (``image_mask``, the
-        image's alpha) the masked-in region (1 = KEEP) stays that latent."""
+        image's alpha) the masked-in region (1 = KEEP) stays that latent.
+        The second-stage paths go first, in the JAX session's order
+        (``mlimgsynth_tpu/api.py:2091-2098``): an inpaint at full
+        resolution, then the hires fix, then the refiner ensemble; each runs
+        its stages through this method with its own path shut."""
+        self.setup()
+        c = self.c
+        if (c["inpaint_full_res"] and not self._in_fullres
+                and c["tuflags"] & TUF_IMAGE and c["tuflags"] & TUF_MASK):
+            return self._inpaint_fullres_generate()
+        if c["hires_fix"] > 1.0 and not self._in_hires:
+            return self._hires_generate()
+        if c["refiner"] and not self._in_refiner and not self._in_hires:
+            return self._refiner_generate()
+        return self._generate()
+
+    def _generate(self) -> np.ndarray:
+        """One request of the plain path (:meth:`generate`)."""
         self.setup()
         c = self.c
         t_start = time.time()
@@ -1581,10 +1790,21 @@ class MLImgSynth:
         else:
             latent = np.zeros((n, self._mt.vae_p.ch_z, h, w), np.float32)
         if c["tuflags"] & TUF_MASK:
-            self.tensors["lmask"] = self.mask_encode(self.tensors["mask"])
+            mask_in = np.asarray(self.tensors["mask"], np.float32)
+            if c["mask_blur"] > 0:
+                # A1111's mask blur, before the downsize (``api.py:
+                # 2128-2134``)
+                mask_in = image_mod.mask_gaussian_blur(mask_in,
+                                                       c["mask_blur"])
+            self.tensors["lmask"] = self.mask_encode(mask_in)
             c["tuflags"] |= TUF_LMASK
         lmask = (np.asarray(self.tensors["lmask"], np.float32)
                  if c["tuflags"] & TUF_LMASK else None)
+        masked = lmask is not None
+        extra_ch = self._inpaint_extra(lmask, h, w)
+        if extra_ch is not None:
+            # the variant's learned conditioning takes the mask's place
+            lmask = None
         P = self._mt.unet_p
         flow = self._flow()
         # Flux dev embeds the guidance: cfg_scale is its value, and there
@@ -1601,7 +1821,9 @@ class MLImgSynth:
                              s_ancestral=c["s_ancestral"],
                              s_noise=c["s_noise"], f_t_ini=c["f_t_ini"],
                              f_t_end=c["f_t_end"], flow_shift=flow_shift,
-                             cfg_rescale=c["cfg_rescale"], **_slg_kw(c))
+                             cfg_rescale=c["cfg_rescale"],
+                             keep_tail=self._keep_tail,
+                             noise_add=self._noise_add, **_slg_kw(c))
         # the guidance options' errors before the noise is drawn, as the
         # JAX session's ``_guidance_checks`` (``api.py:2028-2071``)
         slg_plan(scfg, P, c["steps"])
@@ -1617,7 +1839,8 @@ class MLImgSynth:
             cond_all, label_all = cond, label
         else:
             cond, label = self._text_cond([self.prompt, self.nprompt]
-                                          if use_cfg else [self.prompt])
+                                          if use_cfg else [self.prompt],
+                                          n_uncond=int(use_cfg))
             if (use_cfg and not c["nprompt_raw"]
                     and getattr(self._mt.unet_p, "uncond_empty_zero", False)):
                 # SDXL: an empty negative prompt conditions on zero context
@@ -1634,7 +1857,8 @@ class MLImgSynth:
             # (``api.py:2325-2331``)
             label_all = torch.cat([label_all, label_all.new_full(
                 (label_all.shape[0], 1), c["cfg_scale"])], dim=-1)
-        self._deepcache_check(flow, edit_steps)
+        self._deepcache_check(flow, edit_steps, c["control_net"],
+                              extra_ch is not None)
         denoiser = self._denoiser()
         if c["unet_split"]:
             # stage-wise residency (``api.py:2402-2405``): the text
@@ -1659,6 +1883,7 @@ class MLImgSynth:
                          subseed_strength=c["subseed_strength"])
         # seamless tiling: the denoiser's convs wrap for this request
         blocks_mod.set_tiling(self._models[denoiser], c["tiling"])
+        control = self._control_spec(h * f, w * f)
 
         def step_cb(i, n_step):
             self._nfe = i * plan.nfe_per_step
@@ -1672,7 +1897,8 @@ class MLImgSynth:
                             step_callback=(step_cb if self.callback
                                            else None),
                             lmask=lmask, cond_steps=edit_steps,
-                            deepcache=c["deepcache"], freeu=freeu)
+                            deepcache=c["deepcache"], freeu=freeu,
+                            control=control, extra_ch=extra_ch)
             # evaluations run: a 2-evaluation solver's last step has one
             n_fe = get_solver(c["method"]).n_fe
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
@@ -1723,11 +1949,344 @@ class MLImgSynth:
             self.tensors["image"] = image
             self._cb(STAGE_IMAGE_DECODE, 1, 1)
         self._infotext_update(w * f, h * f, plan.n_step,
-                              "inpaint" if lmask is not None else "img2img")
+                              "inpaint" if masked else "img2img")
         self._prompt_clear()
         self.times["generate_s"] = time.time() - t_start
         log.info(f"Generation done {{{self.times['generate_s']:.3f}s}}")
         return self.tensors["latent"] if image is None else image
+
+    def _inpaint_extra(self, lmask: Optional[np.ndarray], h: int,
+                       w: int) -> Optional[np.ndarray]:
+        """An inpaint-variant UNet's extra input channels [1, 2 ch_z + 1, h,
+        w] (None for any other model): the repaint mask ``1 - keep`` at
+        latent resolution, then the deterministic encode (the moments'
+        mean) of ``image * keep + 0.5 (1 - keep)``, the image's repainted
+        area grey; without an image, a zero latent
+        (``mlimgsynth_tpu/api.py:2139-2170``)."""
+        mt, c = self._mt, self.c
+        P = mt.unet_p
+        if self._flow() or P.n_ch_in <= mt.vae_p.ch_z:
+            return None
+        if P.n_ch_in != 2 * mt.vae_p.ch_z + 1:
+            raise MlisError(MlisError.E_UNKNOWN,
+                            f"unsupported UNet input channels {P.n_ch_in} "
+                            f"(expected {2 * mt.vae_p.ch_z + 1} for an "
+                            "inpaint variant)")
+        keep_lat = (np.asarray(lmask[:1], np.float32) if lmask is not None
+                    else np.zeros((1, 1, h, w), np.float32))
+        mlat = np.zeros((1, mt.vae_p.ch_z, h, w), np.float32)
+        if c["tuflags"] & TUF_IMAGE and self.tensors["image"] is not None:
+            img_in = np.asarray(self.tensors["image"][:1], np.float32)
+            if c["tuflags"] & TUF_MASK and self.tensors["mask"] is not None:
+                keep_img = np.asarray(self.tensors["mask"][:1], np.float32)
+            else:   # the latent mask, upsampled to the image's size
+                fk = img_in.shape[2] // keep_lat.shape[2]
+                keep_img = np.repeat(np.repeat(keep_lat, fk, 2), fk, 3)
+            masked = img_in * keep_img + 0.5 * (1.0 - keep_img)
+            mlat = self.image_encode(masked, sample=False)[:1]
+        log.info(f"Inpaint-variant conditioning ({P.n_ch_in} input "
+                 "channels)")
+        return np.concatenate([1.0 - keep_lat, mlat], axis=1)
+
+    def _control_spec(self, ih: int, iw: int):
+        """The sampler's ``control`` of a request of ``ih`` x ``iw`` pixels,
+        or None without ``control_net``: ``E_IMAGE`` without a
+        ``control_image`` or for one of another size (``mlimgsynth_tpu/
+        api.py:2385-2401``); its first row is the hint."""
+        c = self.c
+        if not c["control_net"]:
+            return None
+        hint = self.tensors["control_image"]
+        if hint is None:
+            raise MlisError(MlisError.E_IMAGE,
+                            "control-net is set but no control-image was "
+                            "given")
+        if hint.shape[2:] != (ih, iw):
+            raise MlisError(MlisError.E_IMAGE,
+                            f"control image size {hint.shape[3]}x"
+                            f"{hint.shape[2]} does not match output "
+                            f"{iw}x{ih}")
+        log.info(f"ControlNet active (strength: "
+                 f"{c['control_strength']:g})")
+        return (self._models["cnet."],
+                torch.from_numpy(np.ascontiguousarray(hint[:1], np.float32))
+                .to(self.device), float(c["control_strength"]))
+
+    # -- upscaling (``mlimgsynth_tpu/api.py:1904-1963``) ----------------------
+
+    def _upscaler_get(self):
+        """The ``upscaler`` model (module, params) on the session's device
+        in its dtype, read once per file, dtype and device."""
+        if not self.c["upscaler"]:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "no upscaler model configured (option "
+                            "'upscaler')")
+        path = self._aux_find(self.c["upscaler"])
+        key = f"{path}|{self.dtype}|{self.device}"
+        if self._upscaler is None or self._upscaler_key != key:
+            if not os.path.exists(path):
+                raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                                f"upscaler file not found "
+                                f"'{self.c['upscaler']}'")
+            self._upscaler = None
+            t0 = time.time()
+            try:
+                self._upscaler = esr_mod.load_esrgan(path, self.device,
+                                                     self.dtype)
+            except ValueError as e:
+                raise MlisError(MlisError.E_UNKNOWN,
+                                f"upscaler '{path}': {e}")
+            self._upscaler_key = key
+            self.times["upscaler_load_s"] = time.time() - t0
+            P = self._upscaler[1]
+            depth = getattr(P, "n_block", None) or getattr(P, "n_conv", 0)
+            log.info(f"Upscaler: {os.path.basename(path)} x{P.scale} "
+                     f"({type(P).__name__.replace('Params', '')} "
+                     f"f{P.n_feat} d{depth}) "
+                     f"{{{self.times['upscaler_load_s']:.3f}s}}")
+        return self._upscaler
+
+    @torch.no_grad()
+    def upscale(self, img: np.ndarray, resize: Optional[float] = None,
+                tile: int = 0) -> np.ndarray:
+        """Upscale images NCHW [n, 3, h, w] in [0, 1] with the ``upscaler``
+        model, to [n, 3, s h, s w] (s its factor) in f32.  A pixel-unshuffle
+        model (x2, x1) takes the image edge-padded to its factor and the
+        output is trimmed back.  ``resize``: the final factor, where it is
+        not s a Lanczos resize of the model's output (A1111's
+        ``upscaling_resize``).  ``tile`` > 0 bounds a pass to tiles of that
+        edge plus a margin (16 pixels, a multiple of the unshuffle factor),
+        each writing its inner box into the canvas in ``_tile_geometry``'s
+        order; the tiles run as a Python loop."""
+        m, P = self._upscaler_get()
+        t0 = time.time()
+        img = np.asarray(img, np.float32)
+        n, _, h, w = img.shape
+        u, s = P.unshuffle, P.scale
+        ph, pw = (-h) % u, (-w) % u
+        if ph or pw:
+            img = np.pad(img, ((0, 0), (0, 0), (0, ph), (0, pw)),
+                         mode="edge")
+        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        hp, wp = img.shape[2], img.shape[3]
+        k = max(u, 16 // u * u)
+        if tile and (tile + 2 * k < wp or tile + 2 * k < hp):
+            t = max(u, (tile + u - 1) // u * u)
+            n0 = min(t + 2 * k, wp) // u * u
+            n1 = min(t + 2 * k, hp) // u * u
+            origins, boxes = _tile_geometry(wp, hp, n0, n1, k)
+            log.info(f"ESRGAN tiled upscale: {len(origins)} tiles of "
+                     f"{n0}x{n1}px")
+            out = torch.zeros(n, 3, hp * s, wp * s, device=self.device)
+            for (y, xo), (y0, y1, x0, x1) in zip(origins.tolist(),
+                                                 boxes.tolist()):
+                up = m(x[:, :, y:y + n1, xo:xo + n0]).float()
+                out[:, :, (y + y0) * s:(y + y1) * s,
+                    (xo + x0) * s:(xo + x1) * s] = \
+                    up[:, :, y0 * s:y1 * s, x0 * s:x1 * s]
+        else:
+            out = m(x).float()
+        out = out[:, :, :h * s, :w * s].cpu().numpy()
+        if resize and abs(float(resize) - s) > 1e-6:
+            out = image_mod.lanczos_resize(out, int(round(h * float(resize))),
+                                           int(round(w * float(resize))))
+        self.times["upscale_s"] = time.time() - t0
+        return out
+
+    # -- the second stages (``mlimgsynth_tpu/api.py:2512-2727``) --------------
+
+    def _inpaint_fullres_generate(self) -> np.ndarray:
+        """Inpainting at full resolution (A1111's "only masked"): the mask's
+        padded bounding box, widened toward the request's aspect, is cut
+        out, Lanczos-resized to the request's size, inpainted there,
+        resized back and blended into the image under the mask.  The mask
+        blur applies once, here; an empty mask is plain img2img."""
+        c = self.c
+        img = np.asarray(self.tensors["image"], np.float32)
+        mask = np.asarray(self.tensors["mask"], np.float32)
+        saved_blur = c["mask_blur"]
+        if saved_blur > 0:
+            mask = image_mod.mask_gaussian_blur(mask, saved_blur)
+        # the session's masks keep at 1; the crop helpers take white as
+        # the area to repaint
+        repaint = 1.0 - mask
+        w = c["width"] or img.shape[3]
+        h = c["height"] or img.shape[2]
+        pad = int(c["inpaint_full_res_padding"])
+        box = image_mod.inpaint_crop_region(repaint, w, h, pad,
+                                            mult=self._mt.vae_p.f_down)
+        self._in_fullres = True
+        try:
+            if box is None:
+                return self.generate()
+            x0, y0, x1, y1 = box
+            crop_img = image_mod.resize_float_nchw(img[:, :, y0:y1, x0:x1],
+                                                   h, w)
+            crop_mask = np.clip(image_mod.resize_float_nchw(
+                mask[:, :, y0:y1, x0:x1], h, w), 0.0, 1.0)
+            c["mask_blur"] = 0.0   # applied above
+            self.tensors["image"] = crop_img
+            self.tensors["mask"] = crop_mask
+            out = self.generate()
+            final = image_mod.inpaint_paste(img, out, repaint, box)
+            self.tensors["image"] = final
+            self.infotext += (f", Inpaint area: only masked, "
+                              f"Masked padding: {pad}")
+            log.info(f"Inpaint full res: box {x1 - x0}x{y1 - y0}+{x0}+{y0} "
+                     f"processed at {w}x{h}")
+            return final
+        finally:
+            self._in_fullres = False
+            c["mask_blur"] = saved_blur
+
+    def _hires_generate(self) -> np.ndarray:
+        """The hires fix (A1111's semantics): a first pass at the request's
+        size, its latent upscaled by ``hires_fix`` to a multiple of 64
+        pixels (bilinear, as ``jax.image.resize``), then an img2img pass
+        there at strength ``hires_denoise`` over ``hires_steps`` steps (0:
+        ``steps``).  With ``hires_upscaler`` set (not "" or "latent") the
+        upscale is in image space: the first pass decodes, the ``upscaler``
+        model upscales, a Lanczos resize gives the final size, and the
+        second pass starts from its encode.  The first pass clears the
+        one-shot options; the second gets the prompts, the prompt tags'
+        LoRAs, the steps and ``no_decode`` back."""
+        c = self.c
+        factor = float(c["hires_fix"])
+        base_w, base_h = c["width"], c["height"]
+        f = self._mt.vae_p.f_down
+        mult = f * 8    # the VAE's factor and three UNet downsamplings
+        fin_w = max(mult, int(round(base_w * factor / mult)) * mult)
+        fin_h = max(mult, int(round(base_h * factor / mult)) * mult)
+        denoise = float(c["hires_denoise"])
+        steps2 = int(c["hires_steps"]) or c["steps"]
+        saved_prompt = (c["prompt_raw"], c["nprompt_raw"])
+        saved_steps, saved_nodec = c["steps"], c["no_decode"]
+        saved_loras = list(self.loras)
+        up_name = str(c["hires_upscaler"]).strip()
+        use_img_up = up_name.lower() not in ("", "latent")
+        self._in_hires = True
+        try:
+            if use_img_up:
+                c["no_decode"] = False
+                img1 = np.asarray(self.generate(), np.float32)
+                up = self.upscale(img1)
+                if up.shape[2] != fin_h or up.shape[3] != fin_w:
+                    up = image_mod.lanczos_resize(up, fin_h, fin_w)
+                lat2 = self.image_encode(up)
+            else:
+                c["no_decode"] = True
+                lat = np.asarray(self.generate(), np.float32)
+                lat2 = image_mod.resize_bilinear_nchw(lat, fin_h // f,
+                                                      fin_w // f)
+            c["prompt_raw"], c["nprompt_raw"] = saved_prompt
+            self.loras = saved_loras
+            c["steps"] = steps2
+            c["no_decode"] = saved_nodec
+            c["width"], c["height"] = fin_w, fin_h
+            c["f_t_ini"], c["f_t_end"] = denoise, 0.0
+            c["tuflags"] = TUF_LATENT
+            self.tensors["latent"] = lat2
+            out = self.generate()
+            self.infotext += (f", Hires upscale: {factor:g}, "
+                              f"Hires steps: {steps2}, "
+                              f"Denoising strength: {denoise:g}")
+            if use_img_up:
+                self.infotext += f", Hires upscaler: {up_name}"
+            return out
+        finally:
+            self._in_hires = False
+            c["width"], c["height"] = base_w, base_h
+            c["steps"] = saved_steps
+            c["no_decode"] = saved_nodec
+
+    def _refiner_get(self) -> "MLImgSynth":
+        """The refiner's sub-session on the session's device, made on first
+        use and again when ``refiner`` names another file; it takes the
+        session's weight type and auxiliary paths when made, and the
+        per-request options on every call, and continues the session's
+        Philox stream (seed and offset)."""
+        c = self.c
+        rs = self._refiner
+        if rs is None or self._refiner_path != c["refiner"]:
+            rs = MLImgSynth(device=self.device)
+            rs.dtype, rs.qbits = self.dtype, self.qbits
+            rs._wtype_set = self._wtype_set
+            for o in ("tae", "lora_dir", "embed_dir", "aux_dir"):
+                rs.c[o] = c[o]
+            rs.option_set("model", c["refiner"])
+            self._refiner = rs
+            self._refiner_path = c["refiner"]
+        for o in ("width", "height", "cfg_scale", "cfg_rescale", "method",
+                  "scheduler", "s_noise", "s_ancestral", "clip_skip",
+                  "n_batch", "no_prompt_parse", "vae_tile", "no_decode",
+                  "freeu"):
+            rs.c[o] = c[o]
+        rs.rng.seed = self.rng.seed
+        rs.rng.offset = self.rng.offset
+        return rs
+
+    def _refiner_generate(self) -> np.ndarray:
+        """The base -> refiner ensemble (the SDXL paper's; diffusers'
+        ``denoising_end`` / ``denoising_start``): the base model denoises
+        from ``f_t_ini`` to ``1 - refiner_switch`` and stops there, its
+        latent still at that sigma (``keep_tail``); the refiner continues
+        from that sigma without adding noise and decodes.  Where nothing
+        is left below the switch for the base (it ends before it, or starts
+        below it, or would run fewer than 2 steps) one model runs alone:
+        the base if it ends before the switch, else the refiner, with the
+        usual noise."""
+        c = self.c
+        switch = min(max(float(c["refiner_switch"]), 0.0), 1.0)
+        f_cut = 1.0 - switch
+        saved_prompt = (c["prompt_raw"], c["nprompt_raw"])
+        saved_end, saved_nodec = c["f_t_end"], c["no_decode"]
+        f_ini = (c["f_t_ini"] if c["tuflags"] & (TUF_LATENT | TUF_IMAGE)
+                 else 1.0)
+        rs = self._refiner_get()
+        base_steps = int(c["steps"] * (f_ini - f_cut) + 0.5)
+        self._in_refiner = True
+        try:
+            if saved_end >= f_cut or f_ini <= f_cut or base_steps < 2:
+                if saved_end >= f_cut:
+                    return self.generate()
+                rs.c["steps"] = c["steps"]
+                rs.c["f_t_ini"], rs.c["f_t_end"] = c["f_t_ini"], saved_end
+                rs.c["tuflags"] = c["tuflags"]
+                for t in ("image", "latent", "mask", "lmask"):
+                    rs.tensors[t] = self.tensors[t]
+                rs.option_set("prompt", saved_prompt[0])
+                rs.option_set("nprompt", saved_prompt[1])
+                out = rs.generate()
+                self._prompt_clear()
+                base_info = rs.infotext
+            else:
+                c["no_decode"] = True
+                c["f_t_end"] = f_cut
+                self._keep_tail = True
+                lat = np.asarray(self.generate(), np.float32)
+                rs.c["steps"] = c["steps"]
+                rs.c["f_t_ini"], rs.c["f_t_end"] = f_cut, saved_end
+                rs.c["tuflags"] = TUF_LATENT
+                rs.tensors["latent"] = lat
+                rs.option_set("prompt", saved_prompt[0])
+                rs.option_set("nprompt", saved_prompt[1])
+                rs.rng.offset = self.rng.offset
+                rs._noise_add = False
+                base_info = self.infotext
+                try:
+                    out = rs.generate()
+                finally:
+                    rs._noise_add = True
+            self.tensors["latent"] = rs.tensors["latent"]
+            self.tensors["image"] = rs.tensors["image"]
+            self.infotext = base_info + (
+                f", Refiner: {os.path.basename(c['refiner'])}, "
+                f"Refiner switch: {switch:g}")
+            return out
+        finally:
+            self._in_refiner = False
+            self._keep_tail = False
+            c["no_decode"] = saved_nodec
 
     def _infotext_update(self, w: int, h: int, n_step: int,
                          mode: str = "img2img") -> None:
@@ -1780,6 +2339,10 @@ class MLImgSynth:
         out.append(f", Model: {model}")
         if c["tae"]:
             out.append(", VAE: tae")
+        if c["control_net"]:
+            cn = os.path.splitext(os.path.basename(c["control_net"]))[0]
+            out.append(f", ControlNet: {cn}, "
+                       f"ControlNet strength: {c['control_strength']:g}")
         out.append(f", Version: MLImgSynth-TPU v{_pkg_version}")
         self.infotext = "".join(out)
 
@@ -1801,15 +2364,18 @@ class MLImgSynth:
                else "sd2" if P.n_ctx >= 1024 else "sd1")
         return _FREEU_DEFAULTS[fam]
 
-    def _deepcache_check(self, flow: bool, edit_steps) -> None:
+    def _deepcache_check(self, flow: bool, edit_steps, control=False,
+                         extra=False) -> None:
         """DeepCache runs on the plain SD UNet, MMDiT and Flux loops with
-        a solver of one evaluation a step, without prompt editing or SLG
+        a solver of one evaluation a step, without ControlNet, an
+        inpaint-variant UNet's channels, prompt editing or SLG
         (``_deepcache_check``, ``mlimgsynth_tpu/api.py:1555-1572``; the
-        port has no ControlNet, inpaint-variant model or mesh)."""
+        port has no mesh)."""
         c = self.c
         if c["deepcache"] <= 1:
             return
-        if edit_steps is not None or c["method"] not in DC_METHODS:
+        if (edit_steps is not None or control or extra
+                or c["method"] not in DC_METHODS):
             raise MlisError(
                 MlisError.E_OPT_VALUE,
                 "deepcache supports SD-UNet, SD3/MMDiT and Flux families "

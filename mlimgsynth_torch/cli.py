@@ -2,7 +2,8 @@
 ``mlimgsynth_tpu/cli.py``).
 
 The same command and flag surface as the JAX package's CLI for the commands
-the port has: ``generate``, ``tokenize``, ``help`` and ``version``.  Short
+the port has: ``generate``, ``upscale``, ``tokenize``, ``help`` and
+``version``.  Short
 options, unknown long options forwarded to the session's option table
 (``option_set_str``), ``-`` as stdout (PPM), progress on stderr, latent
 input and output via ``--ilatent``/``--olatent`` and the PNG's
@@ -10,22 +11,28 @@ input and output via ``--ilatent``/``--olatent`` and the PNG's
 img2img, its alpha or ``--imask`` (first channel) for inpainting,
 ``--lora`` / ``<lora:NAME:MULT>``, ``--embed-dir`` / ``<emb:NAME>``, prompt
 editing, the T5 options ``--t5`` / ``--t5-tokenizer`` / ``--t5-tokens``
-(SD3, SD3.5, Flux), and ``--clip`` / ``--vae`` for a model that ships as
-components (Flux).  The other commands of the JAX CLI exit 1 and say so.
+(SD3, SD3.5, Flux), ``--clip`` / ``--vae`` for a model that ships as
+components (Flux), ``--control-image`` for ControlNet, and the ``upscale``
+command's ``--upscale-factor`` and ``--upscale-tile``.  The other commands
+of the JAX CLI exit 1 and say so.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
 session's error; there is no silent CPU fallback.  Options the port does
-not have (``--hires-fix``, ``--refiner``, ...) exit 1 as unknown options.
-The memory options ``--vae-tile`` and ``--unet-split`` and the sampler and
+not have (``--tp``, ``--threads``, ...) exit 1 as unknown options.
+The memory options ``--vae-tile`` and ``--unet-split``, the sampler and
 guidance options (``--cfg-rescale``, ``--subseed``, ``--method lcm``,
-``--freeu``, ``--pag-*``, ``--deepcache``, ``--tiling``) forward to the
-session.
+``--freeu``, ``--pag-*``, ``--deepcache``, ``--tiling``) and the second
+stage and control options (``--mask-blur``, ``--inpaint-full-res[-padding]``,
+``--control-net``, ``--control-strength``, ``--upscaler``, ``--hires-*``,
+``--refiner``, ``--refiner-switch``) forward to the session.
 
     python -m mlimgsynth_torch.cli generate -m sd2.safetensors -d 768 \\
         -s 20 --method dpmpp2m -S 42 -p "..." -o out.png
     python -m mlimgsynth_torch.cli generate -m sd15.safetensors -i in.png \\
         --f-t-ini 0.6 --lora style.safetensors,0.8 -p "..." -o out.png
+    python -m mlimgsynth_torch.cli upscale --upscaler x4.pth -i in.png \\
+        --upscale-tile 256 -o out.png
 """
 from __future__ import annotations
 
@@ -37,19 +44,23 @@ HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
 Currently Stable Diffusion 1.5, 2.1 (768-v), XL-base, 3-medium, 3.5-large
 and 3.5-medium, and Flux.1-schnell and -dev are implemented: txt2img,
-img2img and inpainting, with LoRAs, textual-inversion embeddings, prompt
-editing (UNet models), skip-layer guidance (SD3, SD3.5, Flux),
-perturbed-attention guidance and FreeU (UNet models), CFG rescale, seed
-variations, DeepCache, seamless tiling and the T5-XXL context of SD3, SD3.5
-and Flux; images are encoded and decoded by the VAE or the TAE (--tae).
+img2img and inpainting (with mask blur, at full resolution, and
+inpaint-variant UNets), with LoRAs, textual-inversion embeddings, prompt
+editing (UNet models), ControlNet (SD UNets), skip-layer guidance (SD3,
+SD3.5, Flux), perturbed-attention guidance and FreeU (UNet models), CFG
+rescale, seed variations, DeepCache, seamless tiling, the hires fix, the
+SDXL refiner (alone or as the second stage of SDXL), ESRGAN upscaling and
+the T5-XXL context of SD3, SD3.5 and Flux; images are encoded and decoded
+by the VAE or the TAE (--tae).
 
 Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
 Commands:
   generate             Generate an image.
+  upscale              Upscale an image with an ESRGAN model (--upscaler).
   tokenize             Tokenize text (testing).
 The JAX package's other commands (serve, list-backends, vae-encode,
-vae-decode, vae-test, clip-encode, upscale, check) are not ported.
+vae-decode, vae-test, clip-encode, check) are not ported.
 
 Generation options:
   -p --prompt TEXT     Prompt for text conditioning.
@@ -61,6 +72,11 @@ Generation options:
                        where it has one, is the inpainting mask.
   --imask PATH         Input image mask for inpainting (first channel;
                        white keeps, black repaints).
+  --mask-blur R        Gaussian-blur the inpainting mask (A1111 seam
+                       softening; default 0).
+  --inpaint-full-res B Crop-around-mask inpainting: process the padded
+                       mask region at the full image size, paste back
+                       (--inpaint-full-res-padding N, default 32).
   -o --output PATH     Output image path (.png or .ppm; - for stdout as
                        PPM). A batch writes PATH-IDX.EXT.
   --ilatent PATH       Input latent tensor.
@@ -89,8 +105,10 @@ Generation options:
 
 Models and backend:
   -m --model PATH      Model file (safetensors or GGUF).
-  --model-type NAME    sd1, sd2, sdxl, sd3, sd35_large, sd35_medium,
-                       flux_schnell, flux_dev (default: detected).
+  --model-type NAME    sd1, sd2, sdxl, sdxl_refiner, sd3, sd35_large,
+                       sd35_medium, flux_schnell, flux_dev (default:
+                       detected; an inpaint-variant UNet by its input
+                       width).
   --clip PATH          CLIP-L text tower file (HF text_model.* names), for
                        a model that ships without one (Flux).
   --vae PATH           VAE file (bare encoder./decoder. names), for a
@@ -110,6 +128,27 @@ Models and backend:
   --t5-tokenizer PATH  SD3/SD3.5/Flux: the T5 tokenizer.json; without it
                        the T5 context is zero rows.
   --t5-tokens INT      SD3/SD3.5/Flux: T5 context tokens (default 77).
+  --control-net PATH   ControlNet model file (control_model.* / diffusers).
+  --control-image PATH Hint image (edge/pose/depth map; output-sized).
+  --control-strength F ControlNet residual strength (default 1).
+  --upscaler PATH      ESRGAN/RRDBNet/SRVGG upscaler model (.safetensors
+                       or .pth); used by the upscale command and the
+                       image-space hires fix (--hires-upscaler NAME).
+  --upscale-factor F   upscale command: final scale factor (default: the
+                       model's own factor, usually 4).
+  --upscale-tile N     upscale command: bound a pass's memory by tiling
+                       the input at N px (0 = whole image).
+  --refiner PATH       Ensemble refiner model: the base model stops at the
+                       switch point and this model (e.g. the SDXL refiner)
+                       finishes from the same noise level.
+  --refiner-switch F   Fraction of the denoising done by the base model
+                       before the refiner takes over (default 0.8).
+  --hires-fix F        Two-stage hires fix: upscale factor (>1 enables;
+                       the first pass at --image-dim).
+  --hires-denoise F    Hires second-pass strength (default 0.7).
+  --hires-steps INT    Hires second-pass steps (0 = same as --steps).
+  --hires-upscaler N   Hires upscale in image space with --upscaler (any
+                       name but "latent"; default: the latent, bilinear).
   -b --backend NAME    cuda (default) or cpu.
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
@@ -166,10 +205,11 @@ SHORT_OPTS = {
 
 # long options handled by the CLI itself; everything else forwards to the
 # session's option table
-CLI_PATH_OPTS = ("input", "imask", "ilatent", "ilmask", "output", "olatent")
+CLI_PATH_OPTS = ("input", "imask", "ilatent", "ilmask", "output", "olatent",
+                 "control-image", "upscale-factor", "upscale-tile")
 # the JAX CLI's commands the port does not have
 NOT_PORTED = ("serve", "list-backends", "vae-encode", "vae-decode",
-              "vae-test", "clip-encode", "upscale", "check")
+              "vae-test", "clip-encode", "check")
 _DEVICES = {"": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
@@ -298,6 +338,9 @@ def cmd_generate(session, state: CliState) -> int:
     if paths["ilmask"]:
         session.tensors["lmask"] = _load_tensor(paths["ilmask"])
         session.c["tuflags"] |= TUF_LMASK
+    if paths["control-image"]:
+        session.option_set("control_image",
+                           _load_image(paths["control-image"]))
     session.generate()
     if state.paths["olatent"]:
         image_mod.tensor_save(state.paths["olatent"],
@@ -314,13 +357,40 @@ def cmd_generate(session, state: CliState) -> int:
     return 0
 
 
+def cmd_upscale(session, state: CliState) -> int:
+    """The input image (its first three channels) upscaled by the
+    ``--upscaler`` model, at ``--upscale-factor`` (default: the model's)
+    and in tiles of ``--upscale-tile`` pixels (``mlimgsynth_tpu/cli.py:
+    343-358``)."""
+    from .api import MlisError
+    from .utils import image as image_mod
+    paths = state.paths
+    if not paths["input"]:
+        raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                        "You must set the input image path.")
+    if not paths["output"]:
+        raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                        "You must set the output image path.")
+    t = image_mod.tensor_from_image_arr(_load_image(paths["input"]))[:, :3]
+    try:
+        factor = (float(paths["upscale-factor"])
+                  if paths["upscale-factor"] else None)
+        tile = int(paths["upscale-tile"]) if paths["upscale-tile"] else 0
+    except ValueError as e:
+        raise MlisError(MlisError.E_OPT_VALUE, str(e))
+    out = session.upscale(t, resize=factor, tile=tile)
+    _save_image(image_mod.tensor_to_image_arr(out), None, paths["output"])
+    return 0
+
+
 def cmd_tokenize(session, state: CliState) -> int:
     toks = session.text_tokenize(session.c["prompt_raw"])
     print(" ".join(str(t) for t in toks))
     return 0
 
 
-COMMANDS = {"generate": cmd_generate, "tokenize": cmd_tokenize}
+COMMANDS = {"generate": cmd_generate, "upscale": cmd_upscale,
+            "tokenize": cmd_tokenize}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

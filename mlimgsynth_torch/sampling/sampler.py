@@ -33,6 +33,13 @@ img2img starts from an encoded latent over a schedule cut by ``f_t_ini``;
 inpainting also holds the kept region to that latent: a latent mask
 (1 = KEEP) is applied after the initial noise, after a churn draw and after
 every step (``_mask_apply``, JAX ``sampler.py:484-500``, ``:620-628``).
+An inpaint-variant UNet takes loop-constant extra input channels instead
+(``extra_ch``), and a ControlNet's residuals enter every UNet evaluation
+(``control``; its hint encoder runs once, before the loop,
+``sampler.py:300-311``).  The SDXL refiner ensemble's two knobs
+(``sampler.py:52-59``): ``keep_tail`` stops the loop at sigma(``f_t_end``)
+with that noise left in the latent, ``noise_add`` False starts from a
+latent that is already at sigma(``f_t_ini``).
 """
 from __future__ import annotations
 
@@ -62,6 +69,14 @@ class SamplerConfig:
     s_noise: float = 0.0
     f_t_ini: float = 1.0
     f_t_end: float = 0.0
+    # the ensemble handoff (diffusers' denoising_end / denoising_start):
+    # ``keep_tail`` drops the schedule's last jump to zero, so the run stops
+    # at sigma(f_t_end) with that much noise left (the handoff latent);
+    # ``noise_add`` False adds no initial noise, the input latent being at
+    # sigma(f_t_ini) already (the draw still happens, so that the later
+    # draws of the stream are unchanged)
+    keep_tail: bool = False
+    noise_add: bool = True
     # rectified-flow resolution shift (0: the SD beta-linear schedule)
     flow_shift: float = 0.0
     # skip-layer guidance (DiT families): one extra conditional evaluation
@@ -122,13 +137,22 @@ def _schedule(cfg: SamplerConfig, nfe_per_dxdt: int):
                              cfg.f_t_ini, cfg.f_t_end, log_sigmas=ls)
 
 
+def _keep_tail(cfg: SamplerConfig, s):
+    """The schedule ``s`` without its last jump to zero under
+    ``keep_tail`` (and at least two steps)."""
+    if cfg.keep_tail and s.n_step >= 2:
+        return sch.StepSchedule(sigmas=s.sigmas[:s.n_step].copy(),
+                                n_step=s.n_step - 1,
+                                nfe_per_step=s.nfe_per_step)
+    return s
+
+
 def plan_n_step(cfg: SamplerConfig, nfe_per_dxdt: int = 1) -> int:
     """The loop's step count that ``make_plan`` will give (the schedule's
-    length after the NFE division and the ``f_t`` cuts), wanted before the
-    encode when prompt editing maps text segments onto steps
-    (``mlimgsynth_tpu/sampling/sampler.py:110-124``, without its keep-tail
-    branch, which this port has not)."""
-    return _schedule(cfg, nfe_per_dxdt).n_step
+    length after the NFE division, the ``f_t`` cuts and ``keep_tail``),
+    wanted before the encode when prompt editing maps text segments onto
+    steps (``mlimgsynth_tpu/sampling/sampler.py:110-124``)."""
+    return _keep_tail(cfg, _schedule(cfg, nfe_per_dxdt)).n_step
 
 
 def _noise_slerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
@@ -166,9 +190,10 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
     the ancestral slot.  With ``subseeds`` (one a sample) and a
     ``subseed_strength`` above 0, the initial noise is slerped toward each
     subseed's fresh stream; the per-step draws stay on the seed streams
-    (``:199-205``).  The JAX package's keep-tail branch is not ported."""
+    (``:199-205``).  ``keep_tail`` and ``noise_add``: see
+    :class:`SamplerConfig` (``:174-183``, ``:206-211``)."""
     solver = get_solver(cfg.method)
-    s = _schedule(cfg, nfe_per_dxdt)
+    s = _keep_tail(cfg, _schedule(cfg, nfe_per_dxdt))
     sde_eta = 0.0
     if solver.name.endswith("_sde"):
         sde_eta = cfg.s_ancestral if cfg.s_ancestral > 0 else 1.0
@@ -188,10 +213,12 @@ def make_plan(cfg: SamplerConfig, latent_shape, rng: RngPhilox,
         return out.astype(np.float32)
 
     noise0 = draw()
-    if subseed_strength > 0 and subseeds is not None:
+    if subseed_strength > 0 and subseeds is not None and cfg.noise_add:
         sub = np.stack([RngPhilox(sd, 0).randn_shaped(sample_shape)
                         for sd in subseeds]).astype(np.float32)
         noise0 = _noise_slerp(noise0, sub, float(subseed_strength))
+    if not cfg.noise_add:
+        noise0 = np.zeros_like(noise0)
     churn = np.zeros((n_step,) + tuple(latent_shape), np.float32)
     anc = np.zeros_like(churn)
     for i in range(n_step):
@@ -289,18 +316,19 @@ def pag_plan(cfg: SamplerConfig, unet_p, n_step: int, deepcache: int = 0):
 
 
 def deepcache_check(method: str, unet_p, deepcache: int,
-                    cond_steps=None) -> int:
+                    cond_steps=None, control=None, extra_ch=None) -> int:
     """DeepCache's refresh interval (0 off, for ``deepcache`` <= 1);
     ``ValueError`` where the JAX loop refuses it: a solver of more than one
-    evaluation a step, prompt editing, or a UNet of one level
-    (``sampler.py:799-813``; the session checks first, with
-    ``MlisError``)."""
+    evaluation a step, prompt editing, a ControlNet, an inpaint-variant
+    UNet's extra channels, or a UNet of one level (``sampler.py:799-813``;
+    the session checks first, with ``MlisError``)."""
     if deepcache <= 1:
         return 0
     if method not in DC_METHODS:
         raise ValueError("deepcache needs a 1-eval/step solver "
                          f"({', '.join(DC_METHODS)})")
-    if cond_steps is not None or (not getattr(unet_p, "flow", False)
+    if (cond_steps is not None or control is not None
+            or extra_ch is not None) or (not getattr(unet_p, "flow", False)
                                   and len(getattr(unet_p, "ch_mult", ()))
                                   < 2):
         raise ValueError("deepcache: unsupported configuration")
@@ -320,7 +348,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 step_callback: Optional[Callable] = None,
                 lmask: Optional[np.ndarray] = None,
                 cond_steps: Optional[np.ndarray] = None,
-                deepcache: int = 0, freeu=None) -> torch.Tensor:
+                deepcache: int = 0, freeu=None, control=None,
+                extra_ch: Optional[np.ndarray] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
@@ -338,7 +367,11 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     runs the model whole on steps i with i % k == 0 or i < max(1, n_step
     // 10) and keeps its deep part's output, and only its shallow part on
     the others (``sampler.py:427-482``, ``:1001``).  ``freeu`` (b1, b2,
-    s1, s2) goes to every UNet evaluation.  The lcm method takes its step
+    s1, s2) goes to every UNet evaluation, as do ``extra_ch`` ([1, n, h, w]
+    f32 numpy, an inpaint-variant UNet's repaint mask and masked-image
+    latent) and ``control`` ((a ``ControlNet``, the hint image [1, 3, H, W]
+    in [0, 1] on the device, the strength): the hint features are computed
+    here, once).  The lcm method takes its step
     here: the boundary-scaled x0 prediction (sigma_data 0.5, timestep
     scaling 10), then a full re-noise to the next sigma
     (``sampler.py:403-425``).  ``step_observer(i_step,
@@ -362,7 +395,14 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         raise ValueError(f"{len(cond_steps)} conditioning steps for a plan "
                          f"of {plan.n_step}")
 
-    dc = deepcache_check(solver.name, model.P, deepcache, cond_steps)
+    dc = deepcache_check(solver.name, model.P, deepcache, cond_steps,
+                         control, extra_ch)
+    unet_kw = {}
+    if extra_ch is not None:
+        unet_kw["extra_ch"] = to_dev(extra_ch)
+    if control is not None:
+        cnet, hint, strength = control
+        unet_kw["control"] = (cnet, cnet.hint_features(hint), strength)
     dc_warm = max(1, plan.n_step // 10)
     slg = slg_plan(cfg, model.P, plan.n_step, dc)
     pag = pag_plan(cfg, model.P, plan.n_step, dc)
@@ -376,7 +416,7 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                                 **kw)
         return unet_mod.denoise(model, xb, np.float32(sigma),
                                 sigma_to_t(log_sigmas, sigma), ca, la,
-                                freeu=freeu, **kw)
+                                freeu=freeu, **unet_kw, **kw)
 
     def dxdt_at(i):
         """The derivative of step ``i``: the CFG mix, steered away from the

@@ -13,7 +13,14 @@ the port's own parameter classes; ``TINY_Q_MODEL_TYPE``,
 and the ``TINY_Q_MODEL_TYPE_FLUX*`` pair widen them so that the linears
 quantize.  A Flux model ships as component files
 (:func:`write_random_flux_files`); its LoRAs come in kohya or
-diffusers-PEFT names (:func:`write_random_flux_lora`).
+diffusers-PEFT names (:func:`write_random_flux_lora`).  The second-stage
+and control paths: ``TINY_MODEL_TYPE_REFINER`` (``:336-342``) and the
+refiner's checkpoint layout (its bigG tower under
+``conditioner.embedders.0.model.``), :func:`inpaint_variant` (a model
+type's UNet at ``2 ch_z + 1`` input channels), :func:`write_random_controlnet`
+(the ``control_model.*`` layout) and :func:`write_random_esrgan` (RRDBNet or
+SRVGGNetCompact, in basicsr or the old ESRGAN names, ``.safetensors`` or
+``.pth``).
 """
 from __future__ import annotations
 
@@ -30,8 +37,10 @@ import numpy as np
 import torch
 
 from . import nameconv
-from .api import (ModelTypeDef, _clip_file_name, _vae_file_name,
-                  build_encoders, build_models)
+from .api import (ModelTypeDef, _clip_file_name, _single_label,
+                  _vae_file_name, build_controlnet, build_encoders,
+                  build_models)
+from .models import esrgan as esr_mod
 from .models import flux as flux_mod
 from .models import mmdit as mmdit_mod
 from .models import t5 as t5_mod
@@ -80,6 +89,23 @@ TINY_UNET_XL = unet_mod.UnetParams(
     cond_label=True, uncond_empty_zero=True)
 TINY_MODEL_TYPE_XL = ModelTypeDef("sdxl", TINY_CLIP, TINY_UNET_XL, TINY_VAE,
                                   64, 2, TINY_CLIP2)
+
+# The SDXL refiner's tiny set (``mlimgsynth_tpu/testing.py:336-342``): the
+# bigG-layout tower alone, no attention at level 0, label = the 32-wide
+# pooled feature + 5 x 256
+TINY_UNET_REFINER = unet_mod.UnetParams(
+    n_ch=32, ch_mult=(1, 2), transf_depth=(2, 2), attn_res=(2,),
+    n_head=4, n_te=64, n_ctx=32, ch_adm_in=32 + 5 * 256, clip_norm=False,
+    cond_label=True, uncond_empty_zero=True)
+TINY_MODEL_TYPE_REFINER = ModelTypeDef("sdxl_refiner", TINY_CLIP2,
+                                       TINY_UNET_REFINER, TINY_VAE, 64, 2)
+
+
+def inpaint_variant(mt: ModelTypeDef) -> ModelTypeDef:
+    """``mt`` with an inpaint-variant UNet: ``2 ch_z + 1`` input channels
+    (latent, repaint mask, masked-image latent; sd-v1-5-inpainting)."""
+    return dataclasses.replace(mt, unet_p=dataclasses.replace(
+        mt.unet_p, n_ch_in=2 * mt.vae_p.ch_z + 1))
 
 # The SDXL set at widths that quantize: both towers 128 wide, the UNet as
 # TINY_Q_UNET with a 256-wide context and a 128 + 1536 = 13 x 128 label.
@@ -295,6 +321,16 @@ def _sdxl_ckpt_name(internal: str):
     return ck
 
 
+def _refiner_ckpt_name(internal: str):
+    """Internal name -> sd_xl_refiner single-file checkpoint name (the bigG
+    tower in the OpenCLIP layout under ``conditioner.embedders.0.model.``,
+    the UNet and VAE as CompVis; ``mlimgsynth_tpu/testing.py:345-370``)."""
+    if internal.startswith("clip.text."):
+        return _openclip_name(internal[len("clip.text."):],
+                              "conditioner.embedders.0.model.")
+    return nameconv.internal_to_compvis(internal)
+
+
 def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
     """Checkpoint name -> (shape in the file, how it is stored, [(internal
     name, shape)]) for every parameter of ``mt``, in parameter order, each
@@ -305,11 +341,13 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
     q/k/v (stacked on rows); ``"linear"``, SD2.1's and SDXL's 1x1
     ``proj_in`` / ``proj_out`` stored as linears."""
     flow = getattr(mt.unet_p, "flow", False)
+    refiner = not flow and _single_label(mt)
     sdxl = mt.clip2_p is not None and not flow
     sd2 = mt.name == "sd2"
     out: Dict[str, tuple] = {}
     for name, shape in model_shapes(mt, encoders=True).items():
         ck = (_sd3_ckpt_name(name) if flow else _sdxl_ckpt_name(name) if sdxl
+              else _refiner_ckpt_name(name) if refiner
               else _sd2_ckpt_name(name) if sd2
               else nameconv.internal_to_compvis(name))
         how, file_shape = "as_is", shape
@@ -329,7 +367,7 @@ def _checkpoint_layout(mt: ModelTypeDef) -> Dict[str, tuple]:
                 prev = out[ck][0]
                 file_shape = (prev[0] + shape[0],) + tuple(shape[1:])
         else:
-            if ((sdxl or sd2)
+            if ((sdxl or sd2 or refiner)
                     and re.search(r"\.proj_(in|out)\.weight$", name)):
                 how, file_shape = "linear", shape[:2]
             ok = ck is not None and nameconv.normalize_name(ck) == name
@@ -720,11 +758,92 @@ def write_random_flux_lora(path, mt: ModelTypeDef, rank: int = 4,
     write_safetensors(path, header, dtype, iter(arrays))
     return out
 
+def write_random_controlnet(path, mt: ModelTypeDef, seed: int = 0,
+                            dtype=np.float16, zero_scale: float = 0.1,
+                            device=None) -> Dict[str, Tuple[int, ...]]:
+    """A seeded random ControlNet of ``mt``'s UNet in the CompVis
+    ``control_model.*`` layout (each name checked to map back through
+    ``normalize_cnet_name``), drawn as :func:`write_random_checkpoint`
+    draws; the zero convs (``zc.*``, ``mid.out``), zero when a ControlNet
+    is made and small once trained, at ``zero_scale`` times the usual std.
+    Returns the file's shapes."""
+    shapes, names = {}, {}
+    for name, shape in module_shapes(build_controlnet(mt), "cnet.").items():
+        ck = nameconv.internal_to_cnet_ckpt(name)
+        if ck is None or nameconv.normalize_cnet_name(ck) != name:
+            raise ValueError(f"no control_model round trip for {name}")
+        shapes[ck], names[ck] = shape, name
+    rng = np.random.default_rng(seed) if device is None else None
+    gen = (None if device is None else
+           torch.Generator(device=device).manual_seed(seed))
+
+    def tensors():
+        for ck, shape in shapes.items():
+            mean, std = _init_std(names[ck], shape)
+            if ".zc." in names[ck] or ".mid.out." in names[ck]:
+                std *= zero_scale
+            yield ck, (np.full(shape, mean, dtype) if std == 0.0
+                       else _draw(shape, std, dtype, rng, gen, device))
+
+    write_safetensors(path, shapes, dtype, tensors())
+    return shapes
+
+
+# the old ESRGAN names of the basicsr ones (``esrgan._OLD_FIXED``)
+_OLD_ESRGAN = {v: k for k, v in esr_mod._OLD_FIXED.items()}
+
+
+def _old_esrgan_name(name: str, n_block: int) -> str:
+    """A basicsr RRDBNet name -> the old ESRGAN layout's (``model.N``,
+    the trunk under ``model.1.sub.``), which ``esrgan._canon_name`` maps
+    back."""
+    stem, _, tail = name.partition(".")
+    if stem in _OLD_ESRGAN:
+        return _OLD_ESRGAN[stem] + "." + tail
+    if stem == "conv_body":
+        return f"model.1.sub.{n_block}.{tail}"
+    m = re.match(r"body\.(\d+)\.rdb(\d)\.(conv\d)\.(.*)", name)
+    return f"model.1.sub.{m.group(1)}.RDB{m.group(2)}.{m.group(3)}.0." \
+        + m.group(4)
+
+
+def write_random_esrgan(path, P, seed: int = 0, dtype=np.float32,
+                        old_names: bool = False) -> Dict[str, np.ndarray]:
+    """A seeded random upscaler of ``P`` (``esrgan.EsrganParams``: RRDBNet;
+    ``SrvggParams``: SRVGGNetCompact) at ``path``: ``.pth`` a torch
+    ``state_dict`` (under ``params_ema``, as Real-ESRGAN ships), else
+    safetensors; RRDBNet with ``old_names`` in the old ESRGAN layout.
+    Convs at 1/sqrt(fan_in), biases 0, PReLU slopes 0.25.  Returns the
+    basicsr-named arrays."""
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for name, t in esr_mod.build_upscaler(P).state_dict().items():
+        shape = tuple(t.shape)
+        if len(shape) == 4:
+            a = rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                1.0 / math.sqrt(int(np.prod(shape[1:]))))
+        elif name.endswith(".bias"):
+            a = np.zeros(shape, np.float32)
+        else:
+            a = np.full(shape, 0.25, np.float32)
+        arrays[name] = a.astype(dtype)
+    out = ({_old_esrgan_name(k, P.n_block): v for k, v in arrays.items()}
+           if old_names else dict(arrays))
+    if str(path).endswith(".pth"):
+        torch.save({"params_ema": {k: torch.from_numpy(v)
+                                   for k, v in out.items()}}, str(path))
+    else:
+        write_safetensors(path, {k: v.shape for k, v in out.items()}, dtype,
+                          iter(out.items()))
+    return arrays
+
+
 # Each flash kernel against its plain twin on the card: the shapes the SD1.5
 # 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens), SD2.1
 # 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels
-# (perturbed-attention guidance's cond-only evaluation at batch 1), and
-# ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
+# (perturbed-attention guidance's cond-only evaluation at batch 1), the
+# SD1.5 hires fix's 1024^2 second pass and the SDXL refiner's 1024^2 levels,
+# and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
 # main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
@@ -743,6 +862,14 @@ ATTN_CASES = [
      "SDXL PAG evaluation (batch 1), level 1"),
     ("flash_attn_fwd", (1, 20, 1024, 64), 1024,
      "SDXL PAG evaluation (batch 1), level 2"),
+    ("flash_attn_fwd", (2, 8, 16384, 40), 16384,
+     "SD1.5 1024^2 (hires fix second pass), UNet level 0"),
+    ("flash_attn_fwd", (2, 8, 4096, 80), 4096,
+     "SD1.5 1024^2 (hires fix second pass), UNet level 1"),
+    ("flash_attn_fwd", (2, 12, 4096, 64), 4096,
+     "SDXL refiner 1024^2, UNet level 1 (12 heads)"),
+    ("flash_attn_fwd", (2, 24, 1024, 64), 1024,
+     "SDXL refiner 1024^2, UNet level 2 (24 heads)"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
@@ -755,6 +882,9 @@ ATTN_CASES = [
      "SDXL VAE tile of 640^2 (--vae-tile 512; 100 blocks, one wave)"),
     ("flash_attn_fwd_wide", (1, 1, 2304, 512), 2304,
      "SD1.5 VAE tile of 384^2 (--vae-tile 256)"),
+    ("flash_attn_fwd_wide", (2, 8, 1024, 160), 1024,
+     "SD1.5 1024^2 (hires fix second pass), UNet level 2: head dim 160, "
+     "8 heads, computed at D = 512"),
     ("flash_attn_fwd_wide", (2, 2, 600, 512), 520,
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,

@@ -12,10 +12,18 @@ extensions raise); ``image_load`` reads PNG (every colour type, bit depth
 and row filter; not interlaced) and binary PGM/PPM into what the JAX
 package's pillow-based ``image_load`` returns.
 
+The inpainting and upscaling helpers: ``mask_gaussian_blur``,
+``inpaint_crop_region`` and ``inpaint_paste`` (copied), and a pillow-free
+Lanczos resize of float images, :func:`resize_float_nchw`, which gives
+pillow's mode ``"F"`` ``Image.LANCZOS`` resize (the JAX package's
+``_resize_float_nchw``): its two passes, horizontal then vertical, each
+output a sum in float64 over its normalised window, rounded to float32.
+
 Tensors at this boundary are numpy float32 ``[n,c,h,w]``.
 """
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -376,3 +384,191 @@ def tensor_load(path: str) -> np.ndarray:
         w, h, c, n = (int(x) for x in parts[2:6])
         data = np.frombuffer(f.read(), np.float32, n * c * h * w)
         return data.reshape(n, c, h, w).copy()
+
+
+# ---------------------------------------------------------------------------
+# Resampling and the inpainting helpers (``mlimgsynth_tpu/utils/image.py:
+# 137-219``)
+# ---------------------------------------------------------------------------
+
+# pillow's Lanczos filter support (``Resample.c``: a sinc windowed by a sinc
+# three times as wide)
+_LANCZOS_SUPPORT = 3.0
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """pillow's ``lanczos_filter`` in float64: sinc(x) sinc(x / 3) on
+    [-3, 3), 0 elsewhere."""
+    def sinc(v):
+        pv = v * math.pi
+        return np.where(v == 0.0, 1.0,
+                        np.sin(pv) / np.where(v == 0.0, 1.0, pv))
+    return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """pillow's ``precompute_coeffs`` for one axis: (first input index [out],
+    float64 weights [out, ksize]) of every output sample; the support grows
+    with the downscale factor, each window is normalised, and weights past
+    the window's end are 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C's (int) cast truncates toward 0; the values are clamped at 0 anyway
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5),
+                      in_size).astype(np.int64) - xmin
+    k = np.arange(ksize)
+    w = _lanczos((xmin[:, None] + k[None, :] - center[:, None] + 0.5)
+                 / filterscale)
+    w = np.where(k[None, :] < xmax[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    return xmin, w
+
+
+def _resample_axis(t: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of pillow's float resampler along ``axis`` of float32
+    ``t``: each output the float64 sum of its window's taps in order,
+    stored as float32."""
+    in_size = t.shape[axis]
+    xmin, w = _lanczos_coeffs(in_size, out_size)
+    src = np.moveaxis(t, axis, -1).astype(np.float64)
+    acc = np.zeros(src.shape[:-1] + (out_size,), np.float64)
+    for k in range(w.shape[1]):
+        idx = np.minimum(xmin + k, in_size - 1)
+        acc += src[..., idx] * w[:, k]
+    return np.moveaxis(acc.astype(np.float32), -1, axis)
+
+
+def resize_float_nchw(t: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """Lanczos resize of float NCHW ``[n,c,h,w]`` to ``[n,c,th,tw]``, per
+    channel, as pillow resizes a mode ``"F"`` image with ``Image.LANCZOS``
+    (``_resize_float_nchw``, ``mlimgsynth_tpu/utils/image.py:137-151``): the
+    horizontal pass first, then the vertical one, an axis whose size stays
+    is not resampled."""
+    out = np.asarray(t, np.float32)
+    if out.shape[3] != tw:
+        out = _resample_axis(out, tw, 3)
+    if out.shape[2] != th:
+        out = _resample_axis(out, th, 2)
+    return np.array(out, np.float32, copy=True)
+
+
+def lanczos_resize(img: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """:func:`resize_float_nchw` clipped to [0, 1] (``_lanczos_resize``,
+    ``mlimgsynth_tpu/api.py:3514-3518``)."""
+    out = resize_float_nchw(img, th, tw)
+    return np.clip(out, 0.0, 1.0, out)
+
+
+def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """f32 [in, out] weights of ``jax.image.resize``'s "bilinear" method
+    along one axis, built as ``jax._src.image.scale.compute_weight_mat``
+    builds them (antialiased: the triangle widens by the downscale factor):
+    the triangle at each output's source position, normalised, and zero
+    where the position lies outside the input.  Where XLA folds the
+    weights at compile time (small sizes) it rounds the source positions
+    twice, and a weight may differ by a few ulps."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    # the source positions with one rounding, as XLA's fused multiply-add
+    # computes them
+    sample_f = ((np.arange(out_size) + 0.5) * np.float64(inv_scale)
+                - 0.5).astype(f32)
+    x = np.abs(sample_f[None, :]
+               - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    tot = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(tot) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(tot != 0, tot, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= f32(in_size - 0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear_nchw(t: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """float32 NCHW ``[n,c,h,w]`` -> ``[n,c,th,tw]`` as ``jax.image.resize(
+    t, (n, c, th, tw), "bilinear")`` gives it (the hires fix's latent
+    upscale, ``mlimgsynth_tpu/api.py:2604-2607``): per-axis weight matrices
+    in f32, an axis whose size stays untouched.  ``F.interpolate``'s
+    bilinear mode computes its source positions in another order and, down,
+    does not widen the filter."""
+    out = np.asarray(t, np.float32)
+    if out.shape[2] != th:
+        out = np.einsum("nchw,hH->ncHw", out,
+                        _linear_weights(out.shape[2], th))
+    if out.shape[3] != tw:
+        out = np.einsum("nchw,wW->nchW", out,
+                        _linear_weights(out.shape[3], tw))
+    return np.ascontiguousarray(out, np.float32)
+
+
+def inpaint_crop_region(mask: np.ndarray, w: int, h: int, pad: int,
+                        mult: int = 8):
+    """A1111 "inpaint at full resolution": padded bounding box of the
+    mask (NCHW [1,1,H,W], white = repaint), expanded toward the target
+    w:h aspect and clamped to the image.  Returns (x0, y0, x1, y1) in
+    image pixels (multiples of ``mult``), or None for an empty mask."""
+    m = np.asarray(mask[0, 0]) > 0.5
+    ys, xs = np.nonzero(m)
+    if ys.size == 0:
+        return None
+    H, W = m.shape
+    y0, y1 = max(0, int(ys.min()) - pad), min(H, int(ys.max()) + 1 + pad)
+    x0, x1 = max(0, int(xs.min()) - pad), min(W, int(xs.max()) + 1 + pad)
+    # expand the short side toward the processing aspect ratio
+    want = w / h
+    cw, ch = x1 - x0, y1 - y0
+    if cw / ch < want:     # too narrow: widen
+        need = min(int(round(ch * want)), W) - cw
+        x0 = max(0, x0 - need // 2)
+        x1 = min(W, x0 + cw + need)
+        x0 = max(0, x1 - min(int(round(ch * want)), W))
+    elif cw / ch > want:   # too short: heighten
+        need = min(int(round(cw / want)), H) - ch
+        y0 = max(0, y0 - need // 2)
+        y1 = min(H, y0 + ch + need)
+        y0 = max(0, y1 - min(int(round(cw / want)), H))
+    # round the box out to multiples of mult (clamped)
+    x0, y0 = (x0 // mult) * mult, (y0 // mult) * mult
+    x1, y1 = min(W, -(-x1 // mult) * mult), min(H, -(-y1 // mult) * mult)
+    return x0, y0, x1, y1
+
+
+def inpaint_paste(orig: np.ndarray, result: np.ndarray, mask: np.ndarray,
+                  box) -> np.ndarray:
+    """Resize the processed crop back to the box and blend it into the
+    original image under the mask (float NCHW, [0,1])."""
+    x0, y0, x1, y1 = box
+    res = resize_float_nchw(result, y1 - y0, x1 - x0)
+    out = np.array(orig, np.float32, copy=True)
+    m = np.asarray(mask[:, :1, y0:y1, x0:x1], np.float32)
+    out[:, :, y0:y1, x0:x1] = (res * m
+                               + out[:, :, y0:y1, x0:x1] * (1.0 - m))
+    return np.clip(out, 0.0, 1.0)
+
+
+def mask_gaussian_blur(mask: np.ndarray, radius: float) -> np.ndarray:
+    """Gaussian-blur a float NCHW [n,1,H,W] mask (A1111 ``mask_blur``:
+    softens inpaint seams).  Separable numpy convolution with
+    edge-replicate padding."""
+    sigma = max(float(radius), 1e-3)
+    r = max(1, int(3.0 * sigma + 0.5))
+    x = np.arange(-r, r + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+
+    def blur1d(a, axis):
+        p = [(0, 0)] * a.ndim
+        p[axis] = (r, r)
+        a = np.pad(a, p, mode="edge")
+        return np.apply_along_axis(
+            lambda v: np.convolve(v, k, mode="valid"), axis, a)
+
+    out = np.asarray(mask, np.float32)
+    out = blur1d(out, 2)
+    out = blur1d(out, 3)
+    return np.clip(out, 0.0, 1.0, out)

@@ -102,7 +102,12 @@ def test_tokenize_help_version(capsys):
     assert tcli.main(["-h"]) == 0
     out = capsys.readouterr().out
     assert "generate" in out and "--tae" in out and "dpm++2m_sde" in out
-    for flag in ("--embed-dir", "--t5", "--t5-tokenizer", "--t5-tokens"):
+    for flag in ("--embed-dir", "--t5", "--t5-tokenizer", "--t5-tokens",
+                 "--mask-blur", "--inpaint-full-res", "--control-net",
+                 "--control-image", "--control-strength", "--upscaler",
+                 "--upscale-factor", "--upscale-tile", "--hires-fix",
+                 "--hires-denoise", "--hires-steps", "--hires-upscaler",
+                 "--refiner", "--refiner-switch", "upscale"):
         assert flag in out
     assert tcli.main(["-V"]) == 0
     assert capsys.readouterr().out.startswith("mlimgsynth-torch v")
@@ -113,10 +118,10 @@ def test_tokenize_help_version(capsys):
     ["generate", "-b", "cpu", "--definitely-not-an-option", "1"],
     ["vae-encode", "-b", "cpu"],
     ["generate", "-b", "tpu"],
-    ["generate", "-b", "cpu", "--hires-fix", "2"],
-    ["generate", "-b", "cpu", "--refiner", "refiner.safetensors"],
+    ["serve", "-b", "cpu"],
+    ["list-backends"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
-        "hires-fix", "refiner"])
+        "serve", "list-backends"])
 def test_errors_exit_1(argv):
     assert tcli.main(argv) == 1
 
@@ -251,3 +256,38 @@ def test_t5_options_match_jax_cli(tmp_path, monkeypatch):
     assert np.abs(img_t.astype(int) - img_j.astype(int)).max() <= 1
     assert info_t == info_j
     np.testing.assert_allclose(lat_t, lat_j, atol=1e-4, rtol=1e-4)
+
+
+def test_upscale_command_matches_jax_cli(tmp_path, capsys):
+    """``upscale`` with a random 2x RRDBNet, tiled and resized to 3x,
+    writes the PNG the JAX CLI writes (both f32 on the CPU: u8 within 1);
+    without ``--upscaler`` or ``-i`` it exits 1."""
+    from mlimgsynth_torch.models import esrgan as tesr
+    up = str(tmp_path / "x2.pth")
+    T.write_random_esrgan(up, tesr.EsrganParams(
+        n_feat=8, n_block=1, growth=4, unshuffle=2), seed=8)
+    src = str(tmp_path / "in.png")
+    rgb = np.random.default_rng(8).integers(0, 256, (40, 36, 3), np.uint8)
+    Image.fromarray(rgb).save(src)
+    argv = ["upscale", "--upscaler", up, "-i", src, "--upscale-tile", "16",
+            "--upscale-factor", "3", "-q"]
+    jaxs = jax_api.MLImgSynth.__init__
+
+    def jax_f32(self, *a, **kw):
+        jaxs(self, *a, **kw)
+        self._dtype = np.float32
+
+    jax_api.MLImgSynth.__init__ = jax_f32
+    try:
+        assert jcli.main(argv + ["-o", str(tmp_path / "j.png")]) == 0
+    finally:
+        jax_api.MLImgSynth.__init__ = jaxs
+    assert tcli.main(argv + ["-b", "cpu", "-o", str(tmp_path / "t.png")]) == 0
+    j, t = _pil(tmp_path / "j.png")[0], _pil(tmp_path / "t.png")[0]
+    assert t.shape == j.shape == (120, 108, 3)
+    assert np.abs(t.astype(int) - j.astype(int)).max() <= 1
+    capsys.readouterr()
+    for bad in (["upscale", "-b", "cpu", "-i", src, "-o", "x.png"],
+                ["upscale", "-b", "cpu", "--upscaler", up, "-o", "x.png"]):
+        assert tcli.main(bad) == 1
+    assert "upscaler" in capsys.readouterr().err

@@ -202,9 +202,8 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sdxl_refiner"), ("weight-type", "q2_k"),
-    ("mask-blur", 4.0), ("inpaint-full-res", 1), ("hires-fix", 2.0),
-    ("control-net", "cn.safetensors"), ("upscaler", "x4.pth"),
+    ("tp", 2), ("weight-type", "q2_k"), ("dp", 2), ("sp", 2), ("pp", 2),
+    ("threads", 4), ("dump-flags", 1),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")
@@ -274,10 +273,57 @@ for k, v in [("model", "sd3.st"), ("image-dim", 64), ("steps", 2),
 assert np.isfinite(s.generate()).all()
 assert s.tensors["cond"].shape == (1, 154, 80)
 assert s.tensors["cond"][:, 77:].any()
+# the second-stage and control paths: mask blur and full-resolution
+# inpainting, an inpaint-variant UNet, ControlNet, the hires fix (latent
+# and image), the upscale command, the refiner alone and as a second stage
+from mlimgsynth_torch.models import esrgan
+api._model_types = lambda: {"sd1": testing.TINY_MODEL_TYPE}
+testing.write_random_controlnet("cn.st", testing.TINY_MODEL_TYPE,
+                                dtype=np.float32)
+testing.write_random_esrgan("x2.pth", esrgan.EsrganParams(
+    n_feat=8, n_block=1, growth=4, unshuffle=2), old_names=True)
+image.image_save("hint.png", rgba[:, :, :3])
+assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
+                 "-S", "1", "-p", "a cat", "-i", "in.png", "--f-t-ini", "0.7",
+                 "--mask-blur", "2", "--inpaint-full-res", "1",
+                 "--inpaint-full-res-padding", "8", "--control-net", "cn.st",
+                 "--control-image", "hint.png", "-o", "cn.png", "-q"]) == 0
+assert "Inpaint area: only masked" in image.png_read("cn.png")[1][
+    "parameters"]
+assert cli.main(["generate", "-b", "cpu", "-m", path, "-d", "64", "-s", "2",
+                 "-S", "1", "-p", "a cat", "--hires-fix", "1.5",
+                 "--hires-upscaler", "esrgan", "--upscaler", "x2.pth",
+                 "-o", "hr.png", "-q"]) == 0
+assert image.png_read("hr.png")[0].shape == (128, 128, 3)
+assert cli.main(["upscale", "-b", "cpu", "--upscaler", "x2.pth", "-i",
+                 "in.png", "--upscale-tile", "16", "-o", "up.png",
+                 "-q"]) == 0
+assert image.png_read("up.png")[0].shape == (128, 128, 3)
+inp = testing.inpaint_variant(testing.TINY_MODEL_TYPE)
+testing.write_random_checkpoint("inp.st", inp, dtype=np.float32)
+s = api.MLImgSynth(device="cpu")
+for k, v in [("model", "inp.st"), ("model-type", "sd1"), ("image-dim", 64),
+             ("steps", 2), ("image", rgba), ("f-t-ini", 0.8),
+             ("hires-fix", 1.5), ("prompt", "a cat")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all() and s._mt.unet_p.n_ch_in == 9
+api._model_types = lambda: {"sdxl": testing.TINY_MODEL_TYPE_XL,
+                            "sdxl_refiner": testing.TINY_MODEL_TYPE_REFINER}
+testing.write_random_checkpoint("xl.st", testing.TINY_MODEL_TYPE_XL,
+                                dtype=np.float32)
+testing.write_random_checkpoint("rf.st", testing.TINY_MODEL_TYPE_REFINER,
+                                dtype=np.float32)
+s = api.MLImgSynth(device="cpu")
+for k, v in [("model", "xl.st"), ("model-type", "sdxl"), ("image-dim", 64),
+             ("steps", 4), ("refiner", "rf.st"), ("prompt", "a cat")]:
+    s.option_set(k, v)
+assert np.isfinite(s.generate()).all() and "Refiner: rf.st" in s.infotext
 new = {"mlimgsynth_torch.tokenizer_json", "mlimgsynth_torch.models.t5",
-       "mlimgsynth_torch.errors"}
+       "mlimgsynth_torch.errors", "mlimgsynth_torch.models.controlnet",
+       "mlimgsynth_torch.models.esrgan"}
 assert new <= set(sys.modules), new - set(sys.modules)
-tpu = {m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu"}
+tpu = {m for m in sys.modules
+       if m.split(".")[0] in ("mlimgsynth_tpu", "PIL")}
 assert not tpu, tpu
 print("jax" in sys.modules)
 """

@@ -178,3 +178,70 @@ def test_image_load_bytes_and_errors(tmp_path):
     with pytest.raises(torch_api.MlisError) as e:
         timage.image_load_bytes(b"GIF89a....")
     assert e.value.code == torch_api.MlisError.E_IMAGE
+
+
+# The pillow-free resampling and the inpainting helpers against the JAX
+# package's (pillow's mode "F" Lanczos; ``jax.image.resize`` bilinear).
+
+@pytest.mark.parametrize("h,w,th,tw", [
+    (37, 53, 80, 120), (64, 64, 32, 32), (100, 60, 67, 45),
+    (64, 48, 64, 96), (96, 128, 40, 40)],
+    ids=["up", "down", "non-integer", "one-axis", "down-3x"])
+def test_lanczos_resize_matches_pillow(h, w, th, tw):
+    """``resize_float_nchw`` against pillow's resize of a mode "F" image
+    (``_resize_float_nchw``): upscaling, downscaling (the support widens),
+    non-integer factors and one axis kept, to atol 1e-5 (it reads 0.0: the
+    same float64 sums in the same order)."""
+    t = np.random.default_rng(h * w).uniform(
+        -0.2, 1.2, (2, 3, h, w)).astype(np.float32)
+    got = timage.resize_float_nchw(t, th, tw)
+    want = jimage._resize_float_nchw(t, th, tw)
+    assert got.shape == want.shape == (2, 3, th, tw)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(timage.lanczos_resize(t, th, tw),
+                                  np.clip(want, 0.0, 1.0))
+
+
+def test_mask_blur_crop_and_paste_match_jax():
+    """``mask_gaussian_blur``, ``inpaint_crop_region`` (an off-centre mask
+    widened and heightened toward the aspect, an empty mask) and
+    ``inpaint_paste`` against the JAX package's, exactly."""
+    rng = np.random.default_rng(5)
+    mask = np.zeros((1, 1, 96, 128), np.float32)
+    mask[:, :, 10:30, 80:120] = 1.0
+    for r in (0.5, 2.0, 4.0):
+        np.testing.assert_array_equal(timage.mask_gaussian_blur(mask, r),
+                                      jimage.mask_gaussian_blur(mask, r))
+    for w, h, pad in ((64, 64, 4), (64, 32, 0), (32, 64, 16)):
+        assert (timage.inpaint_crop_region(mask, w, h, pad)
+                == jimage.inpaint_crop_region(mask, w, h, pad))
+    assert timage.inpaint_crop_region(mask * 0, 64, 64, 8) is None
+    box = jimage.inpaint_crop_region(mask, 64, 64, 4)
+    orig = rng.uniform(0, 1, (1, 3, 96, 128)).astype(np.float32)
+    res = rng.uniform(0, 1, (1, 3, 64, 64)).astype(np.float32)
+    np.testing.assert_array_equal(
+        timage.inpaint_paste(orig, res, mask, box),
+        jimage.inpaint_paste(orig, res, mask, box))
+
+
+@pytest.mark.parametrize("h,w,th,tw", [
+    (8, 8, 16, 16), (16, 16, 24, 24), (12, 10, 18, 15), (16, 16, 8, 12),
+    (10, 12, 10, 20), (64, 64, 96, 96)],
+    ids=["2x", "1.5x", "non-square", "down", "one-axis", "hires-512"])
+def test_bilinear_resize_matches_jax(h, w, th, tw):
+    """``resize_bilinear_nchw`` against ``jax.image.resize(..., "bilinear")``
+    (the hires fix's latent upscale), at the edges and at non-integer
+    factors, down too (the antialiased triangle).  atol 4e-6 on N(0, 1)
+    values (it reads up to 2.3e-6): XLA folds the weights' f32 arithmetic
+    at compile time on small sizes and fuses it at run time on large ones,
+    which round the source positions differently, by a few ulps;
+    ``F.interpolate`` differs by up to 0.7 on the downscale."""
+    import jax
+    import jax.numpy as jnp
+    t = np.random.default_rng(th).standard_normal((2, 4, h, w)).astype(
+        np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(t), (2, 4, th, tw),
+                                       "bilinear"))
+    got = timage.resize_bilinear_nchw(t, th, tw)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=4e-6, rtol=0)

@@ -115,8 +115,8 @@ def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("model-type", "sdxl_refiner"), ("refiner", "refiner.safetensors"),
-    ("control-strength", 0.5), ("inpaint-full-res", 1),
+    ("backend", "cpu"), ("log-level", "debug"), ("error-handler", "print"),
+    ("tp", 4),
 ])
 def test_unported_sd3_options_raise(name, value):
     s = torch_api.MLImgSynth(device="cpu")

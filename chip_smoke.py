@@ -142,6 +142,21 @@ Phases, one result line each (any failure exits non-zero):
                  seconds, peak memory, exact launches by shape and, but
                  ``upscale``, one denoiser evaluation of its path with the
                  kernels against the plain attention in situ.
+                 The serving front ends (``serve``, ``capi``, ``vae_test``
+                 and ``sdxl_pair`` lines): an in-process port server over
+                 a bf16 SD1.5 512^2 session (its warm-up request first):
+                 four concurrent A1111 txt2img requests, queued before its
+                 worker starts, merge into one device batch (K1 at batch 8,
+                 K2 over 4 latents; mlis_merged_requests_total 3 on
+                 /metrics; launches exact), then the same four each alone
+                 (each merged row held to the SD1.5 VAE image limit of
+                 REF_LIMITS), seconds of both; one OpenAI generation; one
+                 preview request polled until it has a frame; one queued
+                 request and one running batch cancelled.  One generate
+                 through the port's C ABI shim (built with cc) from a C
+                 program, on the card, held to the request served alone;
+                 the CLI's vae-test; a merged SDXL pair through
+                 generate_batch on the bf16 SDXL session (K1 at batch 4).
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -536,6 +551,7 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(embed_edit_sd1(tmp, ckpt))
     launches.update(features_sd1(ckpt))
     launches.update(second_stage_sd1(tmp, ckpt))
+    launches.update(serve_sd1(tmp, ckpt))
     os.remove(ckpt)
     ckpt = _checkpoint(tmp, "sd3")
     for wt, bits, n_req in SD3_PATHS:
@@ -564,6 +580,7 @@ def _paths(tmp: str, launches: collections.Counter):
         launches.update(main_path(s, ckpt, "sdxl", SDXL_DIM, wt,
                                   REQUESTS[:n_req], sdxl_want))
         if not bits:
+            launches.update(sdxl_pair(s))
             launches.update(img2img_request(s, "sdxl", SDXL_DIM))
         if bits == 8:
             launches.update(main_path(
@@ -713,6 +730,14 @@ FLASH_SHAPE_CALLS = {
     ((1, 1, 9216, 512), 9216): {"sd2": 1, "sd2_img2img": 2},
     ((1, 1, 6400, 512), 6400): {"sdxl_lowmem": 4},
     ((1, 1, 2304, 512), 2304): {"sd1_lowmem_img2img": 8},
+    # the serving path: four SD1.5 requests merged into one device batch,
+    # and a merged SDXL pair (one batch's calls)
+    ((8, 8, 4096, 40), 4096): {"sd1_serve4": 100},
+    ((8, 8, 1024, 80), 1024): {"sd1_serve4": 100},
+    ((4, 1, 4096, 512), 4096): {"sd1_serve4": 1},
+    ((4, 10, 4096, 64), 4096): {"sdxl_pair": 200},
+    ((4, 20, 1024, 64), 1024): {"sdxl_pair": 1200},
+    ((2, 1, 16384, 512), 16384): {"sdxl_pair": 1},
 }
 
 
@@ -3600,15 +3625,406 @@ def small_check():
         api._model_types = types
 
 
+# The serving front ends (``serve`` lines): an in-process port server on
+# 127.0.0.1 over a bf16 SD1.5 512^2 session (20 Euler steps, CFG 7): four
+# concurrent A1111 txt2img requests queued before the worker starts merge
+# into one device batch (K1 at batch 8, K2 over 4 latents, the launches of
+# one batch exactly), then the same four each alone (their rows held to the
+# SD1.5 VAE image limit of REF_LIMITS), one OpenAI generation, one preview
+# request polled until it has a frame, and one cancellation of a queued
+# request and one of a running batch.  Then the C ABI (one generate of the
+# first request through the port's shim from a C program, on the card) and
+# the CLI's vae-test.  SERVE_WANT: the merged batch's launches by shape.
+SERVE_REQUESTS = [(142, "a photograph of an astronaut riding a horse"),
+                  (143, "a watercolor painting of a lighthouse at dawn"),
+                  (144, "a (red:1.2) fox in the snow, highly detailed"),
+                  (145, "a bowl of fruit on a wooden table, oil painting")]
+SERVE_DIM, SERVE_STEPS = 512, 20
+SERVE_BODY = {"steps": SERVE_STEPS, "cfg_scale": 7, "width": SERVE_DIM,
+              "height": SERVE_DIM, "sampler_name": "Euler",
+              "negative_prompt": "blurry, low quality"}
+SERVE_WANT = {("flash_attn_fwd", (8, 8, 4096, 40)): 100,
+              ("flash_attn_fwd", (8, 8, 1024, 80)): 100,
+              ("flash_attn_fwd_wide", (4, 1, 4096, 512)): 1}
+# the merged SDXL pair through generate_batch on the bf16 session
+SDXL_PAIR_WANT = {("flash_attn_fwd", (4, 10, 4096, 64)): 200,
+                  ("flash_attn_fwd", (4, 20, 1024, 64)): 1200,
+                  ("flash_attn_fwd_wide", (2, 1, 16384, 512)): 1}
+HTTP_TIMEOUT = 300
+# the preview request: its steps and a frame every this many
+SERVE_PREVIEW = {"steps": SERVE_STEPS, "preview_every": 5}
+# the C program's backend: "" leaves the context's default, the card
+CAPI_BACKEND = ""
+
+CAPI_PROGRAM = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include "mlimgsynth.h"
+
+static int g_steps = 0;
+
+static int progress_cb(void *user, MLIS_Ctx *ctx, const MLIS_Progress *prg)
+{
+	(void)user; (void)ctx;
+	if (prg->stage == MLIS_STAGE_DENOISE) g_steps++;
+	return 0;
+}
+
+/* drive MODEL OUT_RAW PROMPT DIM STEPS BACKEND ("" for the card) */
+int main(int argc, char **argv)
+{
+	if (argc != 7) return 2;
+	int dim = atoi(argv[4]), steps = atoi(argv[5]);
+	MLIS_Ctx *ctx = mlis_ctx_create();
+	if (!ctx) return 2;
+	if (argv[6][0]) mlis_option_set(ctx, MLIS_OPT_BACKEND, argv[6], "");
+	mlis_option_set(ctx, MLIS_OPT_MODEL, argv[1]);
+	mlis_option_set(ctx, MLIS_OPT_SEED, (uint64_t)142);
+	mlis_option_set(ctx, MLIS_OPT_STEPS, steps);
+	mlis_option_set(ctx, MLIS_OPT_CFG_SCALE, 7.0);
+	mlis_option_set(ctx, MLIS_OPT_IMAGE_DIM, dim, dim);
+	mlis_option_set(ctx, MLIS_OPT_PROMPT, argv[3]);
+	mlis_option_set(ctx, MLIS_OPT_NPROMPT, "blurry, low quality");
+	mlis_option_set(ctx, MLIS_OPT_CALLBACK, progress_cb, (void*)0);
+	if (mlis_setup(ctx) < 0 || mlis_generate(ctx) < 0) {
+		printf("FAIL %s\n", mlis_errstr_get(ctx));
+		return 1;
+	}
+	MLIS_Image *img = mlis_image_get(ctx, 0);
+	FILE *f = fopen(argv[2], "wb");
+	if (!img || (int)img->w != dim || (int)img->h != dim || !f) return 1;
+	fwrite(img->d, 1, (size_t)img->w * img->h * img->c, f);
+	fclose(f);
+	printf("steps %d\n", g_steps);
+	mlis_ctx_destroy(&ctx);
+	printf("CAPI OK\n");
+	return 0;
+}
+"""
+# in the C program's interpreter: its launches and whether jax was loaded,
+# said as the context goes
+CAPI_SITE = """
+import json, sys
+from mlimgsynth_torch import capi
+from mlimgsynth_torch.ops import flash_attention as fa
+_destroy = capi.ctx_destroy
+
+
+def ctx_destroy(addr):
+    print("LAUNCHES " + json.dumps({
+        "launches": {f"{k}:{list(q)}": n
+                     for (k, q), n in fa.LAUNCH_SHAPES.items()},
+        "plain": fa.PLAIN_CUDA_CALLS,
+        "jax": any(m == "jax" or m.startswith(("jax.", "mlimgsynth_tpu"))
+                   for m in sys.modules)}), flush=True)
+    return _destroy(addr)
+
+
+capi.ctx_destroy = ctx_destroy
+"""
+
+
+def _http(url, obj=None):
+    """(status, JSON body) of a GET, or a POST of ``obj``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if obj is None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            body = r.read()
+            code = r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read(), e.code
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body.decode()
+
+
+def _png_u8(b64: str) -> np.ndarray:
+    import base64
+    return image_mod.image_load_bytes(base64.b64decode(b64), "response")
+
+
+def _poll(what, fn, limit: float = HTTP_TIMEOUT):
+    """Call ``fn`` until it returns a true value (or fail after ``limit``
+    seconds)."""
+    t0 = time.time()
+    while time.time() - t0 < limit:
+        v = fn()
+        if v:
+            return v
+        time.sleep(0.02)
+    raise AssertionError(f"serve: timed out waiting for {what}")
+
+
+def serve_sd1(tmp: str, ckpt: str) -> collections.Counter:
+    """The ``serve`` lines (see SERVE_REQUESTS), the C ABI line and the
+    CLI ``vae-test`` line on the SD1.5 checkpoint.  Returns the
+    launches."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from mlimgsynth_torch import server as srv_mod
+    launches = collections.Counter()
+    s, load_s = _sd1_session(ckpt)
+    os.environ.setdefault("MLIS_PROGRESS_CHUNK", "4")
+    warm_s = srv_mod.warmup_generate(s)
+    phase("serve", step="setup", load_s=load_s, warmup_s=warm_s)
+    srv = srv_mod.Server(s, merge_window_s=0.0, start_worker=False)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv_mod.make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, threads = {}, []
+
+    def post_async(key, path, obj):
+        t = threading.Thread(target=lambda: results.__setitem__(
+            key, _http(url + path, obj)), daemon=True)
+        t.start()
+        threads.append(t)
+
+    def join():
+        for t in threads:
+            t.join(HTTP_TIMEOUT)
+            if t.is_alive():
+                raise AssertionError("serve: a request did not return")
+        threads.clear()
+
+    def queued(n):
+        with srv.cond:
+            if not srv.cond.wait_for(lambda: len(srv.queue) >= n,
+                                     timeout=HTTP_TIMEOUT):
+                raise AssertionError("serve: requests did not queue")
+
+    try:
+        # four concurrent requests, queued before the worker starts
+        for i, (seed, prompt) in enumerate(SERVE_REQUESTS):
+            post_async(("merged", i), "/sdapi/v1/txt2img",
+                       {**SERVE_BODY, "prompt": prompt, "seed": seed})
+            queued(i + 1)
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srv.worker = threading.Thread(target=srv._worker, daemon=True)
+        srv.worker.start()
+        join()
+        merged_s = time.time() - t0
+        got = collections.Counter(fa.LAUNCH_SHAPES)
+        got_kernels = _check_launches("serve merged batch", got, SERVE_WANT)
+        launches.update(got_kernels)
+        metrics = {ln.split(" ")[0]: ln.split(" ")[1] for ln in
+                   _http(url + "/metrics")[1].splitlines()
+                   if ln.startswith("mlis_")}
+        phase("serve", step="merged", requests=len(SERVE_REQUESTS),
+              seconds=merged_s,
+              images_per_s=len(SERVE_REQUESTS) / merged_s,
+              launches=got_kernels, merged_requests_total=int(
+                  metrics["mlis_merged_requests_total"]),
+              max_memory_allocated=torch.cuda.max_memory_allocated())
+        if metrics["mlis_merged_requests_total"] != "3":
+            raise AssertionError(f"serve: requests did not merge: {metrics}")
+        merged = []
+        for i in range(len(SERVE_REQUESTS)):
+            code, body = results[("merged", i)]
+            if code != 200 or len(body["images"]) != 1:
+                raise AssertionError(f"serve: merged request {i}: {code}")
+            merged.append(_png_u8(body["images"][0]))
+        # the same requests, each alone
+        alone, secs = [], []
+        for seed, prompt in SERVE_REQUESTS:
+            fa.reset_counts()
+            t0 = time.time()
+            code, body = _http(url + "/sdapi/v1/txt2img",
+                               {**SERVE_BODY, "prompt": prompt,
+                                "seed": seed})
+            secs.append(time.time() - t0)
+            if code != 200:
+                raise AssertionError(f"serve: request alone: {code}")
+            alone.append(_png_u8(body["images"][0]))
+            launches.update(_check_launches(
+                "serve request alone", collections.Counter(
+                    fa.LAUNCH_SHAPES), _flash_want("sd1", 20, 1)))
+        rels = []
+        for i, (a, b) in enumerate(zip(merged, alone)):
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            rels.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        phase("serve", step="alone", seconds=secs,
+              sequential_s=sum(secs), images_per_s=len(secs) / sum(secs),
+              merged_speedup=sum(secs) / merged_s,
+              merged_vs_alone_rel_l2=rels, limit=REF_LIMITS["vae_image"],
+              max_abs_u8=[int(np.abs(a.astype(int) - b.astype(int)).max())
+                          for a, b in zip(merged, alone)])
+        if not max(rels) < REF_LIMITS["vae_image"]:
+            raise AssertionError(f"serve: merged rows vs alone {rels}")
+        # one OpenAI Images request
+        t0 = time.time()
+        code, body = _http(url + "/v1/images/generations",
+                           {"prompt": SERVE_REQUESTS[1][1], "n": 1,
+                            "size": f"{SERVE_DIM}x{SERVE_DIM}",
+                            "seed": 143})
+        img = _png_u8(body["data"][0]["b64_json"]) if code == 200 else None
+        phase("serve", step="openai", code=code, seconds=time.time() - t0)
+        if img is None or img.shape != (SERVE_DIM, SERVE_DIM, 3):
+            raise AssertionError(f"serve: OpenAI request: {code}")
+        # a preview request, polled until it has a frame
+        post_async("preview", "/generate",
+                   {"prompt": SERVE_REQUESTS[2][1], "seed": 7,
+                    "request_id": "pv", "preview": True, "format": "json",
+                    **SERVE_PREVIEW})
+        frame = _poll("a preview frame", lambda: (lambda r: r[1] if r[0]
+                      == 200 and r[1].get("images") else None)(
+                          _http(url + "/preview?request_id=pv")))
+        join()
+        code, body = results["preview"]
+        phase("serve", step="preview", code=code, frame_step=frame["step"],
+              n_step=frame["n_step"],
+              frame_shape=list(_png_u8(frame["images"][0]).shape))
+        if code != 200 or frame["step"] % SERVE_PREVIEW["preview_every"]:
+            raise AssertionError(f"serve: preview request: {code} {frame}")
+        # a running batch and a queued request cancelled
+        post_async("run", "/generate", {"prompt": "a cat", "seed": 8,
+                                        "request_id": "run",
+                                        "preview": True, "preview_every": 1,
+                                        "steps": SERVE_PREVIEW["steps"],
+                                        "format": "json"})
+        _poll("the request to run", lambda: srv.preview_of("run")[1])
+        post_async("queued", "/generate", {"prompt": "a dog", "seed": 9,
+                                           "request_id": "queued"})
+        _poll("the request to queue",
+              lambda: srv.preview_of("queued")[0] == "queued")
+        states = [_http(url + "/cancel", {"request_id": rid})[1]["status"]
+                  for rid in ("queued", "run")]
+        join()
+        codes = [results[k][0] for k in ("queued", "run")]
+        phase("serve", step="cancel", states=states, codes=codes,
+              errors_total=srv.n_errors)
+        if states != ["dequeued", "cancelling"] or codes != [499, 499]:
+            raise AssertionError(f"serve: cancellation {states} {codes}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    _drop(s)
+    launches.update(capi_sd1(tmp, ckpt, alone[0]))
+    launches.update(vae_test_cli(tmp, ckpt))
+    return launches
+
+
+def capi_sd1(tmp: str, ckpt: str, alone: np.ndarray) -> collections.Counter:
+    """One SD1.5 512^2 generate (the first serve request's seed and prompt)
+    through the port's C ABI shim, built with cc, from a C program in a
+    process of its own, on the card; its image against the same request
+    served alone.  Returns its launches."""
+    from mlimgsynth_torch import capi
+    t0 = time.time()
+    lib = capi.build_shim()
+    exe, src = os.path.join(tmp, "capi_drive"), os.path.join(tmp, "drive.c")
+    with open(src, "w") as f:
+        f.write(CAPI_PROGRAM)
+    subprocess.run(["cc", "-O1", f"-I{capi.REPO / 'include'}", "-o", exe,
+                    src, f"-L{os.path.dirname(lib)}", "-lmlimgsynth_torch",
+                    f"-Wl,-rpath,{os.path.dirname(lib)}"], check=True,
+                   capture_output=True, text=True)
+    build_s = time.time() - t0
+    site = os.path.join(tmp, "capi_site")
+    os.makedirs(site, exist_ok=True)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(CAPI_SITE)
+    out_raw = os.path.join(tmp, "capi.u8")
+    env = dict(os.environ, MLIS_PY_PATH=str(capi.REPO),
+               PYTHONPATH=os.pathsep.join([site, str(capi.REPO)]))
+    t0 = time.time()
+    r = subprocess.run([exe, ckpt, out_raw, SERVE_REQUESTS[0][1],
+                        str(SERVE_DIM), str(SERVE_STEPS), CAPI_BACKEND],
+                       capture_output=True, text=True, env=env,
+                       timeout=600)
+    secs = time.time() - t0
+    rep = json.loads(r.stdout.split("LAUNCHES ", 1)[1].splitlines()[0]) \
+        if "LAUNCHES " in r.stdout else {}
+    img = (np.fromfile(out_raw, np.uint8).reshape(SERVE_DIM, SERVE_DIM, 3)
+           if r.returncode == 0 else None)
+    rel = (float(np.linalg.norm(img.astype(np.float64) - alone)
+                 / np.linalg.norm(alone.astype(np.float64)))
+           if img is not None else None)
+    got = collections.Counter()
+    for key, n in rep.get("launches", {}).items():
+        name, q = key.split(":")
+        got[(name, tuple(json.loads(q)))] = n
+    phase("capi", shim=os.path.relpath(lib, str(capi.REPO)),
+          build_s=build_s, seconds=secs, rc=r.returncode,
+          denoise_callbacks=r.stdout.count(f"steps {SERVE_STEPS}"),
+          launches={f"{k}:{list(q)}": n for (k, q), n in got.items()},
+          jax=rep.get("jax"), vs_alone_rel_l2=rel,
+          equals_alone=bool(img is not None and np.array_equal(img, alone)))
+    if (r.returncode != 0 or "CAPI OK" not in r.stdout or rep.get("jax")
+            or rep.get("plain") or not rel < REF_LIMITS["vae_image"]):
+        raise AssertionError(f"capi: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    by_kernel = _check_launches("capi", got, _flash_want("sd1", 20, 1))
+    if not r.stdout.count(f"steps {SERVE_STEPS}"):
+        raise AssertionError("capi: the progress callback missed steps")
+    return collections.Counter(by_kernel)
+
+
+def vae_test_cli(tmp: str, ckpt: str) -> collections.Counter:
+    """The CLI's ``vae-test`` of a 512^2 PNG on the SD1.5 checkpoint: the
+    VAE encoder and decoder (K2 in each mid-block), the round trip's error
+    line.  Returns the launches."""
+    import contextlib
+    import io
+    png = os.path.join(tmp, "vae_in.png")
+    image_mod.image_save(png, _test_image(SERVE_DIM, seed=5)[:, :, :3])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        secs, s, got = _cli_request(["vae-test", "-m", ckpt, "-i", png,
+                                     "-S", "1", "-q"])
+    line = [ln for ln in err.getvalue().splitlines()
+            if ln.startswith("Image encode/decode")]
+    by_kernel = _check_launches("vae-test", got, {
+        ("flash_attn_fwd_wide", (1, 1, 4096, 512)): 2})
+    phase("vae_test", seconds=secs, line=line[0] if line else None,
+          launches=by_kernel)
+    if not line:
+        raise AssertionError("vae-test printed no error line")
+    _drop(s)
+    return collections.Counter(by_kernel)
+
+
+def sdxl_pair(s) -> collections.Counter:
+    """A merged SDXL pair through ``generate_batch`` on the bf16 SDXL
+    session at 1024^2 (20 Euler steps, CFG 7): exact launches (K1 at batch
+    4, K2 over 2 latents), seconds, images.  Returns the launches."""
+    reqs = [{"prompt": p, "nprompt": "blurry, low quality", "seed": sd}
+            for sd, p in REQUESTS[:2]]
+    fa.reset_counts()
+    qmm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    imgs, infos = s.generate_batch(reqs)
+    secs = time.time() - t0
+    got = _check_launches("sdxl pair", collections.Counter(
+        fa.LAUNCH_SHAPES), SDXL_PAIR_WANT)
+    phase("sdxl_pair", seconds=secs, images_per_s=2 / secs, launches=got,
+          shape=list(imgs.shape), seeds=[r["seed"] for r in reqs],
+          max_memory_allocated=torch.cuda.max_memory_allocated())
+    if (imgs.shape != (2, 3, SDXL_DIM, SDXL_DIM)
+            or not np.isfinite(imgs).all() or float(imgs.std()) == 0.0
+            or f"Seed: {reqs[1]['seed']}" not in infos[1]):
+        raise AssertionError(f"sdxl pair: bad images {imgs.shape}")
+    return collections.Counter(got)
+
+
 def check_imports():
-    """The port, its CLI, T5 and Flux included, ran without jax and
-    without any module of the JAX package."""
+    """The port, its CLI, T5, Flux, the server and the C ABI included, ran
+    without jax and without any module of the JAX package."""
     tpu = sorted(m for m in sys.modules if m.split(".")[0] == "mlimgsynth_tpu")
     ran_cli = "mlimgsynth_torch.cli" in sys.modules
     ran = {m: m in sys.modules for m in (
         "mlimgsynth_torch.models.flux", "mlimgsynth_torch.models.t5",
         "mlimgsynth_torch.models.controlnet",
-        "mlimgsynth_torch.models.esrgan")}
+        "mlimgsynth_torch.models.esrgan", "mlimgsynth_torch.server",
+        "mlimgsynth_torch.capi")}
     phase("imports", jax="jax" in sys.modules, jax_package=tpu, cli=ran_cli,
           modules=ran)
     if "jax" in sys.modules or tpu or not ran_cli or not all(ran.values()):

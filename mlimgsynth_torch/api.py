@@ -51,7 +51,9 @@ and steps, as the JAX session's does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -86,6 +88,16 @@ from .utils.log import g_logger as log
 
 class Aborted(Exception):
     """A progress callback asked to stop."""
+
+
+def _locked(fn):
+    """``fn`` with the session's lock held (re-entrant: a method that holds
+    it may call another)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        with self._lock:
+            return fn(self, *args, **kw)
+    return run
 
 
 @dataclass
@@ -208,14 +220,19 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "inpaint_full_res", "inpaint_full_res_padding", "control_net",
             "control_image", "control_strength", "upscaler", "hires_fix",
             "hires_denoise", "hires_steps", "hires_upscaler", "refiner",
-            "refiner_switch")
+            "refiner_switch", "backend", "threads", "dump_flags",
+            "error_handler", "log_level")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
                 "embed_dir", "t5", "t5_tokenizer", "clip", "vae",
                 "control_net", "upscaler", "hires_upscaler", "refiner")
 # options that take an object, never a string
-_OBJ_OPTIONS = ("callback", "image", "image_mask", "control_image")
+_OBJ_OPTIONS = ("callback", "image", "image_mask", "control_image",
+                "error_handler")
+# ``backend`` values -> the device they name (None: the session's own, a
+# card unless the caller asked for the CPU)
+_BACKENDS = {"": None, "best": None, "cuda": "cuda", "cpu": "cpu"}
 _SCHEDULERS = ("uniform", "karras", "lcm", "exponential", "sgm_uniform",
                "beta")
 # the reference's enums (``mlimgsynth_tpu/api.py:69-72``): an integer
@@ -245,6 +262,10 @@ TUF_IMAGE, TUF_MASK, TUF_LATENT, TUF_LMASK = 1, 2, 4, 8
 # (``_FREEU_DEFAULTS``, ``mlimgsynth_tpu/api.py:1830-1832``)
 _FREEU_DEFAULTS = {"sd1": (1.5, 1.6, 0.9, 0.2), "sd2": (1.4, 1.6, 0.9, 0.2),
                    "sdxl": (1.3, 1.4, 0.9, 0.2)}
+# the linear latent -> RGB map of the previews without a TAE
+# (``mlimgsynth_tpu/sampling/sampler.py:670-673``)
+_PREVIEW_RGB = [[0.298, 0.207, 0.208], [0.187, 0.286, 0.173],
+                [-0.158, 0.189, 0.264], [-0.184, -0.271, -0.473]]
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
 # the modules that ``unet_split`` keeps on the host between their stages:
@@ -414,13 +435,21 @@ def _tiled_encode(enc, img: torch.Tensor, tile_px: int) -> torch.Tensor:
 class MLImgSynth:
     """The session.  ``device`` defaults to the first CUDA card; without
     one the session refuses to start unless the caller asks for the CPU
-    (``device="cpu"``).  The compute type is bf16 on a card and f32 on the
-    CPU; the ``weight-type`` option overrides it, and a quantized weight
-    type stores the linears in 8 or 4 bits (``qbits``)."""
+    (``device="cpu"``).  With ``late_device`` (a C ABI context) the device
+    is resolved at the first ``setup`` instead, from the ``backend`` option:
+    the CPU where it is ``cpu``, else the card, and ``MlisError`` without
+    one; there is no fallback either way.  The compute type is bf16 on a
+    card and f32 on the CPU; the ``weight-type`` option overrides it, and a
+    quantized weight type stores the linears in 8 or 4 bits (``qbits``).
+    ``setup``, ``generate``, ``generate_batch`` and the encoders hold the
+    session's lock: one session may serve several threads (the server's
+    worker and its handlers)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, late_device: bool = False):
+        self._late_device = bool(late_device) and device is None
         self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if (not self._late_device and self.device.type == "cuda"
+                and not torch.cuda.is_available()):
             raise MlisError(MlisError.E_UNKNOWN,
                             "no CUDA device found; pass device=\"cpu\" "
                             "to run on the CPU")
@@ -429,6 +458,11 @@ class MLImgSynth:
         # a ``weight-type`` the caller set; else a model file of quantized
         # tensors sets ``qbits`` (``_load_model``)
         self._wtype_set = False
+        self._lock = threading.RLock()
+        # the error handler (``error_handler``) sees every error of a
+        # ``generate``; ``errstr`` keeps the last one's text
+        self.error_handler: Optional[Callable] = None
+        self.errstr = ""
         self.c = {"model": "", "model_type": "", "prompt_raw": "",
                   "nprompt_raw": "", "width": 0, "height": 0, "steps": 0,
                   "cfg_scale": 7.0, "method": "euler",
@@ -449,7 +483,8 @@ class MLImgSynth:
                   "control_strength": 1.0, "upscaler": "",
                   "hires_fix": 0.0, "hires_denoise": 0.7, "hires_steps": 0,
                   "hires_upscaler": "", "refiner": "",
-                  "refiner_switch": 0.8}
+                  "refiner_switch": 0.8, "backend": "", "be_params": "",
+                  "threads": 0, "dump_flags": 0, "weight_type": ""}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -574,6 +609,32 @@ class MLImgSynth:
             dtype, self.qbits = _WEIGHT_TYPES[wt]
             self.dtype = dtype or self._default_dtype()
             self._wtype_set = True
+            c["weight_type"] = wt
+        elif opt == "backend":
+            # the session's device is fixed when it is made (or, for a
+            # ``late_device`` session, at its first setup): a backend
+            # names it or fails (``_backend_init``, ``api.py:873-882``)
+            want = str(v).strip().lower()
+            if want not in _BACKENDS:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                f"backend '{v}' not available (have: "
+                                "cuda, cpu)")
+            dev = _BACKENDS[want]
+            if (not self._late_device and dev is not None
+                    and dev != self.device.type):
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                f"backend '{v}' is not this session's "
+                                f"device ({self.device.type})")
+            c["backend"] = str(v)
+            c["be_params"] = str(args[1]) if len(args) > 1 else ""
+        elif opt in ("threads", "dump_flags"):
+            # stored, as the JAX session stores them (``api.py:466-469``)
+            c[opt] = _int(v)
+        elif opt == "error_handler":
+            self.error_handler = v
+        elif opt == "log_level":
+            from .utils.log import level_from_str
+            log.level = level_from_str(str(v))
         elif opt in ("prompt", "nprompt"):
             self._prompt_set(opt, str(v))
         elif opt in ("no_prompt_parse", "no_decode"):
@@ -808,6 +869,30 @@ class MLImgSynth:
         else:
             self.option_set(opt, *_split_args(value))
 
+    def option_get(self, name: str):
+        """An option's value (``option_get``, ``mlimgsynth_tpu/api.py:
+        580-589``): the model type's name ("none" when unset), the prompts'
+        raw text, the seed; any other option its stored value, or None
+        where the session keeps it under another name."""
+        opt = _id_norm(name)
+        if opt not in _OPTIONS:
+            raise MlisError(MlisError.E_UNK_OPT, f"unknown option '{name}'")
+        if opt == "model_type":
+            return self.c["model_type"] or "none"
+        if opt in ("prompt", "nprompt"):
+            return self.c[opt + "_raw"]
+        if opt == "seed":
+            return self.rng.seed
+        return self.c.get(opt)
+
+    def _err(self, e: MlisError):
+        """Record ``e`` and hand it to the error handler, then raise it
+        (``_err``, ``mlimgsynth_tpu/api.py:841-849``)."""
+        self.errstr = str(e)
+        if self.error_handler is not None:
+            self.error_handler(self, {"code": e.code, "desc": str(e)})
+        raise e
+
     def _aux_find(self, path: str) -> str:
         """An auxiliary file (the TAE weights, a LoRA) that does not exist
         relative to the working directory is looked up under ``aux_dir``
@@ -835,12 +920,14 @@ class MLImgSynth:
             self.setup()
         return tok_mod.tokenize(text)
 
-    def _parse_prompt_text(self, text: str) -> prompt_mod.PromptText:
+    def _parse_prompt_text(self, text: str, allow_loras: bool = True
+                           ) -> prompt_mod.PromptText:
         """A prompt parsed without touching the session: prompt editing is
         probed first (the emphasis parser would read its colons as weights)
         and the fields hold the step-0 expansion, ``editing`` telling that
         ``generate`` expands it again per step
-        (``mlimgsynth_tpu/api.py:596-610``, ``:2748-2760``)."""
+        (``mlimgsynth_tpu/api.py:596-610``, ``:2748-2760``).  A batch's
+        negative prompts take no ``<lora:...>`` tag (``allow_loras``)."""
         if self.c["no_prompt_parse"]:
             return prompt_mod.prompt_set_raw(text)
         t0, edited = prompt_mod.expand_editing(text, 0, 1000)
@@ -849,6 +936,10 @@ class MLImgSynth:
         except prompt_mod.PromptParseError as e:
             raise MlisError(MlisError.E_PROMPT_PARSE, str(e))
         parsed.editing = bool(edited)
+        if parsed.loras and not allow_loras:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "<lora:...> tags are not supported in batched "
+                            "negative prompts")
         return parsed
 
     def _prompt_set(self, key: str, text: str) -> None:
@@ -990,6 +1081,22 @@ class MLImgSynth:
 
     # -- setup --------------------------------------------------------------
 
+    def _device_resolve(self) -> None:
+        """A ``late_device`` session's device, from ``backend``: the CPU
+        for ``cpu``, else the card (``MlisError`` without one); the compute
+        type follows it."""
+        dev = _BACKENDS[self.c["backend"].strip().lower()] or "cuda"
+        if dev == "cuda" and not torch.cuda.is_available():
+            raise MlisError(MlisError.E_UNKNOWN,
+                            "no CUDA device found; set the backend option "
+                            "to cpu to run on the CPU")
+        self.device = torch.device(dev)
+        wt = self.c["weight_type"] if self._wtype_set else ""
+        self.dtype = (_WEIGHT_TYPES[wt][0] if wt else None) \
+            or self._default_dtype()
+        self._late_device = False
+
+    @_locked
     def setup(self) -> None:
         """Load the model onto the session's device (once per model file,
         weight type and device) with the current LoRAs merged, and the TAE
@@ -1000,6 +1107,8 @@ class MLImgSynth:
         and the denoiser load to the host and go to the device for their
         stage only (:meth:`_stage_in`); with the option off, every module
         is on the device after ``setup``."""
+        if self._late_device:
+            self._device_resolve()
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
@@ -1412,6 +1521,43 @@ class MLImgSynth:
         w = torch.as_tensor(np.asarray(wmat, np.float32), device=self.device)
         return emb.float() * w[:, :, None], feat
 
+    @_locked
+    @torch.no_grad()
+    def clip_text_encode(self, text: str, submodel: str = "clip",
+                         want_feat: bool = False, norm: bool = True):
+        """The text tower ``submodel`` ("clip" or "clip2") on ``text`` as
+        raw text, no emphasis: (embeddings f32 [1, W*n_token, d], the
+        pooled feature f32 [1, d] or None); at the session's clip skip, or
+        the whole stack with ``want_feat`` (``clip_text_encode``,
+        ``mlimgsynth_tpu/api.py:1546-1553``).  A feature of a tower
+        without a projection raises ``KeyError`` as the JAX session's
+        missing ``text_proj`` does (but Flux's, which is unprojected)."""
+        self.setup()
+        prefix = submodel + ".text."
+        if prefix not in _TOWERS or prefix not in self._models:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"no text tower '{submodel}' in model type "
+                            f"{self.c['model_type']}")
+        tower = self._models[prefix]
+        flux = getattr(self._mt.unet_p, "flux", False)
+        if want_feat and not flux and not hasattr(tower, "text_proj"):
+            raise KeyError(prefix + "text_proj")
+        P = self._mt.clip_p if submodel == "clip" else self._mt.clip2_p
+        toks, _ = self._prompt_tokens(prompt_mod.prompt_set_raw(text))
+        self._embeds_sync()
+        self._stage_in(prefix)
+        n_win = self._n_window(P, [(toks, None)])
+        wins, _, f0 = tok_mod.split_windows(P, toks, None,
+                                            n_window=n_win)
+        tokens = torch.as_tensor(np.asarray([wins[:n_win]], np.int64),
+                                 device=self.device)
+        emb, feat = self._models[prefix].encode_windows(
+            tokens, 0 if want_feat else self.c["clip_skip"], norm,
+            torch.as_tensor([f0], device=self.device) if want_feat
+            else None)
+        return (emb.float().cpu().numpy(),
+                None if feat is None else feat.float().cpu().numpy())
+
     @torch.no_grad()
     def _text_cond(self, pts: List[prompt_mod.PromptText],
                    chunk: Optional[int] = None, n_uncond: int = 0
@@ -1643,6 +1789,7 @@ class MLImgSynth:
                  + f" segment(s) over {n_plan} steps")
         return rows, lrows, idx
 
+    @_locked
     @torch.no_grad()
     def image_encode(self, img: np.ndarray, sample: bool = True
                      ) -> np.ndarray:
@@ -1712,6 +1859,7 @@ class MLImgSynth:
         img = _tiled_decode(vae, x, tile) if tile > 0 else vae(x).float()
         return (img + 1.0) / 2.0
 
+    @_locked
     @torch.no_grad()
     def image_decode(self, latent: np.ndarray) -> np.ndarray:
         """latent NCHW [n, ch_z, h, w] (scaled) -> image [n, 3, 8h, 8w] in
@@ -1752,7 +1900,15 @@ class MLImgSynth:
         The second-stage paths go first, in the JAX session's order
         (``mlimgsynth_tpu/api.py:2091-2098``): an inpaint at full
         resolution, then the hires fix, then the refiner ensemble; each runs
-        its stages through this method with its own path shut."""
+        its stages through this method with its own path shut.  An
+        ``MlisError`` goes to the error handler first."""
+        with self._lock:
+            try:
+                return self._generate_dispatch()
+            except MlisError as e:
+                self._err(e)
+
+    def _generate_dispatch(self) -> np.ndarray:
         self.setup()
         c = self.c
         if (c["inpaint_full_res"] and not self._in_fullres
@@ -2046,6 +2202,7 @@ class MLImgSynth:
                      f"{{{self.times['upscaler_load_s']:.3f}s}}")
         return self._upscaler
 
+    @_locked
     @torch.no_grad()
     def upscale(self, img: np.ndarray, resize: Optional[float] = None,
                 tile: int = 0) -> np.ndarray:
@@ -2287,6 +2444,420 @@ class MLImgSynth:
             self._in_refiner = False
             self._keep_tail = False
             c["no_decode"] = saved_nodec
+
+    # -- the merged-batch serving path (``mlimgsynth_tpu/api.py:2743-3316``)
+
+    def _batch_loras_apply(self, pts: List[prompt_mod.PromptText]) -> None:
+        """The ``<lora:...>`` tags of a merged batch: one weight set a
+        batch, so every request must carry the same tags (the server's
+        merge key makes it so); the merged weights stay for the next batch
+        with the same tags (``_batch_loras_apply``, ``:2767-2787``)."""
+        tags = list(pts[0].loras) if pts else []
+        for p in pts[1:]:
+            if list(p.loras) != tags:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "all requests in a device batch must share "
+                                "the same <lora:...> tags")
+        wanted = [(self._lora_find(name), float(mult))
+                  for name, mult in tags]
+        if [(p_, m_) for p_, m_, fp in self.loras if fp] != wanted:
+            self.loras = ([l for l in self.loras if not l[2]]
+                          + [(p_, m_, True) for p_, m_ in wanted])
+            self.setup()
+
+    def _batch_edit_cond_bank(self, requests, use_cfg: bool, n_plan: int):
+        """Prompt editing in a merged batch: each request's step segments
+        (one segment for a request without editing) index one shared
+        conditioning bank of every distinct text, prompts first, encoded
+        in one batched call; returns (bank rows, bank labels, the int
+        [n_plan, rows] matrix of the rows each step conditions on, [cond x
+        n; uncond x n]) (``_batch_edit_cond_bank``, ``:1610-1672``)."""
+        n = len(requests)
+
+        def maps_for(raws):
+            texts, tindex, maps = [], {}, []
+
+            def row_of(t):
+                if t not in tindex:
+                    tindex[t] = len(texts)
+                    texts.append(t)
+                return tindex[t]
+
+            for raw in raws:
+                segs = prompt_mod.editing_segments(raw, n_plan)
+                if segs is None:
+                    maps.append([row_of(raw)] * n_plan)
+                else:
+                    base = [row_of(t) for t in segs[0]]
+                    maps.append([base[i] for i in segs[1]])
+            return texts, maps
+
+        p_texts, p_maps = maps_for([str(r.get("prompt", ""))
+                                    for r in requests])
+        u_texts, u_maps = [], []
+        if use_cfg:
+            u_texts, u_maps = maps_for([str(r.get("nprompt", ""))
+                                        for r in requests])
+        pts = ([self._parse_prompt_text(t) for t in p_texts]
+               + [self._parse_prompt_text(t, allow_loras=False)
+                  for t in u_texts])
+        rows, lrows = self._text_cond(pts, n_uncond=len(u_texts))
+        k = len(p_texts)
+        if use_cfg and getattr(self._mt.unet_p, "uncond_empty_zero", False):
+            for j, t in enumerate(u_texts):
+                if not t:
+                    rows[k + j] = 0.0
+        idx = np.empty((n_plan, 2 * n if use_cfg else n), np.int64)
+        for i in range(n_plan):
+            for r in range(n):
+                idx[i, r] = p_maps[r][i]
+                if use_cfg:
+                    idx[i, n + r] = k + u_maps[r][i]
+        log.info(f"Prompt editing (batch): {k} prompt"
+                 + (f" + {len(u_texts)} negative" if use_cfg else "")
+                 + f" segment(s) over {n_plan} steps")
+        return rows, lrows, idx
+
+    def _preview_u8(self, x: torch.Tensor) -> np.ndarray:
+        """A preview frame of the latents ``x``: uint8 [n, h, w, 3], the TAE
+        decode where the session has a TAE, else the linear latent -> RGB
+        map at latent resolution (``_decode_u8``'s "latent" kind,
+        ``mlimgsynth_tpu/sampling/sampler.py:666-675``; a 16-channel latent
+        by its first four channels)."""
+        with torch.no_grad():
+            if self.c["tae"]:
+                img = self._models["tae."](x).float() * 255.0
+            else:
+                m = torch.tensor(_PREVIEW_RGB, device=x.device)
+                img = torch.einsum("nchw,cd->ndhw", x[:, :4].float(), m)
+                img = (img + 1.0) * (255.0 / 2.0)
+            u8 = img.clamp(0.0, 255.0).to(torch.uint8)
+        return u8.permute(0, 2, 3, 1).cpu().numpy()
+
+    @_locked
+    @torch.no_grad()
+    def generate_batch(self, requests: List[dict], step_callback=None,
+                       init_latents: Optional[np.ndarray] = None,
+                       init_lmask: Optional[np.ndarray] = None,
+                       preview_callback=None, preview_chunk: int = 0,
+                       _latent_only: bool = False
+                       ) -> Tuple[np.ndarray, List[str]]:
+        """Several txt2img (or img2img) requests as one device batch
+        (``generate_batch``, ``mlimgsynth_tpu/api.py:2789-3090``).  Each
+        request dict brings its own ``prompt``, ``nprompt``, ``seed`` (a
+        seedless one gets the session's seed + its index) and ``subseed``;
+        every other option is the session's.  Returns (images NCHW [N, 3,
+        H, W] in [0, 1], quantized through uint8, and each request's
+        infotext); ``_latent_only`` (the first stage of the hires fix and
+        of the ensemble) returns the latents instead.
+
+        ``init_latents`` [N, ch_z, h, w] (one row a request) makes it
+        img2img at the session's ``f_t_ini``; ``init_lmask`` [N, 1, h, w]
+        (1 keeps) inpainting.  The prompts are encoded in one batched call
+        with the negative prompts after them.  ``step_callback(i_step,
+        n_step)`` returning true aborts the whole batch with ``Aborted``;
+        ``preview_callback(i_step, n_step, frames_u8_nhwc)`` gets a frame
+        every ``preview_chunk`` steps (0: ``MLIS_PROGRESS_CHUNK``, default
+        1), the callback asked after each; the last frame is the decoded
+        image.  Frames come from this Python loop between steps."""
+        self.setup()
+        c, mt = self.c, self._mt
+        if (c["hires_fix"] > 1.0 and not self._in_hires
+                and not _latent_only):
+            return self._generate_batch_hires(
+                requests, step_callback, init_latents, init_lmask,
+                preview_callback, preview_chunk)
+        if c["refiner"] and not self._in_refiner and not self._in_hires:
+            return self._generate_batch_refiner(
+                requests, step_callback, init_latents, init_lmask,
+                preview_callback, preview_chunk)
+        return self._generate_batch(requests, step_callback,
+                                    init_latents, init_lmask,
+                                    preview_callback, preview_chunk,
+                                    _latent_only)
+
+    def _generate_batch(self, requests, step_callback, init_latents,
+                        init_lmask, preview_callback, preview_chunk,
+                        latent_only) -> Tuple[np.ndarray, List[str]]:
+        c, mt = self.c, self._mt
+        P = mt.unet_p
+        f = mt.vae_p.f_down
+        w, h = c["width"] // f, c["height"] // f
+        n = len(requests)
+        if init_latents is not None:
+            if init_latents.shape[0] != n:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                f"init_latents batch {init_latents.shape[0]}"
+                                f" != {n} requests")
+            h, w = init_latents.shape[2], init_latents.shape[3]
+        if init_lmask is not None and init_latents is None:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "inpainting masks need init images")
+        flow = self._flow()
+        guidance = getattr(P, "guidance_embed", False)
+        use_cfg = c["cfg_scale"] > 1 and not guidance
+        pts = [self._parse_prompt_text(str(r.get("prompt", "")))
+               for r in requests]
+        self._batch_loras_apply(pts)
+        seeds = [int(r["seed"]) if r.get("seed") is not None
+                 else self.rng.seed + i for i, r in enumerate(requests)]
+        npts = ([self._parse_prompt_text(str(r.get("nprompt", "")),
+                                         allow_loras=False)
+                 for r in requests] if use_cfg else [])
+        flow_shift = 0.0
+        if flow:
+            flow_shift = (flux_mod.dynamic_flow_shift(P, h, w)
+                          if getattr(P, "flux", False) else P.flow_shift)
+        scfg = SamplerConfig(
+            method=c["method"], sched=c["scheduler"], n_step=c["steps"],
+            cfg_scale=1.0 if guidance else c["cfg_scale"],
+            s_ancestral=c["s_ancestral"], s_noise=c["s_noise"],
+            f_t_ini=c["f_t_ini"] if init_latents is not None else 1.0,
+            f_t_end=c["f_t_end"], keep_tail=self._keep_tail,
+            noise_add=self._noise_add, flow_shift=flow_shift,
+            cfg_rescale=c["cfg_rescale"], **_slg_kw(c))
+        edit_steps = None
+        if (not c["no_prompt_parse"]
+                and (any(p.editing for p in pts)
+                     or any(q.editing for q in npts))):
+            if flow:
+                raise MlisError(MlisError.E_OPT_VALUE, "prompt editing is "
+                                "not supported for flow models")
+            cond_all, label_all, edit_steps = self._batch_edit_cond_bank(
+                requests, use_cfg, plan_n_step(scfg, 2 if use_cfg else 1))
+        else:
+            # [cond x n; uncond x n]: the prompts, then the negative ones
+            cond_all, label_all = self._text_cond(pts + npts,
+                                                  n_uncond=len(npts))
+            if use_cfg and getattr(P, "uncond_empty_zero", False):
+                for i, r in enumerate(requests):
+                    if not r.get("nprompt"):
+                        cond_all[n + i] = 0.0
+        if guidance and label_all is not None:
+            label_all = torch.cat([label_all, label_all.new_full(
+                (label_all.shape[0], 1), c["cfg_scale"])], dim=-1)
+        slg_plan(scfg, P, c["steps"])
+        pag_plan(scfg, P, c["steps"], c["deepcache"])
+        freeu = self._freeu_resolve()
+        nfe_per_dxdt = 2 if use_cfg else 1
+        latent = (np.asarray(init_latents, np.float32)
+                  if init_latents is not None
+                  else np.zeros((n, mt.vae_p.ch_z, h, w), np.float32))
+        subseeds = None
+        if c["subseed_strength"] > 0:
+            subseeds = [int(r["subseed"]) if r.get("subseed") is not None
+                        else seeds[j] + (1 << 31)
+                        for j, r in enumerate(requests)]
+        plan = make_plan(scfg, latent.shape, RngPhilox(seeds[0], 0),
+                         nfe_per_dxdt, seeds=seeds, subseeds=subseeds,
+                         subseed_strength=c["subseed_strength"])
+        log.info(f"Generating batch of {n} requests (seeds {seeds}, steps "
+                 f"{plan.n_step})")
+        control = self._control_spec(h * f, w * f)
+        extra_ch = None
+        if P.n_ch_in > mt.vae_p.ch_z and not flow:
+            if init_latents is not None:
+                raise MlisError(MlisError.E_OPT_VALUE,
+                                "inpaint-variant models do not support "
+                                "merged img2img batches (use generate())")
+            # txt2img on an inpaint variant repaints everything
+            extra_ch = np.concatenate(
+                [np.ones((1, 1, h, w), np.float32),
+                 np.zeros((1, mt.vae_p.ch_z, h, w), np.float32)], 1)
+        self._deepcache_check(flow, edit_steps, c["control_net"],
+                              extra_ch is not None)
+        denoiser = self._denoiser()
+        if c["unet_split"]:
+            for prefix in _TOWERS:
+                if prefix in self._models:
+                    self._stage_out(prefix)
+        self._stage_in(denoiser)
+        blocks_mod.set_tiling(self._models[denoiser], c["tiling"])
+        chunk = max(1, int(preview_chunk
+                           or os.environ.get("MLIS_PROGRESS_CHUNK", "1")))
+
+        def on_step(i, n_step, x):
+            # after each chunk of steps: a preview frame, then the
+            # cancellation check (an abort on the last step is none)
+            if i % chunk and i != n_step:
+                return
+            if preview_callback is not None and (i < n_step
+                                                 or latent_only):
+                preview_callback(i, n_step, self._preview_u8(x))
+            if (step_callback is not None and step_callback(i, n_step)
+                    and i < n_step):
+                raise Aborted("generation cancelled")
+
+        x = run_sampler(self._models[denoiser], latent, plan, cond_all,
+                        scfg, label_all=label_all, lmask=init_lmask,
+                        cond_steps=edit_steps, deepcache=c["deepcache"],
+                        freeu=freeu, control=control, extra_ch=extra_ch,
+                        step_latent=on_step)
+        if not torch.isfinite(x).all():
+            raise MlisError(MlisError.E_NAN, "NaN found in UNet output")
+        if c["unet_split"]:
+            self._stage_out(denoiser)
+        if latent_only:
+            imgs = x.cpu().numpy()
+        else:
+            # the loop's fused decode: the whole batch at once, untiled
+            # (``_decode_u8``), wrapping under seamless tiling
+            dec = self._models["tae." if c["tae"] else "vae."]
+            blocks_mod.set_tiling(dec, c["tiling"])
+            img = (dec(x).float() * 255.0 if c["tae"]
+                   else (dec(x).float() + 1.0) * (255.0 / 2.0))
+            u8 = img.clamp(0.0, 255.0).to(torch.uint8).cpu().numpy()
+            if preview_callback is not None:
+                preview_callback(plan.n_step, plan.n_step,
+                                 u8.transpose(0, 2, 3, 1))
+            imgs = u8.astype(np.float32) / 255.0
+        n_fe = get_solver(c["method"]).n_fe
+        self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
+        infotexts = []
+        save = (c["prompt_raw"], c["nprompt_raw"], self.rng.seed,
+                self.infotext, self._subseed_eff)
+        try:
+            for i, r in enumerate(requests):
+                c["prompt_raw"] = str(r.get("prompt", ""))
+                c["nprompt_raw"] = str(r.get("nprompt", ""))
+                self.rng.seed = seeds[i]
+                if subseeds is not None:
+                    self._subseed_eff = subseeds[i]
+                self._infotext_update(w * f, h * f, plan.n_step,
+                                      "inpaint" if init_lmask is not None
+                                      else "img2img")
+                infotexts.append(self.infotext)
+        finally:
+            (c["prompt_raw"], c["nprompt_raw"], self.rng.seed,
+             self.infotext, self._subseed_eff) = save
+        return imgs, infotexts
+
+    def _generate_batch_hires(self, requests, step_callback, init_latents,
+                              init_lmask, preview_callback, preview_chunk
+                              ) -> Tuple[np.ndarray, List[str]]:
+        """The hires fix on a merged batch (``_generate_batch_hires``,
+        ``:3092-3166``): a latent-only first batch at ``image_dim``, the
+        latents resized by ``hires_fix`` (bilinear; or the images decoded,
+        upscaled by the ``upscaler`` model, Lanczos-resized and encoded
+        again), then an img2img batch at ``hires_denoise``; each stage
+        draws its own streams from the requests' seeds.  The first stage's
+        infotexts with the hires fields."""
+        c = self.c
+        factor = float(c["hires_fix"])
+        base_w, base_h = c["width"], c["height"]
+        f = self._mt.vae_p.f_down
+        mult = f * 8
+        fin_w = max(mult, int(round(base_w * factor / mult)) * mult)
+        fin_h = max(mult, int(round(base_h * factor / mult)) * mult)
+        denoise = float(c["hires_denoise"])
+        steps2 = int(c["hires_steps"]) or c["steps"]
+        saved_steps = c["steps"]
+        saved_ini, saved_end = c["f_t_ini"], c["f_t_end"]
+        up_name = str(c["hires_upscaler"]).strip()
+        use_img_up = up_name.lower() not in ("", "latent")
+        self._in_hires = True
+        try:
+            if use_img_up:
+                imgs1, infos = self.generate_batch(
+                    requests, step_callback, init_latents, init_lmask,
+                    preview_callback, preview_chunk)
+                up = self.upscale(np.asarray(imgs1, np.float32))
+                if up.shape[2] != fin_h or up.shape[3] != fin_w:
+                    up = image_mod.lanczos_resize(up, fin_h, fin_w)
+                lat2 = self.image_encode(up)
+            else:
+                lats, infos = self.generate_batch(
+                    requests, step_callback, init_latents, init_lmask,
+                    preview_callback, preview_chunk, _latent_only=True)
+                lat2 = image_mod.resize_bilinear_nchw(
+                    np.asarray(lats, np.float32), fin_h // f, fin_w // f)
+            c["width"], c["height"] = fin_w, fin_h
+            c["steps"] = steps2
+            c["f_t_ini"], c["f_t_end"] = denoise, 0.0
+            imgs, _ = self.generate_batch(requests, step_callback, lat2,
+                                          None, preview_callback,
+                                          preview_chunk)
+            extra = f", Hires upscaler: {up_name}" if use_img_up else ""
+            infos = [t + f", Hires upscale: {factor:g}, Hires steps: "
+                     f"{steps2}, Denoising strength: {denoise:g}" + extra
+                     for t in infos]
+            return imgs, infos
+        finally:
+            self._in_hires = False
+            c["width"], c["height"] = base_w, base_h
+            c["steps"] = saved_steps
+            c["f_t_ini"], c["f_t_end"] = saved_ini, saved_end
+
+    def _generate_batch_refiner(self, requests, step_callback, init_latents,
+                                init_lmask, preview_callback, preview_chunk
+                                ) -> Tuple[np.ndarray, List[str]]:
+        """The base -> refiner ensemble on a merged batch
+        (``_generate_batch_refiner``, ``:3168-3234``): a latent-only base
+        batch stopping at the switch's sigma, then a refiner batch from
+        there without new noise; each stage draws its own streams from the
+        requests' seeds.  Where nothing is left below the switch for the
+        base one model runs alone, as :meth:`_refiner_generate` decides.
+        The base stage's infotexts with the refiner fields."""
+        c = self.c
+        switch = min(max(float(c["refiner_switch"]), 0.0), 1.0)
+        f_cut = 1.0 - switch
+        saved_end = c["f_t_end"]
+        f_ini = c["f_t_ini"] if init_latents is not None else 1.0
+        rs = self._refiner_get()
+        base_steps = int(c["steps"] * (f_ini - f_cut) + 0.5)
+        self._in_refiner = True
+        try:
+            if saved_end >= f_cut:
+                return self.generate_batch(
+                    requests, step_callback, init_latents, init_lmask,
+                    preview_callback, preview_chunk)
+            if f_ini <= f_cut or base_steps < 2:
+                rs.c["steps"] = c["steps"]
+                rs.c["f_t_ini"], rs.c["f_t_end"] = c["f_t_ini"], saved_end
+                imgs, infos = rs.generate_batch(
+                    requests, step_callback, init_latents, init_lmask,
+                    preview_callback, preview_chunk)
+            else:
+                c["f_t_end"] = f_cut
+                self._keep_tail = True
+                try:
+                    lats, infos = self.generate_batch(
+                        requests, step_callback, init_latents, init_lmask,
+                        preview_callback, preview_chunk, _latent_only=True)
+                finally:
+                    self._keep_tail = False
+                    c["f_t_end"] = saved_end
+                rs.c["steps"] = c["steps"]
+                rs.c["f_t_ini"], rs.c["f_t_end"] = f_cut, saved_end
+                rs._noise_add = False
+                try:
+                    imgs, _ = rs.generate_batch(
+                        requests, step_callback, np.asarray(lats), None,
+                        preview_callback, preview_chunk)
+                finally:
+                    rs._noise_add = True
+            infos = [t + f", Refiner: {os.path.basename(c['refiner'])}, "
+                     f"Refiner switch: {switch:g}" for t in infos]
+            return imgs, infos
+        finally:
+            self._in_refiner = False
+
+    def backend_info(self) -> dict:
+        """The session's devices (``backend_info``, ``mlimgsynth_tpu/
+        api.py:3301-3316``): every CUDA card, its name and free and total
+        memory, for a session on a card; the CPU for one on it."""
+        if self.device.type == "cuda" and torch.cuda.is_available():
+            devs = []
+            for i in range(torch.cuda.device_count()):
+                free, total = torch.cuda.mem_get_info(i)
+                devs.append({"name": f"cuda:{i}",
+                             "desc": torch.cuda.get_device_name(i),
+                             "mem_free": int(free), "mem_total": int(total)})
+            return {"name": "cuda", "n_dev": len(devs), "devs": devs}
+        import platform
+        return {"name": "cpu", "n_dev": 1,
+                "devs": [{"name": "cpu:0",
+                          "desc": platform.processor() or "cpu"}]}
 
     def _infotext_update(self, w: int, h: int, n_step: int,
                          mode: str = "img2img") -> None:

@@ -1,8 +1,10 @@
 """Command-line interface of the PyTorch port (port of
 ``mlimgsynth_tpu/cli.py``).
 
-The same command and flag surface as the JAX package's CLI for the commands
-the port has: ``generate``, ``upscale``, ``tokenize``, ``help`` and
+The same command and flag surface as the JAX package's CLI: ``generate``,
+``serve`` (the HTTP server, ``--port``, ``--model-dir``),
+``list-backends``, ``vae-encode``, ``vae-decode``, ``vae-test``,
+``clip-encode``, ``tokenize``, ``upscale``, ``check``, ``help`` and
 ``version``.  Short
 options, unknown long options forwarded to the session's option table
 (``option_set_str``), ``-`` as stdout (PPM), progress on stderr, latent
@@ -13,13 +15,13 @@ img2img, its alpha or ``--imask`` (first channel) for inpainting,
 editing, the T5 options ``--t5`` / ``--t5-tokenizer`` / ``--t5-tokens``
 (SD3, SD3.5, Flux), ``--clip`` / ``--vae`` for a model that ships as
 components (Flux), ``--control-image`` for ControlNet, and the ``upscale``
-command's ``--upscale-factor`` and ``--upscale-tile``.  The other commands
-of the JAX CLI exit 1 and say so.
+command's ``--upscale-factor`` and ``--upscale-tile``.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
 session's error; there is no silent CPU fallback.  Options the port does
-not have (``--tp``, ``--threads``, ...) exit 1 as unknown options.
+not have (``--tp``, ``--dp``, ``--sp``, ``--pp``) exit 1 as unknown
+options; ``-t``/``--threads`` is accepted and stored.
 The memory options ``--vae-tile`` and ``--unet-split``, the sampler and
 guidance options (``--cfg-rescale``, ``--subseed``, ``--method lcm``,
 ``--freeu``, ``--pag-*``, ``--deepcache``, ``--tiling``) and the second
@@ -33,12 +35,16 @@ stage and control options (``--mask-blur``, ``--inpaint-full-res[-padding]``,
         --f-t-ini 0.6 --lora style.safetensors,0.8 -p "..." -o out.png
     python -m mlimgsynth_torch.cli upscale --upscaler x4.pth -i in.png \\
         --upscale-tile 256 -o out.png
+    python -m mlimgsynth_torch.cli serve -m sd15.safetensors --port 8188
 """
 from __future__ import annotations
 
 import os
 import sys
+import time
 from typing import List, Optional
+
+import numpy as np
 
 HELP = """mlimgsynth-torch v{version}
 Image synthesis using AI, PyTorch/CUDA port.
@@ -57,10 +63,16 @@ Usage: python -m mlimgsynth_torch.cli [COMMAND] [OPTIONS]
 
 Commands:
   generate             Generate an image.
-  upscale              Upscale an image with an ESRGAN model (--upscaler).
+  serve                Run an HTTP image-generation server (--port 8188,
+                       --model-dir DIR).
+  list-backends        List the devices (CUDA cards, or the CPU).
+  vae-encode           Encode an image to a latent.
+  vae-decode           Decode a latent to an image.
+  vae-test             Encode and decode an image.
+  clip-encode          Encode a prompt with the CLIP tokenizer and model.
   tokenize             Tokenize text (testing).
-The JAX package's other commands (serve, list-backends, vae-encode,
-vae-decode, vae-test, clip-encode, check) are not ported.
+  upscale              Upscale an image with an ESRGAN model (--upscaler).
+  check                Check that all operations (models) are working.
 
 Generation options:
   -p --prompt TEXT     Prompt for text conditioning.
@@ -150,6 +162,7 @@ Models and backend:
   --hires-upscaler N   Hires upscale in image space with --upscaler (any
                        name but "latent"; default: the latent, bilinear).
   -b --backend NAME    cuda (default) or cpu.
+  -t --threads INT     Host thread count (accepted for compatibility).
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
   --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
@@ -206,10 +219,8 @@ SHORT_OPTS = {
 # long options handled by the CLI itself; everything else forwards to the
 # session's option table
 CLI_PATH_OPTS = ("input", "imask", "ilatent", "ilmask", "output", "olatent",
-                 "control-image", "upscale-factor", "upscale-tile")
-# the JAX CLI's commands the port does not have
-NOT_PORTED = ("serve", "list-backends", "vae-encode", "vae-decode",
-              "vae-test", "clip-encode", "check")
+                 "port", "control-image", "upscale-factor", "upscale-tile",
+                 "model-dir")
 _DEVICES = {"": "cuda", "cuda": "cuda", "cpu": "cpu"}
 
 
@@ -383,14 +394,163 @@ def cmd_upscale(session, state: CliState) -> int:
     return 0
 
 
+def cmd_vae(session, state: CliState, encode: bool, decode: bool) -> int:
+    """``vae-encode``, ``vae-decode`` and ``vae-test``
+    (``mlimgsynth_tpu/cli.py:310-340``): the input image (its first three
+    channels) to a latent (``--olatent``), a latent (``--ilatent``) to an
+    image (``-o``), or both, with the round trip's error on stderr."""
+    from .api import MlisError
+    from .utils import image as image_mod
+    orig = None
+    if encode:
+        if not state.paths["input"]:
+            raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                            "You must set the input image path.")
+        t = image_mod.tensor_from_image_arr(
+            _load_image(state.paths["input"]))[:, :3]
+        orig = t.copy()
+        latent = session.image_encode(t)
+        session.tensors["latent"] = latent
+        if state.paths["olatent"]:
+            image_mod.tensor_save(state.paths["olatent"], latent)
+    else:
+        if not state.paths["ilatent"]:
+            raise MlisError(MlisError.E_FILE_NOT_FOUND,
+                            "You must set the input latent path.")
+        session.tensors["latent"] = _load_tensor(state.paths["ilatent"])
+    if decode:
+        img_t = session.image_decode(session.tensors["latent"])
+        session.tensors["image"] = img_t
+        if state.paths["output"]:
+            _save_image(image_mod.tensor_to_image_arr(img_t), None,
+                        state.paths["output"])
+    if encode and decode:
+        rmse = float(np.sqrt(np.mean((orig - session.tensors["image"])
+                                     ** 2)))
+        psnr = 20 * np.log10(1.0 / rmse) if rmse > 0 else float("inf")
+        sys.stderr.write(f"Image encode/decode mse: {rmse:.3f} "
+                         f"(PSNR {psnr:.1f} dB)\n")
+    return 0
+
+
+def cmd_clip_encode(session, state: CliState) -> int:
+    """The prompt through the first text tower: ``clip-embed.tensor`` and,
+    where the tower has a projection, ``clip-feat.tensor`` in the working
+    directory (``mlimgsynth_tpu/cli.py:360-376``)."""
+    from .utils import image as image_mod
+    text = session.c["prompt_raw"]
+    has_proj = True
+    try:
+        embed, feat = session.clip_text_encode(text, want_feat=True)
+    except KeyError:
+        has_proj = False
+        embed, feat = session.clip_text_encode(text, want_feat=False)
+    image_mod.tensor_save("clip-embed.tensor",
+                          embed[:, :, :, None].transpose(0, 3, 1, 2))
+    if has_proj and feat is not None:
+        image_mod.tensor_save("clip-feat.tensor",
+                              feat[:, :, None, None].transpose(0, 2, 3, 1))
+    return 0
+
+
 def cmd_tokenize(session, state: CliState) -> int:
     toks = session.text_tokenize(session.c["prompt_raw"])
     print(" ".join(str(t) for t in toks))
     return 0
 
 
-COMMANDS = {"generate": cmd_generate, "upscale": cmd_upscale,
-            "tokenize": cmd_tokenize}
+def cmd_check(session, state: CliState) -> int:
+    """Small computations through every op family on the session's
+    device, then, with a model set, each module once on tiny inputs
+    (``mlimgsynth_tpu/cli.py:383-453``)."""
+    import torch
+
+    from .ops.attention import attention
+    from .rng import philox_randn
+    from .tokenizer import tokenize
+
+    dev, checks = session.device, []
+
+    def check(name, fn):
+        t0 = time.time()
+        try:
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            checks.append((name, True, time.time() - t0))
+        except Exception as e:  # noqa
+            checks.append((name, False, time.time() - t0))
+            print(f"  {name}: FAIL ({e})")
+
+    def ones(*shape, dtype=torch.float32):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    check("matmul", lambda: ones(128, 128, dtype=torch.bfloat16)
+          @ ones(128, 128, dtype=torch.bfloat16))
+    check("conv2d", lambda: torch.nn.functional.conv2d(
+        ones(1, 8, 16, 16), ones(8, 8, 3, 3), padding=1))
+    check("attention", lambda: attention(
+        ones(1, 2, 64, 64), ones(1, 2, 64, 64), ones(1, 2, 64, 64)))
+    check("groupnorm", lambda: torch.nn.functional.group_norm(
+        ones(1, 32, 4, 4), 32, ones(32), torch.zeros(32, device=dev)))
+    check("philox", lambda: philox_randn(0, 0, 1000))
+    check("tokenizer", lambda: tokenize("check"))
+
+    if session.c["model"]:
+        def check_clip():
+            emb, _ = session.clip_text_encode("check")
+            assert np.isfinite(emb).all()
+
+        def check_vae():
+            lat = session.image_encode(
+                np.full((1, 3, 64, 64), 0.5, np.float32), sample=False)
+            assert np.isfinite(session.image_decode(lat)).all()
+
+        def check_unet():
+            session.option_set("steps", 1)
+            session.option_set("no-decode", True)
+            session.option_set("image-dim", 64)
+            session.option_set("prompt", "check")
+            assert np.isfinite(session.generate()).all()
+            session.option_set("no-decode", False)
+
+        check("model:clip", check_clip)
+        check("model:vae", check_vae)
+        check("model:unet", check_unet)
+    ok = all(c[1] for c in checks)
+    for name, good, dt in checks:
+        print(f"  {name:12s} {'OK' if good else 'FAIL'} {{{dt:.3f}s}}")
+    print("CHECK OK" if ok else "CHECK FAILED")
+    return 0 if ok else 1
+
+
+def cmd_list_backends(session, state: CliState) -> int:
+    info = session.backend_info()
+    print(info["name"])
+    for d in info["devs"]:
+        line = f"\t{d['name']} '{d['desc']}'"
+        if d.get("mem_total"):
+            gib = 1 / (1024 ** 3)
+            line += (f" {d.get('mem_free', 0) * gib:.1f}"
+                     f"/{d['mem_total'] * gib:.1f}GiB")
+        print(line)
+    return 0
+
+
+def cmd_serve(session, state: CliState) -> int:
+    from .server import serve
+    serve(session, port=int(state.paths["port"] or 8188),
+          model_dir=state.paths["model-dir"] or "")
+    return 0
+
+
+COMMANDS = {"generate": cmd_generate, "serve": cmd_serve,
+            "list-backends": cmd_list_backends,
+            "vae-encode": lambda s, st: cmd_vae(s, st, True, False),
+            "vae-decode": lambda s, st: cmd_vae(s, st, False, True),
+            "vae-test": lambda s, st: cmd_vae(s, st, True, True),
+            "clip-encode": cmd_clip_encode, "tokenize": cmd_tokenize,
+            "upscale": cmd_upscale, "check": cmd_check}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -413,10 +573,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if state.cmd is None:
         print("No command. Use -h for help.")
         return 0
-    if state.cmd in NOT_PORTED:
-        print(f"Command '{state.cmd}' is not ported to the PyTorch port",
-              file=sys.stderr)
-        return 1
     if state.cmd not in COMMANDS:
         print(f"Unknown command '{state.cmd}'", file=sys.stderr)
         return 1

@@ -349,7 +349,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 lmask: Optional[np.ndarray] = None,
                 cond_steps: Optional[np.ndarray] = None,
                 deepcache: int = 0, freeu=None, control=None,
-                extra_ch: Optional[np.ndarray] = None) -> torch.Tensor:
+                extra_ch: Optional[np.ndarray] = None,
+                step_latent: Optional[Callable] = None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
@@ -376,7 +377,9 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     scaling 10), then a full re-noise to the next sigma
     (``sampler.py:403-425``).  ``step_observer(i_step,
     latent_nchw_numpy)`` sees every step, and ``step_callback(i_step,
-    n_step)`` is told of each (the session's progress).  Returns the final
+    n_step)`` is told of each (the session's progress), and
+    ``step_latent(i_step, n_step, x)`` sees the latent on the device after
+    each (the batch's previews and cancellation).  Returns the final
     latent, f32 on the device."""
     dev = cond_all.device
     use_cfg = cfg.cfg_scale > 1
@@ -496,4 +499,6 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
             step_observer(i + 1, x.cpu().numpy())
         if step_callback is not None:
             step_callback(i + 1, plan.n_step)
+        if step_latent is not None:
+            step_latent(i + 1, plan.n_step, x)
     return x

@@ -842,7 +842,8 @@ def write_random_esrgan(path, P, seed: int = 0, dtype=np.float32,
 # 512^2, SDXL 1024^2, SD3-medium 1024^2 (with 77 or 256 T5 tokens), SD2.1
 # 768^2, SD3.5 1024^2 and Flux 1024^2 main paths give the kernels
 # (perturbed-attention guidance's cond-only evaluation at batch 1), the
-# SD1.5 hires fix's 1024^2 second pass and the SDXL refiner's 1024^2 levels,
+# SD1.5 hires fix's 1024^2 second pass, the SDXL refiner's 1024^2 levels,
+# the serving path's merged batches (four SD1.5 requests, an SDXL pair),
 # and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
 # main path runs it)
 ATTN_CASES = [
@@ -870,6 +871,14 @@ ATTN_CASES = [
      "SDXL refiner 1024^2, UNet level 1 (12 heads)"),
     ("flash_attn_fwd", (2, 24, 1024, 64), 1024,
      "SDXL refiner 1024^2, UNet level 2 (24 heads)"),
+    ("flash_attn_fwd", (8, 8, 4096, 40), 4096,
+     "SD1.5 merged batch of 4 (serve), UNet level 0"),
+    ("flash_attn_fwd", (8, 8, 1024, 80), 1024,
+     "SD1.5 merged batch of 4 (serve), UNet level 1"),
+    ("flash_attn_fwd", (4, 10, 4096, 64), 4096,
+     "SDXL merged pair, UNet level 1"),
+    ("flash_attn_fwd", (4, 20, 1024, 64), 1024,
+     "SDXL merged pair, UNet level 2"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
@@ -882,6 +891,10 @@ ATTN_CASES = [
      "SDXL VAE tile of 640^2 (--vae-tile 512; 100 blocks, one wave)"),
     ("flash_attn_fwd_wide", (1, 1, 2304, 512), 2304,
      "SD1.5 VAE tile of 384^2 (--vae-tile 256)"),
+    ("flash_attn_fwd_wide", (4, 1, 4096, 512), 4096,
+     "SD1.5 merged batch of 4 (serve), VAE mid-block (B H 4)"),
+    ("flash_attn_fwd_wide", (2, 1, 16384, 512), 16384,
+     "SDXL merged pair, VAE mid-block (B H 2, two waves)"),
     ("flash_attn_fwd_wide", (2, 8, 1024, 160), 1024,
      "SD1.5 1024^2 (hires fix second pass), UNet level 2: head dim 160, "
      "8 heads, computed at D = 512"),

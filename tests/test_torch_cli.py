@@ -3,7 +3,8 @@
 same arguments and seed (the PNG read back with pillow here, its
 ``parameters`` text, the ``--olatent`` tensor, a batch's file names, ``-``
 as stdout), ``tokenize``, ``help``, ``version``, and the exits with code 1:
-an unknown command, an unknown option, a command the port lacks, and
+an unknown command, an unknown option, an option the port lacks (the
+multi-device ``--tp``, ``--dp``, ``--sp``) on a command it has, and
 ``generate`` without ``-b cpu`` on a machine without a card.
 
 Both CLIs run f32 on the CPU.  Tolerances: the image within 1 LSB (both
@@ -116,10 +117,10 @@ def test_tokenize_help_version(capsys):
 @pytest.mark.parametrize("argv", [
     ["frobnicate"],
     ["generate", "-b", "cpu", "--definitely-not-an-option", "1"],
-    ["vae-encode", "-b", "cpu"],
+    ["vae-encode", "-b", "cpu", "--sp", "2"],
     ["generate", "-b", "tpu"],
-    ["serve", "-b", "cpu"],
-    ["list-backends"],
+    ["serve", "-b", "cpu", "--tp", "2"],
+    ["list-backends", "-b", "cpu", "--dp", "2"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
         "serve", "list-backends"])
 def test_errors_exit_1(argv):

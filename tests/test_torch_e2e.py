@@ -203,7 +203,7 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
 
 @pytest.mark.parametrize("name,value", [
     ("tp", 2), ("weight-type", "q2_k"), ("dp", 2), ("sp", 2), ("pp", 2),
-    ("threads", 4), ("dump-flags", 1),
+    ("weight-type", "q3_k"), ("weight-type", "iq4_nl"),
 ])
 def test_unsupported_option_raises(name, value):
     s = torch_api.MLImgSynth(device="cpu")
@@ -318,9 +318,21 @@ for k, v in [("model", "xl.st"), ("model-type", "sdxl"), ("image-dim", 64),
              ("steps", 4), ("refiner", "rf.st"), ("prompt", "a cat")]:
     s.option_set(k, v)
 assert np.isfinite(s.generate()).all() and "Refiner: rf.st" in s.infotext
+# the serving front ends: a merged batch through the port's server
+from mlimgsynth_torch import capi, server, tstore_util
+from mlimgsynth_torch.utils import tensorstat
+srv = server.Server(s, merge_window_s=0.0)
+p = srv.submit({"prompt": "a fox", "seed": 2, "batch_size": 2})
+assert p.event.wait(600) and p.error is None, p.error
+assert p.imgs.shape == (2, 3, 64, 64) and "Seed: 3" in p.infotexts[1]
+assert tstore_util.main(["-i", "rf.st", "-o", "rf.txt", "checksum"]) == 0
+assert tensorstat.stat_line(p.imgs, "img").startswith("img")
+assert callable(capi.build_shim)
 new = {"mlimgsynth_torch.tokenizer_json", "mlimgsynth_torch.models.t5",
        "mlimgsynth_torch.errors", "mlimgsynth_torch.models.controlnet",
-       "mlimgsynth_torch.models.esrgan"}
+       "mlimgsynth_torch.models.esrgan", "mlimgsynth_torch.server",
+       "mlimgsynth_torch.capi", "mlimgsynth_torch.tstore_util",
+       "mlimgsynth_torch.utils.tensorstat"}
 assert new <= set(sys.modules), new - set(sys.modules)
 tpu = {m for m in sys.modules
        if m.split(".")[0] in ("mlimgsynth_tpu", "PIL")}

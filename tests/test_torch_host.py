@@ -1,13 +1,16 @@
 """The port's copies of the JAX package's host modules (rng, tokenizer,
 prompt, nameconv, io.tensorstore, io.gquant, sampling.schedule, utils.log,
-utils.image, the session's ``_tile_geometry``) against the originals: the same seeded inputs through both
+utils.image, utils.tensorstat, tstore_util, the session's
+``_tile_geometry``) against the originals: the same seeded inputs through both
 give equal results, exactly.  The port writes its PNGs without pillow, so
 those are compared as pillow reads them (pixels and ``parameters`` text),
 not byte for byte."""
 import dataclasses
 import importlib
 import io
+import json
 import math
+import struct
 
 import numpy as np
 import pytest
@@ -203,10 +206,57 @@ def _tiles(pkg, tmp_path):
         (128, 128, 80, 80, 8), (1024, 1024, 640, 640, 64))]
 
 
+def _tensorstat(pkg, tmp_path):
+    """``tensor_stat`` and ``stat_line`` on seeded arrays, an empty one,
+    one with an inf and a constant one."""
+    ts = _mod(pkg, "utils.tensorstat")
+    rng = np.random.default_rng(6)
+    xs = [rng.standard_normal((2, 4, 9, 7)).astype(np.float32),
+          np.arange(5, dtype=np.float32), np.zeros(0, np.float32),
+          np.array([1.0, np.inf, 2.0], np.float32), np.ones((3, 3))]
+    return ([ts.tensor_stat(x) for x in xs]
+            + [ts.stat_line(x, "latent") for x in xs]
+            + [ts.stat_line(None, "x")])
+
+
+def _tstore_util(pkg, tmp_path):
+    """``tstore_util.main``'s info, checksum, extract and convert (to f16
+    safetensors and bf16 GGUF) of a small safetensors file: what each
+    command writes."""
+    tu = _mod(pkg, "tstore_util")
+    rng = np.random.default_rng(7)
+    arrs = {"model.a.weight": rng.standard_normal((4, 8)).astype(np.float32),
+            "model.b.bias": rng.standard_normal(16).astype(np.float16)}
+    header, blobs, off = {}, [], 0
+    for name, a in arrs.items():
+        b = a.tobytes()
+        header[name] = {"dtype": {"float32": "F32", "float16": "F16"}[
+            str(a.dtype)], "shape": list(a.shape),
+            "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    head = json.dumps(header).encode()
+    src = tmp_path / "in.safetensors"
+    src.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    out = tmp_path / pkg
+    out.mkdir()
+    argvs = [["-i", src, "-o", out / "info.txt", "info"],
+             ["-i", src, "-o", out / "sums.txt", "checksum"],
+             ["-i", src, "-o", out / "b.tensor", "-t", "model.b.bias",
+              "extract"],
+             ["-i", src, "-o", out / "c.safetensors", "-T", "f16",
+              "convert"],
+             ["-i", src, "-o", out / "c.gguf", "-T", "bf16", "convert"]]
+    codes = [tu.main([str(a) for a in argv]) for argv in argvs]
+    return codes + [(out / f).read_bytes() for f in (
+        "info.txt", "sums.txt", "b.tensor", "c.safetensors", "c.gguf")]
+
+
 CASES = {"tokenizer": _tokenizer, "prompt": _prompt, "rng": _rng,
          "schedule": _schedule, "tensorstore": _tensorstore,
          "nameconv": _nameconv, "log": _log, "image": _image,
-         "masks": _masks, "tiles": _tiles}
+         "masks": _masks, "tiles": _tiles, "tensorstat": _tensorstat,
+         "tstore_util": _tstore_util}
 
 
 def _plain(x):

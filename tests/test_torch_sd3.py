@@ -115,8 +115,7 @@ def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("backend", "cpu"), ("log-level", "debug"), ("error-handler", "print"),
-    ("tp", 4),
+    ("dp", 4), ("sp", 4), ("pp", 4), ("tp", 4),
 ])
 def test_unported_sd3_options_raise(name, value):
     s = torch_api.MLImgSynth(device="cpu")

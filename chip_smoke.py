@@ -75,8 +75,10 @@ Phases, one result line each (any failure exits non-zero):
                  other ones after; on SDXL the same with an embedding of
                  both towers' rows in an edited prompt.
                  SD3.5 and Flux.1 (``sd35`` and ``flux`` lines), 1024^2
-                 at full width and depth on seeded random files drawn on
-                 the card, with the T5-XXL file of the ``t5`` lines:
+                 at full width on seeded random files drawn on the card
+                 (SD3.5-large at 12 of its 38 blocks and Flux at 6 + 12 of
+                 its 19 + 38, SD35_LARGE_DEPTH and FLUX_DEPTH), with the
+                 T5-XXL file of the ``t5`` lines:
                  SD3.5-medium (MMDiT-X) and SD3.5-large, 20 Euler steps,
                  CFG 7, 77 T5 tokens, 2 requests each; Flux.1-dev from
                  component files (transformer, CLIP-L, VAE), 20 Euler
@@ -92,9 +94,10 @@ Phases, one result line each (any failure exits non-zero):
                  the card and quantized there; T5 stays loaded):
                  Flux.1-dev q8_0, 2 requests and 1 under
                  MLIS_Q8_MODE=int8, its peak below the bf16 session's,
-                 then a seeded random rank-16 LoRA of every double
-                 block's image qkv, attention output and MLP input and
-                 every single block's linear1 and linear2, in kohya names
+                 then a seeded random rank-16 LoRA of the first 4 double
+                 blocks' image qkv, attention output and MLP input and
+                 the first 8 single blocks' linear1 and linear2 (of 19
+                 and 38; FLUX_LORA_BLOCKS), in kohya names
                  and in PEFT names (4-step requests; the merged weights
                  checked against the host, the two latents equal);
                  Flux.1-schnell q4_0, 1 request; SD3.5-large q8_0, 1
@@ -157,6 +160,19 @@ Phases, one result line each (any failure exits non-zero):
                  program, on the card, held to the request served alone;
                  the CLI's vae-test; a merged SDXL pair through
                  generate_batch on the bf16 SDXL session (K1 at batch 4).
+                 The multi-rank modes (``ranks`` lines): two processes
+                 sharing the card over gloo (``parallel/comm.spawn``),
+                 each rank a session of its own: SD1.5 512^2 at tp 2, dp 2
+                 (batch 2; two requests) and sp 2, 20 Euler steps;
+                 SD3-medium 1024^2 at tp 2, sp 2, pp 2 and pp 2 with
+                 q8_0, one request at RANK_SD3_STEPS steps; one torchrun
+                 CLI generate at SD1.5 tp 2, 20 steps (this script's
+                 --cli-rank mode in each rank); after the SD2 lines, once
+                 the background checkpoint writes are done.  Each rank's line: transport, setup
+                 and request seconds, peak memory, the denoiser's bytes on
+                 the rank, launches (flash launches exact by shape), and
+                 the relative L2 of its u8 image against the same request
+                 on one rank (RANK_LIMIT); the ranks' images equal.
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -206,6 +222,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import dataclasses
 import functools
 import gc
 import json
@@ -236,6 +253,7 @@ from mlimgsynth_torch.ops import _build, quant
 from mlimgsynth_torch.ops import flash_attention as fa
 from mlimgsynth_torch.ops import quant_matmul as qmm
 from mlimgsynth_torch.ops.quant_plan import pick_large_m_plan
+from mlimgsynth_torch.parallel import comm
 from mlimgsynth_torch.rng import RngPhilox
 from mlimgsynth_torch.sampling import sampler as sampler_mod
 from mlimgsynth_torch.sampling import schedule as sch
@@ -344,21 +362,45 @@ T5_REL_L2 = 6e-2
 T5_FILE, T5_TOKENIZER = "t5xxl-random-f16.safetensors", "t5-tokenizer.json"
 
 # The other DiT families (``sd35`` and ``flux`` lines), 1024^2 at full
-# width and depth: SD3.5-medium and -large, 20 Euler steps, CFG 7, 77 T5
+# width, SD3.5-medium at full depth, SD3.5-large and Flux at a cut depth
+# (below): SD3.5-medium and -large, 20 Euler steps, CFG 7, 77 T5
 # tokens, two requests each; Flux.1-dev, 20 Euler steps at guidance 3.5
 # and 512 T5 tokens (BFL's default for dev), two requests and a CLI call;
 # Flux.1-schnell, 4 steps, cfg 1, 256 T5 tokens, one request.  K3 a
 # request: one joint attention per block and evaluation (SD3.5-medium also
 # one attn2 in each of blocks 0-12), K2 once in the VAE decode.
 DIT_DIM, SD35_STEPS = 1024, 20
+# the depths cut to keep the whole run inside its time once the rank lines
+# came (widths and heads kept): SD3.5-large's joint blocks of 38, Flux's
+# double and single blocks of 19 and 38
+SD35_LARGE_DEPTH = 12
+FLUX_DEPTH = (6, 12)
 FLUX_RUNS = {"flux_dev": {"steps": 20, "cfg": 3.5, "t5_tokens": 512,
                           "requests": 2},
              "flux_schnell": {"steps": 4, "cfg": 1.0, "t5_tokens": 256,
                               "requests": 1}}
 REQUEST_EVALS = {"flux_schnell": 4}
 DIT_K3_PER_REQUEST = {"sd35_medium": 24 * 20 + 13 * 20,
-                      "sd35_large": 38 * 20, "flux_dev": 57 * 20,
-                      "flux_schnell": 57 * 4}
+                      "sd35_large": SD35_LARGE_DEPTH * 20,
+                      "flux_dev": sum(FLUX_DEPTH) * 20,
+                      "flux_schnell": sum(FLUX_DEPTH) * 4}
+_FULL_TYPES = api._model_types
+
+
+def _cut_types() -> dict:
+    """The session's model types with SD35_LARGE_DEPTH and FLUX_DEPTH
+    (``api._model_types`` in this process while the run lasts)."""
+    types = _FULL_TYPES()
+    mt = types["sd35_large"]
+    P = mt.unet_p
+    types["sd35_large"] = dataclasses.replace(mt, unet_p=dataclasses.replace(
+        P, depth=SD35_LARGE_DEPTH, d_model=P.width, n_head=P.heads))
+    for name in ("flux_dev", "flux_schnell"):
+        mt = types[name]
+        types[name] = dataclasses.replace(mt, unet_p=dataclasses.replace(
+            mt.unet_p, depth_double=FLUX_DEPTH[0],
+            depth_single=FLUX_DEPTH[1]))
+    return types
 
 # Quantized weight types on SD3.5 and Flux (the ``sd35`` and ``flux`` lines
 # with a ``path``), each on the session of its bf16 lines, switched to the
@@ -368,13 +410,16 @@ DIT_K3_PER_REQUEST = {"sd35_medium": 24 * 20 + 13 * 20,
 # 2432 = K); SD3.5-medium q8_0 with skip-layer guidance (scale 2.5 on
 # layers 7-9 over the default window, 0.01-0.2 of the steps: steps 0-3 of
 # 20 make one more evaluation of the cond rows, batch 1).  The LoRA: rank
-# 16 on every double block's image qkv, attention output and MLP input and
-# every single block's linear1 and linear2, in kohya names and in PEFT
+# 16 on the image qkv, attention output and MLP input of the first
+# FLUX_LORA_BLOCKS[0] double blocks and the linear1 and linear2 of the first
+# FLUX_LORA_BLOCKS[1] single blocks (every kind of target; the host merge
+# of all 57 blocks' took 41-65 s a reload), in kohya names and in PEFT
 # names (the fused targets' slices), each a request of LORA_STEPS steps.
 DIT_Q = {"flux_dev": ("q8_0", 8), "flux_schnell": ("q4_0", 4),
          "sd35_large": ("q8_0", 8), "sd35_medium": ("q8_0", 8)}
 SD35_SLG = [("slg-scale", 2.5), ("slg-layers", "7,8,9")]
 LORA_STEPS = 4
+FLUX_LORA_BLOCKS = (4, 8)
 # SD2.1-768-v under q8_0: two requests through the session on the SD2
 # checkpoint, 20 DPM++2M steps, CFG 7 (K5 and K6 at SD2's products)
 SD2_Q8 = "q8_0"
@@ -466,6 +511,7 @@ def main() -> int:
         return 1
     global CARD
     t_start = time.time()
+    api._model_types = _cut_types
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -542,6 +588,8 @@ def _paths(tmp: str, launches: collections.Counter):
                 s, ckpt, "sd1", 512, wt, REQUESTS[n_req:n_req + 1],
                 lambda s: sd1_want(8, int8=True), mode="int8"))
         reference_check(s, wt, bits)
+        if not bits:
+            rank_references(s, "sd1", ckpt, wt, (1, 2))
         if bits == 8:
             sd1_dq = time_shapes(s)
             launches.update(lora_q8_request(s, ckpt, lora))
@@ -552,7 +600,7 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(features_sd1(ckpt))
     launches.update(second_stage_sd1(tmp, ckpt))
     launches.update(serve_sd1(tmp, ckpt))
-    os.remove(ckpt)
+    sd1_ckpt = ckpt         # kept for the rank phases
     ckpt = _checkpoint(tmp, "sd3")
     for wt, bits, n_req in SD3_PATHS:
         s = api.MLImgSynth(device="cuda")
@@ -565,6 +613,7 @@ def _paths(tmp: str, launches: collections.Counter):
                 s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
                 lambda s: sd3_want(s, int8=True), mode="int8"))
         sd3_reference_check(s, wt, bits)
+        rank_references(s, "sd3", ckpt, wt, (1,))
         if not bits:
             launches.update(features(s, "sd3"))
             launches.update(t5_path(s, tmp))
@@ -573,7 +622,7 @@ def _paths(tmp: str, launches: collections.Counter):
             launches.update(sd3_q8_t5_request(s, tmp))
             s._t5 = None
         _drop(s)
-    os.remove(ckpt)
+    sd3_ckpt = ckpt
     ckpt = _checkpoint(tmp, "sdxl")
     for wt, bits, n_req in SDXL_PATHS:
         s = api.MLImgSynth(device="cuda")
@@ -600,6 +649,12 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(sdxl_lowmem_path(ckpt))
     os.remove(ckpt)
     launches.update(sd2_path(tmp))
+    # the rank phases once the background writes are done (the ranks talk
+    # through the host, which the numpy draws share)
+    launches.update(ranks_path({"sd1": sd1_ckpt, "sd3": sd3_ckpt}))
+    launches.update(ranks_cli(tmp, sd1_ckpt))
+    os.remove(sd1_ckpt)
+    os.remove(sd3_ckpt)
     t5 = {"t5": os.path.join(tmp, T5_FILE),
           "t5_tokenizer": os.path.join(tmp, T5_TOKENIZER)}
     launches.update(sd35_path(tmp, t5))
@@ -710,13 +765,13 @@ FLASH_SHAPE_CALLS = {
     ((2, 24, 4250, 64), 4250): {"sd3": 480, "sd3_t5_77": 480,
                                 "sd35_medium": 480},
     ((2, 24, 4096, 64), 4096): {"sd35_medium": 260},
-    ((2, 38, 4250, 64), 4250): {"sd35_large": 760},
-    ((1, 24, 4608, 128), 4608): {"flux_dev": 1140},
-    ((1, 24, 4352, 128), 4352): {"flux_schnell": 228},
+    ((2, 38, 4250, 64), 4250): {"sd35_large": SD35_LARGE_DEPTH * 20},
+    ((1, 24, 4608, 128), 4608): {"flux_dev": sum(FLUX_DEPTH) * 20},
+    ((1, 24, 4352, 128), 4352): {"flux_schnell": sum(FLUX_DEPTH) * 4},
     ((2, 24, 4429, 64), 4429): {"sd3_t5_256": 480},
     # SD3.5-medium's skip-layer pass (batch 1, layers 7-9 left out) on 4
     # steps of 20: 21 joint attentions and 10 attn2 a pass
-    ((1, 24, 4250, 64), 4250): {"sd35_medium_slg": 84},
+    ((1, 24, 4250, 64), 4250): {"sd35_medium_slg": 84, "sd3_pp2": 96},
     ((1, 24, 4096, 64), 4096): {"sd35_medium_slg": 40},
     # PAG's batch-1 evaluation of the cond rows on each of 20 steps (the
     # SDXL mid transformer's self-attention, identity there, runs none)
@@ -732,6 +787,12 @@ FLASH_SHAPE_CALLS = {
     ((1, 1, 2304, 512), 2304): {"sd1_lowmem_img2img": 8},
     # the serving path: four SD1.5 requests merged into one device batch,
     # and a merged SDXL pair (one batch's calls)
+    # a rank's request under tp 2, dp 2 (batch 2) and pp 2 (SD3 at
+    # RANK_SD3_STEPS steps)
+    ((2, 4, 4096, 40), 4096): {"sd1_tp2": 100},
+    ((2, 4, 1024, 80), 1024): {"sd1_tp2": 100},
+    ((2, 1, 4096, 512), 4096): {"sd1_dp2": 1},
+    ((2, 12, 4250, 64), 4250): {"sd3_tp2": 96},
     ((8, 8, 4096, 40), 4096): {"sd1_serve4": 100},
     ((8, 8, 1024, 80), 1024): {"sd1_serve4": 100},
     ((4, 1, 4096, 512), 4096): {"sd1_serve4": 1},
@@ -1727,7 +1788,7 @@ def _check_flux_lora_weights(s, path: str, deltas: dict, mult: float,
 
     def host(item):
         # numpy and torch release the interpreter lock: threads share out
-        # the host work of the 133 weights
+        # the host work of the weights
         name, (down, up, alpha) = item
         w = weights_mod.read_entry(store, name_map[name]).astype(np.float32)
         scale = np.float32(alpha / down.shape[0] * mult)
@@ -1766,7 +1827,8 @@ def _check_flux_lora_weights(s, path: str, deltas: dict, mult: float,
 
 def flux_lora_requests(s, tmp: str, files: dict) -> collections.Counter:
     """The Flux-dev q8_0 session ``s`` with a seeded random full-width LoRA
-    (rank 16, ``testing.write_random_flux_lora``), in kohya names, then in
+    (rank 16 on the first FLUX_LORA_BLOCKS blocks,
+    ``testing.write_random_flux_lora``), in kohya names, then in
     PEFT names: each a LoRA list change that reloads the transformer
     alone (merged on the host, then quantized on the card) and a request
     of LORA_STEPS steps with its exact launches; the kohya weights checked
@@ -1779,7 +1841,8 @@ def flux_lora_requests(s, tmp: str, files: dict) -> collections.Counter:
         path = os.path.join(tmp, f"flux-lora-{kind}-f16.safetensors")
         t0 = time.time()
         deltas = testing.write_random_flux_lora(
-            path, s._mt, rank=LORA_RANK, seed=0, peft=kind == "peft")
+            path, s._mt, rank=LORA_RANK, seed=0, peft=kind == "peft",
+            blocks=FLUX_LORA_BLOCKS)
         phase("flux", step="lora", kind=kind, write_s=time.time() - t0,
               targets=len(deltas), rank=LORA_RANK,
               bytes=os.path.getsize(path))
@@ -1850,7 +1913,7 @@ def sd35_path(tmp: str, t5: dict) -> collections.Counter:
             k7 = sum(n for (name, shape), n in s.last_shapes.items()
                      if name == "q8_matmul_ws_int8" and shape[1] == 2432)
             phase("sd35", model=model, path="q8_0", k7_slab_2432=k7)
-            if k7 != 3 * 38 * SD35_STEPS:
+            if k7 != 3 * SD35_LARGE_DEPTH * SD35_STEPS:
                 raise AssertionError(f"K7 at slab 2432: {k7} launches")
         _release(s)
         del s
@@ -4015,6 +4078,271 @@ def sdxl_pair(s) -> collections.Counter:
     return collections.Counter(got)
 
 
+# -- the multi-rank modes -----------------------------------------------------
+#
+# Two processes share the one H100 and talk over gloo (NCCL does not put two
+# ranks on one card; ``comm.backend_for``), each on cuda:0, the kernels built
+# by this process before they start (each rank loads the cached libraries).
+# SD1.5 512^2 at tp 2, dp 2 (batch 2) and sp 2, 20 Euler steps at CFG 7;
+# SD3-medium 1024^2 at tp 2, sp 2, pp 2 and pp 2 with q8_0, RANK_SD3_STEPS
+# Euler steps at CFG 7; one request a mode (RANK_REQUESTS); one torchrun CLI
+# generate, SD1.5 tp 2 at 20 steps (at 4 steps its image read 1.74e-2 from
+# one rank's, the perturbation larger against a less settled image).  Each rank's image is held to the same request on one
+# rank (``_RANK_REFS``, made on the main path's sessions) by the relative L2
+# of the u8 image, RANK_LIMIT (the limit the merged serving rows meet).  The
+# two processes share one card, so their seconds are no two-card speed.
+RANK_LIMIT = 1.5e-2
+RANK_SD3_STEPS = 4
+# requests a mode (else one): dp's second is a warm request
+RANK_REQUESTS = {("sd1", "dp2"): 2}
+RANK_NPROMPT = "blurry, low quality"
+# model -> (mode, mesh options, weight type, batch)
+RANK_MODES = {"sd1": [("tp2", {"tp": 2}, "bf16", 1),
+                      ("dp2", {"dp": 2}, "bf16", 2),
+                      ("sp2", {"sp": 2}, "bf16", 1)],
+              "sd3": [("tp2", {"tp": 2}, "bf16", 1),
+                      ("sp2", {"sp": 2}, "bf16", 1),
+                      ("pp2", {"pp": 2}, "bf16", 1),
+                      ("pp2", {"pp": 2}, "q8_0", 1)]}
+# (model, mode) -> a rank's flash launches in one request, by (kernel, q
+# shape): tp runs n_head / 2 heads, dp a CFG pair of one image and decodes
+# the gathered pair, pp a microbatch of one row through 12 of the 24 blocks
+# (2 microbatches a step); under sp every attention takes the ring
+_K1, _K2, _K3 = "flash_attn_fwd", "flash_attn_fwd_wide", "flash_attn_joint"
+RANK_FLASH = {
+    ("sd1", "tp2"): {(_K1, (2, 4, 4096, 40)): 100,
+                     (_K1, (2, 4, 1024, 80)): 100,
+                     (_K2, (1, 1, 4096, 512)): 1},
+    ("sd1", "dp2"): {(_K1, (2, 8, 4096, 40)): 100,
+                     (_K1, (2, 8, 1024, 80)): 100,
+                     (_K2, (2, 1, 4096, 512)): 1},
+    ("sd1", "sp2"): {},
+    ("sd3", "tp2"): {(_K3, (2, 12, 4250, 64)): 24 * RANK_SD3_STEPS,
+                     (_K2, (1, 1, 16384, 512)): 1},
+    ("sd3", "sp2"): {},
+    ("sd3", "pp2"): {(_K3, (1, 24, 4250, 64)): 12 * 2 * RANK_SD3_STEPS,
+                     (_K2, (1, 1, 16384, 512)): 1},
+}
+# model -> {wt: (batch -> the u8 image of the request on one rank)}
+_RANK_REFS = collections.defaultdict(dict)
+
+
+def _rank_opts(model: str, ckpt: str, wt: str, batch: int) -> list:
+    seed, prompt = REQUESTS[0]
+    return [("model", ckpt), ("model-type", model), ("weight-type", wt),
+            ("image-dim", 512 if model == "sd1" else SD3_DIM),
+            ("steps", 20 if model == "sd1" else RANK_SD3_STEPS),
+            ("cfg-scale", 7.0), ("method", "euler"),
+            ("scheduler", "uniform"), ("batch-size", batch), ("seed", seed),
+            ("prompt", prompt), ("nprompt", RANK_NPROMPT)]
+
+
+def _u8(img) -> np.ndarray:
+    return np.rint(np.asarray(img) * 255.0).astype(np.uint8)
+
+
+def rank_references(s, model: str, ckpt: str, wt: str, batches) -> None:
+    """The rank modes' requests on the single-rank session ``s`` (of
+    ``model`` and ``wt``), their u8 images kept, the first one made twice
+    (``repeat_rel_l2``: one rank's own spread, beside which the ranks'
+    differences read); the session's batch size and steps are put
+    back."""
+    for b in batches:
+        for k, v in _rank_opts(model, ckpt, wt, b):
+            s.option_set(k, v)
+        t0 = time.time()
+        img = _u8(s.generate())
+        secs = time.time() - t0
+        _RANK_REFS[(model, wt)][b] = img
+        again = {}
+        if b == batches[0]:
+            s.option_set("seed", REQUESTS[0][0])
+            rel, du8 = _rank_rel(_u8(s.generate()), img)
+            again = {"repeat_rel_l2": rel, "repeat_max_u8_diff": du8}
+        phase("ranks", model=model, path=wt, step="one_rank_reference",
+              batch=b, seconds=secs, image_mean=float(img.mean()),
+              image_std=float(img.std()), **again)
+    s.option_set("batch-size", 1)
+    s.option_set("steps", 20)
+
+
+def _rank_rel(img, ref) -> tuple:
+    """(relative L2, largest u8 difference) of ``img`` against ``ref``."""
+    a, b = img.astype(np.float64), ref.astype(np.float64)
+    return (float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+            int(np.abs(a - b).max()))
+
+
+def _module_bytes(m) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in list(m.parameters()) + list(m.buffers()))
+
+
+def _rank_requests(rank: int, world: int, jobs):
+    """A rank's side of ``ranks_path``: for each (model, checkpoint) of
+    ``jobs``, each of its modes in a session of its own, its requests
+    timed, their launches and the image kept."""
+    if "jax" in sys.modules or any(m.startswith("mlimgsynth_tpu")
+                                   for m in sys.modules):
+        raise AssertionError("a rank loaded jax or the JAX package")
+    _build.load_all(SOURCES)
+    out = []
+    for model, ckpt in jobs:
+        out += [_rank_mode(model, ckpt, *m) for m in RANK_MODES[model]]
+    return out
+
+
+def _rank_mode(model: str, ckpt: str, name: str, mesh: dict, wt: str,
+               batch: int) -> dict:
+    """One mode of ``model`` on this rank (``_rank_requests``)."""
+    s = api.MLImgSynth(device="cuda")
+    for k, v in _rank_opts(model, ckpt, wt, batch) + list(mesh.items()):
+        s.option_set(k, v)
+    t0 = time.time()
+    s.setup()
+    setup_s = time.time() - t0
+    denoiser = s._models[s._denoiser()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(RANK_REQUESTS.get((model, name), 1)):
+        s.option_set("seed", REQUESTS[0][0])     # the same request
+        fa.reset_counts()
+        qmm.reset_counts()
+        quant.PLAIN_CUDA_CALLS = 0
+        t0 = time.time()
+        img = s.generate()
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    line = {
+        "model": model, "mode": name, "path": wt, "batch": batch,
+        "transport": comm.transport(), "device": str(s.device),
+        "setup_s": setup_s, "seconds": secs,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "denoiser_bytes": _module_bytes(denoiser),
+        "launches": {k: v for k, v in _counts().items() if v},
+        "shapes": collections.Counter(fa.LAUNCH_SHAPES),
+        "plain_cuda_calls": fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS,
+        "image": _u8(img)}
+    _drop(s)
+    return line
+
+
+def _check_rank_line(line: dict, ref, what: str) -> dict:
+    """One rank's mode against the one-rank image and the launches it
+    must make; returns the checked line (without the image)."""
+    img = line.pop("image")
+    shapes = line.pop("shapes")
+    rel, du8 = _rank_rel(img, ref)
+    line.update(rel_l2=rel, max_u8_diff=du8, limit=RANK_LIMIT,
+                image_mean=float(img.mean()), image_std=float(img.std()))
+    want = RANK_FLASH[(line["model"], line["mode"])]
+    if img.shape != ref.shape or rel > RANK_LIMIT or img.std() == 0:
+        raise AssertionError(f"{what}: image {img.shape} at relative L2 "
+                             f"{rel} of one rank's (limit {RANK_LIMIT})")
+    if dict(shapes) != want or line["plain_cuda_calls"]:
+        raise AssertionError(f"{what}: flash launches {dict(shapes)}, want "
+                             f"{want}; plain calls on CUDA "
+                             f"{line['plain_cuda_calls']}")
+    if line["path"] == "q8_0" and not (
+            line["launches"].get("q8_matmul_ws_int8")
+            and line["launches"].get("q8_matmul_tile")):
+        raise AssertionError(f"{what}: q8_0 kernels not launched: "
+                             f"{line['launches']}")
+    return line
+
+
+def ranks_path(ckpts: dict) -> collections.Counter:
+    """The rank modes of each model of ``ckpts`` (model -> checkpoint) on
+    two ranks sharing the card: one spawn, each mode's line per rank; the
+    images of the ranks equal."""
+    jobs = list(ckpts.items())
+    t0 = time.time()
+    out = comm.spawn(_rank_requests, 2, (jobs,), device_type="cuda",
+                     threads=0, timeout=900)
+    modes = [(model, m) for model, _ in jobs for m in RANK_MODES[model]]
+    launches = collections.Counter()
+    for i, (model, (name, mesh, wt, batch)) in enumerate(modes):
+        ref = _RANK_REFS[(model, wt)][batch]
+        if not np.array_equal(out[0][i]["image"], out[1][i]["image"]):
+            raise AssertionError(f"{model} {name} {wt}: the ranks' images "
+                                 "differ")
+        for r in range(2):
+            line = _check_rank_line(out[r][i], ref,
+                                    f"{model} {name} {wt} rank {r}")
+            phase("ranks", rank=r, mesh=mesh, **line)
+            launches.update(line["launches"])
+    phase("ranks", step="spawn", models=list(ckpts),
+          seconds=time.time() - t0)
+    return launches
+
+
+def ranks_cli(tmp: str, ckpt: str) -> collections.Counter:
+    """``torchrun --standalone --nproc-per-node 2`` of the CLI's generate
+    at SD1.5 tp 2 (this script's ``--cli-rank`` mode calls ``cli.main``
+    in each rank and writes its report): rank 0's PNG against the
+    one-rank image."""
+    seed, prompt = REQUESTS[0]
+    png = os.path.join(tmp, "ranks-cli.png")
+    report = os.path.join(tmp, "ranks-cli")
+    argv = ["generate", "-m", ckpt, "--tp", "2", "-d", "512", "-s", "20",
+            "--method", "euler", "--cfg-scale", "7", "-S", str(seed),
+            "-p", prompt, "-n", RANK_NPROMPT, "-o", png, "-q"]
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", os.path.abspath(__file__), "--cli-rank",
+         report, *argv], capture_output=True, text=True, timeout=600)
+    secs = time.time() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun cli: exit {r.returncode}\n"
+                             f"{r.stderr[-4000:]}")
+    pix, _ = image_mod.png_read(png)
+    ref = _RANK_REFS[("sd1", "bf16")][1][0].transpose(1, 2, 0)
+    launches = collections.Counter()
+    for rank in range(2):
+        with open(f"{report}.{rank}.json") as f:
+            line = json.load(f)
+        shapes = {(k, tuple(q)): n for k, q, n in line.pop("shapes")}
+        want = RANK_FLASH[("sd1", "tp2")]
+        rel, du8 = _rank_rel(pix, ref)
+        phase("ranks", model="sd1", mode="tp2", via="torchrun cli",
+              rank=rank, **line, call_s=secs, rel_l2=rel, max_u8_diff=du8,
+              limit=RANK_LIMIT)
+        if (line["rc"] != 0 or shapes != want or rel > RANK_LIMIT
+                or line["jax"]):
+            raise AssertionError(f"torchrun cli rank {rank}: exit "
+                                 f"{line['rc']}, launches {shapes}, relative"
+                                 f" L2 {rel}")
+        launches.update(line["launches"])
+    if sorted(f for f in os.listdir(tmp) if f.startswith("ranks-cli")
+              and f.endswith(".png")) != ["ranks-cli.png"]:
+        raise AssertionError("torchrun cli: more than rank 0 wrote")
+    return launches
+
+
+def cli_rank(report: str, argv) -> int:
+    """One torchrun rank of ``ranks_cli``: ``cli.main(argv)``, then its
+    seconds, peak memory and launches to ``report.<rank>.json``."""
+    rank = int(os.environ["RANK"])
+    fa.reset_counts()
+    qmm.reset_counts()
+    t0 = time.time()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    line = {"rc": rc, "seconds": time.time() - t0,
+            "transport": comm.backend_for(
+                "cuda", int(os.environ["LOCAL_WORLD_SIZE"])),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in _counts().items() if v},
+            "shapes": [[k, list(q), n]
+                       for (k, q), n in fa.LAUNCH_SHAPES.items()],
+            "jax": "jax" in sys.modules}
+    with open(f"{report}.{rank}.json", "w") as f:
+        json.dump(line, f)
+    return rc
+
+
 def check_imports():
     """The port, its CLI, T5, Flux, the server and the C ABI included, ran
     without jax and without any module of the JAX package."""
@@ -4032,4 +4360,6 @@ def check_imports():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:     # a torchrun rank of ranks_cli
+        sys.exit(cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -78,6 +78,10 @@ from .models import unet as unet_mod
 from .models import vae as vae_mod
 from .nameconv import normalize_cnet_name, normalize_name
 from .ops.quant_plan import dit_m_hint
+from .parallel import comm
+from .parallel import mesh as pmesh
+from .parallel import pipeline as pipe
+from .parallel import tensor_parallel as tpar
 from .rng import RngPhilox
 from .sampling.sampler import (DC_METHODS, SamplerConfig, make_plan,
                                pag_plan, plan_n_step, run_sampler, slg_plan)
@@ -221,7 +225,7 @@ _OPTIONS = ("model", "model_type", "weight_type", "prompt", "nprompt",
             "control_image", "control_strength", "upscaler", "hires_fix",
             "hires_denoise", "hires_steps", "hires_upscaler", "refiner",
             "refiner_switch", "backend", "threads", "dump_flags",
-            "error_handler", "log_level")
+            "error_handler", "log_level", "tp", "dp", "sp", "pp")
 # options whose string value is one argument: paths and text
 # (``option_set_str``)
 _STR_OPTIONS = ("model", "tae", "aux_dir", "lora_dir", "prompt", "nprompt",
@@ -268,6 +272,10 @@ _PREVIEW_RGB = [[0.298, 0.207, 0.208], [0.187, 0.286, 0.173],
                 [-0.158, 0.189, 0.264], [-0.184, -0.271, -0.473]]
 _BOOL = {"true": True, "yes": True, "y": True, "1": True,
          "false": False, "no": False, "n": False, "0": False}
+# the modules that take tensor parallelism (``tp``, ``mlimgsynth_tpu/
+# api.py:1261-1262``: the UNet or DiT, ControlNet, T5; CLIP and the VAE
+# stay whole on every rank)
+_TP_MODELS = ("unet.", "mmdit.", "flux.", "cnet.", "t5.")
 # the modules that ``unet_split`` keeps on the host between their stages:
 # the text encoders (on the card for the conditioning) and the denoiser
 # (for the sampler loop); the VAE and the TAE stay on the card
@@ -484,7 +492,8 @@ class MLImgSynth:
                   "hires_fix": 0.0, "hires_denoise": 0.7, "hires_steps": 0,
                   "hires_upscaler": "", "refiner": "",
                   "refiner_switch": 0.8, "backend": "", "be_params": "",
-                  "threads": 0, "dump_flags": 0, "weight_type": ""}
+                  "threads": 0, "dump_flags": 0, "weight_type": "",
+                  "tp": 1, "dp": 1, "sp": 1, "pp": 1}
         self.prompt = prompt_mod.PromptText()
         self.nprompt = prompt_mod.PromptText()
         self.rng = RngPhilox(seed=int(time.time() * 1000) & 0xFFFFFFFFFFFF)
@@ -554,6 +563,8 @@ class MLImgSynth:
         self._keep_tail, self._noise_add = False, True
         self._refiner: Optional["MLImgSynth"] = None
         self._refiner_path = ""
+        # the ranks' mesh under tp / dp / sp / pp (``_mesh_resolve``)
+        self._mesh: Optional[pmesh.Mesh] = None
 
     def _default_dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.device.type == "cuda"
@@ -791,6 +802,14 @@ class MLImgSynth:
             c["hires_steps"] = _int(v, 0)
         elif opt == "refiner_switch":
             c["refiner_switch"] = _float(v, 0.8)
+        elif opt in ("tp", "dp", "sp", "pp"):
+            # a new mesh shape reloads the models, sharded for it
+            # (``mlimgsynth_tpu/api.py:460-465``)
+            n = max(1, _int(v, 1))
+            if c[opt] != n:
+                c[opt] = n
+                self._loaded = ""
+                self._t5, self._t5_key = None, ""
 
     def _control_image_set(self, t) -> None:
         """The ControlNet hint: uint8 [h,w,3] or float NCHW [n,3,h,w] in
@@ -1109,6 +1128,7 @@ class MLImgSynth:
         is on the device after ``setup``."""
         if self._late_device:
             self._device_resolve()
+        self._mesh_resolve()
         path = self.c["model"]
         if not path:
             raise MlisError(MlisError.E_UNKNOWN, "No model file set")
@@ -1145,6 +1165,84 @@ class MLImgSynth:
             if cnet:
                 self._load_cnet(cnet)
                 self._cnet_loaded = cnet
+
+    def _mesh_resolve(self) -> None:
+        """The ranks' mesh for the options tp, dp, sp and pp
+        (``_backend_init``, ``mlimgsynth_tpu/api.py:881-909``): none when
+        their product is 1; else the default process group (joined here
+        from torchrun's environment where it is not up yet) must hold
+        that many ranks, or ``MlisError`` names the torchrun line.  A rank
+        on a card takes ``cuda:{local_rank % device_count}``."""
+        c = self.c
+        tp, dp, sp, pp = c["tp"], c["dp"], c["sp"], c["pp"]
+        if pp > 1 and (tp > 1 or dp > 1 or sp > 1):
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "--pp does not compose with --tp/--dp/--sp yet; "
+                            "use pp alone")
+        if tp > 1 and self.qbits and self._wtype_set:
+            self._tp_quant_error()
+        if tp * dp * sp * pp == 1:
+            self._mesh = None
+            return
+        want = {pmesh.DP_AXIS: dp, pmesh.PP_AXIS: pp, pmesh.SP_AXIS: sp,
+                pmesh.TP_AXIS: tp}
+        if self._mesh is not None and self._mesh.shape == want:
+            return
+        comm.init(self.device.type)
+        self._mesh = pmesh.Mesh(tp=tp, dp=dp, sp=sp, pp=pp)
+        if self.device.type == "cuda":
+            self.device = torch.device(
+                "cuda", comm.local_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(self.device)
+        log.info(f"Mesh: dp={dp} pp={pp} sp={sp} tp={tp} over "
+                 f"{self._mesh.world} ranks, this one {self._mesh.rank} on "
+                 f"{self.device} ({comm.transport()})")
+
+    @staticmethod
+    def _tp_quant_error():
+        """tp with a quantized weight type: the JAX package leaves its
+        ``_q8`` weights whole on every device (no tp rule names them) and
+        splits only their biases, which the explicit head split here does
+        not reproduce."""
+        raise MlisError(MlisError.E_OPT_VALUE,
+                        "tp > 1 with a quantized weight type is not ported "
+                        "(the quantized linears are not split over tp); "
+                        "use a float weight type, or dp, sp or pp")
+
+    def _pp_stage(self) -> pipe.Stage:
+        """This rank's stage of the denoiser under pp, after the JAX
+        session's checks (``api.py:1286-1301``)."""
+        P = self._mt.unet_p
+        pp = self.c["pp"]
+        if not getattr(P, "flow", False):
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "--pp is currently supported for MMDiT "
+                            "(SD3-family) and Flux models")
+        if getattr(P, "x_self_attn_layers", ()):
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "--pp needs a uniform block stack; MMDiT-X "
+                            "(SD3.5-medium) dual-attention blocks are not "
+                            "stackable")
+        if not getattr(P, "flux", False) and P.depth % pp:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"--pp {pp} must divide the block count "
+                            f"({P.depth})")
+        mesh = self._mesh
+        return pipe.Stage(mesh.index(pmesh.PP_AXIS), pp,
+                          mesh.ranks(pmesh.PP_AXIS),
+                          mesh.group(pmesh.PP_AXIS))
+
+    def _shard(self, m, prefix: str, params):
+        """``params`` of the module ``m`` at ``prefix`` cut to this
+        rank's tp share (``m`` made that share too), where the mesh has
+        tp > 1 and the module takes it."""
+        mesh = self._mesh
+        if (mesh is None or mesh.size(pmesh.TP_AXIS) == 1
+                or prefix not in _TP_MODELS):
+            return params
+        return tpar.shard(m, prefix, params, mesh.size(pmesh.TP_AXIS),
+                          mesh.index(pmesh.TP_AXIS),
+                          mesh.group(pmesh.TP_AXIS))
 
     def _load_cnet(self, path: str) -> None:
         """The ControlNet of ``control_net`` onto the device, beside the
@@ -1184,6 +1282,7 @@ class MLImgSynth:
                 err = MlisError(MlisError.E_UNKNOWN,
                                 f"control-net '{path}': {e}")
             else:
+                params = self._shard(m, "cnet.", params)
                 if self.qbits:
                     weights_mod.quantize_linear_weights(m, "cnet.", params,
                                                         self.qbits, None)
@@ -1299,6 +1398,8 @@ class MLImgSynth:
                     # float files keep the device's compute type
                     ft = weights_mod.stored_type(store, name_map)
                     self.qbits = _WEIGHT_TYPES.get(ft, (None, 0))[1]
+                if self.qbits and self.c["tp"] > 1:
+                    self._tp_quant_error()
                 # an inpaint-variant UNet (sd-v1-5-inpainting: 9 input
                 # channels) takes its input width from the checkpoint
                 # (``api.py:1053-1066``)
@@ -1340,6 +1441,12 @@ class MLImgSynth:
                 # (and quantize) there
                 staged = (self.c["unet_split"] and prefix in _STAGED
                           and not encoders)
+                if (self._mesh is not None and self.c["pp"] > 1
+                        and prefix == self._denoiser() and not encoders):
+                    # this rank reads its stage's blocks only (the
+                    # checks first: a UNet has no stages)
+                    stage = self._pp_stage()
+                    m.set_stage(stage)
                 try:
                     params = weights_mod.load_params(
                         store, name_map, weights_mod.module_shapes(m, prefix),
@@ -1355,6 +1462,7 @@ class MLImgSynth:
                     break
                 if prefix in _TOWERS:
                     self._grow_token_table(m, prefix, params)
+                params = self._shard(m, prefix, params)
                 if self.qbits:
                     n_q += weights_mod.quantize_linear_weights(
                         m, prefix, params, self.qbits,
@@ -1719,6 +1827,7 @@ class MLImgSynth:
                 # the mapped file, are gone, so that the file can close
                 err = MlisError(MlisError.E_UNKNOWN, f"T5 '{src}': {e}")
             else:
+                params = self._shard(m, "t5.", params)
                 self._t5 = weights_mod.load_module(m, "t5.", params).eval()
         finally:
             store.close()
@@ -1910,6 +2019,10 @@ class MLImgSynth:
 
     def _generate_dispatch(self) -> np.ndarray:
         self.setup()
+        with pmesh.scope(self._mesh):
+            return self._generate_routed()
+
+    def _generate_routed(self) -> np.ndarray:
         c = self.c
         if (c["inpaint_full_res"] and not self._in_fullres
                 and c["tuflags"] & TUF_IMAGE and c["tuflags"] & TUF_MASK):
@@ -1983,6 +2096,10 @@ class MLImgSynth:
         # the guidance options' errors before the noise is drawn, as the
         # JAX session's ``_guidance_checks`` (``api.py:2028-2071``)
         slg_plan(scfg, P, c["steps"])
+        if c["slg_scale"] > 0 and c["pp"] > 1:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "slg-scale is not supported with --pp block "
+                            "stacking")
         pag_plan(scfg, P, c["steps"], c["deepcache"])
         freeu = self._freeu_resolve()
         edit_segs = self._edit_segments(use_cfg, scfg)
@@ -2054,7 +2171,8 @@ class MLImgSynth:
                                            else None),
                             lmask=lmask, cond_steps=edit_steps,
                             deepcache=c["deepcache"], freeu=freeu,
-                            control=control, extra_ch=extra_ch)
+                            control=control, extra_ch=extra_ch,
+                            mesh=self._mesh)
             # evaluations run: a 2-evaluation solver's last step has one
             n_fe = get_solver(c["method"]).n_fe
             self._nfe = (plan.n_step * n_fe - (n_fe - 1)) * nfe_per_dxdt
@@ -2561,7 +2679,15 @@ class MLImgSynth:
         1), the callback asked after each; the last frame is the decoded
         image.  Frames come from this Python loop between steps."""
         self.setup()
-        c, mt = self.c, self._mt
+        with pmesh.scope(self._mesh):
+            return self._generate_batch_routed(
+                requests, step_callback, init_latents, init_lmask,
+                preview_callback, preview_chunk, _latent_only)
+
+    def _generate_batch_routed(self, requests, step_callback, init_latents,
+                               init_lmask, preview_callback, preview_chunk,
+                               _latent_only):
+        c = self.c
         if (c["hires_fix"] > 1.0 and not self._in_hires
                 and not _latent_only):
             return self._generate_batch_hires(
@@ -2637,6 +2763,10 @@ class MLImgSynth:
             label_all = torch.cat([label_all, label_all.new_full(
                 (label_all.shape[0], 1), c["cfg_scale"])], dim=-1)
         slg_plan(scfg, P, c["steps"])
+        if c["slg_scale"] > 0 and c["pp"] > 1:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            "slg-scale is not supported with --pp block "
+                            "stacking")
         pag_plan(scfg, P, c["steps"], c["deepcache"])
         freeu = self._freeu_resolve()
         nfe_per_dxdt = 2 if use_cfg else 1
@@ -2692,7 +2822,7 @@ class MLImgSynth:
                         scfg, label_all=label_all, lmask=init_lmask,
                         cond_steps=edit_steps, deepcache=c["deepcache"],
                         freeu=freeu, control=control, extra_ch=extra_ch,
-                        step_latent=on_step)
+                        step_latent=on_step, mesh=self._mesh)
         if not torch.isfinite(x).all():
             raise MlisError(MlisError.E_NAN, "NaN found in UNet output")
         if c["unet_split"]:
@@ -2939,13 +3069,13 @@ class MLImgSynth:
                          extra=False) -> None:
         """DeepCache runs on the plain SD UNet, MMDiT and Flux loops with
         a solver of one evaluation a step, without ControlNet, an
-        inpaint-variant UNet's channels, prompt editing or SLG
-        (``_deepcache_check``, ``mlimgsynth_tpu/api.py:1555-1572``; the
-        port has no mesh)."""
+        inpaint-variant UNet's channels, prompt editing, SLG or a mesh
+        (``_deepcache_check``, ``mlimgsynth_tpu/api.py:1555-1572``)."""
         c = self.c
         if c["deepcache"] <= 1:
             return
         if (edit_steps is not None or control or extra
+                or self._mesh is not None
                 or c["method"] not in DC_METHODS):
             raise MlisError(
                 MlisError.E_OPT_VALUE,

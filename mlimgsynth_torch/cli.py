@@ -19,9 +19,20 @@ command's ``--upscale-factor`` and ``--upscale-tile``.
 
 ``-b``/``--backend`` picks the session's device before it is built: ``cuda``
 (the default) or ``cpu``.  Without a card the default exits 1 with the
-session's error; there is no silent CPU fallback.  Options the port does
-not have (``--tp``, ``--dp``, ``--sp``, ``--pp``) exit 1 as unknown
-options; ``-t``/``--threads`` is accepted and stored.
+session's error; there is no silent CPU fallback.  ``-t``/``--threads`` is
+accepted and stored.
+
+``--tp``, ``--dp``, ``--sp`` and ``--pp`` run ``generate`` on several
+ranks, one process each, launched by torchrun (every rank runs the same
+command; rank 0 alone writes the image and prints)::
+
+    torchrun --nproc-per-node 2 -m mlimgsynth_torch.cli generate --tp 2 \
+        -m sd15.safetensors -p "..." -o out.png
+
+Without a process group of that many ranks the command exits 1 naming the
+torchrun line; the other commands (the server, the encoders, ...) on
+several ranks are not ported and exit 1.
+
 The memory options ``--vae-tile`` and ``--unet-split``, the sampler and
 guidance options (``--cfg-rescale``, ``--subseed``, ``--method lcm``,
 ``--freeu``, ``--pag-*``, ``--deepcache``, ``--tiling``) and the second
@@ -167,6 +178,22 @@ Models and backend:
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
   --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, q4_0, ...).
   --batch-size INT     Images per batch.
+  --dp INT             Data-parallel ranks: splits the batch over the ranks
+                       (batch-size a multiple of it, else replicated).
+  --tp INT             Tensor-parallel ranks: Megatron-style split of the
+                       UNet/DiT (and T5) attention/FF matmuls over the
+                       ranks (float weight types).
+  --sp INT             Sequence-parallel ranks: splits the attention token
+                       axis over the ranks (ring attention; for the
+                       long-sequence DiT families).
+  --pp INT             Pipeline-parallel stages: cuts the MMDiT or Flux
+                       block stacks into stages with microbatches streamed
+                       between the ranks (each stage holds 1/pp of the
+                       block weights; alone, not with tp/dp/sp).
+                       Ranks are processes: launch the generate command
+                       with torchrun --nproc-per-node tp*dp*sp*pp; ranks
+                       sharing one card (or on the CPU) talk over gloo,
+                       one card a rank over NCCL.
 
 Sampling:
   -S --seed INT        RNG seed.
@@ -555,7 +582,6 @@ COMMANDS = {"generate": cmd_generate, "serve": cmd_serve,
 
 def main(argv: Optional[List[str]] = None) -> int:
     from . import __version__
-    from .api import Aborted, MLImgSynth, MlisError
     from .utils.log import g_logger as log
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -597,6 +623,43 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"unknown backend '{backend}' (have: cuda, cpu)",
               file=sys.stderr)
         return 1
+    ranks = _mesh_ranks(opts)
+    if ranks > 1 and state.cmd != "generate":
+        print(f"error: '{state.cmd}' on several ranks (--tp/--dp/--sp/--pp) "
+              "is not ported; only generate runs on ranks", file=sys.stderr)
+        return 1
+    from .parallel import comm
+    # the ranks' group from torchrun's environment, where none is up yet
+    started = (ranks > 1 and comm.world_size() == 1
+               and comm.init(_DEVICES[backend]))
+    if comm.rank() != 0:
+        # every rank runs the request; rank 0 alone writes and prints
+        for k in ("output", "olatent"):
+            state.paths[k] = None
+        state.verbosity = -2
+        log.level = 0
+    try:
+        return _run(state, opts, backend)
+    finally:
+        if started:
+            comm.shutdown()
+
+
+def _mesh_ranks(opts) -> int:
+    """The rank count that ``--tp/--dp/--sp/--pp`` ask for."""
+    n = 1
+    for name, value in opts:
+        if name.replace("-", "_") in ("tp", "dp", "sp", "pp"):
+            try:
+                n *= max(1, int(value))
+            except ValueError:
+                pass
+    return n
+
+
+def _run(state: CliState, opts, backend: str) -> int:
+    """The session and the command (:func:`main`)."""
+    from .api import Aborted, MLImgSynth, MlisError
     try:
         session = MLImgSynth(device=_DEVICES[backend])
     except MlisError as e:

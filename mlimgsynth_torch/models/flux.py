@@ -11,8 +11,10 @@ dev adds an embedded guidance input in place of CFG.
 
 ``state_dict`` names are the internal names below the ``flux.`` prefix,
 which are the bare BFL checkpoint names (``double_blocks.0.img_attn.qkv.
-weight`` ...).  Not ported: skip-layer guidance, the block cache
-(``--deepcache``) and the pipeline-stacked blocks (``--pp``).  The
+weight`` ...).  Skip-layer guidance leaves blocks out by index, DeepCache
+runs the first double blocks alone (``dc_split``); under pipeline
+parallelism (``set_stage``) a rank holds one stage of each block stack,
+and under tensor parallelism each attention runs n_head / tp heads.  The
 modulation vectors are products in the compute dtype taken to f32, and a
 shift or scale is cast back to the activation's dtype before it multiplies
 (``_mod_apply``); the RoPE rotation and the norms compute in f32.
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel import pipeline as pipe
 from . import blocks as B
 
 
@@ -223,6 +226,7 @@ class SingleBlock(nn.Module):
         super().__init__()
         d = P.d_model
         self.n_head = P.n_head
+        self.d_head = P.d_head
         self.modulation = _Modulation(d, 3)
         self.linear1 = B.linear(d, 3 * d + P.mlp_ratio * d)
         self.linear2 = B.linear(d + P.mlp_ratio * d, d)
@@ -230,15 +234,15 @@ class SingleBlock(nn.Module):
 
     def forward(self, x, vec, cos, sin):
         shift, scale, gate = self.modulation(vec)
-        d = x.shape[-1]
         y = self.linear1(B.modulate(_ln(x), shift, scale))
-        q, k, v = _heads(y[..., :3 * d], self.n_head)
+        d3 = 3 * self.n_head * self.d_head     # this rank's q, k, v
+        q, k, v = _heads(y[..., :d3], self.n_head)
         q = rope_apply(self.norm.query_norm(q), cos, sin)
         k = rope_apply(self.norm.key_norm(k), cos, sin)
         o = attention(q, k, v)
         n, h, s, dh = o.shape
         o = o.transpose(1, 2).reshape(n, s, h * dh)
-        out = self.linear2(torch.cat([o, B.gelu_tanh(y[..., 3 * d:])],
+        out = self.linear2(torch.cat([o, B.gelu_tanh(y[..., d3:])],
                                      dim=-1))
         return x + gate[:, None, :].to(x.dtype) * out
 
@@ -264,9 +268,8 @@ class _FinalLayer(nn.Module):
 
 
 class Flux(nn.Module):
-    """ref: ``flux_apply`` (``flux.py:246-386``) without its ``--pp``
-    branch.  ``state_dict`` names are the internal names
-    without the ``flux.`` prefix."""
+    """ref: ``flux_apply`` (``flux.py:246-386``).  ``state_dict`` names
+    are the internal names without the ``flux.`` prefix."""
 
     def __init__(self, P: FluxParams):
         super().__init__()
@@ -284,6 +287,20 @@ class Flux(nn.Module):
             SingleBlock(P) for _ in range(P.depth_single))
         self.final_layer = _FinalLayer(P)
         self._rope = {}
+        # this rank's pipeline stage (``set_stage``), None without --pp
+        self.stage = None
+
+    def set_stage(self, stage: pipe.Stage) -> None:
+        """Keep only ``stage``'s share of each block stack (on the meta
+        device, before the weights are read) and run both stacks as
+        pipelines, double then single (``flux.py:296-338``); the stages
+        are the JAX package's padded partition without its identity
+        blocks, so the last ones may hold fewer blocks."""
+        for blocks, depth in ((self.double_blocks, self.P.depth_double),
+                              (self.single_blocks, self.P.depth_single)):
+            pipe.keep_stage(blocks, *pipe.stage_range(depth, stage.n,
+                                                      stage.index))
+        self.stage = stage
 
     def rope(self, hp: int, wp: int, s_txt: int, device):
         """The RoPE tables of a sequence, on ``device`` (kept per shape)."""
@@ -326,6 +343,31 @@ class Flux(nn.Module):
         s_txt = cond.shape[1]
         cos, sin = self.rope(hp, wp, s_txt, x.device)
         dc = want_cache or use_cache is not None
+        if self.stage is not None:
+            if dc or skip_layers:
+                # backstops: the session refuses both under a mesh
+                raise ValueError("deepcache and skip-layer guidance are "
+                                 "not supported with --pp")
+            dbl = pipe.present(self.double_blocks)
+            sgl = pipe.present(self.single_blocks)
+
+            def dfn(acts):          # the joint (txt ++ img) stream
+                xx_, vec_ = acts
+                img_, txt_ = xx_[:, s_txt:], xx_[:, :s_txt]
+                for blk in dbl:
+                    img_, txt_ = blk(img_, txt_, vec_, cos, sin)
+                return torch.cat([txt_, img_], dim=1), vec_
+
+            def sfn(acts):
+                xx_, vec_ = acts
+                for blk in sgl:
+                    xx_ = blk(xx_, vec_, cos, sin)
+                return xx_, vec_
+
+            xx = torch.cat([txt, img], dim=1)
+            xx = pipe.pipeline_apply(self.stage, dfn, (xx, vec))
+            xx = pipe.pipeline_apply(self.stage, sfn, (xx, vec))
+            return self._final(xx[:, s_txt:], vec, n, cl, hh, ww)
         if dc and skip_layers:
             raise ValueError("deepcache: incompatible with skip_layers")
         split = dc_split(P.depth_double) if dc else P.depth_double
@@ -346,15 +388,19 @@ class Flux(nn.Module):
                 if i not in skip_layers:
                     xx = blk(xx, vec, cos, sin)
         cache = xx - shallow if want_cache else None
-        img = xx[:, s_txt:]
+        img = self._final(xx[:, s_txt:], vec, n, cl, hh, ww)
+        return (img, cache) if want_cache else img
+
+    def _final(self, img, vec, n: int, cl: int, hh: int, ww: int):
+        """The final layer and the unpack [N, hp wp, 4 C] ->
+        [N, C, H, W]."""
         fl = self.final_layer
         shift, scale = fl.adaLN_modulation["1"](F.silu(vec)).float().chunk(
             2, dim=-1)
         img = fl.linear(B.modulate(_ln(img), shift, scale))
-        # unpack [N, hp wp, 4 C] -> [N, C, H, W]
-        img = img.view(n, hp, wp, 2, 2, cl).permute(0, 5, 1, 3, 2, 4)
-        img = img.reshape(n, cl, hh, ww)
-        return (img, cache) if want_cache else img
+        img = img.view(n, hh // 2, ww // 2, 2, 2, cl).permute(
+            0, 5, 1, 3, 2, 4)
+        return img.reshape(n, cl, hh, ww)
 
 
 def dc_split(depth_double: int) -> int:

@@ -6,11 +6,15 @@
 single-file layout's.  SD3.5 adds the per-head RMSNorm of q and k
 (``qk_norm``, ``attn.ln_q`` / ``attn.ln_k``) and, on medium (MMDiT-X), a
 second latent-only self-attention (``x_block.attn2``) in the first 13
-blocks.  Skip-layer guidance leaves joint blocks out by index.  Not
-ported: the block cache, pipeline-stacked blocks.  The fused qkv stays
-one linear (one product, and one quantized weight on the q8 path, as the
-JAX package's ``_qkv`` ``B.linear`` branch, ``:139-148``).  Activations are
-[N, S, d] token streams; the latent at the boundary is NCHW.
+blocks.  Skip-layer guidance leaves joint blocks out by index; DeepCache
+runs the first blocks alone (``dc_split``).  Under pipeline parallelism
+(``set_stage``) a rank holds one stage of the joint blocks and the stack
+runs through ``parallel/pipeline.py``; under tensor parallelism each
+attention runs n_head / tp heads (``parallel/tensor_parallel.py``).  The
+fused qkv stays one linear (one product, and one quantized weight on the
+q8 path, as the JAX package's ``_qkv`` ``B.linear`` branch,
+``:139-148``).  Activations are [N, S, d] token streams; the latent at
+the boundary is NCHW.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel import pipeline as pipe
 from . import blocks as B
 
 
@@ -243,6 +248,17 @@ class MMDiT(nn.Module):
             JointBlock(P, i == P.depth - 1, i in P.x_self_attn_layers)
             for i in range(P.depth))
         self.final_layer = _FinalLayer(P)
+        # this rank's pipeline stage (``set_stage``), None without --pp
+        self.stage = None
+
+    def set_stage(self, stage: pipe.Stage) -> None:
+        """Keep only the joint blocks of ``stage`` (on the meta device,
+        before the weights are read) and run the stack as a pipeline
+        (``mmdit.py:318-350``).  The last block's context side ends at its
+        attention, as on one rank, so no block is zero-filled."""
+        lo, hi = pipe.stage_range(self.P.depth, stage.n, stage.index)
+        pipe.keep_stage(self.joint_blocks, lo, hi)
+        self.stage = stage
 
     def _pos_embed_crop(self, hp: int, wp: int):
         """Center crop of the pos-embed grid to [hp, wp] patches
@@ -276,6 +292,22 @@ class MMDiT(nn.Module):
         c = (te + ye).float()
         cx = self.context_embedder(cond.to(dtype))
         dc = want_cache or use_cache is not None
+        if self.stage is not None:
+            if dc or skip_layers:
+                # backstops: the session refuses both under a mesh
+                raise ValueError("deepcache and skip-layer guidance are "
+                                 "not supported with --pp")
+            blocks = pipe.present(self.joint_blocks)
+
+            def stage_fn(acts):
+                cx_, xe_, c_ = acts
+                for blk in blocks:
+                    cx_, xe_ = blk(cx_, xe_, c_)
+                return cx_, xe_, c_
+
+            xe = pipe.pipeline_apply(self.stage, stage_fn, (cx, xe, c),
+                                     collect=1)
+            return self._final(xe, c, n, hp, wp)
         if dc and skip_layers:
             raise ValueError("deepcache: incompatible with skip_layers")
         k_cache = dc_split(P.depth) if dc else 0
@@ -290,14 +322,19 @@ class MMDiT(nn.Module):
         if use_cache is not None:
             xe = xe + use_cache.to(xe.dtype)
         cache = xe - xe_shallow if want_cache else None
+        out = self._final(xe, c, n, hp, wp)
+        return (out, cache) if want_cache else out
+
+    def _final(self, xe, c, n: int, hp: int, wp: int):
+        """The final layer and the unpatchify [N, hp*wp, p*p*C] ->
+        [N, C, H, W]."""
+        P, p = self.P, self.P.patch
         fl = self.final_layer
         shift, scale = fl.mods(c)
         xe = fl.linear(B.modulate(fl.norm_final(xe), shift, scale))
-        # unpatchify [N, hp*wp, p*p*C] -> [N, C, H, W]
         out = xe.view(n, hp, wp, p, p, P.n_ch_out)
-        out = out.permute(0, 5, 1, 3, 2, 4).reshape(n, P.n_ch_out,
+        return out.permute(0, 5, 1, 3, 2, 4).reshape(n, P.n_ch_out,
                                                      hp * p, wp * p)
-        return (out, cache) if want_cache else out
 
 
 def dc_split(depth: int) -> int:

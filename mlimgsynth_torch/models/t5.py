@@ -110,6 +110,8 @@ class _Attention(nn.Module):
         super().__init__()
         inner = P.n_head * P.d_kv
         self.P = P
+        # the heads this module runs (n_head / tp under tensor parallelism)
+        self.n_head = P.n_head
         self.q = B.linear(P.d_model, inner, bias=False)
         self.k = B.linear(P.d_model, inner, bias=False)
         self.v = B.linear(P.d_model, inner, bias=False)
@@ -124,13 +126,13 @@ class _Attention(nn.Module):
         P = self.P
 
         def heads(t):
-            return t.reshape(n, s, P.n_head, P.d_kv).transpose(1, 2)
+            return t.reshape(n, s, self.n_head, P.d_kv).transpose(1, 2)
 
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
         # f32 logits of the compute-dtype operands, no 1/sqrt(d) scale
         logits = q.float() @ k.float().transpose(-1, -2) + bias
         w = torch.softmax(logits, dim=-1).to(x.dtype)
-        o = (w @ v).transpose(1, 2).reshape(n, s, P.n_head * P.d_kv)
+        o = (w @ v).transpose(1, 2).reshape(n, s, self.n_head * P.d_kv)
         return self.o(o)
 
 

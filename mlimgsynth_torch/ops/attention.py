@@ -6,11 +6,20 @@ hand-written CUDA flash kernels (``ops/flash_attention.py``); everything else
 (the 77-token cross-attention, CLIP's causal attention, the UNet's 256- and
 64-token levels) runs the plain softmax, as the JAX package runs
 ``attention_xla``.
+
+Under a session's mesh with sp > 1 (``parallel/mesh.scope``), every
+non-causal attention whose sequence divides the sp ranks goes through them
+first, as the JAX package's ``_sp_attention`` route (``attention.py:
+64-126``): the ring for self and joint attention, the q-sharded path for
+a short context; a shape that does not divide takes the paths below with
+the JAX package's warning.  Under tp and dp the attention sees a rank's
+heads and rows, which take the flash gates unchanged.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh as pmesh
 from . import flash_attention as fa
 
 
@@ -63,6 +72,20 @@ def stock_eligible(q, k, v, causal: bool = False) -> bool:
     return sk >= STOCK_MIN_S
 
 
+def _sp_route(q, k, v, scale, causal):
+    """The attention through the sp ranks of the current mesh, or None
+    where there is none or the shape does not divide it."""
+    mesh = pmesh.current()
+    if causal or mesh is None or mesh.size(pmesh.SP_AXIS) == 1:
+        return None
+    from ..parallel import ring_attention as ring
+    if not ring.sp_compatible(mesh, q.shape[0], q.shape[1], q.shape[2],
+                              k.shape[2], local=True):
+        ring.warn_fallback(q.shape, k.shape)
+        return None
+    return ring.sp_attention(q, k, v, mesh, scale)
+
+
 def attention(q, k, v, scale=None, causal: bool = False):
     """Route to a flash kernel where a gate allows, else the plain path.
 
@@ -70,7 +93,10 @@ def attention(q, k, v, scale=None, causal: bool = False):
     first, then the flash gate.  Past the K3 gate, head dims up to 128 run
     :func:`flash_attn_joint`; wider ones (the VAE mid-block's single
     512-wide head) run :func:`flash_attn_fwd_wide`, which computes the same
-    function."""
+    function.  The sp route goes first."""
+    o = _sp_route(q, k, v, scale, causal)
+    if o is not None:
+        return o
     if stock_eligible(q, k, v, causal):
         if q.shape[-1] <= 128:
             return fa.flash_attn_joint(q, k, v, scale)
@@ -85,7 +111,10 @@ def attention_t(q, k, v, scale=None, causal: bool = False):
     (``attention.py:237-262``), which ``attn_mhead`` takes for the UNet's
     large self-attention: the flash gate only, never the K3 gate.  The port
     keeps v in its natural layout (the transposed-v layout is a TPU
-    artifact)."""
+    artifact).  The sp route goes first."""
+    o = _sp_route(q, k, v, scale, causal)
+    if o is not None:
+        return o
     if flash_attention_compatible(q, k, v, causal):
         return fa.flash_attention(q, k, v, scale)
     return attention_xla(q, k, v, scale=scale, causal=causal)

@@ -40,9 +40,17 @@ An inpaint-variant UNet takes loop-constant extra input channels instead
 (``sampler.py:52-59``): ``keep_tail`` stops the loop at sigma(``f_t_end``)
 with that noise left in the latent, ``noise_add`` False starts from a
 latent that is already at sigma(``f_t_ini``).
+
+Data parallelism (a mesh with dp > 1, ``sampler.py:902-925``): where the
+batch of N images divides dp, each rank runs its N / dp rows (its CFG pair
+built from its own cond and uncond rows) and the latents are gathered over
+the dp group at the end, and for the step observers; every rank draws the
+whole noise from the seed and takes its rows.  Otherwise every rank runs
+the whole batch.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -53,6 +61,8 @@ from ..errors import MlisError
 from ..models import flux as flux_mod
 from ..models import mmdit as mmdit_mod
 from ..models import unet as unet_mod
+from ..parallel import comm
+from ..parallel.mesh import DP_AXIS
 from ..rng import RngPhilox
 from . import schedule as sch
 from .solvers import get_solver
@@ -341,6 +351,38 @@ def _mask_apply(x, x0, lmask):
     return x0 * lmask + x * (1.0 - lmask)
 
 
+def _dp_rows(mesh, n: int):
+    """This rank's rows of a batch of ``n`` under the mesh's dp axis, or
+    None where every rank runs the whole batch."""
+    dp = 1 if mesh is None else mesh.size(DP_AXIS)
+    if dp == 1 or n % dp:
+        return None
+    per = n // dp
+    r = mesh.index(DP_AXIS)
+    return np.arange(r * per, (r + 1) * per)
+
+
+def _dp_slice(rows, n: int, x_init, plan, cond_all, label_all, lmask,
+              cond_steps):
+    """The sampler's inputs cut to the batch rows ``rows``: the latent,
+    the noise, the mask, and the cond then uncond rows of the
+    conditioning (or of each step's bank rows)."""
+    plan = dataclasses.replace(
+        plan, noise0=plan.noise0[rows], churn_noise=plan.churn_noise[:, rows],
+        anc_noise=plan.anc_noise[:, rows])
+    width = cond_all.shape[0] if cond_steps is None else cond_steps.shape[1]
+    cols = np.concatenate([rows + k * n for k in range(width // n)])
+    if cond_steps is not None:
+        cond_steps = np.asarray(cond_steps)[:, cols]
+    else:
+        idx = torch.as_tensor(cols, device=cond_all.device)
+        cond_all = cond_all[idx]
+        label_all = None if label_all is None else label_all[idx]
+    if lmask is not None and lmask.shape[0] == n:
+        lmask = lmask[rows]
+    return x_init[rows], plan, cond_all, label_all, lmask, cond_steps
+
+
 def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 cond_all: torch.Tensor, cfg: SamplerConfig,
                 step_observer: Optional[Callable] = None,
@@ -350,7 +392,8 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
                 cond_steps: Optional[np.ndarray] = None,
                 deepcache: int = 0, freeu=None, control=None,
                 extra_ch: Optional[np.ndarray] = None,
-                step_latent: Optional[Callable] = None) -> torch.Tensor:
+                step_latent: Optional[Callable] = None,
+                mesh=None) -> torch.Tensor:
     """Run the loop from ``x_init`` (NCHW f32 numpy) with ``model``, a
     UNet or a flow model (``model.P.flow``).  ``cond_all`` (and, for the
     MMDiT and the SDXL UNet, ``label_all``, the pooled vectors or labels)
@@ -379,9 +422,22 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
     latent_nchw_numpy)`` sees every step, and ``step_callback(i_step,
     n_step)`` is told of each (the session's progress), and
     ``step_latent(i_step, n_step, x)`` sees the latent on the device after
-    each (the batch's previews and cancellation).  Returns the final
-    latent, f32 on the device."""
+    each (the batch's previews and cancellation).  ``mesh``: the session's
+    mesh, whose dp axis splits the batch (see the module docstring).
+    Returns the final latent, f32 on the device."""
     dev = cond_all.device
+    mine = _dp_rows(mesh, x_init.shape[0])
+    if mine is not None:
+        x_init, plan, cond_all, label_all, lmask, cond_steps = _dp_slice(
+            mine, x_init.shape[0], x_init, plan, cond_all, label_all,
+            lmask, cond_steps)
+
+    def whole(x):
+        """The whole batch's latent from this rank's rows."""
+        if mine is None:
+            return x
+        return comm.all_gather(x.contiguous(), mesh.group(DP_AXIS), dim=0)
+
     use_cfg = cfg.cfg_scale > 1
     cfg_rescale = float(cfg.cfg_rescale) if use_cfg else 0.0
     solver = get_solver(cfg.method)
@@ -496,9 +552,9 @@ def run_sampler(model, x_init: np.ndarray, plan: SamplingPlan,
         if mask is not None:
             x = _mask_apply(x, x0_keep, mask)
         if step_observer is not None:
-            step_observer(i + 1, x.cpu().numpy())
+            step_observer(i + 1, whole(x).cpu().numpy())
         if step_callback is not None:
             step_callback(i + 1, plan.n_step)
         if step_latent is not None:
-            step_latent(i + 1, plan.n_step, x)
-    return x
+            step_latent(i + 1, plan.n_step, whole(x))
+    return whole(x)

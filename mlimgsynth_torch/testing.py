@@ -702,9 +702,10 @@ _FLUX_LORA_SINGLE = (("linear1", "linear1", "proj_mlp", (3, 4, 7)),
 
 def write_random_flux_lora(path, mt: ModelTypeDef, rank: int = 4,
                            seed: int = 0, peft: bool = False,
-                           dtype=np.float16) -> Dict:
+                           dtype=np.float16, blocks=None) -> Dict:
     """Seeded random LoRA of the Flux type ``mt`` at ``path`` on the
-    targets above in every block: kohya names
+    targets above in every block (``blocks``: in the first (double,
+    single) blocks only): kohya names
     (``lora_unet_double_blocks_0_img_attn_qkv``, ``.alpha`` = rank), or
     with ``peft`` diffusers-PEFT ones (``transformer.transformer_blocks.0.
     attn.to_q``, no alpha: scale 1), a fused target's pair on its slice.
@@ -718,11 +719,12 @@ def write_random_flux_lora(path, mt: ModelTypeDef, rank: int = 4,
     rng = np.random.default_rng(seed)
     header, arrays, out = {}, [], {}
     P = mt.unet_p
+    depths = blocks or (P.depth_double, P.depth_single)
     for blocks, table, pblocks, depth in (
             ("double_blocks", _FLUX_LORA_DOUBLE, "transformer_blocks",
-             P.depth_double),
+             depths[0]),
             ("single_blocks", _FLUX_LORA_SINGLE,
-             "single_transformer_blocks", P.depth_single)):
+             "single_transformer_blocks", depths[1])):
         for i in range(depth):
             for tail, kmod, pmod, frac in table:
                 name = f"flux.{blocks}.{i}.{tail}.weight"
@@ -844,8 +846,8 @@ def write_random_esrgan(path, P, seed: int = 0, dtype=np.float32,
 # (perturbed-attention guidance's cond-only evaluation at batch 1), the
 # SD1.5 hires fix's 1024^2 second pass, the SDXL refiner's 1024^2 levels,
 # the serving path's merged batches (four SD1.5 requests, an SDXL pair),
-# and ragged ones.  (kernel, q shape [B, H, Sq, D], Sk, where the
-# main path runs it)
+# a rank's shapes under tp, dp and pp, and ragged ones.  (kernel, q shape
+# [B, H, Sq, D], Sk, where the main path runs it)
 ATTN_CASES = [
     ("flash_attn_fwd", (2, 8, 4096, 40), 4096, "UNet level 0"),
     ("flash_attn_fwd", (2, 8, 1024, 80), 1024, "UNet level 1"),
@@ -879,6 +881,10 @@ ATTN_CASES = [
      "SDXL merged pair, UNet level 1"),
     ("flash_attn_fwd", (4, 20, 1024, 64), 1024,
      "SDXL merged pair, UNet level 2"),
+    ("flash_attn_fwd", (2, 4, 4096, 40), 4096,
+     "SD1.5 under tp = 2 (a rank's 4 of 8 heads), UNet level 0"),
+    ("flash_attn_fwd", (2, 4, 1024, 80), 1024,
+     "SD1.5 under tp = 2 (a rank's 4 of 8 heads), UNet level 1"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
@@ -895,6 +901,8 @@ ATTN_CASES = [
      "SD1.5 merged batch of 4 (serve), VAE mid-block (B H 4)"),
     ("flash_attn_fwd_wide", (2, 1, 16384, 512), 16384,
      "SDXL merged pair, VAE mid-block (B H 2, two waves)"),
+    ("flash_attn_fwd_wide", (2, 1, 4096, 512), 4096,
+     "SD1.5 under dp = 2 with batch 2: a rank decodes the gathered batch"),
     ("flash_attn_fwd_wide", (2, 8, 1024, 160), 1024,
      "SD1.5 1024^2 (hires fix second pass), UNet level 2: head dim 160, "
      "8 heads, computed at D = 512"),
@@ -902,6 +910,8 @@ ATTN_CASES = [
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
      "MMDiT joint attention, SD3-medium"),
+    ("flash_attn_joint", (2, 12, 4250, 64), 4250,
+     "SD3-medium under tp = 2 (a rank's 12 of 24 heads)"),
     ("flash_attn_joint", (2, 24, 4429, 64), 4429,
      "SD3-medium with 256 T5 tokens (a ragged tail of 13 past 69 x 64)"),
     ("flash_attn_joint", (2, 38, 4250, 64), 4250,
@@ -913,7 +923,8 @@ ATTN_CASES = [
     ("flash_attn_joint", (1, 24, 4352, 128), 4352,
      "Flux-schnell joint attention, 256 T5 tokens (head dim 128)"),
     ("flash_attn_joint", (1, 24, 4250, 64), 4250,
-     "SD3.5-medium skip-layer pass, joint attention (batch 1)"),
+     "SD3.5-medium skip-layer pass, joint attention (batch 1); SD3-medium "
+     "under pp = 2 (a microbatch of one row)"),
     ("flash_attn_joint", (1, 24, 4096, 64), 4096,
      "SD3.5-medium skip-layer pass, MMDiT-X attn2 (batch 1)"),
     ("flash_attn_joint", (1, 4, 2049, 64), 2049, "ragged S"),

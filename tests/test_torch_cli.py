@@ -3,8 +3,9 @@
 same arguments and seed (the PNG read back with pillow here, its
 ``parameters`` text, the ``--olatent`` tensor, a batch's file names, ``-``
 as stdout), ``tokenize``, ``help``, ``version``, and the exits with code 1:
-an unknown command, an unknown option, an option the port lacks (the
-multi-device ``--tp``, ``--dp``, ``--sp``) on a command it has, and
+an unknown command, an unknown option, the multi-device ``--tp``,
+``--dp``, ``--sp`` on a command that does not run on ranks (every command
+but ``generate``; tests/test_torch_parallel_cli.py runs ``generate``), and
 ``generate`` without ``-b cpu`` on a machine without a card.
 
 Both CLIs run f32 on the CPU.  Tolerances: the image within 1 LSB (both

@@ -206,9 +206,17 @@ def test_session_keeps_weights_across_requests(tiny_ckpt):
     ("weight-type", "q3_k"), ("weight-type", "iq4_nl"),
 ])
 def test_unsupported_option_raises(name, value):
+    """A weight type the port lacks raises at ``option_set``; a mesh
+    option (tp, dp, sp, pp) raises at ``setup`` without a process group
+    of that many ranks, naming the torchrun line (the JAX package's
+    tests/test_parallel.py:180-185 without the devices)."""
     s = torch_api.MLImgSynth(device="cpu")
-    with pytest.raises(torch_api.MlisError):
+    with pytest.raises(torch_api.MlisError) as e:
         s.option_set(name, value)
+        s.setup()
+    if name in ("tp", "dp", "sp", "pp"):
+        assert e.value.code == torch_api.MlisError.E_OPT_VALUE
+        assert f"torchrun --nproc-per-node {value}" in str(e.value)
 
 
 _NO_JAX = """

@@ -118,9 +118,14 @@ def test_sd3_multi_window_prompt_matches_jax(sd3_ckpt, monkeypatch):
     ("dp", 4), ("sp", 4), ("pp", 4), ("tp", 4),
 ])
 def test_unported_sd3_options_raise(name, value):
+    """Each mesh option on a session with no process group of that many
+    ranks raises ``MlisError`` at ``setup``, naming the torchrun line."""
     s = torch_api.MLImgSynth(device="cpu")
-    with pytest.raises(torch_api.MlisError):
-        s.option_set(name, value)
+    s.option_set(name, value)
+    with pytest.raises(torch_api.MlisError) as e:
+        s.setup()
+    assert e.value.code == torch_api.MlisError.E_OPT_VALUE
+    assert f"torchrun --nproc-per-node {value}" in str(e.value)
 
 
 _NO_JAX = """

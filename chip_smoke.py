@@ -76,7 +76,7 @@ Phases, one result line each (any failure exits non-zero):
                  both towers' rows in an edited prompt.
                  SD3.5 and Flux.1 (``sd35`` and ``flux`` lines), 1024^2
                  at full width on seeded random files drawn on the card
-                 (SD3.5-large at 12 of its 38 blocks and Flux at 6 + 12 of
+                 (SD3.5-large at 8 of its 38 blocks and Flux at 4 + 8 of
                  its 19 + 38, SD35_LARGE_DEPTH and FLUX_DEPTH), with the
                  T5-XXL file of the ``t5`` lines:
                  SD3.5-medium (MMDiT-X) and SD3.5-large, 20 Euler steps,
@@ -96,8 +96,8 @@ Phases, one result line each (any failure exits non-zero):
                  MLIS_Q8_MODE=int8, its peak below the bf16 session's,
                  then a seeded random rank-16 LoRA of the first 4 double
                  blocks' image qkv, attention output and MLP input and
-                 the first 8 single blocks' linear1 and linear2 (of 19
-                 and 38; FLUX_LORA_BLOCKS), in kohya names
+                 the first 8 single blocks' linear1 and linear2
+                 (FLUX_LORA_BLOCKS: all of the cut depth), in kohya names
                  and in PEFT names (4-step requests; the merged weights
                  checked against the host, the two latents equal);
                  Flux.1-schnell q4_0, 1 request; SD3.5-large q8_0, 1
@@ -163,16 +163,27 @@ Phases, one result line each (any failure exits non-zero):
                  The multi-rank modes (``ranks`` lines): two processes
                  sharing the card over gloo (``parallel/comm.spawn``),
                  each rank a session of its own: SD1.5 512^2 at tp 2, dp 2
-                 (batch 2; two requests) and sp 2, 20 Euler steps;
-                 SD3-medium 1024^2 at tp 2, sp 2, pp 2 and pp 2 with
-                 q8_0, one request at RANK_SD3_STEPS steps; one torchrun
-                 CLI generate at SD1.5 tp 2, 20 steps (this script's
-                 --cli-rank mode in each rank); after the SD2 lines, once
-                 the background checkpoint writes are done.  Each rank's line: transport, setup
-                 and request seconds, peak memory, the denoiser's bytes on
-                 the rank, launches (flash launches exact by shape), and
-                 the relative L2 of its u8 image against the same request
-                 on one rank (RANK_LIMIT); the ranks' images equal.
+                 (batch 2; two requests), sp 2, and tp 2 in q8_0 (one
+                 request, one more under MLIS_Q8_MODE=int8: K8) and q4_0,
+                 20 Euler steps; SD3-medium 1024^2 at tp 2, sp 2, pp 2, pp 2
+                 with q8_0 and tp 2 with q8_0 (K7 at the rank's shares),
+                 one request at RANK_SD3_STEPS steps; in the same spawn the
+                 port's server at SD1.5 tp 2 (rank 0 over HTTP, rank 1
+                 ``Server.follow``): four requests merged into one batch
+                 and one cancelled at its second step, the merged images
+                 on each rank against the same server on one rank; a
+                 CLI vae-test at dp 2 (``cli.main`` in each rank of the
+                 spawn; only rank 0 writes); a torchrun CLI generate at
+                 SD1.5 tp 2, 20 steps (this script's --cli-rank mode in
+                 each rank); the C program as two
+                 processes at tp 2 (torchrun's environment); after the SD2
+                 lines, once the background checkpoint writes are done.
+                 Each rank's line: transport, setup and request seconds,
+                 peak memory and the denoiser's bytes on the rank beside
+                 one rank's, launches (flash launches exact by shape, the
+                 quantized kernels of the weight type and mode), and the
+                 relative L2 of its u8 image against the same request on
+                 one rank (RANK_LIMIT); the ranks' images equal.
                  The memory paths (``lowmem`` lines, BASELINE config 5):
                  on the SDXL checkpoint, the bf16 session and a q4_0
                  session each run one request with neither option, then
@@ -222,6 +233,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -372,9 +384,10 @@ T5_FILE, T5_TOKENIZER = "t5xxl-random-f16.safetensors", "t5-tokenizer.json"
 DIT_DIM, SD35_STEPS = 1024, 20
 # the depths cut to keep the whole run inside its time once the rank lines
 # came (widths and heads kept): SD3.5-large's joint blocks of 38, Flux's
-# double and single blocks of 19 and 38
-SD35_LARGE_DEPTH = 12
-FLUX_DEPTH = (6, 12)
+# double and single blocks of 19 and 38 (12 and 6 + 12 in PR 19; the PR 20
+# rank lines took the run from 871 s to 1,042 s)
+SD35_LARGE_DEPTH = 8
+FLUX_DEPTH = (4, 8)
 FLUX_RUNS = {"flux_dev": {"steps": 20, "cfg": 3.5, "t5_tokens": 512,
                           "requests": 2},
              "flux_schnell": {"steps": 4, "cfg": 1.0, "t5_tokens": 256,
@@ -588,8 +601,7 @@ def _paths(tmp: str, launches: collections.Counter):
                 s, ckpt, "sd1", 512, wt, REQUESTS[n_req:n_req + 1],
                 lambda s: sd1_want(8, int8=True), mode="int8"))
         reference_check(s, wt, bits)
-        if not bits:
-            rank_references(s, "sd1", ckpt, wt, (1, 2))
+        rank_references(s, "sd1", ckpt, wt)
         if bits == 8:
             sd1_dq = time_shapes(s)
             launches.update(lora_q8_request(s, ckpt, lora))
@@ -613,7 +625,7 @@ def _paths(tmp: str, launches: collections.Counter):
                 s, ckpt, "sd3", SD3_DIM, wt, REQUESTS[n_req:n_req + 1],
                 lambda s: sd3_want(s, int8=True), mode="int8"))
         sd3_reference_check(s, wt, bits)
-        rank_references(s, "sd3", ckpt, wt, (1,))
+        rank_references(s, "sd3", ckpt, wt)
         if not bits:
             launches.update(features(s, "sd3"))
             launches.update(t5_path(s, tmp))
@@ -651,8 +663,9 @@ def _paths(tmp: str, launches: collections.Counter):
     launches.update(sd2_path(tmp))
     # the rank phases once the background writes are done (the ranks talk
     # through the host, which the numpy draws share)
-    launches.update(ranks_path({"sd1": sd1_ckpt, "sd3": sd3_ckpt}))
+    launches.update(ranks_path(tmp, {"sd1": sd1_ckpt, "sd3": sd3_ckpt}))
     launches.update(ranks_cli(tmp, sd1_ckpt))
+    launches.update(ranks_capi(tmp, sd1_ckpt, _SERVE_ALONE[0]))
     os.remove(sd1_ckpt)
     os.remove(sd3_ckpt)
     t5 = {"t5": os.path.join(tmp, T5_FILE),
@@ -3714,6 +3727,8 @@ SDXL_PAIR_WANT = {("flash_attn_fwd", (4, 10, 4096, 64)): 200,
                   ("flash_attn_fwd", (4, 20, 1024, 64)): 1200,
                   ("flash_attn_fwd_wide", (2, 1, 16384, 512)): 1}
 HTTP_TIMEOUT = 300
+# the first serve request's image served alone, kept for the C ABI's ranks
+_SERVE_ALONE = []
 # the preview request: its steps and a frame every this many
 SERVE_PREVIEW = {"steps": SERVE_STEPS, "preview_every": 5}
 # the C program's backend: "" leaves the context's default, the card
@@ -3734,10 +3749,10 @@ static int progress_cb(void *user, MLIS_Ctx *ctx, const MLIS_Progress *prg)
 	return 0;
 }
 
-/* drive MODEL OUT_RAW PROMPT DIM STEPS BACKEND ("" for the card) */
+/* drive MODEL OUT_RAW PROMPT DIM STEPS BACKEND ("" for the card) [TP] */
 int main(int argc, char **argv)
 {
-	if (argc != 7) return 2;
+	if (argc != 7 && argc != 8) return 2;
 	int dim = atoi(argv[4]), steps = atoi(argv[5]);
 	MLIS_Ctx *ctx = mlis_ctx_create();
 	if (!ctx) return 2;
@@ -3750,6 +3765,9 @@ int main(int argc, char **argv)
 	mlis_option_set(ctx, MLIS_OPT_PROMPT, argv[3]);
 	mlis_option_set(ctx, MLIS_OPT_NPROMPT, "blurry, low quality");
 	mlis_option_set(ctx, MLIS_OPT_CALLBACK, progress_cb, (void*)0);
+	/* on ranks (torchrun's environment): the context joins their group
+	   at setup */
+	if (argc == 8) mlis_option_set_str(ctx, "tp", argv[7]);
 	if (mlis_setup(ctx) < 0 || mlis_generate(ctx) < 0) {
 		printf("FAIL %s\n", mlis_errstr_get(ctx));
 		return 1;
@@ -3970,6 +3988,7 @@ def serve_sd1(tmp: str, ckpt: str) -> collections.Counter:
         httpd.shutdown()
         httpd.server_close()
     _drop(s)
+    _SERVE_ALONE[:] = alone[:1]     # the C ABI's reference on ranks
     launches.update(capi_sd1(tmp, ckpt, alone[0]))
     launches.update(vae_test_cli(tmp, ckpt))
     return launches
@@ -4034,7 +4053,6 @@ def vae_test_cli(tmp: str, ckpt: str) -> collections.Counter:
     """The CLI's ``vae-test`` of a 512^2 PNG on the SD1.5 checkpoint: the
     VAE encoder and decoder (K2 in each mid-block), the round trip's error
     line.  Returns the launches."""
-    import contextlib
     import io
     png = os.path.join(tmp, "vae_in.png")
     image_mod.image_save(png, _test_image(SERVE_DIM, seed=5)[:, :, :3])
@@ -4083,56 +4101,79 @@ def sdxl_pair(s) -> collections.Counter:
 # Two processes share the one H100 and talk over gloo (NCCL does not put two
 # ranks on one card; ``comm.backend_for``), each on cuda:0, the kernels built
 # by this process before they start (each rank loads the cached libraries).
-# SD1.5 512^2 at tp 2, dp 2 (batch 2) and sp 2, 20 Euler steps at CFG 7;
-# SD3-medium 1024^2 at tp 2, sp 2, pp 2 and pp 2 with q8_0, RANK_SD3_STEPS
-# Euler steps at CFG 7; one request a mode (RANK_REQUESTS); one torchrun CLI
-# generate, SD1.5 tp 2 at 20 steps (at 4 steps its image read 1.74e-2 from
-# one rank's, the perturbation larger against a less settled image).  Each rank's image is held to the same request on one
-# rank (``_RANK_REFS``, made on the main path's sessions) by the relative L2
-# of the u8 image, RANK_LIMIT (the limit the merged serving rows meet).  The
-# two processes share one card, so their seconds are no two-card speed.
+# The modes of RANK_MODES (SD1.5 512^2 and SD3-medium 1024^2, Euler at CFG
+# 7), the server at tp 2 (``_rank_serve``) and the CLI's vae-test at dp 2
+# (``_rank_vae_test``) in the same spawn, a torchrun CLI generate
+# (``ranks_cli``) and the C program as two processes (``ranks_capi``).  At 4
+# steps a tp image read 1.74e-2 from one rank's (the perturbation larger
+# against a less settled image), so SD1.5 runs 20.  Each rank's image is
+# held to the same request on one rank (``_RANK_REFS``, made on the main
+# path's sessions) by the relative L2 of the u8 image, RANK_LIMIT (the limit
+# the merged serving rows meet).  The two processes share one card, so
+# their seconds are no two-card speed.
 RANK_LIMIT = 1.5e-2
 RANK_SD3_STEPS = 4
-# requests a mode (else one): dp's second is a warm request
-RANK_REQUESTS = {("sd1", "dp2"): 2}
+# the quantized SD1.5 tp requests (q8_0, q8_0 under MLIS_Q8_MODE=int8 and
+# q4_0; SD3 q8_0 runs RANK_SD3_STEPS): at 4 steps q8_0 read 2.13e-2 from
+# one rank's image (the bf16 tp line 1.28e-2 at 20 steps), so 20
+RANK_Q_STEPS = 20
 RANK_NPROMPT = "blurry, low quality"
-# model -> (mode, mesh options, weight type, batch)
-RANK_MODES = {"sd1": [("tp2", {"tp": 2}, "bf16", 1),
-                      ("dp2", {"dp": 2}, "bf16", 2),
-                      ("sp2", {"sp": 2}, "bf16", 1)],
-              "sd3": [("tp2", {"tp": 2}, "bf16", 1),
-                      ("sp2", {"sp": 2}, "bf16", 1),
-                      ("pp2", {"pp": 2}, "bf16", 1),
-                      ("pp2", {"pp": 2}, "q8_0", 1)]}
-# (model, mode) -> a rank's flash launches in one request, by (kernel, q
-# shape): tp runs n_head / 2 heads, dp a CFG pair of one image and decodes
-# the gathered pair, pp a microbatch of one row through 12 of the 24 blocks
-# (2 microbatches a step); under sp every attention takes the ring
+_RUN20 = [(20, False)]
+_RUN_SD3 = [(RANK_SD3_STEPS, False)]
+# model -> [(mode, mesh options, weight type, batch, each request's (steps,
+# MLIS_Q8_MODE=int8))]: dp's second request is a warm one
+RANK_MODES = {"sd1": [("tp2", {"tp": 2}, "bf16", 1, _RUN20),
+                      ("dp2", {"dp": 2}, "bf16", 2, _RUN20 * 2),
+                      ("sp2", {"sp": 2}, "bf16", 1, _RUN20),
+                      ("tp2", {"tp": 2}, "q8_0", 1,
+                       [(RANK_Q_STEPS, False), (RANK_Q_STEPS, True)]),
+                      ("tp2", {"tp": 2}, "q4_0", 1, [(RANK_Q_STEPS, False)])],
+              "sd3": [("tp2", {"tp": 2}, "bf16", 1, _RUN_SD3),
+                      ("sp2", {"sp": 2}, "bf16", 1, _RUN_SD3),
+                      ("pp2", {"pp": 2}, "bf16", 1, _RUN_SD3),
+                      ("pp2", {"pp": 2}, "q8_0", 1, _RUN_SD3),
+                      ("tp2", {"tp": 2}, "q8_0", 1, _RUN_SD3)]}
+# (model, mode) -> a rank's flash launches by (kernel, q shape): those of
+# one sampling step, and those of a request once (the VAE decode): tp runs
+# n_head / 2 heads, dp a CFG pair of one image and decodes the gathered
+# pair, pp a microbatch of one row through 12 of the 24 blocks (2
+# microbatches a step); under sp every attention takes the ring
 _K1, _K2, _K3 = "flash_attn_fwd", "flash_attn_fwd_wide", "flash_attn_joint"
 RANK_FLASH = {
-    ("sd1", "tp2"): {(_K1, (2, 4, 4096, 40)): 100,
-                     (_K1, (2, 4, 1024, 80)): 100,
-                     (_K2, (1, 1, 4096, 512)): 1},
-    ("sd1", "dp2"): {(_K1, (2, 8, 4096, 40)): 100,
-                     (_K1, (2, 8, 1024, 80)): 100,
-                     (_K2, (2, 1, 4096, 512)): 1},
-    ("sd1", "sp2"): {},
-    ("sd3", "tp2"): {(_K3, (2, 12, 4250, 64)): 24 * RANK_SD3_STEPS,
-                     (_K2, (1, 1, 16384, 512)): 1},
-    ("sd3", "sp2"): {},
-    ("sd3", "pp2"): {(_K3, (1, 24, 4250, 64)): 12 * 2 * RANK_SD3_STEPS,
-                     (_K2, (1, 1, 16384, 512)): 1},
+    ("sd1", "tp2"): ({(_K1, (2, 4, 4096, 40)): 5, (_K1, (2, 4, 1024, 80)): 5},
+                     {(_K2, (1, 1, 4096, 512)): 1}),
+    ("sd1", "dp2"): ({(_K1, (2, 8, 4096, 40)): 5, (_K1, (2, 8, 1024, 80)): 5},
+                     {(_K2, (2, 1, 4096, 512)): 1}),
+    ("sd1", "sp2"): ({}, {}),
+    ("sd3", "tp2"): ({(_K3, (2, 12, 4250, 64)): 24},
+                     {(_K2, (1, 1, 16384, 512)): 1}),
+    ("sd3", "sp2"): ({}, {}),
+    ("sd3", "pp2"): ({(_K3, (1, 24, 4250, 64)): 12 * 2},
+                     {(_K2, (1, 1, 16384, 512)): 1}),
 }
-# model -> {wt: (batch -> the u8 image of the request on one rank)}
-_RANK_REFS = collections.defaultdict(dict)
+# (model, weight type, int8 mode) -> the quantized kernels a request
+# launches on a rank
+RANK_QUANT = {("sd1", "q8_0", False): ("q8_matmul_ws", "q8_matmul_tile"),
+              ("sd1", "q8_0", True): ("q8_matmul_int8",),
+              ("sd1", "q4_0", False): ("q4_matmul_ws", "q4_matmul_tile"),
+              ("sd3", "q8_0", False): ("q8_matmul_ws_int8",
+                                       "q8_matmul_tile")}
+# (model, weight type, batch, steps, int8 mode) -> the request on one rank:
+# its u8 image, the session's denoiser bytes and the request's peak memory
+_RANK_REFS = {}
 
 
-def _rank_opts(model: str, ckpt: str, wt: str, batch: int) -> list:
+def _rank_flash(model: str, mode: str, steps: int) -> dict:
+    per_step, once = RANK_FLASH[(model, mode)]
+    return {**{k: n * steps for k, n in per_step.items()}, **once}
+
+
+def _rank_opts(model: str, ckpt: str, wt: str, batch: int,
+               steps: int) -> list:
     seed, prompt = REQUESTS[0]
     return [("model", ckpt), ("model-type", model), ("weight-type", wt),
             ("image-dim", 512 if model == "sd1" else SD3_DIM),
-            ("steps", 20 if model == "sd1" else RANK_SD3_STEPS),
-            ("cfg-scale", 7.0), ("method", "euler"),
+            ("steps", steps), ("cfg-scale", 7.0), ("method", "euler"),
             ("scheduler", "uniform"), ("batch-size", batch), ("seed", seed),
             ("prompt", prompt), ("nprompt", RANK_NPROMPT)]
 
@@ -4141,27 +4182,50 @@ def _u8(img) -> np.ndarray:
     return np.rint(np.asarray(img) * 255.0).astype(np.uint8)
 
 
-def rank_references(s, model: str, ckpt: str, wt: str, batches) -> None:
-    """The rank modes' requests on the single-rank session ``s`` (of
-    ``model`` and ``wt``), their u8 images kept, the first one made twice
-    (``repeat_rel_l2``: one rank's own spread, beside which the ranks'
-    differences read); the session's batch size and steps are put
-    back."""
-    for b in batches:
-        for k, v in _rank_opts(model, ckpt, wt, b):
+@contextlib.contextmanager
+def _q8_mode(on: bool):
+    """``MLIS_Q8_MODE=int8`` in the environment for the body, when on."""
+    saved = os.environ.get("MLIS_Q8_MODE")
+    if on:
+        os.environ["MLIS_Q8_MODE"] = "int8"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MLIS_Q8_MODE", None)
+        else:
+            os.environ["MLIS_Q8_MODE"] = saved
+
+
+def rank_references(s, model: str, ckpt: str, wt: str) -> None:
+    """The rank modes' requests of ``model`` in ``wt`` on the single-rank
+    session ``s``: their u8 images, the session's denoiser bytes and each
+    request's peak memory kept; the first made twice (``repeat_rel_l2``:
+    one rank's own spread, beside which the ranks' differences read).  The
+    session's batch size and steps are put back."""
+    runs = sorted({(b, st, i8) for _, _, w, b, rr in RANK_MODES[model]
+                   if w == wt for st, i8 in rr})
+    for i, (b, steps, int8) in enumerate(runs):
+        for k, v in _rank_opts(model, ckpt, wt, b, steps):
             s.option_set(k, v)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        img = _u8(s.generate())
-        secs = time.time() - t0
-        _RANK_REFS[(model, wt)][b] = img
-        again = {}
-        if b == batches[0]:
-            s.option_set("seed", REQUESTS[0][0])
-            rel, du8 = _rank_rel(_u8(s.generate()), img)
-            again = {"repeat_rel_l2": rel, "repeat_max_u8_diff": du8}
+        with _q8_mode(int8):
+            img = _u8(s.generate())
+            secs = time.time() - t0
+            _RANK_REFS[(model, wt, b, steps, int8)] = {
+                "image": img, "denoiser_bytes": s.times["denoiser_bytes"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            again = {}
+            if i == 0:
+                s.option_set("seed", REQUESTS[0][0])
+                rel, du8 = _rank_rel(_u8(s.generate()), img)
+                again = {"repeat_rel_l2": rel, "repeat_max_u8_diff": du8}
         phase("ranks", model=model, path=wt, step="one_rank_reference",
-              batch=b, seconds=secs, image_mean=float(img.mean()),
-              image_std=float(img.std()), **again)
+              batch=b, steps=steps, int8=int8, seconds=secs,
+              image_mean=float(img.mean()), image_std=float(img.std()),
+              denoiser_bytes=s.times["denoiser_bytes"], **again)
     s.option_set("batch-size", 1)
     s.option_set("steps", 20)
 
@@ -4178,102 +4242,393 @@ def _module_bytes(m) -> int:
                for t in list(m.parameters()) + list(m.buffers()))
 
 
-def _rank_requests(rank: int, world: int, jobs):
+def _rank_requests(rank: int, world: int, jobs, sd1_ckpt, vae_src, tmp):
     """A rank's side of ``ranks_path``: for each (model, checkpoint) of
     ``jobs``, each of its modes in a session of its own, its requests
-    timed, their launches and the image kept."""
+    timed, their launches and images kept; then the server at tp 2 on
+    ``sd1_ckpt`` (:func:`_rank_serve`) and the CLI's vae-test of
+    ``vae_src`` at dp 2 (:func:`_rank_vae_test`)."""
     if "jax" in sys.modules or any(m.startswith("mlimgsynth_tpu")
                                    for m in sys.modules):
         raise AssertionError("a rank loaded jax or the JAX package")
     _build.load_all(SOURCES)
     out = []
     for model, ckpt in jobs:
-        out += [_rank_mode(model, ckpt, *m) for m in RANK_MODES[model]]
-    return out
+        for m in RANK_MODES[model]:
+            out += _rank_mode(model, ckpt, *m)
+    return (out, _rank_serve(sd1_ckpt),
+            _rank_vae_test(sd1_ckpt, vae_src, tmp))
 
 
 def _rank_mode(model: str, ckpt: str, name: str, mesh: dict, wt: str,
-               batch: int) -> dict:
-    """One mode of ``model`` on this rank (``_rank_requests``)."""
+               batch: int, runs) -> list:
+    """One mode of ``model`` on this rank (``_rank_requests``): a line a
+    request."""
     s = api.MLImgSynth(device="cuda")
-    for k, v in _rank_opts(model, ckpt, wt, batch) + list(mesh.items()):
+    for k, v in (_rank_opts(model, ckpt, wt, batch, runs[0][0])
+                 + list(mesh.items())):
         s.option_set(k, v)
     t0 = time.time()
     s.setup()
     setup_s = time.time() - t0
-    denoiser = s._models[s._denoiser()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    secs = []
-    for _ in range(RANK_REQUESTS.get((model, name), 1)):
+    lines = []
+    for steps, int8 in runs:
+        s.option_set("steps", steps)
         s.option_set("seed", REQUESTS[0][0])     # the same request
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         fa.reset_counts()
         qmm.reset_counts()
         quant.PLAIN_CUDA_CALLS = 0
         t0 = time.time()
-        img = s.generate()
+        with _q8_mode(int8):
+            img = s.generate()
         torch.cuda.synchronize()
-        secs.append(time.time() - t0)
-    line = {
-        "model": model, "mode": name, "path": wt, "batch": batch,
-        "transport": comm.transport(), "device": str(s.device),
-        "setup_s": setup_s, "seconds": secs,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "denoiser_bytes": _module_bytes(denoiser),
-        "launches": {k: v for k, v in _counts().items() if v},
-        "shapes": collections.Counter(fa.LAUNCH_SHAPES),
-        "plain_cuda_calls": fa.PLAIN_CUDA_CALLS + quant.PLAIN_CUDA_CALLS,
-        "image": _u8(img)}
+        lines.append({
+            "model": model, "mode": name, "path": wt, "batch": batch,
+            "steps": steps, "int8": int8, "transport": comm.transport(),
+            "device": str(s.device), "setup_s": setup_s,
+            "seconds": time.time() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "denoiser_bytes": s.times["denoiser_bytes"],
+            "launches": {k: v for k, v in _counts().items() if v},
+            "shapes": collections.Counter(fa.LAUNCH_SHAPES),
+            "quant_shapes": {f"{k}:{list(q)}": n
+                             for (k, q), n in qmm.LAUNCH_SHAPES.items()},
+            "plain_cuda_calls": fa.PLAIN_CUDA_CALLS
+            + quant.PLAIN_CUDA_CALLS,
+            "image": _u8(img)})
     _drop(s)
-    return line
+    return lines
 
 
-def _check_rank_line(line: dict, ref, what: str) -> dict:
-    """One rank's mode against the one-rank image and the launches it
-    must make; returns the checked line (without the image)."""
+def _check_rank_line(line: dict, ref: dict, what: str) -> dict:
+    """One rank's request against the one-rank request and the launches it
+    must make; returns the checked line (without the image), the one-rank
+    denoiser bytes and peak memory beside its own."""
     img = line.pop("image")
     shapes = line.pop("shapes")
-    rel, du8 = _rank_rel(img, ref)
+    rel, du8 = _rank_rel(img, ref["image"])
     line.update(rel_l2=rel, max_u8_diff=du8, limit=RANK_LIMIT,
-                image_mean=float(img.mean()), image_std=float(img.std()))
-    want = RANK_FLASH[(line["model"], line["mode"])]
-    if img.shape != ref.shape or rel > RANK_LIMIT or img.std() == 0:
+                image_mean=float(img.mean()), image_std=float(img.std()),
+                one_rank_denoiser_bytes=ref["denoiser_bytes"],
+                one_rank_max_memory_allocated=ref["max_memory_allocated"])
+    want = _rank_flash(line["model"], line["mode"], line["steps"])
+    if img.shape != ref["image"].shape or rel > RANK_LIMIT \
+            or img.std() == 0:
         raise AssertionError(f"{what}: image {img.shape} at relative L2 "
                              f"{rel} of one rank's (limit {RANK_LIMIT})")
     if dict(shapes) != want or line["plain_cuda_calls"]:
         raise AssertionError(f"{what}: flash launches {dict(shapes)}, want "
                              f"{want}; plain calls on CUDA "
                              f"{line['plain_cuda_calls']}")
-    if line["path"] == "q8_0" and not (
-            line["launches"].get("q8_matmul_ws_int8")
-            and line["launches"].get("q8_matmul_tile")):
-        raise AssertionError(f"{what}: q8_0 kernels not launched: "
+    need = RANK_QUANT.get((line["model"], line["path"], line["int8"]), ())
+    if not all(line["launches"].get(k) for k in need):
+        raise AssertionError(f"{what}: kernels {need} not all launched: "
                              f"{line['launches']}")
     return line
 
 
-def ranks_path(ckpts: dict) -> collections.Counter:
-    """The rank modes of each model of ``ckpts`` (model -> checkpoint) on
-    two ranks sharing the card: one spawn, each mode's line per rank; the
-    images of the ranks equal."""
-    jobs = list(ckpts.items())
+def ranks_path(tmp: str, ckpts: dict) -> collections.Counter:
+    """The rank modes of each model of ``ckpts`` (model -> checkpoint), the
+    server and the CLI's vae-test (SD1.5) on two ranks sharing the card:
+    one spawn, a line per rank and request; the images of the ranks
+    equal."""
+    jobs = [(m, ckpts[m]) for m in RANK_MODES]
+    # vae-test's input and its image from the CLI on one rank
+    src = os.path.join(tmp, "rank-vae-src.png")
+    image_mod.image_save(src, _test_image(SERVE_DIM, seed=5)[:, :, :3])
+    one = os.path.join(tmp, "rank-vae-one.png")
+    _, s, _ = _cli_request(RANK_VAE_ARGV[:-1] + [one, "-m", ckpts["sd1"],
+                                                 "-i", src])
+    _drop(s)
     t0 = time.time()
-    out = comm.spawn(_rank_requests, 2, (jobs,), device_type="cuda",
-                     threads=0, timeout=900)
-    modes = [(model, m) for model, _ in jobs for m in RANK_MODES[model]]
+    out = comm.spawn(_rank_requests, 2, (jobs, ckpts["sd1"], src, tmp),
+                     device_type="cuda", threads=0, timeout=900)
     launches = collections.Counter()
-    for i, (model, (name, mesh, wt, batch)) in enumerate(modes):
-        ref = _RANK_REFS[(model, wt)][batch]
-        if not np.array_equal(out[0][i]["image"], out[1][i]["image"]):
-            raise AssertionError(f"{model} {name} {wt}: the ranks' images "
-                                 "differ")
+    lines = [o[0] for o in out]
+    for i, line0 in enumerate(lines[0]):
+        what = (f"{line0['model']} {line0['mode']} {line0['path']} "
+                f"steps {line0['steps']} int8 {line0['int8']}")
+        if not np.array_equal(line0["image"], lines[1][i]["image"]):
+            raise AssertionError(f"{what}: the ranks' images differ")
+        ref = _RANK_REFS[(line0["model"], line0["path"], line0["batch"],
+                          line0["steps"], line0["int8"])]
+        mesh = next(m for n, m, w, *_ in RANK_MODES[line0["model"]]
+                    if n == line0["mode"])
         for r in range(2):
-            line = _check_rank_line(out[r][i], ref,
-                                    f"{model} {name} {wt} rank {r}")
+            line = _check_rank_line(lines[r][i], ref, f"{what} rank {r}")
             phase("ranks", rank=r, mesh=mesh, **line)
             launches.update(line["launches"])
+    launches.update(_check_rank_serve([o[1] for o in out]))
+    launches.update(_check_rank_vae_test([o[2] for o in out], one))
     phase("ranks", step="spawn", models=list(ckpts),
           seconds=time.time() - t0)
+    return launches
+
+
+# -- the server on ranks (tp 2, SD1.5 bf16): rank 0 binds the port, rank 1
+# follows its batches; four requests merged at RANK_SERVE_STEPS steps, then
+# one request cancelled at step RANK_CANCEL_STEP (held there until /cancel
+# answers), then the same four on a one-rank server in rank 0
+RANK_SERVE_STEPS = 20
+RANK_CANCEL_STEP = 2
+RANK_CANCEL_SEED = 149
+
+
+def _rank_serve_session(ckpt: str, mesh: dict):
+    s = api.MLImgSynth(device="cuda")
+    for k, v in [("model", ckpt), ("model-type", "sd1"),
+                 ("weight-type", "bf16"), ("image-dim", 512),
+                 ("steps", RANK_SERVE_STEPS), ("cfg-scale", 7.0),
+                 ("method", "euler"), ("scheduler", "uniform")] \
+            + list(mesh.items()):
+        s.option_set(k, v)
+    s.setup()
+    return s
+
+
+def _served_batch(srv, bodies):
+    """The requests ``bodies`` queued before ``srv``'s worker starts (one
+    merged batch): their u8 images and the seconds."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from mlimgsynth_torch import server as srv_mod
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv_mod.make_handler(srv))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    res = {}
+    threads = [threading.Thread(target=lambda i=i, b=b: res.__setitem__(
+        i, _http(url + "/sdapi/v1/txt2img", b)), daemon=True)
+        for i, b in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    with srv.cond:
+        if not srv.cond.wait_for(lambda: len(srv.queue) == len(bodies),
+                                 timeout=HTTP_TIMEOUT):
+            raise AssertionError("rank serve: requests did not queue")
+    t0 = time.time()
+    srv.worker = threading.Thread(target=srv._worker, daemon=True)
+    srv.worker.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    secs = time.time() - t0
+    if any(res.get(i, (0,))[0] != 200 for i in range(len(bodies))):
+        raise AssertionError(f"rank serve: {[res.get(i) for i in res]}")
+    return [_png_u8(res[i][1]["images"][0]) for i in range(len(bodies))], \
+        secs, httpd, url
+
+
+def _rank_serve(ckpt: str) -> dict:
+    """This rank's side of the served lines: rank 0 serves over HTTP, rank 1
+    runs ``Server.follow``; each records its step callbacks (requests in
+    the batch, step, answer), its batches' images and launches."""
+    import threading
+    from mlimgsynth_torch import server as srv_mod
+    os.environ["MLIS_PROGRESS_CHUNK"] = "1"
+    rank = comm.rank()
+    t0 = time.time()
+    s = _rank_serve_session(ckpt, {"tp": 2})
+    setup_s = time.time() - t0
+    steps, batches = [], []
+    started, go = threading.Event(), threading.Event()
+    orig = s.generate_batch
+
+    def recorded(requests, step_callback=None, **kw):
+        def cb(i, n):
+            if (rank == 0 and i == RANK_CANCEL_STEP
+                    and requests[0]["seed"] == RANK_CANCEL_SEED):
+                started.set()
+                go.wait(HTTP_TIMEOUT)
+            ans = step_callback(i, n)
+            steps.append((len(requests), i, ans))
+            return ans
+
+        fa.reset_counts()
+        qmm.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        batch = {"requests": len(requests),
+                 "seeds": [r["seed"] for r in requests]}
+        batches.append(batch)
+        try:
+            out = orig(requests, step_callback=cb, **kw)
+            batch["images"] = _u8(out[0])
+            return out
+        finally:
+            torch.cuda.synchronize()
+            batch.update(seconds=time.time() - t1,
+                         shapes=collections.Counter(fa.LAUNCH_SHAPES),
+                         launches={k: v for k, v in _counts().items() if v},
+                         max_memory_allocated=(
+                             torch.cuda.max_memory_allocated()))
+
+    s.generate_batch = recorded
+    srv = srv_mod.Server(s, merge_window_s=0.0, start_worker=False)
+    line = {"rank": rank, "setup_s": setup_s, "steps": steps,
+            "batches": batches}
+    if rank != 0:
+        srv.follow()
+        _drop(s)
+        return line
+    bodies = [{**SERVE_BODY, "steps": RANK_SERVE_STEPS, "prompt": p,
+               "seed": sd} for sd, p in SERVE_REQUESTS]
+    line["images"], line["merged_s"], httpd, url = _served_batch(srv, bodies)
+    line["merged_requests_total"] = srv.n_merged
+    res = {}
+    t = threading.Thread(target=lambda: res.__setitem__("c", _http(
+        url + "/generate", {"prompt": "a cat", "seed": RANK_CANCEL_SEED,
+                            "steps": RANK_SERVE_STEPS, "request_id": "rc",
+                            "format": "json"})), daemon=True)
+    t.start()
+    if not started.wait(HTTP_TIMEOUT):
+        raise AssertionError("rank serve: the request to cancel never ran")
+    line["cancel_state"] = _http(url + "/cancel", {"request_id": "rc"})[1]
+    go.set()
+    t.join(HTTP_TIMEOUT)
+    line["cancel_code"] = res["c"][0]
+    srv.stop()
+    srv.worker.join(HTTP_TIMEOUT)
+    httpd.shutdown()
+    httpd.server_close()
+    _drop(s)
+    # the same requests on one rank
+    s1 = _rank_serve_session(ckpt, {})
+    one = srv_mod.Server(s1, merge_window_s=0.0, start_worker=False)
+    line["one_rank"], line["one_rank_s"], httpd, _ = _served_batch(
+        one, bodies)
+    one.stop()
+    httpd.shutdown()
+    httpd.server_close()
+    _drop(s1)
+    return line
+
+
+def _check_rank_serve(lines) -> collections.Counter:
+    """The served lines of both ranks: one merged batch of four and the
+    cancelled request on each, every rank's merged images within RANK_LIMIT
+    of the one-rank server's, both ranks stopped at the cancel's step.
+    Returns the launches."""
+    l0 = lines[0]
+    n = len(SERVE_REQUESTS)
+    want = _rank_flash("sd1", "tp2", RANK_SERVE_STEPS)
+    want = {(k, (q[0] * n,) + q[1:]): c for (k, q), c in want.items()}
+    cancel_want = {k: c // RANK_SERVE_STEPS * RANK_CANCEL_STEP
+                   for k, c in _rank_flash("sd1", "tp2", RANK_SERVE_STEPS)
+                   .items() if k[0] == _K1}
+    launches = collections.Counter()
+    rels = []
+    for r, line in enumerate(lines):
+        merged, cancelled = line["batches"][:2]
+        # rank 0's images by request; a follower's by the batch's rows,
+        # in the order the worker merged the requests
+        rows = {sd: im.transpose(1, 2, 0) for sd, im in
+                zip(merged["seeds"], merged.get("images", ()))}
+        imgs = (l0["images"] if r == 0 else
+                [rows.get(sd) for sd, _ in SERVE_REQUESTS])
+        if any(im is None for im in imgs):
+            raise AssertionError(f"rank serve rank {r}: rows missing")
+        rel = [_rank_rel(a, b)[0] for a, b in zip(imgs, l0["one_rank"])]
+        rels.append(rel)
+        phase("ranks", step="serve", rank=r, mesh={"tp": 2},
+              role="http" if r == 0 else "follower",
+              setup_s=line["setup_s"], requests=merged["requests"],
+              seconds=merged["seconds"],
+              images_per_s=merged["requests"] / merged["seconds"],
+              launches=merged["launches"],
+              max_memory_allocated=merged["max_memory_allocated"],
+              rel_l2=rel, limit=RANK_LIMIT,
+              cancel_steps=[st for st in line["steps"]
+                            if st[0] == cancelled["requests"]],
+              **({"one_rank_s": l0["one_rank_s"],
+                  "merged_requests_total": l0["merged_requests_total"],
+                  "cancel": [l0["cancel_state"], l0["cancel_code"]]}
+                 if r == 0 else {}))
+        if (merged["requests"] != n or dict(merged["shapes"]) != want
+                or dict(cancelled["shapes"]) != cancel_want
+                or max(rel) > RANK_LIMIT):
+            raise AssertionError(
+                f"rank serve rank {r}: {merged['requests']} merged, "
+                f"launches {dict(merged['shapes'])} want {want}, cancelled "
+                f"{dict(cancelled['shapes'])} want {cancel_want}, relative "
+                f"L2 {rel}")
+        launches.update(merged["launches"])
+    if (lines[0]["steps"] != lines[1]["steps"]
+            or lines[0]["steps"][-1] != (1, RANK_CANCEL_STEP, True)
+            or l0["cancel_state"] != {"status": "cancelling"}
+            or l0["cancel_code"] != 499):
+        raise AssertionError(f"rank serve: the ranks' steps "
+                             f"{lines[0]['steps']} / {lines[1]['steps']}, "
+                             f"cancel {l0['cancel_state']} "
+                             f"{l0['cancel_code']}")
+    return launches
+
+
+def ranks_capi(tmp: str, ckpt: str, alone: np.ndarray) -> collections.Counter:
+    """The C program of ``capi_sd1`` started as two processes with
+    torchrun's environment and tp 2 (the shim's contexts join the ranks'
+    group at setup): each generates the first serve request, and each
+    image is held to the request served alone on one rank.  Returns the
+    launches."""
+    import socket
+    exe = os.path.join(tmp, "capi_drive")
+    site = os.path.join(tmp, "capi_site")
+    from mlimgsynth_torch import capi
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MLIS_PY_PATH=str(capi.REPO),
+                   PYTHONPATH=os.pathsep.join([site, str(capi.REPO)]),
+                   RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [exe, ckpt, os.path.join(tmp, f"capi{rank}.u8"),
+             SERVE_REQUESTS[0][1], str(SERVE_DIM), str(SERVE_STEPS),
+             CAPI_BACKEND, "2"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    secs = time.time() - t0
+    want = _rank_flash("sd1", "tp2", SERVE_STEPS)
+    launches = collections.Counter()
+    imgs = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        rep = (json.loads(out.split("LAUNCHES ", 1)[1].splitlines()[0])
+               if "LAUNCHES " in out else {})
+        got = collections.Counter()
+        for key, n in rep.get("launches", {}).items():
+            name, q = key.split(":")
+            got[(name, tuple(json.loads(q)))] = n
+        img = (np.fromfile(os.path.join(tmp, f"capi{rank}.u8"), np.uint8)
+               .reshape(SERVE_DIM, SERVE_DIM, 3)
+               if p.returncode == 0 else None)
+        imgs.append(img)
+        rel = _rank_rel(img, alone) if img is not None else (None, None)
+        phase("ranks", step="capi", rank=rank, mesh={"tp": 2},
+              rc=p.returncode, seconds=secs, jax=rep.get("jax"),
+              launches={f"{k}:{list(q)}": n for (k, q), n in got.items()},
+              rel_l2=rel[0], max_u8_diff=rel[1], limit=RANK_LIMIT)
+        if (p.returncode != 0 or "CAPI OK" not in out or rep.get("jax")
+                or rep.get("plain") or dict(got) != want
+                or not rel[0] < RANK_LIMIT):
+            raise AssertionError(f"rank capi {rank}: rc {p.returncode}, "
+                                 f"launches {dict(got)} want {want}\n"
+                                 f"{out[-2000:]}{err[-3000:]}")
+        for (name, _), n in got.items():
+            launches[name] += n
+    if not np.array_equal(imgs[0], imgs[1]):
+        raise AssertionError("rank capi: the ranks' images differ")
     return launches
 
 
@@ -4298,13 +4653,14 @@ def ranks_cli(tmp: str, ckpt: str) -> collections.Counter:
         raise AssertionError(f"torchrun cli: exit {r.returncode}\n"
                              f"{r.stderr[-4000:]}")
     pix, _ = image_mod.png_read(png)
-    ref = _RANK_REFS[("sd1", "bf16")][1][0].transpose(1, 2, 0)
+    ref = _RANK_REFS[("sd1", "bf16", 1, 20, False)]["image"][0] \
+        .transpose(1, 2, 0)
     launches = collections.Counter()
     for rank in range(2):
         with open(f"{report}.{rank}.json") as f:
             line = json.load(f)
         shapes = {(k, tuple(q)): n for k, q, n in line.pop("shapes")}
-        want = RANK_FLASH[("sd1", "tp2")]
+        want = _rank_flash("sd1", "tp2", 20)
         rel, du8 = _rank_rel(pix, ref)
         phase("ranks", model="sd1", mode="tp2", via="torchrun cli",
               rank=rank, **line, call_s=secs, rel_l2=rel, max_u8_diff=du8,
@@ -4318,6 +4674,57 @@ def ranks_cli(tmp: str, ckpt: str) -> collections.Counter:
     if sorted(f for f in os.listdir(tmp) if f.startswith("ranks-cli")
               and f.endswith(".png")) != ["ranks-cli.png"]:
         raise AssertionError("torchrun cli: more than rank 0 wrote")
+    return launches
+
+
+# the CLI's vae-test on the ranks of the spawn (dp 2): the command line,
+# and the output each rank is asked for, in a directory of its own
+RANK_VAE_ARGV = ["vae-test", "-S", "1", "-q", "-o", "out.png"]
+
+
+def _rank_vae_test(ckpt: str, src: str, tmp: str) -> dict:
+    """This rank's ``vae-test`` at dp 2 through ``cli.main``, in a
+    directory of its own: exit code, files written, launches."""
+    d = os.path.join(tmp, f"rank-vae-{comm.rank()}")
+    os.makedirs(d)
+    cwd = os.getcwd()
+    os.chdir(d)
+    fa.reset_counts()
+    qmm.reset_counts()
+    t0 = time.time()
+    try:
+        rc = cli.main(RANK_VAE_ARGV + ["-m", ckpt, "-i", src, "--dp", "2"])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    return {"rc": rc, "seconds": time.time() - t0, "dir": d,
+            "files": sorted(os.listdir(d)),
+            "shapes": collections.Counter(fa.LAUNCH_SHAPES),
+            "launches": {k: v for k, v in _counts().items() if v}}
+
+
+def _check_rank_vae_test(lines, one: str) -> collections.Counter:
+    """Both ranks exit 0 with the VAE's two K2 launches; rank 0 alone
+    writes, its image against the one-rank CLI's."""
+    launches = collections.Counter()
+    for r, line in enumerate(lines):
+        shapes = line.pop("shapes")
+        rel = du8 = None
+        if r == 0 and line["files"] == ["out.png"]:
+            rel, du8 = _rank_rel(
+                image_mod.png_read(os.path.join(line["dir"], "out.png"))[0],
+                image_mod.png_read(one)[0])
+        phase("ranks", step="vae_test", rank=r, mesh={"dp": 2},
+              via="cli.main", rc=line["rc"], seconds=line["seconds"],
+              files=line["files"], launches=line["launches"], rel_l2=rel,
+              max_u8_diff=du8, limit=RANK_LIMIT)
+        if (line["rc"] != 0 or dict(shapes) != {(_K2, (1, 1, 4096, 512)): 2}
+                or line["files"] != (["out.png"] if r == 0 else [])
+                or (r == 0 and not rel <= RANK_LIMIT)):
+            raise AssertionError(f"rank vae-test {r}: exit {line['rc']}, "
+                                 f"launches {dict(shapes)}, files "
+                                 f"{line['files']}, relative L2 {rel}")
+        launches.update(line["launches"])
     return launches
 
 

@@ -1179,8 +1179,6 @@ class MLImgSynth:
             raise MlisError(MlisError.E_OPT_VALUE,
                             "--pp does not compose with --tp/--dp/--sp yet; "
                             "use pp alone")
-        if tp > 1 and self.qbits and self._wtype_set:
-            self._tp_quant_error()
         if tp * dp * sp * pp == 1:
             self._mesh = None
             return
@@ -1197,17 +1195,6 @@ class MLImgSynth:
         log.info(f"Mesh: dp={dp} pp={pp} sp={sp} tp={tp} over "
                  f"{self._mesh.world} ranks, this one {self._mesh.rank} on "
                  f"{self.device} ({comm.transport()})")
-
-    @staticmethod
-    def _tp_quant_error():
-        """tp with a quantized weight type: the JAX package leaves its
-        ``_q8`` weights whole on every device (no tp rule names them) and
-        splits only their biases, which the explicit head split here does
-        not reproduce."""
-        raise MlisError(MlisError.E_OPT_VALUE,
-                        "tp > 1 with a quantized weight type is not ported "
-                        "(the quantized linears are not split over tp); "
-                        "use a float weight type, or dp, sp or pp")
 
     def _pp_stage(self) -> pipe.Stage:
         """This rank's stage of the denoiser under pp, after the JAX
@@ -1235,7 +1222,8 @@ class MLImgSynth:
     def _shard(self, m, prefix: str, params):
         """``params`` of the module ``m`` at ``prefix`` cut to this
         rank's tp share (``m`` made that share too), where the mesh has
-        tp > 1 and the module takes it."""
+        tp > 1 and the module takes it.  A quantized module is quantized
+        whole before this (``tensor_parallel``'s docstring)."""
         mesh = self._mesh
         if (mesh is None or mesh.size(pmesh.TP_AXIS) == 1
                 or prefix not in _TP_MODELS):
@@ -1282,10 +1270,10 @@ class MLImgSynth:
                 err = MlisError(MlisError.E_UNKNOWN,
                                 f"control-net '{path}': {e}")
             else:
-                params = self._shard(m, "cnet.", params)
                 if self.qbits:
                     weights_mod.quantize_linear_weights(m, "cnet.", params,
                                                         self.qbits, None)
+                params = self._shard(m, "cnet.", params)
                 self._models["cnet."] = weights_mod.load_module(
                     m, "cnet.", params).eval()
                 self.resident.add("cnet.")
@@ -1398,8 +1386,6 @@ class MLImgSynth:
                     # float files keep the device's compute type
                     ft = weights_mod.stored_type(store, name_map)
                     self.qbits = _WEIGHT_TYPES.get(ft, (None, 0))[1]
-                if self.qbits and self.c["tp"] > 1:
-                    self._tp_quant_error()
                 # an inpaint-variant UNet (sd-v1-5-inpainting: 9 input
                 # channels) takes its input width from the checkpoint
                 # (``api.py:1053-1066``)
@@ -1462,11 +1448,17 @@ class MLImgSynth:
                     break
                 if prefix in _TOWERS:
                     self._grow_token_table(m, prefix, params)
-                params = self._shard(m, prefix, params)
                 if self.qbits:
+                    # quantized whole, then cut to the rank's share
                     n_q += weights_mod.quantize_linear_weights(
                         m, prefix, params, self.qbits,
                         m_hint if prefix == self._denoiser() else None)
+                params = self._shard(m, prefix, params)
+                if prefix == self._denoiser() and not encoders:
+                    # this rank's share of the denoiser (tp, pp)
+                    self.times["denoiser_bytes"] = sum(
+                        v.numel() * v.element_size()
+                        for v in params.values())
                 if encoders:     # the VAE encoder stays on the device
                     params = {k: v.to(self.device)
                               for k, v in params.items()}

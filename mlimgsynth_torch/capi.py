@@ -7,7 +7,11 @@ through this module: every function takes/returns only C-friendly values
 through ctypes trampolines built from their raw addresses.  A context's
 session is on the card unless the caller sets the ``backend`` option to
 ``cpu`` before ``mlis_setup`` (its device is resolved there; without a card
-and without ``cpu`` the setup fails).
+and without ``cpu`` the setup fails).  A C client started as several
+processes with torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and the option ``tp``
+(or ``dp``, ``sp``, ``pp``) joins the ranks' group when its context sets
+up; every process calls ``mlis_generate`` and holds the same image.
 
 :func:`build_shim` compiles the shim with ``cc`` against the repository's
 ``include/mlimgsynth.h`` into ``build/libmlimgsynth_torch.so`` on its first

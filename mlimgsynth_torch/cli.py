@@ -22,16 +22,18 @@ command's ``--upscale-factor`` and ``--upscale-tile``.
 session's error; there is no silent CPU fallback.  ``-t``/``--threads`` is
 accepted and stored.
 
-``--tp``, ``--dp``, ``--sp`` and ``--pp`` run ``generate`` on several
+``--tp``, ``--dp``, ``--sp`` and ``--pp`` run every command on several
 ranks, one process each, launched by torchrun (every rank runs the same
-command; rank 0 alone writes the image and prints)::
+command; rank 0 alone writes files and prints; ``serve`` binds its port on
+rank 0, and the other ranks follow its batches, ``server.Server.follow``)::
 
     torchrun --nproc-per-node 2 -m mlimgsynth_torch.cli generate --tp 2 \
         -m sd15.safetensors -p "..." -o out.png
+    torchrun --nproc-per-node 2 -m mlimgsynth_torch.cli serve --tp 2 \
+        -m sd15.safetensors --port 8188
 
-Without a process group of that many ranks the command exits 1 naming the
-torchrun line; the other commands (the server, the encoders, ...) on
-several ranks are not ported and exit 1.
+Without a process group of that many ranks every command exits 1 naming
+the torchrun line.
 
 The memory options ``--vae-tile`` and ``--unet-split``, the sampler and
 guidance options (``--cfg-rescale``, ``--subseed``, ``--method lcm``,
@@ -50,6 +52,8 @@ stage and control options (``--mask-blur``, ``--inpaint-full-res[-padding]``,
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import sys
 import time
@@ -182,7 +186,8 @@ Models and backend:
                        (batch-size a multiple of it, else replicated).
   --tp INT             Tensor-parallel ranks: Megatron-style split of the
                        UNet/DiT (and T5) attention/FF matmuls over the
-                       ranks (float weight types).
+                       ranks (every weight type; a quantized weight is
+                       split by whole 128-blocks, or kept whole).
   --sp INT             Sequence-parallel ranks: splits the attention token
                        axis over the ranks (ring attention; for the
                        long-sequence DiT families).
@@ -190,10 +195,11 @@ Models and backend:
                        block stacks into stages with microbatches streamed
                        between the ranks (each stage holds 1/pp of the
                        block weights; alone, not with tp/dp/sp).
-                       Ranks are processes: launch the generate command
-                       with torchrun --nproc-per-node tp*dp*sp*pp; ranks
-                       sharing one card (or on the CPU) talk over gloo,
-                       one card a rank over NCCL.
+                       Ranks are processes: launch any command with
+                       torchrun --nproc-per-node tp*dp*sp*pp (rank 0
+                       writes, prints and, for serve, binds the port);
+                       ranks sharing one card (or on the CPU) talk over
+                       gloo, one card a rank over NCCL.
 
 Sampling:
   -S --seed INT        RNG seed.
@@ -258,6 +264,8 @@ class CliState:
         self.opts: List = []
         self.done = False
         self.verbosity = 0
+        # False on a rank other than 0: the command writes no file
+        self.writes = True
 
 
 def parse_args(argv: List[str]) -> CliState:
@@ -330,8 +338,17 @@ def _load_tensor(path: str):
         raise MlisError(MlisError.E_IMAGE, f"{path}: {e}")
 
 
-def _save_image(img_u8, infotext: Optional[str], path: str) -> None:
+def _save_tensor(state: CliState, path: str, t) -> None:
     from .utils import image as image_mod
+    if state.writes:
+        image_mod.tensor_save(path, t)
+
+
+def _save_image(state: CliState, img_u8, infotext: Optional[str],
+                path: str) -> None:
+    from .utils import image as image_mod
+    if not state.writes:
+        return
     if path == "-":
         sys.stdout.buffer.write(image_mod.ppm_bytes(img_u8))
         sys.stdout.buffer.flush()
@@ -381,8 +398,8 @@ def cmd_generate(session, state: CliState) -> int:
                            _load_image(paths["control-image"]))
     session.generate()
     if state.paths["olatent"]:
-        image_mod.tensor_save(state.paths["olatent"],
-                              session.tensors["latent"])
+        _save_tensor(state, state.paths["olatent"],
+                     session.tensors["latent"])
     img = session.tensors["image"]
     if state.paths["output"] and img is not None:     # not with --no-decode
         for idx in range(img.shape[0]):
@@ -390,7 +407,7 @@ def cmd_generate(session, state: CliState) -> int:
             if img.shape[0] > 1 and path != "-":
                 stem, ext = os.path.splitext(path)
                 path = f"{stem}-{idx}{ext}"
-            _save_image(image_mod.tensor_to_image_arr(img, idx),
+            _save_image(state, image_mod.tensor_to_image_arr(img, idx),
                         session.infotext, path)
     return 0
 
@@ -417,7 +434,8 @@ def cmd_upscale(session, state: CliState) -> int:
     except ValueError as e:
         raise MlisError(MlisError.E_OPT_VALUE, str(e))
     out = session.upscale(t, resize=factor, tile=tile)
-    _save_image(image_mod.tensor_to_image_arr(out), None, paths["output"])
+    _save_image(state, image_mod.tensor_to_image_arr(out), None,
+                paths["output"])
     return 0
 
 
@@ -439,7 +457,7 @@ def cmd_vae(session, state: CliState, encode: bool, decode: bool) -> int:
         latent = session.image_encode(t)
         session.tensors["latent"] = latent
         if state.paths["olatent"]:
-            image_mod.tensor_save(state.paths["olatent"], latent)
+            _save_tensor(state, state.paths["olatent"], latent)
     else:
         if not state.paths["ilatent"]:
             raise MlisError(MlisError.E_FILE_NOT_FOUND,
@@ -449,9 +467,9 @@ def cmd_vae(session, state: CliState, encode: bool, decode: bool) -> int:
         img_t = session.image_decode(session.tensors["latent"])
         session.tensors["image"] = img_t
         if state.paths["output"]:
-            _save_image(image_mod.tensor_to_image_arr(img_t), None,
+            _save_image(state, image_mod.tensor_to_image_arr(img_t), None,
                         state.paths["output"])
-    if encode and decode:
+    if encode and decode and state.writes:
         rmse = float(np.sqrt(np.mean((orig - session.tensors["image"])
                                      ** 2)))
         psnr = 20 * np.log10(1.0 / rmse) if rmse > 0 else float("inf")
@@ -472,11 +490,11 @@ def cmd_clip_encode(session, state: CliState) -> int:
     except KeyError:
         has_proj = False
         embed, feat = session.clip_text_encode(text, want_feat=False)
-    image_mod.tensor_save("clip-embed.tensor",
-                          embed[:, :, :, None].transpose(0, 3, 1, 2))
+    _save_tensor(state, "clip-embed.tensor",
+                 embed[:, :, :, None].transpose(0, 3, 1, 2))
     if has_proj and feat is not None:
-        image_mod.tensor_save("clip-feat.tensor",
-                              feat[:, :, None, None].transpose(0, 2, 3, 1))
+        _save_tensor(state, "clip-feat.tensor",
+                     feat[:, :, None, None].transpose(0, 2, 3, 1))
     return 0
 
 
@@ -624,22 +642,29 @@ def main(argv: Optional[List[str]] = None) -> int:
               file=sys.stderr)
         return 1
     ranks = _mesh_ranks(opts)
-    if ranks > 1 and state.cmd != "generate":
-        print(f"error: '{state.cmd}' on several ranks (--tp/--dp/--sp/--pp) "
-              "is not ported; only generate runs on ranks", file=sys.stderr)
-        return 1
     from .parallel import comm
     # the ranks' group from torchrun's environment, where none is up yet
     started = (ranks > 1 and comm.world_size() == 1
                and comm.init(_DEVICES[backend]))
-    if comm.rank() != 0:
-        # every rank runs the request; rank 0 alone writes and prints
-        for k in ("output", "olatent"):
-            state.paths[k] = None
+    if ranks > 1 and comm.world_size() != ranks:
+        print(f"error: --tp/--dp/--sp/--pp ask for {ranks} ranks, have "
+              f"{comm.world_size()}: launch with `torchrun --nproc-per-node "
+              f"{ranks} -m mlimgsynth_torch.cli {state.cmd} ...`",
+              file=sys.stderr)
+        if started:
+            comm.shutdown()
+        return 1
+    # every rank runs the command; rank 0 alone writes and prints (its
+    # errors every rank prints)
+    state.writes = comm.rank() == 0
+    quiet = contextlib.nullcontext()
+    if not state.writes:
         state.verbosity = -2
         log.level = 0
+        quiet = contextlib.redirect_stdout(io.StringIO())
     try:
-        return _run(state, opts, backend)
+        with quiet:
+            return _run(state, opts, backend)
     finally:
         if started:
             comm.shutdown()

@@ -65,15 +65,22 @@ class QLinear(nn.Module):
     an 8-bit weight stored per column (``percol``, the DiT families' W8A8
     candidates).  The bias stays in the compute dtype and is added after
     the product.  The product goes to ``ops/quant_matmul``: a CUDA kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors.
+
+    ``plan_kn``: the (K, N) of the whole weight where this module holds a tp
+    rank's share of it (``parallel/tensor_parallel.py``): the per-column
+    weight's route (``pick_large_m_plan``) is decided on the whole weight,
+    as one rank decides it."""
 
     def __init__(self, n_in: int, n_out: int, bits: int, bias: bool = True,
-                 percol: bool = False):
+                 percol: bool = False, plan_kn=None):
         super().__init__()
         if bits not in (4, 8) or n_in % 128 or (percol and bits != 8):
             raise ValueError(f"QLinear: {bits}-bit, input width {n_in}, "
                              f"per column {percol}")
         self.bits = bits
+        self.in_features, self.out_features = n_in, n_out
+        self.plan_kn = tuple(plan_kn or (n_in, n_out))
         self.register_buffer(
             "weight_q4" if bits == 4 else "weight_q8",
             torch.empty(n_out, n_in // 2 if bits == 4 else n_in,
@@ -82,11 +89,15 @@ class QLinear(nn.Module):
             (n_out,) if percol else (n_out, n_in // 128)))
         self.bias = nn.Parameter(torch.empty(n_out)) if bias else None
 
-    def forward(self, x):
+    def product(self, x):
+        """x . deq(W)^T, without the bias."""
         if self.bits == 4:
-            y = qmm.q4_dot(x, self.weight_q4, self.weight_scale)
-        else:
-            y = qmm.q8_dot(x, self.weight_q8, self.weight_scale)
+            return qmm.q4_dot(x, self.weight_q4, self.weight_scale)
+        return qmm.q8_dot(x, self.weight_q8, self.weight_scale,
+                          plan_kn=self.plan_kn)
+
+    def forward(self, x):
+        y = self.product(x)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 

@@ -23,15 +23,12 @@ from ..parallel import mesh as pmesh
 from . import flash_attention as fa
 
 
-def attention_xla(q, k, v, scale=None, causal: bool = False):
-    """Plain attention.  q, k, v: [B, H, Sq|Sk, D] -> [B, H, Sq, D].
+# query rows a block of the host's plain attention (:func:`attention_xla`)
+HOST_ROWS = 256
 
-    Logits and softmax in f32 whatever the input dtype; the probabilities
-    are cast back to the input dtype before the product with v (as
-    ``attention_xla`` in the JAX package)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+def _attend(q, kt, v, scale, causal: bool):
+    logits = torch.matmul(q.float(), kt) * scale
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(sq, sk, dtype=torch.bool,
@@ -39,6 +36,26 @@ def attention_xla(q, k, v, scale=None, causal: bool = False):
         logits = logits.masked_fill(~keep, float("-inf"))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(w, v)
+
+
+def attention_xla(q, k, v, scale=None, causal: bool = False):
+    """Plain attention.  q, k, v: [B, H, Sq|Sk, D] -> [B, H, Sq, D].
+
+    Logits and softmax in f32 whatever the input dtype; the probabilities
+    are cast back to the input dtype before the product with v (as
+    ``attention_xla`` in the JAX package).  On the host a non-causal one
+    runs HOST_ROWS query rows at a time: each row's sums are the same, and
+    a block's logits stay in cache instead of a [B, H, Sq, Sk] f32 array
+    going through memory three times."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    kt = k.float().transpose(-1, -2)
+    sq = q.shape[-2]
+    if q.is_cuda or causal or sq <= HOST_ROWS:
+        return _attend(q, kt, v, scale, causal)
+    return torch.cat([_attend(q[..., i:i + HOST_ROWS, :], kt, v, scale,
+                              False) for i in range(0, sq, HOST_ROWS)],
+                     dim=-2)
 
 
 def flash_attention_compatible(q, k, v, causal: bool = False) -> bool:

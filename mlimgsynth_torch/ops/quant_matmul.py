@@ -259,12 +259,15 @@ def _rows(x) -> int:
     return x.numel() // x.shape[-1]
 
 
-def q8_dot(x, w_q8, w_scale):
+def q8_dot(x, w_q8, w_scale, plan_kn=None):
     """Dispatch a q8 product (ref: ``q8_dot``).  ``w_scale`` [N] marks a
-    weight stored per column; ``MLIS_Q8_MODE`` is read on every call."""
+    weight stored per column; ``MLIS_Q8_MODE`` is read on every call.
+    ``plan_kn``: the (K, N) of the whole weight when ``w_q8`` holds a tp
+    rank's rows of it; the route is the whole weight's."""
     if w_scale.dim() == 1:
         n, k = w_q8.shape
-        sel = pick_large_m_plan(_rows(x), k, n, x.element_size(),
+        k_all, n_all = plan_kn or (k, n)
+        sel = pick_large_m_plan(_rows(x), k_all, n_all, x.element_size(),
                                 percol=True)
         if sel is not None and sel[0] == "int8ws":
             return q8_matmul_ws_int8(x, w_q8, w_scale)

@@ -14,11 +14,15 @@ The JAX package's collectives are XLA's over ICI; here they are
 - :func:`all_reduce_sum`, :func:`all_gather`, :func:`ring_shift`,
   :func:`send` / :func:`recv` and :func:`broadcast` are the collectives the
   modes need; a bf16 tensor that is only moved travels as its bytes.
+- :func:`broadcast_object` (a pickled request, as a length and then its
+  bytes) and :func:`broadcast_flag` (one bool) carry the server's batches
+  and its cancellation decisions from rank 0 to the other ranks.
 """
 from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -133,6 +137,37 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     h = _host(t)
     dist.broadcast(_bits(h), src, group=group)
     return h.to(t.device, non_blocking=True)
+
+
+def _host_device(group) -> torch.device:
+    """Where a host value travels for ``group``: the card under NCCL, the
+    host under gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """``obj`` of the global rank ``src`` on every rank of ``group`` (the
+    default group when None): pickled, sent as its length and then its
+    bytes; the other ranks pass anything and get ``src``'s object."""
+    dev = _host_device(group)
+    mine = dist.get_rank() == src
+    data = pickle.dumps(obj) if mine else b""
+    n = broadcast(torch.tensor([len(data)], dtype=torch.int64, device=dev),
+                  src, group)
+    buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+           if mine else torch.empty(int(n.item()), dtype=torch.uint8,
+                                    device=dev))
+    buf = broadcast(buf, src, group)
+    return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def broadcast_flag(flag: bool, src: int = 0, group=None) -> bool:
+    """``src``'s ``flag`` on every rank of ``group`` (one byte)."""
+    t = torch.tensor([1 if flag else 0], dtype=torch.uint8,
+                     device=_host_device(group))
+    return bool(broadcast(t, src, group).item())
 
 
 def send(t: torch.Tensor, dst: int, group):

@@ -17,6 +17,23 @@ share, and slices its float state dict to match:
 - the attention modules run n_head / tp heads, and T5's relative-position
   bias keeps its rank's heads (``[buckets, n_head]`` sliced by column).
 
+A quantized linear (``blocks.QLinear``) is quantized whole first, so that
+every decision keyed on its shape (per-column storage, its uniformity
+group, the W8A8 slab, the route) is one rank's; then:
+
+- column-parallel, a rank keeps its rows of the int8 / packed int4 weight
+  and of its scales (per block or per column): the whole product's rows,
+  bit for bit;
+- row-parallel, a per-block weight keeps its whole 128-blocks of K (and of
+  the scales) where every part's share is a multiple of 128, so that each
+  activation block of the ``MLIS_Q8_MODE=int8`` route is quantized as on
+  one rank (:class:`QRowLinear`, partial products summed in f32 as
+  :class:`RowLinear`); a per-column weight (the W8A8 route's, whose
+  activations are quantized per slab of the whole K), and a weight whose
+  K does not split into whole blocks, stays whole on every rank with its
+  input all-gathered (:class:`QGatherLinear`): its product is one rank's,
+  bit for bit, as the JAX package keeps every quantized weight whole.
+
 Which models take tp is the session's choice (the UNet, ControlNet, the
 DiTs and T5; CLIP and the VAE stay whole on every rank).
 """
@@ -30,6 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..errors import MlisError
+from ..models.blocks import QLinear
+from ..ops import quant
 from . import comm
 from .mesh import TP_AXIS, param_spec
 
@@ -48,6 +67,93 @@ class RowLinear(nn.Linear):
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(x.dtype)
+
+
+class QRowLinear(QLinear):
+    """A row-parallel quantized linear: this rank's whole 128-blocks of the
+    input (:class:`RowLinear`'s sum and bias)."""
+
+    group = None
+
+    def forward(self, x):
+        y = comm.all_reduce_sum(self.product(x).float(), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+class QGatherLinear(QLinear):
+    """A quantized linear kept whole on every rank behind a column-parallel
+    one: the ranks' input shares are gathered (each fused part's shares in
+    rank order) and the whole product runs on every rank."""
+
+    group = None
+    parts: List[int] = []
+    tp = 1
+
+    def forward(self, x):
+        return super().forward(gather_parts(x, self.parts, self.tp,
+                                            self.group))
+
+
+def gather_parts(x: torch.Tensor, parts: List[int], tp: int, group
+                 ) -> torch.Tensor:
+    """The whole last dimension from the ranks' shares of it: each rank
+    holds its share of every part of ``parts`` (:func:`_take`); the result
+    holds every part whole, in order."""
+    g = comm.all_gather(x, group, dim=-1)
+    share = x.shape[-1]
+    out = []
+    o = 0
+    for p in parts:
+        w = p // tp
+        out += [g.narrow(-1, r * share + o, w) for r in range(tp)]
+        o += w
+    return torch.cat(out, dim=-1)
+
+
+def _q_splits_rows(m: QLinear, parts: List[int], tp: int) -> bool:
+    """Whether a row-parallel quantized linear keeps its share of K: a
+    per-block weight whose every part's share is whole 128-blocks (an
+    activation block never spans two ranks)."""
+    return m.weight_scale.dim() == 2 and all(
+        p % tp == 0 and (p // tp) % quant.KBLOCK == 0 for p in parts)
+
+
+def _shard_q(m: QLinear, full: str, out: Dict[str, torch.Tensor], col: bool,
+             parts: List[int], tp: int, r: int, group) -> nn.Module:
+    """Rank ``r``'s module for the quantized linear ``m`` at ``full``, its
+    tensors in ``out`` cut to match (module docstring)."""
+    bits = m.bits
+    wkey = f"{full}.weight_q{bits}"
+    skey = full + ".weight_scale"
+    percol = out[skey].dim() == 1
+    bias = m.bias is not None
+    kn = (m.in_features, m.out_features)
+    if col:
+        out[wkey] = _take(out[wkey], 0, parts, tp, r)
+        out[skey] = _take(out[skey], 0, parts, tp, r)
+        if bias:
+            out[full + ".bias"] = _take(out[full + ".bias"], 0, parts, tp, r)
+        n_out = out[skey].shape[0]
+        with torch.device("meta"):
+            return QLinear(m.in_features, n_out, bits, bias, percol, kn)
+    if _q_splits_rows(m, parts, tp):
+        per_byte = 2 if bits == 4 else 1
+        out[wkey] = _take(out[wkey], 1, [p // per_byte for p in parts], tp,
+                          r)
+        out[skey] = _take(out[skey], 1, [p // quant.KBLOCK for p in parts],
+                          tp, r)
+        with torch.device("meta"):
+            new = QRowLinear(m.in_features // tp, m.out_features, bits, bias,
+                             percol, kn)
+    else:
+        with torch.device("meta"):
+            new = QGatherLinear(m.in_features, m.out_features, bits, bias,
+                                percol)
+        new.parts, new.tp = parts, tp
+    new.group = group
+    return new
 
 
 def _parts(name: str, n_out: int, n_in: int, col: bool) -> List[int]:
@@ -81,15 +187,33 @@ def _take(t: torch.Tensor, dim: int, parts: List[int], tp: int,
     return torch.cat(out, dim=dim).contiguous()
 
 
+def _replace(model: nn.Module, name: str, new: nn.Module) -> None:
+    parent, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(parent) if parent else model
+    if isinstance(owner, (nn.ModuleDict, nn.ModuleList)):
+        owner[leaf] = new
+    else:
+        setattr(owner, leaf, new)
+
+
 def shard(model: nn.Module, prefix: str, params: Dict[str, torch.Tensor],
           tp: int, r: int, group) -> Dict[str, torch.Tensor]:
-    """Make ``model`` (on the meta device, its full geometry) rank ``r``'s
-    tp share in place, and return ``params`` (its full float state dict
-    under ``prefix``) sliced to match."""
+    """Make ``model`` (on the meta device, its full geometry, its linears
+    quantized or not) rank ``r``'s tp share in place, and return ``params``
+    (its full state dict under ``prefix``) sliced to match."""
     out = dict(params)
     for name, m in list(model.named_modules()):
         full = prefix + name
-        if isinstance(m, nn.Linear):
+        if isinstance(m, QLinear):
+            spec = param_spec(full + ".weight", 2)
+            if TP_AXIS not in spec:
+                continue
+            col = spec[1] == TP_AXIS
+            new = _shard_q(m, full, out, col,
+                           _parts(full, m.out_features, m.in_features, col),
+                           tp, r, group)
+            _replace(model, name, new)
+        elif isinstance(m, nn.Linear):
             spec = param_spec(full + ".weight", 2)
             if TP_AXIS not in spec:
                 continue
@@ -108,12 +232,7 @@ def shard(model: nn.Module, prefix: str, params: Dict[str, torch.Tensor],
                                                         bias=bias)
             if not col:
                 new.group = group
-            parent, _, leaf = name.rpartition(".")
-            owner = model.get_submodule(parent) if parent else model
-            if isinstance(owner, (nn.ModuleDict, nn.ModuleList)):
-                owner[leaf] = new
-            else:
-                setattr(owner, leaf, new)
+            _replace(model, name, new)
         elif name.endswith("SelfAttention") and hasattr(
                 m, "relative_attention_bias"):
             key = full + ".relative_attention_bias.weight"

@@ -49,6 +49,21 @@ Endpoints:
 
 Run: python -m mlimgsynth_torch.server -m MODEL [--port 8188]  or
      python -m mlimgsynth_torch.cli serve -m MODEL
+
+**On ranks** (the session options tp, dp, sp, pp, e.g. ``-o tp=2``; every
+rank the same command under torchrun): the sessions set up on every rank
+first, which joins the ranks' group.  Rank 0 binds the port and runs
+everything above.  Every other rank serves no HTTP and runs
+:meth:`Server.follow`: for each batch rank 0 broadcasts what a follower
+needs to make the same ``generate_batch`` call (the model's name, the
+options it set, the entries, the init latents and latent mask), and at
+every step callback rank 0's cancellation decision, so that every rank
+leaves the loop at the same step.  Previews are made on rank 0 only.  A
+hot-loaded model loads on every rank.  :meth:`Server.stop` ends the
+followers.
+
+    torchrun --nproc-per-node 2 -m mlimgsynth_torch.cli serve --tp 2 \
+        -m sd15.safetensors --port 8188
 """
 from __future__ import annotations
 
@@ -64,6 +79,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .parallel import comm
 from .utils import image as image_mod
 
 # options shared by a whole device batch: requests are only merged when all
@@ -414,10 +430,16 @@ class Server:
         self.cond = threading.Condition()
         self.running: List[_Pending] = []
         self.running_lock = threading.Lock()
+        self.stopping = False
         self.worker = None
         if start_worker:
             self.worker = threading.Thread(target=self._worker, daemon=True)
             self.worker.start()
+
+    def ranked(self) -> bool:
+        """Whether the sessions run on ranks (their mesh resolved at
+        setup): the batches are then broadcast to the followers."""
+        return self.session._mesh is not None
 
     # -- client side -------------------------------------------------------
 
@@ -569,11 +591,22 @@ class Server:
 
     # -- worker side ---------------------------------------------------
 
+    def stop(self) -> None:
+        """End the worker once the queue is empty; on ranks it tells the
+        followers to return."""
+        with self.cond:
+            self.stopping = True
+            self.cond.notify()
+
     def _worker(self):
         while True:
             with self.cond:
-                while not self.queue:
+                while not self.queue and not self.stopping:
                     self.cond.wait()
+                if not self.queue:
+                    if self.ranked():
+                        comm.broadcast_object(None, 0)
+                    return
                 first = self.queue.pop(0)
             # visible to cancel() immediately: a popped request must never
             # be in neither list (cancel would report 'not found' and the
@@ -593,13 +626,47 @@ class Server:
                         i += 1
             self._run_batch(batch)
 
+    def follow(self) -> None:
+        """A follower rank's loop (module docstring): rank 0's batches, each
+        run as the same ``generate_batch`` call, until rank 0 stops.  An
+        error that rank 0 meets too (an option refused, the batch
+        cancelled) ends the batch; any other one raises."""
+        from .api import Aborted, MlisError
+        while True:
+            msg = comm.broadcast_object(None, 0)
+            if msg is None:
+                return
+            s = self.resolve_model(msg["model"])
+            if s is None:
+                raise RuntimeError(f"follower: unknown model "
+                                   f"'{msg['model']}'")
+            for name, vals in msg["opts"]:
+                s.option_set(name, *vals)
+            try:
+                s.generate_batch(
+                    msg["entries"],
+                    step_callback=lambda i, n: comm.broadcast_flag(False, 0),
+                    init_latents=msg["init_latents"],
+                    init_lmask=msg["init_lmask"],
+                    preview_chunk=msg["preview_chunk"])
+            except (MlisError, Aborted):
+                continue
+
     def _run_batch(self, batch: List[_Pending]):
         t0 = time.time()
         with self.running_lock:
             self.running = batch
+        ranked = self.ranked()
+        sets = []       # the option_set calls, for the followers
+
+        def setopt(s, name, *vals):
+            s.option_set(name, *vals)
+            sets.append((name, vals))
+
         try:
             r0 = batch[0].req
             model = r0.get("model") or self.default_model
+            asked = model
             s = self.resolve_model(model)
             if s is None:
                 raise RuntimeError(f"unknown model '{model}'")
@@ -610,16 +677,16 @@ class Server:
             w = int(r0.get("width", 0))
             h = int(r0.get("height", 0))
             if w or h:
-                s.option_set("image-dim", w or h, h or w)
+                setopt(s, "image-dim", w or h, h or w)
             elif defaults_dim and any(defaults_dim):
-                s.option_set("image-dim", *defaults_dim)
+                setopt(s, "image-dim", *defaults_dim)
             for key, opt in _SHARED_OPTS.items():
                 if key in r0:
-                    s.option_set(opt, r0[key])
+                    setopt(s, opt, r0[key])
                 elif defaults.get(opt) is not None:
                     # omitted option = launch default, not the previous
                     # batch's leftover value
-                    s.option_set(opt, defaults[opt])
+                    setopt(s, opt, defaults[opt])
             entries, slices, init_imgs, init_masks = [], [], [], []
             fullres_orig = []   # (entry_index, orig_img, orig_mask, box)
             use_img2img = bool(r0.get("image"))
@@ -698,7 +765,7 @@ class Server:
                 # VAE latent sampling draws from the session rng; re-seed
                 # from the request so identical requests reproduce exactly
                 if r0.get("seed") is not None:
-                    s.option_set("seed", int(r0["seed"]))
+                    setopt(s, "seed", int(r0["seed"]))
                 # one batched encode for the whole merged batch
                 init_lat = s.image_encode(np.concatenate(init_imgs, 0))
             if use_mask:
@@ -712,8 +779,18 @@ class Server:
                     f"[serve] merged {len(batch)} requests into one "
                     f"device batch of {len(entries)}\n")
 
+            preview_chunk = int(r0.get("preview_every", 0) or 0)
+            if ranked:
+                # the followers' same call; rank 0's cancellation decision
+                # goes to them at every step callback
+                comm.broadcast_object({
+                    "model": asked, "opts": sets, "entries": entries,
+                    "init_latents": init_lat, "init_lmask": init_lmask,
+                    "preview_chunk": preview_chunk}, 0)
+
             def cb(i_step, n_step):
-                return all(p.cancelled for p in batch)
+                stop = all(p.cancelled for p in batch)
+                return comm.broadcast_flag(stop, 0) if ranked else stop
 
             pv_cb = None
             if r0.get("preview"):
@@ -734,7 +811,7 @@ class Server:
             imgs, infos = s.generate_batch(
                 entries, step_callback=cb, init_latents=init_lat,
                 init_lmask=init_lmask, preview_callback=pv_cb,
-                preview_chunk=int(r0.get("preview_every", 0) or 0))
+                preview_chunk=preview_chunk)
             if fullres_orig:
                 # merged requests share one original size (merge key);
                 # paste each crop back into its own original
@@ -1316,11 +1393,13 @@ def serve(session, port: int = 8188, host: str = "127.0.0.1",
     # cancellation and previews are checked after every chunk of steps
     os.environ.setdefault("MLIS_PROGRESS_CHUNK", "4")
     srv = Server(session, model_dir=model_dir, weight_type=weight_type,
-                 launch_opts=launch_opts)
+                 launch_opts=launch_opts, start_worker=False)
     if styles:
         srv.styles = load_styles(styles)
         sys.stderr.write(f"[serve] {len(srv.styles)} prompt styles\n")
-    if warmup:
+    # on ranks every session sets up on every rank, in one order: that
+    # joins the ranks' group and makes the mesh's groups, collectively
+    if warmup or _mesh_opts(srv.session):
         for ses in srv.sessions.values():
             if ses.c["model"]:
                 ses.setup()
@@ -1329,9 +1408,23 @@ def serve(session, port: int = 8188, host: str = "127.0.0.1",
             if ses.c["model"]:
                 dt = warmup_generate(ses)
                 sys.stderr.write(f"[serve] warmed '{name}' in {dt:.1f}s\n")
+    if _mesh_opts(srv.session) and not srv.ranked():
+        raise RuntimeError("serve: the mesh options need a model to set up "
+                           "on every rank (-m)")
+    if srv.ranked() and comm.rank() != 0:
+        srv.follow()
+        return
+    srv.worker = threading.Thread(target=srv._worker, daemon=True)
+    srv.worker.start()
     httpd = ThreadingHTTPServer((host, port), make_handler(srv))
     sys.stderr.write(f"[serve] listening on http://{host}:{port}\n")
     httpd.serve_forever()
+
+
+def _mesh_opts(session) -> bool:
+    """Whether the session's options ask for several ranks."""
+    c = session.c
+    return c["tp"] * c["dp"] * c["sp"] * c["pp"] > 1
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -1373,7 +1466,8 @@ def build_sessions(model_specs, weight_type="", opts=()):
     options (-o NAME=VALUE) applied to every model through the same
     string-option surface the CLI and C ABI use.  Each session is on the
     card unless ``-o backend=cpu`` asks for the CPU (its device is resolved
-    at its first setup)."""
+    at its first setup).  ``-o tp=2`` and the other mesh options put the
+    sessions on ranks: the mesh resolves at their first setup."""
     from .api import MLImgSynth
     sessions = {}
     for i, spec in enumerate(model_specs):

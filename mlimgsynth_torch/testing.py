@@ -885,6 +885,10 @@ ATTN_CASES = [
      "SD1.5 under tp = 2 (a rank's 4 of 8 heads), UNet level 0"),
     ("flash_attn_fwd", (2, 4, 1024, 80), 1024,
      "SD1.5 under tp = 2 (a rank's 4 of 8 heads), UNet level 1"),
+    ("flash_attn_fwd", (8, 4, 4096, 40), 4096,
+     "SD1.5 merged batch of 4 served under tp = 2, UNet level 0"),
+    ("flash_attn_fwd", (8, 4, 1024, 80), 1024,
+     "SD1.5 merged batch of 4 served under tp = 2, UNet level 1"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
@@ -1018,6 +1022,23 @@ QUANT_CASES = [
     ("tile", 256, 3072, 12288, "Flux-schnell txt_mlp.0, 256 T5 tokens"),
     ("tile", 1, 3072, 18432, "Flux double-block modulation"),
     ("tile", 77, 768, 200, "ragged M and N"),
+    ("ws", 8192, 640, 320, "SD1.5 tp 2: ff.net.2 share (K 1280 / 2), "
+     "64x64 level"),
+    ("ws", 2048, 640, 320, "SD1.5 tp 2: attention q/k/v share, 32x32"),
+    ("ws", 2048, 640, 2560, "SD1.5 tp 2: ff.net.0.proj share, 32x32"),
+    ("ws", 2048, 1280, 640, "SD1.5 tp 2: ff.net.2 share (K 2560 / 2), "
+     "32x32"),
+    ("tile", 512, 1280, 640, "SD1.5 tp 2: attention q/k/v share, 16x16"),
+    ("tile", 512, 640, 1280, "SD1.5 tp 2: attention out_proj share "
+     "(K 1280 / 2), 16x16"),
+    ("tile", 512, 1280, 5120, "SD1.5 tp 2: ff.net.0.proj share, 16x16"),
+    ("tile", 512, 2560, 1280, "SD1.5 tp 2: ff.net.2 share (K 5120 / 2), "
+     "16x16"),
+    ("tile", 154, 768, 320, "SD1.5 tp 2: cross-attention k/v share, "
+     "32x32"),
+    ("tile", 308, 1536, 2304, "SD3 tp 2: context attn.qkv share (N 2304, "
+     "no multiple of 80 or 160)"),
+    ("tile", 308, 1536, 3072, "SD3 tp 2: context mlp.fc1 share"),
 ]
 
 # Limits of a kernel's output against its twin's, on x ~ N(0, 1) and a
@@ -1078,6 +1099,8 @@ INT8_CASES = [
     (2048, 1536, 640, "tile width 80"),
     (300, 768, 200, "ragged M and N, slab 256"),
     (77, 640, 72, "ragged M and N, slab 640"),
+    (8192, 1536, 2304, "SD3 tp 2: x_block attn.qkv share (N 2304)"),
+    (8192, 1536, 3072, "SD3 tp 2: x_block mlp.fc1 share"),
 ]
 
 # Limits of the W8A8 kernel against its twin, on x ~ N(0, 1) in bf16 and a
@@ -1132,6 +1155,11 @@ Q8_INT8_CASES = [
     (1, 3072, 18432, "Flux double-block modulation"),
     (4097, 640, 200, "ragged M and N"),
     (77, 1280, 72, "ragged M and N"),
+    (8192, 640, 320, "SD1.5 tp 2: ff.net.2 share, 64x64 level"),
+    (2048, 640, 2560, "SD1.5 tp 2: ff.net.0.proj share, 32x32 level"),
+    (2048, 1280, 640, "SD1.5 tp 2: ff.net.2 share, 32x32 level"),
+    (512, 1280, 640, "SD1.5 tp 2: attention q/k/v share, 16x16 level"),
+    (512, 640, 1280, "SD1.5 tp 2: attention out_proj share, 16x16 level"),
 ]
 
 # Its limits are those of the per-column kernel, for the same reasons: both

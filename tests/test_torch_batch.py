@@ -21,6 +21,7 @@ from helpers import (TINY_MODEL_TYPE_REFINER, TINY_MODEL_TYPE_XL,
 from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 REQUESTS = [{"prompt": "a cat on a sofa", "nprompt": "blurry", "seed": 5},
             {"prompt": "a [dog:bird:1] in the snow"},

@@ -18,6 +18,7 @@ import torch
 from mlimgsynth_tpu.models import blocks as JB
 from mlimgsynth_torch.models import blocks as TB
 from mlimgsynth_torch.weights import params_from_jax
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 def _nchw(a):

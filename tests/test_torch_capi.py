@@ -8,9 +8,15 @@ progress callback, and writes the image's bytes; they equal the port's
 Python session on the same options.  A context without ``backend cpu``
 resolves its device at setup: the card, or an error without one.  No jax
 is loaded in the program (the port's modules only).
+
+The same program started as two processes with torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``) and the option
+``tp`` 2 joins the ranks' group when its context sets up; both generate,
+and rank 0's image is within one u8 level of the one-process image.
 """
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -65,6 +71,8 @@ int main(int argc, char **argv)
 		>= 0, "callback");
 	CHECK(mlis_option_set(ctx, MLIS_OPT_PROMPT, "a (cat:1.2) photo") >= 0,
 		"prompt");
+	if (argc > 3)   /* on ranks: the tp option */
+		CHECK(mlis_option_set_str(ctx, "tp", argv[3]) >= 0, "tp");
 	{
 		const char *v = NULL;
 		CHECK(mlis_option_get(ctx, MLIS_OPT_BACKEND, &v) >= 0 && v &&
@@ -134,10 +142,13 @@ def test_shim_copy_differs_only_in_module_name():
     assert "mlimgsynth_tpu" not in port
 
 
-def test_shim_generates_on_cpu(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def program(tmp_path_factory):
+    """(the compiled C program, the tiny checkpoint, its environment)."""
+    d = tmp_path_factory.mktemp("capi")
     lib = capi.build_shim()
     assert capi.build_shim() == lib      # built once
-    src, exe = tmp_path / "drive.c", tmp_path / "drive"
+    src, exe = d / "drive.c", d / "drive"
     src.write_text(PROGRAM)
     r = subprocess.run(["cc", "-O1", f"-I{REPO}/include", "-o", str(exe),
                         str(src), f"-L{os.path.dirname(lib)}",
@@ -145,14 +156,37 @@ def test_shim_generates_on_cpu(tmp_path, monkeypatch):
                         f"-Wl,-rpath,{os.path.dirname(lib)}"],
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    ckpt = tmp_path / "tiny.safetensors"
+    ckpt = d / "tiny.safetensors"
     T.write_random_checkpoint(ckpt, T.TINY_MODEL_TYPE, seed=3,
                               dtype=np.float32)
-    site = tmp_path / "site"
+    site = d / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
-    env = dict(os.environ, MLIS_PY_PATH=REPO,
+    env = dict(os.environ, MLIS_PY_PATH=REPO, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(site), REPO]))
+    return exe, ckpt, env
+
+
+def _image(path):
+    return np.fromfile(path, np.uint8).reshape(64, 64, 3)
+
+
+def _session_image(ckpt, monkeypatch):
+    """The port's Python session's image of the program's options."""
+    monkeypatch.setattr(torch_api, "_model_types",
+                        lambda: {"sd1": T.TINY_MODEL_TYPE})
+    s = torch_api.MLImgSynth(device="cpu")
+    for k, v in [("model", str(ckpt)), ("seed", 42), ("steps", 2),
+                 ("image-dim", 64), ("weight-type", "f32"),
+                 ("prompt", "a (cat:1.2) photo")]:
+        s.option_set(k, v)
+    img = s.generate()
+    return np.clip(img[0] * 255.0, 0, 255).astype(np.uint8).transpose(
+        1, 2, 0)
+
+
+def test_shim_generates_on_cpu(tmp_path, monkeypatch, program):
+    exe, ckpt, env = program
     r = subprocess.run([str(exe), str(ckpt), str(tmp_path / "img.u8")],
                        capture_output=True, text=True, env=env,
                        cwd=str(tmp_path), timeout=600)
@@ -163,16 +197,41 @@ def test_shim_generates_on_cpu(tmp_path, monkeypatch):
     assert code < 0 if not torch.cuda.is_available() else code >= 0
     if not torch.cuda.is_available():
         assert "no CUDA device" in r.stdout
-    got = np.fromfile(tmp_path / "img.u8", np.uint8).reshape(64, 64, 3)
-
-    monkeypatch.setattr(torch_api, "_model_types",
-                        lambda: {"sd1": T.TINY_MODEL_TYPE})
-    s = torch_api.MLImgSynth(device="cpu")
-    for k, v in [("model", str(ckpt)), ("seed", 42), ("steps", 2),
-                 ("image-dim", 64), ("weight-type", "f32"),
-                 ("prompt", "a (cat:1.2) photo")]:
-        s.option_set(k, v)
-    img = s.generate()
-    want = np.clip(img[0] * 255.0, 0, 255).astype(np.uint8).transpose(1, 2, 0)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_image(tmp_path / "img.u8"),
+                                  _session_image(ckpt, monkeypatch))
     assert sys.modules.get("mlimgsynth_torch.capi") is capi
+
+
+def test_shim_generates_on_two_ranks(tmp_path, monkeypatch, program):
+    """Two processes of the C program with torchrun's environment and tp 2:
+    both exit after generating, no jax loaded, and rank 0's image is within
+    one u8 level of one process's image of the same options (the port's
+    session here, which the one-process program equals bit for bit)."""
+    exe, ckpt, env = program
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        renv = dict(env, RANK=str(rank), LOCAL_RANK=str(rank),
+                    WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [str(exe), str(ckpt), str(tmp_path / f"img{rank}.u8"), "2"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=renv, cwd=str(tmp_path)))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            outs.append(out + err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "TEST OK" in out, out
+        assert "ok: tp" in out and "JAX LOADED" not in out
+    one, got = _session_image(ckpt, monkeypatch), _image(tmp_path / "img0.u8")
+    assert np.abs(got.astype(int) - one.astype(int)).max() <= 1
+    np.testing.assert_array_equal(_image(tmp_path / "img1.u8"), got)

@@ -28,6 +28,7 @@ from mlimgsynth_tpu.utils import image as jimage
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import cli as tcli
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ARGS = ["-d", "64", "-s", "5", "--method", "dpmpp2m", "-S", "42",
         "-p", "a (cat:1.2) photo", "-n", "blurry", "--weight-type", "f32",
@@ -120,7 +121,7 @@ def test_tokenize_help_version(capsys):
     ["generate", "-b", "cpu", "--definitely-not-an-option", "1"],
     ["vae-encode", "-b", "cpu", "--sp", "2"],
     ["generate", "-b", "tpu"],
-    ["serve", "-b", "cpu", "--tp", "2"],
+    ["serve", "-b", "tpu", "--tp", "2"],
     ["list-backends", "-b", "cpu", "--dp", "2"],
 ], ids=["unknown-command", "unknown-option", "not-ported", "backend",
         "serve", "list-backends"])

@@ -20,6 +20,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import cli as tcli
 from mlimgsynth_torch import server as tserver
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 CLIS = (("jax", jcli.main, []), ("port", tcli.main, ["-b", "cpu"]))
 

@@ -26,6 +26,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.models import controlnet as tcnet
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -37,6 +37,7 @@ from test_torch_guidance import (OPTS, _nchw, _port,  # noqa
                                  _unet_case, assert_sessions_match,
                                  run_session, tiny, tiny_path)
 from test_torch_mmdit import _mmdit_case
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ATOL = RTOL = 1e-4
 

@@ -38,6 +38,7 @@ from mlimgsynth_torch.models import mmdit as tmmdit
 from mlimgsynth_torch.models.blocks import QLinear
 from mlimgsynth_torch.ops import quant, quant_plan
 from mlimgsynth_torch.ops import quant_matmul as qmm
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -50,6 +50,7 @@ from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.io.tensorstore import TensorStore, write_gguf
 from mlimgsynth_torch.models.blocks import QLinear
 from mlimgsynth_torch.utils import image as image_mod
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 # the SD3.5-large pattern: qk-norm blocks without attn2, at widths that
 # quantize (its type set by the option: a tiny width cannot tell 2432)

@@ -30,6 +30,7 @@ from mlimgsynth_tpu.models import vae as jvae
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch.testing import (TINY_MODEL_TYPE, TINY_Q_CLIP,
                                       TINY_Q_MODEL_TYPE, TINY_Q_UNET)
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

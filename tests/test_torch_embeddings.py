@@ -22,6 +22,7 @@ from mlimgsynth_tpu.testing import (TINY_MODEL_TYPE_SD3 as J_SD3,
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import tokenizer as tok
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 MLIS = torch_api.MlisError
 

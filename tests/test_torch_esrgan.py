@@ -20,6 +20,7 @@ from mlimgsynth_tpu.models import esrgan as jesr
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.models import esrgan as tesr
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

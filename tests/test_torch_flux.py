@@ -26,6 +26,7 @@ from mlimgsynth_torch.models import clip as tclip
 from mlimgsynth_torch.models import flux as tflux
 from mlimgsynth_torch.models import vae as tvae
 from mlimgsynth_torch.weights import load_module, params_from_jax
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ATOL = RTOL = 1e-4
 

@@ -26,6 +26,7 @@ from mlimgsynth_torch import cli
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.utils import image as image_mod
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 def _jp(P):

@@ -33,6 +33,7 @@ from mlimgsynth_torch import cli
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.models import t5 as t5_mod
 from mlimgsynth_torch.utils import image as image_mod
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a T5 narrower than the tiny Flux's 48-wide context: its rows zero-padded

@@ -40,6 +40,7 @@ from mlimgsynth_torch.utils import image as image_mod
 from mlimgsynth_torch.weights import load_module, params_from_jax
 
 from test_torch_models import _params
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ATOL = RTOL = 1e-4
 

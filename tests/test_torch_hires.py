@@ -19,6 +19,7 @@ from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.models import esrgan as tesr
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 OPTS = [("model-type", "sd1"), ("image-dim", 128), ("steps", 4),
         ("seed", 11), ("cfg-scale", 7.0), ("method", "euler"),

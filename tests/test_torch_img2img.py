@@ -30,6 +30,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.models import vae as tvae
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

@@ -22,6 +22,7 @@ from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_tpu.testing import write_tiny_inpaint_checkpoint
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 OPTS = [("model-type", "sd1"), ("image-dim", 64), ("steps", 5),
         ("seed", 42), ("cfg-scale", 7.0), ("method", "euler"),

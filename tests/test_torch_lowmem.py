@@ -27,6 +27,7 @@ from mlimgsynth_torch import cli as tcli
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.utils import image as timage
 from test_torch_sdxl import J_TINY_Q_XL, _write_q_xl
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

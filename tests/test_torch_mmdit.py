@@ -34,6 +34,7 @@ from mlimgsynth_torch.ops import flash_attention as tfa
 from mlimgsynth_torch.weights import load_module, params_from_jax
 
 from torch_ref import torch_mmdit
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ATOL = RTOL = 1e-4
 

@@ -20,9 +20,10 @@ import atexit
 import os
 import sys
 
-from mlimgsynth_torch import api, testing
+if "RANK" in os.environ:     # a rank, not the launcher
+    from mlimgsynth_torch import api, testing
 
-api._model_types = lambda: {"sd1": testing.TINY_MODEL_TYPE}
+    api._model_types = lambda: {"sd1": testing.TINY_MODEL_TYPE}
 
 
 def _report():

@@ -24,6 +24,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.models import blocks as tblocks
 from mlimgsynth_torch.models import unet as tunet
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

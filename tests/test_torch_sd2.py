@@ -35,6 +35,7 @@ from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import clip as tclip
 from mlimgsynth_torch.models import unet as tunet
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

@@ -24,6 +24,7 @@ from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_tpu.testing import write_checkpoint_sd3
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch.testing import TINY_MODEL_TYPE_SD3
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

@@ -29,6 +29,7 @@ from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.io.tensorstore import TensorStore
 from mlimgsynth_torch.models import mmdit as tmmdit
 from mlimgsynth_torch.weights import load_module, params_from_jax
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 ATOL = RTOL = 1e-4
 J_LARGE = dataclasses.replace(JT.TINY_MMDIT, qk_norm=True)

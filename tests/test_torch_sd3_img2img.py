@@ -28,6 +28,7 @@ from mlimgsynth_tpu.rng import RngPhilox as JaxRng
 from mlimgsynth_tpu.testing import write_checkpoint_sd3
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch.testing import TINY_MODEL_TYPE_SD3
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 OPTS = [("image-dim", 64), ("steps", 5), ("seed", 42), ("cfg-scale", 5.0),
         ("method", "euler"), ("prompt", "a (cat:1.3) riding a [bicycle]"),

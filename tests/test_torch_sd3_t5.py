@@ -22,6 +22,7 @@ from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_tpu.testing import write_checkpoint_sd3
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (red:1.2) fox, in the  snow…"
 BUNDLE = "text_encoders.t5xxl.transformer."

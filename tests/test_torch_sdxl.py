@@ -34,6 +34,7 @@ from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.models import blocks as tblocks
 from mlimgsynth_torch.models import unet as tunet
 from mlimgsynth_torch.ops import quant_matmul as qmm
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 PROMPT = "a (cat:1.3) riding a [bicycle]"
 NPROMPT = "blurry, low quality"

@@ -29,6 +29,7 @@ from mlimgsynth_tpu.api import MLImgSynth as JaxSession
 from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import server as torch_server
 from mlimgsynth_torch import testing as T
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 TIMEOUT = 120
 IMPLS = ("jax", "torch")

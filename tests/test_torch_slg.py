@@ -20,6 +20,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import cli
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch.utils import image as image_mod
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 T_TYPES = {"sd3": T.TINY_MODEL_TYPE_SD3, "sd35_medium": T.TINY_MODEL_TYPE_SD35,
            "flux_dev": T.TINY_MODEL_TYPE_FLUX_DEV,

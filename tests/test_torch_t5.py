@@ -21,6 +21,7 @@ from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.api import MlisError
 from mlimgsynth_torch.models import t5 as tt5
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

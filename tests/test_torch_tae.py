@@ -28,6 +28,7 @@ from mlimgsynth_torch import api as torch_api
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tweights
 from mlimgsynth_torch.models import tae as ttae
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ from mlimgsynth_tpu.testing import (TINY_CLIP, TINY_CLIP2, TINY_UNET_XL,
                                     write_checkpoint_sdxl)
 from mlimgsynth_torch import testing as T
 from mlimgsynth_torch import weights as tw
+from torch_jax_memo import jax_spec_memo  # noqa: F401
 
 
 def _sdxl_specs():

@@ -136,8 +136,8 @@ Phases, one result line each (any failure exits non-zero):
                  ``controlnet`` (a random full-width SD1.5 ControlNet
                  drawn on the card, a 512^2 hint, strength 0.8), ``hires``
                  (SD1.5 512^2 -> 1024^2 by the latent, then by a random
-                 RRDBNet x4plus: K1 at the 1024^2 levels, the wide kernel
-                 at head dim 160), ``upscale`` (the CLI's upscale of a
+                 RRDBNet x4plus: K1 at the 1024^2 levels, head dim 160
+                 included), ``upscale`` (the CLI's upscale of a
                  512^2 PNG by that model, whole and in 256-pixel tiles:
                  no kernel, time and memory) and ``refiner`` (SDXL-base
                  with a random full-width refiner drawn on the card at
@@ -759,8 +759,8 @@ def _entry(name: str, source: str, **kv) -> dict:
 FLASH_SHAPE_CALLS = {
     ((2, 8, 4096, 40), 4096): {"sd1": 100, "sd1_cnet": 40},
     ((2, 8, 1024, 80), 1024): {"sd1": 100, "sd1_cnet": 40},
-    # the hires fix's second pass at 1024^2 (level 2: head dim 160 on the
-    # wide kernel) and the SDXL refiner's levels 1 and 2 at 1024^2
+    # the hires fix's second pass at 1024^2 (level 2: head dim 160, on K1's
+    # kernel) and the SDXL refiner's levels 1 and 2 at 1024^2
     ((2, 8, 16384, 40), 16384): {"sd1_1024": 100},
     ((2, 8, 4096, 80), 4096): {"sd1_1024": 100},
     ((2, 8, 1024, 160), 1024): {"sd1_1024": 100},
@@ -2145,7 +2145,7 @@ def _flash_want(model: str, n_eval: int, n_k2: int) -> dict:
         n = (n_k2 if shape[-1] == 512
              else calls.get(model, 0) // per * n_eval)
         if model in calls and n:
-            name = ("flash_attn_fwd_wide" if shape[-1] > 128 else
+            name = ("flash_attn_fwd_wide" if shape[-1] > 160 else
                     "flash_attn_joint" if model.startswith(("sd3", "flux"))
                     else "flash_attn_fwd")
             want[(name, shape)] = n
@@ -3319,7 +3319,7 @@ def flux_drift_groups(s, model: str) -> None:
 # drawn on the card; its encoder copy adds 2 self-attentions at each of
 # SD1.5's two flash levels per evaluation) at CNET_STRENGTH on a 512^2
 # hint; the hires fix 512^2 -> 1024^2 (HIRES: 14 second-pass steps, the
-# UNet's level 2 at head dim 160 on the wide kernel), by the latent and by
+# UNet's level 2 at head dim 160 on K1's kernel), by the latent and by
 # a random RRDBNet x4plus (ESRGAN_X4: 23 blocks, 64 wide); the CLI's
 # upscale of the 512^2 image by that model, whole and in UPSCALE_TILE tiles;
 # SDXL-base with a random full-width SDXL refiner (drawn on the card) at
@@ -4105,8 +4105,13 @@ def sdxl_pair(s) -> collections.Counter:
 # 7), the server at tp 2 (``_rank_serve``) and the CLI's vae-test at dp 2
 # (``_rank_vae_test``) in the same spawn, a torchrun CLI generate
 # (``ranks_cli``) and the C program as two processes (``ranks_capi``).  At 4
-# steps a tp image read 1.74e-2 from one rank's (the perturbation larger
-# against a less settled image), so SD1.5 runs 20.  Each rank's image is
+# steps a tp image reads 1.74e-2 from one rank's, and that is rounding
+# (tools/torch_rank_drift.py): the first output to depart is the first
+# row-parallel sum's (level 0's first attention out-projection, one bf16
+# ulp on 0.02% of it, relative L2 3.7e-5), which the random-weight UNet
+# amplifies about 8x10^2 times in its first evaluation (the latent after it
+# reads 2.9e-2); the same requests in f32 read 2.7e-3.  At
+# 20 steps the image reads 1.1e-2, so SD1.5 runs 20.  Each rank's image is
 # held to the same request on one rank (``_RANK_REFS``, made on the main
 # path's sessions) by the relative L2 of the u8 image, RANK_LIMIT (the limit
 # the merged serving rows meet).  The two processes share one card, so
@@ -4114,8 +4119,9 @@ def sdxl_pair(s) -> collections.Counter:
 RANK_LIMIT = 1.5e-2
 RANK_SD3_STEPS = 4
 # the quantized SD1.5 tp requests (q8_0, q8_0 under MLIS_Q8_MODE=int8 and
-# q4_0; SD3 q8_0 runs RANK_SD3_STEPS): at 4 steps q8_0 read 2.13e-2 from
-# one rank's image (the bf16 tp line 1.28e-2 at 20 steps), so 20
+# q4_0; SD3 q8_0 runs RANK_SD3_STEPS): at 4 steps q8_0 reads 1.76e-2 to
+# 2.13e-2 from one rank's image (rounding, as bf16's; its row-parallel
+# partials are rounded to bf16 before the sum), so 20
 RANK_Q_STEPS = 20
 RANK_NPROMPT = "blurry, low quality"
 _RUN20 = [(20, False)]

@@ -447,8 +447,9 @@ class MLImgSynth:
     is resolved at the first ``setup`` instead, from the ``backend`` option:
     the CPU where it is ``cpu``, else the card, and ``MlisError`` without
     one; there is no fallback either way.  The compute type is bf16 on a
-    card and f32 on the CPU; the ``weight-type`` option overrides it, and a
-    quantized weight type stores the linears in 8 or 4 bits (``qbits``).
+    card and f32 on the CPU; the ``weight-type`` option overrides it (f32
+    on the CPU only: ``_card_dtype_check``), and a quantized weight type
+    stores the linears in 8 or 4 bits (``qbits``).
     ``setup``, ``generate``, ``generate_batch`` and the encoders hold the
     session's lock: one session may serve several threads (the server's
     worker and its handlers)."""
@@ -1115,6 +1116,17 @@ class MLImgSynth:
             or self._default_dtype()
         self._late_device = False
 
+    def _card_dtype_check(self) -> None:
+        """On a card the compute type is bf16: the attention kernels (K1,
+        K2) take bf16 and have no f32 route, so ``weight-type f32`` is
+        refused there (the CPU runs it)."""
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise MlisError(MlisError.E_OPT_VALUE,
+                            f"weight type '{self.c['weight_type']}' does not "
+                            "run on a card: its attention kernels take "
+                            "bf16; use bf16, f16 or a quantized weight "
+                            "type, or the cpu backend")
+
     @_locked
     def setup(self) -> None:
         """Load the model onto the session's device (once per model file,
@@ -1128,6 +1140,7 @@ class MLImgSynth:
         is on the device after ``setup``."""
         if self._late_device:
             self._device_resolve()
+        self._card_dtype_check()
         self._mesh_resolve()
         path = self.c["model"]
         if not path:

@@ -14,7 +14,9 @@
 //   flash_attn_fwd       replaces mlimgsynth_tpu/ops/flash_attention.py
 //                        flash_attention_t / _flash_kernel_t (K1: UNet
 //                        self-attention; d_head 40 and 80 at SD1 512^2,
-//                        64 for SDXL).  D <= 128.
+//                        64 for SDXL, 160 at SD1's level 2 at 1024^2,
+//                        which the JAX package gives flash_attention).
+//                        D <= 160.
 //   flash_attn_joint     replaces mlimgsynth_tpu/ops/stock_flash.py
 //                        stock_flash (K3, JAX's TPU flash kernel) and
 //                        ops/splash_flash.py splash_flash (K4, the same
@@ -25,7 +27,8 @@
 //                        (K4) the pad; here no pad is ever read.
 //   flash_attn_fwd_wide  replaces mlimgsynth_tpu/ops/flash_attention.py
 //                        flash_attention / _flash_kernel (K2: the VAE
-//                        mid-block's single head, D = 512).  128 < D <= 512.
+//                        mid-block's single head, D = 512).  128 < D <= 512
+//                        (the wrapper sends it D > 160).
 //
 // What bounds K1 and K3 on the H100.  Per (q row, kv row) pair: 4 D flops
 // on the tensor cores (QK^T and PV), and one exp2 on the MUFU, whose 16
@@ -36,15 +39,15 @@
 // both units busy at once: the tensor cores must never wait on the
 // softmax, nor the softmax on the products.
 //
-// attn_hopper_kernel<DV, BN> (K1 and K3/K4; DV = 40, 64, 80 or 128, the
-// P V width that holds D; BN the kv rows of a tile) is one block of 128 q
-// rows and three roles:
+// attn_hopper_kernel<DV, BN> (K1 and K3/K4; DV = 40, 64, 80, 128 or 160,
+// the P V width that holds D; BN the kv rows of a tile) is one block of 128
+// q rows and three roles:
 //   * a producer warp issues every load by TMA from 4-D tensor maps (D, S,
 //     H, B) encoded on the host from the tensors' own strides and passed
 //     as __grid_constant__: the q tile once, then k and v tiles into a ring
 //     of three stages each, with full and empty mbarriers per stage (k and
 //     v apart, since v is read one step after k).  Boxes are 64 columns
-//     wide in the 128-byte swizzle (D <= 64: one box, else two); TMA
+//     wide in the 128-byte swizzle (ceil(DV / 64): one to three); TMA
 //     zero-fills rows past S and columns past D, so the ragged kv tail and
 //     the depth up to the box are zeros in shared memory and never read
 //     from memory;
@@ -77,8 +80,15 @@
 // consumers with setmaxnreg did not raise that (CUDA 12.9's ptxas kept the
 // consumers at 168 and spilled), and a design with no producer (the later
 // warpgroup refilling the stages it frees; 255 registers, BN 176 without
-// spills) measured 10-20% slower.  So BN = 128 (64 at D = 128), which fits
-// in 168 registers with no spill.  What bounds it (PERF.md,
+// spills) measured 10-20% slower.  So BN = 128 (64 at D = 128, 48 at D =
+// 160), which fits in 168 registers with no spill: at D = 160 the output
+// is 80 f32 a thread, and S at BN 64 (32 more) spilled; q (48 KB) and
+// three stages of k and v (18 KB each) take 157 KB.  D = 160 once ran on K2's kernel at D = 512 (TMA
+// zero-filled the 352 columns past 160, and the products still ran over
+// them: 3.2 times the Q K^T depth and P V width, on 64 q rows a block,
+// with the warpgroups' exchange every step); here Q K^T runs ten depth
+// steps of 16 and P V one m64n160k16 a step: [2, 8, 1024, 160] 0.026 ms
+// against 0.091 there, about cuDNN's time (PERF.md).  What bounds it (PERF.md,
 // tools/torch_kernel_ablate.py --flash): at D = 64 the products alone and
 // the softmax alone each take about two thirds of the kernel's time and
 // overlap only in part; at D = 40 the loads.  The mbarrier, TMA and wgmma
@@ -168,7 +178,7 @@ constexpr int kQBox = kHM * 128;               // one 64-column box of the q til
 // the Q K^T wgmma N
 template <int DV, int BN>
 struct HCfg {
-  static constexpr int kBoxes = DV <= 64 ? 1 : 2;       // 64-column boxes that hold D
+  static constexpr int kBoxes = (DV + 63) / 64;        // 64-column boxes that hold D
   static constexpr int kKSteps = (DV + 15) / 16;        // Q K^T depth steps of 16
   static constexpr int kKVBox = BN * 128;               // one box of a k or v tile
   static constexpr int kQ = kQBox * kBoxes;             // q tile bytes
@@ -201,6 +211,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint6
 template <int N>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,
                                            int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[6][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : FA_ACC4(0), FA_ACC4(1), FA_ACC4(2), FA_ACC4(3),
+        FA_ACC4(4), FA_ACC4(5)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d) {
@@ -291,6 +314,26 @@ __device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[16][4], const uint32_
         FA_ACC4(4), FA_ACC4(5), FA_ACC4(6), FA_ACC4(7),
         FA_ACC4(8), FA_ACC4(9), FA_ACC4(10), FA_ACC4(11),
         FA_ACC4(12), FA_ACC4(13), FA_ACC4(14), FA_ACC4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<160>(float (&d)[20][4], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : FA_ACC4(0), FA_ACC4(1), FA_ACC4(2), FA_ACC4(3),
+        FA_ACC4(4), FA_ACC4(5), FA_ACC4(6), FA_ACC4(7),
+        FA_ACC4(8), FA_ACC4(9), FA_ACC4(10), FA_ACC4(11),
+        FA_ACC4(12), FA_ACC4(13), FA_ACC4(14), FA_ACC4(15),
+        FA_ACC4(16), FA_ACC4(17), FA_ACC4(18), FA_ACC4(19)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
@@ -706,6 +749,7 @@ int launch_flash(const Args& a, int batch, cudaStream_t stream) {
   if (a.d <= 64) return launch_hopper<64, 128>(a, batch, stream);
   if (a.d <= 80) return launch_hopper<80, 128>(a, batch, stream);
   if (a.d <= 128) return launch_hopper<128, 64>(a, batch, stream);
+  if (a.d <= 160) return launch_hopper<160, 48>(a, batch, stream);
   return (int)cudaErrorInvalidValue;
 }
 

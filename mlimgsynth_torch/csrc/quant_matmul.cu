@@ -69,8 +69,11 @@
 //     block barriers per group, sized its grid as stripes x M ranges (1.2 to
 //     2 waves) and ran mma.sync on 32 x 32 warp tiles: 10% of the bf16 peak.
 //     This one (qmm_ws_kernel) keeps no stripe.  Each block is persistent
-//     (one per SM) and walks 128 x BN output tiles, M fastest within an N
-//     column so that a weight tile is read from L2 by the blocks beside it;
+//     (one per SM) and walks 128 x BN output tiles in bands of M tiles
+//     (ws_band_m: all of them where x fits the L2, else as many as keep a
+//     band's x within half of it), each band N column by N column, M
+//     fastest within a column, so that a weight tile is read from L2 by
+//     the blocks beside it and x from device memory about once;
 //     BN (80 or 160, the wgmma N) is picked per shape by the caller
 //     (ops/quant_matmul.py ws_tile_n) so that the tiles fill whole waves of
 //     the 132 SMs.  Four roles run side by side in their own warps, linked
@@ -87,13 +90,25 @@
 //     for a TMA store that runs on under the next tile's products.  So each
 //     weight is dequantized once per 128-row tile (1/128 of its
 //     multiply-adds) on CUDA cores that work beside the tensor cores, and
-//     loads, dequantization, products and stores overlap.  What bounds it
-//     now (PERF.md): the bytes from L2 into shared memory (x is read once per
-//     BN columns, the weight once per 128 rows) and shared memory's own
-//     bandwidth, which the TMA writes, the B tiles and the wgmma reads
-//     share.  The producer keeps running counters (no division by a run-
-//     time value a stage), and a barrier wait reads the clock only when its
-//     first test fails.  Later work: a 2-block cluster multicasting x.
+//     loads, dequantization, products and stores overlap.  The producer
+//     keeps running counters (no division by a run-time value a stage),
+//     and a barrier wait reads the clock only when its first test fails.
+//     What bounds it (PERF.md; tools/torch_kernel_ablate.py --flux, at
+//     Flux's (4096, 12288, 3072) and (4352, 3072, 21504)): not the bytes.
+//     With the loads, scale copies, dequantization and products all taken
+//     out, the ring of barriers and waits alone takes 0.32 and 0.59 ms,
+//     the tensor-core bound of the whole product (0.31, 0.58); the
+//     dequantization adds about 0.23 ms and the products 0.22 on top, with
+//     little overlap, and the loads under 0.07.  The bands took x's
+//     re-reads from device memory out at Flux's long K but bought only 1%
+//     (q8) to 5% (q4).  Measured and not kept: the dequantization moved
+//     into the two consumer warpgroups (no dequantizing warpgroup, one
+//     named barrier a step, 168 registers): 10-12% slower at q8 and the SD
+//     shapes, as slow at q4; its skeleton still took 0.28 ms.  A 2-block
+//     cluster along M sharing the weight (each block dequantizing half of
+//     a B tile into both blocks' shared memory, barriers across the
+//     cluster): about twice as slow.  Later work: fewer, deeper steps (128
+//     deep) and a deeper ring, which the shared memory has to make room for.
 //
 //   q8_matmul_ws_int8  replaces mlimgsynth_tpu/ops/q8_matmul.py
 //                      q8_matmul_ws_int8 / _q8_ws_int8_kernel (K7): W8A8
@@ -255,10 +270,23 @@ struct WsCfg {
 
 struct WsArgs {
   Args a;
-  int tma_store;   // y stored by TMA from shared memory (N a multiple of 8)
-  int m_tiles;   // 128-row tiles of M; tile t is (t % m_tiles, t / m_tiles): M fastest
+  int tma_store;    // y stored by TMA from shared memory (N a multiple of 8)
+  int m_tiles;      // 128-row tiles of M
+  int band;         // M tiles a band (ws_band_m)
+  int band_tiles;   // tiles a whole band: band x the N columns
   int tiles;
 };
+
+// The 128-row tile (mt) and the N column (nt) of tile t of the walk: bands
+// of p.band M tiles (the last may hold fewer), each taken column by
+// column, M fastest within a column of the band.  With one band (band =
+// m_tiles) this is M fastest within each N column of the whole output.
+__device__ __forceinline__ void ws_tile_at(const WsArgs& p, int t, int& mt, int& nt) {
+  const int b = t / p.band_tiles, r = t - b * p.band_tiles;
+  const int g = min(p.band, p.m_tiles - b * p.band);
+  nt = r / g;
+  mt = b * p.band + (r - nt * g);
+}
 
 // 4 bytes, zero-filled where !valid
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
@@ -670,8 +698,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // producer is one warp and its loop sets the pace of the ring
     int slot = 0, phase = 0;
     for (int t = 0; t < my_tiles; ++t) {
-      const int tile = blockIdx.x + t * gridDim.x;
-      const int m0 = (tile % p.m_tiles) * kWsBM, n0 = (tile / p.m_tiles) * BN;
+      int mt, nt;
+      ws_tile_at(p, blockIdx.x + t * gridDim.x, mt, nt);
+      const int m0 = mt * kWsBM, n0 = nt * BN;
       for (int k0 = 0; k0 < a.k; k0 += S * kWsBK) {
         const int kg = k0 / kGroup;
         const uint32_t bar = smem_u32(full + slot);
@@ -747,8 +776,9 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_wait<0>();
     pin(acc);
     release(j - 1);
-    const int tile = blockIdx.x + t * gridDim.x;
-    const int m0 = (tile % p.m_tiles) * kWsBM + wg * 64, n0 = (tile / p.m_tiles) * BN;
+    int mt, nt;
+    ws_tile_at(p, blockIdx.x + t * gridDim.x, mt, nt);
+    const int m0 = mt * kWsBM + wg * 64, n0 = nt * BN;
     if (p.tma_store) {   // through the staging, stored while the next tile runs
       uint8_t* stg = sy + wg * C::kB;
       if ((tid & 127) == 0) tma_store_wait<true>();   // the last tile's store has read it
@@ -962,6 +992,22 @@ bool bad_shape(int m, int n, int k) {
   return m <= 0 || n <= 0 || k <= 0 || k % kGroup != 0;
 }
 
+// M tiles a band of the ws walk, the rule of ops/quant_matmul.py
+// ws_band_m: all of them where x fits the L2, else as many as keep a
+// band's x rows (128 x K bf16 a tile) within half of it, spread evenly
+// over the bands that takes.
+constexpr long long kWsL2Bytes = 50ll << 20;   // the H100's L2
+
+int ws_band_m(int m, int k) {
+  const int m_tiles = (m + kWsBM - 1) / kWsBM;
+  if ((long long)m * k * 2 <= kWsL2Bytes) return m_tiles;
+  long long g = kWsL2Bytes / 2 / ((long long)kWsBM * k * 2);
+  if (g < 1) g = 1;
+  if (g > m_tiles) g = m_tiles;
+  const int bands = (int)((m_tiles + g - 1) / g);
+  return (m_tiles + bands - 1) / bands;
+}
+
 template <int BITS, int BN>
 int launch_ws_bn(const Args& a, cudaStream_t stream) {
   using C = WsCfg<BITS, BN>;
@@ -990,8 +1036,11 @@ int launch_ws_bn(const Args& a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   p.m_tiles = (a.m + kWsBM - 1) / kWsBM;
   const long long tiles = (long long)p.m_tiles * ((a.n + BN - 1) / BN);
+  p.band = ws_band_m(a.m, a.k);
+  const long long band_tiles = (long long)p.band * ((a.n + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.tiles = (int)tiles;
+  p.band_tiles = (int)band_tiles;
   const int grid = p.tiles < sms ? p.tiles : sms;
   qmm_ws_kernel<BITS, BN><<<grid, kWsThreads, C::kSmem, stream>>>(x_map, w_map, y_map, p);
   return (int)cudaGetLastError();
@@ -1612,3 +1661,7 @@ extern "C" int q8_int8_tile_n(int m, int n, int sms) { return i8_tile_n(m, n, sm
 // << 16) | x rows a range (ops/quant_matmul.py tile_config is the same
 // rule).
 extern "C" int qmm_tile_config(int m) { return tile_config(m); }
+
+// The M tiles a band of the ws entry points' walk for a product of m rows
+// and depth k (ops/quant_matmul.py ws_band_m is the same rule).
+extern "C" int qmm_ws_band_m(int m, int k) { return ws_band_m(m, k); }

@@ -4,9 +4,12 @@
 Three entry points, all online-softmax forward passes over the natural
 [B, H, S, D] layout in bf16 (see the source note in the .cu file):
 
-* :func:`flash_attn_fwd` (D <= 128) replaces the JAX package's
+* :func:`flash_attn_fwd` (D <= 160) replaces the JAX package's
   ``flash_attention_t`` (``mlimgsynth_tpu/ops/flash_attention.py:646``,
-  Pallas kernel ``_flash_kernel_t``): the UNet self-attention.
+  Pallas kernel ``_flash_kernel_t``): the UNet self-attention.  It also
+  takes head dims in (128, 160] (SD1.5's level 2 at 1024^2, head dim 160),
+  which the JAX package sends to ``flash_attention``: the same function,
+  on a kernel whose P V width holds 160 columns.
 * :func:`flash_attn_joint` (D <= 128) replaces ``stock_flash``
   (``mlimgsynth_tpu/ops/stock_flash.py:177``, JAX's TPU flash kernel, K3)
   and ``splash_flash`` (``ops/splash_flash.py:114``, K4): the MMDiT joint
@@ -16,6 +19,7 @@ Three entry points, all online-softmax forward passes over the natural
 * :func:`flash_attn_fwd_wide` (128 < D <= 512) replaces
   ``flash_attention`` (``:353``, kernel ``_flash_kernel``): the VAE
   mid-block's single 512-wide head, on a kernel of its own.
+  :func:`flash_attention` sends it the head dims past 160.
 
 A wrapper given CPU tensors runs :func:`attention_plain`, the kernels' plain
 PyTorch version; given CUDA tensors it launches its kernel or raises.  Each
@@ -119,11 +123,11 @@ def _launch(name: str, q, k, v, scale, d_lo: int, d_hi: int):
 
 
 def flash_attn_fwd(q, k, v, scale=None):
-    """softmax(q k^T * scale) v for head dim <= 128.
+    """softmax(q k^T * scale) v for head dim <= 160.
     q: [B,H,Sq,D], k/v: [B,H,Sk,D] -> [B,H,Sq,D] (bf16 on CUDA)."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale)
-    return _launch("flash_attn_fwd", q, k, v, scale, 0, 128)
+    return _launch("flash_attn_fwd", q, k, v, scale, 0, 160)
 
 
 def flash_attn_fwd_wide(q, k, v, scale=None):
@@ -142,7 +146,8 @@ def flash_attn_joint(q, k, v, scale=None):
 
 
 def flash_attention(q, k, v, scale=None):
-    """Pick the kernel by head dim."""
-    if q.shape[-1] <= 128:
+    """Pick the kernel by head dim: up to 160 :func:`flash_attn_fwd`, wider
+    :func:`flash_attn_fwd_wide`."""
+    if q.shape[-1] <= 160:
         return flash_attn_fwd(q, k, v, scale)
     return flash_attn_fwd_wide(q, k, v, scale)

@@ -26,8 +26,9 @@ per-block weights (scales [N, K/128]), the activations quantized per (row,
 (:func:`use_ws`): the weight-stationary kernel when the product has at
 least ``WS_MIN_M`` rows (the JAX package's ``_WS_MIN_M``), whatever its K,
 else the tiled kernel; the ws kernel's tile width is :func:`ws_tile_n`'s
-choice for the shape, the tiled kernel's geometry :func:`tile_config`'s
-(the C launcher applies the same rule itself).  ``q8_dot`` follows the
+choice for the shape and its walk :func:`ws_band_m`'s, the tiled
+kernel's geometry :func:`tile_config`'s (the C launcher applies the same
+rules itself).  ``q8_dot`` follows the
 reference's order (``q8_matmul.py:662-700``): a per-column weight first asks
 the JAX package's plan (``ops/quant_plan.pick_large_m_plan``), and where it
 picks ``"int8ws"`` the product runs the W8A8 kernel on per-column scales;
@@ -60,9 +61,13 @@ LAUNCHES = {"q8_matmul_tile": 0, "q8_matmul_ws": 0,
 LAUNCH_SHAPES = collections.Counter()
 
 WS_MIN_M = 2048
-# ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N)
+# ws output tiles: WS_BM rows by one of WS_TILE_N columns (the wgmma N),
+# walked in bands of ws_band_m(M, K) 128-row tiles; WS_L2_BYTES, the L2 of
+# the H100, sizes the bands.  The C launcher picks the band itself by the
+# same rule; ``qmm_ws_band_m`` in the library returns its choice.
 WS_BM = 128
 WS_TILE_N = (80, 160)
+WS_L2_BYTES = 50 * 2 ** 20
 # W8A8 (K7, K8) output tiles: WS_BM rows by one of I8_TILE_N columns (the
 # int8 wgmma N).  The C launcher picks the width itself by the same rule
 # (its entry points keep their argtypes); ``q8_int8_tile_n`` in the library
@@ -98,6 +103,25 @@ def ws_tile_n(m: int, n: int, sms: int = 132) -> int:
         tiles = -(-m // WS_BM) * -(-n // bn)
         return -(-tiles // sms) * (bn + 32), -bn
     return min(WS_TILE_N, key=cost)
+
+
+def ws_band_m(m: int, k: int) -> int:
+    """128-row tiles a band of the ws kernel's walk for a product of ``m``
+    rows and depth ``k``.  The kernel takes the output band by band, each
+    band N column by N column, M fastest within a column, so the blocks in
+    flight read one band's rows of x (and the weight tiles of a few
+    columns, each read by the band's blocks and then left).  Where all of
+    x (m x k bf16) fits the L2 the band is every tile (the order M fastest
+    within each N column); else as many tiles as keep a band's x within
+    half the L2 (the other half holds the streamed weight tiles and y),
+    spread evenly over the bands that takes.  x is then read from device
+    memory about once, the weight once a band."""
+    m_tiles = -(-m // WS_BM)
+    if m * k * 2 <= WS_L2_BYTES:
+        return m_tiles
+    g = min(m_tiles, max(1, WS_L2_BYTES // 2 // (WS_BM * k * 2)))
+    bands = -(-m_tiles // g)
+    return -(-m_tiles // bands)
 
 
 def i8_tile_n(m: int, n: int, sms: int = 132) -> int:

@@ -889,8 +889,15 @@ ATTN_CASES = [
      "SD1.5 merged batch of 4 served under tp = 2, UNet level 0"),
     ("flash_attn_fwd", (8, 4, 1024, 80), 1024,
      "SD1.5 merged batch of 4 served under tp = 2, UNet level 1"),
+    ("flash_attn_fwd", (2, 8, 1024, 160), 1024,
+     "SD1.5 1024^2 (hires fix second pass), UNet level 2: head dim 160, "
+     "8 heads"),
     ("flash_attn_fwd", (2, 8, 4096, 40), 4095, "ragged Sk"),
     ("flash_attn_fwd", (2, 4, 1000, 40), 700, "ragged Sq and Sk"),
+    ("flash_attn_fwd", (2, 3, 1000, 136), 700,
+     "head dim 136 (three boxes, 24 columns of the last), ragged Sq and Sk"),
+    ("flash_attn_fwd", (1, 2, 600, 160), 520,
+     "head dim 160, ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4096, "VAE mid-block"),
     ("flash_attn_fwd_wide", (1, 1, 4096, 512), 4095, "ragged Sk"),
     ("flash_attn_fwd_wide", (1, 1, 16384, 512), 16384,
@@ -907,9 +914,6 @@ ATTN_CASES = [
      "SDXL merged pair, VAE mid-block (B H 2, two waves)"),
     ("flash_attn_fwd_wide", (2, 1, 4096, 512), 4096,
      "SD1.5 under dp = 2 with batch 2: a rank decodes the gathered batch"),
-    ("flash_attn_fwd_wide", (2, 8, 1024, 160), 1024,
-     "SD1.5 1024^2 (hires fix second pass), UNet level 2: head dim 160, "
-     "8 heads, computed at D = 512"),
     ("flash_attn_fwd_wide", (2, 2, 600, 512), 520,
      "ragged Sq and Sk (an 8-row last kv tile)"),
     ("flash_attn_joint", (2, 24, 4250, 64), 4250,
@@ -982,7 +986,8 @@ def attention_error(out: torch.Tensor, ref: torch.Tensor) -> dict:
 # ones (CFG batch 2), SD2.1-768-v's (CFG batch 2 of 96^2, 48^2 and 24^2
 # tokens), the weight-only products of Flux.1 at 1024^2 (no CFG batch: 4096
 # image tokens, 512 T5 tokens on dev, 256 on schnell, 4608 and 4352 in the
-# single blocks) and two ragged ones.
+# single blocks), a product whose x exceeds the L2 (banded walk) and two
+# ragged ones.
 # (kernel kind, M, K, N, where the main path runs it); every case runs for
 # q8 and q4.
 QUANT_CASES = [
@@ -1016,6 +1021,8 @@ QUANT_CASES = [
     ("ws", 4608, 15360, 3072, "Flux single-block linear2"),
     ("ws", 4352, 3072, 21504, "Flux-schnell single-block linear1 (q4_0)"),
     ("ws", 4096, 3072, 64, "Flux final linear (N 64)"),
+    ("ws", 4100, 12288, 3000, "x past the L2 (bands of 7 M tiles, the "
+     "last 5), ragged M and N"),
     ("tile", 512, 3072, 9216, "Flux txt_attn.qkv, 512 T5 tokens"),
     ("tile", 512, 12288, 3072, "Flux txt_mlp.2, 512 T5 tokens"),
     ("tile", 512, 4096, 3072, "Flux txt_in"),

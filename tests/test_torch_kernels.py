@@ -39,8 +39,8 @@ def test_cpu_tensors_never_launch(monkeypatch):
     for d in (40, 160):
         q, k, v = _qkv(1, 2, 512, 520, d, seed=d)
         want = tattn.attention_xla(q, k, v)
-        for fn in (tfa.flash_attention, tattn.attention,
-                   tfa.flash_attn_fwd if d <= 128 else tfa.flash_attn_fwd_wide):
+        for fn in (tfa.flash_attention, tattn.attention, tfa.flash_attn_fwd,
+                   *([tfa.flash_attn_fwd_wide] if d > 128 else [])):
             torch.testing.assert_close(fn(q, k, v), want, rtol=0, atol=0)
     q, k, v = (t.bfloat16() for t in _qkv(1, 2, 2048, 2048, 64, seed=3))
     torch.testing.assert_close(tattn.attention(q, k, v),
@@ -80,6 +80,85 @@ def test_sources_share_the_hopper_header():
     assert (_build.CSRC / "hopper.cuh").exists()
 
 
+# head dim -> the kernel flash_attention picks: up to 160 the Hopper
+# kernel of K1 and K3 (its P V width 40, 64, 80, 128 or 160), wider the
+# wide kernel of K2
+@pytest.mark.parametrize("d,name", [
+    (40, "flash_attn_fwd"), (64, "flash_attn_fwd"), (80, "flash_attn_fwd"),
+    (128, "flash_attn_fwd"), (136, "flash_attn_fwd"),
+    (144, "flash_attn_fwd"), (160, "flash_attn_fwd"),
+    (168, "flash_attn_fwd_wide"), (256, "flash_attn_fwd_wide"),
+    (512, "flash_attn_fwd_wide")])
+def test_flash_attention_routes_by_head_dim(monkeypatch, d, name):
+    got = []
+    for n in ("flash_attn_fwd", "flash_attn_fwd_wide", "flash_attn_joint"):
+        monkeypatch.setattr(tfa, n, lambda *a, n=n, **k: got.append(n))
+    q, k, v = _qkv(1, 1, 512, 512, d)
+    tfa.flash_attention(q, k, v)
+    assert got == [name]
+
+
+# the session's routes (ops.attention) at head dim 160: SD1.5's level 2 at
+# 1024^2 (S 1024, the flash gate) and at 2048^2 (S 4096: past the K3 gate's
+# S floor, which a head dim of 160, no multiple of 128, does not pass)
+@pytest.mark.parametrize("s", [1024, 4096])
+def test_session_attention_takes_head_dim_160_to_flash_attn_fwd(
+        monkeypatch, s):
+    got = []
+    for n in ("flash_attn_fwd", "flash_attn_fwd_wide", "flash_attn_joint"):
+        monkeypatch.setattr(tfa, n, lambda *a, n=n, **k: got.append(n))
+    q = torch.zeros(2, 8, s, 160, dtype=torch.bfloat16)
+    for fn in (tattn.attention, tattn.attention_t):
+        fn(q, q, q)
+    assert got == ["flash_attn_fwd"] * 2
+
+
+# The flash gate is the JAX package's whatever the dtype: an f32 or f16
+# tensor past it reaches the flash wrapper, which on a card launches the
+# bf16 kernel or raises, and never gives way to the plain path (meta tensors
+# stand for the card's here); a weight-type f32 session is refused on the
+# card instead (test_session_refuses_f32_on_a_card)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_attention_routes_every_dtype_by_the_jax_gate(monkeypatch, dtype):
+    got = []
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda q, *a, **k: got.append(("flash", q.dtype)))
+    monkeypatch.setattr(tattn, "attention_xla",
+                        lambda q, *a, **k: got.append(("plain", q.dtype)))
+    for s, d in ((1024, 40), (1024, 160), (1024, 512)):
+        q = torch.empty(2, 8, s, d, dtype=dtype, device="meta")
+        for fn in (tattn.attention, tattn.attention_t):
+            fn(q, q, q)
+        tattn.attention_t(q, q, q, causal=True)
+    assert got == [("flash", dtype), ("flash", dtype), ("plain", dtype)] * 3
+
+
+# On a card the compute type is bf16: a session whose weight type computes
+# in f32 is refused at setup, before it loads anything, with the reason;
+# every other weight type passes, and the CPU takes f32 (the device is set
+# to the card's after the session is made, before the weight type: there is
+# no card here)
+@pytest.mark.parametrize("wt,refused", [
+    ("f32", True), ("bf16", False), ("f16", False), ("q8_0", False),
+    ("q4_0", False)])
+def test_session_refuses_f32_on_a_card(wt, refused):
+    from mlimgsynth_torch import api
+    from mlimgsynth_torch.errors import MlisError
+    s = api.MLImgSynth(device="cpu")
+    s.option_set("weight-type", wt)
+    s._card_dtype_check()                  # the CPU runs every weight type
+    s = api.MLImgSynth(device="cpu")
+    s.device = torch.device("cuda")
+    s.option_set("weight-type", wt)
+    if refused:
+        with pytest.raises(MlisError, match="bf16") as e:
+            s.setup()
+        assert e.value.code == MlisError.E_OPT_VALUE
+    else:
+        s._card_dtype_check()
+
+
 def test_launch_refuses_cpu_tensors():
     q, k, v = _qkv(1, 1, 512, 512, 40)
     with pytest.raises(ValueError, match="CUDA"):
@@ -105,7 +184,7 @@ def cuda():
     (2, 4, 1000, 700, 64),
     (1, 1, 4096, 4096, 512),
     (1, 1, 4096, 4095, 512),
-    (1, 2, 600, 520, 160),     # wide kernel below its 512 columns
+    (1, 2, 600, 520, 160),     # wide kernel below its 512 columns (by name)
     (1, 2, 600, 520, 256),     # wide kernel: the second warpgroup's columns all past d
     (1, 2, 600, 520, 384),     # wide kernel: half of them past d
     (1, 1, 1000, 700, 512),    # wide kernel, ragged Sq and Sk
@@ -116,11 +195,37 @@ def cuda():
 def test_kernel_matches_plain_on_cuda(cuda, b, h, sq, sk, d):
     q, k, v = testing.attention_inputs((b, h, sq, d), sk)
     before = dict(tfa.LAUNCHES)
-    out = tfa.flash_attention(q, k, v)
+    # past 128 the wide kernel by name: flash_attention sends d 160 to
+    # flash_attn_fwd (test_head_dim_160_kernel_matches_plain_on_cuda)
+    out = (tfa.flash_attn_fwd_wide if d > 128 else tfa.flash_attention)(
+        q, k, v)
     ref = tfa.attention_plain(q, k, v)
     torch.cuda.synchronize()
     name = "flash_attn_fwd" if d <= 128 else "flash_attn_fwd_wide"
     assert tfa.LAUNCHES[name] == before[name] + 1
+    res = testing.attention_error(out, ref)
+    assert res["ok"], res
+
+
+# head dims in (128, 160] on flash_attn_fwd (three 64-column boxes, P V
+# 160 wide), reached through flash_attention: the hires pass's level 2 and
+# ragged Sq and Sk at d 136, 144 and 160
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,d", [
+    (2, 8, 1024, 1024, 160),
+    (1, 2, 600, 520, 160),
+    (2, 3, 1000, 700, 136),
+    (1, 4, 777, 1100, 144),
+    (1, 2, 64, 65, 160),
+])
+def test_head_dim_160_kernel_matches_plain_on_cuda(cuda, b, h, sq, sk, d):
+    q, k, v = testing.attention_inputs((b, h, sq, d), sk)
+    before = dict(tfa.LAUNCHES)
+    out = tfa.flash_attention(q, k, v)
+    ref = tfa.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
+    assert tfa.LAUNCHES["flash_attn_fwd_wide"] == before["flash_attn_fwd_wide"]
     res = testing.attention_error(out, ref)
     assert res["ok"], res
 

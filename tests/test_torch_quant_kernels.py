@@ -110,6 +110,52 @@ def test_ws_tile_config_fills_whole_waves(m, k, n):
     assert tiles / (132 * -(-tiles // 132)) >= WS_WAVE_FILL_MIN, (bn, m, n)
 
 
+# The ws products of QUANT_CASES whose x (M x K bf16) fits the L2: the
+# SD1.5, SDXL, SD2 and SD3 ones (SD2's 18432-row ff.net.2 the largest at
+# 47 MB), Flux-schnell's single-block linear1 and the final linear
+WS_FITS = [(m, k, n) for kind, m, k, n, _ in testing.QUANT_CASES
+           if kind == "ws" and m * k * 2 <= qmm.WS_L2_BYTES]
+# and those whose x does not: Flux-dev's img_mlp.2 (100.7 MB) and
+# single-block linear2 (141.6 MB), schnell's at 4,352 rows, the ragged case
+WS_PAST_L2 = [(m, k, n) for kind, m, k, n, _ in testing.QUANT_CASES
+              if kind == "ws" and m * k * 2 > qmm.WS_L2_BYTES] + [
+    (4352, 15360, 3072)]
+
+
+def test_ws_cases_cover_both_walks():
+    assert len(WS_FITS) >= 20 and len(WS_PAST_L2) == 4
+    assert (8192, 2560, 640) in WS_FITS and (18432, 1280, 320) in WS_FITS
+
+
+@pytest.mark.parametrize("m,k,n", WS_FITS)
+def test_ws_band_is_every_tile_where_x_fits(m, k, n):
+    """Where x fits the L2 the walk is one band: M fastest within each N
+    column of the whole output, the order before bands."""
+    assert qmm.ws_band_m(m, k) == -(-m // qmm.WS_BM)
+
+
+@pytest.mark.parametrize("m,k,n", WS_PAST_L2)
+def test_ws_band_holds_half_the_l2(m, k, n):
+    """Past the L2 a band's rows of x fit half of it, and the bands are as
+    few as that allows (x read once, the weight once a band)."""
+    g = qmm.ws_band_m(m, k)
+    m_tiles = -(-m // qmm.WS_BM)
+    g_max = qmm.WS_L2_BYTES // 2 // (qmm.WS_BM * k * 2)
+    assert 1 <= g <= g_max < m_tiles
+    assert g * qmm.WS_BM * k * 2 <= qmm.WS_L2_BYTES // 2
+    assert -(-m_tiles // g) == -(-m_tiles // g_max)
+
+
+@pytest.mark.parametrize("m,k,want", [(4096, 12288, 8), (4608, 15360, 6),
+                                      (4352, 15360, 6), (4100, 12288, 7),
+                                      (2048, 655360, 1)])
+def test_ws_band_sizes(m, k, want):
+    """The bands at Flux's long K (8 M tiles of 32 at K 12288, 6 of 36 at
+    K 15360), spread evenly over the bands (33 tiles: 7, 7, 7, 7, 5), and
+    one tile where a single tile's x passes half the L2."""
+    assert qmm.ws_band_m(m, k) == want
+
+
 # The W8A8 products of the main paths with M >= 2048 (M, K, N): K7 on the
 # SD3-medium 1024^2 x stream (CFG batch 2), K8 on an SDXL 1024^2 request
 # under MLIS_Q8_MODE=int8.
@@ -361,6 +407,34 @@ def test_i8_tile_n_matches_the_launcher_on_cuda(cuda):
     for m, _, n in I8_PRODUCTS + [(2, 2816, 1280), (154, 2048, 1280),
                                   (77, 1280, 72), (4097, 640, 200)]:
         assert lib.q8_int8_tile_n(m, n, sms) == qmm.i8_tile_n(m, n, sms)
+
+
+@pytest.mark.cuda
+def test_ws_band_m_matches_the_launcher_on_cuda(cuda):
+    """The C launcher of K6 and K10 walks bands of ``ws_band_m`` tiles."""
+    lib = qmm._lib()
+    for m in (1, 2048, 4096, 4097, 4100, 4352, 4608, 8192, 18432, 65536):
+        for k in (128, 640, 1280, 2560, 3072, 5120, 12288, 15360, 655360):
+            assert lib.qmm_ws_band_m(m, k) == qmm.ws_band_m(m, k), (m, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_ws_kernel_banded_walk_matches_plain_bit_for_bit_on_cuda(cuda, bits):
+    """x past the L2 (4100 x 12288 bf16, 100.8 MB): the banded walk, a
+    ragged last band, M and N; every output still sums its K in order in
+    one f32 accumulator, so it equals the plain version bit for bit."""
+    m, k, n = 4100, 12288, 3000
+    assert qmm.ws_band_m(m, k) < -(-m // qmm.WS_BM)
+    x, q, s = testing.quant_inputs(m, k, n, bits)
+    name = f"q{bits}_matmul_ws"
+    before = qmm.LAUNCHES[name]
+    out = getattr(qmm, name)(x, q, s)
+    ref = (quant.q4_matmul_plain if bits == 4 else quant.q8_matmul_plain)(
+        x, q, s)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    assert torch.equal(out, ref), (out != ref).sum().item()
 
 
 @pytest.mark.cuda

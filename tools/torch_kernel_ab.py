@@ -5,6 +5,8 @@ tree's, in one process on one card (needs an H100):
     python3 tools/torch_kernel_ab.py OTHER/flash_attention.cu
     python3 tools/torch_kernel_ab.py [--stripe-ws] OTHER/quant_matmul.cu
     python3 tools/torch_kernel_ab.py --shapes-from LOG OTHER/quant_matmul.cu
+    python3 tools/torch_kernel_ab.py --kernels q8_matmul_ws,q4_matmul_ws \
+        OTHER/quant_matmul.cu
 
 The file name says which source of ``mlimgsynth_torch/csrc/`` it stands
 for; the other version must keep that source's C interface.  Builds both,
@@ -21,6 +23,8 @@ a summary line with the per-source sums, in all and by kernel.
 ``chip_smoke.py`` log's ``shapes`` lines list (every product of its SD1.5,
 SD3 and SDXL requests that the dispatch gives the tiled kernel), each for
 q8 and q4.
+
+``--kernels NAMES``: only the cases of those kernels (comma-separated).
 
 ``--stripe-ws``: the other source's weight-stationary entry points take
 the trailing int of the first ws design, the stripe width (64 up to
@@ -130,14 +134,17 @@ def main() -> int:
     args = sys.argv[1:]
     stripe_ws = "--stripe-ws" in args
     args = [a for a in args if a != "--stripe-ws"]
-    log = None
+    log = kernels = None
+    if args[:1] == ["--kernels"] and len(args) > 1:
+        kernels, args = set(args[1].split(",")), args[2:]
     if args[:1] == ["--shapes-from"] and len(args) > 1:
         log, args = args[1], args[2:]
     other = Path(args[0]) if len(args) == 1 else None
     if other is None or other.stem not in CASES \
             or (log and other.stem != "quant_matmul") \
             or not torch.cuda.is_available():
-        print("usage: torch_kernel_ab.py [--stripe-ws] [--shapes-from LOG] "
+        print("usage: torch_kernel_ab.py [--stripe-ws] [--kernels NAMES] "
+              "[--shapes-from LOG] "
               "OTHER/{flash_attention,quant_matmul}.cu (needs a CUDA "
               "device)", file=sys.stderr)
         return 1
@@ -162,6 +169,8 @@ def main() -> int:
         sums = defaultdict(float)
         by_kernel = defaultdict(lambda: defaultdict(float))
         for row, fn, plain, check in cases():
+            if kernels and row["kernel"] not in kernels:
+                continue
             for i, which in enumerate(("tree", "other", "other", "tree")):
                 _build._LIBS[src] = libs[which]
                 qmm.ws_config = ws_configs[which]

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``), with
+"""Time the weight-stationary kernel (K6, ``q8_matmul_ws``; with
+``--flux`` K6 and K10, ``q4_matmul_ws``, at Flux's ws products), with
 ``--w8a8`` the W8A8 kernels (K7 ``q8_matmul_ws_int8`` and K8
 ``q8_matmul_int8``), or with ``--flash`` the Hopper attention kernels (K1
 ``flash_attn_fwd``, K3 ``flash_attn_joint``, K2 ``flash_attn_fwd_wide``),
 with parts of their work taken out, to see which part bounds them (needs
 an H100):
 
-    python3 tools/torch_kernel_ablate.py [--w8a8 | --flash] [VARIANT ...]
+    python3 tools/torch_kernel_ablate.py [--w8a8 | --flash | --flux]
+        [VARIANT ...]
 
 Each variant is the tree's ``csrc/quant_matmul.cu`` (``--flash``:
 ``csrc/flash_attention.cu``) with text edits that skip one stage of the
-kernel's pipeline (K6: the loads of x and the weight, the scale copies,
-the dequantization, the products, the stores; K7/K8: the activation
+kernel's pipeline (K6: the loads of x or the weight or both, the scale
+copies, the dequantization, the products, the stores; K7/K8: the activation
 quantization pass, the loads of xq and the weight, the amax and scale
 copies, the slab folds, the products, the stores; K1/K3: the k and v
 loads, the exponentials, the rest of the softmax, either product, the two
 warpgroups' turns; K2 also their exchange of partial logits), built in a
 temporary directory; its outputs are wrong
 and only its device time (``testing.median_ms``) is read, at shapes of
-the main paths.
+the main paths.  The variants build together, one ``nvcc`` each.
 Prints one JSON line per variant, then the card's name and power limit.
 The repository's own source and build are not touched.
 """
@@ -40,6 +42,13 @@ from mlimgsynth_torch.ops import flash_attention as fa  # noqa: E402
 from mlimgsynth_torch.ops import quant_matmul as qmm  # noqa: E402
 
 SHAPES = [(2048, 640, 5120), (8192, 2560, 640), (2048, 1280, 10240)]
+# --flux: (kernel, (M, K, N)) of Flux at 1024^2: dev's img_mlp.2 and
+# single-block linear2 (q8_0), schnell's single-block linear1 and img_mlp.2
+# (q4_0)
+FLUX_SHAPES = [("q8_matmul_ws", (4096, 12288, 3072)),
+               ("q8_matmul_ws", (4608, 15360, 3072)),
+               ("q4_matmul_ws", (4096, 12288, 3072)),
+               ("q4_matmul_ws", (4352, 3072, 21504))]
 
 _X = ("          tma_load_2d(smem_u32(sx + slot * C::kX + h * kXBox), &x_map, "
       "bar, k0 + h * kWsBK, m0);")
@@ -59,9 +68,18 @@ NO_STORES = [("    if (p.tma_store) {", "    " + _OFF + "{"),
              ("      store_tile(acc, a, m0 + warp * 16, n0);",
               "      " + _OFF + "store_tile(acc, a, m0 + warp * 16, n0);")]
 
+NO_X_LOADS = [(_X, "          " + _OFF + _X.strip()),
+              ("mbar_expect_tx(bar, C::kX + C::kW);",
+               "mbar_expect_tx(bar, C::kW);")]
+NO_W_LOADS = [(_W, "        " + _OFF + _W.strip()),
+              ("mbar_expect_tx(bar, C::kX + C::kW);",
+               "mbar_expect_tx(bar, C::kX);")]
+
 ABLATIONS = {
     "full": [],
     "no_loads": NO_LOADS,
+    "no_x_loads": NO_X_LOADS,
+    "no_w_loads": NO_W_LOADS,
     "no_scale_copies": NO_SCALES,
     "no_dequant": NO_DEQUANT,
     "no_products": NO_PRODUCTS,
@@ -191,6 +209,12 @@ def main() -> int:
             testing.int8_inputs(m, k, n) if name == "q8_matmul_ws_int8"
             else testing.quant_inputs(m, k, n, 8))
             for name, (m, k, n) in W8A8_SHAPES}
+    elif "--flux" in sys.argv[1:]:
+        ablations = ABLATIONS
+        calls = {f"{name}:{m}x{k}x{n}": (
+            getattr(qmm, name),
+            testing.quant_inputs(m, k, n, 4 if name.startswith("q4") else 8))
+            for name, (m, k, n) in FLUX_SHAPES}
     else:
         ablations = ABLATIONS
         calls = {f"{m}x{k}x{n}": (qmm.q8_matmul_ws,
@@ -198,6 +222,7 @@ def main() -> int:
                  for m, k, n in SHAPES}
     with tempfile.TemporaryDirectory() as tmp:
         only = [a for a in sys.argv[1:] if not a.startswith("--")]
+        dirs = {}
         for name, edits in ablations.items():
             if only and name not in only:
                 continue
@@ -212,6 +237,21 @@ def main() -> int:
             (csrc / f"{name0}.cu").write_text(src)
             for hdr in csrc0.glob("*.cuh"):   # the shared headers
                 (csrc / hdr.name).write_bytes(hdr.read_bytes())
+            dirs[name] = csrc
+        builds = {}
+        for name, csrc in dirs.items():   # every variant's nvcc at once
+            _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
+            out = _build._lib_path(name0)
+            out.parent.mkdir(parents=True)
+            builds[name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                 str(csrc / f"{name0}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for name, proc in builds.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name}: nvcc failed:\n{log}")
+        for name, csrc in dirs.items():
             _build.CSRC, _build.BUILD_DIR = csrc, csrc / "build"
             _build._LIBS.clear()
             row = {"variant": name}
